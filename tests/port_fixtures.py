@@ -1,0 +1,108 @@
+"""Shared model constructors for the PyTorch-port tests: the same model,
+properties and controls in the JAX package and in the port, from the same
+numpy inputs."""
+
+import os
+
+import numpy as np
+import torch
+
+REPO = os.path.join(os.path.dirname(__file__), "..")
+MESHES = os.path.join(REPO, "meshes")
+
+# bench.py / tests/test_golden.py properties of the M5 benchmark model
+M5_PROPS = dict(
+    emod=5e4, rho=1.0, eta=3.0, nu=0.45, emod_membrane=0.0,
+    nu_membrane=0.3, th_membrane=0.0, kcontact=1e8, rho_air=1.1225e-3,
+    r_sep=1.0, area_lb=1e-4,
+)
+
+# the headline solver settings of bench.py, scaled down so that a short
+# run takes every refresh branch (keep, full, Newton-Schulz, remainder)
+HEADLINE_SMALL = {
+    "jacobian_update": "once_per_step",
+    "stagnation_ratio": 0.5,
+    "jacobian_refresh_steps": 5,
+    "jacobian_refresh_mode": "ns",
+    "jacobian_full_refresh_windows": 2,
+    "fixed_iterations": 2,
+}
+
+
+def assert_scatter_close(out, ref, bound, rtol):
+    """A scatter against another summation order of itself: each entry
+    within ``rtol`` or within the summation-order ``bound``
+    (``fem.banded.scatter_order_bound``)."""
+    out, ref, bound = (np.asarray(x.cpu() if hasattr(x, "cpu") else x)
+                       for x in (out, ref, bound))
+    excess = np.abs(out - ref) - (rtol * np.abs(ref) + bound)
+    assert (excess <= 0).all(), (
+        f"{int((excess > 0).sum())} entries off; worst |diff| "
+        f"{np.abs(out - ref).max():.3e}"
+    )
+
+
+def set_props(prop, control, ymax, props=M5_PROPS, area_lb=None):
+    """Fill a model's props/controls in place (BlockVector or dict)."""
+    for k, v in props.items():
+        if k in prop:
+            prop[k][:] = v
+    if area_lb is not None:
+        prop["area_lb"][:] = area_lb
+    prop["ycontact"][:] = ymax + 0.05
+    prop["ymid"][:] = ymax + 0.01
+    control["psub"][:] = 8000.0
+    control["psup"][:] = 0.0
+
+
+def jax_vf_model(solid="KelvinVoigt", nx=12, ny=6):
+    """JAX model of tests/fixture_models.make_vf_fsi_model."""
+    from vf_fem_tpu.load import load_fsi_model
+    from vf_fem_tpu.mesh import vocal_fold_mesh
+    from vf_fem_tpu.residuals import fluid as flr, solid as slr
+
+    mesh = vocal_fold_mesh(nx, ny)
+    model = load_fsi_model(
+        mesh, getattr(slr, solid), flr.BernoulliAreaRatioSep,
+        coupling="explicit",
+    )
+    set_props(model.prop, model.control, mesh.coords[:, 1].max(),
+              area_lb=1e-5)
+    model.set_prop(model.prop)
+    model.set_control(model.control)
+    return model
+
+
+def port_vf_model(solid="KelvinVoigt", nx=12, ny=6, device="cpu",
+                  dtype=torch.float64):
+    """The port's counterpart of :func:`jax_vf_model`."""
+    from vf_fem_tpu_torch.load import load_fsi_model
+    from vf_fem_tpu_torch.mesh import vocal_fold_mesh
+    from vf_fem_tpu_torch.residuals import fluid as flr, solid as slr
+
+    mesh = vocal_fold_mesh(nx, ny)
+    model = load_fsi_model(
+        mesh, getattr(slr, solid), flr.BernoulliAreaRatioSep,
+        device=device, dtype=dtype,
+    )
+    set_props(model.prop, model.control, mesh.coords[:, 1].max(),
+              area_lb=1e-5)
+    return model
+
+
+def jax_inputs(model):
+    """(zero state0, stacked controls, prop) of a JAX model, as numpy."""
+    from vf_fem_tpu import forward
+
+    ini = model.state0.copy()
+    ini[:] = 0.0
+    state0 = {k: np.asarray(v) for k, v in ini.sub_items()}
+    cs = forward._stack_controls(model, [model.control])
+    return state0, cs, model.prop_to_dict(model.prop)
+
+
+def port_inputs(model):
+    """(zero state0, stacked controls, prop) of a port model, as numpy."""
+    state0 = {k: np.zeros_like(v) for k, v in model.state0.items()}
+    cs = {k: v[None] for k, v in model.control.items()}
+    return state0, cs, model.prop
