@@ -5,20 +5,32 @@ Smoke test of the PyTorch/CUDA port on one NVIDIA GPU:
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``vf_fem_tpu_torch/csrc`` (into
-``vf_fem_tpu_torch/_build/``) and runs, in order:
+``vf_fem_tpu_torch/_build/``, one ``nvcc`` per source, all at once) and
+runs, in order:
 
 1. device: the card's name and power limit (fails without CUDA);
 2. kernels: the banded gather (K1) and scatter (K2), and both backward
    paths, against their plain PyTorch versions on the card, at the
    M5-3layers plan and the 23.7k-dof RCM plan, in f64 and f32, with
    CUDA-event times of each kernel and its plain version;
-3. golden: the explicit-FSI M5_CB_GA3 trajectory in f64 with the default
+3. ops: the element-by-element matvec (K3), the block-banded matvec (K4)
+   and the fused Newmark update (K5) against their plain versions on the
+   card, on the 23.7k-dof model's Jacobian (and at M5 size for K3/K5), in
+   f64 and f32, with CUDA-event times;
+4. golden: the explicit-FSI M5_CB_GA3 trajectory in f64 with the default
    solver parameters (banded assembly) against
    ``tests/data/golden_m5cad_explicit.npz``;
-4. headline: the benchmark model of ``bench.py`` (M5-3layers, headline
+5. headline: the benchmark model of ``bench.py`` (M5-3layers, headline
    solver settings, 100 steps at dt = 1e-4) in f64 and f32, with steps/s,
-   the launch counts of K1/K2 in that run, and the f32-vs-f64 difference
-   of the final displacement against its gate.
+   the launch counts of K1/K2/K5 in that run, and the f32-vs-f64
+   difference of the final displacement against its gate;
+6. krylov: the matrix-free Newton-Krylov path on the 23.7k-dof RCM mesh
+   (same model): the tight f64 runs of ``linear_solver='bsb'`` and
+   ``'cg'`` against ``tests/data/golden_large_bsb_explicit.npz``, then the
+   production settings of ``benchmarks/benchmark_large.py:118-125`` for
+   both solvers in f64 and f32 (20 steps after a warm-up run) with
+   steps/s, Krylov and Newton iteration counts, kernel launches, and the
+   trajectory and f32-vs-f64 errors against their gates.
 
 Every phase raises on failure, so the script exits nonzero; on success its
 last line is ``{"ok": true, "device": {...}}``.
@@ -28,10 +40,12 @@ import json
 import os
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+LARGE_MESH = "M5_3layers_rcm_h006.msh"
 N_STEPS = 100
 DT = 1e-4
 # bench.py:291-314, the headline solver settings
@@ -49,11 +63,62 @@ HEADLINE = {
 # properties and settings, assembly 'plain'); the port's f32 run is gated
 # at 10x this value
 JAX_CPU_F32_VS_F64 = 1.9176514355193498e-06
+# tests/make_golden_large_bsb.py: the tight settings of the golden, and
+# the production settings of benchmarks/benchmark_large.py:118-125
+TIGHT = {
+    "assembly": "banded",
+    "krylov_tolerance": 1e-10,
+    "krylov_max_iter": 1000,
+    "jacobian_refresh_steps": 1,
+}
+PROD = {
+    "assembly": "banded",
+    "krylov_tolerance": 1e-4,
+    "krylov_max_iter": 200,
+    "jacobian_refresh_steps": 8,
+    "stagnation_ratio": 0.5,
+}
+# name, TPU kernel replaced, source, counter
 KERNELS = {
-    "gather": ("banded_gather", "vf_fem_tpu/fem/banded.py:174"),
-    "scatter": ("banded_scatter", "vf_fem_tpu/fem/banded.py:191"),
+    "gather": ("banded_gather", "vf_fem_tpu/fem/banded.py:174",
+               "vf_fem_tpu_torch/csrc/banded.cu"),
+    "scatter": ("banded_scatter", "vf_fem_tpu/fem/banded.py:191",
+                "vf_fem_tpu_torch/csrc/banded.cu"),
+    "ebe_matvec": ("ebe_matvec", "vf_fem_tpu/ops/pallas_kernels.py:36",
+                   "vf_fem_tpu_torch/csrc/ops.cu"),
+    "bsb_matvec": ("bsb_matvec", "vf_fem_tpu/ops/pallas_kernels.py:97",
+                   "vf_fem_tpu_torch/csrc/ops.cu"),
+    "newmark": ("newmark_update", "vf_fem_tpu/ops/pallas_kernels.py:153",
+                "vf_fem_tpu_torch/csrc/ops.cu"),
+}
+# Tight runs against the large golden: max|x_port - x_golden| / max|x_golden|
+# of u (every 5 steps) and of the final v, a, q, p.  The final acceleration
+# a = 4 (u1 - u0 - dt v0) / dt^2 - a0 amplifies the 1e-10 Krylov tolerance
+# in u: the port on a CPU (x86-64, plain versions) differs from the
+# golden in a by 5.405e-09 (bsb) and 2.090e-08 (cg), so each solver's a is
+# gated at 10x its own difference; the other fields at 1e-8
+GOLDEN_LARGE_GATES = {
+    ls: {"u": 1e-8, "v": 1e-8, "a": a_gate, "q": 1e-8, "p": 1e-8}
+    for ls, a_gate in (("bsb", 5.405e-8), ("cg", 2.090e-7))
 }
 WARMUP, REPS = 20, 200
+HBM_BYTES_S = 3.35e12  # H100 SXM data sheet
+
+
+def reset_launches():
+    from vf_fem_tpu_torch import ops
+    from vf_fem_tpu_torch.fem import banded
+
+    for counts in (banded.LAUNCHES, ops.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_launches():
+    from vf_fem_tpu_torch import ops
+    from vf_fem_tpu_torch.fem import banded
+
+    return {**banded.LAUNCHES, **ops.LAUNCHES}
 
 
 def require(cond, msg):
@@ -196,18 +261,22 @@ def build(torch, dev, mesh_name, dtype):
     return model, state0, controls, model.prop
 
 
+def require_launched(launches, names, what):
+    idle = [k for k in names if launches[k] == 0]
+    require(not idle, f"{what}: kernels {idle} not launched ({launches})")
+
+
 def phase_golden(torch, dev):
     from vf_fem_tpu_torch import forward
-    from vf_fem_tpu_torch.fem import banded
 
     data = np.load(os.path.join(REPO, "tests", "data", "golden_m5cad_explicit.npz"))
     model, state0, cs, prop = build(torch, dev, "M5_CB_GA3.msh", torch.float64)
     require(model.solid.use_banded({}), "golden: 'auto' did not pick the banded path")
-    banded.LAUNCHES.update(gather=0, scatter=0)
+    reset_launches()
     fin, traj, infos = forward.integrate_pure(model, state0, cs, prop, data["times"])
     torch.cuda.synchronize()
-    launches = dict(banded.LAUNCHES)
-    require(min(launches.values()) > 0, f"golden: banded kernels not launched {launches}")
+    launches = read_launches()
+    require_launched(launches, ("gather", "scatter", "newmark"), "golden")
     u = traj["u"].cpu().numpy()[::8]
     q = traj["q"].cpu().numpy().ravel()
     p_fin = traj["p"].cpu().numpy()[-1]
@@ -221,7 +290,6 @@ def phase_golden(torch, dev):
 
 def phase_headline(torch, dev, card):
     from vf_fem_tpu_torch import forward
-    from vf_fem_tpu_torch.fem import banded
 
     times = DT * np.arange(N_STEPS + 1)
     out = {}
@@ -233,14 +301,14 @@ def phase_headline(torch, dev, card):
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        banded.LAUNCHES.update(gather=0, scatter=0)
+        reset_launches()
         start.record()
         fin, traj, infos = run()
         end.record()
         torch.cuda.synchronize()
-        launches = dict(banded.LAUNCHES)
+        launches = read_launches()
         ms = start.elapsed_time(end)
-        require(min(launches.values()) > 0, f"headline {tag}: kernels not launched {launches}")
+        require_launched(launches, ("gather", "scatter", "newmark"), f"headline {tag}")
         for k, v in traj.items():
             require(bool(torch.isfinite(v).all()), f"headline {tag}: non-finite {k}")
         require(tuple(traj["u"].shape) == (N_STEPS, model.solid.ndof), "headline: bad shape")
@@ -259,24 +327,257 @@ def phase_headline(torch, dev, card):
     return out
 
 
+def check_op(torch, what, kernel, plain, bound, rtol):
+    """Run ``kernel`` and ``plain`` (each returns a tuple of tensors), hold
+    every output to ``rtol`` per entry plus ``bound`` (a matching tuple of
+    summation-order bounds, or None), and time both by CUDA events."""
+    outs, refs = kernel(), plain()
+    torch.cuda.synchronize()
+    bounds = bound() if bound else (0.0,) * len(refs)
+    err = 0.0
+    for out, ref, b in zip(outs, refs, bounds):
+        diff = (out - ref).abs()
+        err = max(err, diff.max().item())
+        off = int((diff > rtol * ref.abs() + b).sum())
+        require(off == 0, f"{what}: {off} entries off (max |diff| {err:.3e})")
+    return dict(ms=cuda_ms(torch, kernel), plain_ms=cuda_ms(torch, plain),
+                max_abs_err=err)
+
+
+def rest_operator(torch, model, p1):
+    """The solid's element-by-element Jacobian at rest under a uniform
+    surface pressure ``p1``."""
+    from vf_fem_tpu_torch.convert import to_tensors
+
+    solid = model.solid
+    dev, dtype = solid.device, solid.dtype
+    state0 = {k: torch.zeros(solid.ndof, dtype=dtype, device=dev) for k in "uva"}
+    control = {"p1": torch.full((solid.nvert,), p1, dtype=dtype, device=dev)}
+    prop = to_tensors({k: model.prop[k] for k in model._solid_prop_keys}, dev, dtype)
+    return solid.jac_u_ebe(state0["u"], state0, control, prop, 1e-4)
+
+
+def phase_ops(torch, dev, large):
+    """K3, K4 and K5 against their plain versions on the 23.7k model's
+    Jacobian (K3 on its cells and its facets, K4 on its block-banded
+    array) and at M5 size (K3 on random element blocks over the
+    M5_3layers cells, K5 on 960-entry vectors)."""
+    from vf_fem_tpu_torch import ops
+    from vf_fem_tpu_torch.fem import assembly
+    from vf_fem_tpu_torch.mesh import load_gmsh
+    from vf_fem_tpu_torch.solvers import bsb
+
+    model = large
+    op = rest_operator(torch, model, 500.0)
+    plan, fill = model.solid.bsb_plan()
+    blocks64 = bsb.bsb_fill(plan, fill, [op.J_cells, op.J_facets])
+    ndof = model.solid.ndof
+    m5 = load_gmsh(os.path.join(REPO, "meshes", "M5_3layers.msh"))
+    m5_dofs = torch.as_tensor(assembly.cell_dof_array(m5.cells, 2), device=dev)
+    rng = np.random.default_rng(0)
+    host = dict(
+        x=rng.standard_normal(ndof),
+        m5_J=rng.standard_normal((m5.num_cells, 6, 6)),
+        m5_x=rng.standard_normal(2 * m5.num_vertices),
+        nm=rng.standard_normal((4, ndof)),
+        m5_nm=rng.standard_normal((4, 2 * m5.num_vertices)),
+    )
+    log(f"[ops] 23.7k: J_cells {tuple(op.J_cells.shape)}, J_facets"
+        f" {tuple(op.J_facets.shape)}, blocks {tuple(blocks64.shape)}"
+        f" (nblk {plan.nblk}, nb {plan.nb}, h {plan.h}); M5: {m5.num_cells} cells")
+    results = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        rtol = 1e-13 if dtype == torch.float64 else 1e-6
+        t = {k: torch.tensor(v, dtype=dtype, device=dev) for k, v in host.items()}
+        Jc, Jf, blocks = (a.to(dtype) for a in (op.J_cells, op.J_facets, blocks64))
+        cases = {
+            ("ebe_matvec", "23.7k cells"): (Jc, t["x"], op.cell_dofs),
+            ("ebe_matvec", "23.7k facets"): (Jf, t["x"], op.facet_dofs),
+            ("ebe_matvec", "M5 cells"): (t["m5_J"], t["m5_x"], m5_dofs),
+        }
+        for (kname, label), (J, x, d) in cases.items():
+            nld = J.shape[-1]
+            results[(kname, label, tag)] = check_op(
+                torch, f"ops {kname} {label} {tag}",
+                lambda: (ops.ebe_matvec(J, x, d),),
+                lambda: (ops.ebe_matvec_reference(J, x, d),),
+                lambda: (ops.dot_order_bound(
+                    ops.ebe_matvec_reference(J.abs(), x.abs(), d), nld),),
+                rtol)
+        x = t["x"]
+        results[("bsb_matvec", "23.7k", tag)] = check_op(
+            torch, f"ops bsb_matvec {tag}",
+            lambda: (ops.bsb_matvec(plan, blocks, x),),
+            lambda: (ops.bsb_matvec_reference(plan, blocks, x),),
+            lambda: (ops.dot_order_bound(
+                ops.bsb_matvec_reference(plan, blocks.abs(), x.abs()),
+                plan.nb * plan.b),),
+            rtol)
+        for label, vecs in (("23.7k", t["nm"]), ("M5", t["m5_nm"])):
+            u1, u0, v0, a0 = vecs.unbind(0)
+            results[("newmark", label, tag)] = check_op(
+                torch, f"ops newmark {label} {tag}",
+                lambda: ops.newmark_update(u1, u0, v0, a0, 1e-4),
+                lambda: ops.newmark_update_reference(u1, u0, v0, a0, 1e-4),
+                None, rtol)
+        for (kname, label, tg), r in results.items():
+            if tg != tag:
+                continue
+            extra = ""
+            if kname == "bsb_matvec":
+                nbytes = blocks.numel() * blocks.element_size()
+                extra = (f", {nbytes / 1e6:.1f} MB of blocks: {nbytes / r['ms'] / 1e6:.1f}"
+                         f" GB/s, bytes bound {nbytes / HBM_BYTES_S * 1e3:.6f} ms")
+            log(f"[ops] {kname} {label} {tag}: kernel {r['ms']:.6f} ms,"
+                f" plain {r['plain_ms']:.6f} ms, max_abs_err {r['max_abs_err']:.3e}{extra}")
+    return results
+
+
+def run_timed(torch, model, run):
+    """One run after resetting the launch and Krylov counts, timed by CUDA
+    events; returns (outputs, ms, launches, krylov counts)."""
+    solid = model.solid
+    solid.krylov_counts.update(solves=0, iterations=0)
+    reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = run()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end), read_launches(), dict(solid.krylov_counts)
+
+
+def rel_max(a, b):
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def phase_krylov(torch, dev, card, large):
+    """Tight runs against the JAX package's golden, then the production
+    settings (each after a warm-up run) with their gates."""
+    from vf_fem_tpu_torch import forward
+
+    gold = np.load(os.path.join(REPO, "tests", "data", "golden_large_bsb_explicit.npz"))
+    times = gold["times"]
+    n_steps = len(times) - 1
+    every = int(gold["steps"][0])
+    traj_gate = 10 * float(gold["prod_traj_err"])
+    f32_gate = 10 * float(gold["prod_f32_vs_f64"])
+    models = {"float64": large, "float32": build(torch, dev, LARGE_MESH, torch.float32)}
+    used = {"bsb": ("gather", "scatter", "bsb_matvec", "newmark"),
+            "cg": ("gather", "scatter", "ebe_matvec", "newmark")}
+    unused = {"bsb": "ebe_matvec", "cg": "bsb_matvec"}
+
+    def drive(tag, params):
+        model, state0, cs, prop = models[tag]
+        return run_timed(torch, model, lambda: forward.integrate_pure(
+            model, state0, cs, prop, times, params))
+
+    def summary(what, infos, ms, launches, kc):
+        mean_krylov = kc["iterations"] / max(kc["solves"], 1)
+        return (f"{what}: {n_steps / (ms / 1e3):.2f} steps/s ({ms:.3f} ms / {n_steps}"
+                f" steps, CUDA events), Krylov {kc['iterations']} iterations in"
+                f" {kc['solves']} solves ({mean_krylov:.2f} per solve; one host"
+                f" sync each), Newton mean {float(infos.num_iter.double().mean()):.2f}"
+                f" iterations {infos.num_iter.tolist()}, max abs_err"
+                f" {float(infos.abs_err.max()):.3e}, launches {launches}, on {card}")
+
+    tight = {}
+    for ls in ("bsb", "cg"):
+        (fin, traj, infos), ms, launches, kc = drive("float64", {**TIGHT, "linear_solver": ls})
+        require_launched(launches, used[ls], f"krylov tight {ls}")
+        require(launches[unused[ls]] == 0, f"krylov tight {ls}: {unused[ls]} launched")
+        u = traj["u"].cpu().numpy()[every - 1 :: every]
+        scale = np.abs(gold["u"]).max()
+        errs = {"u": np.abs(u - gold["u"]).max() / scale}
+        for k in ("v", "a", "q", "p"):
+            ref = gold[f"{k}_final"]
+            errs[k] = np.abs(fin[k].cpu().numpy() - ref).max() / np.abs(ref).max()
+        log(f"[krylov] tight {ls} f64 vs golden (JAX CPU): max|du|/max|u| {errs['u']:.3e},"
+            f" final v {errs['v']:.3e}, a {errs['a']:.3e}, q {errs['q']:.3e},"
+            f" p {errs['p']:.3e} (gates {GOLDEN_LARGE_GATES[ls]});"
+            f" golden Newton {gold['num_iter'].tolist()}")
+        log("[krylov] " + summary(f"tight {ls} f64", infos, ms, launches, kc))
+        for k, e in errs.items():
+            require(e <= GOLDEN_LARGE_GATES[ls][k],
+                    f"krylov tight {ls}: {k} off the golden ({e:.3e})")
+        tight[ls] = fin["u"].cpu().numpy()
+
+    out = {}
+    for ls in ("bsb", "cg"):
+        finals = {}
+        for tag in ("float64", "float32"):
+            params = {**PROD, "linear_solver": ls}
+            drive(tag, params)  # warm-up
+            (fin, traj, infos), ms, launches, kc = drive(tag, params)
+            require_launched(launches, used[ls], f"krylov prod {ls} {tag}")
+            require(launches[unused[ls]] == 0, f"krylov prod {ls} {tag}: {unused[ls]} launched")
+            ndof = models[tag][0].solid.ndof
+            require(tuple(traj["u"].shape) == (n_steps, ndof), "krylov: bad shape")
+            for k, v in traj.items():
+                require(bool(torch.isfinite(v).all()), f"krylov prod {ls} {tag}: non-finite {k}")
+            finals[tag] = fin["u"].double().cpu().numpy()
+            traj_err = rel_max(finals[tag], tight[ls])
+            log("[krylov] " + summary(f"prod {ls} {tag}", infos, ms, launches, kc))
+            log(f"[krylov] prod {ls} {tag}: trajectory error vs the tight f64 run"
+                f" {traj_err:.3e} (f64 gate {traj_gate:.3e} = 10 x JAX CPU"
+                f" {gold['prod_traj_err']:.3e})")
+            if tag == "float64":
+                require(traj_err <= traj_gate, f"krylov prod {ls}: trajectory error over its gate")
+            out[(ls, tag)] = dict(launches=launches, steps_s=n_steps / (ms / 1e3))
+        rel = rel_max(finals["float32"], finals["float64"])
+        log(f"[krylov] prod {ls}: f32 vs f64 final u max rel diff {rel:.3e}"
+            f" (gate {f32_gate:.3e} = 10 x JAX CPU {gold['prod_f32_vs_f64']:.3e})")
+        require(rel <= f32_gate, f"krylov prod {ls}: f32 run outside its gate")
+    return out
+
+
 def main():
+    import time
+
     import torch
 
     sys.path.insert(0, REPO)
-    import vf_fem_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from vf_fem_tpu_torch import cuda_build  # fails outside a checkout
 
     name, card = phase_device(torch)
     dev = torch.device("cuda:0")
+    t0 = time.perf_counter()
+    # one nvcc per source, all started together
+    sources = sorted(p.name for p in cuda_build.CSRC.glob("*.cu"))
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = list(pool.map(cuda_build.build, sources))
+    log(f"[build] {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.1f} s")
     kern = phase_kernels(torch, dev)
+    large = build(torch, dev, LARGE_MESH, torch.float64)
+    ops_res = phase_ops(torch, dev, large[0])
     phase_golden(torch, dev)
     head = phase_headline(torch, dev, card)
+    kry = phase_krylov(torch, dev, card, large)
+    # per kernel: (timing result, the main-path run whose launches count)
+    timing = {
+        "gather": kern[("M5_3layers", "float64", "gather")],
+        "scatter": kern[("M5_3layers", "float64", "scatter")],
+        "ebe_matvec": ops_res[("ebe_matvec", "23.7k cells", "float64")],
+        "bsb_matvec": ops_res[("bsb_matvec", "23.7k", "float64")],
+        "newmark": ops_res[("newmark", "23.7k", "float64")],
+    }
+    path = {
+        "gather": head["float64"]["launches"],
+        "scatter": head["float64"]["launches"],
+        "ebe_matvec": kry[("cg", "float64")]["launches"],
+        "bsb_matvec": kry[("bsb", "float64")]["launches"],
+        "newmark": kry[("bsb", "float64")]["launches"],
+    }
     kernels = []
-    for op, (kname, replaces) in KERNELS.items():
-        r = kern[("M5_3layers", "float64", op)]
+    for op, (kname, replaces, source) in KERNELS.items():
+        r = timing[op]
         kernels.append(dict(
-            name=kname, route="cuda", source="vf_fem_tpu_torch/csrc/banded.cu",
-            replaces=replaces, launches=head["float64"]["launches"][op],
-            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            name=kname, route="cuda", source=source, replaces=replaces,
+            launches=path[op][op], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"],
         ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -55,17 +55,18 @@ def set_props(prop, control, ymax, props=M5_PROPS, area_lb=None):
     control["psup"][:] = 0.0
 
 
-def jax_vf_model(solid="KelvinVoigt", nx=12, ny=6):
-    """JAX model of tests/fixture_models.make_vf_fsi_model."""
+def jax_vf_model(solid="KelvinVoigt", nx=12, ny=6, reorder=None):
+    """JAX model of tests/fixture_models.make_vf_fsi_model (``reorder='rcm'``
+    renumbers the mesh for the block-banded solver)."""
     from vf_fem_tpu.load import load_fsi_model
     from vf_fem_tpu.mesh import vocal_fold_mesh
     from vf_fem_tpu.residuals import fluid as flr, solid as slr
 
-    mesh = vocal_fold_mesh(nx, ny)
     model = load_fsi_model(
-        mesh, getattr(slr, solid), flr.BernoulliAreaRatioSep,
-        coupling="explicit",
+        vocal_fold_mesh(nx, ny), getattr(slr, solid),
+        flr.BernoulliAreaRatioSep, coupling="explicit", reorder=reorder,
     )
+    mesh = model.solid.residual.mesh()
     set_props(model.prop, model.control, mesh.coords[:, 1].max(),
               area_lb=1e-5)
     model.set_prop(model.prop)
@@ -74,17 +75,18 @@ def jax_vf_model(solid="KelvinVoigt", nx=12, ny=6):
 
 
 def port_vf_model(solid="KelvinVoigt", nx=12, ny=6, device="cpu",
-                  dtype=torch.float64):
+                  dtype=torch.float64, reorder=None):
     """The port's counterpart of :func:`jax_vf_model`."""
     from vf_fem_tpu_torch.load import load_fsi_model
     from vf_fem_tpu_torch.mesh import vocal_fold_mesh
     from vf_fem_tpu_torch.residuals import fluid as flr, solid as slr
 
-    mesh = vocal_fold_mesh(nx, ny)
     model = load_fsi_model(
-        mesh, getattr(slr, solid), flr.BernoulliAreaRatioSep,
-        device=device, dtype=dtype,
+        vocal_fold_mesh(nx, ny), getattr(slr, solid),
+        flr.BernoulliAreaRatioSep, device=device, dtype=dtype,
+        reorder=reorder,
     )
+    mesh = model.solid.residual.mesh()
     set_props(model.prop, model.control, mesh.coords[:, 1].max(),
               area_lb=1e-5)
     return model

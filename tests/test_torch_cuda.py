@@ -12,12 +12,12 @@ import numpy as np
 import pytest
 import torch
 
-from vf_fem_tpu_torch import config, forward
+from vf_fem_tpu_torch import config, forward, ops
 from vf_fem_tpu_torch.fem import banded
 from vf_fem_tpu_torch.mesh import load_gmsh
 
 from port_fixtures import (
-    MESHES, assert_scatter_close, port_inputs, port_vf_model,
+    M5_PROPS, MESHES, assert_scatter_close, port_inputs, port_vf_model,
 )
 
 pytestmark = pytest.mark.gpu
@@ -94,3 +94,121 @@ def test_explicit_golden_on_cuda(cuda):
     )
     np.testing.assert_allclose(traj["q"].cpu().numpy().ravel(), data["q"],
                                rtol=1e-8)
+
+
+# -- K3, K4, K5 and the Krylov path ---------------------------------------------
+
+
+LARGE = os.path.join(MESHES, "M5_3layers_rcm_h006.msh")
+GOLDEN_LARGE = os.path.join(os.path.dirname(__file__), "data",
+                            "golden_large_bsb_explicit.npz")
+
+
+@pytest.fixture(scope="module")
+def large_f64(cuda):
+    """The 23.7k-dof large-mesh model of bench.py on the card, f64."""
+    from vf_fem_tpu_torch.load import load_fsi_model
+    from vf_fem_tpu_torch.residuals import fluid as flr, solid as slr
+
+    model = load_fsi_model(LARGE, slr.KelvinVoigtWEpithelium,
+                           flr.BernoulliAreaRatioSep, device=cuda)
+    ymax = model.solid.residual.mesh().coords[:, 1].max()
+    for k, v in dict(M5_PROPS, ycontact=ymax + 0.05, ymid=ymax + 0.01).items():
+        model.prop[k][:] = v
+    model.control["psub"][:] = 8000.0
+    model.control["psup"][:] = 0.0
+    return model
+
+
+@pytest.fixture(scope="module")
+def large_operator(large_f64):
+    """The element-by-element Jacobian at rest under 500 Ba, and its
+    block-banded array."""
+    from vf_fem_tpu_torch.convert import to_tensors
+    from vf_fem_tpu_torch.solvers import bsb
+
+    model = large_f64
+    s = model.solid
+    z = torch.zeros(s.ndof, dtype=torch.float64, device=s.device)
+    state0 = {"u": z, "v": z, "a": z}
+    control = {"p1": torch.full((s.nvert,), 500.0, dtype=torch.float64,
+                                device=s.device)}
+    prop = to_tensors({k: model.prop[k] for k in model._solid_prop_keys},
+                      s.device, torch.float64)
+    op = s.jac_u_ebe(z, state0, control, prop, 1e-4)
+    plan, fill = s.bsb_plan()
+    return op, plan, bsb.bsb_fill(plan, fill, [op.J_cells, op.J_facets])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ops_kernels_match_plain(large_operator, dtype):
+    """K3 (cells and facets), K4 and K5 against their plain versions on
+    the card: rtol 1e-13 (f64) / 1e-6 (f32) per entry or within the
+    summation-order bound of the dot products (``ops.dot_order_bound``);
+    K5 rounds every operation as the plain version does."""
+    op, plan, blocks = large_operator
+    dev = blocks.device
+    rtol = 1e-13 if dtype == torch.float64 else 1e-6
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.standard_normal(plan.ndof), dtype=dtype, device=dev)
+    n0 = dict(ops.LAUNCHES)
+    for J, d in ((op.J_cells, op.cell_dofs), (op.J_facets, op.facet_dofs)):
+        J = J.to(dtype)
+        bound = ops.dot_order_bound(
+            ops.ebe_matvec_reference(J.abs(), x.abs(), d), 6)
+        assert_scatter_close(ops.ebe_matvec(J, x, d),
+                             ops.ebe_matvec_reference(J, x, d), bound, rtol)
+    B = blocks.to(dtype)
+    bound = ops.dot_order_bound(
+        ops.bsb_matvec_reference(plan, B.abs(), x.abs()), plan.nb * plan.b)
+    assert_scatter_close(ops.bsb_matvec(plan, B, x),
+                         ops.bsb_matvec_reference(plan, B, x), bound, rtol)
+    u1, u0, v0, a0 = (torch.tensor(rng.standard_normal(plan.ndof),
+                                   dtype=dtype, device=dev) for _ in range(4))
+    for out, ref in zip(ops.newmark_update(u1, u0, v0, a0, 1e-4),
+                        ops.newmark_update_reference(u1, u0, v0, a0, 1e-4)):
+        assert_scatter_close(out, ref, 0.0, rtol)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ebe_matvec"] == n0["ebe_matvec"] + 2
+    assert ops.LAUNCHES["bsb_matvec"] == n0["bsb_matvec"] + 1
+    assert ops.LAUNCHES["newmark"] == n0["newmark"] + 1
+
+
+def test_ops_wrappers_reject_bad_input(large_operator):
+    op, plan, blocks = large_operator
+    x = torch.zeros(plan.ndof, dtype=torch.float64, device=blocks.device)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.bsb_matvec(plan, blocks.transpose(2, 3), x)
+    with pytest.raises(ValueError, match="tensors on"):
+        ops.bsb_matvec(plan, blocks, x.cpu())
+    with pytest.raises(TypeError):
+        ops.ebe_matvec(op.J_cells.float(), x, op.cell_dofs)
+
+
+def test_tight_bsb_matches_large_golden(large_f64):
+    """The tight bsb run of the 23.7k model in f64 on the card against the
+    JAX package's golden (rtol 1e-8 of max|u|), through K1, K2, K4, K5."""
+    data = np.load(GOLDEN_LARGE)
+    model = large_f64
+    state0, cs, prop = port_inputs(model)
+    banded.LAUNCHES.update(gather=0, scatter=0)
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    fin, traj, infos = forward.integrate_pure(
+        model, state0, cs, prop, data["times"],
+        {"assembly": "banded", "linear_solver": "bsb",
+         "krylov_tolerance": 1e-10, "krylov_max_iter": 1000,
+         "jacobian_refresh_steps": 1},
+    )
+    torch.cuda.synchronize()
+    assert min(banded.LAUNCHES.values()) > 0
+    assert ops.LAUNCHES["bsb_matvec"] > 0 and ops.LAUNCHES["newmark"] > 0
+    assert ops.LAUNCHES["ebe_matvec"] == 0
+    every = int(data["steps"][0])
+    u = traj["u"].cpu().numpy()[every - 1 :: every]
+    assert np.abs(u - data["u"]).max() <= 1e-8 * np.abs(data["u"]).max()
+    # the final acceleration amplifies the Krylov tolerance in u: gated at
+    # 10x the port's bsb difference from the golden on a CPU (chip_smoke.py)
+    for k, gate in (("v", 1e-8), ("a", 5.405e-8), ("q", 1e-8), ("p", 1e-8)):
+        ref = data[f"{k}_final"]
+        assert np.abs(fin[k].cpu().numpy() - ref).max() <= gate * np.abs(ref).max(), k

@@ -1,0 +1,148 @@
+"""
+The plain PyTorch versions of kernels K3, K4 and K5 (``vf_fem_tpu_torch.ops``)
+against the JAX package's Pallas kernels, run in interpret mode on the CPU
+as ``tests/test_ops.py`` runs them, on the same numpy inputs.  On CPU
+tensors the port's wrappers take the plain versions and launch nothing.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from vf_fem_tpu.ops import ebe_matvec as jebe_matvec
+from vf_fem_tpu.ops import newmark_update as jnewmark_update
+from vf_fem_tpu.ops.pallas_kernels import bsb_matvec_pallas
+from vf_fem_tpu.solvers import bsb as jbsb
+from vf_fem_tpu_torch import ops
+from vf_fem_tpu_torch.solvers import bsb as tbsb
+
+# f64: the tolerance of tests/test_ops.py; f32: summation order and the
+# coefficients' rounding
+RTOL = {np.float64: 1e-12, np.float32: 1e-5}
+DTYPES = [np.float64, np.float32]
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.fixture(autouse=True)
+def no_launches():
+    """CPU tensors never reach a kernel."""
+    before = dict(ops.LAUNCHES)
+    yield
+    assert ops.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ne", [37, 300])
+def test_ebe_matvec_matches_pallas(ne, dtype):
+    rng = np.random.default_rng(ne)
+    nld, ndof = 6, 2 * ne
+    J = rng.standard_normal((ne, nld, nld)).astype(dtype)
+    x = rng.standard_normal(ndof).astype(dtype)
+    dofs = rng.integers(0, ndof, size=(ne, nld))
+    ref = np.asarray(jebe_matvec(jnp.asarray(J), jnp.asarray(x[dofs]), tile=16))
+    y = ops.ebe_matvec(_t(J), _t(x), _t(dofs))
+    assert y.dtype == _t(J).dtype and tuple(y.shape) == (ne, nld)
+    np.testing.assert_allclose(y.numpy(), ref, rtol=RTOL[dtype],
+                               atol=RTOL[dtype] * np.abs(ref).max())
+
+
+def _synthetic_plan(nblk, h, ndof, b=128):
+    """A block-banded plan of the JAX package's kind with no fill data
+    (as tests/test_ops.py builds it), and the port's equal one."""
+    kw = dict(
+        ndof=ndof, b=b, nblk=nblk, nb=2 * h + 1, h=h,
+        tgt_idx=np.zeros(1, np.int32), src_keep=np.ones(1, bool),
+        bc_dofs=np.zeros(0, np.int32), diag_ones=np.zeros(0, np.int32),
+    )
+    return jbsb.BSBPlan(**kw), tbsb.BSBPlan(**kw)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize(
+    "nblk,h,tail",
+    [(3, 1, 17), (5, 2, 0), (4, 2, 100)],
+    ids=["ragged17", "full", "ragged100"],
+)
+def test_bsb_matvec_matches_pallas(nblk, h, tail, dtype):
+    """Including the ragged tail ``ndof = nblk * b - 17`` of
+    tests/test_ops.py."""
+    rng = np.random.default_rng(nblk * 10 + h)
+    jplan, tplan = _synthetic_plan(nblk, h, nblk * 128 - tail)
+    blocks = rng.standard_normal((nblk, 2 * h + 1, 128, 128)).astype(dtype)
+    x = rng.standard_normal(tplan.ndof).astype(dtype)
+    ref = np.asarray(bsb_matvec_pallas(jplan, jnp.asarray(blocks),
+                                       jnp.asarray(x), tile=8))
+    np.testing.assert_allclose(
+        np.asarray(jbsb.bsb_matvec(jplan, jnp.asarray(blocks), jnp.asarray(x))),
+        ref, rtol=RTOL[dtype], atol=RTOL[dtype] * np.abs(ref).max(),
+    )
+    y = ops.bsb_matvec(tplan, _t(blocks), _t(x))
+    assert tuple(y.shape) == (tplan.ndof,)
+    np.testing.assert_allclose(y.numpy(), ref, rtol=RTOL[dtype],
+                               atol=RTOL[dtype] * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dt", [1e-4, 5e-5])
+def test_newmark_update_matches_pallas(dt, dtype):
+    rng = np.random.default_rng(123)
+    u1, u0, v0, a0 = (rng.standard_normal(123).astype(dtype) for _ in range(4))
+    jv, ja = jnewmark_update(*(jnp.asarray(a) for a in (u1, u0, v0, a0)), dt)
+    v1, a1 = ops.newmark_update(*(_t(a) for a in (u1, u0, v0, a0)), dt)
+    for out, ref in ((v1, jv), (a1, ja)):
+        ref = np.asarray(ref)
+        assert out.dtype == _t(u1).dtype
+        np.testing.assert_allclose(out.numpy(), ref, rtol=RTOL[dtype],
+                                   atol=RTOL[dtype] * np.abs(ref).max())
+
+
+def test_newmark_update_is_the_state_update():
+    """The plain K5 is the model's Newmark relations, bit for bit."""
+    from vf_fem_tpu_torch.equations import newmark
+
+    rng = np.random.default_rng(7)
+    u1, u0, v0, a0 = (_t(rng.standard_normal(50)) for _ in range(4))
+    v1, a1 = ops.newmark_update(u1, u0, v0, a0, 1e-4)
+    torch.testing.assert_close(v1, newmark.newmark_v(u1, u0, v0, a0, 1e-4),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(a1, newmark.newmark_a(u1, u0, v0, a0, 1e-4),
+                               rtol=0, atol=0)
+
+
+def test_wrappers_reject_bad_input():
+    x = torch.zeros(12, dtype=torch.float64)
+    J = torch.zeros((2, 6, 6), dtype=torch.float64)
+    dofs = torch.zeros((2, 6), dtype=torch.int64)
+    with pytest.raises(TypeError):
+        ops.ebe_matvec(J, x.float(), dofs)
+    with pytest.raises(TypeError, match="int64"):
+        ops.ebe_matvec(J, x, dofs.int())
+    with pytest.raises(ValueError):
+        ops.ebe_matvec(J, x, dofs[:1])
+    _, tplan = _synthetic_plan(1, 0, 100)
+    with pytest.raises(ValueError, match="blocks"):
+        ops.bsb_matvec(tplan, torch.zeros((1, 1, 128, 64)), torch.zeros(100))
+    with pytest.raises(TypeError):
+        ops.newmark_update(x, x, x, x.to(torch.float16), 1e-4)
+    with pytest.raises(ValueError):
+        ops.newmark_update(x, x, x, x[:5], 1e-4)
+
+
+def test_dot_order_bound_covers_reordering():
+    """Summing the same products in the reverse order stays within the
+    bound the card-side comparisons use."""
+    rng = np.random.default_rng(3)
+    for dtype in (torch.float32, torch.float64):
+        J = torch.tensor(rng.standard_normal((500, 6, 6)) * 1e3, dtype=dtype)
+        x = torch.tensor(rng.standard_normal(400), dtype=dtype)
+        dofs = torch.tensor(rng.integers(0, 400, size=(500, 6)))
+        fwd = ops.ebe_matvec_reference(J, x, dofs)
+        rev = ops.ebe_matvec_reference(J.flip(-1), x, dofs.flip(-1))
+        bound = ops.dot_order_bound(
+            ops.ebe_matvec_reference(J.abs(), x.abs(), dofs), 6
+        )
+        assert bool(((fwd - rev).abs() <= bound).all())

@@ -4,10 +4,11 @@ Global assembly: gather -> batched element kernels -> scatter-add.
 Counterpart of ``vf_fem_tpu.fem.assembly``.  All static index arrays are
 built on the host with numpy and moved to the model's device once.
 
-Scatter-adds (residual facet pass, plain cell pass, dense Jacobian) go
-through :class:`ScatterPlan`: a host-built transpose of the scatter
-pattern that turns the scatter into a gather plus a row sum in a fixed
-order.  ``index_add_``/``index_put_(accumulate=True)`` on CUDA use atomics
+Scatter-adds (residual facet pass, plain cell pass, dense Jacobian, the
+element-by-element operator and its block-Jacobi diagonal, the
+block-banded fill) go through :class:`ScatterPlan`: a host-built
+transpose of the scatter pattern that turns the scatter into a gather
+plus a row sum in a fixed order.  ``index_add_``/``index_put_(accumulate=True)`` on CUDA use atomics
 whose order changes from run to run; the f64 goldens are held at 1e-8
 over whole trajectories, so every sum here is taken in the same order on
 every device and every run.
@@ -15,11 +16,12 @@ every device and every run.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .. import ops
 from ..mesh.core import Mesh
 from . import elements
 from .forms import CellGeom, FacetGeom, facet_restrict
@@ -178,6 +180,81 @@ def scatter_dense_jacobian(plan: ScatterPlan, blocks: Sequence[torch.Tensor],
     """Assemble element blocks (each (ne, nld, nld)) into a dense matrix."""
     J = torch.cat([b.reshape(b.shape[0], -1) for b in blocks], dim=0)
     return plan(J).reshape(ndof, ndof)
+
+
+class EBEPlans(NamedTuple):
+    """Host-built scatter plans of the element-by-element operator, over
+    the cell elements and then the facet elements."""
+
+    dofs: ScatterPlan  # element dofs (ne, nld) -> (ndof,): the matvec
+    nodes: ScatterPlan  # element vertices (ne, nv) -> (nvert,): the
+    # nodal diagonal blocks of block-Jacobi
+
+
+def ebe_plans(cells_arrays: Sequence[np.ndarray], nvert: int, dim: int,
+              device) -> EBEPlans:
+    """Plans for the elements with vertex arrays ``cells_arrays`` (cells,
+    then the facets' cells), in that order."""
+    cells = np.concatenate(cells_arrays, axis=0)
+    return EBEPlans(
+        dofs=ScatterPlan(cell_dof_array(cells, dim), nvert * dim, device),
+        nodes=ScatterPlan(cells, nvert, device),
+    )
+
+
+class EBEOperator(NamedTuple):
+    """Element-by-element linear operator (counterpart of
+    ``vf_fem_tpu.fem.assembly.EBEOperator``): ``matvec(x)`` =
+    scatter(J_e @ x[dofs_e]) with identity Dirichlet rows.  The element
+    products run through ``ops.ebe_matvec`` (kernel K3 on CUDA), cells
+    first and facets second; the scatters are the deterministic plans of
+    ``plans``."""
+
+    J_cells: torch.Tensor  # (nc, nld, nld)
+    cell_dofs: torch.Tensor  # (nc, nld) int64
+    J_facets: Optional[torch.Tensor]  # (nf, nld, nld) or None
+    facet_dofs: Optional[torch.Tensor]  # (nf, nld) int64 or None
+    bc_dofs: torch.Tensor  # (n_bc,) int64
+    plans: EBEPlans
+
+    def _parts(self):
+        parts = [(self.J_cells, self.cell_dofs)]
+        if self.J_facets is not None:
+            parts.append((self.J_facets, self.facet_dofs))
+        return parts
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        ys = [ops.ebe_matvec(J, x, d) for J, d in self._parts()]
+        y = self.plans.dofs(torch.cat(ys))
+        y[self.bc_dofs] = x[self.bc_dofs]
+        return y
+
+    def block_diag_inverse(self, dim: int) -> torch.Tensor:
+        """Inverse of the nodal ``dim x dim`` diagonal blocks,
+        (ndof/dim, dim, dim): each element's vertex-diagonal blocks summed
+        per vertex, Dirichlet rows and columns made identity, inverted in
+        closed form (2D)."""
+        if dim != 2:
+            raise NotImplementedError("block_diag_inverse: 2D only")
+        diag = []
+        for J, _ in self._parts():
+            ne, nld, _ = J.shape
+            J5 = J.reshape(ne, nld // dim, dim, nld // dim, dim)
+            # (ne, dim, dim, nv) -> (ne, nv, dim, dim)
+            diag.append(torch.diagonal(J5, dim1=1, dim2=3).permute(0, 3, 1, 2))
+        D = self.plans.nodes(torch.cat(diag))
+        nodes = self.bc_dofs // dim
+        comps = self.bc_dofs % dim
+        D[nodes, comps, :] = 0.0
+        D[nodes, :, comps] = 0.0
+        D[nodes, comps, comps] = 1.0
+        return elements.inv2(D)
+
+
+def block_jacobi_apply(Dinv: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Nodal block-Jacobi preconditioner: ``Dinv[n] @ r[n]`` per node."""
+    block = Dinv.shape[-1]
+    return torch.einsum("nij,nj->ni", Dinv, r.reshape(-1, block)).reshape(-1)
 
 
 def apply_dirichlet_rows(A: torch.Tensor, bc_dofs: torch.Tensor) -> torch.Tensor:

@@ -7,13 +7,14 @@ fixed here: every static array of the model is built on that device once.
 from __future__ import annotations
 
 from os import path
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from . import config
 from .mesh import Mesh, derive_1d_interface, load_gmsh
+from .mesh.reorder import rcm_mesh
 from .models import transient
 from .residuals import fluid as flr
 from .residuals import solid as slr
@@ -24,9 +25,14 @@ def load_solid_model(
     Residual: type,
     device="cpu",
     dtype=config.DEFAULT_DTYPE,
+    reorder: Optional[str] = None,
     **kwargs,
 ) -> transient.SolidModel:
-    """Load a transient solid model from a ``.msh`` path or a :class:`Mesh`."""
+    """Load a transient solid model from a ``.msh`` path or a :class:`Mesh`.
+
+    ``reorder='rcm'`` renumbers the vertices by reverse Cuthill–McKee
+    first, as the block-banded solver (``linear_solver='bsb'``) needs on a
+    mesh that is not bandwidth-ordered."""
     if isinstance(mesh, str):
         ext = path.splitext(mesh)[1]
         if ext.lower() != ".msh":
@@ -34,6 +40,10 @@ def load_solid_model(
         mesh = load_gmsh(mesh)
     elif not isinstance(mesh, Mesh):
         raise TypeError(f"Invalid `mesh` type {type(mesh)}")
+    if reorder == "rcm":
+        mesh = rcm_mesh(mesh)
+    elif reorder is not None:
+        raise ValueError(f"Invalid reorder {reorder!r} (use 'rcm' or None)")
     residual = Residual(mesh, device=device, dtype=dtype, **kwargs)
     return transient.SolidModel(residual)
 
@@ -61,6 +71,7 @@ def load_fsi_model(
     fluid_interface_subdomains: Sequence[str] = ("pressure",),
     device="cpu",
     dtype=config.DEFAULT_DTYPE,
+    reorder: Optional[str] = None,
 ) -> transient.ExplicitFSIModel:
     """Build the solid, derive the 1D fluid interface from the 'pressure'
     facet subdomain, build the fluid and couple the two explicitly."""
@@ -69,7 +80,7 @@ def load_fsi_model(
     device = torch.device(device)
     solid = load_solid_model(
         solid_mesh, SolidResidual, device=device, dtype=dtype,
-        **(solid_kwargs or {}),
+        reorder=reorder, **(solid_kwargs or {}),
     )
     mesh = solid.residual.mesh()
     s, dofs_fsi_solid, dofs_fsi_fluid = derive_1d_interface(

@@ -8,8 +8,10 @@ values as dicts of numpy arrays with the JAX models' keys, in the same
 order.  Newton runs on the 'u' block only; v1 and a1 follow from the
 Newmark relations.
 
-Solver parameters supported on this path: ``linear_solver='dense'``;
-``jacobian_update`` ('every_iteration' | 'once_per_step');
+Solver parameters supported on this path: ``linear_solver`` ('dense' |
+'cg' | 'bsb'), with ``krylov`` ('bicgstab' | 'pcg'), ``krylov_tolerance``
+and ``krylov_max_iter`` for the two matrix-free ones; ``jacobian_update``
+('every_iteration' | 'once_per_step');
 ``fixed_iterations``/``fixed_tail_residual``/``stagnation_ratio`` and the
 tolerances (``solvers.newton``); ``assembly`` ('auto' | 'banded' |
 'plain'); ``jacobian_refresh_steps``/``jacobian_refresh_mode``/
@@ -19,19 +21,27 @@ tolerances (``solvers.newton``); ``assembly`` ('auto' | 'banded' |
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
+from .. import ops
 from ..equations import newmark
 from ..fem import assembly
 from ..residuals.base import FemResidual, FunctionalResidual
 from ..solverconst import DEFAULT_NEWTON_SOLVER_PRM
-from ..solvers import linalg
+from ..solvers import bsb, linalg
 from ..solvers.newton import newton_solve
 
+# matrix-free Newton-Krylov linear solvers: 'cg' on the element-by-element
+# operator, 'bsb' on the block-banded one, both with nodal block-Jacobi
+KRYLOV_SOLVERS = ("cg", "bsb")
+
 _SUPPORTED = {
-    "linear_solver": ("dense",),
+    "linear_solver": ("dense",) + KRYLOV_SOLVERS,
+    "krylov": ("bicgstab", "pcg"),
     "initial_guess": ("predictor",),
     "jacobian_refresh_mode": ("full", "ns"),
     "jacobian_update": ("every_iteration", "once_per_step"),
@@ -51,6 +61,18 @@ def solver_params(params) -> dict:
     if p.get("jacobian_refresh_precision") is not None:
         raise NotImplementedError("jacobian_refresh_precision is not ported")
     return p
+
+
+def _krylov(params_d: dict) -> bool:
+    return params_d.get("linear_solver", "dense") in KRYLOV_SOLVERS
+
+
+class KrylovFactors(NamedTuple):
+    """Frozen Jacobian of a matrix-free solve: the EBE operator ('cg') or
+    the block-banded array ('bsb'), and the nodal block-Jacobi inverse."""
+
+    A: object
+    Dinv: torch.Tensor
 
 
 def _contact_traction(u1, X, n, y, k):
@@ -84,16 +106,23 @@ class SolidModel:
             if key.startswith("prop/")
         }
 
+        # element vertex arrays: the cells, then the facets' cells when the
+        # residual has a facet pass (the order of the Jacobian blocks)
         cells = mesh.cells
         fcells = R.topology.facet_cells.cpu().numpy()
-        self._cell_dofs = assembly.cell_dof_array(cells, self.dim)
-        self._facet_cell_dofs = assembly.cell_dof_array(cells[fcells], self.dim)
-        dofs = [self._cell_dofs]
+        self._elem_cells = [cells]
         if R.has_facet_pass():
-            dofs.append(self._facet_cell_dofs)
-        self._jac_plan = assembly.dense_jacobian_plan(
-            dofs, self.ndof, self.device
-        )
+            self._elem_cells.append(cells[fcells])
+        self._elem_dofs = [assembly.cell_dof_array(c, self.dim)
+                           for c in self._elem_cells]
+        # static plans, built on first use: a Krylov model never builds the
+        # dense Jacobian's plan, nor a dense one the Krylov plans
+        self._jac_plan = None
+        self._ebe = None
+        self._bsb = None
+        # Krylov solves and iterations since the last reset (read on the
+        # host by the stopping rule anyway)
+        self.krylov_counts = {"solves": 0, "iterations": 0}
         self.bc_dofs = torch.as_tensor(R.bc_dofs, device=self.device)
         bc_mask = np.zeros(self.ndof)
         bc_mask[R.bc_dofs] = 1.0
@@ -226,8 +255,72 @@ class SolidModel:
         """Dense Newton Jacobian with identity Dirichlet rows."""
         blocks = [b for b in self.jac_u_blocks(u1_flat, state0, control,
                                                prop, dt) if b is not None]
+        if self._jac_plan is None:
+            self._jac_plan = assembly.dense_jacobian_plan(
+                self._elem_dofs, self.ndof, self.device
+            )
         A = assembly.scatter_dense_jacobian(self._jac_plan, blocks, self.ndof)
         return assembly.apply_dirichlet_rows(A, self.bc_dofs)
+
+    # -- matrix-free (Krylov) Jacobians -------------------------------------------
+    def jac_u_ebe(self, u1_flat, state0, control, prop, dt):
+        """Element-by-element operator of the Newton Jacobian."""
+        if self._ebe is None:
+            dofs = [torch.as_tensor(d, device=self.device)
+                    for d in self._elem_dofs]
+            plans = assembly.ebe_plans(self._elem_cells, self.nvert, self.dim,
+                                       self.device)
+            self._ebe = (dofs, plans)
+        dofs, plans = self._ebe
+        Jc, Jf = self.jac_u_blocks(u1_flat, state0, control, prop, dt)
+        return assembly.EBEOperator(
+            J_cells=Jc.contiguous(), cell_dofs=dofs[0],
+            J_facets=None if Jf is None else Jf.contiguous(),
+            facet_dofs=None if Jf is None else dofs[1],
+            bc_dofs=self.bc_dofs, plans=plans,
+        )
+
+    def bsb_plan(self):
+        """(BSBPlan, its fill plan on the device), built on first use;
+        raises ``ValueError`` unless the mesh is bandwidth-ordered."""
+        if self._bsb is None:
+            plan = bsb.plan_bsb(self._elem_dofs, self.ndof, self._residual.bc_dofs)
+            self._bsb = (plan, bsb.fill_plan(plan, self.device))
+        return self._bsb
+
+    def make_iter_factors(self, u_lin, state0, control, prop, dt, params_d):
+        """Frozen Krylov factors at ``u_lin``."""
+        op = self.jac_u_ebe(u_lin, state0, control, prop, dt)
+        Dinv = op.block_diag_inverse(self.dim)
+        if params_d.get("linear_solver") == "bsb":
+            plan, fill = self.bsb_plan()
+            return KrylovFactors(
+                bsb.bsb_fill(plan, fill, [op.J_cells, op.J_facets]), Dinv
+            )
+        return KrylovFactors(op, Dinv)
+
+    def iter_solve(self, factors, r, params_d):
+        """Solve with frozen Krylov factors: block-Jacobi BiCGStab (default;
+        the Jacobian is nonsymmetric through the follower-pressure terms)
+        or PCG (``krylov='pcg'``)."""
+        A, Dinv = factors
+        if params_d.get("linear_solver") == "bsb":
+            plan = self.bsb_plan()[0]
+
+            def matvec(v):
+                return ops.bsb_matvec(plan, A, v)
+        else:
+            matvec = A.matvec
+        solver = (linalg.pcg if params_d.get("krylov", "bicgstab") == "pcg"
+                  else linalg.bicgstab)
+        result = solver(
+            matvec, r, precond=lambda v: assembly.block_jacobi_apply(Dinv, v),
+            tol=params_d.get("krylov_tolerance", 1e-8),
+            max_iter=params_d.get("krylov_max_iter", 1000),
+        )
+        self.krylov_counts["solves"] += 1
+        self.krylov_counts["iterations"] += result.n_iter
+        return result.x
 
     # -- solves -----------------------------------------------------------------
     def _predictor(self, state0, dt):
@@ -235,17 +328,16 @@ class SolidModel:
                                          state0["a"], dt)
 
     def _finish(self, u1, state0, dt):
-        u0, v0, a0 = self._state0_2d(state0)
-        u1_2d = u1.reshape(self.nvert, self.dim)
-        return {
-            "u": u1,
-            "v": newmark.newmark_v(u1_2d, u0, v0, a0, dt).reshape(-1),
-            "a": newmark.newmark_a(u1_2d, u0, v0, a0, dt).reshape(-1),
-        }
+        """The step's state: v1, a1 by the fused Newmark update (kernel K5
+        on CUDA tensors)."""
+        v1, a1 = ops.newmark_update(u1, state0["u"], state0["v"],
+                                    state0["a"], dt)
+        return {"u": u1, "v": v1, "a": a1}
 
     def solve_state1_pure(self, state0, control, prop, dt, params=None):
-        """One time step from the Newmark predictor, with the Jacobian
-        re-assembled every iteration (default) or once per step."""
+        """One time step from the Newmark predictor.  The Jacobian is
+        re-assembled every iteration (the dense default) or once per step
+        (the Krylov default)."""
         params_d = solver_params(params)
         banded = self.use_banded(params_d)
         u_guess = self._predictor(state0, dt)
@@ -253,13 +345,22 @@ class SolidModel:
         def assem(u1):
             return self.res_u(u1, state0, control, prop, dt, banded)
 
-        if params_d.get("jacobian_update", "every_iteration") == "once_per_step":
-            factors = linalg.dense_factor(
-                self.jac_u_dense(u_guess, state0, control, prop, dt)
-            )
+        krylov = _krylov(params_d)
+        update = params_d.get("jacobian_update",
+                              "once_per_step" if krylov else "every_iteration")
+        if update == "once_per_step":
+            factors = self.factorize(state0, control, prop, dt, params_d)
 
             def solve_jac(u1, r):
-                return linalg.dense_factor_solve(factors, r)
+                return self.solve_factors(factors, r, params_d)
+        elif krylov:
+
+            def solve_jac(u1, r):
+                return self.iter_solve(
+                    self.make_iter_factors(u1, state0, control, prop, dt,
+                                           params_d),
+                    r, params_d,
+                )
         else:
 
             def solve_jac(u1, r):
@@ -270,17 +371,31 @@ class SolidModel:
         return self._finish(u1, state0, dt), info
 
     def factorize(self, state0, control, prop, dt, params=None):
-        """Equilibrated explicit inverse of the Jacobian at the predictor."""
+        """Factors of the Jacobian at the predictor: the frozen Krylov
+        factors ('cg' | 'bsb'), or the equilibrated explicit inverse."""
+        params_d = solver_params(params)
         u_lin = self._predictor(state0, dt)
+        if _krylov(params_d):
+            return self.make_iter_factors(u_lin, state0, control, prop, dt,
+                                          params_d)
         return linalg.dense_factor(
             self.jac_u_dense(u_lin, state0, control, prop, dt)
         )
 
+    def solve_factors(self, factors, r, params_d):
+        """Solve with factors from :meth:`factorize`, by their kind."""
+        if isinstance(factors, KrylovFactors):
+            return self.iter_solve(factors, r, params_d)
+        return linalg.dense_factor_solve(factors, r)
+
     def refresh_factors(self, factors, state0, control, prop, dt,
                         params=None):
         """Newton-Schulz refresh of carried factors toward the Jacobian at
-        the current predictor."""
+        the current predictor; Krylov factors have no factorization to
+        amortize, so their refresh is a re-assembly."""
         params_d = solver_params(params)
+        if isinstance(factors, KrylovFactors):
+            return self.factorize(state0, control, prop, dt, params_d)
         u_lin = self._predictor(state0, dt)
         A = self.jac_u_dense(u_lin, state0, control, prop, dt)
         iters = int(params_d.get("jacobian_refresh_iters", 2))
@@ -297,7 +412,7 @@ class SolidModel:
             return self.res_u(u1, state0, control, prop, dt, banded)
 
         def solve_jac(u1, r):
-            return linalg.dense_factor_solve(factors, r)
+            return self.solve_factors(factors, r, params_d)
 
         u1, info = newton_solve(u_guess, assem, solve_jac, params_d)
         return self._finish(u1, state0, dt), info

@@ -1,0 +1,192 @@
+"""
+The Krylov path's kernels: K3 (element-by-element matvec), K4
+(block-banded matvec) and K5 (fused Newmark update).
+
+Counterparts of ``vf_fem_tpu/ops/pallas_kernels.py``: ``ebe_matvec``
+replaces ``_ebe_matvec_kernel``, ``bsb_matvec`` replaces
+``_bsb_matvec_kernel``, ``newmark_update`` replaces ``_newmark_kernel``.
+The CUDA sources are ``csrc/ops.cu`` (built with ``nvcc`` for ``sm_90a`` at
+first use, see ``cuda_build``).
+
+Each wrapper dispatches on its tensors' device: on CUDA tensors it launches
+the kernel (or raises), on CPU tensors it runs the plain PyTorch version
+(``*_reference``).  ``LAUNCHES`` counts kernel launches, where each kernel
+is launched and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import cuda_build
+from ..equations import newmark
+
+__all__ = [
+    "LAUNCHES",
+    "ebe_matvec",
+    "ebe_matvec_reference",
+    "bsb_matvec",
+    "bsb_matvec_reference",
+    "newmark_update",
+    "newmark_update_reference",
+    "dot_order_bound",
+]
+
+LAUNCHES = {"ebe_matvec": 0, "bsb_matvec": 0, "newmark": 0}
+
+BSB_BLOCK = 128  # the block size K4 is compiled for
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_D = ctypes.c_double
+_SIGNATURES = {}
+for _t in ("f32", "f64"):
+    _SIGNATURES[f"vf_ebe_matvec_{_t}"] = [_P, _P, _P, _P, _I, _I, _P]
+    _SIGNATURES[f"vf_bsb_matvec_{_t}"] = [_P, _P, _P, _I, _I, _I, _I, _P]
+    _SIGNATURES[f"vf_newmark_{_t}"] = [_P] * 6 + [_L, _D, _D, _D, _P]
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _lib():
+    return cuda_build.load("ops.cu", _SIGNATURES)
+
+
+def _launch(name: str, dtype, *args):
+    fn = f"{name}_{_SUFFIX[dtype]}"
+    err = getattr(_lib(), fn)(*args)
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: cudaError_t {err}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check(what: str, *tensors: torch.Tensor):
+    """Same float dtype (f32/f64), same device (CPU or CUDA), contiguous."""
+    dtype, device = tensors[0].dtype, tensors[0].device
+    if dtype not in _SUFFIX:
+        raise TypeError(f"{what}: float32 or float64 expected, got {dtype}")
+    for t in tensors:
+        if t.dtype != dtype:
+            raise TypeError(f"{what}: mixed dtypes {dtype} and {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{what}: tensors on {device} and {t.device}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {device}")
+    if device.type == "cuda" and not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what}: inputs must be contiguous")
+
+
+def dot_order_bound(abs_result: torch.Tensor, n: int) -> torch.Tensor:
+    """Bound on the difference between two evaluation orders of the same
+    dot products of length ``n``: each is within ``gamma_n sum|a_j x_j|`` of
+    the exact value (``gamma_n = n u / (1 - n u)``, ``u`` the unit
+    roundoff), so two of them within twice that.  ``abs_result`` is the
+    operation applied to ``|a|`` and ``|x|``."""
+    u = torch.finfo(abs_result.dtype).eps / 2
+    return 2 * (n * u / (1 - n * u)) * abs_result
+
+
+# -- K3: element-by-element matvec -------------------------------------------
+
+
+def ebe_matvec_reference(J: torch.Tensor, x: torch.Tensor,
+                         dofs: torch.Tensor) -> torch.Tensor:
+    """``y[e] = J[e] @ x[dofs[e]]``: J (ne, nld, nld), x (ndof,), dofs
+    (ne, nld) int64 -> (ne, nld)."""
+    return torch.einsum("eij,ej->ei", J, x[dofs])
+
+
+def ebe_matvec(J: torch.Tensor, x: torch.Tensor,
+               dofs: torch.Tensor) -> torch.Tensor:
+    """Batched element matvec through the element dof map (K3 on CUDA)."""
+    _check("ebe_matvec", J, x)
+    ne, nld, nld2 = J.shape
+    if nld != nld2 or tuple(dofs.shape) != (ne, nld) or x.dim() != 1:
+        raise ValueError(
+            f"ebe_matvec: J {tuple(J.shape)}, x {tuple(x.shape)},"
+            f" dofs {tuple(dofs.shape)}"
+        )
+    if dofs.dtype != torch.int64 or dofs.device != J.device:
+        raise TypeError("ebe_matvec: dofs must be int64 on J's device")
+    if J.device.type == "cpu":
+        return ebe_matvec_reference(J, x, dofs)
+    if not dofs.is_contiguous():
+        raise ValueError("ebe_matvec: dofs must be contiguous")
+    y = torch.empty((ne, nld), dtype=J.dtype, device=J.device)
+    _launch("vf_ebe_matvec", J.dtype, J.data_ptr(), x.data_ptr(),
+            dofs.data_ptr(), y.data_ptr(), ne, nld, _stream(J))
+    LAUNCHES["ebe_matvec"] += 1
+    return y
+
+
+# -- K4: block-banded matvec ---------------------------------------------------
+
+
+def bsb_matvec_reference(plan, blocks: torch.Tensor,
+                         x: torch.Tensor) -> torch.Tensor:
+    """``y_n = sum_m blocks[n, m] @ xpad[(n+m)*b : (n+m+1)*b]`` with x
+    zero-padded by h blocks in front and ``h*b + (nblk*b - ndof)`` behind:
+    ``nb`` shifted contiguous windows and one batched product."""
+    b, h, nb, nblk = plan.b, plan.h, plan.nb, plan.nblk
+    pad_tail = nblk * b - plan.ndof
+    xpad = torch.nn.functional.pad(x, (h * b, h * b + pad_tail))
+    xw = torch.stack(
+        [xpad[m * b : m * b + nblk * b].reshape(nblk, b) for m in range(nb)],
+        dim=1,
+    )
+    y = torch.einsum("nmij,nmj->ni", blocks, xw)
+    return y.reshape(-1)[: plan.ndof]
+
+
+def bsb_matvec(plan, blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Block-banded matvec ``y = A x`` of ``solvers.bsb`` (K4 on CUDA).
+    ``plan`` is a :class:`~vf_fem_tpu_torch.solvers.bsb.BSBPlan`."""
+    _check("bsb_matvec", blocks, x)
+    shape = (plan.nblk, plan.nb, plan.b, plan.b)
+    if tuple(blocks.shape) != shape or tuple(x.shape) != (plan.ndof,):
+        raise ValueError(
+            f"bsb_matvec: blocks {tuple(blocks.shape)} (plan {shape}),"
+            f" x {tuple(x.shape)} (ndof {plan.ndof})"
+        )
+    if x.device.type == "cpu":
+        return bsb_matvec_reference(plan, blocks, x)
+    if plan.b != BSB_BLOCK:
+        raise ValueError(f"bsb_matvec: kernel built for b={BSB_BLOCK}, plan"
+                         f" has b={plan.b}")
+    y = torch.empty(plan.ndof, dtype=x.dtype, device=x.device)
+    _launch("vf_bsb_matvec", x.dtype, blocks.data_ptr(), x.data_ptr(),
+            y.data_ptr(), plan.ndof, plan.nblk, plan.nb, plan.h, _stream(x))
+    LAUNCHES["bsb_matvec"] += 1
+    return y
+
+
+# -- K5: fused Newmark update --------------------------------------------------
+
+
+def newmark_update_reference(u1, u0, v0, a0, dt: float, gamma=0.5,
+                             beta=0.25):
+    """(v1, a1) by ``equations.newmark``."""
+    return (newmark.newmark_v(u1, u0, v0, a0, dt, gamma, beta),
+            newmark.newmark_a(u1, u0, v0, a0, dt, gamma, beta))
+
+
+def newmark_update(u1, u0, v0, a0, dt: float, gamma=0.5, beta=0.25):
+    """Newmark velocity and acceleration from ``u1`` and the previous
+    state, four flat vectors of one shape (K5 on CUDA)."""
+    _check("newmark_update", u1, u0, v0, a0)
+    if not (u1.shape == u0.shape == v0.shape == a0.shape) or u1.dim() != 1:
+        raise ValueError("newmark_update: four flat vectors of one shape"
+                         " expected")
+    if u1.device.type == "cpu":
+        return newmark_update_reference(u1, u0, v0, a0, dt, gamma, beta)
+    v1, a1 = torch.empty_like(u1), torch.empty_like(u1)
+    _launch("vf_newmark", u1.dtype, u1.data_ptr(), u0.data_ptr(),
+            v0.data_ptr(), a0.data_ptr(), v1.data_ptr(), a1.data_ptr(),
+            u1.numel(), float(dt), float(gamma), float(beta), _stream(u1))
+    LAUNCHES["newmark"] += 1
+    return v1, a1

@@ -1,5 +1,21 @@
 """Default Newton solver parameters (the JAX package's
-``solverconst.DEFAULT_NEWTON_SOLVER_PRM``)."""
+``solverconst.DEFAULT_NEWTON_SOLVER_PRM``).
+
+Keys read beside these (``models.transient``, ``solvers.newton``,
+``forward.integrate_pure``) and their defaults when absent:
+
+- ``krylov_tolerance`` (1e-8) and ``krylov_max_iter`` (1000): the Krylov
+  stopping rule of ``linear_solver='cg'``/``'bsb'``, iterate while
+  ``||r|| > max(krylov_tolerance ||b||, 1e-12)`` and fewer than
+  ``krylov_max_iter`` iterations ran;
+- ``krylov`` ('bicgstab'; or 'pcg' for symmetric problems);
+- ``jacobian_update``: 'every_iteration' for 'dense', 'once_per_step' for
+  the Krylov solvers;
+- ``stagnation_ratio`` (0.9), ``fixed_iterations``, ``fixed_tail_residual``
+  (True), ``assembly`` ('auto'), ``jacobian_refresh_steps`` (1),
+  ``jacobian_refresh_mode`` ('full'), ``jacobian_full_refresh_windows`` (8),
+  ``jacobian_refresh_iters`` (2).
+"""
 
 DEFAULT_NEWTON_SOLVER_PRM = {
     "linear_solver": "dense",
