@@ -30,7 +30,19 @@ runs, in order:
    production settings of ``benchmarks/benchmark_large.py:118-125`` for
    both solvers in f64 and f32 (20 steps after a warm-up run) with
    steps/s, Krylov and Newton iteration counts, kernel launches, and the
-   trajectory and f32-vs-f64 errors against their gates.
+   trajectory and f32-vs-f64 errors against their gates;
+7. btd: the block-Thomas direct path on the 23.7k-dof RCM mesh (same
+   model): the tight f64 run of ``benchmarks/benchmark_large.py:130-139``
+   against ``tests/data/golden_large_btd_explicit.npz``, then the
+   production settings of ``bench.py:411-434`` (bf16 factors, refresh 96,
+   fixed-3 without the trailing residual, 100 steps after a warm-up run)
+   in f64 and f32 with steps/s, the ms split of a step by CUDA events and
+   the launch counts, each held by the reference's own gate (trajectory
+   error <= 5e-7 against the exact-Jacobian run of the same settings),
+   and one ``torch.profiler`` pass of the production f64 run.
+
+Phase 3 also holds the block-Thomas sweep kernel (K6) against its plain
+version on the 23.7k model's own factors.
 
 Every phase raises on failure, so the script exits nonzero; on success its
 last line is ``{"ok": true, "device": {...}}``.
@@ -90,7 +102,47 @@ KERNELS = {
                    "vf_fem_tpu_torch/csrc/ops.cu"),
     "newmark": ("newmark_update", "vf_fem_tpu/ops/pallas_kernels.py:153",
                 "vf_fem_tpu_torch/csrc/ops.cu"),
+    "btd_sweep": ("btd_sweep", "none (lax.scan, vf_fem_tpu/solvers/btd.py:298-312)",
+                  "vf_fem_tpu_torch/csrc/btd.cu"),
 }
+# benchmarks/benchmark_large.py:130-139: the tight btd settings of the
+# golden_large_btd_explicit.npz run
+BTD_TIGHT = {
+    "assembly": "banded",
+    "linear_solver": "btd",
+    "jacobian_refresh_steps": 16,
+    "fixed_iterations": 3,
+    "stagnation_ratio": 0.5,
+}
+# bench.py:411-434, the production large-mesh settings
+BTD_PROD = {
+    "assembly": "banded",
+    "linear_solver": "btd",
+    "btd_store_dtype": "bfloat16",
+    "jacobian_refresh_steps": 96,
+    "fixed_iterations": 3,
+    "fixed_tail_residual": False,
+    "stagnation_ratio": 0.5,
+}
+# bench.py:459-466: its exact-Jacobian comparison run
+BTD_EXACT = {**{k: v for k, v in BTD_PROD.items() if k != "btd_store_dtype"},
+             "jacobian_refresh_steps": 1}
+TRAJ_ERR_GATE = 5e-7  # bench.py:454-473
+# The tight btd run against golden_large_btd_explicit.npz: max|x_port -
+# x_golden| / max|x_golden| of u (every 10 steps) and of the final v, a,
+# q, p, gated at 10x the port's own difference on a CPU (x86-64, plain
+# versions: u 7.457e-16, v 6.532e-14, a 2.127e-11, q 0, p 1.253e-15),
+# floored at 1e-14 (~50 f64 ulps) where that difference is exact or near it
+GOLDEN_BTD_GATES = {"u": 1e-14, "v": 6.532e-13, "a": 2.127e-10, "q": 1e-14,
+                    "p": 1.253e-14}
+# the production f64 run's final u against the JAX package's (the golden's
+# prod_u_final): 10x the port's difference on a CPU, 2.656e-8
+PROD_U_GATE = 2.656e-7
+# K6 against the plain sweep, whole sweeps (the row-by-row check is the
+# exact gate): 100x the difference between two summation orders of the
+# plain sweep on the 23.7k factors, measured on a CPU (x86-64): 3.3e-16
+# (f64 factors), 1.1e-7 (f32 sums)
+SWEEP_FULL_GATES = {"float64": 1e-13, "float32": 1e-5}
 # Tight runs against the large golden: max|x_port - x_golden| / max|x_golden|
 # of u (every 5 steps) and of the final v, a, q, p.  The final acceleration
 # a = 4 (u1 - u0 - dt v0) / dt^2 - a0 amplifies the 1e-10 Krylov tolerance
@@ -145,9 +197,9 @@ def phase_device(torch):
     return name, card
 
 
-def cuda_ms(torch, fn, reps=REPS):
+def cuda_ms(torch, fn, reps=REPS, warmup=WARMUP):
     """Mean time of ``fn()`` by CUDA events, after a warm-up."""
-    for _ in range(WARMUP):
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -431,6 +483,87 @@ def phase_ops(torch, dev, large):
                          f" GB/s, bytes bound {nbytes / HBM_BYTES_S * 1e3:.6f} ms")
             log(f"[ops] {kname} {label} {tag}: kernel {r['ms']:.6f} ms,"
                 f" plain {r['plain_ms']:.6f} ms, max_abs_err {r['max_abs_err']:.3e}{extra}")
+    results.update(phase_ops_btd(torch, plan, blocks64))
+    return results
+
+
+def sweep_double_rounding(torch, dev):
+    """K6's f64 -> bf16 cast of the carried vector against torch's on a
+    value where rounding through f32 and rounding directly differ:
+    1 + 2^-8 + 2^-40 rounds to 1 through f32 (a tie, to even) and to
+    1 + 2^-7 directly.  A_1 picks entry 0 of y_0 = g_0, so y_1[0] =
+    g_1[0] - bf16(g_0[0])."""
+    from vf_fem_tpu_torch import ops
+
+    A = torch.zeros((2, 128, 128), dtype=torch.bfloat16, device=dev)
+    A[1, 0, 0] = 1.0
+    g = torch.zeros((2, 128), dtype=torch.float64, device=dev)
+    g[0, 0] = 1 + 2.0 ** -8 + 2.0 ** -40
+    y, ref = ops.btd_sweep(A, g), ops.btd_sweep_reference(A, g)
+    torch.cuda.synchronize()
+    require(torch.equal(y, ref), f"btd_sweep: f64 -> bf16 cast differs from torch's"
+                                 f" ({y[1, 0].item()!r} vs {ref[1, 0].item()!r})")
+    return -ref[1, 0].item()
+
+
+def phase_ops_btd(torch, plan, blocks64):
+    """K6 against its plain version on the 23.7k model's own factors at
+    rest under 500 Ba: the forward sweep over V from g = Sinv r and the
+    backward sweep over W from the plain forward sweep's output, for every
+    (factor, vector) dtype pair of the btd path.  Each row is held to the
+    plain version's row computed from the kernel's own previous row
+    (rtol 1e-13 / 1e-6 plus the dot-product order bound, exact), and the
+    whole sweep to the plain sweep (``SWEEP_FULL_GATES``)."""
+    from vf_fem_tpu_torch import ops
+    from vf_fem_tpu_torch.solvers import btd
+
+    dev = blocks64.device
+    factors = {
+        "bfloat16": btd.btd_factor(plan, blocks64, store_dtype="bfloat16"),
+        "float64": btd.btd_factor(plan, blocks64),
+        "float32": btd.btd_factor(plan, blocks64.float()),
+    }
+    n_sup, bt, _ = factors["float64"].V.shape
+    r = np.random.default_rng(1).standard_normal(plan.ndof)
+    cast = sweep_double_rounding(torch, dev)
+    log(f"[ops] btd_sweep: f64 -> bf16 cast of 1 + 2^-8 + 2^-40 as torch's: {cast!r}")
+    results = {}
+    for ftag, vdt in (("bfloat16", torch.float64), ("bfloat16", torch.float32),
+                      ("float64", torch.float64), ("float32", torch.float32)):
+        fac = factors[ftag]
+        vtag = str(vdt).replace("torch.", "")
+        d = fac.d.to(vdt)[: plan.ndof]
+        rb = torch.nn.functional.pad(torch.tensor(r, dtype=vdt, device=dev) / d,
+                                     (0, n_sup * bt - plan.ndof)).reshape(n_sup, bt)
+        g = ops.factor_matvec(fac.Sinv, rb)
+        y = ops.btd_sweep_reference(fac.V, g)
+        rtol = 1e-13 if vdt == torch.float64 else 1e-6
+        acc = "float64" if ftag == "float64" else "float32"
+        for label, A, inp, rev in (("forward", fac.V, g, False), ("backward", fac.W, y, True)):
+            what = f"ops btd_sweep {label} {ftag}/{vtag}"
+            out = ops.btd_sweep(A, inp, reverse=rev)
+            torch.cuda.synchronize()
+            row_ref, bound = ops.btd_sweep_rows_reference(A, inp, out, rev)
+            diff = (out - row_ref).abs()
+            off = int((diff > rtol * row_ref.abs() + bound).sum())
+            require(off == 0, f"{what}: {off} entries off their rows"
+                              f" (max |diff| {diff.max().item():.3e})")
+            full = ops.btd_sweep_reference(A, inp, rev)
+            err = (out - full).abs().max().item()
+            full_rel = err / full.abs().max().item()
+            require(full_rel <= SWEEP_FULL_GATES[acc],
+                    f"{what}: whole sweep off the plain one ({full_rel:.3e})")
+            ms = cuda_ms(torch, lambda: ops.btd_sweep(A, inp, reverse=rev))
+            plain_ms = cuda_ms(torch, lambda: ops.btd_sweep_reference(A, inp, rev))
+            nbytes = A.numel() * A.element_size()
+            log(f"[ops] btd_sweep {label} {ftag} factors / {vtag} vector ({n_sup} x {bt} x {bt}):"
+                f" kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, row max |diff|"
+                f" {diff.max().item():.3e}, whole-sweep max_abs_err {err:.3e}"
+                f" (rel {full_rel:.3e}, gate {SWEEP_FULL_GATES[acc]:.0e});"
+                f" {nbytes / 1e6:.1f} MB of factors: {nbytes / ms / 1e6:.1f} GB/s,"
+                f" {nbytes / HBM_BYTES_S * 1e3 / ms:.1%} of the HBM bound")
+            results[("btd_sweep", f"{label} {ftag}/{vtag}", vtag)] = dict(
+                ms=ms, plain_ms=plain_ms, max_abs_err=err)
     return results
 
 
@@ -454,7 +587,7 @@ def rel_max(a, b):
     return float(np.abs(a - b).max() / np.abs(b).max())
 
 
-def phase_krylov(torch, dev, card, large):
+def phase_krylov(torch, card, models):
     """Tight runs against the JAX package's golden, then the production
     settings (each after a warm-up run) with their gates."""
     from vf_fem_tpu_torch import forward
@@ -465,7 +598,6 @@ def phase_krylov(torch, dev, card, large):
     every = int(gold["steps"][0])
     traj_gate = 10 * float(gold["prod_traj_err"])
     f32_gate = 10 * float(gold["prod_f32_vs_f64"])
-    models = {"float64": large, "float32": build(torch, dev, LARGE_MESH, torch.float32)}
     used = {"bsb": ("gather", "scatter", "bsb_matvec", "newmark"),
             "cg": ("gather", "scatter", "ebe_matvec", "newmark")}
     unused = {"bsb": "ebe_matvec", "cg": "bsb_matvec"}
@@ -534,6 +666,156 @@ def phase_krylov(torch, dev, card, large):
     return out
 
 
+def step_split(torch, built, state, params, n_steps, step_ms):
+    """Where a btd step's time goes, by CUDA events at ``state``: one
+    residual, one solve and one refactorization, scaled by their counts per
+    step (fixed-n chord: n solves, n residuals without the trailing one,
+    n + 1 with it; a refactorization per refresh window, amortized)."""
+    from vf_fem_tpu_torch.convert import to_tensors
+    from vf_fem_tpu_torch.models.transient import solver_params
+
+    model, _, _, prop = built
+    solid = model.solid
+    pd = solver_params(params)
+    t_prop = to_tensors(prop, model.device, model.dtype)
+    s0, ctrl, sprop = model._solid_inputs(state, t_prop)
+    u_pred = solid._predictor(s0, DT)
+    banded = solid.use_banded(pd)
+    r = solid.res_u(u_pred, s0, ctrl, sprop, DT, banded)
+    fac = solid.factorize(s0, ctrl, sprop, DT, pd)
+    res_ms = cuda_ms(torch, lambda: solid.res_u(u_pred, s0, ctrl, sprop, DT, banded), 20, 1)
+    fac_ms = cuda_ms(torch, lambda: solid.factorize(s0, ctrl, sprop, DT, pd), 3, 1)
+    solve_ms = cuda_ms(torch, lambda: solid.solve_factors(fac, r, pd), 20, 1)
+    n_fixed = int(pd["fixed_iterations"])
+    n_res = n_fixed + (1 if pd.get("fixed_tail_residual", True) else 0)
+    n_fac = -(-n_steps // int(pd["jacobian_refresh_steps"]))
+    split = {"residuals": n_res * res_ms, "solves": n_fixed * solve_ms,
+             "refresh": n_fac * fac_ms / n_steps}
+    split["other"] = step_ms - sum(split.values())
+    detail = (f"one residual {res_ms:.3f} ms, one solve {solve_ms:.3f} ms, one"
+              f" refactorization {fac_ms:.3f} ms")
+    return split, detail
+
+
+def profile_run(torch, run, n_steps):
+    """One run under ``torch.profiler``: device kernels per step, device
+    busy time (the table's "Self CUDA time total": device events' self
+    time) and the idle share of the profiled wall time."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ka = prof.key_averages()
+    dev_events = [e for e in ka if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
+    n_dev = sum(e.count for e in dev_events)
+    table = ka.table(sort_by="self_cuda_time_total", row_limit=12)
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle=1 - busy_ms / wall_ms,
+                per_step=n_dev / n_steps, table=table)
+
+
+def phase_btd(torch, card, models):
+    """The block-Thomas direct path at 23.7k: the tight f64 run against
+    the JAX package's golden, the production settings in f64 and f32 with
+    the reference's trajectory gate, and a profiler pass."""
+    from vf_fem_tpu_torch import forward
+
+    gold = np.load(os.path.join(REPO, "tests", "data", "golden_large_btd_explicit.npz"))
+    times = gold["times"]
+    n_steps = len(times) - 1
+    every = int(gold["steps"][0])
+    used = ("gather", "scatter", "newmark", "btd_sweep")
+
+    def drive(tag, params):
+        model, state0, cs, prop = models[tag]
+        return run_timed(torch, model, lambda: forward.integrate_pure(
+            model, state0, cs, prop, times, params))
+
+    def check_path(what, launches, infos):
+        require_launched(launches, used, what)
+        require(launches["ebe_matvec"] == 0 and launches["bsb_matvec"] == 0,
+                f"{what}: a Krylov kernel launched ({launches})")
+        solves = int(infos.num_iter.sum())  # one linear solve per Newton iteration
+        require(launches["btd_sweep"] == 2 * solves,
+                f"{what}: {launches['btd_sweep']} K6 launches for {solves} solves")
+        return solves
+
+    (fin, traj, infos), ms, launches, _ = drive("float64", BTD_TIGHT)
+    check_path("btd tight", launches, infos)
+    u = traj["u"].cpu().numpy()[every - 1 :: every]
+    errs = {"u": np.abs(u - gold["u"]).max() / np.abs(gold["u"]).max()}
+    for k in ("v", "a", "q", "p"):
+        errs[k] = rel_max(fin[k].cpu().numpy(), gold[f"{k}_final"])
+    log(f"[btd] tight f64 vs golden (JAX CPU): max|du|/max|u| {errs['u']:.3e},"
+        f" final v {errs['v']:.3e}, a {errs['a']:.3e}, q {errs['q']:.3e}, p {errs['p']:.3e}"
+        f" (gates {GOLDEN_BTD_GATES}); Newton {int(infos.num_iter.sum())} iterations"
+        f" (golden {int(gold['num_iter'].sum())}); {n_steps / (ms / 1e3):.2f} steps/s,"
+        f" launches {launches}, on {card}")
+    for k, e in errs.items():
+        require(e <= GOLDEN_BTD_GATES[k], f"btd tight: {k} off the golden ({e:.3e})")
+    require(np.array_equal(infos.num_iter.cpu().numpy(), gold["num_iter"]),
+            "btd tight: Newton counts differ from the golden")
+
+    out, finals = {}, {}
+    for tag, jax_err in (("float64", float(gold["prod_traj_err"])),
+                         ("float32", float(gold["prod_f32_traj_err"]))):
+        drive(tag, BTD_PROD)  # warm-up
+        (fin, traj, infos), ms, launches, _ = drive(tag, BTD_PROD)
+        solves = check_path(f"btd prod {tag}", launches, infos)
+        ndof = models[tag][0].solid.ndof
+        require(tuple(traj["u"].shape) == (n_steps, ndof), "btd: bad shape")
+        for k, v in traj.items():
+            require(bool(torch.isfinite(v).all()), f"btd prod {tag}: non-finite {k}")
+        step_ms = ms / n_steps
+        state = {k: v[n_steps // 2 - 1] for k, v in traj.items()}
+        split, detail = step_split(torch, models[tag], state, BTD_PROD, n_steps, step_ms)
+        log(f"[btd] prod {tag}: {n_steps / (ms / 1e3):.2f} steps/s ({ms:.3f} ms / {n_steps}"
+            f" steps, CUDA events), {step_ms:.3f} ms per step = "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+            + f" ms ({detail}, at step {n_steps // 2}); {solves} solves, Newton"
+            f" {infos.num_iter.tolist()[:4]}..., launches {launches}"
+            f" ({sum(launches.values()) / n_steps:.1f} per step), on {card}")
+        (fin_x, _, infos_x), ms_x, launches_x, _ = drive(tag, BTD_EXACT)
+        check_path(f"btd exact {tag}", launches_x, infos_x)
+        finals[tag] = fin["u"].double().cpu().numpy()
+        traj_err = rel_max(finals[tag], fin_x["u"].double().cpu().numpy())
+        # the reference's gate, or 1.5x the JAX package's own CPU value of
+        # the same runs where that already exceeds it
+        gate = TRAJ_ERR_GATE if jax_err <= TRAJ_ERR_GATE else 1.5 * jax_err
+        log(f"[btd] prod {tag}: trajectory error vs the exact-Jacobian run {traj_err:.3e}"
+            f" (gate {gate:.1e}; JAX CPU {jax_err:.3e}); exact run"
+            f" {n_steps / (ms_x / 1e3):.2f} steps/s")
+        require(traj_err <= gate, f"btd prod {tag}: trajectory error over its gate")
+        out[tag] = dict(launches=launches, steps_s=n_steps / (ms / 1e3), split=split,
+                        traj_err=traj_err)
+    prod_err = rel_max(finals["float64"], gold["prod_u_final"])
+    log(f"[btd] prod f64 final u vs the JAX package's (golden): {prod_err:.3e}"
+        f" (gate {PROD_U_GATE:.3e})")
+    require(prod_err <= PROD_U_GATE, "btd prod f64: final u off the JAX package's")
+    rel = rel_max(finals["float32"], finals["float64"])
+    f32_gate = 10 * float(gold["prod_f32_vs_f64"])
+    log(f"[btd] prod: f32 vs f64 final u max rel diff {rel:.3e} (gate {f32_gate:.3e}"
+        f" = 10 x JAX CPU {gold['prod_f32_vs_f64']:.3e})")
+    require(rel <= f32_gate, "btd prod: f32 run outside its gate")
+
+    model, state0, cs, prop = models["float64"]
+    prof = profile_run(torch, lambda: forward.integrate_pure(
+        model, state0, cs, prop, times, BTD_PROD), n_steps)
+    log(f"[btd] profile prod f64, {n_steps} steps: {prof['per_step']:.1f} device kernels"
+        f" per step, device busy {prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms"
+        f" profiled wall, idle share {prof['idle']:.3f}, on {card}")
+    log(prof["table"])
+    out["profile"] = {k: v for k, v in prof.items() if k != "table"}
+    return out
+
+
 def main():
     import time
 
@@ -551,11 +833,13 @@ def main():
         libs = list(pool.map(cuda_build.build, sources))
     log(f"[build] {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.1f} s")
     kern = phase_kernels(torch, dev)
-    large = build(torch, dev, LARGE_MESH, torch.float64)
-    ops_res = phase_ops(torch, dev, large[0])
+    large = {"float64": build(torch, dev, LARGE_MESH, torch.float64),
+             "float32": build(torch, dev, LARGE_MESH, torch.float32)}
+    ops_res = phase_ops(torch, dev, large["float64"][0])
     phase_golden(torch, dev)
     head = phase_headline(torch, dev, card)
-    kry = phase_krylov(torch, dev, card, large)
+    kry = phase_krylov(torch, card, large)
+    btd_res = phase_btd(torch, card, large)
     # per kernel: (timing result, the main-path run whose launches count)
     timing = {
         "gather": kern[("M5_3layers", "float64", "gather")],
@@ -563,6 +847,7 @@ def main():
         "ebe_matvec": ops_res[("ebe_matvec", "23.7k cells", "float64")],
         "bsb_matvec": ops_res[("bsb_matvec", "23.7k", "float64")],
         "newmark": ops_res[("newmark", "23.7k", "float64")],
+        "btd_sweep": ops_res[("btd_sweep", "forward bfloat16/float64", "float64")],
     }
     path = {
         "gather": head["float64"]["launches"],
@@ -570,6 +855,7 @@ def main():
         "ebe_matvec": kry[("cg", "float64")]["launches"],
         "bsb_matvec": kry[("bsb", "float64")]["launches"],
         "newmark": kry[("bsb", "float64")]["launches"],
+        "btd_sweep": btd_res["float64"]["launches"],
     }
     kernels = []
     for op, (kname, replaces, source) in KERNELS.items():

@@ -92,6 +92,21 @@ def port_vf_model(solid="KelvinVoigt", nx=12, ny=6, device="cpu",
     return model
 
 
+def solid_args(jm, p1):
+    """(state0, control, prop) of a JAX model's solid, as JAX arrays and as
+    tensors: a zero state and a uniform surface pressure ``p1``."""
+    import jax.numpy as jnp
+
+    js = jm.solid
+    prop = {k: np.asarray(v) for k, v in jm.prop.sub_items()
+            if k in jm._solid_prop_keys}
+    host = ({k: np.zeros(js.ndof) for k in ("u", "v", "a")},
+            {"p1": np.full(js.nvert, p1)}, prop)
+    to_j = tuple({k: jnp.asarray(v) for k, v in d.items()} for d in host)
+    to_t = tuple({k: torch.as_tensor(v) for k, v in d.items()} for d in host)
+    return to_j, to_t
+
+
 def jax_inputs(model):
     """(zero state0, stacked controls, prop) of a JAX model, as numpy."""
     from vf_fem_tpu import forward

@@ -212,3 +212,58 @@ def test_tight_bsb_matches_large_golden(large_f64):
     for k, gate in (("v", 1e-8), ("a", 5.405e-8), ("q", 1e-8), ("p", 1e-8)):
         ref = data[f"{k}_final"]
         assert np.abs(fin[k].cpu().numpy() - ref).max() <= gate * np.abs(ref).max(), k
+
+
+# -- K6 and the block-Thomas path ------------------------------------------------
+
+
+SWEEP_PAIRS = {
+    "bf16-f64": (torch.bfloat16, torch.float64),
+    "bf16-f32": (torch.bfloat16, torch.float32),
+    "f64-f64": (torch.float64, torch.float64),
+    "f32-f32": (torch.float32, torch.float32),
+}
+
+
+@pytest.mark.parametrize("pair", list(SWEEP_PAIRS))
+def test_btd_sweep_matches_plain(large_operator, pair):
+    """K6 against its plain version on the 23.7k model's own factors, both
+    sweeps: each row within rtol 1e-13 (f64 vectors) / 1e-6 (f32) plus
+    the dot-product order bound of the plain row computed from the
+    kernel's own previous row; a btd solve on the card is two launches."""
+    from vf_fem_tpu_torch.solvers import btd
+
+    op, plan, blocks = large_operator
+    fdt, vdt = SWEEP_PAIRS[pair]
+    fac = btd.btd_factor(plan, blocks.float() if fdt == torch.float32 else blocks,
+                         store_dtype="bfloat16" if fdt == torch.bfloat16 else None)
+    assert fac.V.dtype == fdt
+    rng = np.random.default_rng(0)
+    g = torch.tensor(rng.standard_normal(tuple(fac.V.shape[:2])), dtype=vdt,
+                     device=blocks.device)
+    rtol = 1e-13 if vdt == torch.float64 else 1e-6
+    n0 = ops.LAUNCHES["btd_sweep"]
+    for A, rev in ((fac.V, False), (fac.W, True)):
+        out = ops.btd_sweep(A, g, reverse=rev)
+        ref, bound = ops.btd_sweep_rows_reference(A, g, out, rev)
+        assert_scatter_close(out, ref, bound, rtol)
+    r = torch.tensor(rng.standard_normal(plan.ndof), dtype=vdt, device=blocks.device)
+    x = btd.btd_solve(plan, fac._replace(d=fac.d.to(vdt)), r)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(x).all())
+    assert ops.LAUNCHES["btd_sweep"] == n0 + 4
+
+
+def test_btd_sweep_rejects_bad_input(large_operator):
+    _, _, blocks = large_operator
+    dev = blocks.device
+    A = torch.zeros((3, 256, 256), dtype=torch.bfloat16, device=dev)
+    g = torch.zeros((3, 256), dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.btd_sweep(A.transpose(1, 2), g)
+    with pytest.raises(ValueError, match="tensors on"):
+        ops.btd_sweep(A, g.cpu())
+    with pytest.raises(TypeError):
+        ops.btd_sweep(A.half(), g)
+    with pytest.raises(ValueError, match="row blocks"):
+        ops.btd_sweep(A[:, :16, :16].contiguous(), g[:, :16].contiguous())

@@ -26,7 +26,9 @@ from vf_fem_tpu_torch.mesh import reorder as treorder
 from vf_fem_tpu_torch.solvers import bsb as tbsb
 from vf_fem_tpu_torch.solvers import linalg as tlinalg
 
-from port_fixtures import jax_inputs, jax_vf_model, port_inputs, port_vf_model
+from port_fixtures import (
+    jax_inputs, jax_vf_model, port_inputs, port_vf_model, solid_args,
+)
 
 NX, NY = 10, 5
 DT = 1e-4
@@ -39,25 +41,12 @@ def models():
     return jm, tm
 
 
-def _solid_args(jm, p1):
-    """(state0, control, prop) of the solid, as JAX arrays and as tensors:
-    a zero state and a uniform surface pressure ``p1``."""
-    js = jm.solid
-    prop = {k: np.asarray(v) for k, v in jm.prop.sub_items()
-            if k in jm._solid_prop_keys}
-    host = ({k: np.zeros(js.ndof) for k in ("u", "v", "a")},
-            {"p1": np.full(js.nvert, p1)}, prop)
-    to_j = tuple({k: jnp.asarray(v) for k, v in d.items()} for d in host)
-    to_t = tuple({k: torch.as_tensor(v) for k, v in d.items()} for d in host)
-    return to_j, to_t
-
-
 @pytest.fixture(scope="module")
 def operators(models):
     """The element-by-element Jacobian at rest under 500 Ba, both
     packages."""
     jm, tm = models
-    (s0j, cj, pj), (s0t, ct, pt) = _solid_args(jm, 500.0)
+    (s0j, cj, pj), (s0t, ct, pt) = solid_args(jm, 500.0)
     opj = jm.solid.jac_u_ebe(s0j["u"], s0j, cj, pj, DT)
     opt = tm.solid.jac_u_ebe(s0t["u"], s0t, ct, pt, DT)
     return opj, opt
@@ -225,7 +214,10 @@ def test_krylov_model_builds_no_dense_plan():
         assert (tm.solid._bsb is not None) == (ls == "bsb"), ls
 
 
-@pytest.mark.parametrize("option", [{"linear_solver": "btd"},
+@pytest.mark.parametrize("option", [{"linear_solver": "btd",
+                                     "btd_factor_dtype": "float32"},
+                                    {"linear_solver": "btd",
+                                     "btd_offdiag_dtype": "float8_e4m3fn"},
                                     {"linear_solver": "spike"},
                                     {"linear_solver": "pcr"},
                                     {"linear_solver": "bsb", "krylov": "gmres"}])

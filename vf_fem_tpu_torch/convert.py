@@ -16,6 +16,17 @@ def _tensor(v, device, dtype) -> torch.Tensor:
     return torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
 
 
+def array_to_tensor(a, device) -> torch.Tensor:
+    """An array as a tensor of its own dtype on ``device``, including
+    numpy's ``bfloat16`` extension type (ml_dtypes, as JAX hands out bf16
+    arrays), which ``torch.as_tensor`` does not take: its bits are carried
+    over as int16.  The data is copied (JAX's arrays are read-only)."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
 def to_tensors(d: dict, device, dtype) -> dict:
     """{key: array-like} -> {key: tensor on ``device`` of ``dtype``}, keys
     in the same order."""

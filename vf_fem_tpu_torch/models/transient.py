@@ -9,14 +9,16 @@ order.  Newton runs on the 'u' block only; v1 and a1 follow from the
 Newmark relations.
 
 Solver parameters supported on this path: ``linear_solver`` ('dense' |
-'cg' | 'bsb'), with ``krylov`` ('bicgstab' | 'pcg'), ``krylov_tolerance``
-and ``krylov_max_iter`` for the two matrix-free ones; ``jacobian_update``
-('every_iteration' | 'once_per_step');
+'cg' | 'bsb' | 'btd'), with ``krylov`` ('bicgstab' | 'pcg'),
+``krylov_tolerance`` and ``krylov_max_iter`` for the two matrix-free ones
+and ``btd_store_dtype`` (None | 'bfloat16') for the block-Thomas direct
+one; ``jacobian_update`` ('every_iteration' | 'once_per_step');
 ``fixed_iterations``/``fixed_tail_residual``/``stagnation_ratio`` and the
 tolerances (``solvers.newton``); ``assembly`` ('auto' | 'banded' |
 'plain'); ``jacobian_refresh_steps``/``jacobian_refresh_mode``/
 ``jacobian_full_refresh_windows``/``jacobian_refresh_iters``
-(``forward.integrate_pure``).
+(``forward.integrate_pure``).  ``btd_offdiag_dtype`` and
+``btd_factor_dtype`` raise unless None.
 """
 
 from __future__ import annotations
@@ -32,15 +34,20 @@ from ..equations import newmark
 from ..fem import assembly
 from ..residuals.base import FemResidual, FunctionalResidual
 from ..solverconst import DEFAULT_NEWTON_SOLVER_PRM
-from ..solvers import bsb, linalg
+from ..solvers import bsb, btd, linalg
 from ..solvers.newton import newton_solve
 
-# matrix-free Newton-Krylov linear solvers: 'cg' on the element-by-element
-# operator, 'bsb' on the block-banded one, both with nodal block-Jacobi
-KRYLOV_SOLVERS = ("cg", "bsb")
+# solvers whose factors are built from the element Jacobian blocks, once
+# per step by default: the matrix-free Newton-Krylov 'cg' (element-by-
+# element operator) and 'bsb' (block-banded), both with nodal block-Jacobi,
+# and the block-Thomas direct 'btd' on the block-banded Jacobian
+ELEMENT_SOLVERS = ("cg", "bsb", "btd")
 
 _SUPPORTED = {
-    "linear_solver": ("dense",) + KRYLOV_SOLVERS,
+    "linear_solver": ("dense",) + ELEMENT_SOLVERS,
+    "btd_store_dtype": (None,) + tuple(btd.STORE_DTYPES),
+    "btd_offdiag_dtype": (None,),
+    "btd_factor_dtype": (None,),
     "krylov": ("bicgstab", "pcg"),
     "initial_guess": ("predictor",),
     "jacobian_refresh_mode": ("full", "ns"),
@@ -63,8 +70,8 @@ def solver_params(params) -> dict:
     return p
 
 
-def _krylov(params_d: dict) -> bool:
-    return params_d.get("linear_solver", "dense") in KRYLOV_SOLVERS
+def _element_solver(params_d: dict) -> bool:
+    return params_d.get("linear_solver", "dense") in ELEMENT_SOLVERS
 
 
 class KrylovFactors(NamedTuple):
@@ -289,15 +296,20 @@ class SolidModel:
         return self._bsb
 
     def make_iter_factors(self, u_lin, state0, control, prop, dt, params_d):
-        """Frozen Krylov factors at ``u_lin``."""
+        """Frozen factors at ``u_lin`` from the element Jacobian blocks:
+        the block-Thomas factors of the block-banded Jacobian ('btd'), or
+        the Krylov operator with its block-Jacobi inverse ('cg' | 'bsb')."""
         op = self.jac_u_ebe(u_lin, state0, control, prop, dt)
-        Dinv = op.block_diag_inverse(self.dim)
-        if params_d.get("linear_solver") == "bsb":
+        ls = params_d.get("linear_solver")
+        if ls in ("bsb", "btd"):
             plan, fill = self.bsb_plan()
-            return KrylovFactors(
-                bsb.bsb_fill(plan, fill, [op.J_cells, op.J_facets]), Dinv
-            )
-        return KrylovFactors(op, Dinv)
+            blocks = bsb.bsb_fill(plan, fill, [op.J_cells, op.J_facets])
+            if ls == "btd":
+                return btd.btd_factor(
+                    plan, blocks, store_dtype=params_d.get("btd_store_dtype")
+                )
+            return KrylovFactors(blocks, op.block_diag_inverse(self.dim))
+        return KrylovFactors(op, op.block_diag_inverse(self.dim))
 
     def iter_solve(self, factors, r, params_d):
         """Solve with frozen Krylov factors: block-Jacobi BiCGStab (default;
@@ -337,7 +349,7 @@ class SolidModel:
     def solve_state1_pure(self, state0, control, prop, dt, params=None):
         """One time step from the Newmark predictor.  The Jacobian is
         re-assembled every iteration (the dense default) or once per step
-        (the Krylov default)."""
+        (the default of the element-block solvers 'cg', 'bsb', 'btd')."""
         params_d = solver_params(params)
         banded = self.use_banded(params_d)
         u_guess = self._predictor(state0, dt)
@@ -345,18 +357,18 @@ class SolidModel:
         def assem(u1):
             return self.res_u(u1, state0, control, prop, dt, banded)
 
-        krylov = _krylov(params_d)
+        element = _element_solver(params_d)
         update = params_d.get("jacobian_update",
-                              "once_per_step" if krylov else "every_iteration")
+                              "once_per_step" if element else "every_iteration")
         if update == "once_per_step":
             factors = self.factorize(state0, control, prop, dt, params_d)
 
             def solve_jac(u1, r):
                 return self.solve_factors(factors, r, params_d)
-        elif krylov:
+        elif element:
 
             def solve_jac(u1, r):
-                return self.iter_solve(
+                return self.solve_factors(
                     self.make_iter_factors(u1, state0, control, prop, dt,
                                            params_d),
                     r, params_d,
@@ -371,11 +383,12 @@ class SolidModel:
         return self._finish(u1, state0, dt), info
 
     def factorize(self, state0, control, prop, dt, params=None):
-        """Factors of the Jacobian at the predictor: the frozen Krylov
-        factors ('cg' | 'bsb'), or the equilibrated explicit inverse."""
+        """Factors of the Jacobian at the predictor: the block-Thomas
+        factors ('btd'), the frozen Krylov factors ('cg' | 'bsb'), or the
+        equilibrated explicit inverse."""
         params_d = solver_params(params)
         u_lin = self._predictor(state0, dt)
-        if _krylov(params_d):
+        if _element_solver(params_d):
             return self.make_iter_factors(u_lin, state0, control, prop, dt,
                                           params_d)
         return linalg.dense_factor(
@@ -384,6 +397,8 @@ class SolidModel:
 
     def solve_factors(self, factors, r, params_d):
         """Solve with factors from :meth:`factorize`, by their kind."""
+        if isinstance(factors, btd.BTDFactors):
+            return btd.btd_solve(self.bsb_plan()[0], factors, r)
         if isinstance(factors, KrylovFactors):
             return self.iter_solve(factors, r, params_d)
         return linalg.dense_factor_solve(factors, r)
@@ -391,10 +406,10 @@ class SolidModel:
     def refresh_factors(self, factors, state0, control, prop, dt,
                         params=None):
         """Newton-Schulz refresh of carried factors toward the Jacobian at
-        the current predictor; Krylov factors have no factorization to
-        amortize, so their refresh is a re-assembly."""
+        the current predictor; the block-Thomas and Krylov factors are
+        rebuilt from the element Jacobian blocks."""
         params_d = solver_params(params)
-        if isinstance(factors, KrylovFactors):
+        if isinstance(factors, (btd.BTDFactors, KrylovFactors)):
             return self.factorize(state0, control, prop, dt, params_d)
         u_lin = self._predictor(state0, dt)
         A = self.jac_u_dense(u_lin, state0, control, prop, dt)

@@ -1,12 +1,14 @@
 """
-The Krylov path's kernels: K3 (element-by-element matvec), K4
-(block-banded matvec) and K5 (fused Newmark update).
+The solver kernels: K3 (element-by-element matvec), K4 (block-banded
+matvec), K5 (fused Newmark update) and K6 (block-Thomas sweep).
 
 Counterparts of ``vf_fem_tpu/ops/pallas_kernels.py``: ``ebe_matvec``
 replaces ``_ebe_matvec_kernel``, ``bsb_matvec`` replaces
 ``_bsb_matvec_kernel``, ``newmark_update`` replaces ``_newmark_kernel``.
-The CUDA sources are ``csrc/ops.cu`` (built with ``nvcc`` for ``sm_90a`` at
-first use, see ``cuda_build``).
+``btd_sweep`` has no TPU kernel: it runs the serial sweeps of
+``solvers.btd.btd_solve``, a ``lax.scan`` in the JAX package.  The CUDA
+sources are ``csrc/ops.cu`` and ``csrc/btd.cu`` (built with ``nvcc`` for
+``sm_90a`` at first use, see ``cuda_build``).
 
 Each wrapper dispatches on its tensors' device: on CUDA tensors it launches
 the kernel (or raises), on CPU tensors it runs the plain PyTorch version
@@ -31,10 +33,14 @@ __all__ = [
     "bsb_matvec_reference",
     "newmark_update",
     "newmark_update_reference",
+    "factor_matvec",
+    "btd_sweep",
+    "btd_sweep_reference",
+    "btd_sweep_rows_reference",
     "dot_order_bound",
 ]
 
-LAUNCHES = {"ebe_matvec": 0, "bsb_matvec": 0, "newmark": 0}
+LAUNCHES = {"ebe_matvec": 0, "bsb_matvec": 0, "newmark": 0, "btd_sweep": 0}
 
 BSB_BLOCK = 128  # the block size K4 is compiled for
 
@@ -81,13 +87,15 @@ def _check(what: str, *tensors: torch.Tensor):
         raise ValueError(f"{what}: inputs must be contiguous")
 
 
-def dot_order_bound(abs_result: torch.Tensor, n: int) -> torch.Tensor:
+def dot_order_bound(abs_result: torch.Tensor, n: int,
+                    acc_dtype=None) -> torch.Tensor:
     """Bound on the difference between two evaluation orders of the same
     dot products of length ``n``: each is within ``gamma_n sum|a_j x_j|`` of
     the exact value (``gamma_n = n u / (1 - n u)``, ``u`` the unit
-    roundoff), so two of them within twice that.  ``abs_result`` is the
-    operation applied to ``|a|`` and ``|x|``."""
-    u = torch.finfo(abs_result.dtype).eps / 2
+    roundoff of the accumulation, ``acc_dtype``, by default
+    ``abs_result``'s), so two of them within twice that.  ``abs_result``
+    is the operation applied to ``|a|`` and ``|x|``."""
+    u = torch.finfo(acc_dtype or abs_result.dtype).eps / 2
     return 2 * (n * u / (1 - n * u)) * abs_result
 
 
@@ -190,3 +198,97 @@ def newmark_update(u1, u0, v0, a0, dt: float, gamma=0.5, beta=0.25):
             u1.numel(), float(dt), float(gamma), float(beta), _stream(u1))
     LAUNCHES["newmark"] += 1
     return v1, a1
+
+
+# -- K6: block-Thomas sweep ----------------------------------------------------
+
+# (factor dtype, vector dtype) -> entry-point suffix in csrc/btd.cu
+_SWEEP_TYPES = {
+    (torch.bfloat16, torch.float64): "bf16_f64",
+    (torch.bfloat16, torch.float32): "bf16_f32",
+    (torch.float64, torch.float64): "f64_f64",
+    (torch.float32, torch.float32): "f32_f32",
+}
+SWEEP_WIDTHS = (128, 256, 384, 512)  # the row-block sizes K6 is compiled for
+_SWEEP_SIGNATURES = {f"vf_btd_sweep_{s}": [_P, _P, _P, _I, _I, _I, _P]
+                     for s in _SWEEP_TYPES.values()}
+
+
+def factor_matvec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` over the last two axes of ``A`` (``(..., Bt, Bt)`` by
+    ``(..., Bt)``), in the vector's dtype, with the JAX package's rule for
+    stored factors (``vf_fem_tpu.solvers.btd._dot``): when ``A``'s dtype
+    differs from ``x``'s, ``x`` is cast to ``A``'s dtype, the products
+    accumulate in f32 and the result is cast back to ``x``'s dtype."""
+    if A.dtype != x.dtype:
+        y = A.float() @ x.to(A.dtype).float().unsqueeze(-1)
+        return y.squeeze(-1).to(x.dtype)
+    return (A @ x.unsqueeze(-1)).squeeze(-1)
+
+
+def btd_sweep_reference(A: torch.Tensor, g: torch.Tensor,
+                        reverse: bool = False) -> torch.Tensor:
+    """The serial sweep ``y_i = g_i - A_i y_{i-1}`` from ``y_{-1} = 0``
+    (``reverse=True``: ``x_i = g_i - A_i x_{i+1}`` from ``x_n = 0``), one
+    :func:`factor_matvec` per row: A (n, Bt, Bt), g (n, Bt) -> (n, Bt)."""
+    out = torch.empty_like(g)
+    carry = torch.zeros_like(g[0])
+    rows = range(g.shape[0] - 1, -1, -1) if reverse else range(g.shape[0])
+    for i in rows:
+        carry = g[i] - factor_matvec(A[i], carry)
+        out[i] = carry
+    return out
+
+
+def btd_sweep_rows_reference(A: torch.Tensor, g: torch.Tensor,
+                             out: torch.Tensor, reverse: bool = False):
+    """Every row of a sweep's output ``out`` recomputed by the plain
+    version from the previous row of ``out`` itself (``g_i - A_i out_{i-1}``,
+    or ``out_{i+1}`` in reverse; no recurrence), and the bound on
+    dot-product order differences of each entry: ``(ref, bound)``.  Holds
+    a kernel's sweep to the plain version row by row, where order
+    differences would otherwise compound along the sweep."""
+    prev = torch.zeros_like(out)
+    if reverse:
+        prev[:-1] = out[1:]
+    else:
+        prev[1:] = out[:-1]
+    acc = torch.float32 if A.dtype != g.dtype else A.dtype
+    bound = dot_order_bound(factor_matvec(A.abs(), prev.abs()), A.shape[-1],
+                            acc)
+    return g - factor_matvec(A, prev), bound
+
+
+def btd_sweep(A: torch.Tensor, g: torch.Tensor,
+              reverse: bool = False) -> torch.Tensor:
+    """One serial sweep of the block-Thomas solve (K6 on CUDA; the plain
+    :func:`btd_sweep_reference` on the CPU).  Factor and vector dtypes:
+    (bf16, f64), (bf16, f32), (f64, f64) or (f32, f32)."""
+    if (A.dim() != 3 or A.shape[1] != A.shape[2]
+            or tuple(g.shape) != tuple(A.shape[:2])):
+        raise ValueError(f"btd_sweep: A {tuple(A.shape)}, g {tuple(g.shape)}")
+    suffix = _SWEEP_TYPES.get((A.dtype, g.dtype))
+    if suffix is None:
+        raise TypeError(f"btd_sweep: factor/vector dtypes {A.dtype}, {g.dtype}"
+                        f" not supported ({list(_SWEEP_TYPES)})")
+    if A.device != g.device:
+        raise ValueError(f"btd_sweep: tensors on {A.device} and {g.device}")
+    if g.device.type == "cpu":
+        return btd_sweep_reference(A, g, reverse)
+    if g.device.type != "cuda":
+        raise ValueError(f"btd_sweep: unsupported device {g.device}")
+    if not (A.is_contiguous() and g.is_contiguous()):
+        raise ValueError("btd_sweep: inputs must be contiguous")
+    n, bt = g.shape
+    if bt not in SWEEP_WIDTHS:
+        raise ValueError(f"btd_sweep: kernel built for row blocks"
+                         f" {SWEEP_WIDTHS}, got {bt}")
+    out = torch.empty_like(g)
+    fn = f"vf_btd_sweep_{suffix}"
+    err = getattr(cuda_build.load("btd.cu", _SWEEP_SIGNATURES), fn)(
+        A.data_ptr(), g.data_ptr(), out.data_ptr(), n, bt, int(reverse),
+        _stream(g))
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: cudaError_t {err}")
+    LAUNCHES["btd_sweep"] += 1
+    return out

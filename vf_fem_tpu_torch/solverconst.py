@@ -9,8 +9,14 @@ Keys read beside these (``models.transient``, ``solvers.newton``,
   ``||r|| > max(krylov_tolerance ||b||, 1e-12)`` and fewer than
   ``krylov_max_iter`` iterations ran;
 - ``krylov`` ('bicgstab'; or 'pcg' for symmetric problems);
+- ``btd_store_dtype`` (None): with ``linear_solver='btd'`` (block-Thomas
+  direct solves on the block-banded Jacobian, ``solvers.btd``), None keeps
+  the factors in the model's dtype and 'bfloat16' stores them half-width
+  (their matvecs cast the vector to bf16 and sum in f32);
+  ``btd_offdiag_dtype`` and ``btd_factor_dtype`` are not ported and raise
+  unless None;
 - ``jacobian_update``: 'every_iteration' for 'dense', 'once_per_step' for
-  the Krylov solvers;
+  the element-block solvers ('cg', 'bsb', 'btd');
 - ``stagnation_ratio`` (0.9), ``fixed_iterations``, ``fixed_tail_residual``
   (True), ``assembly`` ('auto'), ``jacobian_refresh_steps`` (1),
   ``jacobian_refresh_mode`` ('full'), ``jacobian_full_refresh_windows`` (8),
