@@ -11,12 +11,11 @@ runs, in order:
 1. device: the card's name and power limit (fails without CUDA);
 2. kernels: the banded gather (K1) and scatter (K2), and both backward
    paths, against their plain PyTorch versions on the card, at the
-   M5-3layers plan and the 23.7k-dof RCM plan, in f64 and f32, with
-   CUDA-event times of each kernel and its plain version;
+   M5-3layers plan and the 23.7k-dof RCM plan, in f64 and f32;
 3. ops: the element-by-element matvec (K3), the block-banded matvec (K4)
    and the fused Newmark update (K5) against their plain versions on the
    card, on the 23.7k-dof model's Jacobian (and at M5 size for K3/K5), in
-   f64 and f32, with CUDA-event times;
+   f64 and f32;
 4. golden: the explicit-FSI M5_CB_GA3 trajectory in f64 with the default
    solver parameters (banded assembly) against
    ``tests/data/golden_m5cad_explicit.npz``;
@@ -43,6 +42,17 @@ runs, in order:
 
 Phase 3 also holds the block-Thomas sweep kernel (K6) against its plain
 version on the 23.7k model's own factors.
+
+Phases 2 and 3 time every kernel four ways, by CUDA events: its call time
+(the eager call, which the main path pays), its device time (200 launches
+captured in one CUDA graph and replayed), its plain version, and, where
+one PyTorch call computes the same function (``vf_fem_tpu_torch.yardsticks``:
+``index_select`` for K1, ``sparse.mm`` for K2 and K4), that call, in turns
+with the kernel (library, kernel, kernel, library).  Each kernel's bound
+is the larger of its bytes (each input read once, each output written
+once) over the HBM rate and its operations over the peak rate of their
+type.  The ``kernels`` line before the last carries all of it, with each
+kernel's launches per step on the main-path runs (phases 5 and 7).
 
 Every phase raises on failure, so the script exits nonzero; on success its
 last line is ``{"ok": true, "device": {...}}``.
@@ -155,6 +165,9 @@ GOLDEN_LARGE_GATES = {
 }
 WARMUP, REPS = 20, 200
 HBM_BYTES_S = 3.35e12  # H100 SXM data sheet
+# peak rates outside the tensor cores (H100 SXM data sheet): f32 67
+# TFLOP/s, f64 34 TFLOP/s; bf16 products accumulate in f32
+PEAK_FLOP_S = {"float32": 67e12, "float64": 34e12}
 
 
 def reset_launches():
@@ -212,11 +225,67 @@ def cuda_ms(torch, fn, reps=REPS, warmup=WARMUP):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(torch, fn, reps=REPS):
+    """Device time of ``fn()``: ``reps`` calls captured once in a CUDA graph
+    (after warm-up calls on a side stream), the mean over one replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def measure(torch, kernel, plain, lib=None):
+    """Call time of ``kernel`` (the mean of two runs taken in turns with the
+    library call where there is one: library, kernel, kernel, library),
+    its device time in a CUDA graph, the plain version's call time and the
+    library call's."""
+    lib_a = cuda_ms(torch, lib) if lib else None
+    k_a, k_b = cuda_ms(torch, kernel), cuda_ms(torch, kernel)
+    lib_b = cuda_ms(torch, lib) if lib else None
+    return dict(ms=(k_a + k_b) / 2, ms_runs=(k_a, k_b), device_ms=graph_ms(torch, kernel),
+                plain_ms=cuda_ms(torch, plain),
+                lib_ms=None if lib is None else (lib_a + lib_b) / 2,
+                lib_runs=None if lib is None else (lib_a, lib_b))
+
+
+def bound_of(nbytes, flops, acc):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    operations over the peak rate of the accumulation type."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOP_S[acc] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fmt_times(r):
+    lib = "" if r.get("lib_ms") is None else (
+        f", {r['lib_call']} {r['lib_ms']:.6f} ms (runs {r['lib_runs'][0]:.6f},"
+        f" {r['lib_runs'][1]:.6f})")
+    return (f"call {r['ms']:.6f} ms (runs {r['ms_runs'][0]:.6f}, {r['ms_runs'][1]:.6f}),"
+            f" device {r['device_ms']:.6f} ms, plain {r['plain_ms']:.6f} ms{lib};"
+            f" {r['bytes'] / 1e6:.3f} MB, bound {r['bound_ms']:.6f} ms ({r['bound_by']}),"
+            f" device at {r['bound_ms'] / r['device_ms']:.1%} of it")
+
+
 def phase_kernels(torch, dev):
     """K1/K2 and their VJPs against the plain versions, at the channel
     counts of the KelvinVoigtWEpithelium main path: 11 gathered channels
     (a1, u1, v1, p1, tcontact, X), 2 scattered (the residual)."""
-    from vf_fem_tpu_torch import config
+    from vf_fem_tpu_torch import config, yardsticks
     from vf_fem_tpu_torch.fem import banded
     from vf_fem_tpu_torch.mesh import load_gmsh
 
@@ -256,30 +325,54 @@ def phase_kernels(torch, dev):
             }
             torch.cuda.synchronize()
             errs = {}
-            for op, (out, ref, bound) in checks.items():
+            for op, (out, ref, bnd) in checks.items():
                 diff = (out - ref).abs()
                 errs[op] = diff.max().item()
-                if bound is None:
+                if bnd is None:
                     require(errs[op] == 0.0, f"{label} {dtype} {op}: not exact ({errs[op]:.3e})")
                 else:
-                    off = int((diff > rtol * ref.abs() + bound).sum())
+                    off = int((diff > rtol * ref.abs() + bnd).sum())
                     require(off == 0, f"{label} {dtype} {op}: {off} entries off"
                                       f" (max |diff| {errs[op]:.3e})")
             F0, loc0 = t["F"], t["loc"]
+            idx, ok = yardsticks.gather_flat_index(dp, dp.g, 11, nvert)
+            require(bool(ok.all()), f"{label}: gather offsets with padding slots")
+            M = yardsticks.scatter_csr(dp, dp.s, 2, nvert, dtype)
+            lib_g = yardsticks.gather_index_select(F0, idx).reshape(dp.nv, 11, dp.ncpad)
+            lib_s = yardsticks.csr_mm(M, loc0).reshape(2, nvert)
+            lib_err = {"gather": (lib_g - checks["gather"][1]).abs().max().item(),
+                       "scatter": (lib_s - checks["scatter"][1]).abs().max().item()}
+            require(lib_err["gather"] == 0.0, f"{label} {dtype}: index_select not exact")
+            off = int(((lib_s - checks["scatter"][1]).abs()
+                       > rtol * checks["scatter"][1].abs() + checks["scatter"][2]).sum())
+            require(off == 0, f"{label} {dtype}: sparse.mm scatter off ({off} entries)")
+            es = F0.element_size()
+            nnz = int(dp.s.ptr[nvert])
             times = {
-                "gather": (cuda_ms(torch, lambda: banded._gather(dp, F0, dp.g)),
-                           cuda_ms(torch, lambda: banded.banded_gather_reference(dp, F0, dp.g))),
-                "scatter": (cuda_ms(torch, lambda: banded._scatter(dp, loc0, nvert, dp.s)),
-                            cuda_ms(torch, lambda: banded.banded_scatter_reference(dp, loc0, nvert, dp.s))),
+                "gather": measure(torch, lambda: banded.banded_gather(dp, F0),
+                                  lambda: banded.banded_gather_reference(dp, F0, dp.g),
+                                  lambda: yardsticks.gather_index_select(F0, idx)),
+                "scatter": measure(torch, lambda: banded.banded_scatter(dp, loc0, nvert),
+                                   lambda: banded.banded_scatter_reference(dp, loc0, nvert, dp.s),
+                                   lambda: yardsticks.csr_mm(M, loc0)),
+            }
+            nbytes = {
+                # locals out, F in, offsets and window starts
+                "gather": (dp.nv * 11 * dp.ncpad + 11 * nvert) * es
+                          + (dp.ngroups * dp.nv * dp.gc + dp.ngroups) * 4,
+                # locals in, rows out, CSR pointers and entries
+                "scatter": (dp.nv * 2 * dp.ncpad + 2 * nvert) * es + (nvert + 1 + nnz) * 4,
             }
             tag = str(dtype).replace("torch.", "")
             for op in ("gather", "scatter"):
-                ms, plain_ms = times[op]
-                log(f"[kernels] {KERNELS[op][0]} {label} {tag}: kernel {ms:.6f} ms,"
-                    f" plain {plain_ms:.6f} ms, max_abs_err {errs[op]:.3e}"
-                    f" (vjp {errs[op + '_vjp']:.3e})")
-                results[(label, tag, op)] = dict(ms=ms, plain_ms=plain_ms,
-                                                 max_abs_err=errs[op])
+                r = times[op]
+                r.update(max_abs_err=errs[op], bytes=nbytes[op], lib_err=lib_err[op],
+                         lib_call=yardsticks.LIBRARY_CALL[op])
+                r["bound_ms"], r["bound_by"] = bound_of(nbytes[op], 0, tag)
+                log(f"[kernels] {KERNELS[op][0]} {label} {tag}: {fmt_times(r)};"
+                    f" max_abs_err {errs[op]:.3e} (vjp {errs[op + '_vjp']:.3e}),"
+                    f" library max_abs_err {lib_err[op]:.3e}")
+                results[(label, tag, op)] = r
     return results
 
 
@@ -379,21 +472,31 @@ def phase_headline(torch, dev, card):
     return out
 
 
-def check_op(torch, what, kernel, plain, bound, rtol):
+def check_op(torch, what, kernel, plain, order_bound, rtol, work, lib=None):
     """Run ``kernel`` and ``plain`` (each returns a tuple of tensors), hold
-    every output to ``rtol`` per entry plus ``bound`` (a matching tuple of
-    summation-order bounds, or None), and time both by CUDA events."""
+    every output to ``rtol`` per entry plus ``order_bound`` (a matching
+    tuple of summation-order bounds, or None), and the library call
+    ``lib`` (a tuple too) the same way; then time all of them (``measure``).
+    ``work`` is (bytes, operations, accumulation dtype) for the bound."""
     outs, refs = kernel(), plain()
     torch.cuda.synchronize()
-    bounds = bound() if bound else (0.0,) * len(refs)
-    err = 0.0
-    for out, ref, b in zip(outs, refs, bounds):
-        diff = (out - ref).abs()
-        err = max(err, diff.max().item())
-        off = int((diff > rtol * ref.abs() + b).sum())
-        require(off == 0, f"{what}: {off} entries off (max |diff| {err:.3e})")
-    return dict(ms=cuda_ms(torch, kernel), plain_ms=cuda_ms(torch, plain),
-                max_abs_err=err)
+    bounds = order_bound() if order_bound else (0.0,) * len(refs)
+
+    def held(outs, who):
+        err = 0.0
+        for out, ref, b in zip(outs, refs, bounds):
+            diff = (out - ref).abs()
+            err = max(err, diff.max().item())
+            off = int((diff > rtol * ref.abs() + b).sum())
+            require(off == 0, f"{what} ({who}): {off} entries off (max |diff| {err:.3e})")
+        return err
+
+    err = held(outs, "kernel")
+    lib_err = held(lib(), "library call") if lib else None
+    r = measure(torch, kernel, plain, lib)
+    r.update(max_abs_err=err, lib_err=lib_err, bytes=work[0])
+    r["bound_ms"], r["bound_by"] = bound_of(*work)
+    return r
 
 
 def rest_operator(torch, model, p1):
@@ -414,7 +517,7 @@ def phase_ops(torch, dev, large):
     Jacobian (K3 on its cells and its facets, K4 on its block-banded
     array) and at M5 size (K3 on random element blocks over the
     M5_3layers cells, K5 on 960-entry vectors)."""
-    from vf_fem_tpu_torch import ops
+    from vf_fem_tpu_torch import ops, yardsticks
     from vf_fem_tpu_torch.fem import assembly
     from vf_fem_tpu_torch.mesh import load_gmsh
     from vf_fem_tpu_torch.solvers import bsb
@@ -448,16 +551,21 @@ def phase_ops(torch, dev, large):
             ("ebe_matvec", "23.7k facets"): (Jf, t["x"], op.facet_dofs),
             ("ebe_matvec", "M5 cells"): (t["m5_J"], t["m5_x"], m5_dofs),
         }
+        es = dtype.itemsize
         for (kname, label), (J, x, d) in cases.items():
-            nld = J.shape[-1]
+            ne, nld = J.shape[0], J.shape[-1]
             results[(kname, label, tag)] = check_op(
                 torch, f"ops {kname} {label} {tag}",
                 lambda: (ops.ebe_matvec(J, x, d),),
                 lambda: (ops.ebe_matvec_reference(J, x, d),),
                 lambda: (ops.dot_order_bound(
                     ops.ebe_matvec_reference(J.abs(), x.abs(), d), nld),),
-                rtol)
+                rtol,
+                # J, x and the int64 dof map in, y out
+                ((J.numel() + x.numel() + ne * nld) * es + d.numel() * 8,
+                 2 * J.numel(), tag))
         x = t["x"]
+        csr = yardsticks.bsb_csr(plan, blocks)
         results[("bsb_matvec", "23.7k", tag)] = check_op(
             torch, f"ops bsb_matvec {tag}",
             lambda: (ops.bsb_matvec(plan, blocks, x),),
@@ -465,24 +573,26 @@ def phase_ops(torch, dev, large):
             lambda: (ops.dot_order_bound(
                 ops.bsb_matvec_reference(plan, blocks.abs(), x.abs()),
                 plan.nb * plan.b),),
-            rtol)
+            rtol, ((blocks.numel() + 2 * ndof) * es, 2 * blocks.numel(), tag),
+            lib=lambda: (yardsticks.csr_mm(csr, x).reshape(-1),))
+        log(f"[ops] bsb_matvec {tag}: the band holds {blocks.numel()} entries,"
+            f" {csr.values().numel()} of them nonzero")
         for label, vecs in (("23.7k", t["nm"]), ("M5", t["m5_nm"])):
             u1, u0, v0, a0 = vecs.unbind(0)
             results[("newmark", label, tag)] = check_op(
                 torch, f"ops newmark {label} {tag}",
                 lambda: ops.newmark_update(u1, u0, v0, a0, 1e-4),
                 lambda: ops.newmark_update_reference(u1, u0, v0, a0, 1e-4),
-                None, rtol)
+                None, rtol,
+                # four vectors in, two out; ~12 operations per entry
+                (6 * u1.numel() * es, 12 * u1.numel(), tag))
         for (kname, label, tg), r in results.items():
             if tg != tag:
                 continue
-            extra = ""
-            if kname == "bsb_matvec":
-                nbytes = blocks.numel() * blocks.element_size()
-                extra = (f", {nbytes / 1e6:.1f} MB of blocks: {nbytes / r['ms'] / 1e6:.1f}"
-                         f" GB/s, bytes bound {nbytes / HBM_BYTES_S * 1e3:.6f} ms")
-            log(f"[ops] {kname} {label} {tag}: kernel {r['ms']:.6f} ms,"
-                f" plain {r['plain_ms']:.6f} ms, max_abs_err {r['max_abs_err']:.3e}{extra}")
+            r["lib_call"] = yardsticks.LIBRARY_CALL[kname]
+            log(f"[ops] {kname} {label} {tag}: {fmt_times(r)}; max_abs_err"
+                f" {r['max_abs_err']:.3e}"
+                + ("" if r["lib_err"] is None else f", library max_abs_err {r['lib_err']:.3e}"))
     results.update(phase_ops_btd(torch, plan, blocks64))
     return results
 
@@ -514,7 +624,7 @@ def phase_ops_btd(torch, plan, blocks64):
     plain version's row computed from the kernel's own previous row
     (rtol 1e-13 / 1e-6 plus the dot-product order bound, exact), and the
     whole sweep to the plain sweep (``SWEEP_FULL_GATES``)."""
-    from vf_fem_tpu_torch import ops
+    from vf_fem_tpu_torch import ops, yardsticks
     from vf_fem_tpu_torch.solvers import btd
 
     dev = blocks64.device
@@ -553,17 +663,19 @@ def phase_ops_btd(torch, plan, blocks64):
             full_rel = err / full.abs().max().item()
             require(full_rel <= SWEEP_FULL_GATES[acc],
                     f"{what}: whole sweep off the plain one ({full_rel:.3e})")
-            ms = cuda_ms(torch, lambda: ops.btd_sweep(A, inp, reverse=rev))
-            plain_ms = cuda_ms(torch, lambda: ops.btd_sweep_reference(A, inp, rev))
-            nbytes = A.numel() * A.element_size()
+            res = measure(torch, lambda: ops.btd_sweep(A, inp, reverse=rev),
+                          lambda: ops.btd_sweep_reference(A, inp, rev))
+            # factors and g in, the sweep out; 2 Bt^2 operations per block
+            nbytes = A.numel() * A.element_size() + 2 * inp.numel() * inp.element_size()
+            res.update(max_abs_err=err, bytes=nbytes, lib_ms=None, lib_runs=None,
+                       lib_call=yardsticks.LIBRARY_CALL["btd_sweep"])
+            res["bound_ms"], res["bound_by"] = bound_of(nbytes, 2 * A.numel(), acc)
             log(f"[ops] btd_sweep {label} {ftag} factors / {vtag} vector ({n_sup} x {bt} x {bt}):"
-                f" kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, row max |diff|"
-                f" {diff.max().item():.3e}, whole-sweep max_abs_err {err:.3e}"
-                f" (rel {full_rel:.3e}, gate {SWEEP_FULL_GATES[acc]:.0e});"
-                f" {nbytes / 1e6:.1f} MB of factors: {nbytes / ms / 1e6:.1f} GB/s,"
-                f" {nbytes / HBM_BYTES_S * 1e3 / ms:.1%} of the HBM bound")
-            results[("btd_sweep", f"{label} {ftag}/{vtag}", vtag)] = dict(
-                ms=ms, plain_ms=plain_ms, max_abs_err=err)
+                f" {fmt_times(res)}; row max |diff| {diff.max().item():.3e}, whole-sweep"
+                f" max_abs_err {err:.3e} (rel {full_rel:.3e}, gate {SWEEP_FULL_GATES[acc]:.0e});"
+                f" serial chain {n_sup} row blocks: {res['device_ms'] / n_sup * 1e3:.3f} us"
+                f" per block (its latency floor: one barrier per block)")
+            results[("btd_sweep", f"{label} {ftag}/{vtag}", vtag)] = res
     return results
 
 
@@ -658,7 +770,8 @@ def phase_krylov(torch, card, models):
                 f" {gold['prod_traj_err']:.3e})")
             if tag == "float64":
                 require(traj_err <= traj_gate, f"krylov prod {ls}: trajectory error over its gate")
-            out[(ls, tag)] = dict(launches=launches, steps_s=n_steps / (ms / 1e3))
+            out[(ls, tag)] = dict(launches=launches, steps_s=n_steps / (ms / 1e3),
+                                  n_steps=n_steps)
         rel = rel_max(finals["float32"], finals["float64"])
         log(f"[krylov] prod {ls}: f32 vs f64 final u max rel diff {rel:.3e}"
             f" (gate {f32_gate:.3e} = 10 x JAX CPU {gold['prod_f32_vs_f64']:.3e})")
@@ -794,7 +907,7 @@ def phase_btd(torch, card, models):
             f" {n_steps / (ms_x / 1e3):.2f} steps/s")
         require(traj_err <= gate, f"btd prod {tag}: trajectory error over its gate")
         out[tag] = dict(launches=launches, steps_s=n_steps / (ms / 1e3), split=split,
-                        traj_err=traj_err)
+                        traj_err=traj_err, n_steps=n_steps)
     prod_err = rel_max(finals["float64"], gold["prod_u_final"])
     log(f"[btd] prod f64 final u vs the JAX package's (golden): {prod_err:.3e}"
         f" (gate {PROD_U_GATE:.3e})")
@@ -840,30 +953,38 @@ def main():
     head = phase_headline(torch, dev, card)
     kry = phase_krylov(torch, card, large)
     btd_res = phase_btd(torch, card, large)
-    # per kernel: (timing result, the main-path run whose launches count)
+
+    # per kernel: the timing at the 23.7k shapes of the btd main path (f64)
     timing = {
-        "gather": kern[("M5_3layers", "float64", "gather")],
-        "scatter": kern[("M5_3layers", "float64", "scatter")],
+        "gather": kern[("M5_3layers_rcm_h006", "float64", "gather")],
+        "scatter": kern[("M5_3layers_rcm_h006", "float64", "scatter")],
         "ebe_matvec": ops_res[("ebe_matvec", "23.7k cells", "float64")],
         "bsb_matvec": ops_res[("bsb_matvec", "23.7k", "float64")],
         "newmark": ops_res[("newmark", "23.7k", "float64")],
         "btd_sweep": ops_res[("btd_sweep", "forward bfloat16/float64", "float64")],
     }
-    path = {
-        "gather": head["float64"]["launches"],
-        "scatter": head["float64"]["launches"],
-        "ebe_matvec": kry[("cg", "float64")]["launches"],
-        "bsb_matvec": kry[("bsb", "float64")]["launches"],
-        "newmark": kry[("bsb", "float64")]["launches"],
-        "btd_sweep": btd_res["float64"]["launches"],
+    # the f64 runs whose launches count: (name, launches, steps)
+    runs = [("M5 headline", head["float64"]["launches"], N_STEPS),
+            ("23.7k btd", btd_res["float64"]["launches"], btd_res["float64"]["n_steps"]),
+            ("23.7k bsb", kry[("bsb", "float64")]["launches"], kry[("bsb", "float64")]["n_steps"]),
+            ("23.7k cg", kry[("cg", "float64")]["launches"], kry[("cg", "float64")]["n_steps"])]
+    path = {  # the main-path run whose count is this kernel's ``launches``
+        "gather": runs[0][1], "scatter": runs[0][1], "newmark": runs[0][1],
+        "btd_sweep": runs[1][1], "ebe_matvec": runs[3][1], "bsb_matvec": runs[2][1],
     }
     kernels = []
     for op, (kname, replaces, source) in KERNELS.items():
         r = timing[op]
+        per_step = {name: launches[op] / steps for name, launches, steps in runs
+                    if launches[op]}
+        # the library call's time under both names the kernel table is read
+        # by: library_ms (every kernels line) and lib_ms (the table's column)
         kernels.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
             launches=path[op][op], max_abs_err=r["max_abs_err"], ms=r["ms"],
-            plain_ms=r["plain_ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["lib_ms"], lib_ms=r["lib_ms"], lib_call=r["lib_call"],
+            device_ms=r["device_ms"], launches_per_step=per_step, bytes=r["bytes"],
         ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

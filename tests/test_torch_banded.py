@@ -3,8 +3,10 @@ Banded gather/scatter (K1/K2) of the port against the JAX package's
 (``vf_fem_tpu.fem.banded``, interpret-mode Pallas on the CPU), in f64.
 
 On the CPU the port's wrappers run their plain PyTorch versions; the
-CUDA kernels' index arithmetic (the CSR transpose the scatter kernel sums
-over) is checked here by a numpy emulation of the kernel loops.  The
+CUDA kernels' staging and index arithmetic (the gather's windows, the
+scatter's tiles and the CSR transpose it sums over, the channel chunks) is
+checked here by a numpy emulation of the kernels, and the one-call library equivalents
+(``vf_fem_tpu_torch.yardsticks``) against the plain versions.  The
 kernels themselves are held against the plain versions on the card by
 ``test_torch_cuda.py``.
 """
@@ -20,6 +22,7 @@ import torch
 from vf_fem_tpu.fem import banded as jbanded
 from vf_fem_tpu.mesh import load_gmsh as jload_gmsh, vocal_fold_mesh
 from vf_fem_tpu.mesh.reorder import rcm_mesh
+from vf_fem_tpu_torch import yardsticks
 from vf_fem_tpu_torch.fem import banded as tbanded
 
 from port_fixtures import MESHES, assert_scatter_close
@@ -144,37 +147,55 @@ def test_padding_rules(case):
 
 
 def _emulate_scatter_kernel(dp, pattern, loc, n_out):
-    """The CUDA scatter kernel's loop, in numpy."""
-    ptr, idx = pattern.ptr.numpy(), pattern.idx.numpy()
+    """The CUDA scatter kernel, in numpy: CTA (tile, channel c) stages the
+    rows loc[v, c, g*gc : (g+1)*gc] of groups glo .. glo + ngt - 1 as its
+    slab, then each row of the tile sums its CSR entries from the slab
+    through ``lidx``, in CSR order."""
+    ptr, lidx = pattern.ptr.numpy(), pattern.lidx.numpy()
+    glo, ngt = pattern.glo.numpy(), pattern.ngt.numpy()
     nv, C, ncpad = loc.shape
-    out = np.zeros((C, n_out))
-    for n in range(n_out):
-        for k in range(ptr[n], ptr[n + 1]):
-            v, cell = divmod(int(idx[k]), ncpad)
-            out[:, n] += loc[v, :, cell]
+    grouped = loc.reshape(nv, C, dp.ngroups, dp.gc)
+    out = np.full((C, n_out), np.nan)
+    for t in range(-(-n_out // tbanded.SCATTER_TILE)):
+        rows = range(t * tbanded.SCATTER_TILE,
+                     min(n_out, (t + 1) * tbanded.SCATTER_TILE))
+        for c in range(C):
+            # (ngt, nv, gc): group-major, then slot, then cell
+            slab = grouped[:, c, glo[t] : glo[t] + ngt[t]].transpose(1, 0, 2).ravel()
+            for n in rows:
+                acc = 0.0
+                for k in range(ptr[n], ptr[n + 1]):
+                    acc += slab[lidx[k]]
+                out[c, n] = acc
     return out
 
 
-def _emulate_gather_kernel(dp, pattern, F):
-    """The CUDA gather kernel's indexing, in numpy."""
+def _emulate_gather_kernel(dp, pattern, F, cpb):
+    """The CUDA gather kernel, in numpy: CTA (group g, chunk of ``cpb``
+    channels) stages the window F[c, base_g : base_g + w] of its channels
+    (zero past F's columns), then thread (v, j) copies its chunk's channels
+    from the window at its offset, zero at delta == w."""
     C, nF = F.shape
     base, delta = dp.base.numpy(), pattern.delta.numpy()
-    cell = np.arange(dp.ncpad)
-    g, j = cell // dp.gc, cell % dp.gc
-    out = np.zeros((dp.nv, C, dp.ncpad))
-    for v in range(dp.nv):
-        d = delta[g, v, j]
-        col = base[g] + d
-        ok = (d < dp.w) & (col < nF)
-        out[v][:, ok] = F[:, col[ok]]
+    Fp = np.concatenate([F, np.zeros((C, dp.nvert_pad - nF))], axis=1)
+    out = np.full((dp.nv, C, dp.ncpad), np.nan)
+    for g in range(dp.ngroups):
+        for c0 in range(0, C, cpb):
+            chans = slice(c0, min(C, c0 + cpb))
+            win = Fp[chans, base[g] : base[g] + dp.w]
+            d = delta[g]  # (nv, gc)
+            vals = np.where(d < dp.w, win[:, np.minimum(d, dp.w - 1)], 0.0)
+            out[:, chans, g * dp.gc : (g + 1) * dp.gc] = vals.transpose(1, 0, 2)
     return out
 
 
 @pytest.mark.parametrize("which", ["g", "s"])
 def test_kernel_index_arithmetic(case, which):
-    """Sequential CSR sums in (slot, group, cell) order reproduce the plain
-    ``index_add_`` scatter bit for bit; the gather indexing is exact."""
-    dp, nvert = case["dp"], case["nvert"]
+    """The kernels' staging and index arithmetic, emulated: the scatter's
+    sums over its staged slabs reproduce the plain ``index_add_`` scatter
+    bit for bit (the same order); the gather from its staged windows is
+    exact for several channel chunks, narrow F included."""
+    dp, nvert, C = case["dp"], case["nvert"], case["C"]
     pattern = getattr(dp, which)
     ref = tbanded.banded_scatter_reference(
         dp, torch.from_numpy(case["loc"]), nvert, pattern
@@ -182,9 +203,54 @@ def test_kernel_index_arithmetic(case, which):
     np.testing.assert_array_equal(
         _emulate_scatter_kernel(dp, pattern, case["loc"], nvert), ref
     )
-    ref = tbanded.banded_gather_reference(
-        dp, torch.from_numpy(case["F"]), pattern
-    ).numpy()
-    np.testing.assert_array_equal(
-        _emulate_gather_kernel(dp, pattern, case["F"]), ref
-    )
+    for n_cols in (nvert, nvert - 37):
+        F = case["F"][:, :n_cols]
+        ref = tbanded.banded_gather_reference(
+            dp, torch.from_numpy(F), pattern
+        ).numpy()
+        for cpb in (1, 2, C):
+            np.testing.assert_array_equal(
+                _emulate_gather_kernel(dp, pattern, F, cpb), ref
+            )
+
+
+@pytest.mark.parametrize("which", ["g", "s"])
+def test_scatter_tiles(case, which):
+    """The scatter's host-built tile arrays: every CSR entry's group lies
+    in its tile's staged range, its slab offset decodes back to the entry,
+    and ``max_ngt`` bounds every tile."""
+    dp = case["dp"]
+    pattern = getattr(dp, which)
+    ptr, idx = pattern.ptr.numpy(), pattern.idx.numpy().astype(np.int64)
+    lidx = pattern.lidx.numpy().astype(np.int64)
+    glo, ngt = pattern.glo.numpy(), pattern.ngt.numpy()
+    tile = np.repeat(np.arange(dp.nvert_pad), np.diff(ptr)) // tbanded.SCATTER_TILE
+    assert len(glo) == len(ngt) == -(-dp.nvert_pad // tbanded.SCATTER_TILE)
+    v, cell = idx // dp.ncpad, idx % dp.ncpad
+    g, j = cell // dp.gc, cell % dp.gc
+    assert ((g >= glo[tile]) & (g < glo[tile] + ngt[tile])).all()
+    gi, rest = np.divmod(lidx, dp.nv * dp.gc)
+    np.testing.assert_array_equal(glo[tile] + gi, g)
+    np.testing.assert_array_equal(rest, v * dp.gc + j)
+    assert pattern.max_ngt == ngt.max() and (ngt >= 0).all()
+    assert pattern.max_ngt <= dp.ngroups
+
+
+@pytest.mark.parametrize("C", [1, 2, 5, 11])
+@pytest.mark.parametrize("ngroups", [1, 4, 47, 92, 300])
+def test_channels_per_cta(C, ngroups):
+    """The gather's channel chunks cover every channel; a group's channels
+    are split no further than needed for its CTAs to cover the card, and
+    far enough that a CTA's window and mbarriers fit its shared memory."""
+    for chan_bytes in (3072, 16_384, 100_000):
+        cpb = tbanded.channels_per_cta(C, ngroups, chan_bytes)
+        chunks = -(-C // cpb)
+        assert 1 <= cpb <= C and chunks * cpb >= C
+        assert cpb * (chan_bytes + 8) + 16 <= tbanded._SMEM
+        if C * (chan_bytes + 8) + 16 <= tbanded._SMEM:
+            if ngroups >= tbanded._SMS:  # one CTA per group
+                assert cpb == C
+            if ngroups * C <= tbanded._SMS:  # one CTA per (group, channel)
+                assert cpb == 1
+            # no more chunks than the card needs
+            assert ngroups * (chunks - 1) < tbanded._SMS

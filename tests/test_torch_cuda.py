@@ -36,7 +36,7 @@ def cuda():
 def plan(request, cuda):
     mesh = load_gmsh(os.path.join(MESHES, request.param + ".msh"))
     hp = banded.plan_banded(mesh.cells, mesh.num_vertices, gc=config.BANDED_GC)
-    return banded.to_device(hp, cuda), mesh.num_vertices
+    return banded.to_device(hp, cuda), mesh.num_vertices, hp
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -44,7 +44,7 @@ def test_kernels_match_plain(plan, dtype):
     """K1/K2 against the plain versions on the same inputs, for both offset
     patterns: the gather exactly, the scatter to summation order (rtol
     1e-13 in f64, 1e-6 in f32, or within the summation-order bound)."""
-    dp, nvert = plan
+    dp, nvert, _ = plan
     dev = dp.base.device
     rng = np.random.default_rng(0)
     F = torch.tensor(rng.standard_normal((11, nvert)), dtype=dtype, device=dev)
@@ -68,7 +68,7 @@ def test_kernels_match_plain(plan, dtype):
 
 
 def test_wrappers_reject_bad_input(plan):
-    dp, nvert = plan
+    dp, nvert, _ = plan
     dev = dp.base.device
     F = torch.zeros((4, nvert), dtype=torch.float64, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
@@ -267,3 +267,36 @@ def test_btd_sweep_rejects_bad_input(large_operator):
         ops.btd_sweep(A.half(), g)
     with pytest.raises(ValueError, match="row blocks"):
         ops.btd_sweep(A[:, :16, :16].contiguous(), g[:, :16].contiguous())
+
+
+@pytest.mark.parametrize("C", [2, 11])
+def test_gather_zero_fill(plan, C):
+    """K1 with 2 and 11 channels (the channel chunks differ with C):
+    columns past F's own (F narrower than the plan) and padding slots read
+    zero, exactly as the plain gather, on every call."""
+    dp, nvert, _ = plan
+    rng = np.random.default_rng(C)
+    for n_cols in (nvert, nvert - 37):
+        F = torch.tensor(rng.standard_normal((C, n_cols)), device=dp.base.device)
+        for pattern in (dp.g, dp.s):
+            ref = banded.banded_gather_reference(dp, F, pattern)
+            for _ in range(2):
+                torch.testing.assert_close(banded._gather(dp, F, pattern), ref,
+                                           rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("C", [2, 11])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_scatter_sums_in_csr_order(plan, C, dtype):
+    """K2 sums each row in its CSR order, which is the order of the plain
+    scatter on the CPU (sequential ``index_add_``): bit-equal to it, for
+    both offset patterns and channel chunks of 2 and 11 channels."""
+    dp, nvert, hp = plan
+    cpu = banded.to_device(hp, "cpu")
+    loc = np.random.default_rng(C).standard_normal((dp.nv, C, dp.ncpad))
+    for which in ("g", "s"):
+        out = banded._scatter(dp, torch.tensor(loc, dtype=dtype, device=dp.base.device),
+                              nvert, getattr(dp, which))
+        ref = banded.banded_scatter_reference(
+            cpu, torch.tensor(loc, dtype=dtype), nvert, getattr(cpu, which))
+        assert torch.equal(out.cpu(), ref)

@@ -146,3 +146,22 @@ def test_dot_order_bound_covers_reordering():
             ops.ebe_matvec_reference(J.abs(), x.abs(), dofs), 6
         )
         assert bool(((fwd - rev).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_bsb_csr_mm_is_the_matvec(dtype):
+    """K4's library equivalent: ``sparse.mm`` on the CSR matrix of the
+    band's nonzero entries matches the plain matvec within the dot-product
+    order bound (a ragged tail and exact zeros in the band included)."""
+    from vf_fem_tpu_torch import yardsticks
+
+    rng = np.random.default_rng(11)
+    _, tplan = _synthetic_plan(4, 2, 4 * 128 - 100)
+    blocks = rng.standard_normal((4, 5, 128, 128)).astype(dtype)
+    blocks[rng.random(blocks.shape) < 0.7] = 0.0
+    B, x = _t(blocks), _t(rng.standard_normal(tplan.ndof).astype(dtype))
+    out = yardsticks.csr_mm(yardsticks.bsb_csr(tplan, B), x).reshape(-1)
+    ref = ops.bsb_matvec_reference(tplan, B, x)
+    bound = ops.dot_order_bound(
+        ops.bsb_matvec_reference(tplan, B.abs(), x.abs()), tplan.nb * 128)
+    assert bool(((out - ref).abs() <= bound).all())

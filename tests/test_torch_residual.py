@@ -68,7 +68,7 @@ def residual_pair(request):
     solid, mesh = request.param
     jm, tm = _meshes(mesh)
     jR = getattr(jslr, solid)(jm)
-    tR = getattr(tslr, solid)(tm, dtype=F64)
+    tR = getattr(tslr, solid)(tm, device="cpu", dtype=F64)
     assert list(tR.coefficient_spec) == list(jR.coefficient_spec)
     rng = np.random.default_rng(3)
     fields = {
@@ -94,7 +94,7 @@ def solid_pair(request):
     solid, mesh = request.param
     jmesh, tmesh = _meshes(mesh)
     jm = jload_solid(jmesh, getattr(jslr, solid))
-    tm = tload_solid(tmesh, getattr(tslr, solid), dtype=F64)
+    tm = tload_solid(tmesh, getattr(tslr, solid), device="cpu", dtype=F64)
     return jm, tm
 
 
@@ -153,7 +153,7 @@ def test_bernoulli_area_ratio_sep_matches_jax(case):
     rng = np.random.default_rng(5)
     s, state, control, prop = _fluid_inputs(case, 20, rng)
     jr = jflr.BernoulliAreaRatioSep(s)
-    tr = tflr.BernoulliAreaRatioSep(s, dtype=F64)
+    tr = tflr.BernoulliAreaRatioSep(s, device="cpu", dtype=F64)
     assert [list(a) for a in tr.res_args] == [list(a) for a in jr.res_args]
     ref = jr.res(state, control, prop)
     t = lambda d: to_tensors(d, "cpu", F64)

@@ -12,6 +12,9 @@ Global configuration of the PyTorch/CUDA port.
   TPU, so every f32 product here stays in full f32.
 - ``BANDED_GC``: cells per group of the banded assembly plan
   (``fem.banded``), the same value as the JAX package's default.
+- ``DEFAULT_DEVICE``: models are built on the card unless the caller asks
+  for the CPU (``device="cpu"``); :func:`model_device` raises where there
+  is no card rather than building on the CPU.
 """
 
 import torch
@@ -19,6 +22,20 @@ import torch
 DEFAULT_DTYPE = torch.float64
 
 BANDED_GC: int = 256
+
+DEFAULT_DEVICE = "cuda"
+
+
+def model_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises if it names CUDA and this
+    process has no CUDA device (nothing falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but no CUDA device is available;"
+            " pass device='cpu' to build the model on the CPU"
+        )
+    return device
 
 
 def pin_full_fp32_matmul() -> None:

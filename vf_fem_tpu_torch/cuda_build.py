@@ -7,6 +7,10 @@ Each source is compiled once with ``nvcc`` for Hopper (``sm_90a``) into
 the hash covers the source and the compiler flags, so an edited source is
 rebuilt on its next use.  Nothing is built when a module is imported: the
 first kernel launch builds.  A missing ``nvcc`` or a failed build raises.
+
+:func:`raw_stream` gives a launch its stream: PyTorch's current stream on
+the tensor's device (the capture stream inside ``torch.cuda.graph``), as
+the raw handle, without building a ``torch.cuda.Stream`` per call.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -29,6 +35,11 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict = {}
+
+
+def raw_stream(t: torch.Tensor) -> int:
+    """The ``cudaStream_t`` of PyTorch's current stream on ``t``'s device."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def find_nvcc() -> str:

@@ -16,10 +16,17 @@ padding slots, so padded cells see finite geometry; ``delta_s`` (scatter
 offsets) marks those slots ``w`` so they never contribute.
 
 The TPU built the gather as a one-hot matmul because it has no gather;
-on the card each op is a direct indexed CUDA kernel (``csrc/banded.cu``),
-replacing ``vf_fem_tpu/fem/banded.py:_gather_kernel`` (K1) and
-``:_scatter_kernel`` (K2).  The scatter sums over a host-built CSR
-transpose of the offsets, so it is deterministic and atomic-free.
+on the card each op is a CUDA kernel (``csrc/banded.cu``), replacing
+``vf_fem_tpu/fem/banded.py:_gather_kernel`` (K1) and ``:_scatter_kernel``
+(K2).  Both stage their input in shared memory first: the gather, one CTA
+per (group, chunk of channels), stages the group's window of F; the
+scatter, one CTA per (tile of output rows, channel), stages the locals of
+every group that adds into its tile and sums a host-built CSR transpose
+of the offsets, so it is deterministic and atomic-free.
+
+Each pattern carries its kernels' argument structs, built once in
+:func:`to_device` and living as long as the plan, so a launch passes the
+struct and a few sizes and reads the raw stream handle.
 
 :func:`banded_gather` and :func:`banded_scatter` dispatch on the tensor's
 device: on a CUDA tensor they launch the kernel (or raise); on a CPU
@@ -42,6 +49,8 @@ __all__ = [
     "BandedPlan",
     "DevicePlan",
     "LAUNCHES",
+    "SCATTER_TILE",
+    "channels_per_cta",
     "plan_banded",
     "banded_gather",
     "banded_scatter",
@@ -54,6 +63,8 @@ __all__ = [
 # Kernel launches since the last reset, by kernel; counted where the
 # kernel is launched and nowhere else.
 LAUNCHES = {"gather": 0, "scatter": 0}
+
+SCATTER_TILE = 256  # output rows per CTA of the scatter kernel
 
 
 class BandedPlan(NamedTuple):
@@ -130,11 +141,18 @@ def plan_banded(
 
 
 class _Pattern(NamedTuple):
-    """One offset pattern (gather or scatter offsets) on the device."""
+    """One offset pattern (gather or scatter offsets) on the device, with
+    the arrays and argument structs of the kernels that use it."""
 
     delta: torch.Tensor  # (ngroups, nv, gc) int32
     ptr: torch.Tensor  # (nvert_pad + 1,) int32 CSR row pointers
     idx: torch.Tensor  # (nnz,) int32 entries v * ncpad + cell
+    lidx: torch.Tensor  # (nnz,) int32 entries as offsets into a tile's slab
+    glo: torch.Tensor  # (ntiles,) int32 first group each scatter tile stages
+    ngt: torch.Tensor  # (ntiles,) int32 groups each scatter tile stages
+    max_ngt: int
+    gather_args: ctypes.Structure  # ``GatherArgs`` of csrc/banded.cu
+    scatter_args: ctypes.Structure  # ``ScatterArgs`` of csrc/banded.cu
 
 
 class DevicePlan(NamedTuple):
@@ -177,19 +195,54 @@ def _csr_transpose(plan: BandedPlan, delta: np.ndarray):
     return ptr.astype(np.int32), src[order].astype(np.int32)
 
 
+def _scatter_tiles(plan: BandedPlan, ptr: np.ndarray, idx: np.ndarray):
+    """For each tile of ``SCATTER_TILE`` output rows, the first group whose
+    entries add into it and the number of groups from there to the last
+    (``glo``, ``ngt``; 0 and 0 for a tile nothing adds into), and each CSR
+    entry ``v * ncpad + g * gc + j`` as its offset ``(gi * nv + v) * gc +
+    j`` into its tile's staged slab, ``gi = g - glo``."""
+    ncpad = plan.ngroups * plan.gc
+    ntiles = -(-plan.nvert_pad // SCATTER_TILE)
+    idx = idx.astype(np.int64)
+    v, cell = idx // ncpad, idx % ncpad
+    g, j = cell // plan.gc, cell % plan.gc
+    tile = np.repeat(np.arange(plan.nvert_pad), np.diff(ptr)) // SCATTER_TILE
+    glo = np.full(ntiles, ncpad, dtype=np.int64)
+    ghi = np.zeros(ntiles, dtype=np.int64)
+    np.minimum.at(glo, tile, g)
+    np.maximum.at(ghi, tile, g + 1)
+    glo = np.minimum(glo, ghi)
+    lidx = ((g - glo[tile]) * plan.nv + v) * plan.gc + j
+    return glo, ghi - glo, lidx
+
+
 def to_device(plan: BandedPlan, device) -> DevicePlan:
     def i32(a):
         return torch.as_tensor(
             np.ascontiguousarray(a, dtype=np.int32), device=device
         )
 
+    base = i32(plan.base)
+
     def pattern(delta):
         ptr, idx = _csr_transpose(plan, delta)
-        return _Pattern(delta=i32(delta), ptr=i32(ptr), idx=i32(idx))
+        glo, ngt, lidx = _scatter_tiles(plan, ptr, idx)
+        t = dict(delta=i32(delta), ptr=i32(ptr), idx=i32(idx), lidx=i32(lidx),
+                 glo=i32(glo), ngt=i32(ngt))
+        gargs = _GatherArgs(base.data_ptr(), t["delta"].data_ptr(), plan.nv,
+                            plan.ngroups, plan.gc, plan.w)
+        sargs = _ScatterArgs(t["ptr"].data_ptr(), t["lidx"].data_ptr(),
+                             t["glo"].data_ptr(), t["ngt"].data_ptr(), plan.nv,
+                             plan.gc, plan.ngroups * plan.gc, SCATTER_TILE)
+        # the structs hold raw pointers: keep their tensors alive with them
+        gargs.tensors = (base, t["delta"])
+        sargs.tensors = tuple(t.values())
+        return _Pattern(**t, max_ngt=int(ngt.max(initial=0)), gather_args=gargs,
+                        scatter_args=sargs)
 
     return DevicePlan(
         ngroups=plan.ngroups, gc=plan.gc, nv=plan.nv, w=plan.w,
-        nvert_pad=plan.nvert_pad, base=i32(plan.base),
+        nvert_pad=plan.nvert_pad, base=base,
         g=pattern(plan.delta_g), s=pattern(plan.delta_s),
     )
 
@@ -247,20 +300,36 @@ def scatter_order_bound(
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    **{
-        f"vf_banded_gather_{t}": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-        for t in ("f32", "f64")
-    },
-    **{
-        f"vf_banded_scatter_{t}": [_P, _P, _P, _P, _I, _I, _I, _P]
-        for t in ("f32", "f64")
-    },
+    **{f"vf_banded_gather_{t}": [_P, _P, _P, _I, _I, _I, _P] for t in ("f32", "f64")},
+    **{f"vf_banded_scatter_{t}": [_P, _P, _P, _I, _I, _I, _P] for t in ("f32", "f64")},
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_SMS = 132  # the H100's streaming multiprocessors
+_SMEM = 227 * 1024  # shared memory a CTA may have (csrc/banded.cu kMaxSmem)
 
 
-def _lib():
-    return cuda_build.load("banded.cu", _SIGNATURES)
+class _GatherArgs(ctypes.Structure):
+    """``GatherArgs`` of csrc/banded.cu."""
+
+    _fields_ = [("base", _P), ("delta", _P), ("nv", _I), ("ngroups", _I),
+                ("gc", _I), ("w", _I)]
+
+
+class _ScatterArgs(ctypes.Structure):
+    """``ScatterArgs`` of csrc/banded.cu."""
+
+    _fields_ = [("ptr", _P), ("lidx", _P), ("glo", _P), ("ngt", _P),
+                ("nv", _I), ("gc", _I), ("ncpad", _I), ("tile", _I)]
+
+
+def channels_per_cta(C: int, ngroups: int, chan_bytes: int) -> int:
+    """Channels each CTA of a K1 launch stages (one CTA per group and chunk
+    of channels, ``chan_bytes`` staged a channel): a group's channels are
+    split into just enough chunks for the CTAs to cover the card's
+    ``_SMS`` SMs, and into more where a CTA's shared memory (a window and
+    an 8-byte mbarrier a channel) would not hold them."""
+    cpb = -(-C // min(C, -(-_SMS // ngroups)))
+    return max(1, min(cpb, (_SMEM - 16) // (chan_bytes + 8)))
 
 
 def _check(plan: DevicePlan, x: torch.Tensor, ndim: int, what: str):
@@ -276,32 +345,31 @@ def _check(plan: DevicePlan, x: torch.Tensor, ndim: int, what: str):
         raise ValueError(f"{what}: unsupported device {x.device}")
 
 
-def _raise_on(err: int, name: str):
+def _launch(op: str, x: torch.Tensor, out: torch.Tensor, args, *sizes):
+    if not x.is_contiguous():
+        raise ValueError(f"banded {op}: input must be contiguous")
+    lib = cuda_build.load("banded.cu", _SIGNATURES)
+    err = getattr(lib, f"vf_banded_{op}_{_SUFFIX[x.dtype]}")(
+        x.data_ptr(), out.data_ptr(), ctypes.addressof(args), *sizes,
+        cuda_build.raw_stream(x))
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+        raise RuntimeError(f"banded {op} launch failed: cudaError_t {err}")
+    LAUNCHES[op] += 1
+    return out
 
 
 def _gather(plan: DevicePlan, F: torch.Tensor, pattern: _Pattern):
     _check(plan, F, 2, "banded gather")
-    if F.shape[1] > plan.nvert_pad:
+    C, n_cols = F.shape
+    if n_cols > plan.nvert_pad:
         raise ValueError(
-            f"banded gather: {F.shape[1]} columns > nvert_pad {plan.nvert_pad}"
+            f"banded gather: {n_cols} columns > nvert_pad {plan.nvert_pad}"
         )
     if F.device.type == "cpu":
         return banded_gather_reference(plan, F, pattern)
-    if not F.is_contiguous():
-        raise ValueError("banded gather: F must be contiguous")
-    C = F.shape[0]
     out = torch.empty((plan.nv, C, plan.ncpad), dtype=F.dtype, device=F.device)
-    name = f"vf_banded_gather_{_SUFFIX[F.dtype]}"
-    err = getattr(_lib(), name)(
-        F.data_ptr(), plan.base.data_ptr(), pattern.delta.data_ptr(),
-        out.data_ptr(), C, plan.nv, plan.ngroups, plan.gc, plan.w,
-        F.shape[1], torch.cuda.current_stream(F.device).cuda_stream,
-    )
-    _raise_on(err, name)
-    LAUNCHES["gather"] += 1
-    return out
+    cpb = channels_per_cta(C, plan.ngroups, plan.w * F.element_size())
+    return _launch("gather", F, out, pattern.gather_args, C, n_cols, cpb)
 
 
 def _scatter(plan: DevicePlan, loc: torch.Tensor, n_rows: int,
@@ -318,19 +386,19 @@ def _scatter(plan: DevicePlan, loc: torch.Tensor, n_rows: int,
         )
     if loc.device.type == "cpu":
         return banded_scatter_reference(plan, loc, n_rows, pattern)
-    if not loc.is_contiguous():
-        raise ValueError("banded scatter: locals must be contiguous")
+    if loc.data_ptr() % 16:
+        raise ValueError("banded scatter: locals must be 16-byte aligned")
+    slab = pattern.max_ngt * plan.nv * plan.gc * loc.element_size()
+    if slab + 16 > _SMEM:
+        raise ValueError(
+            f"banded scatter: a tile of {SCATTER_TILE} rows adds from"
+            f" {pattern.max_ngt} groups, {slab} bytes, more than a CTA holds"
+            f" ({_SMEM}); renumber the mesh (reorder='rcm')"
+        )
     C = loc.shape[1]
     out = torch.empty((C, n_rows), dtype=loc.dtype, device=loc.device)
-    name = f"vf_banded_scatter_{_SUFFIX[loc.dtype]}"
-    err = getattr(_lib(), name)(
-        loc.data_ptr(), pattern.ptr.data_ptr(), pattern.idx.data_ptr(),
-        out.data_ptr(), C, plan.ncpad, n_rows,
-        torch.cuda.current_stream(loc.device).cuda_stream,
-    )
-    _raise_on(err, name)
-    LAUNCHES["scatter"] += 1
-    return out
+    return _launch("scatter", loc, out, pattern.scatter_args, C, n_rows,
+                   pattern.max_ngt)
 
 
 class _BandedGather(torch.autograd.Function):
@@ -363,12 +431,18 @@ class _BandedScatter(torch.autograd.Function):
 def banded_gather(plan: DevicePlan, F: torch.Tensor) -> torch.Tensor:
     """Gather per-cell locals (nv, C, ngroups*gc) from stacked vertex
     fields ``F`` (C, n_vertices).  Reverse mode differentiates to the
-    banded scatter with the gather offsets."""
-    return _BandedGather.apply(F, plan)
+    banded scatter with the gather offsets; where no gradient is recorded
+    the call skips the autograd wrapper."""
+    if torch.is_grad_enabled() and F.requires_grad:
+        return _BandedGather.apply(F, plan)
+    return _gather(plan, F, plan.g)
 
 
 def banded_scatter(plan: DevicePlan, loc: torch.Tensor, n_rows: int):
     """Scatter-add per-cell nodal values ``loc`` (nv, C, ngroups*gc) into
     (C, n_rows); padding slots are dropped.  Reverse mode differentiates to
-    the banded gather with the scatter offsets."""
-    return _BandedScatter.apply(loc, plan, n_rows)
+    the banded gather with the scatter offsets; where no gradient is
+    recorded the call skips the autograd wrapper."""
+    if torch.is_grad_enabled() and loc.requires_grad:
+        return _BandedScatter.apply(loc, plan, n_rows)
+    return _scatter(plan, loc, n_rows, plan.s)

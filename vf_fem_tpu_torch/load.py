@@ -10,7 +10,6 @@ from os import path
 from typing import Optional, Sequence, Union
 
 import numpy as np
-import torch
 
 from . import config
 from .mesh import Mesh, derive_1d_interface, load_gmsh
@@ -23,7 +22,7 @@ from .residuals import solid as slr
 def load_solid_model(
     mesh: Union[str, Mesh],
     Residual: type,
-    device="cpu",
+    device=config.DEFAULT_DEVICE,
     dtype=config.DEFAULT_DTYPE,
     reorder: Optional[str] = None,
     **kwargs,
@@ -51,7 +50,7 @@ def load_solid_model(
 def load_fluid_model(
     mesh: np.ndarray,
     Residual: type,
-    device="cpu",
+    device=config.DEFAULT_DEVICE,
     dtype=config.DEFAULT_DTYPE,
     **kwargs,
 ) -> transient.FluidModel:
@@ -69,7 +68,7 @@ def load_fsi_model(
     fluid_kwargs: dict = None,
     coupling: str = "explicit",
     fluid_interface_subdomains: Sequence[str] = ("pressure",),
-    device="cpu",
+    device=config.DEFAULT_DEVICE,
     dtype=config.DEFAULT_DTYPE,
     reorder: Optional[str] = None,
 ) -> transient.ExplicitFSIModel:
@@ -77,7 +76,7 @@ def load_fsi_model(
     facet subdomain, build the fluid and couple the two explicitly."""
     if coupling != "explicit":
         raise NotImplementedError(f"coupling={coupling!r} is not ported")
-    device = torch.device(device)
+    device = config.model_device(device)
     solid = load_solid_model(
         solid_mesh, SolidResidual, device=device, dtype=dtype,
         reorder=reorder, **(solid_kwargs or {}),

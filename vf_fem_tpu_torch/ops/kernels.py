@@ -68,7 +68,7 @@ def _launch(name: str, dtype, *args):
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return cuda_build.raw_stream(t)
 
 
 def _check(what: str, *tensors: torch.Tensor):

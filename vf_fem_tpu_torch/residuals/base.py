@@ -33,12 +33,12 @@ class FemResidual:
         mesh: Mesh,
         traction_subdomains: Sequence[str] = ("pressure",),
         dirichlet_bc_specs: Optional[dict] = None,
-        device="cpu",
+        device=config.DEFAULT_DEVICE,
         dtype=config.DEFAULT_DTYPE,
     ):
         self._signed_forms = list(signed_forms)
         self._mesh = mesh
-        self.device = torch.device(device)
+        self.device = config.model_device(device)
         self.dtype = dtype
         if dirichlet_bc_specs is None:
             dirichlet_bc_specs = DEFAULT_DIRICHLET_BC

@@ -34,10 +34,11 @@ def bernoullip_from_q_psep(qsub, psep, area_sep, area, rho):
 
 
 class PredefinedFluidResidual(FunctionalResidual):
-    def __init__(self, mesh: np.ndarray, device="cpu",
+    def __init__(self, mesh: np.ndarray, device=config.DEFAULT_DEVICE,
                  dtype=config.DEFAULT_DTYPE):
         self._mesh = np.asarray(mesh)
-        s = torch.as_tensor(self._mesh, dtype=dtype, device=device)
+        s = torch.as_tensor(self._mesh, dtype=dtype,
+                            device=config.model_device(device))
         res, res_args = self._make_residual(s)
         super().__init__(res, res_args)
 

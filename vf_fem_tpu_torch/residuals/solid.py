@@ -22,7 +22,7 @@ class PredefinedSolidResidual(FemResidual):
         mesh: Mesh,
         dirichlet_bcs: Optional[dict] = None,
         traction_subdomains: Sequence[str] = ("pressure",),
-        device="cpu",
+        device=config.DEFAULT_DEVICE,
         dtype=config.DEFAULT_DTYPE,
     ):
         super().__init__(
