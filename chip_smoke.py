@@ -41,7 +41,12 @@ runs, in order:
    and one ``torch.profiler`` pass of the production f64 run.
 
 Phase 3 also holds the block-Thomas sweep kernel (K6) against its plain
-version on the 23.7k model's own factors.
+version on the 23.7k model's own factors, holds its launch plan
+(``ops.sweep_plan``) to the one compiled into ``csrc/btd.cu`` for every
+width and dtype pair, prints the plan (cluster size, ring depth) and K6's
+time per row block, and times its exchange of the carried vector alone
+(``csrc/btd_exchange_probe.cu``: st.async on mbarriers against
+barrier.cluster); phase 7 prints K6's share of the profiled device time.
 
 Phases 2 and 3 time every kernel four ways, by CUDA events: its call time
 (the eager call, which the main path pays), its device time (200 launches
@@ -58,6 +63,7 @@ Every phase raises on failure, so the script exits nonzero; on success its
 last line is ``{"ok": true, "device": {...}}``.
 """
 
+import ctypes
 import json
 import os
 import subprocess
@@ -164,6 +170,9 @@ GOLDEN_LARGE_GATES = {
     for ls, a_gate in (("bsb", 5.405e-8), ("cg", 2.090e-7))
 }
 WARMUP, REPS = 20, 200
+# csrc/btd_exchange_probe.cu's entry points: (sink, n, bt, barrier, stream)
+PROBE_SIGNATURES = {f"vf_btd_exchange_probe_{t}": [ctypes.c_void_p] + [ctypes.c_int] * 3
+                    + [ctypes.c_void_p] for t in ("bf16", "f64")}
 HBM_BYTES_S = 3.35e12  # H100 SXM data sheet
 # peak rates outside the tensor cores (H100 SXM data sheet): f32 67
 # TFLOP/s, f64 34 TFLOP/s; bf16 products accumulate in f32
@@ -623,8 +632,11 @@ def phase_ops_btd(torch, plan, blocks64):
     (factor, vector) dtype pair of the btd path.  Each row is held to the
     plain version's row computed from the kernel's own previous row
     (rtol 1e-13 / 1e-6 plus the dot-product order bound, exact), and the
-    whole sweep to the plain sweep (``SWEEP_FULL_GATES``)."""
+    whole sweep to the plain sweep (``SWEEP_FULL_GATES``).  The launch
+    plan of every width and dtype pair is held to the built kernel's, and
+    the exchange is timed alone by ``sweep_exchange``."""
     from vf_fem_tpu_torch import ops, yardsticks
+    from vf_fem_tpu_torch.ops import kernels
     from vf_fem_tpu_torch.solvers import btd
 
     dev = blocks64.device
@@ -637,6 +649,11 @@ def phase_ops_btd(torch, plan, blocks64):
     r = np.random.default_rng(1).standard_normal(plan.ndof)
     cast = sweep_double_rounding(torch, dev)
     log(f"[ops] btd_sweep: f64 -> bf16 cast of 1 + 2^-8 + 2^-40 as torch's: {cast!r}")
+    for w in kernels.SWEEP_WIDTHS:
+        for fdt, vdt in kernels._SWEEP_TYPES:
+            plan_py, plan_cu = ops.sweep_plan(w, fdt, vdt), kernels.built_sweep_plan(w, fdt)
+            require(plan_py == plan_cu, f"btd_sweep plan {w} {fdt}/{vdt}: ops.sweep_plan"
+                                        f" {plan_py} is not the kernel's {plan_cu}")
     results = {}
     for ftag, vdt in (("bfloat16", torch.float64), ("bfloat16", torch.float32),
                       ("float64", torch.float64), ("float32", torch.float32)):
@@ -670,13 +687,55 @@ def phase_ops_btd(torch, plan, blocks64):
             res.update(max_abs_err=err, bytes=nbytes, lib_ms=None, lib_runs=None,
                        lib_call=yardsticks.LIBRARY_CALL["btd_sweep"])
             res["bound_ms"], res["bound_by"] = bound_of(nbytes, 2 * A.numel(), acc)
+            sp = ops.sweep_plan(bt, A.dtype, vdt)
             log(f"[ops] btd_sweep {label} {ftag} factors / {vtag} vector ({n_sup} x {bt} x {bt}):"
                 f" {fmt_times(res)}; row max |diff| {diff.max().item():.3e}, whole-sweep"
                 f" max_abs_err {err:.3e} (rel {full_rel:.3e}, gate {SWEEP_FULL_GATES[acc]:.0e});"
-                f" serial chain {n_sup} row blocks: {res['device_ms'] / n_sup * 1e3:.3f} us"
-                f" per block (its latency floor: one barrier per block)")
+                f" cluster of {sp.cluster} CTAs ({sp.warps} consumer warps, ring of"
+                f" {sp.ring} slots of {sp.stage_rows} rows, {sp.smem_bytes} B shared):"
+                f" {res['device_ms'] / n_sup * 1e3:.3f} us per row block")
             results[("btd_sweep", f"{label} {ftag}/{vtag}", vtag)] = res
+    sweep_exchange(torch, dev, bt)
     return results
+
+
+def exchange_probe(torch, n, bt, factor_dtype, barrier, dev):
+    """One launch of ``csrc/btd_exchange_probe.cu``: ``n`` row blocks of
+    pushes of K6's carried vector (``bt`` entries of ``factor_dtype``, bf16
+    or f64) across K6's cluster for that type; returns each CTA's copy of
+    the last vector pushed, (cluster, bt)."""
+    from vf_fem_tpu_torch import cuda_build, ops
+
+    suffix = {torch.bfloat16: "bf16", torch.float64: "f64"}[factor_dtype]
+    fn = f"vf_btd_exchange_probe_{suffix}"
+    lib = cuda_build.load("btd_exchange_probe.cu", PROBE_SIGNATURES)
+    cluster = ops.sweep_plan(bt, factor_dtype, torch.float64).cluster
+    sink = torch.empty((cluster, bt), dtype=factor_dtype, device=dev)
+    err = getattr(lib, fn)(sink.data_ptr(), n, bt, int(barrier), cuda_build.raw_stream(sink))
+    require(err == 0, f"{fn} launch failed: cudaError_t {err}")
+    return sink
+
+
+def sweep_exchange(torch, dev, bt):
+    """K6's exchange alone (``exchange_probe``): the device time of one row
+    block's push of the carried vector across K6's cluster and the wait for
+    it, by st.async on mbarriers (as K6) and by remote stores with
+    barrier.cluster, for bf16 and f64 vectors of ``bt`` entries; per row
+    block from the difference of graph-replayed launches of 93 and 1023 row
+    blocks (launch cost out).  Each CTA starts with only its own entries,
+    entry k holding the bits k + 1, so every CTA's copy of the vector after
+    3 row blocks holds them all only if every push landed where it should."""
+    for ftype, bits in ((torch.bfloat16, torch.int16), (torch.float64, torch.int64)):
+        for barrier in (False, True):
+            t = {n: graph_ms(torch, lambda: exchange_probe(torch, n, bt, ftype, barrier, dev),
+                             reps=50) for n in (93, 1023)}
+            sink = exchange_probe(torch, 3, bt, ftype, barrier, dev).view(bits)
+            want = torch.arange(1, bt + 1, dtype=bits, device=dev).expand_as(sink)
+            how = "barrier.cluster" if barrier else "st.async"
+            require(torch.equal(sink, want), f"exchange probe {ftype} {how}: wrong vector landed")
+            log(f"[ops] btd_sweep exchange {str(ftype).replace('torch.', '')} x {bt},"
+                f" cluster {sink.shape[0]}, {how}: {(t[1023] - t[93]) / 930 * 1e3:.4f} us per"
+                f" row block ({t[93]:.6f} ms for 93 blocks, {t[1023]:.6f} ms for 1023)")
 
 
 def run_timed(torch, model, run):
@@ -829,9 +888,12 @@ def profile_run(torch, run, n_steps):
                   and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
     n_dev = sum(e.count for e in dev_events)
+    k6 = [e for e in dev_events if "btd_sweep_kernel" in e.key]
+    k6_ms = sum(e.self_device_time_total for e in k6) / 1e3
     table = ka.table(sort_by="self_cuda_time_total", row_limit=12)
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle=1 - busy_ms / wall_ms,
-                per_step=n_dev / n_steps, table=table)
+                per_step=n_dev / n_steps, k6_ms=k6_ms, k6_launches=sum(e.count for e in k6),
+                table=table)
 
 
 def phase_btd(torch, card, models):
@@ -923,7 +985,10 @@ def phase_btd(torch, card, models):
         model, state0, cs, prop, times, BTD_PROD), n_steps)
     log(f"[btd] profile prod f64, {n_steps} steps: {prof['per_step']:.1f} device kernels"
         f" per step, device busy {prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms"
-        f" profiled wall, idle share {prof['idle']:.3f}, on {card}")
+        f" profiled wall, idle share {prof['idle']:.3f}; K6 {prof['k6_ms']:.3f} ms"
+        f" ({prof['k6_ms'] / prof['busy_ms']:.1%} of busy) in {prof['k6_launches']} launches"
+        f" ({prof['k6_ms'] / max(prof['k6_launches'], 1) * 1e3:.1f} us each), on {card}")
+    require(prof["k6_launches"] > 0, "btd profile: no K6 kernel in the trace")
     log(prof["table"])
     out["profile"] = {k: v for k, v in prof.items() if k != "table"}
     return out

@@ -14,15 +14,26 @@ the main path calls:
 
 K1 ``banded_gather`` (11 channels) and K2 ``banded_scatter`` (2 channels)
 on the M5-3layers and the 23.7k-dof RCM plans, f64, random values from a
-seed.
+seed;
+
+K6 ``ops.btd_sweep``, forward and backward, for every (factor, vector)
+dtype pair (bf16/f64 for the production runs, f64/f64 for the tight and
+exact-Jacobian runs, bf16/f32 and f32/f32 for the f32 runs) and every
+row-block width K6 is built for (128, 256, 384, 512), 93 row blocks:
+factors and right-hand sides from a seed, the factors scaled by
+0.5/sqrt(Bt) so that the recurrence stays bounded.  Each process prints the
+SHA-256 of each sweep's output bytes, so that equal digests show two
+kernels bit-equal; the sweeps at the 23.7k shapes (Bt = 256) are timed.
 
 Each time is taken two ways by CUDA events: the eager call (200 calls
 after 20 warm-up calls) and the device time (200 calls captured in one CUDA
 graph and replayed).  Prints one line per process and, last, a JSON object
-with every process's numbers and the card's name and power limit.  Exits
-nonzero without CUDA or when a process fails.
+with every process's numbers, whether each K6 digest is the same in every
+process, and the card's name and power limit.  Exits nonzero without CUDA
+or when a process fails.
 """
 
+import hashlib
 import json
 import os
 import subprocess
@@ -39,7 +50,7 @@ def child(root):
     from chip_smoke import cuda_ms, graph_ms  # this checkout's timers
 
     sys.path.insert(0, root)  # the port of the checkout under test
-    from vf_fem_tpu_torch import config  # noqa: E402
+    from vf_fem_tpu_torch import config, ops  # noqa: E402
     from vf_fem_tpu_torch.fem import banded  # noqa: E402
     from vf_fem_tpu_torch.mesh import load_gmsh  # noqa: E402
 
@@ -58,6 +69,24 @@ def child(root):
         for op, fn in (("gather", lambda: banded.banded_gather(dp, F)),
                        ("scatter", lambda: banded.banded_scatter(dp, loc, nvert))):
             out[f"{op} {label}"] = dict(ms=cuda_ms(torch, fn), device_ms=graph_ms(torch, fn))
+    n = 93
+    pairs = ((torch.bfloat16, torch.float64), (torch.float64, torch.float64),
+             (torch.bfloat16, torch.float32), (torch.float32, torch.float32))
+    for bt in (256, 128, 384, 512):
+        A64 = rng.standard_normal((n, bt, bt)) * (0.5 / bt ** 0.5)
+        g64 = rng.standard_normal((n, bt))
+        for ftype, vtype in pairs:
+            A = torch.tensor(A64, device=dev).to(ftype)
+            g = torch.tensor(g64, device=dev).to(vtype)
+            for rev in (False, True):
+                fn = lambda: ops.btd_sweep(A, g, reverse=rev)
+                y = fn().cpu().numpy()
+                key = (f"btd_sweep {str(ftype).replace('torch.', '')}/"
+                       f"{str(vtype).replace('torch.', '')} {bt}"
+                       f" {'backward' if rev else 'forward'}")
+                out[key] = dict(sha256=hashlib.sha256(y.tobytes()).hexdigest())
+                if bt == 256:
+                    out[key].update(ms=cuda_ms(torch, fn), device_ms=graph_ms(torch, fn))
     torch.cuda.synchronize()
     print(json.dumps(out), flush=True)
 
@@ -85,9 +114,14 @@ def main():
         res["which"] = which
         runs.append(res)
         print(which + ": " + ", ".join(
-            f"{k} call {v['ms']:.6f} device {v['device_ms']:.6f} ms"
+            k + (f" call {v['ms']:.6f} device {v['device_ms']:.6f} ms" if "ms" in v else "")
+            + (f" sha256 {v['sha256'][:16]}" if "sha256" in v else "")
             for k, v in res.items() if isinstance(v, dict)), flush=True)
-    print(json.dumps({"card": card, "runs": runs}), flush=True)
+    same = {k: len({r[k]["sha256"] for r in runs}) == 1
+            for k, v in runs[0].items() if isinstance(v, dict) and "sha256" in v}
+    print("bit-equal in every process: " + ", ".join(f"{k} {s}" for k, s in same.items()),
+          flush=True)
+    print(json.dumps({"card": card, "runs": runs, "bit_equal": same}), flush=True)
 
 
 if __name__ == "__main__":

@@ -15,10 +15,12 @@ import torch
 from vf_fem_tpu_torch import config, forward, ops
 from vf_fem_tpu_torch.fem import banded
 from vf_fem_tpu_torch.mesh import load_gmsh
+from vf_fem_tpu_torch.ops import kernels
 
 from port_fixtures import (
     M5_PROPS, MESHES, assert_scatter_close, port_inputs, port_vf_model,
 )
+from sweep_emulation import emulate_sweep
 
 pytestmark = pytest.mark.gpu
 
@@ -267,6 +269,46 @@ def test_btd_sweep_rejects_bad_input(large_operator):
         ops.btd_sweep(A.half(), g)
     with pytest.raises(ValueError, match="row blocks"):
         ops.btd_sweep(A[:, :16, :16].contiguous(), g[:, :16].contiguous())
+    # a cluster size other than the kernel's own is refused at launch, and raises
+    plan = ops.sweep_plan(256, A.dtype, g.dtype)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kernels._sweep_launch(A, g, False, plan._replace(cluster=4))
+
+
+def _random_sweep(pair, bt, n, seed, dev):
+    fdt, vdt = SWEEP_PAIRS[pair]
+    rng = np.random.default_rng(seed)
+    A = torch.tensor(rng.standard_normal((n, bt, bt)) * (0.5 / bt ** 0.5)).to(fdt)
+    g = torch.tensor(rng.standard_normal((n, bt))).to(vdt)
+    return A, g, A.to(dev), g.to(dev)
+
+
+@pytest.mark.parametrize("n", [1, 2, 93])
+@pytest.mark.parametrize("bt", kernels.SWEEP_WIDTHS)
+@pytest.mark.parametrize("pair", list(SWEEP_PAIRS))
+def test_btd_sweep_rows_every_width(cuda, pair, bt, n):
+    """K6 (its plan's cluster) on random factors scaled to 0.5/sqrt(Bt), both
+    sweeps: each row within rtol 1e-13 (f64 vectors) / 1e-6 (f32) plus the
+    dot-product order bound of the plain row from the kernel's own previous
+    row; with bf16 factors (whose products the emulation sums exactly as
+    the kernel's FMAs do) bit-equal to the CPU emulation of its schedule."""
+    A, g, Ad, gd = _random_sweep(pair, bt, n, seed=bt + n, dev=cuda)
+    rtol = 1e-13 if g.dtype == torch.float64 else 1e-6
+    for rev in (False, True):
+        out = ops.btd_sweep(Ad, gd, reverse=rev)
+        ref, bound = ops.btd_sweep_rows_reference(Ad, gd, out, rev)
+        assert_scatter_close(out, ref, bound, rtol)
+        if A.dtype == torch.bfloat16:
+            assert torch.equal(out.cpu(), emulate_sweep(A, g, rev))
+
+
+@pytest.mark.parametrize("bt", kernels.SWEEP_WIDTHS)
+@pytest.mark.parametrize("pair", list(SWEEP_PAIRS))
+def test_sweep_plan_is_the_kernels(cuda, pair, bt):
+    """``ops.sweep_plan`` (the CPU tests' copy) is the plan compiled into
+    ``csrc/btd.cu``."""
+    fdt, vdt = SWEEP_PAIRS[pair]
+    assert ops.sweep_plan(bt, fdt, vdt) == kernels.built_sweep_plan(bt, fdt)
 
 
 @pytest.mark.parametrize("C", [2, 11])

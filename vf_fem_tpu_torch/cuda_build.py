@@ -4,9 +4,10 @@ libraries.
 
 Each source is compiled once with ``nvcc`` for Hopper (``sm_90a``) into
 ``vf_fem_tpu_torch/_build/<name>-<hash>.so`` and loaded with ``ctypes``;
-the hash covers the source and the compiler flags, so an edited source is
-rebuilt on its next use.  Nothing is built when a module is imported: the
-first kernel launch builds.  A missing ``nvcc`` or a failed build raises.
+the hash covers the source, the headers of ``csrc/`` (``*.cuh``) and the
+compiler flags, so an edited source or header is rebuilt on its next use.
+Nothing is built when a module is imported: the first kernel launch
+builds.  A missing ``nvcc`` or a failed build raises.
 
 :func:`raw_stream` gives a launch its stream: PyTorch's current stream on
 the tensor's device (the capture stream inside ``torch.cuda.graph``), as
@@ -59,8 +60,9 @@ def build(source: str) -> Path:
     """Compile ``csrc/<source>`` unless an up-to-date build exists; return
     the path of the shared library."""
     src = CSRC / source
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     lib = BUILD_DIR / f"{src.stem}-{digest}.so"
     if lib.exists():

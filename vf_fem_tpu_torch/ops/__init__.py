@@ -14,4 +14,5 @@ from .kernels import (  # noqa: F401
     factor_matvec,
     newmark_update,
     newmark_update_reference,
+    sweep_plan,
 )

@@ -19,6 +19,8 @@ is launched and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -37,6 +39,7 @@ __all__ = [
     "btd_sweep",
     "btd_sweep_reference",
     "btd_sweep_rows_reference",
+    "sweep_plan",
     "dot_order_bound",
 ]
 
@@ -210,8 +213,75 @@ _SWEEP_TYPES = {
     (torch.float32, torch.float32): "f32_f32",
 }
 SWEEP_WIDTHS = (128, 256, 384, 512)  # the row-block sizes K6 is compiled for
-_SWEEP_SIGNATURES = {f"vf_btd_sweep_{s}": [_P, _P, _P, _I, _I, _I, _P]
+# CTAs a cluster for each factor dtype (csrc/cluster.cuh, cluster_size): the
+# faster of 8 and 16 at 93 row blocks of 256 on an H100 (PERF.md section 6)
+SWEEP_CLUSTER = {torch.bfloat16: 8, torch.float32: 8, torch.float64: 16}
+SMEM_LIMIT = 232448  # shared memory a CTA can use on Hopper (227 KB)
+_MAX_WARPS = 16  # consumer warps a CTA
+_MAX_STAGES = 16  # ring slots
+_BAR_BYTES = (2 * _MAX_STAGES + 2) * 8
+_SWEEP_SIGNATURES = {f"vf_btd_sweep_{s}": [_P, _P, _P] + [_I] * 4 + [_P]
                      for s in _SWEEP_TYPES.values()}
+_SWEEP_SIGNATURES["vf_btd_sweep_plan"] = [_I, _I, _P]
+
+
+class SweepPlan(NamedTuple):
+    """K6's launch plan for one row-block width and factor dtype (the
+    ``make_plan`` of ``csrc/cluster.cuh``; the kernel refuses any other
+    cluster size)."""
+
+    cluster: int  # CTAs in the cluster
+    rows_per_cta: int  # rows of every row block a CTA owns
+    rows_per_warp: int  # rows a consumer warp takes from a ring slot
+    warps: int  # consumer warps a CTA (one producer warp besides)
+    stage_rows: int  # rows a ring slot holds
+    stages_per_block: int  # ring slots a row block takes
+    ring: int  # ring slots
+    smem_bytes: int  # dynamic shared memory a CTA
+    threads: int  # threads a CTA
+
+
+@functools.lru_cache(maxsize=None)
+def sweep_plan(bt: int, factor_dtype, vector_dtype) -> SweepPlan:
+    """The launch plan of K6 for row blocks of ``bt``: each of the
+    ``SWEEP_CLUSTER`` CTAs of the factor dtype owns ``bt / cluster``
+    contiguous rows of every block; a consumer warp takes rows a whole
+    32-bit word of the carried vector at a time; the ring has as many slots
+    (of as many rows as the warps take together) as fit in ``SMEM_LIMIT``
+    beside the carried vector's two buffers and the mbarriers."""
+    if (factor_dtype, vector_dtype) not in _SWEEP_TYPES:
+        raise TypeError(f"btd_sweep: factor/vector dtypes {factor_dtype},"
+                        f" {vector_dtype} not supported ({list(_SWEEP_TYPES)})")
+    if bt not in SWEEP_WIDTHS:
+        raise ValueError(f"btd_sweep: kernel built for row blocks {SWEEP_WIDTHS},"
+                         f" got {bt}")
+    cluster = SWEEP_CLUSTER[factor_dtype]
+    es = factor_dtype.itemsize
+    rows = bt // cluster
+    rpw = 4 // es if es < 4 else 1
+    units = rows // rpw
+    warps = max(d for d in range(1, min(_MAX_WARPS, units) + 1) if units % d == 0)
+    stage_rows = warps * rpw
+    stage_bytes = stage_rows * bt * es
+    ring = min(_MAX_STAGES, (SMEM_LIMIT - 2 * bt * es - _BAR_BYTES) // stage_bytes)
+    return SweepPlan(cluster, rows, rpw, warps, stage_rows, rows // stage_rows,
+                     ring, ring * stage_bytes + 2 * bt * es + _BAR_BYTES,
+                     (warps + 1) * 32)
+
+
+def built_sweep_plan(bt: int, factor_dtype) -> SweepPlan:
+    """The plan compiled into ``csrc/btd.cu`` (its ``make_plan``) for row
+    blocks of ``bt`` and the factor dtype, read from the built library (this
+    builds it), to hold :func:`sweep_plan` to it."""
+    vals = (ctypes.c_int * len(SweepPlan._fields))()
+    err = _sweep_lib().vf_btd_sweep_plan(factor_dtype.itemsize, bt, vals)
+    if err != 0:
+        raise ValueError(f"vf_btd_sweep_plan: cudaError_t {err} for {bt}, {factor_dtype}")
+    return SweepPlan(*vals)
+
+
+def _sweep_lib():
+    return cuda_build.load("btd.cu", _SWEEP_SIGNATURES)
 
 
 def factor_matvec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -261,7 +331,8 @@ def btd_sweep_rows_reference(A: torch.Tensor, g: torch.Tensor,
 
 def btd_sweep(A: torch.Tensor, g: torch.Tensor,
               reverse: bool = False) -> torch.Tensor:
-    """One serial sweep of the block-Thomas solve (K6 on CUDA; the plain
+    """One serial sweep of the block-Thomas solve (K6 on CUDA, one
+    thread-block cluster launched with :func:`sweep_plan`; the plain
     :func:`btd_sweep_reference` on the CPU).  Factor and vector dtypes:
     (bf16, f64), (bf16, f32), (f64, f64) or (f32, f32)."""
     if (A.dim() != 3 or A.shape[1] != A.shape[2]
@@ -279,16 +350,18 @@ def btd_sweep(A: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"btd_sweep: unsupported device {g.device}")
     if not (A.is_contiguous() and g.is_contiguous()):
         raise ValueError("btd_sweep: inputs must be contiguous")
+    return _sweep_launch(A, g, reverse, sweep_plan(g.shape[1], A.dtype, g.dtype))
+
+
+def _sweep_launch(A: torch.Tensor, g: torch.Tensor, reverse: bool,
+                  plan: SweepPlan) -> torch.Tensor:
+    """Launch K6 with ``plan``'s cluster size on checked CUDA tensors."""
     n, bt = g.shape
-    if bt not in SWEEP_WIDTHS:
-        raise ValueError(f"btd_sweep: kernel built for row blocks"
-                         f" {SWEEP_WIDTHS}, got {bt}")
     out = torch.empty_like(g)
-    fn = f"vf_btd_sweep_{suffix}"
-    err = getattr(cuda_build.load("btd.cu", _SWEEP_SIGNATURES), fn)(
-        A.data_ptr(), g.data_ptr(), out.data_ptr(), n, bt, int(reverse),
-        _stream(g))
+    fn = f"vf_btd_sweep_{_SWEEP_TYPES[(A.dtype, g.dtype)]}"
+    err = getattr(_sweep_lib(), fn)(A.data_ptr(), g.data_ptr(), out.data_ptr(), n, bt,
+                                    int(reverse), plan.cluster, _stream(g))
     if err != 0:
-        raise RuntimeError(f"{fn} launch failed: cudaError_t {err}")
+        raise RuntimeError(f"{fn} launch failed: cudaError_t {err} (plan {plan})")
     LAUNCHES["btd_sweep"] += 1
     return out
