@@ -15,7 +15,9 @@ runs, in order:
 3. ops: the element-by-element matvec (K3), the block-banded matvec (K4)
    and the fused Newmark update (K5) against their plain versions on the
    card, on the 23.7k-dof model's Jacobian (and at M5 size for K3/K5), in
-   f64 and f32;
+   f64 and f32; K4 also bit for bit against its CPU emulation
+   (``tests/bsb_emulation.py``), with its bound counted from the plan's
+   matvec pattern beside the dense band's;
 4. golden: the explicit-FSI M5_CB_GA3 trajectory in f64 with the default
    solver parameters (banded assembly) against
    ``tests/data/golden_m5cad_explicit.npz``;
@@ -29,7 +31,9 @@ runs, in order:
    production settings of ``benchmarks/benchmark_large.py:118-125`` for
    both solvers in f64 and f32 (20 steps after a warm-up run) with
    steps/s, Krylov and Newton iteration counts, kernel launches, and the
-   trajectory and f32-vs-f64 errors against their gates;
+   trajectory and f32-vs-f64 errors against their gates; then one
+   ``torch.profiler`` pass of the production bsb f64 run (K4's share of
+   device busy, the idle share) and the ms per BiCGStab iteration;
 7. btd: the block-Thomas direct path on the 23.7k-dof RCM mesh (same
    model): the tight f64 run of ``benchmarks/benchmark_large.py:130-139``
    against ``tests/data/golden_large_btd_explicit.npz``, then the
@@ -278,6 +282,28 @@ def bound_of(nbytes, flops, acc):
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOP_S[acc] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bsb_work(pattern, ndof, itemsize):
+    """K4's (bytes, operations) on its pattern (``solvers.bsb.MatvecPattern``):
+    each value and its int32 offset, the int32 row pointers, x in and y
+    out; a product and a sum an entry."""
+    nnz = len(pattern.off)
+    return nnz * (itemsize + 4) + (ndof + 1) * 4 + 2 * ndof * itemsize, 2 * nnz
+
+
+def emulate_bsb(plan, pattern, blocks, x, lanes):
+    """K4's output by ``tests/bsb_emulation.py`` (numpy, on the host): the
+    kernel's summation order, to hold the kernel to bit for bit."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from bsb_emulation import emulate_bsb_matvec
+
+    return emulate_bsb_matvec(plan, pattern, blocks, x, lanes)
+
+
+def bsb_band_bytes(plan, itemsize):
+    """The bytes of the Pallas contract: the whole dense band, x and y."""
+    return (plan.nblk * plan.nb * plan.b * plan.b + 2 * plan.ndof) * itemsize
 
 
 def fmt_times(r):
@@ -529,12 +555,16 @@ def phase_ops(torch, dev, large):
     from vf_fem_tpu_torch import ops, yardsticks
     from vf_fem_tpu_torch.fem import assembly
     from vf_fem_tpu_torch.mesh import load_gmsh
+    from vf_fem_tpu_torch.ops import kernels
     from vf_fem_tpu_torch.solvers import bsb
 
     model = large
     op = rest_operator(torch, model, 500.0)
     plan, fill = model.solid.bsb_plan()
     blocks64 = bsb.bsb_fill(plan, fill, [op.J_cells, op.J_facets])
+    pattern = fill.pattern
+    host_pattern = bsb.matvec_pattern(plan)
+    max_row = int(np.diff(host_pattern.ptr).max())
     ndof = model.solid.ndof
     m5 = load_gmsh(os.path.join(REPO, "meshes", "M5_3layers.msh"))
     m5_dofs = torch.as_tensor(assembly.cell_dof_array(m5.cells, 2), device=dev)
@@ -574,18 +604,29 @@ def phase_ops(torch, dev, large):
                 ((J.numel() + x.numel() + ne * nld) * es + d.numel() * 8,
                  2 * J.numel(), tag))
         x = t["x"]
-        csr = yardsticks.bsb_csr(plan, blocks)
-        results[("bsb_matvec", "23.7k", tag)] = check_op(
+        csr = yardsticks.bsb_csr(plan, blocks, pattern)
+        work = bsb_work(pattern, ndof, es)
+        results[("bsb_matvec", "23.7k", tag)] = r = check_op(
             torch, f"ops bsb_matvec {tag}",
-            lambda: (ops.bsb_matvec(plan, blocks, x),),
+            lambda: (ops.bsb_matvec(plan, blocks, x, pattern),),
             lambda: (ops.bsb_matvec_reference(plan, blocks, x),),
             lambda: (ops.dot_order_bound(
                 ops.bsb_matvec_reference(plan, blocks.abs(), x.abs()),
                 plan.nb * plan.b),),
-            rtol, ((blocks.numel() + 2 * ndof) * es, 2 * blocks.numel(), tag),
+            rtol, (*work, tag),
             lib=lambda: (yardsticks.csr_mm(csr, x).reshape(-1),))
-        log(f"[ops] bsb_matvec {tag}: the band holds {blocks.numel()} entries,"
-            f" {csr.values().numel()} of them nonzero")
+        emul = emulate_bsb(plan, host_pattern, blocks.cpu().numpy(), x.cpu().numpy(),
+                           kernels.BSB_LANES)
+        y = ops.bsb_matvec(plan, blocks, x, pattern).cpu().numpy()
+        require(np.array_equal(y, emul), f"ops bsb_matvec {tag}: not bit-equal to"
+                f" the CPU emulation ({int((y != emul).sum())} entries differ)")
+        band_ms, _ = bound_of(bsb_band_bytes(plan, es), 2 * blocks.numel(), tag)
+        nonzero = int(torch.count_nonzero(blocks))
+        log(f"[ops] bsb_matvec {tag}: the band holds {blocks.numel()} entries, the"
+            f" pattern {work[1] // 2} ({nonzero} of them nonzero), 1-{max_row} a row;"
+            f" bound from the pattern's bytes {work[0] / 1e6:.3f} MB, {r['bound_ms']:.6f} ms;"
+            f" the Pallas contract's bytes (the dense band) {bsb_band_bytes(plan, es) / 1e6:.3f}"
+            f" MB, {band_ms:.6f} ms; bit-equal to the CPU emulation")
         for label, vecs in (("23.7k", t["nm"]), ("M5", t["m5_nm"])):
             u1, u0, v0, a0 = vecs.unbind(0)
             results[("newmark", label, tag)] = check_op(
@@ -835,7 +876,36 @@ def phase_krylov(torch, card, models):
         log(f"[krylov] prod {ls}: f32 vs f64 final u max rel diff {rel:.3e}"
             f" (gate {f32_gate:.3e} = 10 x JAX CPU {gold['prod_f32_vs_f64']:.3e})")
         require(rel <= f32_gate, f"krylov prod {ls}: f32 run outside its gate")
+    bsb_profile(torch, card, models["float64"], times)
     return out
+
+
+def bsb_profile(torch, card, built, times):
+    """One ``torch.profiler`` pass of the production bsb f64 run (after the
+    runs above): K4's share of device busy and the idle share; then the ms
+    per BiCGStab iteration at the run's middle state."""
+    from vf_fem_tpu_torch import forward
+
+    model, state0, cs, prop = built
+    n_steps = len(times) - 1
+    params = {**PROD, "linear_solver": "bsb"}
+    traj = {}
+
+    def run():
+        traj.update(forward.integrate_pure(model, state0, cs, prop, times, params)[1])
+
+    prof = profile_run(torch, run, n_steps, "bsb_matvec_kernel")
+    require(prof["k_launches"] > 0, "bsb profile: no K4 kernel in the trace")
+    state = {k: v[n_steps // 2 - 1] for k, v in traj.items()}
+    prof["iter_ms"], prof["iters"] = krylov_iteration_ms(torch, built, state, params)
+    log(f"[krylov] profile prod bsb f64, {n_steps} steps: {prof['per_step']:.1f} device"
+        f" kernels per step, device busy {prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f}"
+        f" ms profiled wall, idle share {prof['idle']:.3f}; K4 {prof['k_ms']:.3f} ms"
+        f" ({prof['k_ms'] / prof['busy_ms']:.1%} of busy) in {prof['k_launches']} launches"
+        f" ({prof['k_ms'] / prof['k_launches'] * 1e3:.2f} us each); at step {n_steps // 2}"
+        f" a solve takes {prof['iters']} BiCGStab iterations, {prof['iter_ms']:.4f} ms each"
+        f" (CUDA events), on {card}")
+    log(prof["table"])
 
 
 def step_split(torch, built, state, params, n_steps, step_ms):
@@ -869,10 +939,11 @@ def step_split(torch, built, state, params, n_steps, step_ms):
     return split, detail
 
 
-def profile_run(torch, run, n_steps):
+def profile_run(torch, run, n_steps, kernel):
     """One run under ``torch.profiler``: device kernels per step, device
     busy time (the table's "Self CUDA time total": device events' self
-    time) and the idle share of the profiled wall time."""
+    time), the idle share of the profiled wall time, and the device time
+    and launches of the kernels whose name holds ``kernel``."""
     import time
 
     from torch.autograd import DeviceType
@@ -888,12 +959,33 @@ def profile_run(torch, run, n_steps):
                   and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
     n_dev = sum(e.count for e in dev_events)
-    k6 = [e for e in dev_events if "btd_sweep_kernel" in e.key]
-    k6_ms = sum(e.self_device_time_total for e in k6) / 1e3
+    mine = [e for e in dev_events if kernel in e.key]
+    k_ms = sum(e.self_device_time_total for e in mine) / 1e3
     table = ka.table(sort_by="self_cuda_time_total", row_limit=12)
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle=1 - busy_ms / wall_ms,
-                per_step=n_dev / n_steps, k6_ms=k6_ms, k6_launches=sum(e.count for e in k6),
+                per_step=n_dev / n_steps, k_ms=k_ms, k_launches=sum(e.count for e in mine),
                 table=table)
+
+
+def krylov_iteration_ms(torch, built, state, params, reps=5):
+    """ms per BiCGStab iteration at ``state``: the solve of the Newton
+    residual at the predictor with the factors there, by CUDA events over
+    ``reps`` solves, over the iterations of one solve; returns (ms per
+    iteration, iterations a solve)."""
+    from vf_fem_tpu_torch.convert import to_tensors
+    from vf_fem_tpu_torch.models.transient import solver_params
+
+    model, _, _, prop = built
+    solid = model.solid
+    pd = solver_params(params)
+    s0, ctrl, sprop = model._solid_inputs(state, to_tensors(prop, model.device, model.dtype))
+    r = solid.res_u(solid._predictor(s0, DT), s0, ctrl, sprop, DT, solid.use_banded(pd))
+    fac = solid.factorize(s0, ctrl, sprop, DT, pd)
+    before = solid.krylov_counts["iterations"]
+    solid.solve_factors(fac, r, pd)
+    iters = solid.krylov_counts["iterations"] - before
+    solve_ms = cuda_ms(torch, lambda: solid.solve_factors(fac, r, pd), reps, 1)
+    return solve_ms / max(iters, 1), iters
 
 
 def phase_btd(torch, card, models):
@@ -982,13 +1074,13 @@ def phase_btd(torch, card, models):
 
     model, state0, cs, prop = models["float64"]
     prof = profile_run(torch, lambda: forward.integrate_pure(
-        model, state0, cs, prop, times, BTD_PROD), n_steps)
+        model, state0, cs, prop, times, BTD_PROD), n_steps, "btd_sweep_kernel")
     log(f"[btd] profile prod f64, {n_steps} steps: {prof['per_step']:.1f} device kernels"
         f" per step, device busy {prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms"
-        f" profiled wall, idle share {prof['idle']:.3f}; K6 {prof['k6_ms']:.3f} ms"
-        f" ({prof['k6_ms'] / prof['busy_ms']:.1%} of busy) in {prof['k6_launches']} launches"
-        f" ({prof['k6_ms'] / max(prof['k6_launches'], 1) * 1e3:.1f} us each), on {card}")
-    require(prof["k6_launches"] > 0, "btd profile: no K6 kernel in the trace")
+        f" profiled wall, idle share {prof['idle']:.3f}; K6 {prof['k_ms']:.3f} ms"
+        f" ({prof['k_ms'] / prof['busy_ms']:.1%} of busy) in {prof['k_launches']} launches"
+        f" ({prof['k_ms'] / max(prof['k_launches'], 1) * 1e3:.1f} us each), on {card}")
+    require(prof["k_launches"] > 0, "btd profile: no K6 kernel in the trace")
     log(prof["table"])
     out["profile"] = {k: v for k, v in prof.items() if k != "table"}
     return out

@@ -23,7 +23,15 @@ row-block width K6 is built for (128, 256, 384, 512), 93 row blocks:
 factors and right-hand sides from a seed, the factors scaled by
 0.5/sqrt(Bt) so that the recurrence stays bounded.  Each process prints the
 SHA-256 of each sweep's output bytes, so that equal digests show two
-kernels bit-equal; the sweeps at the 23.7k shapes (Bt = 256) are timed.
+kernels bit-equal; the sweeps at the 23.7k shapes (Bt = 256) are timed;
+
+K4 ``ops.bsb_matvec`` at 23.7k dofs, f64 and f32, on the model's
+block-banded Jacobian at rest under 500 Ba (the fill of ``chip_smoke.py``
+phase 3), with the checkout's own plan and, where the checkout has one,
+its matvec pattern; then the production bsb f64 run of ``chip_smoke.py``
+phase 6 (20 steps after a warm-up run) under ``torch.profiler``: K4's
+device time and share of device busy, the idle share, and the ms per
+BiCGStab iteration at the run's middle state.
 
 Each time is taken two ways by CUDA events: the eager call (200 calls
 after 20 warm-up calls) and the device time (200 calls captured in one CUDA
@@ -47,12 +55,16 @@ def child(root):
     import torch
 
     sys.path.insert(0, HERE)
-    from chip_smoke import cuda_ms, graph_ms  # this checkout's timers
+    # this checkout's timers and drivers; they import the port when called
+    from chip_smoke import (LARGE_MESH, PROD, build, cuda_ms, graph_ms,
+                            krylov_iteration_ms, profile_run, rest_operator)
 
     sys.path.insert(0, root)  # the port of the checkout under test
     from vf_fem_tpu_torch import config, ops  # noqa: E402
+    from vf_fem_tpu_torch import forward  # noqa: E402
     from vf_fem_tpu_torch.fem import banded  # noqa: E402
     from vf_fem_tpu_torch.mesh import load_gmsh  # noqa: E402
+    from vf_fem_tpu_torch.solvers import bsb  # noqa: E402
 
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device")
@@ -87,6 +99,35 @@ def child(root):
                 out[key] = dict(sha256=hashlib.sha256(y.tobytes()).hexdigest())
                 if bt == 256:
                     out[key].update(ms=cuda_ms(torch, fn), device_ms=graph_ms(torch, fn))
+
+    built = build(torch, dev, LARGE_MESH, torch.float64)
+    model, state0, cs, prop = built
+    op = rest_operator(torch, model, 500.0)
+    plan, fill = model.solid.bsb_plan()
+    blocks64 = bsb.bsb_fill(plan, fill, [op.J_cells, op.J_facets])
+    pattern = () if getattr(fill, "pattern", None) is None else (fill.pattern,)
+    x64 = rng.standard_normal(plan.ndof)
+    for dtype in (torch.float64, torch.float32):
+        B, x = blocks64.to(dtype), torch.tensor(x64, dtype=dtype, device=dev)
+        fn = lambda: ops.bsb_matvec(plan, B, x, *pattern)
+        out[f"bsb_matvec {str(dtype).replace('torch.', '')}"] = dict(
+            ms=cuda_ms(torch, fn), device_ms=graph_ms(torch, fn))
+    times = np.load(os.path.join(HERE, "tests", "data", "golden_large_bsb_explicit.npz"))["times"]
+    params = {**PROD, "linear_solver": "bsb"}
+    traj = {}
+
+    def run():
+        traj.update(forward.integrate_pure(model, state0, cs, prop, times, params)[1])
+
+    run()  # warm-up
+    n_steps = len(times) - 1
+    prof = profile_run(torch, run, n_steps, "bsb_matvec_kernel")
+    state = {k: v[n_steps // 2 - 1] for k, v in traj.items()}
+    iter_ms, iters = krylov_iteration_ms(torch, built, state, params)
+    out["bsb prod f64 profile"] = dict(
+        k4_ms=prof["k_ms"], k4_launches=prof["k_launches"], busy_ms=prof["busy_ms"],
+        k4_share=prof["k_ms"] / prof["busy_ms"], idle=prof["idle"], wall_ms=prof["wall_ms"],
+        iter_ms=iter_ms, iters=iters)
     torch.cuda.synchronize()
     print(json.dumps(out), flush=True)
 
@@ -116,6 +157,9 @@ def main():
         print(which + ": " + ", ".join(
             k + (f" call {v['ms']:.6f} device {v['device_ms']:.6f} ms" if "ms" in v else "")
             + (f" sha256 {v['sha256'][:16]}" if "sha256" in v else "")
+            + (f" K4 {v['k4_ms']:.3f} ms in {v['k4_launches']} launches, {v['k4_share']:.1%}"
+               f" of busy {v['busy_ms']:.3f} ms, idle {v['idle']:.3f}, {v['iter_ms']:.4f} ms"
+               f" per BiCGStab iteration ({v['iters']} a solve)" if "k4_ms" in v else "")
             for k, v in res.items() if isinstance(v, dict)), flush=True)
     same = {k: len({r[k]["sha256"] for r in runs}) == 1
             for k, v in runs[0].items() if isinstance(v, dict) and "sha256" in v}

@@ -1,0 +1,44 @@
+"""
+A numpy emulation of K4's summation order (``csrc/ops.cu``:
+``bsb_matvec_kernel``), for the CPU tests and, on the card, as the kernel's
+bit-level reference.
+
+Row ``r`` of ``y`` sums the products of its pattern entries (CSR order,
+columns ascending) over ``lanes`` lanes: lane ``l`` adds the products of
+entries ``l, l + lanes, l + 2 lanes, ...`` in that order to a sum that
+starts at +0, then the lanes' sums meet in the kernel's xor tree (``d =
+lanes/2, ..., 1``: every lane adds lane ``l ^ d``'s sum).  Each product and
+each sum is rounded once in the working type, as the kernel's ``_rn``
+intrinsics round them.  A lane with fewer entries adds +0 here, which
+changes no sum: a round-to-nearest sum that starts at +0 is never -0.
+"""
+
+import numpy as np
+
+
+def emulate_bsb_matvec(plan, pattern, blocks: np.ndarray, x: np.ndarray,
+                       lanes: int) -> np.ndarray:
+    """K4's ``y`` for ``blocks`` (nblk, nb, b, b) and ``x`` (ndof,) of one
+    float dtype, with ``pattern`` (``solvers.bsb.MatvecPattern``, numpy or
+    CPU tensors) and ``lanes`` lanes a row."""
+    dtype = x.dtype
+    b, ndof = plan.b, plan.ndof
+    ptr = np.asarray(pattern.ptr, dtype=np.int64)
+    off = np.asarray(pattern.off, dtype=np.int64)
+    rows = np.repeat(np.arange(ndof), ptr[1:] - ptr[:-1])
+    n = rows // b
+    cols = (n + off // (b * b) - plan.h) * b + off % b
+    prod = blocks.reshape(plan.nblk, -1)[n, off] * x[cols]
+    pos = np.arange(off.size) - ptr[rows]
+    steps = int(pos.max()) // lanes + 1 if off.size else 0
+    P = np.zeros((ndof, lanes, steps), dtype=dtype)
+    P[rows, pos % lanes, pos // lanes] = prod
+    acc = np.zeros((ndof, lanes), dtype=dtype)
+    for s in range(steps):
+        acc = acc + P[:, :, s]
+    lane = np.arange(lanes)
+    d = lanes // 2
+    while d:
+        acc = acc + acc[:, lane ^ d]
+        d //= 2
+    return acc[:, 0]

@@ -16,7 +16,9 @@ from vf_fem_tpu_torch import config, forward, ops
 from vf_fem_tpu_torch.fem import banded
 from vf_fem_tpu_torch.mesh import load_gmsh
 from vf_fem_tpu_torch.ops import kernels
+from vf_fem_tpu_torch.solvers import bsb
 
+from bsb_emulation import emulate_bsb_matvec
 from port_fixtures import (
     M5_PROPS, MESHES, assert_scatter_close, port_inputs, port_vf_model,
 )
@@ -143,12 +145,13 @@ def large_operator(large_f64):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_ops_kernels_match_plain(large_operator, dtype):
+def test_ops_kernels_match_plain(large_f64, large_operator, dtype):
     """K3 (cells and facets), K4 and K5 against their plain versions on
     the card: rtol 1e-13 (f64) / 1e-6 (f32) per entry or within the
     summation-order bound of the dot products (``ops.dot_order_bound``);
     K5 rounds every operation as the plain version does."""
     op, plan, blocks = large_operator
+    pattern = large_f64.solid.bsb_plan()[1].pattern
     dev = blocks.device
     rtol = 1e-13 if dtype == torch.float64 else 1e-6
     rng = np.random.default_rng(0)
@@ -163,7 +166,7 @@ def test_ops_kernels_match_plain(large_operator, dtype):
     B = blocks.to(dtype)
     bound = ops.dot_order_bound(
         ops.bsb_matvec_reference(plan, B.abs(), x.abs()), plan.nb * plan.b)
-    assert_scatter_close(ops.bsb_matvec(plan, B, x),
+    assert_scatter_close(ops.bsb_matvec(plan, B, x, pattern),
                          ops.bsb_matvec_reference(plan, B, x), bound, rtol)
     u1, u0, v0, a0 = (torch.tensor(rng.standard_normal(plan.ndof),
                                    dtype=dtype, device=dev) for _ in range(4))
@@ -176,15 +179,60 @@ def test_ops_kernels_match_plain(large_operator, dtype):
     assert ops.LAUNCHES["newmark"] == n0["newmark"] + 1
 
 
-def test_ops_wrappers_reject_bad_input(large_operator):
+def test_ops_wrappers_reject_bad_input(large_f64, large_operator):
     op, plan, blocks = large_operator
+    pattern = large_f64.solid.bsb_plan()[1].pattern
     x = torch.zeros(plan.ndof, dtype=torch.float64, device=blocks.device)
+    n0 = ops.LAUNCHES["bsb_matvec"]
     with pytest.raises(ValueError, match="contiguous"):
-        ops.bsb_matvec(plan, blocks.transpose(2, 3), x)
+        ops.bsb_matvec(plan, blocks.transpose(2, 3), x, pattern)
     with pytest.raises(ValueError, match="tensors on"):
-        ops.bsb_matvec(plan, blocks, x.cpu())
+        ops.bsb_matvec(plan, blocks, x.cpu(), pattern)
+    # K4 has no dense-band fallback: without the pattern it raises
+    with pytest.raises(ValueError, match="pattern"):
+        ops.bsb_matvec(plan, blocks, x)
+    with pytest.raises(ValueError, match="pattern.ptr"):
+        ops.bsb_matvec(plan, blocks, x, pattern._replace(ptr=pattern.ptr.long()))
+    with pytest.raises(ValueError, match="aligned"):
+        ops.bsb_matvec(plan, blocks, torch.zeros(plan.ndof + 1, dtype=x.dtype,
+                                                 device=x.device)[1:], pattern)
+    # a launch the card refuses (an x window past the shared memory) raises
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kernels._bsb_launch(plan._replace(nb=401), blocks, x, pattern)
+    assert ops.LAUNCHES["bsb_matvec"] == n0
     with pytest.raises(TypeError):
         ops.ebe_matvec(op.J_cells.float(), x, op.cell_dofs)
+
+
+def _k4_fills(large_f64, large_operator):
+    """The 23.7k model's own block-banded Jacobian and one filled from
+    random element Jacobians, with the plan and its pattern."""
+    _, plan, blocks = large_operator
+    _, fill = large_f64.solid.bsb_plan()
+    rng = np.random.default_rng(5)
+    src = torch.tensor(rng.standard_normal(plan.tgt_idx.size), device=blocks.device)
+    return plan, fill.pattern, {"model": blocks, "random": bsb.bsb_fill(plan, fill, [src])}
+
+
+@pytest.mark.parametrize("fill", ["model", "random"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_bsb_matvec_is_its_emulation(large_f64, large_operator, fill, dtype):
+    """K4 at 23.7k, on the model's fill and on a fill from random element
+    Jacobians: bit for bit the CPU emulation of its order
+    (``tests/bsb_emulation.py``) and within rtol 1e-13 / 1e-6 plus the
+    dot-product order bound of the plain (dense-band) version."""
+    plan, pattern, fills = _k4_fills(large_f64, large_operator)
+    B = fills[fill].to(dtype)
+    x = torch.tensor(np.random.default_rng(6).standard_normal(plan.ndof), dtype=dtype,
+                     device=B.device)
+    y = ops.bsb_matvec(plan, B, x, pattern)
+    emul = emulate_bsb_matvec(plan, bsb.matvec_pattern(plan), B.cpu().numpy(),
+                              x.cpu().numpy(), kernels.BSB_LANES)
+    assert np.array_equal(y.cpu().numpy(), emul)
+    bound = ops.dot_order_bound(ops.bsb_matvec_reference(plan, B.abs(), x.abs()),
+                                plan.nb * plan.b)
+    assert_scatter_close(y, ops.bsb_matvec_reference(plan, B, x), bound,
+                         1e-13 if dtype == torch.float64 else 1e-6)
 
 
 def test_tight_bsb_matches_large_golden(large_f64):

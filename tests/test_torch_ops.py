@@ -151,7 +151,7 @@ def test_dot_order_bound_covers_reordering():
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_bsb_csr_mm_is_the_matvec(dtype):
     """K4's library equivalent: ``sparse.mm`` on the CSR matrix of the
-    band's nonzero entries matches the plain matvec within the dot-product
+    plan's matvec pattern matches the plain matvec within the dot-product
     order bound (a ragged tail and exact zeros in the band included)."""
     from vf_fem_tpu_torch import yardsticks
 
@@ -159,8 +159,19 @@ def test_bsb_csr_mm_is_the_matvec(dtype):
     _, tplan = _synthetic_plan(4, 2, 4 * 128 - 100)
     blocks = rng.standard_normal((4, 5, 128, 128)).astype(dtype)
     blocks[rng.random(blocks.shape) < 0.7] = 0.0
+    n, m, i, j = np.indices(blocks.shape)
+    col = (n + m - 2) * 128 + j
+    inside = (n * 128 + i < tplan.ndof) & (col >= 0) & (col < tplan.ndof)
+    blocks[~inside] = 0.0
+    # a pattern of the band's nonzeros and some of its zeros
+    extra = inside & (rng.random(blocks.shape) < 0.01)
+    tgt = np.flatnonzero((blocks != 0) | extra).astype(np.int32)
+    tplan = tplan._replace(tgt_idx=tgt, src_keep=np.ones(tgt.size, bool))
+    pattern = tbsb.MatvecPattern(*map(torch.as_tensor, tbsb.matvec_pattern(tplan)))
     B, x = _t(blocks), _t(rng.standard_normal(tplan.ndof).astype(dtype))
-    out = yardsticks.csr_mm(yardsticks.bsb_csr(tplan, B), x).reshape(-1)
+    csr = yardsticks.bsb_csr(tplan, B, pattern)
+    assert csr.values().numel() == tgt.size
+    out = yardsticks.csr_mm(csr, x).reshape(-1)
     ref = ops.bsb_matvec_reference(tplan, B, x)
     bound = ops.dot_order_bound(
         ops.bsb_matvec_reference(tplan, B.abs(), x.abs()), tplan.nb * 128)

@@ -14,14 +14,30 @@
 // launch dominates.
 //
 // K4 replaces vf_fem_tpu/ops/pallas_kernels.py:_bsb_matvec_kernel.  The
-// TPU kernel keeps the whole padded x in VMEM and streams tiles of block
-// rows through the MXU.  Here one CTA owns one block row n: it loads its
-// x window (nb * 128 values, zero outside [0, ndof)) into shared memory, so
-// no padded copy of x is built in HBM, and one warp per output row i reads
-// blocks[n, m, i, :] along j (coalesced) and reduces across the warp with
-// xor shuffles in a fixed order.  Bound: bytes.  Each call streams the
-// block array once (nblk * nb * 128^2 values: 122 MB in f64 at 23.7k dofs,
-// ~36 us at 3.35 TB/s); x and y are a few hundred KB.
+// TPU kernel keeps the whole padded x in VMEM and streams every dense
+// 128 x 128 block of the band through the MXU.  The band is almost all
+// zeros: at 23.7k dofs, 326,410 of its 15,237,120 entries can be nonzero
+// (2x2 vertex blocks, 1-18 a row), so streaming it (122 MB in f64) costs
+// 28x the bytes the product needs.  Here the kernel reads only the plan's
+// pattern (solvers/bsb.py: MatvecPattern), CSR by output row, each entry an
+// int32 offset into its block row's band that gives both the value's
+// address and x's column.  Bound: bytes, nnz * (sizeof(T) + 4) + (ndof + 1)
+// * 4 + 2 * ndof * sizeof(T): 4.39 MB in f64 at 23.7k, 1.31 us at 3.35 TB/s.
+// The values lie 16 B to a 32 B sector (a vertex block's two rows are two
+// band rows apart), so the bytes the card moves are about twice that.
+//
+// One CTA owns 64 consecutive rows (they lie in one block row n) and stages
+// x's window of that block row, columns [(n - h) * 128, (n + h + 1) * 128),
+// zero outside [0, ndof), in shared memory: one cp.async.bulk (TMA 1-D) on
+// an mbarrier for its 16-byte aligned part, plain loads for the rest.  A
+// group of G = 4 lanes owns a row: lane l takes the row's entries l, l + G,
+// l + 2G, ... (its offsets and band values are loaded into registers before
+// the wait for the window), sums their products in that order, and the G
+// partial sums meet in a fixed xor tree; lane 0 writes y once.  No atomics;
+// every product and sum is rounded separately (_rn: no FMA contraction), so
+// tests/bsb_emulation.py reproduces it bit for bit.  64 rows and 4 lanes
+// with the bulk copy were the fastest of 32/64/128 rows, 4/8 lanes and the
+// window by bulk copy or by plain loads on an H100 (PERF.md section 6).
 //
 // K5 replaces vf_fem_tpu/ops/pallas_kernels.py:_newmark_kernel.  One thread
 // per entry reads u1, u0, v0, a0 and writes v1, a1; (dt, gamma, beta) come
@@ -33,11 +49,18 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBsbThreads = 512;  // 16 warps per block row
-constexpr int kBsbB = 128;        // block size of the block-banded plan
+constexpr int kBsbB = 128;     // block size of the block-banded plan
+constexpr int kBsbTile = 64;   // rows a K4 CTA
+constexpr int kBsbLanes = 4;   // lanes a row (ops.kernels.BSB_LANES)
+constexpr int kBsbRegs = 8;    // entries a K4 lane holds in registers a pass
+constexpr int kBsbShift = 14;  // log2(kBsbB * kBsbB): an offset's block column
+static_assert(1 << kBsbShift == kBsbB * kBsbB && kBsbB % kBsbTile == 0,
+              "B must be 128, a CTA's rows within one block row");
 
 template <typename T>
 __global__ void ebe_matvec_kernel(const T* __restrict__ J,
@@ -55,42 +78,6 @@ __global__ void ebe_matvec_kernel(const T* __restrict__ J,
   y[t] = acc;
 }
 
-// y[n*B + i] = sum_m sum_j blocks[n, m, i, j] * x[(n - h + m)*B + j]
-template <typename T>
-__global__ void bsb_matvec_kernel(const T* __restrict__ blocks,
-                                  const T* __restrict__ x,
-                                  T* __restrict__ y, int ndof, int nb,
-                                  int h) {
-  extern __shared__ unsigned char smem_raw[];
-  T* xw = reinterpret_cast<T*>(smem_raw);  // (nb * B,) x window
-  const int n = blockIdx.x;
-  const long long c0 = static_cast<long long>(n - h) * kBsbB;
-  for (int k = threadIdx.x; k < nb * kBsbB; k += blockDim.x) {
-    long long c = c0 + k;
-    xw[k] = (c >= 0 && c < ndof) ? x[c] : T(0);
-  }
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const T* bn = blocks + static_cast<long long>(n) * nb * kBsbB * kBsbB;
-  for (int i = warp; i < kBsbB; i += nwarps) {
-    T acc = T(0);
-    for (int m = 0; m < nb; ++m) {
-      const T* row = bn + (static_cast<long long>(m) * kBsbB + i) * kBsbB;
-      const T* xm = xw + m * kBsbB;
-#pragma unroll
-      for (int j = lane; j < kBsbB; j += 32) acc += row[j] * xm[j];
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    long long r = static_cast<long long>(n) * kBsbB + i;
-    if (lane == 0 && r < ndof) y[r] = acc;
-  }
-}
-
 __device__ __forceinline__ double mul_rn(double a, double b) {
   return __dmul_rn(a, b);
 }
@@ -102,6 +89,112 @@ __device__ __forceinline__ float mul_rn(float a, float b) {
 }
 __device__ __forceinline__ float sub_rn(float a, float b) {
   return __fsub_rn(a, b);
+}
+
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// K4's window lands on one mbarrier, used for one phase a launch
+__device__ __forceinline__ void bulk_stage(void* dst, const void* src,
+                                           unsigned bytes, uint64_t* bar) {
+  const unsigned b = smem_addr(bar);
+  asm volatile(
+      "mbarrier.init.shared::cta.b64 [%0], %1;\n"
+      "fence.mbarrier_init.release.cluster;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %2;\n" ::"r"(b),
+      "r"(1u), "r"(bytes)
+      : "memory");
+  if (bytes > 0)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+        "l"(src), "r"(bytes), "r"(b)
+        : "memory");
+}
+
+__device__ __forceinline__ void wait_first_phase(uint64_t* bar) {
+  const unsigned addr = smem_addr(bar);
+  unsigned ok = 0;
+  while (!ok) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok)
+        : "r"(addr)
+        : "memory");
+  }
+}
+
+// y[r] = sum over the pattern's entries k of row r (in CSR order) of
+// band_n[off[k]] * x[(n + m - h) * B + q], n = r / B, m = off[k] / B^2,
+// q = off[k] % B, band_n = blocks + n * nb * B^2.
+template <typename T>
+__global__ void __launch_bounds__(kBsbTile * kBsbLanes)
+    bsb_matvec_kernel(const T* __restrict__ blocks, const T* __restrict__ x,
+                      const int* __restrict__ ptr, const int* __restrict__ off,
+                      T* __restrict__ y, int ndof, int nb, int h) {
+  constexpr int G = kBsbLanes;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  T* xw = reinterpret_cast<T*>(smem + 16);  // (nb * B,) x window
+  const int r0 = blockIdx.x * kBsbTile;
+  const int n = r0 / kBsbB;
+  const int c0 = (n - h) * kBsbB;  // the window's first column (may be < 0)
+  const int wlen = nb * kBsbB;
+  const int lo = max(c0, 0);
+  const int hi = min(c0 + wlen, ndof);  // columns [lo, hi) are in x
+  // [lo, lo + nbulk) by one bulk copy (lo is a multiple of B, so both ends
+  // are 16-byte aligned given an aligned x); the rest by loads
+  constexpr int kVec = 16 / sizeof(T);
+  const int nbulk = (hi - lo) / kVec * kVec;
+  if (threadIdx.x == 0) bulk_stage(xw + (lo - c0), x + lo, nbulk * sizeof(T), bar);
+  for (int k = threadIdx.x; k < wlen; k += blockDim.x) {
+    const int c = c0 + k;
+    if (c < lo || c >= lo + nbulk) xw[k] = c < hi && c >= lo ? __ldg(x + c) : T(0);
+  }
+
+  const int row = r0 + static_cast<int>(threadIdx.x) / G;
+  const int lane = threadIdx.x % G;
+  int k0 = 0, k1 = 0;
+  if (row < ndof) {
+    k0 = __ldg(ptr + row) + lane;
+    k1 = __ldg(ptr + row + 1);
+  }
+  const T* band = blocks + static_cast<long long>(n) * nb * kBsbB * kBsbB;
+  // the lane's first kBsbRegs entries: offsets, then values, in flight
+  // while the window lands
+  int o[kBsbRegs];
+  T v[kBsbRegs];
+#pragma unroll
+  for (int s = 0; s < kBsbRegs; ++s)
+    o[s] = k0 + s * G < k1 ? __ldg(off + k0 + s * G) : -1;
+#pragma unroll
+  for (int s = 0; s < kBsbRegs; ++s) v[s] = o[s] >= 0 ? __ldg(band + o[s]) : T(0);
+  __syncthreads();
+  wait_first_phase(bar);
+
+  T acc = T(0);
+#pragma unroll
+  for (int s = 0; s < kBsbRegs; ++s)
+    if (o[s] >= 0)
+      acc = add_rn(acc, mul_rn(v[s], xw[(o[s] >> kBsbShift) * kBsbB + (o[s] & (kBsbB - 1))]));
+  for (int k = k0 + kBsbRegs * G; k < k1; k += G) {  // rows longer than that
+    const int ok = __ldg(off + k);
+    acc = add_rn(acc, mul_rn(__ldg(band + ok), xw[(ok >> kBsbShift) * kBsbB + (ok & (kBsbB - 1))]));
+  }
+#pragma unroll
+  for (int d = G / 2; d > 0; d >>= 1)
+    acc = add_rn(acc, __shfl_xor_sync(0xffffffffu, acc, d, G));
+  if (lane == 0 && row < ndof) y[row] = acc;
 }
 
 // v1 = c1 (u1 - u0) - c2 v0 - c3 a0;  a1 = c4 ((u1 - u0) - dt v0) - c5 a0
@@ -147,19 +240,24 @@ int launch_ebe(const void* J, const void* x, const void* dofs, void* y,
 }
 
 template <typename T>
-int launch_bsb(const void* blocks, const void* x, void* y, int ndof,
-               int nblk, int nb, int h, void* stream) {
-  if (nblk == 0) return 0;
-  size_t smem = static_cast<size_t>(nb) * kBsbB * sizeof(T);
+int launch_bsb(const void* blocks, const void* x, const void* ptr,
+               const void* off, void* y, int ndof, int nb, int h,
+               void* stream) {
+  if (ndof == 0) return 0;
+  const size_t smem = 16 + static_cast<size_t>(nb) * kBsbB * sizeof(T);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         bsb_matvec_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it: the next launch's check reads it
+      return static_cast<int>(err);
+    }
   }
-  bsb_matvec_kernel<T><<<nblk, kBsbThreads, smem,
+  bsb_matvec_kernel<T><<<(ndof + kBsbTile - 1) / kBsbTile, kBsbTile * kBsbLanes, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(blocks), static_cast<const T*>(x),
+      static_cast<const int*>(ptr), static_cast<const int*>(off),
       static_cast<T*>(y), ndof, nb, h);
   return static_cast<int>(cudaGetLastError());
 }
@@ -192,14 +290,16 @@ int vf_ebe_matvec_f64(const void* J, const void* x, const void* dofs,
   return launch_ebe<double>(J, x, dofs, y, ne, nld, stream);
 }
 
-int vf_bsb_matvec_f32(const void* blocks, const void* x, void* y, int ndof,
-                      int nblk, int nb, int h, void* stream) {
-  return launch_bsb<float>(blocks, x, y, ndof, nblk, nb, h, stream);
+int vf_bsb_matvec_f32(const void* blocks, const void* x, const void* ptr,
+                      const void* off, void* y, int ndof, int nb, int h,
+                      void* stream) {
+  return launch_bsb<float>(blocks, x, ptr, off, y, ndof, nb, h, stream);
 }
 
-int vf_bsb_matvec_f64(const void* blocks, const void* x, void* y, int ndof,
-                      int nblk, int nb, int h, void* stream) {
-  return launch_bsb<double>(blocks, x, y, ndof, nblk, nb, h, stream);
+int vf_bsb_matvec_f64(const void* blocks, const void* x, const void* ptr,
+                      const void* off, void* y, int ndof, int nb, int h,
+                      void* stream) {
+  return launch_bsb<double>(blocks, x, ptr, off, y, ndof, nb, h, stream);
 }
 
 int vf_newmark_f32(const void* u1, const void* u0, const void* v0,

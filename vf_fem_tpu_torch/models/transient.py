@@ -317,10 +317,10 @@ class SolidModel:
         or PCG (``krylov='pcg'``)."""
         A, Dinv = factors
         if params_d.get("linear_solver") == "bsb":
-            plan = self.bsb_plan()[0]
+            plan, fill = self.bsb_plan()
 
             def matvec(v):
-                return ops.bsb_matvec(plan, A, v)
+                return ops.bsb_matvec(plan, A, v, fill.pattern)
         else:
             matvec = A.matvec
         solver = (linalg.pcg if params_d.get("krylov", "bicgstab") == "pcg"

@@ -46,6 +46,7 @@ __all__ = [
 LAUNCHES = {"ebe_matvec": 0, "bsb_matvec": 0, "newmark": 0, "btd_sweep": 0}
 
 BSB_BLOCK = 128  # the block size K4 is compiled for
+BSB_LANES = 4  # lanes a row of K4 (csrc/ops.cu: kBsbLanes), for its emulation
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,7 +55,7 @@ _D = ctypes.c_double
 _SIGNATURES = {}
 for _t in ("f32", "f64"):
     _SIGNATURES[f"vf_ebe_matvec_{_t}"] = [_P, _P, _P, _P, _I, _I, _P]
-    _SIGNATURES[f"vf_bsb_matvec_{_t}"] = [_P, _P, _P, _I, _I, _I, _I, _P]
+    _SIGNATURES[f"vf_bsb_matvec_{_t}"] = [_P] * 5 + [_I] * 3 + [_P]
     _SIGNATURES[f"vf_newmark_{_t}"] = [_P] * 6 + [_L, _D, _D, _D, _P]
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -154,9 +155,15 @@ def bsb_matvec_reference(plan, blocks: torch.Tensor,
     return y.reshape(-1)[: plan.ndof]
 
 
-def bsb_matvec(plan, blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def bsb_matvec(plan, blocks: torch.Tensor, x: torch.Tensor,
+               pattern=None) -> torch.Tensor:
     """Block-banded matvec ``y = A x`` of ``solvers.bsb`` (K4 on CUDA).
-    ``plan`` is a :class:`~vf_fem_tpu_torch.solvers.bsb.BSBPlan`."""
+    ``plan`` is a :class:`~vf_fem_tpu_torch.solvers.bsb.BSBPlan`;
+    ``pattern`` its :class:`~vf_fem_tpu_torch.solvers.bsb.MatvecPattern`
+    on the device (``fill_plan(plan, device).pattern``), outside which
+    ``blocks`` must be zero (as ``bsb_fill`` leaves it).  K4 reads only the
+    pattern's entries and raises without one; the plain version on the CPU
+    reads the whole band and ignores it."""
     _check("bsb_matvec", blocks, x)
     shape = (plan.nblk, plan.nb, plan.b, plan.b)
     if tuple(blocks.shape) != shape or tuple(x.shape) != (plan.ndof,):
@@ -166,12 +173,31 @@ def bsb_matvec(plan, blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         )
     if x.device.type == "cpu":
         return bsb_matvec_reference(plan, blocks, x)
+    return _bsb_launch(plan, blocks, x, pattern)
+
+
+def _bsb_launch(plan, blocks: torch.Tensor, x: torch.Tensor,
+                pattern) -> torch.Tensor:
+    """Launch K4 on CUDA tensors checked against ``plan``."""
+    if pattern is None:
+        raise ValueError("bsb_matvec: K4 needs the plan's matvec pattern"
+                         " (solvers.bsb.fill_plan(plan, device).pattern)")
     if plan.b != BSB_BLOCK:
         raise ValueError(f"bsb_matvec: kernel built for b={BSB_BLOCK}, plan"
                          f" has b={plan.b}")
+    ptr, off = pattern
+    for name, t, n in (("ptr", ptr, plan.ndof + 1), ("off", off, None)):
+        if (t.dtype != torch.int32 or t.device != x.device or t.dim() != 1
+                or not t.is_contiguous() or (n is not None and t.numel() != n)):
+            raise ValueError(f"bsb_matvec: pattern.{name} must be a contiguous"
+                             f" int32 vector on {x.device}"
+                             + ("" if n is None else f" of {n} entries"))
+    if x.data_ptr() % 16:
+        raise ValueError("bsb_matvec: x must be 16-byte aligned")
     y = torch.empty(plan.ndof, dtype=x.dtype, device=x.device)
     _launch("vf_bsb_matvec", x.dtype, blocks.data_ptr(), x.data_ptr(),
-            y.data_ptr(), plan.ndof, plan.nblk, plan.nb, plan.h, _stream(x))
+            ptr.data_ptr(), off.data_ptr(), y.data_ptr(), plan.ndof, plan.nb,
+            plan.h, _stream(x))
     LAUNCHES["bsb_matvec"] += 1
     return y
 

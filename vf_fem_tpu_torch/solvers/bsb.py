@@ -16,6 +16,11 @@ The block array is filled from the per-element Jacobian blocks by one
 scatter-add per refresh, through a :class:`~..fem.assembly.ScatterPlan`
 (deterministic: a fixed summation order on every device and run).  The
 plan is the JAX package's, with identical arrays.
+
+The band is almost all zeros (2.1% of it can be written at 23.7k dofs).
+``bsb_fill`` writes only the plan's targets and the Dirichlet ones, into
+an array that starts from zeros, so ``blocks`` is zero outside the
+:class:`MatvecPattern` of those entries, and K4 reads only them.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ import torch
 
 from ..fem.assembly import ScatterPlan
 
-__all__ = ["BSBPlan", "plan_bsb", "fill_plan", "bsb_fill"]
+__all__ = ["BSBPlan", "MatvecPattern", "plan_bsb", "matvec_pattern",
+           "fill_plan", "bsb_fill"]
 
 
 class BSBPlan(NamedTuple):
@@ -106,28 +112,66 @@ def plan_bsb(dofs_arrays: Sequence[np.ndarray], ndof: int, bc_dofs,
     )
 
 
+class MatvecPattern(NamedTuple):
+    """The entries :func:`bsb_fill` can write (``tgt_idx[src_keep]`` and
+    ``diag_ones``), by output row: CSR with columns ascending in each row.
+    Entry ``k`` of row ``r`` (block row ``n = r // b``) is stored as its
+    offset ``off[k]`` into the band of block row ``n``,
+    ``blocks[n].reshape(-1)``: ``off = (m b + r % b) b + q`` for block
+    column ``m`` and column ``q`` within it, so that its column is
+    ``(n + m - h) b + q``.  Host arrays from :func:`matvec_pattern`,
+    tensors on the device in :class:`DeviceFill`."""
+
+    ptr: np.ndarray  # (ndof + 1,) int32 row pointers
+    off: np.ndarray  # (nnz,) int32, below nb * b * b
+
+
+def matvec_pattern(plan: BSBPlan) -> MatvecPattern:
+    """K4's pattern of ``plan`` (host arrays)."""
+    b, nb = plan.b, plan.nb
+    flat = np.union1d(plan.tgt_idx[plan.src_keep].astype(np.int64),
+                      plan.diag_ones.astype(np.int64))
+    n, off = np.divmod(flat, nb * b * b)
+    m, rest = np.divmod(off, b * b)
+    i, q = np.divmod(rest, b)
+    rows = n * b + i
+    cols = (n + m - plan.h) * b + q
+    order = np.lexsort((cols, rows))
+    ptr = np.zeros(plan.ndof + 1, dtype=np.int64)
+    ptr[1:] = np.cumsum(np.bincount(rows, minlength=plan.ndof))
+    return MatvecPattern(ptr=ptr.astype(np.int32),
+                         off=off[order].astype(np.int32))
+
+
 class DeviceFill(NamedTuple):
-    """What :func:`bsb_fill` needs on the device."""
+    """What :func:`bsb_fill` needs on the device, and the pattern of what
+    it writes (K4's, as tensors)."""
 
     scatter: ScatterPlan  # element entries -> flat block array
     keep: torch.Tensor  # (n_src,) bool
     diag_ones: torch.Tensor  # (n_bc,) int64
+    pattern: MatvecPattern  # of torch tensors
 
 
 def fill_plan(plan: BSBPlan, device) -> DeviceFill:
     size = plan.nblk * plan.nb * plan.b * plan.b
+    pattern = matvec_pattern(plan)
     return DeviceFill(
         scatter=ScatterPlan(plan.tgt_idx[:, None], size, device),
         keep=torch.as_tensor(plan.src_keep, device=device),
         diag_ones=torch.as_tensor(plan.diag_ones.astype(np.int64),
                                   device=device),
+        pattern=MatvecPattern(*(torch.as_tensor(a, device=device)
+                                for a in pattern)),
     )
 
 
 def bsb_fill(plan: BSBPlan, fill: DeviceFill,
              J_list: Sequence[torch.Tensor]) -> torch.Tensor:
     """The block array (nblk, nb, b, b) from per-element Jacobian blocks
-    (in the order of the plan's dof arrays); Dirichlet rows get identity."""
+    (in the order of the plan's dof arrays); Dirichlet rows get identity.
+    It is zero outside ``fill.pattern``: the scatter starts from zeros and
+    writes only the plan's targets."""
     src = torch.cat([J.reshape(-1) for J in J_list
                      if J is not None and J.numel()])
     src = torch.where(fill.keep, src, 0.0)

@@ -10,7 +10,7 @@ call them.
   of ones built from the plan's own ``ptr``/``idx`` (the kernel's sums, in
   the kernel's order).
 - K4 (block-banded matvec) is one CSR SpMV: ``torch.sparse.mm`` on the
-  matrix's nonzero entries.
+  entries of the plan's matvec pattern, the ones K4 reads.
 - K3, K5 and K6 have none.
 
 ``LIBRARY_CALL`` names, for each kernel, its library call or why there is
@@ -35,7 +35,7 @@ __all__ = [
 LIBRARY_CALL = {
     "gather": "torch.index_select",
     "scatter": "torch.sparse.mm (CSR of ones)",
-    "bsb_matvec": "torch.sparse.mm (CSR of the nonzeros)",
+    "bsb_matvec": "torch.sparse.mm (CSR of the pattern)",
     "ebe_matvec": "none: it gathers x[dofs] before the batched product, two"
                   " calls at least",
     "newmark": "none: two outputs (v1, a1) from one pass",
@@ -93,20 +93,17 @@ def csr_mm(M: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.sparse.mm(M, x.reshape(-1, 1))
 
 
-def bsb_csr(plan, blocks: torch.Tensor) -> torch.Tensor:
+def bsb_csr(plan, blocks: torch.Tensor, pattern) -> torch.Tensor:
     """The block-banded matrix of ``solvers.bsb`` (blocks (nblk, nb, b, b))
-    as a CSR matrix (ndof, ndof) of its nonzero entries, rows in order and
-    columns ascending within each row."""
-    b, h = plan.b, plan.h
-    dev = blocks.device
-    # (n, r, m, q): row n b + r, column (n + m - h) b + q, ascending
-    B = blocks.permute(0, 2, 1, 3)
-    n, r, m, q = B.nonzero(as_tuple=True)
-    rows = n * b + r
-    cols = (n + m - h) * b + q
-    keep = (rows < plan.ndof) & (cols >= 0) & (cols < plan.ndof)
-    rows, cols = rows[keep], cols[keep]
-    vals = B[n[keep], r[keep], m[keep], q[keep]]
-    crow = torch.zeros(plan.ndof + 1, dtype=torch.long, device=dev)
-    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=plan.ndof), 0)
-    return torch.sparse_csr_tensor(crow, cols, vals, (plan.ndof, plan.ndof))
+    as a CSR matrix (ndof, ndof) of the entries of its matvec pattern
+    (``solvers.bsb.MatvecPattern``, on ``blocks``' device; zeros in it
+    included), rows in order and columns ascending within each row: the
+    entries K4 reads."""
+    b, h, bb = plan.b, plan.h, plan.b * plan.b
+    ptr, off = pattern.ptr.long(), pattern.off.long()
+    rows = torch.repeat_interleave(
+        torch.arange(plan.ndof, device=blocks.device), ptr[1:] - ptr[:-1])
+    n = rows // b
+    vals = blocks.reshape(plan.nblk, -1)[n, off]
+    cols = (n + off // bb - h) * b + off % b
+    return torch.sparse_csr_tensor(ptr, cols, vals, (plan.ndof, plan.ndof))
