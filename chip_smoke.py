@@ -17,14 +17,18 @@ runs, in order:
    card, on the 23.7k-dof model's Jacobian (and at M5 size for K3/K5), in
    f64 and f32; K4 also bit for bit against its CPU emulation
    (``tests/bsb_emulation.py``), with its bound counted from the plan's
-   matvec pattern beside the dense band's;
+   matvec pattern beside the dense band's; K5's three outputs (v1, a1 and
+   the next step's predictor) bit for bit, eagerly, in a CUDA-graph replay
+   and at an odd length, on unaligned views and with another predictor
+   step;
 4. golden: the explicit-FSI M5_CB_GA3 trajectory in f64 with the default
    solver parameters (banded assembly) against
    ``tests/data/golden_m5cad_explicit.npz``;
 5. headline: the benchmark model of ``bench.py`` (M5-3layers, headline
    solver settings, 100 steps at dt = 1e-4) in f64 and f32, with steps/s,
    the launch counts of K1/K2/K5 in that run, and the f32-vs-f64
-   difference of the final displacement against its gate;
+   difference of the final displacement against its gate, then one
+   ``torch.profiler`` pass of the f64 run;
 6. krylov: the matrix-free Newton-Krylov path on the 23.7k-dof RCM mesh
    (same model): the tight f64 runs of ``linear_solver='bsb'`` and
    ``'cg'`` against ``tests/data/golden_large_bsb_explicit.npz``, then the
@@ -62,6 +66,10 @@ is the larger of its bytes (each input read once, each output written
 once) over the HBM rate and its operations over the peak rate of their
 type.  The ``kernels`` line before the last carries all of it, with each
 kernel's launches per step on the main-path runs (phases 5 and 7).
+
+Phases 5-7 print each production run's Newmark predictors, taken from
+K5's output or formed by four eager kernels, and each profile's device
+kernels a step beside an earlier figure (PERF.md section 5).
 
 Every phase raises on failure, so the script exits nonzero; on success its
 last line is ``{"ok": true, "device": {...}}``.
@@ -174,6 +182,9 @@ GOLDEN_LARGE_GATES = {
     for ls, a_gate in (("bsb", 5.405e-8), ("cg", 2.090e-7))
 }
 WARMUP, REPS = 20, 200
+# device kernels a step in earlier f64 profiles of each run (PERF.md
+# section 5), printed beside this run's
+EARLIER_PER_STEP = {"M5 headline": 826, "23.7k btd": 891.9, "23.7k bsb": 8655}
 # csrc/btd_exchange_probe.cu's entry points: (sink, n, bt, barrier, stream)
 PROBE_SIGNATURES = {f"vf_btd_exchange_probe_{t}": [ctypes.c_void_p] + [ctypes.c_int] * 3
                     + [ctypes.c_void_p] for t in ("bf16", "f64")}
@@ -441,6 +452,14 @@ def build(torch, dev, mesh_name, dtype):
     return model, state0, controls, model.prop
 
 
+def predictors(model):
+    """The solid's Newmark predictors since its last reset: taken from K5's
+    output or formed by four eager kernels (``SolidModel._predictor``)."""
+    counts = dict(model.solid.predictor_counts)
+    model.solid.predictor_counts.update(carried=0, formed=0)
+    return counts
+
+
 def require_launched(launches, names, what):
     idle = [k for k in names if launches[k] == 0]
     require(not idle, f"{what}: kernels {idle} not launched ({launches})")
@@ -482,6 +501,7 @@ def phase_headline(torch, dev, card):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         reset_launches()
+        model.solid.predictor_counts.update(carried=0, formed=0)
         start.record()
         fin, traj, infos = run()
         end.record()
@@ -498,6 +518,16 @@ def phase_headline(torch, dev, card):
             f" mean Newton rel_err {float(infos.rel_err.mean()):.3e} on {card}")
         out[tag] = dict(u=fin["u"].double().cpu().numpy(), steps_s=steps_s,
                         launches=launches)
+        log(f"[headline] {tag}: Newmark predictors {predictors(model)}")
+        if dtype != torch.float64:
+            continue
+        prof = profile_run(torch, run, N_STEPS, "newmark_kernel")
+        require(prof["k_launches"] > 0, "headline profile: no K5 kernel in the trace")
+        log(f"[headline] profile f64, {N_STEPS} steps: {prof['per_step']:.1f} device kernels"
+            f" per step (earlier: {EARLIER_PER_STEP['M5 headline']}), device busy"
+            f" {prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms profiled wall, idle share"
+            f" {prof['idle']:.3f}; K5 {prof['k_ms']:.3f} ms in {prof['k_launches']} launches,"
+            f" on {card}")
     u64, u32 = out["float64"]["u"], out["float32"]["u"]
     rel = float(np.abs(u32 - u64).max() / np.abs(u64).max())
     gate = 10 * JAX_CPU_F32_VS_F64
@@ -627,15 +657,11 @@ def phase_ops(torch, dev, large):
             f" bound from the pattern's bytes {work[0] / 1e6:.3f} MB, {r['bound_ms']:.6f} ms;"
             f" the Pallas contract's bytes (the dense band) {bsb_band_bytes(plan, es) / 1e6:.3f}"
             f" MB, {band_ms:.6f} ms; bit-equal to the CPU emulation")
-        for label, vecs in (("23.7k", t["nm"]), ("M5", t["m5_nm"])):
-            u1, u0, v0, a0 = vecs.unbind(0)
-            results[("newmark", label, tag)] = check_op(
-                torch, f"ops newmark {label} {tag}",
-                lambda: ops.newmark_update(u1, u0, v0, a0, 1e-4),
-                lambda: ops.newmark_update_reference(u1, u0, v0, a0, 1e-4),
-                None, rtol,
-                # four vectors in, two out; ~12 operations per entry
-                (6 * u1.numel() * es, 12 * u1.numel(), tag))
+        for label, key in (("23.7k", "nm"), ("M5", "m5_nm")):
+            # four vectors, each its own allocation as on the main path
+            vecs = [torch.tensor(v, dtype=dtype, device=dev) for v in host[key]]
+            results[("newmark", label, tag)] = newmark_op(torch, label, tag, vecs)
+        newmark_edges(torch, dev, dtype)
         for (kname, label, tg), r in results.items():
             if tg != tag:
                 continue
@@ -645,6 +671,81 @@ def phase_ops(torch, dev, large):
                 + ("" if r["lib_err"] is None else f", library max_abs_err {r['lib_err']:.3e}"))
     results.update(phase_ops_btd(torch, plan, blocks64))
     return results
+
+
+def newmark_work(n, itemsize):
+    """K5's (bytes, operations): u1, u0, v0, a0 in, v1, a1 and u_next out;
+    15 operations an entry (6 for v1, 5 more for a1, 4 for u_next)."""
+    return 7 * n * itemsize, 15 * n
+
+
+def newmark_equal(torch, what, args, dt=DT, dt_next=None):
+    """K5 on ``args`` (u1, u0, v0, a0) against its plain version: all three
+    outputs bit for bit; returns the kernel's outputs."""
+    from vf_fem_tpu_torch import ops
+
+    outs = ops.newmark_update(*args, dt, dt_next=dt_next)
+    refs = ops.newmark_update_reference(*args, dt, dt_next=dt_next)
+    torch.cuda.synchronize()
+    require(len(outs) == 3, f"{what}: K5 returned {len(outs)} outputs")
+    for name, out, ref in zip(("v1", "a1", "u_next"), outs, refs):
+        require(torch.equal(out, ref), f"{what}: K5's {name} not bit-equal to the plain"
+                f" version (max |diff| {(out - ref).abs().max().item():.3e})")
+    return outs
+
+
+def newmark_op(torch, label, tag, vecs):
+    """K5 at one size: bit-equal to its plain version, eagerly and replayed
+    in a CUDA graph (its programmatic dependent launch captured); then its
+    timing row (``measure``)."""
+    from vf_fem_tpu_torch import ops, yardsticks
+
+    what = f"ops newmark {label} {tag}"
+    newmark_equal(torch, what, vecs)
+    # one capture, replayed: the same bits as an eager launch
+    static = [v.clone() for v in vecs]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.newmark_update(*static, DT)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ops.newmark_update(*static, DT)
+    for v, w in zip(static, vecs):
+        v.copy_(w.flip(0))  # new inputs in place: the replay reads them
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = ops.newmark_update(*static, DT)
+    require(all(torch.equal(c, e) for c, e in zip(captured, eager)),
+            f"{what}: the CUDA-graph replay differs from the eager launch")
+    r = measure(torch, lambda: ops.newmark_update(*vecs, DT),
+                lambda: ops.newmark_update_reference(*vecs, DT))
+    n, es = vecs[0].numel(), vecs[0].element_size()
+    r.update(max_abs_err=0.0, lib_err=None, bytes=newmark_work(n, es)[0],
+             lib_call=yardsticks.LIBRARY_CALL["newmark"])
+    r["bound_ms"], r["bound_by"] = bound_of(*newmark_work(n, es), tag)
+    return r
+
+
+def newmark_edges(torch, dev, dtype):
+    """K5 bit-equal to its plain version off the main path's shapes: an odd
+    length, views that start off the 16-byte alignment (all four in one
+    phase, and in mixed phases: the scalar path), and a predictor of
+    another step than the update's."""
+    rng = np.random.default_rng(5)
+    tag = str(dtype).replace("torch.", "")
+    for n in (123, 960, 23_754):
+        host = rng.standard_normal((4, n + 3))
+        full = [torch.tensor(h, dtype=dtype, device=dev) for h in host]
+        newmark_equal(torch, f"newmark n={n} {tag}", [f[:n] for f in full])
+        newmark_equal(torch, f"newmark n={n} {tag} views at +1", [f[1:n + 1] for f in full])
+        newmark_equal(torch, f"newmark n={n} {tag} views at +1, +2, +3, +0",
+                      [f[k:n + k] for f, k in zip(full, (1, 2, 3, 0))])
+        newmark_equal(torch, f"newmark n={n} {tag} dt_next", [f[:n] for f in full],
+                      dt_next=0.75 * DT)
+    log(f"[ops] newmark {tag}: bit-equal to the plain version at n = 123, 960, 23754,"
+        " on views at +1 entry and at mixed phases, and with another predictor step")
 
 
 def sweep_double_rounding(torch, dev):
@@ -784,6 +885,7 @@ def run_timed(torch, model, run):
     events; returns (outputs, ms, launches, krylov counts)."""
     solid = model.solid
     solid.krylov_counts.update(solves=0, iterations=0)
+    solid.predictor_counts.update(carried=0, formed=0)
     reset_launches()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -864,7 +966,8 @@ def phase_krylov(torch, card, models):
                 require(bool(torch.isfinite(v).all()), f"krylov prod {ls} {tag}: non-finite {k}")
             finals[tag] = fin["u"].double().cpu().numpy()
             traj_err = rel_max(finals[tag], tight[ls])
-            log("[krylov] " + summary(f"prod {ls} {tag}", infos, ms, launches, kc))
+            log("[krylov] " + summary(f"prod {ls} {tag}", infos, ms, launches, kc)
+                + f"; Newmark predictors {predictors(models[tag][0])}")
             log(f"[krylov] prod {ls} {tag}: trajectory error vs the tight f64 run"
                 f" {traj_err:.3e} (f64 gate {traj_gate:.3e} = 10 x JAX CPU"
                 f" {gold['prod_traj_err']:.3e})")
@@ -899,8 +1002,8 @@ def bsb_profile(torch, card, built, times):
     state = {k: v[n_steps // 2 - 1] for k, v in traj.items()}
     prof["iter_ms"], prof["iters"] = krylov_iteration_ms(torch, built, state, params)
     log(f"[krylov] profile prod bsb f64, {n_steps} steps: {prof['per_step']:.1f} device"
-        f" kernels per step, device busy {prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f}"
-        f" ms profiled wall, idle share {prof['idle']:.3f}; K4 {prof['k_ms']:.3f} ms"
+        f" kernels per step (earlier: {EARLIER_PER_STEP['23.7k bsb']}), device busy"
+        f" {prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms profiled wall, idle share {prof['idle']:.3f}; K4 {prof['k_ms']:.3f} ms"
         f" ({prof['k_ms'] / prof['busy_ms']:.1%} of busy) in {prof['k_launches']} launches"
         f" ({prof['k_ms'] / prof['k_launches'] * 1e3:.2f} us each); at step {n_steps // 2}"
         f" a solve takes {prof['iters']} BiCGStab iterations, {prof['iter_ms']:.4f} ms each"
@@ -1036,6 +1139,7 @@ def phase_btd(torch, card, models):
         drive(tag, BTD_PROD)  # warm-up
         (fin, traj, infos), ms, launches, _ = drive(tag, BTD_PROD)
         solves = check_path(f"btd prod {tag}", launches, infos)
+        pred = predictors(models[tag][0])
         ndof = models[tag][0].solid.ndof
         require(tuple(traj["u"].shape) == (n_steps, ndof), "btd: bad shape")
         for k, v in traj.items():
@@ -1046,7 +1150,8 @@ def phase_btd(torch, card, models):
         log(f"[btd] prod {tag}: {n_steps / (ms / 1e3):.2f} steps/s ({ms:.3f} ms / {n_steps}"
             f" steps, CUDA events), {step_ms:.3f} ms per step = "
             + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
-            + f" ms ({detail}, at step {n_steps // 2}); {solves} solves, Newton"
+            + f" ms ({detail}, at step {n_steps // 2}); Newmark predictors {pred};"
+            f" {solves} solves, Newton"
             f" {infos.num_iter.tolist()[:4]}..., launches {launches}"
             f" ({sum(launches.values()) / n_steps:.1f} per step), on {card}")
         (fin_x, _, infos_x), ms_x, launches_x, _ = drive(tag, BTD_EXACT)
@@ -1076,8 +1181,8 @@ def phase_btd(torch, card, models):
     prof = profile_run(torch, lambda: forward.integrate_pure(
         model, state0, cs, prop, times, BTD_PROD), n_steps, "btd_sweep_kernel")
     log(f"[btd] profile prod f64, {n_steps} steps: {prof['per_step']:.1f} device kernels"
-        f" per step, device busy {prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms"
-        f" profiled wall, idle share {prof['idle']:.3f}; K6 {prof['k_ms']:.3f} ms"
+        f" per step (earlier: {EARLIER_PER_STEP['23.7k btd']}), device busy"
+        f" {prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms profiled wall, idle share {prof['idle']:.3f}; K6 {prof['k_ms']:.3f} ms"
         f" ({prof['k_ms'] / prof['busy_ms']:.1%} of busy) in {prof['k_launches']} launches"
         f" ({prof['k_ms'] / max(prof['k_launches'], 1) * 1e3:.1f} us each), on {card}")
     require(prof["k_launches"] > 0, "btd profile: no K6 kernel in the trace")

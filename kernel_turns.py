@@ -25,6 +25,11 @@ factors and right-hand sides from a seed, the factors scaled by
 SHA-256 of each sweep's output bytes, so that equal digests show two
 kernels bit-equal; the sweeps at the 23.7k shapes (Bt = 256) are timed;
 
+K5 ``ops.newmark_update`` at 23.7k dofs, f64 and f32, with the next
+step's Newmark predictor: one launch where the checkout's K5 writes it,
+else K5 (v1, a1) and the plain predictor (``equations.newmark``, four
+eager kernels), with the SHA-256 of the three outputs;
+
 K4 ``ops.bsb_matvec`` at 23.7k dofs, f64 and f32, on the model's
 block-banded Jacobian at rest under 500 Ba (the fill of ``chip_smoke.py``
 phase 3), with the checkout's own plan and, where the checkout has one,
@@ -36,8 +41,8 @@ BiCGStab iteration at the run's middle state.
 Each time is taken two ways by CUDA events: the eager call (200 calls
 after 20 warm-up calls) and the device time (200 calls captured in one CUDA
 graph and replayed).  Prints one line per process and, last, a JSON object
-with every process's numbers, whether each K6 digest is the same in every
-process, and the card's name and power limit.  Exits nonzero without CUDA
+with every process's numbers, whether each K5 and K6 digest is the same in
+every process, and the card's name and power limit.  Exits nonzero without CUDA
 or when a process fails.
 """
 
@@ -99,6 +104,24 @@ def child(root):
                 out[key] = dict(sha256=hashlib.sha256(y.tobytes()).hexdigest())
                 if bt == 256:
                     out[key].update(ms=cuda_ms(torch, fn), device_ms=graph_ms(torch, fn))
+
+    # K5 at 23.7k dofs: the state update and the next step's predictor, by
+    # K5 alone where it writes all three, else by K5 and the plain predictor
+    from vf_fem_tpu_torch.equations import newmark  # noqa: E402
+
+    host = rng.standard_normal((4, 23_754))
+    for dtype in (torch.float64, torch.float32):
+        u1, u0, v0, a0 = (torch.tensor(h, dtype=dtype, device=dev) for h in host)
+        fn = lambda: ops.newmark_update(u1, u0, v0, a0, 1e-4)
+        whole = len(fn()) == 3
+        if not whole:
+            def fn():
+                v1, a1 = ops.newmark_update(u1, u0, v0, a0, 1e-4)
+                return v1, a1, newmark.newmark_predict_u(u1, v1, a1, 1e-4)
+        y = torch.cat(fn()).cpu().numpy()
+        out[f"newmark {str(dtype).replace('torch.', '')}"] = dict(
+            sha256=hashlib.sha256(y.tobytes()).hexdigest(), ms=cuda_ms(torch, fn),
+            device_ms=graph_ms(torch, fn), one_launch=whole)
 
     built = build(torch, dev, LARGE_MESH, torch.float64)
     model, state0, cs, prop = built

@@ -170,13 +170,90 @@ def test_ops_kernels_match_plain(large_f64, large_operator, dtype):
                          ops.bsb_matvec_reference(plan, B, x), bound, rtol)
     u1, u0, v0, a0 = (torch.tensor(rng.standard_normal(plan.ndof),
                                    dtype=dtype, device=dev) for _ in range(4))
-    for out, ref in zip(ops.newmark_update(u1, u0, v0, a0, 1e-4),
-                        ops.newmark_update_reference(u1, u0, v0, a0, 1e-4)):
-        assert_scatter_close(out, ref, 0.0, rtol)
+    outs = ops.newmark_update(u1, u0, v0, a0, 1e-4)
+    refs = ops.newmark_update_reference(u1, u0, v0, a0, 1e-4)
+    assert len(outs) == 3
+    assert all(torch.equal(out, ref) for out, ref in zip(outs, refs))
     torch.cuda.synchronize()
     assert ops.LAUNCHES["ebe_matvec"] == n0["ebe_matvec"] + 2
     assert ops.LAUNCHES["bsb_matvec"] == n0["bsb_matvec"] + 1
     assert ops.LAUNCHES["newmark"] == n0["newmark"] + 1
+
+
+def _newmark_inputs(n, layout, dtype, dev, seed=0):
+    """u1, u0, v0, a0 of ``n`` entries: each its own allocation
+    ('aligned'), views one entry into theirs ('view'), or views at offsets
+    1, 2, 3, 0 (mixed 16-byte phases: K5's scalar path)."""
+    host = np.random.default_rng(seed).standard_normal((4, n + 3))
+    full = [torch.tensor(h, dtype=dtype, device=dev) for h in host]
+    offsets = {"aligned": (0, 0, 0, 0), "view": (1, 1, 1, 1), "mixed": (1, 2, 3, 0)}[layout]
+    return [f[k:k + n] for f, k in zip(full, offsets)]
+
+
+@pytest.mark.parametrize("layout", ["aligned", "view", "mixed"])
+@pytest.mark.parametrize("n", [960, 23_754, 123])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_newmark_bit_equal(cuda, dtype, n, layout):
+    """K5's three outputs (v1, a1 and the next step's predictor) equal the
+    plain version's bit for bit, one launch each, also with a predictor
+    step other than the update's."""
+    args = _newmark_inputs(n, layout, dtype, cuda)
+    n0 = ops.LAUNCHES["newmark"]
+    for dt_next in (None, 7.5e-5):
+        outs = ops.newmark_update(*args, 1e-4, dt_next=dt_next)
+        refs = ops.newmark_update_reference(*args, 1e-4, dt_next=dt_next)
+        torch.cuda.synchronize()
+        assert len(outs) == 3
+        for out, ref in zip(outs, refs):
+            assert out.is_contiguous() and tuple(out.shape) == (n,)
+            assert torch.equal(out, ref)
+    assert ops.LAUNCHES["newmark"] == n0 + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_newmark_graph_replay_equals_eager(cuda, dtype):
+    """K5 captured in a CUDA graph: a replay on new inputs (written in
+    place) gives the eager launch's bits."""
+    args = _newmark_inputs(23_754, "aligned", dtype, cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.newmark_update(*args, 1e-4)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ops.newmark_update(*args, 1e-4)
+    for a, b in zip(args, _newmark_inputs(23_754, "aligned", dtype, cuda, seed=1)):
+        a.copy_(b)
+    graph.replay()
+    torch.cuda.synchronize()
+    n0 = ops.LAUNCHES["newmark"]
+    eager = ops.newmark_update(*args, 1e-4)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["newmark"] == n0 + 1
+    assert all(torch.equal(c, e) for c, e in zip(captured, eager))
+    assert all(torch.equal(c, r) for c, r in
+               zip(captured, ops.newmark_update_reference(*args, 1e-4)))
+
+
+def test_newmark_carry_on_cuda(cuda):
+    """On the card the solid takes K5's predictor at every step after the
+    first; the run is bit-identical to one whose steps form it."""
+    model = port_vf_model("KelvinVoigtWEpithelium", device=cuda)
+    state0, cs, prop = port_inputs(model)
+    times = 1e-4 * np.arange(11)
+    params = {"fixed_iterations": 2, "jacobian_update": "once_per_step"}
+    fin, traj, _ = forward.integrate_pure(model, state0, cs, prop, times, params)
+    # two predictors a step: the factors' and the Newton guess
+    assert model.solid.predictor_counts == {"carried": 18, "formed": 2}
+    step = model.step_pure
+
+    def cloned(state, *args, **kw):
+        return step({k: v.clone() for k, v in state.items()}, *args, **kw)
+
+    model.step_pure = cloned
+    _, ref, _ = forward.integrate_pure(model, state0, cs, prop, times, params)
+    assert all(torch.equal(traj[k], ref[k]) for k in traj)
 
 
 def test_ops_wrappers_reject_bad_input(large_f64, large_operator):
@@ -202,6 +279,12 @@ def test_ops_wrappers_reject_bad_input(large_f64, large_operator):
     assert ops.LAUNCHES["bsb_matvec"] == n0
     with pytest.raises(TypeError):
         ops.ebe_matvec(op.J_cells.float(), x, op.cell_dofs)
+    n0 = ops.LAUNCHES["newmark"]
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.newmark_update(x[::2], x[::2], x[::2], x[::2], 1e-4)
+    with pytest.raises(ValueError, match="tensors on"):
+        ops.newmark_update(x, x, x, x.cpu(), 1e-4)
+    assert ops.LAUNCHES["newmark"] == n0
 
 
 def _k4_fills(large_f64, large_operator):

@@ -5,12 +5,15 @@ as ``tests/test_ops.py`` runs them, on the same numpy inputs.  On CPU
 tensors the port's wrappers take the plain versions and launch nothing.
 """
 
+import ctypes
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
 from vf_fem_tpu.ops import ebe_matvec as jebe_matvec
+from vf_fem_tpu.equations.newmark import newmark_predict_u as jnewmark_predict_u
 from vf_fem_tpu.ops import newmark_update as jnewmark_update
 from vf_fem_tpu.ops.pallas_kernels import bsb_matvec_pallas
 from vf_fem_tpu.solvers import bsb as jbsb
@@ -89,28 +92,64 @@ def test_bsb_matvec_matches_pallas(nblk, h, tail, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("dt", [1e-4, 5e-5])
 def test_newmark_update_matches_pallas(dt, dtype):
+    """v1, a1 against the JAX package's Pallas kernel; the third output,
+    the next step's predictor, against its ``newmark_predict_u`` of the
+    JAX package's v1, a1."""
     rng = np.random.default_rng(123)
     u1, u0, v0, a0 = (rng.standard_normal(123).astype(dtype) for _ in range(4))
     jv, ja = jnewmark_update(*(jnp.asarray(a) for a in (u1, u0, v0, a0)), dt)
-    v1, a1 = ops.newmark_update(*(_t(a) for a in (u1, u0, v0, a0)), dt)
-    for out, ref in ((v1, jv), (a1, ja)):
+    ju = jnewmark_predict_u(jnp.asarray(u1), jv, ja, dt)
+    outs = ops.newmark_update(*(_t(a) for a in (u1, u0, v0, a0)), dt)
+    assert len(outs) == 3
+    for out, ref in zip(outs, (jv, ja, ju)):
         ref = np.asarray(ref)
-        assert out.dtype == _t(u1).dtype
+        assert out.dtype == _t(u1).dtype and tuple(out.shape) == (123,)
         np.testing.assert_allclose(out.numpy(), ref, rtol=RTOL[dtype],
                                    atol=RTOL[dtype] * np.abs(ref).max())
 
 
-def test_newmark_update_is_the_state_update():
-    """The plain K5 is the model's Newmark relations, bit for bit."""
+@pytest.mark.parametrize("dt_next", [None, 7e-5])
+def test_newmark_update_is_the_state_update(dt_next):
+    """The plain K5 is the model's Newmark relations, bit for bit, and its
+    third output the predictor of the next step (of ``dt_next``, by default
+    ``dt``) from the rounded v1, a1."""
     from vf_fem_tpu_torch.equations import newmark
 
     rng = np.random.default_rng(7)
     u1, u0, v0, a0 = (_t(rng.standard_normal(50)) for _ in range(4))
-    v1, a1 = ops.newmark_update(u1, u0, v0, a0, 1e-4)
+    v1, a1, u_next = ops.newmark_update(u1, u0, v0, a0, 1e-4, dt_next=dt_next)
     torch.testing.assert_close(v1, newmark.newmark_v(u1, u0, v0, a0, 1e-4),
                                rtol=0, atol=0)
     torch.testing.assert_close(a1, newmark.newmark_a(u1, u0, v0, a0, 1e-4),
                                rtol=0, atol=0)
+    dtp = 1e-4 if dt_next is None else dt_next
+    assert torch.equal(u_next, newmark.newmark_predict_u(u1, v1, a1, dtp))
+    assert all(torch.equal(x, y) for x, y in zip(
+        ops.newmark_update_reference(u1, u0, v0, a0, 1e-4, dt_next=dt_next),
+        (v1, a1, u_next)))
+
+
+@pytest.mark.parametrize("dt", [1e-4, 3e-5])
+def test_newmark_coefs_are_the_plain_expressions(dt):
+    """K5's host-side coefficients are the scalars the plain version
+    multiplies by, bit for bit (``equations.newmark``'s expressions)."""
+    from vf_fem_tpu_torch.ops import kernels
+
+    gamma, beta, dtp = 0.5, 0.25, 0.9 * dt
+    coefs, addr = kernels._newmark_coefs(dt, gamma, beta, dtp)
+    assert addr == ctypes.addressof(coefs)
+    # unit inputs pick each coefficient out of the plain version
+    one = torch.ones(1, dtype=torch.float64)
+    zero = torch.zeros(1, dtype=torch.float64)
+    v1, a1, _ = ops.newmark_update_reference(one, zero, zero, zero, dt, gamma, beta)
+    assert list(coefs) == [
+        v1.item(),
+        -ops.newmark_update_reference(zero, zero, one, zero, dt)[0].item(),
+        -ops.newmark_update_reference(zero, zero, zero, one, dt)[0].item(),
+        a1.item(),
+        -ops.newmark_update_reference(zero, zero, zero, one, dt)[1].item(),
+        dt, dtp, 0.5 * dtp * dtp,
+    ]
 
 
 def test_wrappers_reject_bad_input():
@@ -130,6 +169,8 @@ def test_wrappers_reject_bad_input():
         ops.newmark_update(x, x, x, x.to(torch.float16), 1e-4)
     with pytest.raises(ValueError):
         ops.newmark_update(x, x, x, x[:5], 1e-4)
+    with pytest.raises(ValueError, match="tensors on"):
+        ops.newmark_update(x, x, x, x.to("meta"), 1e-4)
 
 
 def test_dot_order_bound_covers_reordering():

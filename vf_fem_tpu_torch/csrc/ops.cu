@@ -39,21 +39,42 @@
 // with the bulk copy were the fastest of 32/64/128 rows, 4/8 lanes and the
 // window by bulk copy or by plain loads on an H100 (PERF.md section 6).
 //
-// K5 replaces vf_fem_tpu/ops/pallas_kernels.py:_newmark_kernel.  One thread
-// per entry reads u1, u0, v0, a0 and writes v1, a1; (dt, gamma, beta) come
-// by value.  The coefficients are formed in double as the plain version
-// forms them on the host, then rounded to the working type, and every
-// product and sum is rounded separately (__dmul_rn / __fmul_rn and kin):
-// no contraction to FMA, so the kernel reproduces the plain version's
-// rounding.  Bound: bytes (six vectors), launch-dominated at these sizes.
+// K5 replaces vf_fem_tpu/ops/pallas_kernels.py:_newmark_kernel and is the
+// step's boundary: from u1, u0, v0, a0 one launch writes v1, a1 and the next
+// step's Newmark predictor u_next = (u1 + dtp v1) + c a1 (dtp the next
+// step's dt, c = dtp * dtp / 2), which SolidModel._predictor takes in place
+// of four eager kernels.  Its coefficients are formed once on the host in
+// double, exactly as the plain version forms them, come by value and are
+// rounded to the working type in the kernel; every product and sum is
+// rounded separately (__dmul_rn / __fmul_rn and kin): no contraction to
+// FMA, so all three outputs are the plain version's bit for bit.  Bound:
+// bytes (seven vectors, 1.33 MB in f64 at 23.7k dofs, 0.4 us at 3.35
+// TB/s); the launch costs more than the body.  Loads and stores are 16
+// bytes wide (double2 / float4) over the span where all seven vectors
+// share one 16-byte phase (the wrapper allocates the outputs in u1's
+// phase), with scalar entries before and after it; inputs of mixed
+// phases take the scalar loop throughout.  A grid-stride loop over
+// at most four CTAs an SM, 128 threads a CTA.  Launched with programmatic
+// dependent launch (cudaLaunchKernelEx, programmatic stream
+// serialization), which a CUDA graph captures: the kernel waits on
+// griddepcontrol.wait before its first global access (it cannot know which
+// of its inputs the kernel before it writes) and signals
+// griddepcontrol.launch_dependents after its loads, so back-to-back
+// launches overlap; that took 0.4-0.6 us off its ~1.7 us in a graph of
+// 200 launches on an H100 (PERF.md section 6).
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
+#include <initializer_list>
 
 namespace {
 
 constexpr int kThreads = 256;
+// threads a K5 CTA: with programmatic dependent launch, faster than 256 in
+// three of four shapes on an H100 (PERF.md section 6)
+constexpr int kNewmarkThreads = 128;
 constexpr int kBsbB = 128;     // block size of the block-banded plan
 constexpr int kBsbTile = 64;   // rows a K4 CTA
 constexpr int kBsbLanes = 4;   // lanes a row (ops.kernels.BSB_LANES)
@@ -197,34 +218,112 @@ __global__ void __launch_bounds__(kBsbTile * kBsbLanes)
   if (lane == 0 && row < ndof) y[row] = acc;
 }
 
-// v1 = c1 (u1 - u0) - c2 v0 - c3 a0;  a1 = c4 ((u1 - u0) - dt v0) - c5 a0
-// with c1 = gamma/beta/dt, c2 = gamma/beta - 1, c3 = dt (gamma/2/beta - 1),
-// c4 = 1/beta/dt^2, c5 = 1/2/beta - 1 -- the plain version's expressions.
+// K5's coefficients in double, in the order of ops/kernels.py:_newmark_coefs:
+// c1 = gamma/beta/dt, c2 = gamma/beta - 1, c3 = dt (gamma/2/beta - 1),
+// c4 = 1/beta/dt^2, c5 = 1/2/beta - 1, dt, the predictor's dtp and
+// c = 0.5 dtp dtp -- the plain version's expressions
+struct NewmarkCoefs {
+  double c1, c2, c3, c4, c5, dt, dtp, c;
+};
+
 template <typename T>
-__global__ void newmark_kernel(const T* __restrict__ u1,
-                               const T* __restrict__ u0,
-                               const T* __restrict__ v0,
-                               const T* __restrict__ a0, T* __restrict__ v1,
-                               T* __restrict__ a1, long long n, double dt,
-                               double gamma, double beta) {
-  long long t = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (t >= n) return;
-  const T c1 = static_cast<T>(__ddiv_rn(__ddiv_rn(gamma, beta), dt));
-  const T c2 = static_cast<T>(__dsub_rn(__ddiv_rn(gamma, beta), 1.0));
-  const T c3 = static_cast<T>(
-      __dmul_rn(dt, __dsub_rn(__ddiv_rn(__ddiv_rn(gamma, 2.0), beta), 1.0)));
-  const T c4 = static_cast<T>(__ddiv_rn(__ddiv_rn(1.0, beta),
-                                        __dmul_rn(dt, dt)));
-  const T c5 = static_cast<T>(__dsub_rn(__ddiv_rn(__ddiv_rn(1.0, 2.0), beta),
-                                        1.0));
-  const T tdt = static_cast<T>(dt);
-  const T du = sub_rn(u1[t], u0[t]);
-  v1[t] = sub_rn(sub_rn(mul_rn(c1, du), mul_rn(c2, v0[t])), mul_rn(c3, a0[t]));
-  a1[t] = sub_rn(mul_rn(c4, sub_rn(du, mul_rn(tdt, v0[t]))), mul_rn(c5, a0[t]));
+struct NewmarkRounded {
+  T c1, c2, c3, c4, c5, dt, dtp, c;
+  __device__ explicit NewmarkRounded(const NewmarkCoefs& k)
+      : c1(static_cast<T>(k.c1)), c2(static_cast<T>(k.c2)),
+        c3(static_cast<T>(k.c3)), c4(static_cast<T>(k.c4)),
+        c5(static_cast<T>(k.c5)), dt(static_cast<T>(k.dt)),
+        dtp(static_cast<T>(k.dtp)), c(static_cast<T>(k.c)) {}
+};
+
+// v1 = c1 (u1 - u0) - c2 v0 - c3 a0;  a1 = c4 ((u1 - u0) - dt v0) - c5 a0;
+// u_next = (u1 + dtp v1) + c a1
+template <typename T>
+__device__ __forceinline__ void newmark_entry(const NewmarkRounded<T>& k, T u1,
+                                              T u0, T v0, T a0, T& v1, T& a1,
+                                              T& un) {
+  const T du = sub_rn(u1, u0);
+  v1 = sub_rn(sub_rn(mul_rn(k.c1, du), mul_rn(k.c2, v0)), mul_rn(k.c3, a0));
+  a1 = sub_rn(mul_rn(k.c4, sub_rn(du, mul_rn(k.dt, v0))), mul_rn(k.c5, a0));
+  un = add_rn(add_rn(u1, mul_rn(k.dtp, v1)), mul_rn(k.c, a1));
+}
+
+// 16 bytes of T, as one vector load or store
+template <typename T>
+union Pack16;
+template <>
+union Pack16<double> {
+  double2 v;
+  double s[2];
+};
+template <>
+union Pack16<float> {
+  float4 v;
+  float s[4];
+};
+
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// Entries [head, head + nvec * V) in 16-byte vectors (V = 16 / sizeof(T)),
+// the rest one at a time.
+template <typename T>
+__global__ void __launch_bounds__(kNewmarkThreads)
+    newmark_kernel(const T* __restrict__ u1, const T* __restrict__ u0,
+                   const T* __restrict__ v0, const T* __restrict__ a0,
+                   T* __restrict__ v1, T* __restrict__ a1, T* __restrict__ un,
+                   long long n, long long head, NewmarkCoefs coefs) {
+  constexpr int V = 16 / sizeof(T);
+  using P = Pack16<T>;
+  const NewmarkRounded<T> k(coefs);
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long t = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  const long long nvec = (n - head) / V;
+  const long long body_end = head + nvec * V;
+  const long long nscalar = head + (n - body_end);
+  grid_dependency_wait();  // before the first global access
+  for (long long i = t; i < nvec; i += step) {
+    const long long e = head + i * V;
+    P x1, x0, y0, z0, y1, z1, w1;
+    x1.v = *reinterpret_cast<const decltype(x1.v)*>(u1 + e);
+    x0.v = *reinterpret_cast<const decltype(x0.v)*>(u0 + e);
+    y0.v = *reinterpret_cast<const decltype(y0.v)*>(v0 + e);
+    z0.v = *reinterpret_cast<const decltype(z0.v)*>(a0 + e);
+    launch_dependents();
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      newmark_entry(k, x1.s[j], x0.s[j], y0.s[j], z0.s[j], y1.s[j], z1.s[j], w1.s[j]);
+    *reinterpret_cast<decltype(y1.v)*>(v1 + e) = y1.v;
+    *reinterpret_cast<decltype(z1.v)*>(a1 + e) = z1.v;
+    *reinterpret_cast<decltype(w1.v)*>(un + e) = w1.v;
+  }
+  for (long long i = t; i < nscalar; i += step) {
+    const long long e = i < head ? i : body_end + (i - head);
+    newmark_entry(k, u1[e], u0[e], v0[e], a0[e], v1[e], a1[e], un[e]);
+  }
 }
 
 unsigned grid_for(long long total, int threads) {
   return static_cast<unsigned>((total + threads - 1) / threads);
+}
+
+// SMs of the current device, read once
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0, n = 0;
+    if (cudaGetDevice(&dev) == cudaSuccess &&
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess &&
+        n > 0)
+      sms = n;
+    else
+      return 132;
+  }
+  return sms;
 }
 
 template <typename T>
@@ -262,16 +361,45 @@ int launch_bsb(const void* blocks, const void* x, const void* ptr,
   return static_cast<int>(cudaGetLastError());
 }
 
+// head: the scalar entries before the span where all seven vectors are
+// 16-byte aligned (every entry when their phases differ)
 template <typename T>
 int launch_newmark(const void* u1, const void* u0, const void* v0,
-                   const void* a0, void* v1, void* a1, long long n,
-                   double dt, double gamma, double beta, void* stream) {
+                   const void* a0, void* v1, void* a1, void* un, long long n,
+                   const NewmarkCoefs* coefs, void* stream) {
   if (n == 0) return 0;
-  newmark_kernel<T><<<grid_for(n, kThreads), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(u1), static_cast<const T*>(u0),
-      static_cast<const T*>(v0), static_cast<const T*>(a0),
-      static_cast<T*>(v1), static_cast<T*>(a1), n, dt, gamma, beta);
+  constexpr long long V = 16 / sizeof(T);
+  const uintptr_t phase = reinterpret_cast<uintptr_t>(u1) % 16;
+  bool same = true;
+  for (const void* p : {u0, v0, a0, static_cast<const void*>(v1),
+                        static_cast<const void*>(a1), static_cast<const void*>(un)})
+    same = same && reinterpret_cast<uintptr_t>(p) % 16 == phase;
+  long long head = n;
+  if (same && phase % sizeof(T) == 0)
+    head = std::min<long long>(n, static_cast<long long>((16 - phase) % 16 / sizeof(T)));
+  const long long nvec = (n - head) / V;
+  const long long work = std::max(nvec, head + (n - head) % V);
+  const long long grid =
+      std::min<long long>(grid_for(work, kNewmarkThreads), 4LL * sm_count());
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(grid));
+  cfg.blockDim = dim3(kNewmarkThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, newmark_kernel<T>, static_cast<const T*>(u1),
+      static_cast<const T*>(u0), static_cast<const T*>(v0),
+      static_cast<const T*>(a0), static_cast<T*>(v1), static_cast<T*>(a1),
+      static_cast<T*>(un), n, head, *coefs);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it: the next launch's check reads it
+    return static_cast<int>(err);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -302,18 +430,20 @@ int vf_bsb_matvec_f64(const void* blocks, const void* x, const void* ptr,
   return launch_bsb<double>(blocks, x, ptr, off, y, ndof, nb, h, stream);
 }
 
+// v1, a1, un: the three outputs, n entries each; coefs: eight doubles
+// (NewmarkCoefs)
 int vf_newmark_f32(const void* u1, const void* u0, const void* v0,
-                   const void* a0, void* v1, void* a1, long long n,
-                   double dt, double gamma, double beta, void* stream) {
-  return launch_newmark<float>(u1, u0, v0, a0, v1, a1, n, dt, gamma, beta,
-                               stream);
+                   const void* a0, void* v1, void* a1, void* un, long long n,
+                   const void* coefs, void* stream) {
+  return launch_newmark<float>(u1, u0, v0, a0, v1, a1, un, n,
+                               static_cast<const NewmarkCoefs*>(coefs), stream);
 }
 
 int vf_newmark_f64(const void* u1, const void* u0, const void* v0,
-                   const void* a0, void* v1, void* a1, long long n,
-                   double dt, double gamma, double beta, void* stream) {
-  return launch_newmark<double>(u1, u0, v0, a0, v1, a1, n, dt, gamma, beta,
-                                stream);
+                   const void* a0, void* v1, void* a1, void* un, long long n,
+                   const void* coefs, void* stream) {
+  return launch_newmark<double>(u1, u0, v0, a0, v1, a1, un, n,
+                                static_cast<const NewmarkCoefs*>(coefs), stream);
 }
 
 }  // extern "C"

@@ -60,13 +60,16 @@ def integrate_pure(
 
     def run(state, factors, n0, n1):
         for n in range(n0, n1):
+            # the step after this one: the predictor K5 writes with the state
+            dt_next = dts[min(n + 1, n_steps - 1)]
             if factors is None:
                 state, info = model.step_pure(
-                    state, control_at(n), prop, dts[n], params_d
+                    state, control_at(n), prop, dts[n], params_d, dt_next
                 )
             else:
                 state, info = model.step_pure_stale(
-                    factors, state, control_at(n), prop, dts[n], params_d
+                    factors, state, control_at(n), prop, dts[n], params_d,
+                    dt_next,
                 )
             traj.append(state)
             infos.append(info)

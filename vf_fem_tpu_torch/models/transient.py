@@ -82,6 +82,14 @@ class KrylovFactors(NamedTuple):
     Dinv: torch.Tensor
 
 
+def _versions(tensors):
+    """The version counters of ``tensors``, or None where one is an
+    inference tensor (which keeps none)."""
+    if any(t.is_inference() for t in tensors):
+        return None
+    return tuple(t._version for t in tensors)
+
+
 def _contact_traction(u1, X, n, y, k):
     """Cubic-penalty contact traction at the nodes (..., nv, dim)."""
     gap = (X + u1) @ n - y
@@ -130,6 +138,10 @@ class SolidModel:
         # Krylov solves and iterations since the last reset (read on the
         # host by the stopping rule anyway)
         self.krylov_counts = {"solves": 0, "iterations": 0}
+        # K5's state and the predictor it wrote (``_finish``), and how many
+        # predictors were taken from it or formed (``_predictor``)
+        self._carry = None
+        self.predictor_counts = {"carried": 0, "formed": 0}
         self.bc_dofs = torch.as_tensor(R.bc_dofs, device=self.device)
         bc_mask = np.zeros(self.ndof)
         bc_mask[R.bc_dofs] = 1.0
@@ -336,20 +348,40 @@ class SolidModel:
 
     # -- solves -----------------------------------------------------------------
     def _predictor(self, state0, dt):
-        return newmark.newmark_predict_u(state0["u"], state0["v"],
-                                         state0["a"], dt)
+        """The Newmark predictor of ``state0`` over ``dt``: the one K5 wrote
+        with the state when ``state0`` holds that state's very tensors,
+        unmodified (same version counters), and ``dt`` is the step it was
+        formed for; else formed here."""
+        carry = self._carry
+        fields = tuple(state0[k] for k in ("u", "v", "a"))
+        if (carry is not None and carry[2] == dt
+                and all(a is b for a, b in zip(fields, carry[0]))
+                and _versions(fields + (carry[3],)) == carry[1]):
+            self.predictor_counts["carried"] += 1
+            return carry[3]
+        self.predictor_counts["formed"] += 1
+        return newmark.newmark_predict_u(*fields, dt)
 
-    def _finish(self, u1, state0, dt):
+    def _finish(self, u1, state0, dt, dt_next=None):
         """The step's state: v1, a1 by the fused Newmark update (kernel K5
-        on CUDA tensors)."""
-        v1, a1 = ops.newmark_update(u1, state0["u"], state0["v"],
-                                    state0["a"], dt)
+        on CUDA tensors), which also writes the predictor of the next step
+        (of ``dt_next``, by default ``dt``); it is kept for
+        :meth:`_predictor` with the state's tensors and their versions."""
+        v1, a1, u_next = ops.newmark_update(u1, state0["u"], state0["v"],
+                                            state0["a"], dt, dt_next=dt_next)
+        fields = (u1, v1, a1)
+        versions = _versions(fields + (u_next,))
+        self._carry = (None if versions is None else
+                       (fields, versions, dt if dt_next is None else dt_next, u_next))
         return {"u": u1, "v": v1, "a": a1}
 
-    def solve_state1_pure(self, state0, control, prop, dt, params=None):
+    def solve_state1_pure(self, state0, control, prop, dt, params=None,
+                          dt_next=None):
         """One time step from the Newmark predictor.  The Jacobian is
         re-assembled every iteration (the dense default) or once per step
-        (the default of the element-block solvers 'cg', 'bsb', 'btd')."""
+        (the default of the element-block solvers 'cg', 'bsb', 'btd').
+        ``dt_next``, the next step's dt where known, is the step of the
+        predictor K5 writes with the state."""
         params_d = solver_params(params)
         banded = self.use_banded(params_d)
         u_guess = self._predictor(state0, dt)
@@ -380,7 +412,7 @@ class SolidModel:
                 return linalg.dense_solve(A, r)
 
         u1, info = newton_solve(u_guess, assem, solve_jac, params_d)
-        return self._finish(u1, state0, dt), info
+        return self._finish(u1, state0, dt, dt_next), info
 
     def factorize(self, state0, control, prop, dt, params=None):
         """Factors of the Jacobian at the predictor: the block-Thomas
@@ -417,8 +449,9 @@ class SolidModel:
         return linalg.dense_refresh(factors, A, iters)
 
     def solve_state1_stale(self, factors, state0, control, prop, dt,
-                           params=None):
-        """One time step with carried (stale) Jacobian factors."""
+                           params=None, dt_next=None):
+        """One time step with carried (stale) Jacobian factors (``dt_next``
+        as in :meth:`solve_state1_pure`)."""
         params_d = solver_params(params)
         banded = self.use_banded(params_d)
         u_guess = self._predictor(state0, dt)
@@ -430,7 +463,7 @@ class SolidModel:
             return self.solve_factors(factors, r, params_d)
 
         u1, info = newton_solve(u_guess, assem, solve_jac, params_d)
-        return self._finish(u1, state0, dt), info
+        return self._finish(u1, state0, dt, dt_next), info
 
 
 class FluidModel:
@@ -522,11 +555,13 @@ class ExplicitFSIModel:
         return {**uva1, **qp1}
 
     # -- pure step functions ------------------------------------------------------
-    def step_pure(self, state0, control, prop, dt, params=None):
-        """One coupled step, re-assembling the Jacobian in each solve."""
+    def step_pure(self, state0, control, prop, dt, params=None, dt_next=None):
+        """One coupled step, re-assembling the Jacobian in each solve;
+        ``dt_next``, the next step's dt where known, is the step of the
+        predictor written with the state (``SolidModel._finish``)."""
         sl_state0, sl_control, sl_prop = self._solid_inputs(state0, prop)
         uva1, info = self.solid.solve_state1_pure(
-            sl_state0, sl_control, sl_prop, dt, params
+            sl_state0, sl_control, sl_prop, dt, params, dt_next
         )
         return self._fluid_step(uva1, state0, control, prop), info
 
@@ -541,10 +576,11 @@ class ExplicitFSIModel:
         )
 
     def step_pure_stale(self, factors, state0, control, prop, dt,
-                        params=None):
-        """One coupled step with carried Jacobian factors."""
+                        params=None, dt_next=None):
+        """One coupled step with carried Jacobian factors (``dt_next`` as in
+        :meth:`step_pure`)."""
         sl_state0, sl_control, sl_prop = self._solid_inputs(state0, prop)
         uva1, info = self.solid.solve_state1_stale(
-            factors, sl_state0, sl_control, sl_prop, dt, params
+            factors, sl_state0, sl_control, sl_prop, dt, params, dt_next
         )
         return self._fluid_step(uva1, state0, control, prop), info

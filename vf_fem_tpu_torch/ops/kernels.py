@@ -51,12 +51,11 @@ BSB_LANES = 4  # lanes a row of K4 (csrc/ops.cu: kBsbLanes), for its emulation
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_D = ctypes.c_double
 _SIGNATURES = {}
 for _t in ("f32", "f64"):
     _SIGNATURES[f"vf_ebe_matvec_{_t}"] = [_P, _P, _P, _P, _I, _I, _P]
     _SIGNATURES[f"vf_bsb_matvec_{_t}"] = [_P] * 5 + [_I] * 3 + [_P]
-    _SIGNATURES[f"vf_newmark_{_t}"] = [_P] * 6 + [_L, _D, _D, _D, _P]
+    _SIGNATURES[f"vf_newmark_{_t}"] = [_P] * 7 + [_L, _P, _P]
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -206,27 +205,76 @@ def _bsb_launch(plan, blocks: torch.Tensor, x: torch.Tensor,
 
 
 def newmark_update_reference(u1, u0, v0, a0, dt: float, gamma=0.5,
-                             beta=0.25):
-    """(v1, a1) by ``equations.newmark``."""
-    return (newmark.newmark_v(u1, u0, v0, a0, dt, gamma, beta),
-            newmark.newmark_a(u1, u0, v0, a0, dt, gamma, beta))
+                             beta=0.25, dt_next=None):
+    """(v1, a1, u_next) by ``equations.newmark``: the state update and the
+    predictor of the step after it, of ``dt_next`` (by default ``dt``)."""
+    v1 = newmark.newmark_v(u1, u0, v0, a0, dt, gamma, beta)
+    a1 = newmark.newmark_a(u1, u0, v0, a0, dt, gamma, beta)
+    dtp = dt if dt_next is None else dt_next
+    return v1, a1, newmark.newmark_predict_u(u1, v1, a1, dtp)
 
 
-def newmark_update(u1, u0, v0, a0, dt: float, gamma=0.5, beta=0.25):
+@functools.lru_cache(maxsize=64)
+def _newmark_coefs(dt: float, gamma: float, beta: float, dtp: float):
+    """K5's coefficients (``csrc/ops.cu``: NewmarkCoefs) as ctypes doubles
+    and their address, formed by the plain version's expressions."""
+    coefs = (ctypes.c_double * 8)(
+        gamma / beta / dt, gamma / beta - 1.0, dt * (gamma / 2.0 / beta - 1.0),
+        1 / beta / dt**2, 1 / 2 / beta - 1, dt, dtp, 0.5 * dtp * dtp)
+    return coefs, ctypes.addressof(coefs)
+
+
+def newmark_update(u1, u0, v0, a0, dt: float, gamma=0.5, beta=0.25,
+                   dt_next=None):
     """Newmark velocity and acceleration from ``u1`` and the previous
-    state, four flat vectors of one shape (K5 on CUDA)."""
-    _check("newmark_update", u1, u0, v0, a0)
+    state, four flat vectors of one shape, and the predictor
+    ``u1 + dtp v1 + dtp^2/2 a1`` of the next step (``dtp = dt_next``, by
+    default ``dt``): ``(v1, a1, u_next)``, one launch of K5 on CUDA, into
+    three allocations in the 16-byte phase of ``u1`` (K5 moves 16-byte
+    vectors where all seven share a phase)."""
+    dtype, device = u1.dtype, u1.device
+    if dtype not in _SUFFIX:
+        raise TypeError(f"newmark_update: float32 or float64 expected, got {dtype}")
+    for t in (u0, v0, a0):
+        if t.dtype != dtype:
+            raise TypeError(f"newmark_update: mixed dtypes {dtype} and {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"newmark_update: tensors on {device} and {t.device}")
     if not (u1.shape == u0.shape == v0.shape == a0.shape) or u1.dim() != 1:
         raise ValueError("newmark_update: four flat vectors of one shape"
                          " expected")
-    if u1.device.type == "cpu":
-        return newmark_update_reference(u1, u0, v0, a0, dt, gamma, beta)
-    v1, a1 = torch.empty_like(u1), torch.empty_like(u1)
-    _launch("vf_newmark", u1.dtype, u1.data_ptr(), u0.data_ptr(),
-            v0.data_ptr(), a0.data_ptr(), v1.data_ptr(), a1.data_ptr(),
-            u1.numel(), float(dt), float(gamma), float(beta), _stream(u1))
+    if device.type == "cpu":
+        return newmark_update_reference(u1, u0, v0, a0, dt, gamma, beta, dt_next)
+    if device.type != "cuda":
+        raise ValueError(f"newmark_update: unsupported device {device}")
+    if not (u1.is_contiguous() and u0.is_contiguous() and v0.is_contiguous()
+            and a0.is_contiguous()):
+        raise ValueError("newmark_update: inputs must be contiguous")
+    dt = float(dt)
+    _, coefs = _newmark_coefs(dt, float(gamma), float(beta),
+                              dt if dt_next is None else float(dt_next))
+    n = u1.shape[0]
+    lead = u1.data_ptr() % 16 // u1.element_size()
+    if lead:  # outputs in u1's 16-byte phase
+        v1, a1, u_next = (torch.empty(lead + n, dtype=dtype, device=device)[lead:]
+                          for _ in range(3))
+    else:
+        v1, a1, u_next = (torch.empty(n, dtype=dtype, device=device),
+                          torch.empty(n, dtype=dtype, device=device),
+                          torch.empty(n, dtype=dtype, device=device))
+    err = _newmark_fn(dtype)(u1.data_ptr(), u0.data_ptr(), v0.data_ptr(),
+                             a0.data_ptr(), v1.data_ptr(), a1.data_ptr(),
+                             u_next.data_ptr(), n, coefs, _stream(u1))
+    if err != 0:
+        raise RuntimeError(f"vf_newmark_{_SUFFIX[dtype]} launch failed: cudaError_t {err}")
     LAUNCHES["newmark"] += 1
-    return v1, a1
+    return v1, a1, u_next
+
+
+@functools.lru_cache(maxsize=None)
+def _newmark_fn(dtype):
+    """K5's entry point for ``dtype`` (the library is built at first use)."""
+    return getattr(_lib(), f"vf_newmark_{_SUFFIX[dtype]}")
 
 
 # -- K6: block-Thomas sweep ----------------------------------------------------

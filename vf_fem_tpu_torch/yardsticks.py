@@ -38,7 +38,7 @@ LIBRARY_CALL = {
     "bsb_matvec": "torch.sparse.mm (CSR of the pattern)",
     "ebe_matvec": "none: it gathers x[dofs] before the batched product, two"
                   " calls at least",
-    "newmark": "none: two outputs (v1, a1) from one pass",
+    "newmark": "none: three outputs (v1, a1, u_next) from one pass",
     "btd_sweep": "none: a serial recurrence over row blocks that no library"
                  " call computes on these factors",
 }
