@@ -18,14 +18,16 @@ runs, in order:
    f64 and f32; K4 also bit for bit against its CPU emulation
    (``tests/bsb_emulation.py``), with its bound counted from the plan's
    matvec pattern beside the dense band's; K5's three outputs (v1, a1 and
-   the next step's predictor) bit for bit, eagerly, in a CUDA-graph replay
-   and at an odd length, on unaligned views and with another predictor
-   step;
+   the next step's predictor) bit for bit, its coefficients read from a
+   row in device memory, eagerly, in a CUDA-graph replay that reads
+   another row of a table at each replay, and at an odd length, on
+   unaligned views and with another predictor step;
 4. golden: the explicit-FSI M5_CB_GA3 trajectory in f64 with the default
    solver parameters (banded assembly) against
    ``tests/data/golden_m5cad_explicit.npz``;
 5. headline: the benchmark model of ``bench.py`` (M5-3layers, headline
-   solver settings, 100 steps at dt = 1e-4) in f64 and f32, with steps/s,
+   solver settings, 100 steps at dt = 1e-4; a fixed-iteration run, so
+   each step a replay of the captured step) in f64 and f32, with steps/s,
    the launch counts of K1/K2/K5 in that run, and the f32-vs-f64
    difference of the final displacement against its gate, then one
    ``torch.profiler`` pass of the f64 run;
@@ -42,11 +44,24 @@ runs, in order:
    model): the tight f64 run of ``benchmarks/benchmark_large.py:130-139``
    against ``tests/data/golden_large_btd_explicit.npz``, then the
    production settings of ``bench.py:411-434`` (bf16 factors, refresh 96,
-   fixed-3 without the trailing residual, 100 steps after a warm-up run)
-   in f64 and f32 with steps/s, the ms split of a step by CUDA events and
-   the launch counts, each held by the reference's own gate (trajectory
-   error <= 5e-7 against the exact-Jacobian run of the same settings),
-   and one ``torch.profiler`` pass of the production f64 run.
+   fixed-3 without the trailing residual, 100 steps after a warm-up run;
+   replays of the captured step) in f64 and f32 with steps/s and the
+   launch counts, each held by the reference's own gate (trajectory error
+   <= 5e-7 against the exact-Jacobian run of the same settings), and one
+   ``torch.profiler`` pass of the production f64 run;
+8. integrate: ``forward.integrate(model, None, ...)`` (the entry point a
+   user calls, no statefile) on the M5 headline and the 23.7k production
+   btd config, 100 steps, f64 and f32; then the eager loop and the
+   captured step in turns (eager, graph, graph, eager) with steps/s by
+   CUDA events, each graph run held bit for bit (``torch.equal``) to the
+   eager run with equal launch counts, the entry point's
+   ``uncertified_steps`` and ``diverged`` equal to the eager run's, the
+   graph's nodes a step, capture and instantiate ms and pool, a
+   ``torch.profiler`` pass of each path (device kernels a step, device
+   busy, idle share), the peak device memory of the eager loop, the graph
+   and the graph in windows of 25 steps, the gates of phases 5 and 7 on
+   the graph's results, and the ms split of an eager btd step by CUDA
+   events.
 
 Phase 3 also holds the block-Thomas sweep kernel (K6) against its plain
 version on the 23.7k model's own factors, holds its launch plan
@@ -69,7 +84,10 @@ kernel's launches per step on the main-path runs (phases 5 and 7).
 
 Phases 5-7 print each production run's Newmark predictors, taken from
 K5's output or formed by four eager kernels, and each profile's device
-kernels a step beside an earlier figure (PERF.md section 5).
+kernels a step beside the eager loop's earlier figure (PERF.md section
+5).  The launch and predictor counts add a captured step's counts at each
+replay (``step_graph``); phases 5, 7 and 8 hold each kernel's count in a
+profiled run to its launches in the profiler's trace.
 
 Every phase raises on failure, so the script exits nonzero; on success its
 last line is ``{"ok": true, "device": {...}}``.
@@ -87,6 +105,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 LARGE_MESH = "M5_3layers_rcm_h006.msh"
 N_STEPS = 100
+MEMORY_WINDOW = 25  # steps a window of integrate's, where phase 8 reads peak memory
 DT = 1e-4
 # bench.py:291-314, the headline solver settings
 HEADLINE = {
@@ -182,9 +201,13 @@ GOLDEN_LARGE_GATES = {
     for ls, a_gate in (("bsb", 5.405e-8), ("cg", 2.090e-7))
 }
 WARMUP, REPS = 20, 200
-# device kernels a step in earlier f64 profiles of each run (PERF.md
-# section 5), printed beside this run's
-EARLIER_PER_STEP = {"M5 headline": 826, "23.7k btd": 891.9, "23.7k bsb": 8655}
+# device kernels a step in the eager loop's f64 profiles of each run
+# (PERF.md section 5), printed beside this run's
+# each launch counter's kernel, by the name the profiler's trace gives it
+TRACE_NAMES = {"gather": "banded_gather_kernel", "scatter": "banded_scatter_kernel",
+               "newmark": "newmark_kernel", "btd_sweep": "btd_sweep_kernel",
+               "ebe_matvec": "ebe_matvec_kernel", "bsb_matvec": "bsb_matvec_kernel"}
+EARLIER_PER_STEP = {"M5 headline": 811.0, "23.7k btd": 887.5, "23.7k bsb": 8651.0}
 # csrc/btd_exchange_probe.cu's entry points: (sink, n, bt, barrier, stream)
 PROBE_SIGNATURES = {f"vf_btd_exchange_probe_{t}": [ctypes.c_void_p] + [ctypes.c_int] * 3
                     + [ctypes.c_void_p] for t in ("bf16", "f64")}
@@ -523,8 +546,9 @@ def phase_headline(torch, dev, card):
             continue
         prof = profile_run(torch, run, N_STEPS, "newmark_kernel")
         require(prof["k_launches"] > 0, "headline profile: no K5 kernel in the trace")
+        require_traced(prof, ("gather", "scatter", "newmark"), "headline")
         log(f"[headline] profile f64, {N_STEPS} steps: {prof['per_step']:.1f} device kernels"
-            f" per step (earlier: {EARLIER_PER_STEP['M5 headline']}), device busy"
+            f" per step (eager, earlier: {EARLIER_PER_STEP['M5 headline']}), device busy"
             f" {prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms profiled wall, idle share"
             f" {prof['idle']:.3f}; K5 {prof['k_ms']:.3f} ms in {prof['k_launches']} launches,"
             f" on {card}")
@@ -674,53 +698,76 @@ def phase_ops(torch, dev, large):
 
 
 def newmark_work(n, itemsize):
-    """K5's (bytes, operations): u1, u0, v0, a0 in, v1, a1 and u_next out;
-    15 operations an entry (6 for v1, 5 more for a1, 4 for u_next)."""
-    return 7 * n * itemsize, 15 * n
+    """K5's (bytes, operations): u1, u0, v0, a0 in, v1, a1 and u_next out,
+    and its row of eight coefficients; 15 operations an entry (6 for v1, 5
+    more for a1, 4 for u_next)."""
+    return (7 * n + 8) * itemsize, 15 * n
+
+
+def newmark_row(like, dt=DT, dt_next=None):
+    """A row of K5's coefficients (``equations.newmark``) in the dtype and
+    on the device of ``like``."""
+    from vf_fem_tpu_torch import ops
+    from vf_fem_tpu_torch.equations import newmark
+
+    return ops.newmark_row(newmark.coefficients(dt, dt_next), like.dtype, like.device)
 
 
 def newmark_equal(torch, what, args, dt=DT, dt_next=None):
-    """K5 on ``args`` (u1, u0, v0, a0) against its plain version: all three
-    outputs bit for bit; returns the kernel's outputs."""
+    """K5 on ``args`` (u1, u0, v0, a0) with its coefficients read from a row
+    in device memory (as the time loop calls it) and through the float API,
+    against its plain version: all three outputs bit for bit; returns the
+    kernel's outputs."""
     from vf_fem_tpu_torch import ops
 
-    outs = ops.newmark_update(*args, dt, dt_next=dt_next)
+    outs = ops.newmark_update_coefs(*args, newmark_row(args[0], dt, dt_next))
+    floats = ops.newmark_update(*args, dt, dt_next=dt_next)
     refs = ops.newmark_update_reference(*args, dt, dt_next=dt_next)
     torch.cuda.synchronize()
     require(len(outs) == 3, f"{what}: K5 returned {len(outs)} outputs")
-    for name, out, ref in zip(("v1", "a1", "u_next"), outs, refs):
-        require(torch.equal(out, ref), f"{what}: K5's {name} not bit-equal to the plain"
-                f" version (max |diff| {(out - ref).abs().max().item():.3e})")
+    for name, out, flo, ref in zip(("v1", "a1", "u_next"), outs, floats, refs):
+        require(torch.equal(out, ref) and torch.equal(flo, ref),
+                f"{what}: K5's {name} not bit-equal to the plain version (max |diff|"
+                f" {(out - ref).abs().max().item():.3e})")
     return outs
 
 
 def newmark_op(torch, label, tag, vecs):
     """K5 at one size: bit-equal to its plain version, eagerly and replayed
-    in a CUDA graph (its programmatic dependent launch captured); then its
-    timing row (``measure``)."""
+    in a CUDA graph (its programmatic dependent launch captured) that reads
+    its coefficient row after a step counter, as the captured time step
+    does; then its timing row (``measure``) for the time loop's call, a
+    row of a coefficient table."""
     from vf_fem_tpu_torch import ops, yardsticks
+    from vf_fem_tpu_torch.equations import newmark
 
     what = f"ops newmark {label} {tag}"
     newmark_equal(torch, what, vecs)
-    # one capture, replayed: the same bits as an eager launch
+    dev = vecs[0].device
+    steps = ((DT, 0.75 * DT), (0.75 * DT, DT))
+    table = ops.newmark_row([newmark.coefficients(*st) for st in steps], vecs[0].dtype, dev)
+    counter = torch.zeros(1, dtype=torch.int64, device=dev)
     static = [v.clone() for v in vecs]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        ops.newmark_update(*static, DT)
+        ops.newmark_update_coefs(*static, table.index_select(0, counter)[0])
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        captured = ops.newmark_update(*static, DT)
+        captured = ops.newmark_update_coefs(*static, table.index_select(0, counter)[0])
+        counter.add_(1)
     for v, w in zip(static, vecs):
         v.copy_(w.flip(0))  # new inputs in place: the replay reads them
-    graph.replay()
-    torch.cuda.synchronize()
-    eager = ops.newmark_update(*static, DT)
-    require(all(torch.equal(c, e) for c, e in zip(captured, eager)),
-            f"{what}: the CUDA-graph replay differs from the eager launch")
-    r = measure(torch, lambda: ops.newmark_update(*vecs, DT),
-                lambda: ops.newmark_update_reference(*vecs, DT))
+    for i, st in enumerate(steps):
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = ops.newmark_update_reference(*static, st[0], dt_next=st[1])
+        require(all(torch.equal(c, e) for c, e in zip(captured, eager)),
+                f"{what}: the CUDA-graph replay of row {i} differs from the plain version")
+    row = table[0]
+    r = measure(torch, lambda: ops.newmark_update_coefs(*vecs, row),
+                lambda: ops.newmark_update_coefs_reference(*vecs, row))
     n, es = vecs[0].numel(), vecs[0].element_size()
     r.update(max_abs_err=0.0, lib_err=None, bytes=newmark_work(n, es)[0],
              lib_call=yardsticks.LIBRARY_CALL["newmark"])
@@ -745,7 +792,8 @@ def newmark_edges(torch, dev, dtype):
         newmark_equal(torch, f"newmark n={n} {tag} dt_next", [f[:n] for f in full],
                       dt_next=0.75 * DT)
     log(f"[ops] newmark {tag}: bit-equal to the plain version at n = 123, 960, 23754,"
-        " on views at +1 entry and at mixed phases, and with another predictor step")
+        " on views at +1 entry and at mixed phases, and with another predictor step,"
+        " its coefficients read from a row in device memory")
 
 
 def sweep_double_rounding(torch, dev):
@@ -1045,18 +1093,22 @@ def step_split(torch, built, state, params, n_steps, step_ms):
 def profile_run(torch, run, n_steps, kernel):
     """One run under ``torch.profiler``: device kernels per step, device
     busy time (the table's "Self CUDA time total": device events' self
-    time), the idle share of the profiled wall time, and the device time
-    and launches of the kernels whose name holds ``kernel``."""
+    time), the idle share of the profiled wall time, the device time and
+    launches of the kernels whose name holds ``kernel``, and each port
+    kernel's launches in the trace (``traced``) beside the run's count of
+    them (``counted``: the launch counters' delta, replays included)."""
     import time
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    before = read_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    after = read_launches()
     ka = prof.key_averages()
     dev_events = [e for e in ka if e.device_type == DeviceType.CUDA
                   and not getattr(e, "is_user_annotation", False)]
@@ -1065,9 +1117,24 @@ def profile_run(torch, run, n_steps, kernel):
     mine = [e for e in dev_events if kernel in e.key]
     k_ms = sum(e.self_device_time_total for e in mine) / 1e3
     table = ka.table(sort_by="self_cuda_time_total", row_limit=12)
+    traced = {op: sum(e.count for e in dev_events if name in e.key)
+              for op, name in TRACE_NAMES.items()}
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle=1 - busy_ms / wall_ms,
                 per_step=n_dev / n_steps, k_ms=k_ms, k_launches=sum(e.count for e in mine),
-                table=table)
+                table=table, traced=traced,
+                counted={op: after[op] - before[op] for op in TRACE_NAMES})
+
+
+def require_traced(prof, names, what):
+    """The profiled run's launch counts are the launches its trace shows,
+    for each kernel of ``names`` (a replay adds its captured step's counts,
+    so this holds that delta to the device's record)."""
+    for op in names:
+        require(prof["traced"][op] > 0 and prof["traced"][op] == prof["counted"][op],
+                f"{what}: {op} launched {prof['traced'][op]} times in the trace,"
+                f" counted {prof['counted'][op]}")
+    log(f"[{what}] launches in the trace = the counters' ("
+        + ", ".join(f"{op} {prof['traced'][op]}" for op in names) + ")")
 
 
 def krylov_iteration_ms(torch, built, state, params, reps=5):
@@ -1144,15 +1211,9 @@ def phase_btd(torch, card, models):
         require(tuple(traj["u"].shape) == (n_steps, ndof), "btd: bad shape")
         for k, v in traj.items():
             require(bool(torch.isfinite(v).all()), f"btd prod {tag}: non-finite {k}")
-        step_ms = ms / n_steps
-        state = {k: v[n_steps // 2 - 1] for k, v in traj.items()}
-        split, detail = step_split(torch, models[tag], state, BTD_PROD, n_steps, step_ms)
-        log(f"[btd] prod {tag}: {n_steps / (ms / 1e3):.2f} steps/s ({ms:.3f} ms / {n_steps}"
-            f" steps, CUDA events), {step_ms:.3f} ms per step = "
-            + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
-            + f" ms ({detail}, at step {n_steps // 2}); Newmark predictors {pred};"
-            f" {solves} solves, Newton"
-            f" {infos.num_iter.tolist()[:4]}..., launches {launches}"
+        log(f"[btd] prod {tag} (CUDA graph): {n_steps / (ms / 1e3):.2f} steps/s ({ms:.3f} ms /"
+            f" {n_steps} steps, CUDA events); Newmark predictors {pred}; {solves} solves,"
+            f" Newton {infos.num_iter.tolist()[:4]}..., launches {launches}"
             f" ({sum(launches.values()) / n_steps:.1f} per step), on {card}")
         (fin_x, _, infos_x), ms_x, launches_x, _ = drive(tag, BTD_EXACT)
         check_path(f"btd exact {tag}", launches_x, infos_x)
@@ -1165,8 +1226,9 @@ def phase_btd(torch, card, models):
             f" (gate {gate:.1e}; JAX CPU {jax_err:.3e}); exact run"
             f" {n_steps / (ms_x / 1e3):.2f} steps/s")
         require(traj_err <= gate, f"btd prod {tag}: trajectory error over its gate")
-        out[tag] = dict(launches=launches, steps_s=n_steps / (ms / 1e3), split=split,
-                        traj_err=traj_err, n_steps=n_steps)
+        out[tag] = dict(launches=launches, steps_s=n_steps / (ms / 1e3), traj_err=traj_err,
+                        n_steps=n_steps, exact_u=fin_x["u"].double().cpu().numpy(),
+                        gate=gate)
     prod_err = rel_max(finals["float64"], gold["prod_u_final"])
     log(f"[btd] prod f64 final u vs the JAX package's (golden): {prod_err:.3e}"
         f" (gate {PROD_U_GATE:.3e})")
@@ -1181,13 +1243,199 @@ def phase_btd(torch, card, models):
     prof = profile_run(torch, lambda: forward.integrate_pure(
         model, state0, cs, prop, times, BTD_PROD), n_steps, "btd_sweep_kernel")
     log(f"[btd] profile prod f64, {n_steps} steps: {prof['per_step']:.1f} device kernels"
-        f" per step (earlier: {EARLIER_PER_STEP['23.7k btd']}), device busy"
+        f" per step (eager, earlier: {EARLIER_PER_STEP['23.7k btd']}), device busy"
         f" {prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms profiled wall, idle share {prof['idle']:.3f}; K6 {prof['k_ms']:.3f} ms"
         f" ({prof['k_ms'] / prof['busy_ms']:.1%} of busy) in {prof['k_launches']} launches"
         f" ({prof['k_ms'] / max(prof['k_launches'], 1) * 1e3:.1f} us each), on {card}")
     require(prof["k_launches"] > 0, "btd profile: no K6 kernel in the trace")
+    require_traced(prof, ("gather", "scatter", "newmark", "btd_sweep"), "btd")
     log(prof["table"])
     out["profile"] = {k: v for k, v in prof.items() if k != "table"}
+    return out
+
+
+def graph_entry(model, params):
+    """The stats of the model's cached step graph for ``params``
+    (``step_graph.graph_stats``); raises if there is none."""
+    from vf_fem_tpu_torch import step_graph
+    from vf_fem_tpu_torch.models.transient import solver_params
+
+    key = step_graph.params_key(solver_params(params))
+    stats = step_graph.graph_stats(model)
+    require(key in stats, f"no step graph cached for {params}")
+    return stats[key]
+
+
+def replay_ms(torch, model, params, n_steps):
+    """The cached step graph alone: ``n_steps`` replays of the rows its
+    buffers hold (the last run's last chunk; the counter back to 0 after
+    each chunk), by CUDA events, in ms a step; the rest of a graph run is
+    its eager factorizations, the copies between chunks and host work."""
+    from vf_fem_tpu_torch import step_graph
+    from vf_fem_tpu_torch.models.transient import solver_params
+
+    buf = model._step_graphs[step_graph.params_key(solver_params(params))]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for n in range(n_steps):
+        if n % step_graph.CHUNK == 0:
+            buf.counter.zero_()
+        buf.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n_steps
+
+
+def peak_memory(torch, eager, graph, windowed):
+    """Peak device memory of each run above what was allocated before it
+    (the model, and the cached step graph's buffers and pool), in bytes:
+    the eager loop, the graph unwindowed and the graph in windows of
+    ``MEMORY_WINDOW`` steps (each window's trajectory moved to the host)."""
+    out = {}
+    for which, fn in (("eager", eager), ("graph", graph), ("graph windowed", windowed)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        out[which] = torch.cuda.max_memory_allocated() - base
+    return out
+
+
+def same_run(torch, a, b):
+    """Two ``integrate_pure`` results bit for bit: final state, trajectory
+    and infos."""
+    (fa, ta, ia), (fb, tb, ib) = a, b
+    return (all(torch.equal(fa[k], fb[k]) and torch.equal(ta[k], tb[k]) for k in ta)
+            and all(torch.equal(x, y) for x, y in zip(ia, ib)))
+
+
+def phase_integrate(torch, card, dev, large, btd_res):
+    """``forward.integrate(model, None, ...)`` at full width, then the eager
+    loop and the captured step in turns (eager, graph, graph, eager): the
+    M5 headline (960 dofs) and the 23.7k production btd config, 100 steps,
+    f64 and f32.  Each graph run is held bit for bit to the eager run, its
+    launch counts equal, and the entry point's certification and
+    divergence flags equal the eager run's; then each run's gates and a
+    profile of each path."""
+    from vf_fem_tpu_torch import forward
+
+    gold = np.load(os.path.join(REPO, "tests", "data", "golden_large_btd_explicit.npz"))
+    configs = (("M5 headline", HEADLINE, DT * np.arange(N_STEPS + 1)),
+               ("23.7k btd", BTD_PROD, gold["times"]))
+    out = {}
+    for name, params, times in configs:
+        used = ("gather", "scatter", "newmark") + (("btd_sweep",) if name == "23.7k btd" else ())
+        n_steps = len(times) - 1
+        finals = {}
+        for dtype in (torch.float64, torch.float32):
+            tag = str(dtype).replace("torch.", "")
+            what = f"integrate {name} {tag}"
+            model, state0, cs, prop = (build(torch, dev, "M5_3layers.msh", dtype)
+                                       if name == "M5 headline" else large[tag])
+            control = {k: v[0] for k, v in cs.items()}
+
+            def eager():
+                return forward._integrate_eager(model, state0, cs, prop, times, params)
+
+            def graph():
+                return forward.integrate_pure(model, state0, cs, prop, times, params)
+
+            # the entry point a user calls; it captures the step where the
+            # graph is not cached yet
+            reset_launches()
+            fin_i, info_i = forward.integrate(model, None, state0, [control], prop, times,
+                                              newton_solver_prm=params, write=False)
+            torch.cuda.synchronize()
+            require_launched(read_launches(), ("gather", "scatter", "newmark"), what)
+            entry = graph_entry(model, params)
+            eager()  # warm-up
+            turns = []
+            for which in ("eager", "graph", "graph", "eager"):
+                res, ms, launches, _ = run_timed(torch, model, eager if which == "eager" else graph)
+                turns.append(dict(which=which, res=res, ms=ms, launches=launches,
+                                  steps_s=n_steps / (ms / 1e3)))
+            ref = turns[0]
+            for t in turns[1:]:
+                require(same_run(torch, t["res"], ref["res"]),
+                        f"{what}: a {t['which']} run is not bit-equal to the first eager run")
+                require(t["launches"] == ref["launches"],
+                        f"{what}: {t['which']} launches {t['launches']} != {ref['launches']}")
+            fin_e, info_e = forward.finalize_run(model, None, state0, [control], prop, times,
+                                                 None, params, *ref["res"], write=False)
+            require(info_i["uncertified_steps"] == info_e["uncertified_steps"]
+                    and info_i["diverged"] == info_e["diverged"],
+                    f"{what}: flags {info_i['uncertified_steps']}, {info_i['diverged']} !="
+                    f" eager {info_e['uncertified_steps']}, {info_e['diverged']}")
+            require(all(np.array_equal(info_i["all"][k], info_e["all"][k]) for k in info_e["all"])
+                    and all(np.array_equal(fin_i[k], fin_e[k]) for k in fin_e),
+                    f"{what}: integrate's final state or infos differ from the eager run's")
+            for k, v in ref["res"][1].items():
+                require(bool(torch.isfinite(v).all()), f"{what}: non-finite {k}")
+            prof = {which: profile_run(torch, fn, n_steps, "newmark_kernel")
+                    for which, fn in (("eager", eager), ("graph", graph))}
+            for which, p in prof.items():
+                require_traced(p, used, f"{what} {which}")
+            memory = peak_memory(torch, eager, graph, lambda: forward._integrate_windowed(
+                model, state0, cs, prop, times, params, window=MEMORY_WINDOW))
+            alone = replay_ms(torch, model, params, n_steps)
+            graph_ms = (turns[1]["ms"] + turns[2]["ms"]) / 2
+            windows = -(-n_steps // int(params["jacobian_refresh_steps"]))
+            pool = entry["pool_bytes"]
+            traj_bytes = sum(v.numel() * v.element_size() for v in ref["res"][1].values())
+            log(f"[integrate] {name} {tag}: steps/s by CUDA events, in turns "
+                + ", ".join(f"{t['which']} {t['steps_s']:.2f}" for t in turns)
+                + f"; graph bit-equal to eager (trajectory, infos, final state), launches"
+                f" {ref['launches']} both ways ({sum(ref['launches'].values()) / n_steps:.1f} a"
+                f" step); integrate: uncertified_steps {info_i['uncertified_steps']}, diverged"
+                f" {info_i['diverged']} (eager: {info_e['uncertified_steps']},"
+                f" {info_e['diverged']}); graph {entry['nodes']} nodes a step, capture"
+                f" {entry['capture_ms']:.3f} ms, instantiate {entry['instantiate_ms']:.3f} ms,"
+                f" pool {'not measured' if pool is None else f'{pool / 2**20:.1f} MB'},"
+                f" {entry['captures']} capture(s), {entry['replays']} replays; on {card}")
+            log(f"[integrate] {name} {tag}: peak device memory above the model's, in MB: "
+                + ", ".join(f"{k} {v / 2**20:.1f}" for k, v in memory.items())
+                + f"; trajectory {traj_bytes / 2**20:.1f} MB; on {card}")
+            log(f"[integrate] {name} {tag}: the step graph alone {alone:.4f} ms a step"
+                f" ({1e3 / alone:.2f} steps/s, {n_steps} replays by CUDA events); the rest of a"
+                f" graph run, {graph_ms - n_steps * alone:.3f} ms of {graph_ms:.3f}, is its"
+                f" {windows} eager factorizations and refreshes and the host between replays")
+            for which, p in prof.items():
+                log(f"[integrate] {name} {tag} profile {which}: {p['per_step']:.1f} device kernels"
+                    f" a step, device busy {p['busy_ms']:.3f} ms of {p['wall_ms']:.3f} ms profiled"
+                    f" wall ({p['busy_ms'] / n_steps:.4f} ms a step), idle share {p['idle']:.3f};"
+                    f" K5 {p['k_launches']} launches in the trace")
+            finals[tag] = fin_i["u"].astype(np.float64)
+            out[(name, tag)] = dict(turns=[{k: v for k, v in t.items() if k != "res"}
+                                           for t in turns], replay_ms=alone,
+                                    graph=entry, memory=memory,
+                                    profile={w: {k: v for k, v in p.items() if k != "table"}
+                                             for w, p in prof.items()})
+            if name == "23.7k btd":
+                err = rel_max(finals[tag], btd_res[tag]["exact_u"])
+                log(f"[integrate] {name} {tag}: trajectory error vs the exact-Jacobian run"
+                    f" {err:.3e} (gate {btd_res[tag]['gate']:.1e})")
+                require(err <= btd_res[tag]["gate"], f"{what}: trajectory error over its gate")
+                if tag == "float64":
+                    mid = {k: v[n_steps // 2 - 1] for k, v in ref["res"][1].items()}
+                    eager_ms = (turns[0]["ms"] + turns[3]["ms"]) / 2 / n_steps
+                    split, detail = step_split(torch, large[tag], mid, params, n_steps, eager_ms)
+                    log(f"[integrate] {name} {tag} eager step {eager_ms:.3f} ms = "
+                        + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+                        + f" ms ({detail}, eager calls at step {n_steps // 2}); graph step"
+                        f" {(turns[1]['ms'] + turns[2]['ms']) / 2 / n_steps:.3f} ms")
+        rel = rel_max(finals["float32"], finals["float64"])
+        gate = (10 * JAX_CPU_F32_VS_F64 if name == "M5 headline"
+                else 10 * float(gold["prod_f32_vs_f64"]))
+        log(f"[integrate] {name}: f32 vs f64 final u max rel diff {rel:.3e} (gate {gate:.3e})")
+        require(rel <= gate, f"integrate {name}: f32 run outside its gate")
+        if name == "23.7k btd":
+            err = rel_max(finals["float64"], gold["prod_u_final"])
+            log(f"[integrate] {name} f64 final u vs the JAX package's (golden): {err:.3e}"
+                f" (gate {PROD_U_GATE:.3e})")
+            require(err <= PROD_U_GATE, f"integrate {name}: final u off the JAX package's")
     return out
 
 
@@ -1215,6 +1463,7 @@ def main():
     head = phase_headline(torch, dev, card)
     kry = phase_krylov(torch, card, large)
     btd_res = phase_btd(torch, card, large)
+    phase_integrate(torch, card, dev, large, btd_res)
 
     # per kernel: the timing at the 23.7k shapes of the btd main path (f64)
     timing = {

@@ -25,10 +25,13 @@ factors and right-hand sides from a seed, the factors scaled by
 SHA-256 of each sweep's output bytes, so that equal digests show two
 kernels bit-equal; the sweeps at the 23.7k shapes (Bt = 256) are timed;
 
-K5 ``ops.newmark_update`` at 23.7k dofs, f64 and f32, with the next
-step's Newmark predictor: one launch where the checkout's K5 writes it,
-else K5 (v1, a1) and the plain predictor (``equations.newmark``, four
-eager kernels), with the SHA-256 of the three outputs;
+K5 at 23.7k dofs, f64 and f32, with the next step's Newmark predictor:
+``ops.newmark_update_coefs`` with its coefficients as a row in device
+memory (the time loop's launch) where the checkout has it, else
+``ops.newmark_update`` (one launch where the checkout's K5 writes the
+predictor, else K5 (v1, a1) and the plain predictor,
+``equations.newmark``, four eager kernels), with the SHA-256 of the
+three outputs;
 
 K4 ``ops.bsb_matvec`` at 23.7k dofs, f64 and f32, on the model's
 block-banded Jacobian at rest under 500 Ba (the fill of ``chip_smoke.py``
@@ -36,13 +39,17 @@ phase 3), with the checkout's own plan and, where the checkout has one,
 its matvec pattern; then the production bsb f64 run of ``chip_smoke.py``
 phase 6 (20 steps after a warm-up run) under ``torch.profiler``: K4's
 device time and share of device busy, the idle share, and the ms per
-BiCGStab iteration at the run's middle state.
+BiCGStab iteration at the run's middle state; then the production btd
+f64 run of ``chip_smoke.py`` phase 7 (``bench.py:411-434``, 100 steps
+after a warm-up run: the eager loop, or the captured CUDA-graph step where
+the checkout has one), timed by CUDA events, with the SHA-256 of its
+trajectory and infos.
 
 Each time is taken two ways by CUDA events: the eager call (200 calls
 after 20 warm-up calls) and the device time (200 calls captured in one CUDA
 graph and replayed).  Prints one line per process and, last, a JSON object
-with every process's numbers, whether each K5 and K6 digest is the same in
-every process, and the card's name and power limit.  Exits nonzero without CUDA
+with every process's numbers, whether each K5, K6 and btd trajectory
+digest is the same in every process, and the card's name and power limit.  Exits nonzero without CUDA
 or when a process fails.
 """
 
@@ -61,7 +68,7 @@ def child(root):
 
     sys.path.insert(0, HERE)
     # this checkout's timers and drivers; they import the port when called
-    from chip_smoke import (LARGE_MESH, PROD, build, cuda_ms, graph_ms,
+    from chip_smoke import (BTD_PROD, LARGE_MESH, PROD, build, cuda_ms, graph_ms,
                             krylov_iteration_ms, profile_run, rest_operator)
 
     sys.path.insert(0, root)  # the port of the checkout under test
@@ -110,9 +117,15 @@ def child(root):
     from vf_fem_tpu_torch.equations import newmark  # noqa: E402
 
     host = rng.standard_normal((4, 23_754))
+    row_api = hasattr(ops, "newmark_update_coefs")
     for dtype in (torch.float64, torch.float32):
         u1, u0, v0, a0 = (torch.tensor(h, dtype=dtype, device=dev) for h in host)
-        fn = lambda: ops.newmark_update(u1, u0, v0, a0, 1e-4)
+        if row_api:  # the time loop's launch: the coefficients as a device row
+            row = torch.tensor(newmark.coefficients(1e-4), dtype=torch.float64).to(dtype=dtype,
+                                                                                  device=dev)
+            fn = lambda: ops.newmark_update_coefs(u1, u0, v0, a0, row)
+        else:
+            fn = lambda: ops.newmark_update(u1, u0, v0, a0, 1e-4)
         whole = len(fn()) == 3
         if not whole:
             def fn():
@@ -121,7 +134,7 @@ def child(root):
         y = torch.cat(fn()).cpu().numpy()
         out[f"newmark {str(dtype).replace('torch.', '')}"] = dict(
             sha256=hashlib.sha256(y.tobytes()).hexdigest(), ms=cuda_ms(torch, fn),
-            device_ms=graph_ms(torch, fn), one_launch=whole)
+            device_ms=graph_ms(torch, fn), one_launch=whole, row=row_api)
 
     built = build(torch, dev, LARGE_MESH, torch.float64)
     model, state0, cs, prop = built
@@ -151,6 +164,28 @@ def child(root):
         k4_ms=prof["k_ms"], k4_launches=prof["k_launches"], busy_ms=prof["busy_ms"],
         k4_share=prof["k_ms"] / prof["busy_ms"], idle=prof["idle"], wall_ms=prof["wall_ms"],
         iter_ms=iter_ms, iters=iters)
+
+    # the production btd f64 run (bench.py:411-434, 100 steps): the SHA-256
+    # of its trajectory and infos, and its time by CUDA events after a
+    # warm-up run (the eager loop, or the captured step where the checkout
+    # has one)
+    times = np.load(os.path.join(HERE, "tests", "data", "golden_large_btd_explicit.npz"))["times"]
+    btd = lambda: forward.integrate_pure(model, state0, cs, prop, times, BTD_PROD)
+    btd()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    _, traj, infos = btd()
+    end.record()
+    torch.cuda.synchronize()
+    digest = hashlib.sha256()
+    for k in sorted(traj):
+        digest.update(traj[k].cpu().numpy().tobytes())
+    for x in infos:
+        digest.update(x.cpu().numpy().tobytes())
+    out["btd prod f64 trajectory"] = dict(sha256=digest.hexdigest(),
+                                          run_ms=start.elapsed_time(end),
+                                          steps=len(times) - 1)
     torch.cuda.synchronize()
     print(json.dumps(out), flush=True)
 
@@ -183,6 +218,8 @@ def main():
             + (f" K4 {v['k4_ms']:.3f} ms in {v['k4_launches']} launches, {v['k4_share']:.1%}"
                f" of busy {v['busy_ms']:.3f} ms, idle {v['idle']:.3f}, {v['iter_ms']:.4f} ms"
                f" per BiCGStab iteration ({v['iters']} a solve)" if "k4_ms" in v else "")
+            + (f" {v['steps'] / (v['run_ms'] / 1e3):.2f} steps/s ({v['run_ms']:.3f} ms)"
+               if "run_ms" in v else "")
             for k, v in res.items() if isinstance(v, dict)), flush=True)
     same = {k: len({r[k]["sha256"] for r in runs}) == 1
             for k, v in runs[0].items() if isinstance(v, dict) and "sha256" in v}

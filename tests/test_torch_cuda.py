@@ -473,3 +473,217 @@ def test_scatter_sums_in_csr_order(plan, C, dtype):
         ref = banded.banded_scatter_reference(
             cpu, torch.tensor(loc, dtype=dtype), nvert, getattr(cpu, which))
         assert torch.equal(out.cpu(), ref)
+
+
+# -- the captured time step (vf_fem_tpu_torch.step_graph) ---------------------------
+
+# tests/port_fixtures.HEADLINE_SMALL (dense, Newton-Schulz refresh) and
+# bench.py:411-434 with the refresh cut to 8 steps (btd on bf16 factors)
+GRAPH_CONFIGS = {
+    "dense-ns": ({"jacobian_update": "once_per_step", "stagnation_ratio": 0.5,
+                  "jacobian_refresh_steps": 5, "jacobian_refresh_mode": "ns",
+                  "jacobian_full_refresh_windows": 2, "fixed_iterations": 2,
+                  "assembly": "banded"}, None, 28),
+    "btd": ({"linear_solver": "btd", "btd_store_dtype": "bfloat16",
+             "jacobian_refresh_steps": 8, "fixed_iterations": 3,
+             "fixed_tail_residual": False, "stagnation_ratio": 0.5,
+             "assembly": "banded"}, "rcm", 20),
+}
+
+
+def _graph_run(cuda, config, dtype):
+    from vf_fem_tpu_torch import step_graph
+
+    params, reorder, n_steps = GRAPH_CONFIGS[config]
+    model = port_vf_model("KelvinVoigtWEpithelium", device=cuda, dtype=dtype,
+                          reorder=reorder)
+    state0, cs, prop = port_inputs(model)
+    times = 1e-4 * np.arange(n_steps + 1)
+    times[3:] += 2e-6 * np.arange(n_steps - 2)  # dt varies from step 3
+    assert step_graph.captures(model, forward.solver_params(params))
+    return model, (state0, cs, prop, times, params)
+
+
+def _same_run(a, b):
+    (fa, ta, ia), (fb, tb, ib) = a, b
+    return (all(torch.equal(fa[k], fb[k]) and torch.equal(ta[k], tb[k]) for k in fa)
+            and all(torch.equal(x, y) for x, y in zip(ia, ib)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("config", list(GRAPH_CONFIGS))
+def test_graph_equals_eager(cuda, config, dtype):
+    """A fixed-iteration run on the card replays one captured step a step:
+    its trajectory, infos and final state equal the eager loop's bit for
+    bit (non-uniform dt), and every replay adds the captured step's kernel
+    launches and predictors."""
+    from vf_fem_tpu_torch import step_graph
+
+    model, args = _graph_run(cuda, config, dtype)
+    eager = forward._integrate_eager(model, *args)
+    ops.LAUNCHES.update(dict.fromkeys(ops.LAUNCHES, 0))
+    banded.LAUNCHES.update(dict.fromkeys(banded.LAUNCHES, 0))
+    model.solid.predictor_counts.update(carried=0, formed=0)
+    graph = forward.integrate_pure(model, *args)
+    torch.cuda.synchronize()
+    assert _same_run(graph, eager)
+    (stats,) = step_graph.graph_stats(model).values()
+    n_steps = len(args[3]) - 1
+    assert stats["captures"] == 1 and stats["replays"] == n_steps - 1
+    assert stats["nodes"] > 0
+    solves = int(graph[2].num_iter.sum())
+    assert ops.LAUNCHES["newmark"] == n_steps
+    if config == "btd":
+        assert ops.LAUNCHES["btd_sweep"] == 2 * solves
+    # one predictor formed (the first step's), then one carried a step and
+    # one at each refresh window's factorization
+    windows = len(list(step_graph.refresh_windows(n_steps, forward.solver_params(args[4]))))
+    assert model.solid.predictor_counts == {"carried": n_steps + windows, "formed": 1}
+
+
+def test_graph_is_cached(cuda):
+    """A second run with the same settings, over another number of steps,
+    captures nothing and replays every step; new inputs give the eager
+    loop's bits."""
+    from vf_fem_tpu_torch import step_graph
+
+    model, (state0, cs, prop, times, params) = _graph_run(cuda, "dense-ns", torch.float64)
+    forward.integrate_pure(model, state0, cs, prop, times, params)
+    cs2 = {k: v * 0.9 for k, v in cs.items()}
+    state2 = {k: v + 1e-9 for k, v in state0.items()}
+    times2 = times[:-5] + 0.1
+    graph = forward.integrate_pure(model, state2, cs2, prop, times2, params)
+    (stats,) = step_graph.graph_stats(model).values()
+    n_steps = len(times) - 1
+    assert stats["captures"] == 1 and stats["replays"] == 2 * n_steps - 6
+    assert _same_run(graph, forward._integrate_eager(model, state2, cs2, prop, times2, params))
+
+
+def test_graph_leaves_the_callers_properties_alone(cuda):
+    """Runs A, B, A with properties given as CUDA tensors: the graph reads
+    copies, so A's tensors are unchanged after B, and the second A run
+    gives the eager A run's bits."""
+    model, (state0, cs, _, times, params) = _graph_run(cuda, "dense-ns", torch.float64)
+    prop_a = {k: torch.tensor(v, device=cuda) for k, v in model.prop.items()}
+    kept = {k: v.clone() for k, v in prop_a.items()}
+    prop_b = {k: v.clone() for k, v in prop_a.items()}
+    prop_b["emod"] *= 1.2
+    forward.integrate_pure(model, state0, cs, prop_a, times, params)
+    forward.integrate_pure(model, state0, cs, prop_b, times, params)
+    assert all(torch.equal(prop_a[k], kept[k]) for k in kept)
+    again = forward.integrate_pure(model, state0, cs, prop_a, times, params)
+    assert _same_run(again, forward._integrate_eager(model, state0, cs, kept, times, params))
+
+
+def test_one_step_run_captures_nothing(cuda):
+    """A run of one step has no replay to pay for a capture: it runs the
+    step uncaptured, caches no graph and gives the eager loop's bits."""
+    from vf_fem_tpu_torch import step_graph
+
+    model, (state0, cs, prop, times, params) = _graph_run(cuda, "btd", torch.float64)
+    one = forward.integrate_pure(model, state0, cs, prop, times[:2], params)
+    assert step_graph.graph_stats(model) == {}
+    assert _same_run(one, forward._integrate_eager(model, state0, cs, prop, times[:2], params))
+
+
+@pytest.mark.parametrize("params", [{}, {"linear_solver": "bsb", "jacobian_refresh_steps": 4,
+                                         "fixed_iterations": 2},
+                                    {"fixed_iterations": 2, "jacobian_update": "once_per_step"}])
+def test_adaptive_and_per_step_runs_replay_no_graph(cuda, params):
+    """Adaptive Newton, the Krylov solvers and per-step factorizations stay
+    eager: no graph is captured or replayed."""
+    from vf_fem_tpu_torch import step_graph
+
+    model = port_vf_model("KelvinVoigtWEpithelium", device=cuda, reorder="rcm")
+    state0, cs, prop = port_inputs(model)
+    assert not step_graph.captures(model, forward.solver_params(params))
+    forward.integrate_pure(model, state0, cs, prop, 1e-4 * np.arange(6), params)
+    assert step_graph.graph_stats(model) == {}
+
+
+@pytest.mark.parametrize("layout", ["aligned", "view", "mixed"])
+@pytest.mark.parametrize("n", [960, 23_754])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_newmark_row_from_device_memory(cuda, dtype, n, layout):
+    """K5 with its coefficients read from a row of a table on the device
+    (in the vectors' dtype): bit for bit the plain version of that row (and
+    of the same steps as floats), eagerly and in a CUDA-graph replay that
+    reads another row of the table after each replay's counter."""
+    from vf_fem_tpu_torch.equations import newmark
+
+    args = _newmark_inputs(n, layout, dtype, cuda)
+    steps = [(1e-4, 7.5e-5), (7.5e-5, 1.3e-4), (1.3e-4, 1.3e-4)]
+    table = ops.newmark_row([newmark.coefficients(*s) for s in steps], dtype, cuda)
+    for i, (dt, dtp) in enumerate(steps):
+        outs = ops.newmark_update_coefs(*args, table[i])
+        refs = ops.newmark_update_reference(*args, dt, dt_next=dtp)
+        assert all(torch.equal(o, r) for o, r in zip(outs, refs))
+        assert all(torch.equal(o, r) for o, r in
+                   zip(outs, ops.newmark_update_coefs_reference(*args, table[i])))
+    counter = torch.zeros(1, dtype=torch.int64, device=cuda)
+    out = [torch.empty_like(args[0]) for _ in range(3)]
+
+    def step():
+        res = ops.newmark_update_coefs(*args, table.index_select(0, counter)[0])
+        for o, r in zip(out, res):
+            o.copy_(r)
+        counter.add_(1)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    for i in (1, 2):
+        graph.replay()
+        torch.cuda.synchronize()
+        refs = ops.newmark_update_reference(*args, steps[i][0], dt_next=steps[i][1])
+        assert all(torch.equal(o, r) for o, r in zip(out, refs))
+
+
+def test_res_u_with_a_coefficient_row_on_cuda(cuda):
+    """The residual multiplies by 0-d tensors of a coefficient row and
+    gives the Python floats' bits on the card, f64 and f32."""
+    from vf_fem_tpu_torch.equations import newmark
+    from vf_fem_tpu_torch.models.transient import StepCoefs
+
+    for dtype in (torch.float64, torch.float32):
+        model = port_vf_model("KelvinVoigtWEpithelium", device=cuda, dtype=dtype)
+        solid = model.solid
+        rng = np.random.default_rng(3)
+        s0 = {k: torch.tensor(1e-3 * rng.standard_normal(solid.ndof), dtype=dtype,
+                              device=cuda) for k in ("u", "v", "a")}
+        u1 = s0["u"] + 1e-4
+        prop = {k: torch.tensor(model.prop[k], dtype=dtype, device=cuda)
+                for k in model._solid_prop_keys}
+        ctrl = {"p1": torch.full((solid.nvert,), 500.0, dtype=dtype, device=cuda)}
+        for dt in (1e-4, 3.7e-5):
+            row = torch.tensor(newmark.coefficients(dt, 2e-4), dtype=torch.float64,
+                               device=cuda)
+            for banded_ in (True, False):
+                assert torch.equal(
+                    solid.res_u(u1, s0, ctrl, prop, StepCoefs(row, dtype), banded_),
+                    solid.res_u(u1, s0, ctrl, prop, dt, banded_))
+
+
+def test_capture_with_a_host_sync_raises(cuda):
+    """A step that synchronises with the host cannot be captured: the run
+    raises, it does not fall back to the eager loop (last in this file: a
+    failed capture may leave the process's CUDA state unusable)."""
+    from vf_fem_tpu_torch import step_graph
+
+    model, args = _graph_run(cuda, "dense-ns", torch.float64)
+    step = model.step_pure_stale
+
+    def synced(*a, **kw):
+        state, info = step(*a, **kw)
+        float(info.abs_err)  # a device-to-host copy: a sync
+        return state, info
+
+    model.step_pure_stale = synced
+    with pytest.raises(RuntimeError):
+        forward.integrate_pure(model, *args)
+    assert step_graph.graph_stats(model) == {}

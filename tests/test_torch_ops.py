@@ -5,8 +5,6 @@ as ``tests/test_ops.py`` runs them, on the same numpy inputs.  On CPU
 tensors the port's wrappers take the plain versions and launch nothing.
 """
 
-import ctypes
-
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -131,13 +129,18 @@ def test_newmark_update_is_the_state_update(dt_next):
 
 @pytest.mark.parametrize("dt", [1e-4, 3e-5])
 def test_newmark_coefs_are_the_plain_expressions(dt):
-    """K5's host-side coefficients are the scalars the plain version
-    multiplies by, bit for bit (``equations.newmark``'s expressions)."""
+    """K5's coefficient row (``equations.newmark.coefficients``, which the
+    float API keeps as a device row) holds the scalars the plain version
+    multiplies by, bit for bit."""
+    from vf_fem_tpu_torch.equations import newmark
     from vf_fem_tpu_torch.ops import kernels
 
     gamma, beta, dtp = 0.5, 0.25, 0.9 * dt
-    coefs, addr = kernels._newmark_coefs(dt, gamma, beta, dtp)
-    assert addr == ctypes.addressof(coefs)
+    coefs = newmark.coefficients(dt, dtp, gamma, beta)
+    row = kernels._newmark_row(torch.device("cpu"), torch.float64, dt, gamma, beta, dtp)
+    assert row.dtype == torch.float64 and row.tolist() == list(coefs)
+    row32 = kernels._newmark_row(torch.device("cpu"), torch.float32, dt, gamma, beta, dtp)
+    assert row32.tolist() == [float(torch.tensor(c, dtype=torch.float32)) for c in coefs]
     # unit inputs pick each coefficient out of the plain version
     one = torch.ones(1, dtype=torch.float64)
     zero = torch.zeros(1, dtype=torch.float64)

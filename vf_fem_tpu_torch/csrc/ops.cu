@@ -43,13 +43,16 @@
 // step's boundary: from u1, u0, v0, a0 one launch writes v1, a1 and the next
 // step's Newmark predictor u_next = (u1 + dtp v1) + c a1 (dtp the next
 // step's dt, c = dtp * dtp / 2), which SolidModel._predictor takes in place
-// of four eager kernels.  Its coefficients are formed once on the host in
-// double, exactly as the plain version forms them, come by value and are
-// rounded to the working type in the kernel; every product and sum is
-// rounded separately (__dmul_rn / __fmul_rn and kin): no contraction to
-// FMA, so all three outputs are the plain version's bit for bit.  Bound:
-// bytes (seven vectors, 1.33 MB in f64 at 23.7k dofs, 0.4 us at 3.35
-// TB/s); the launch costs more than the body.  Loads and stores are 16
+// of four eager kernels.  Its coefficients are formed on the host in
+// double, exactly as the plain version forms them, once per run as a table
+// of a row a step, rounded to the working type on the device; the kernel
+// takes its row's address (so a CUDA graph of the step reads each step's
+// row, not the dt it was captured with) and loads it after
+// griddepcontrol.wait; every product and sum is rounded separately
+// (__dmul_rn / __fmul_rn and kin): no contraction to FMA, so all three
+// outputs are the plain version's bit for bit.  Bound: bytes (seven
+// vectors, 1.33 MB in f64 at 23.7k dofs, 0.4 us at 3.35 TB/s); the launch
+// costs more than the body.  Loads and stores are 16
 // bytes wide (double2 / float4) over the span where all seven vectors
 // share one 16-byte phase (the wrapper allocates the outputs in u1's
 // phase), with scalar entries before and after it; inputs of mixed
@@ -218,28 +221,30 @@ __global__ void __launch_bounds__(kBsbTile * kBsbLanes)
   if (lane == 0 && row < ndof) y[row] = acc;
 }
 
-// K5's coefficients in double, in the order of ops/kernels.py:_newmark_coefs:
-// c1 = gamma/beta/dt, c2 = gamma/beta - 1, c3 = dt (gamma/2/beta - 1),
-// c4 = 1/beta/dt^2, c5 = 1/2/beta - 1, dt, the predictor's dtp and
-// c = 0.5 dtp dtp -- the plain version's expressions
-struct NewmarkCoefs {
-  double c1, c2, c3, c4, c5, dt, dtp, c;
-};
-
+// K5's coefficients: a row of eight values of the working type T in device
+// memory, in the order of equations/newmark.py:coefficients: c1 =
+// gamma/beta/dt, c2 = gamma/beta - 1, c3 = dt (gamma/2/beta - 1), c4 =
+// 1/beta/dt^2, c5 = 1/2/beta - 1, dt, the predictor's dtp and c = 0.5 dtp
+// dtp -- the plain version's expressions in double, formed on the host once
+// per run (a row a step) and rounded to T by the caller, as the plain
+// version rounds a Python float.  The row is in T, not in double, so that
+// no conversion waits on its loads before the vectors' loads start (a
+// double row cost an f32 launch 0.13-0.25 us on an H100, PERF.md
+// section 6).
 template <typename T>
-struct NewmarkRounded {
+struct NewmarkRow {
   T c1, c2, c3, c4, c5, dt, dtp, c;
-  __device__ explicit NewmarkRounded(const NewmarkCoefs& k)
-      : c1(static_cast<T>(k.c1)), c2(static_cast<T>(k.c2)),
-        c3(static_cast<T>(k.c3)), c4(static_cast<T>(k.c4)),
-        c5(static_cast<T>(k.c5)), dt(static_cast<T>(k.dt)),
-        dtp(static_cast<T>(k.dtp)), c(static_cast<T>(k.c)) {}
+  // read after griddepcontrol.wait, like every other global load: the row
+  // may be written by the kernel this launch depends on
+  __device__ explicit NewmarkRow(const T* __restrict__ row)
+      : c1(__ldg(row)), c2(__ldg(row + 1)), c3(__ldg(row + 2)), c4(__ldg(row + 3)),
+        c5(__ldg(row + 4)), dt(__ldg(row + 5)), dtp(__ldg(row + 6)), c(__ldg(row + 7)) {}
 };
 
 // v1 = c1 (u1 - u0) - c2 v0 - c3 a0;  a1 = c4 ((u1 - u0) - dt v0) - c5 a0;
 // u_next = (u1 + dtp v1) + c a1
 template <typename T>
-__device__ __forceinline__ void newmark_entry(const NewmarkRounded<T>& k, T u1,
+__device__ __forceinline__ void newmark_entry(const NewmarkRow<T>& k, T u1,
                                               T u0, T v0, T a0, T& v1, T& a1,
                                               T& un) {
   const T du = sub_rn(u1, u0);
@@ -276,16 +281,16 @@ __global__ void __launch_bounds__(kNewmarkThreads)
     newmark_kernel(const T* __restrict__ u1, const T* __restrict__ u0,
                    const T* __restrict__ v0, const T* __restrict__ a0,
                    T* __restrict__ v1, T* __restrict__ a1, T* __restrict__ un,
-                   long long n, long long head, NewmarkCoefs coefs) {
+                   long long n, long long head, const T* __restrict__ coefs) {
   constexpr int V = 16 / sizeof(T);
   using P = Pack16<T>;
-  const NewmarkRounded<T> k(coefs);
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long t = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
   const long long nvec = (n - head) / V;
   const long long body_end = head + nvec * V;
   const long long nscalar = head + (n - body_end);
   grid_dependency_wait();  // before the first global access
+  const NewmarkRow<T> k(coefs);
   for (long long i = t; i < nvec; i += step) {
     const long long e = head + i * V;
     P x1, x0, y0, z0, y1, z1, w1;
@@ -366,7 +371,7 @@ int launch_bsb(const void* blocks, const void* x, const void* ptr,
 template <typename T>
 int launch_newmark(const void* u1, const void* u0, const void* v0,
                    const void* a0, void* v1, void* a1, void* un, long long n,
-                   const NewmarkCoefs* coefs, void* stream) {
+                   const void* coefs, void* stream) {
   if (n == 0) return 0;
   constexpr long long V = 16 / sizeof(T);
   const uintptr_t phase = reinterpret_cast<uintptr_t>(u1) % 16;
@@ -395,7 +400,7 @@ int launch_newmark(const void* u1, const void* u0, const void* v0,
       &cfg, newmark_kernel<T>, static_cast<const T*>(u1),
       static_cast<const T*>(u0), static_cast<const T*>(v0),
       static_cast<const T*>(a0), static_cast<T*>(v1), static_cast<T*>(a1),
-      static_cast<T*>(un), n, head, *coefs);
+      static_cast<T*>(un), n, head, static_cast<const T*>(coefs));
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it: the next launch's check reads it
     return static_cast<int>(err);
@@ -430,20 +435,18 @@ int vf_bsb_matvec_f64(const void* blocks, const void* x, const void* ptr,
   return launch_bsb<double>(blocks, x, ptr, off, y, ndof, nb, h, stream);
 }
 
-// v1, a1, un: the three outputs, n entries each; coefs: eight doubles
-// (NewmarkCoefs)
+// v1, a1, un: the three outputs, n entries each; coefs: the device address
+// of the row of eight coefficients (NewmarkRow), of the vectors' type
 int vf_newmark_f32(const void* u1, const void* u0, const void* v0,
                    const void* a0, void* v1, void* a1, void* un, long long n,
                    const void* coefs, void* stream) {
-  return launch_newmark<float>(u1, u0, v0, a0, v1, a1, un, n,
-                               static_cast<const NewmarkCoefs*>(coefs), stream);
+  return launch_newmark<float>(u1, u0, v0, a0, v1, a1, un, n, coefs, stream);
 }
 
 int vf_newmark_f64(const void* u1, const void* u0, const void* v0,
                    const void* a0, void* v1, void* a1, void* un, long long n,
                    const void* coefs, void* stream) {
-  return launch_newmark<double>(u1, u0, v0, a0, v1, a1, un, n,
-                                static_cast<const NewmarkCoefs*>(coefs), stream);
+  return launch_newmark<double>(u1, u0, v0, a0, v1, a1, un, n, coefs, stream);
 }
 
 }  // extern "C"

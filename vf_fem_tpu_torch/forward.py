@@ -1,22 +1,51 @@
 """
 Forward time integration (counterpart of ``vf_fem_tpu.forward``).
 
-The JAX package runs the time loop as one ``lax.scan``; here it is a
-Python loop over steps on the model's device.  In fixed-iteration Newton
-mode a step issues no host synchronisation, so the device queue stays
-full; the adaptive mode reads each iteration's residual norm on the host.
+The JAX package runs the whole time loop as one jitted ``lax.scan``.  Here
+:func:`integrate_pure` steps on the model's device in one of two ways, by
+the run's configuration:
+
+- a fixed-iteration run on a CUDA model whose steps solve with factors
+  carried through refresh windows (``fixed_iterations`` set,
+  ``jacobian_refresh_steps > 1``, ``linear_solver`` 'dense' or 'btd')
+  replays one captured CUDA graph a step, cached on the model like the JAX
+  package's ``_scan_cache`` (:mod:`.step_graph`); the factorizations
+  between windows run eagerly;
+- every other run is a Python loop of eager steps: adaptive Newton (the
+  default) reads each iteration's residual norm on the host, the Krylov
+  solvers 'cg' and 'bsb' read BiCGStab's norms, a run that factors in
+  every step syncs in its factorization, and a CPU model has no graphs.
+
+:func:`integrate` adds the HDF5 statefile (:mod:`.statefile`, which needs
+h5py; ``f=None`` needs none), the divergence flags and the certification
+of fixed-iteration runs; :func:`integrate_extend` resumes from a file and
+:func:`integrate_step` takes one step.  Runs are dicts of numpy arrays or
+tensors where the JAX package takes BlockVectors.
+
+Units are CGS.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
-from .convert import to_tensors
+from . import step_graph
+from .convert import to_numpy, to_tensors
 from .models.transient import solver_params
 from .solvers.newton import SolveInfo
+
+Options = dict
+
+
+def _stack_controls(model, controls) -> dict:
+    """Stack a list of control dicts into a leading-axis dict, in the
+    model's control key order."""
+    return {k: np.stack([np.asarray(c[k]) for c in controls], axis=0)
+            for k in model.control}
 
 
 def integrate_pure(
@@ -42,7 +71,24 @@ def integrate_pure(
     (``full_every = jacobian_full_refresh_windows``) and otherwise applies
     a Newton-Schulz refresh; a trailing partial window refreshes by the
     same rule.  'full' mode refactors in every window.
+
+    A fixed-iteration run of such windows on a CUDA model with a direct
+    solver ('dense', 'btd') replays one captured CUDA graph a step (see the
+    module docstring; a capture that fails raises); its results are the
+    eager loop's bit for bit.
     """
+    params_d = solver_params(params)
+    if step_graph.captures(model, params_d):
+        return step_graph.integrate(model, ini_state, controls_stacked, prop,
+                                    times, params_d)
+    return _integrate_eager(model, ini_state, controls_stacked, prop, times,
+                            params_d)
+
+
+def _integrate_eager(model, ini_state, controls_stacked, prop, times,
+                     params=None):
+    """:func:`integrate_pure` as a Python loop of eager steps, whatever the
+    configuration (the CUDA graph's reference on the card)."""
     params_d = solver_params(params)
     dev, dtype = model.device, model.dtype
     state = to_tensors(ini_state, dev, dtype)
@@ -50,6 +96,8 @@ def integrate_pure(
     prop = to_tensors(prop, dev, dtype)
     dts = [float(x) for x in np.diff(np.asarray(times, dtype=np.float64))]
     n_steps = len(dts)
+    if not n_steps:
+        raise ValueError("integrate_pure needs at least two time points")
     n_controls = next(iter(controls.values())).shape[0]
 
     def control_at(n):
@@ -75,41 +123,336 @@ def integrate_pure(
             infos.append(info)
         return state
 
-    def factorize(state, n0):
-        return model.factorize(state, control_at(n0), prop, dts[n0], params_d)
-
-    def refresh(factors, state, n0):
-        return model.refresh_factors(
-            factors, state, control_at(n0), prop, dts[n0], params_d
-        )
-
-    refresh_k = int(params_d.get("jacobian_refresh_steps", 1))
     with torch.no_grad():
-        if refresh_k <= 1:
+        if int(params_d.get("jacobian_refresh_steps", 1)) <= 1:
             state = run(state, None, 0, n_steps)
         else:
-            use_ns = params_d.get("jacobian_refresh_mode", "full") == "ns"
-            full_every = int(params_d.get("jacobian_full_refresh_windows", 8))
-            n_win, rem = divmod(n_steps, refresh_k)
             factors = None
-            for w in range(n_win):
-                n0 = w * refresh_k
-                # window 0 factors the initial state in both modes
-                if not use_ns or w % full_every == 0:
-                    factors = factorize(state, n0)
+            for n0, n1, how in step_graph.refresh_windows(n_steps, params_d):
+                args = (state, control_at(n0), prop, dts[n0], params_d)
+                if how == "factor":
+                    factors = model.factorize(*args)
                 else:
-                    factors = refresh(factors, state, n0)
-                state = run(state, factors, n0, n0 + refresh_k)
-            if rem:
-                n0 = n_win * refresh_k
-                if use_ns and n_win and n_win % full_every:
-                    factors = refresh(factors, state, n0)
-                else:
-                    factors = factorize(state, n0)
-                state = run(state, factors, n0, n_steps)
+                    factors = model.refresh_factors(factors, *args)
+                state = run(state, factors, n0, n1)
 
-    if not traj:
-        raise ValueError("integrate_pure needs at least two time points")
     trajectory = {k: torch.stack([s[k] for s in traj]) for k in traj[0]}
     info = SolveInfo(*(torch.stack(x) for x in zip(*infos)))
     return state, trajectory, info
+
+
+def _integrate_windowed(
+    model,
+    state0: dict,
+    controls_stacked: dict,
+    prop: dict,
+    times: np.ndarray,
+    params: Optional[dict],
+    window: Optional[int] = None,
+    use_tqdm: bool = False,
+):
+    """Chunk the integration into windows of ``window`` steps.
+
+    Each window is one :func:`integrate_pure` call (a graph run replays
+    the one graph of its settings in every window); the state carries
+    across windows, and each window's trajectory and infos are moved to
+    host numpy, which bounds the device memory of long runs."""
+    n_steps = len(times) - 1
+    if window is None and use_tqdm:
+        window = max(1, min(50, n_steps))
+    if window is None or window >= n_steps:
+        return integrate_pure(model, state0, controls_stacked, prop, times, params)
+
+    starts = list(range(0, n_steps, window))
+    iterator = starts
+    if use_tqdm:
+        from tqdm import tqdm
+
+        iterator = tqdm(starts, unit_scale=window, unit="step")
+
+    trajs, infos_all = [], []
+    state = state0
+    for s in iterator:
+        e = min(s + window, n_steps)
+        # shift controls: step n of this window is global step s + n
+        ctrl_win = {k: a[min(s, a.shape[0] - 1):] for k, a in controls_stacked.items()}
+        state, traj, infos = integrate_pure(
+            model, state, ctrl_win, prop, times[s : e + 1], params
+        )
+        trajs.append(to_numpy(traj))
+        infos_all.append(SolveInfo(*(x.cpu().numpy() for x in infos)))
+
+    traj = {k: np.concatenate([t[k] for t in trajs], axis=0) for k in trajs[0]}
+    infos = SolveInfo(*(np.concatenate(xs, axis=0) for xs in zip(*infos_all)))
+    return state, traj, infos
+
+
+def validate_times(times) -> np.ndarray:
+    """(reference: ``forward.py:65-72``)"""
+    times = np.asarray(times)
+    if times.size < 1:
+        raise ValueError("There must be at least 1 time integration point.")
+    if times[-1] <= times[0]:
+        raise ValueError(
+            "The final time point must be greater or equal to the initial one."
+            f" The input initial/final times were {times[0]}/{times[-1]}"
+        )
+    return times
+
+
+def _step_info(infos) -> dict:
+    """A run's ``SolveInfo`` as a dict of numpy arrays."""
+    return to_numpy(dict(zip(("num_iter", "abs_err", "rel_err"), infos)))
+
+
+def integrate(
+    model,
+    f,
+    ini_state: dict,
+    controls: list,
+    prop: dict,
+    times,
+    idx_meas: Optional[np.ndarray] = None,
+    newton_solver_prm: Optional[Options] = None,
+    write: bool = True,
+    use_tqdm: bool = False,
+    window: Optional[int] = None,
+):
+    """Integrate the model over ``times`` (reference: ``forward.py:22-102``)
+    and write the run to the statefile ``f`` (a :class:`~.statefile.StateFile`,
+    or None).
+
+    ``controls`` is a list of control dicts; a single entry is held
+    constant over the run, otherwise the last entry is held for remaining
+    steps (reference: ``forward.py:170``).  ``window`` chunks the run into
+    windows of that many steps, each moved to host numpy (bounding device
+    memory for long runs); ``use_tqdm`` shows a per-window progress bar
+    (needs tqdm).  Returns ``(fin_state, last_info)`` (:func:`finalize_run`).
+    """
+    if idx_meas is None:
+        idx_meas = np.array([])
+    times = validate_times(times)
+
+    state0 = to_numpy(ini_state)
+    controls_stacked = _stack_controls(model, controls)
+    prop_d = to_numpy(prop)
+    # models with a restricted supported regime verify the run's
+    # properties up front (the JAX package's FSAI model)
+    check = getattr(model, "check_envelope", None)
+    if check is not None:
+        check(prop_d)
+
+    fin_state, traj, infos = _integrate_windowed(
+        model, state0, controls_stacked, prop_d, times, newton_solver_prm,
+        window=window, use_tqdm=use_tqdm,
+    )
+    return finalize_run(
+        model, f, ini_state, controls, prop, times, idx_meas,
+        newton_solver_prm, fin_state, traj, infos, write,
+    )
+
+
+def finalize_run(
+    model,
+    f,
+    ini_state: dict,
+    controls: list,
+    prop: dict,
+    times: np.ndarray,
+    idx_meas,
+    newton_solver_prm,
+    fin_state: dict,
+    traj: dict,
+    infos,
+    write: bool = True,
+):
+    """Post-run bookkeeping of :func:`integrate`: statefile writes,
+    divergence flagging, and fixed-iteration certification.  Returns
+    ``(fin_state, last_info)``: the final state as numpy arrays in the
+    initial state's key order, and the last step's ``num_iter``,
+    ``abs_err``, ``rel_err`` with ``all`` (every step's), ``diverged``,
+    ``diverged_step`` (where diverged) and ``uncertified_steps``."""
+    if idx_meas is None:
+        idx_meas = np.array([])
+    controls_stacked = _stack_controls(model, controls)
+    state_keys = list(ini_state.keys())
+    fin = to_numpy(fin_state)
+    fin = {k: fin[k] for k in state_keys}
+    n_steps = len(times) - 1
+    step_info = _step_info(infos)
+
+    if write and f is not None:
+        f.init_layout()
+        # initial state row (reference: ``forward.py:75-86``)
+        f.append_state(ini_state)
+        f.append_control(controls[0])
+        f.append_time(times[0])
+        f.append_solver_info({"num_iter": 0, "abs_err": 0, "rel_err": 0})
+        f.append_prop(prop)
+        if 0 in idx_meas:
+            f.append_meas_index(0)
+
+        # trajectory window
+        ctrl_traj = {}
+        for k, arr in controls_stacked.items():
+            idx = np.minimum(np.arange(n_steps), arr.shape[0] - 1)
+            ctrl_traj[k] = np.asarray(arr)[idx]
+        traj_h = to_numpy(traj)
+        f.append_window(
+            {k: traj_h[k] for k in state_keys},
+            ctrl_traj,
+            times[1:],
+            step_info,
+        )
+        for n in idx_meas:
+            if n != 0:
+                f.append_meas_index(int(n))
+
+    last_info = {
+        "num_iter": int(step_info["num_iter"][-1]),
+        "abs_err": float(step_info["abs_err"][-1]),
+        "rel_err": float(step_info["rel_err"][-1]),
+    }
+    last_info["all"] = step_info
+    # flag NaN/diverged steps instead of silently writing garbage
+    bad = ~np.isfinite(step_info["abs_err"])
+    if bad.any():
+        first = int(np.nonzero(bad)[0][0])
+        last_info["diverged"] = True
+        last_info["diverged_step"] = first
+        warnings.warn(
+            f"integrate: non-finite solver residual first at step {first}"
+            f" of {n_steps}; simulation likely diverged",
+            RuntimeWarning,
+        )
+    else:
+        last_info["diverged"] = False
+    last_info["uncertified_steps"] = certify_fixed_iterations(
+        newton_solver_prm, step_info
+    )
+    # runtime half of an envelope guard (the JAX package's FSAI model):
+    # steps whose interactive flow solve fell back to the lagged exchange
+    bracketed = getattr(infos, "bracketed", None)
+    if bracketed is not None:
+        n_lagged = int((~np.asarray(bracketed).astype(bool)).sum())
+        last_info["lagged_fallback_steps"] = n_lagged
+        if n_lagged:
+            warnings.warn(
+                f"integrate: {n_lagged}/{n_steps} FSAI steps could not"
+                " bracket the interactive flow root and fell back to"
+                " the marginally-unstable lagged exchange — the"
+                " configuration is outside the supported envelope"
+                " (contact plane must lie below the channel midline)",
+                RuntimeWarning,
+            )
+    return fin, last_info
+
+
+def certify_fixed_iterations(params: Optional[dict], step_info) -> int:
+    """Residual-certify a statically-unrolled fixed-iteration Newton run.
+
+    ``fixed_iterations`` trades the adaptive stagnation stop for fixed
+    work per step (the sweep/latency-optimal configs) — but an iteration
+    count that certifies on one mesh can silently under-converge on a
+    larger one (measured: ``fixed_iterations=2`` left trajectories 8x
+    worse at 53k DOFs while 3 was at the noise floor).  Since the
+    per-step residuals still stream back through the scan, certification
+    is a host-side check: warn when steps stop at a relative residual
+    above ``fixed_certify_rel_err`` (default 3e-3 in f32 — above the
+    measured chord-Newton stagnation floor — and 1e-6 in f64).
+
+    Returns the number of uncertified steps (0 when the check passes or
+    does not apply).
+
+    With ``fixed_tail_residual=False`` (the throughput lever that skips
+    the trailing telemetry-only residual assembly), the streamed
+    ``abs/rel_err`` report the PENULTIMATE iterate — an upper bound on
+    the final one in the chord-contraction regime — so this check
+    certifies a bound, not the final residual.  Gate such configs on
+    trajectory error against an exact-Jacobian run as well (bench.py's
+    large-mesh leg does).
+    """
+    params = dict(params or {})
+    if not params.get("fixed_iterations"):
+        return 0
+    rel = np.asarray(step_info["rel_err"])
+    f32 = rel.dtype == np.float32
+    threshold = params.get(
+        "fixed_certify_rel_err", 3e-3 if f32 else 1e-6
+    )
+    # steps that converged absolutely are certified regardless of the
+    # relative metric (rel_err ~ 1 on no-load steps where err0 ~ 0)
+    absr = np.asarray(step_info["abs_err"])
+    abs_ok = absr < params.get("absolute_tolerance", 1e-8)
+    bad = np.isfinite(rel) & (rel > threshold) & ~abs_ok
+    n_bad = int(bad.sum())
+    if n_bad:
+        warnings.warn(
+            f"integrate: {n_bad}/{rel.size} steps stopped above the"
+            f" fixed-iteration certification threshold"
+            f" (max rel_err {float(np.nanmax(rel)):.2e} >"
+            f" {threshold:.0e}); raise 'fixed_iterations' or drop it to"
+            " restore the adaptive stagnation stop",
+            RuntimeWarning,
+        )
+    return n_bad
+
+
+def integrate_extend(
+    model,
+    f,
+    controls: list,
+    times,
+    idx_meas=None,
+    newton_solver_prm: Optional[Options] = None,
+    write: bool = True,
+):
+    """Resume integration from the last state in the statefile ``f``
+    (reference: ``forward.py:105-136``); ``times`` count from the file's
+    last time.  Returns ``(fin_state, step_info)``."""
+    prop = f.get_prop()
+    N = f.size
+    ini_state = f.get_state(N - 1)
+    ini_time = f.get_time(N - 1)
+    times = np.asarray(times) + ini_time
+
+    controls_stacked = _stack_controls(model, controls)
+    fin_state, traj, infos = integrate_pure(
+        model, ini_state, controls_stacked, prop, times, newton_solver_prm
+    )
+    state_keys = list(ini_state.keys())
+    n_steps = len(times) - 1
+    step_info = _step_info(infos)
+    if write:
+        ctrl_traj = {}
+        for k, arr in controls_stacked.items():
+            idx = np.minimum(np.arange(n_steps), arr.shape[0] - 1)
+            ctrl_traj[k] = np.asarray(arr)[idx]
+        f.append_window(
+            {k: v for k, v in to_numpy(traj).items() if k in state_keys},
+            ctrl_traj,
+            times[1:],
+            step_info,
+        )
+    fin = to_numpy(fin_state)
+    return {k: fin[k] for k in state_keys}, step_info
+
+
+def integrate_step(
+    model,
+    ini_state: dict,
+    control: dict,
+    prop: dict,
+    dt: float,
+    options: Optional[Options] = None,
+):
+    """Single-step integration (reference: ``forward.py:247-268``): one
+    ``step_pure`` on the model's device.  Returns ``(state, info)`` as dicts
+    of numpy arrays (``num_iter``, ``abs_err``, ``rel_err``)."""
+    dev, dtype = model.device, model.dtype
+    with torch.no_grad():
+        state, info = model.step_pure(
+            to_tensors(ini_state, dev, dtype), to_tensors(control, dev, dtype),
+            to_tensors(prop, dev, dtype), float(dt), solver_params(options),
+        )
+    return to_numpy(state), {k: v.item() for k, v in _step_info(info).items()}

@@ -74,6 +74,29 @@ def _element_solver(params_d: dict) -> bool:
     return params_d.get("linear_solver", "dense") in ELEMENT_SOLVERS
 
 
+class StepCoefs:
+    """The Newmark coefficients of one step as tensors, where a step's
+    ``dt`` is not a Python float: ``row``, the (8,) row of
+    ``equations.newmark.coefficients`` (computed in float64) in the model's
+    dtype on the device, which K5 reads (``ops.newmark_row``), and ``k``,
+    its entries as 0-d tensors, which the residual multiplies by (the same
+    bits as the Python floats).  A CUDA graph of the step reads each
+    replay's row (``step_graph``).  Two records are the same step only if
+    they are the same object."""
+
+    __slots__ = ("row", "k")
+
+    def __init__(self, row: torch.Tensor, dtype):
+        self.row = row.to(dtype)
+        self.k = tuple(self.row.unbind(0))
+
+
+def newmark_coefs(dt):
+    """The step's Newmark coefficients: ``dt.k`` of a :class:`StepCoefs`,
+    else the Python floats of ``dt``."""
+    return dt.k if isinstance(dt, StepCoefs) else newmark.coefficients(dt)
+
+
 class KrylovFactors(NamedTuple):
     """Frozen Jacobian of a matrix-free solve: the EBE operator ('cg') or
     the block-banded array ('bsb'), and the nodal block-Jacobi inverse."""
@@ -207,11 +230,12 @@ class SolidModel:
     # -- residual and Jacobian --------------------------------------------------
     def res_u(self, u1_flat, state0, control, prop, dt, banded=False):
         """Newton residual of the 'u' block (v1, a1 substituted); Dirichlet
-        rows read ``u1``."""
+        rows read ``u1``.  ``dt`` is a float or a :class:`StepCoefs`."""
         u1 = u1_flat.reshape(self.nvert, self.dim)
         u0, v0, a0 = self._state0_2d(state0)
-        v1 = newmark.newmark_v(u1, u0, v0, a0, dt)
-        a1 = newmark.newmark_a(u1, u0, v0, a0, dt)
+        k = newmark_coefs(dt)
+        v1 = newmark.velocity_k(u1, u0, v0, a0, k)
+        a1 = newmark.acceleration_k(u1, u0, v0, a0, k)
         fields = self._full_fields(u1, v1, a1, control,
                                    self._prop_fields(prop))
         res = self._residual.assemble_res(fields, banded=banded).reshape(-1)
@@ -351,7 +375,9 @@ class SolidModel:
         """The Newmark predictor of ``state0`` over ``dt``: the one K5 wrote
         with the state when ``state0`` holds that state's very tensors,
         unmodified (same version counters), and ``dt`` is the step it was
-        formed for; else formed here."""
+        formed for (for a :class:`StepCoefs`, that very record); else
+        formed here, which a step of coefficient rows cannot do (its row
+        holds the next step's predictor coefficients) and raises."""
         carry = self._carry
         fields = tuple(state0[k] for k in ("u", "v", "a"))
         if (carry is not None and carry[2] == dt
@@ -359,20 +385,40 @@ class SolidModel:
                 and _versions(fields + (carry[3],)) == carry[1]):
             self.predictor_counts["carried"] += 1
             return carry[3]
+        if isinstance(dt, StepCoefs):
+            raise RuntimeError("a step of coefficient rows takes its predictor"
+                               " from carry_predictor")
         self.predictor_counts["formed"] += 1
         return newmark.newmark_predict_u(*fields, dt)
+
+    def carry_predictor(self, fields, u_next, dt):
+        """Keep ``u_next`` as the predictor over ``dt`` (a float or a
+        :class:`StepCoefs`) of the state of tensors ``fields`` (u, v, a) as
+        they are now: what :meth:`_finish` keeps for the state it returns,
+        for a state held in buffers of the caller's (``forward``)."""
+        versions = _versions(tuple(fields) + (u_next,))
+        self._carry = (None if versions is None else
+                       (tuple(fields), versions, dt, u_next))
+
+    def carried_predictor(self):
+        """The predictor the last step wrote with its state (None before
+        any step)."""
+        return None if self._carry is None else self._carry[3]
 
     def _finish(self, u1, state0, dt, dt_next=None):
         """The step's state: v1, a1 by the fused Newmark update (kernel K5
         on CUDA tensors), which also writes the predictor of the next step
-        (of ``dt_next``, by default ``dt``); it is kept for
-        :meth:`_predictor` with the state's tensors and their versions."""
-        v1, a1, u_next = ops.newmark_update(u1, state0["u"], state0["v"],
-                                            state0["a"], dt, dt_next=dt_next)
-        fields = (u1, v1, a1)
-        versions = _versions(fields + (u_next,))
-        self._carry = (None if versions is None else
-                       (fields, versions, dt if dt_next is None else dt_next, u_next))
+        (of ``dt_next``, by default ``dt``; a :class:`StepCoefs` ``dt``
+        carries its own); it is kept for :meth:`_predictor` with the
+        state's tensors and their versions."""
+        u0, v0, a0 = state0["u"], state0["v"], state0["a"]
+        if isinstance(dt, StepCoefs):
+            v1, a1, u_next = ops.newmark_update_coefs(u1, u0, v0, a0, dt.row)
+        else:
+            v1, a1, u_next = ops.newmark_update(u1, u0, v0, a0, dt,
+                                                dt_next=dt_next)
+        self.carry_predictor((u1, v1, a1), u_next,
+                             dt if dt_next is None else dt_next)
         return {"u": u1, "v": v1, "a": a1}
 
     def solve_state1_pure(self, state0, control, prop, dt, params=None,

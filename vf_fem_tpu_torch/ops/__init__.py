@@ -13,6 +13,9 @@ from .kernels import (  # noqa: F401
     ebe_matvec_reference,
     factor_matvec,
     newmark_update,
+    newmark_update_coefs,
+    newmark_update_coefs_reference,
     newmark_update_reference,
+    newmark_row,
     sweep_plan,
 )

@@ -34,7 +34,10 @@ __all__ = [
     "bsb_matvec",
     "bsb_matvec_reference",
     "newmark_update",
+    "newmark_update_coefs",
+    "newmark_update_coefs_reference",
     "newmark_update_reference",
+    "newmark_row",
     "factor_matvec",
     "btd_sweep",
     "btd_sweep_reference",
@@ -214,24 +217,35 @@ def newmark_update_reference(u1, u0, v0, a0, dt: float, gamma=0.5,
     return v1, a1, newmark.newmark_predict_u(u1, v1, a1, dtp)
 
 
+def newmark_update_coefs_reference(u1, u0, v0, a0, coefs: torch.Tensor):
+    """(v1, a1, u_next) by ``equations.newmark`` from a coefficient row
+    (``equations.newmark.coefficients`` rounded to the vectors' dtype, an
+    (8,) tensor): the same bits as :func:`newmark_update_reference` with the
+    row's dt and dt_next, since a float tensor times a Python float rounds
+    the float to the tensor's dtype first."""
+    k = coefs.unbind(0)
+    v1 = newmark.velocity_k(u1, u0, v0, a0, k)
+    a1 = newmark.acceleration_k(u1, u0, v0, a0, k)
+    return v1, a1, newmark.predict_k(u1, v1, a1, k)
+
+
+def newmark_row(coefs, dtype, device) -> torch.Tensor:
+    """Coefficients (``equations.newmark.coefficients``, Python floats or
+    an (..., 8) float64 array) as a row of K5's: rounded from double to
+    ``dtype``, on ``device``."""
+    return torch.as_tensor(coefs, dtype=torch.float64).to(dtype=dtype, device=device)
+
+
 @functools.lru_cache(maxsize=64)
-def _newmark_coefs(dt: float, gamma: float, beta: float, dtp: float):
-    """K5's coefficients (``csrc/ops.cu``: NewmarkCoefs) as ctypes doubles
-    and their address, formed by the plain version's expressions."""
-    coefs = (ctypes.c_double * 8)(
-        gamma / beta / dt, gamma / beta - 1.0, dt * (gamma / 2.0 / beta - 1.0),
-        1 / beta / dt**2, 1 / 2 / beta - 1, dt, dtp, 0.5 * dtp * dtp)
-    return coefs, ctypes.addressof(coefs)
+def _newmark_row(device: torch.device, dtype, dt: float, gamma: float, beta: float,
+                 dtp: float) -> torch.Tensor:
+    """A coefficient row for the float API of :func:`newmark_update`,
+    formed at its first use and kept for the next call with the same
+    step."""
+    return newmark_row(newmark.coefficients(dt, dtp, gamma, beta), dtype, device)
 
 
-def newmark_update(u1, u0, v0, a0, dt: float, gamma=0.5, beta=0.25,
-                   dt_next=None):
-    """Newmark velocity and acceleration from ``u1`` and the previous
-    state, four flat vectors of one shape, and the predictor
-    ``u1 + dtp v1 + dtp^2/2 a1`` of the next step (``dtp = dt_next``, by
-    default ``dt``): ``(v1, a1, u_next)``, one launch of K5 on CUDA, into
-    three allocations in the 16-byte phase of ``u1`` (K5 moves 16-byte
-    vectors where all seven share a phase)."""
+def _check_newmark(u1, u0, v0, a0):
     dtype, device = u1.dtype, u1.device
     if dtype not in _SUFFIX:
         raise TypeError(f"newmark_update: float32 or float64 expected, got {dtype}")
@@ -243,16 +257,50 @@ def newmark_update(u1, u0, v0, a0, dt: float, gamma=0.5, beta=0.25,
     if not (u1.shape == u0.shape == v0.shape == a0.shape) or u1.dim() != 1:
         raise ValueError("newmark_update: four flat vectors of one shape"
                          " expected")
-    if device.type == "cpu":
-        return newmark_update_reference(u1, u0, v0, a0, dt, gamma, beta, dt_next)
-    if device.type != "cuda":
+    if device.type not in ("cpu", "cuda"):
         raise ValueError(f"newmark_update: unsupported device {device}")
-    if not (u1.is_contiguous() and u0.is_contiguous() and v0.is_contiguous()
-            and a0.is_contiguous()):
-        raise ValueError("newmark_update: inputs must be contiguous")
+
+
+def newmark_update(u1, u0, v0, a0, dt: float, gamma=0.5, beta=0.25,
+                   dt_next=None):
+    """Newmark velocity and acceleration from ``u1`` and the previous
+    state, four flat vectors of one shape, and the predictor
+    ``u1 + dtp v1 + dtp^2/2 a1`` of the next step (``dtp = dt_next``, by
+    default ``dt``): ``(v1, a1, u_next)``, one launch of K5 on CUDA (with a
+    coefficient row on the device, formed at the first call with these
+    steps and kept), the plain version on the CPU.  The time loop passes
+    its rows itself: :func:`newmark_update_coefs`."""
+    _check_newmark(u1, u0, v0, a0)
+    if u1.device.type == "cpu":
+        return newmark_update_reference(u1, u0, v0, a0, dt, gamma, beta, dt_next)
     dt = float(dt)
-    _, coefs = _newmark_coefs(dt, float(gamma), float(beta),
-                              dt if dt_next is None else float(dt_next))
+    row = _newmark_row(u1.device, u1.dtype, dt, float(gamma), float(beta),
+                       dt if dt_next is None else float(dt_next))
+    return _newmark_launch(u1, u0, v0, a0, row)
+
+
+def newmark_update_coefs(u1, u0, v0, a0, coefs: torch.Tensor):
+    """:func:`newmark_update` with the step's coefficients as a row on the
+    vectors' device, in their dtype (:func:`newmark_row`; a contiguous (8,)
+    tensor, for example a row of a run's table): K5 reads it from device
+    memory, so a CUDA graph of the step takes each replay's row."""
+    _check_newmark(u1, u0, v0, a0)
+    if (coefs.dtype != u1.dtype or tuple(coefs.shape) != (newmark.NCOEFS,)
+            or coefs.device != u1.device):
+        raise ValueError(f"newmark_update: coefficients must be a {u1.dtype} row of"
+                         f" {newmark.NCOEFS} on {u1.device}, got {coefs.dtype}"
+                         f" {tuple(coefs.shape)} on {coefs.device}")
+    if u1.device.type == "cpu":
+        return newmark_update_coefs_reference(u1, u0, v0, a0, coefs)
+    return _newmark_launch(u1, u0, v0, a0, coefs)
+
+
+def _newmark_launch(u1, u0, v0, a0, coefs: torch.Tensor):
+    """Launch K5 on checked CUDA vectors with the row ``coefs``."""
+    if not (u1.is_contiguous() and u0.is_contiguous() and v0.is_contiguous()
+            and a0.is_contiguous() and coefs.is_contiguous()):
+        raise ValueError("newmark_update: inputs must be contiguous")
+    dtype, device = u1.dtype, u1.device
     n = u1.shape[0]
     lead = u1.data_ptr() % 16 // u1.element_size()
     if lead:  # outputs in u1's 16-byte phase
@@ -264,7 +312,7 @@ def newmark_update(u1, u0, v0, a0, dt: float, gamma=0.5, beta=0.25,
                           torch.empty(n, dtype=dtype, device=device))
     err = _newmark_fn(dtype)(u1.data_ptr(), u0.data_ptr(), v0.data_ptr(),
                              a0.data_ptr(), v1.data_ptr(), a1.data_ptr(),
-                             u_next.data_ptr(), n, coefs, _stream(u1))
+                             u_next.data_ptr(), n, coefs.data_ptr(), _stream(u1))
     if err != 0:
         raise RuntimeError(f"vf_newmark_{_SUFFIX[dtype]} launch failed: cudaError_t {err}")
     LAUNCHES["newmark"] += 1

@@ -8,7 +8,8 @@ reduced precision) or at ``maximum_iterations``.  The lowest-residual
 iterate seen is returned.
 
 ``fixed_iterations=n`` runs exactly n chord iterations with no host
-synchronisation (the convergence telemetry stays on the device):
+synchronisation and no host-to-device copy (the convergence telemetry
+stays on the device), so a CUDA graph can capture it:
 certified mode assembles a trailing residual and keeps the best iterate;
 ``fixed_tail_residual=False`` skips that residual and commits the final
 iterate, reporting the penultimate residual.
@@ -50,7 +51,8 @@ def newton_solve(
     n_fixed = params.get("fixed_iterations")
     if n_fixed:
         n_fixed = int(n_fixed)
-        num_iter = torch.tensor(n_fixed, device=x0.device)
+        # a fill, not a host-to-device copy: the step stays capturable
+        num_iter = torch.full((), n_fixed, dtype=torch.int64, device=x0.device)
         x = x0
         res = assem_res(x)
         err0 = norm(res)
