@@ -12,10 +12,13 @@ runs, in order:
 2. kernels: the banded gather (K1) and scatter (K2), and both backward
    paths, against their plain PyTorch versions on the card, at the
    M5-3layers plan and the 23.7k-dof RCM plan, in f64 and f32;
-3. ops: the element-by-element matvec (K3), the block-banded matvec (K4)
-   and the fused Newmark update (K5) against their plain versions on the
-   card, on the 23.7k-dof model's Jacobian (and at M5 size for K3/K5), in
-   f64 and f32; K4 also bit for bit against its CPU emulation
+3. ops: the element-by-element matvec (K3), the block-banded matvec (K4),
+   the fused Newmark update (K5) and its backward (K5T) against their
+   plain versions on the card, on the 23.7k-dof model's Jacobian (and at
+   M5 size for K3/K5/K5T), in f64 and f32; K5T's vector cotangents bit for
+   bit, its row's cotangent within the summation-order bound and
+   bit-stable across three launches; K4 also bit for bit against its CPU
+   emulation
    (``tests/bsb_emulation.py``), with its bound counted from the plan's
    matvec pattern beside the dense band's; K5's three outputs (v1, a1 and
    the next step's predictor) bit for bit, its coefficients read from a
@@ -38,8 +41,9 @@ runs, in order:
    both solvers in f64 and f32 (20 steps after a warm-up run) with
    steps/s, Krylov and Newton iteration counts, kernel launches, and the
    trajectory and f32-vs-f64 errors against their gates; then one
-   ``torch.profiler`` pass of the production bsb f64 run (K4's share of
-   device busy, the idle share) and the ms per BiCGStab iteration;
+   ``torch.profiler`` pass of the production bsb f64 run over its first 10
+   steps (K4's share of device busy, the idle share) and the ms per
+   BiCGStab iteration;
 7. btd: the block-Thomas direct path on the 23.7k-dof RCM mesh (same
    model): the tight f64 run of ``benchmarks/benchmark_large.py:130-139``
    against ``tests/data/golden_large_btd_explicit.npz``, then the
@@ -57,14 +61,32 @@ runs, in order:
    eager run with equal launch counts, the entry point's
    ``uncertified_steps`` and ``diverged`` equal to the eager run's, the
    graph's nodes a step, capture and instantiate ms and pool, a
-   ``torch.profiler`` pass of each path (device kernels a step, device
-   busy, idle share), the peak device memory of the eager loop, the graph
+   ``torch.profiler`` pass of each path over the first 25 steps (device
+   kernels a step, device busy, idle share), the peak device memory of the
+   eager loop, the graph
    and the graph in windows of 25 steps, the gates of phases 5 and 7 on
    the graph's results, and the ms split of an eager btd step by CUDA
-   events.
+   events;
+9. grad: the gradient path, ``adjoint.integrate_grad`` (value+grad of
+   ``benchmarks/benchmark_adjoint.py``'s loss, sum(q[-20:]^2) 1e-6 over
+   100 steps at dt = 1e-4), f64: at M5 with its adjoint settings (adaptive
+   chord Newton, dense factors refreshed every 25 steps) the forward and
+   value+grad steps/s by CUDA events, the gradient overhead factor, and
+   central differences along psub and a seeded random emod direction
+   against the adjoint's directional derivative (rtol 1e-4); at 23.7k with
+   the production adjoint settings (bf16 btd factors, refresh 16, fixed-3)
+   the same timings, the refined stale-factor gradient against the
+   exact-factor one (per key within 1e-6 of its largest entry), the
+   launches a step of K1, K2, K5, K5T, K6 and K6T held to the trace of a
+   profiled value+grad run over the first 25 steps, its idle share, and
+   the peak device memory; on both every
+   gradient is finite and the value+grad run's trajectory is the no-grad
+   forward's bit for bit (the captured graph's at 23.7k).
 
-Phase 3 also holds the block-Thomas sweep kernel (K6) against its plain
-version on the 23.7k model's own factors, holds its launch plan
+Phase 3 also holds the block-Thomas sweep kernel (K6) and its transpose
+(K6T, both sweeps of ``btd_solve_t``: forward on W, backward on V, each
+the same bits in three launches) against their plain versions on the
+23.7k model's own factors, holds K6's launch plan
 (``ops.sweep_plan``) to the one compiled into ``csrc/btd.cu`` for every
 width and dtype pair, prints the plan (cluster size, ring depth) and K6's
 time per row block, and times its exchange of the carried vector alone
@@ -151,7 +173,38 @@ KERNELS = {
                 "vf_fem_tpu_torch/csrc/ops.cu"),
     "btd_sweep": ("btd_sweep", "none (lax.scan, vf_fem_tpu/solvers/btd.py:298-312)",
                   "vf_fem_tpu_torch/csrc/btd.cu"),
+    "newmark_t": ("newmark_update_t", "none (K5's backward; the JAX package differentiates"
+                  " vf_fem_tpu/equations/newmark.py:21-72)", "vf_fem_tpu_torch/csrc/ops.cu"),
+    "btd_sweep_t": ("btd_sweep_t", "none (lax.scan, vf_fem_tpu/solvers/btd.py:340-358)",
+                    "vf_fem_tpu_torch/csrc/btd.cu"),
 }
+# benchmarks/benchmark_adjoint.py:68-88: the value+grad settings at M5 (the
+# accelerator branch: adaptive chord Newton, dense factors refreshed every
+# 25 steps) and at 23.7k (bf16 btd factors, refresh 16, fixed-3), and its
+# loss over 100 steps at dt = 1e-4 (:89-94)
+ADJ_M5 = {
+    "stagnation_ratio": 0.5,
+    "jacobian_update": "once_per_step",
+    "jacobian_refresh_steps": 25,
+    "jacobian_refresh_mode": "ns",
+    "jacobian_full_refresh_windows": 4,
+}
+ADJ_LARGE = {
+    "assembly": "banded",
+    "linear_solver": "btd",
+    "btd_store_dtype": "bfloat16",
+    "jacobian_refresh_steps": 16,
+    "fixed_iterations": 3,
+    "stagnation_ratio": 0.5,
+}
+# central differences of the M5 loss against the adjoint's directional
+# derivative (psub by 1 Ba as tests/test_adjoint.py:55-63; emod along a
+# seeded random direction of 5 Ba a cell, 1e-4 of emod)
+FD_RTOL = 1e-4
+# the refined stale-factor gradient against the exact-factor one at 23.7k:
+# max|g_stale - g_exact| / max|g_exact| per key (the refinement stops at
+# 1e-8 of |u1_bar| each step)
+STALE_VS_EXACT = 1e-6
 # benchmarks/benchmark_large.py:130-139: the tight btd settings of the
 # golden_large_btd_explicit.npz run
 BTD_TIGHT = {
@@ -201,12 +254,17 @@ GOLDEN_LARGE_GATES = {
     for ls, a_gate in (("bsb", 5.405e-8), ("cg", 2.090e-7))
 }
 WARMUP, REPS = 20, 200
+# steps of the profiled runs of phases 8 and 9 (an eager step's host events
+# cost the profiler ~0.6 s each to summarise; counts a step are read from
+# these runs)
+PROFILE_STEPS = 25
 # device kernels a step in the eager loop's f64 profiles of each run
 # (PERF.md section 5), printed beside this run's
 # each launch counter's kernel, by the name the profiler's trace gives it
 TRACE_NAMES = {"gather": "banded_gather_kernel", "scatter": "banded_scatter_kernel",
                "newmark": "newmark_kernel", "btd_sweep": "btd_sweep_kernel",
-               "ebe_matvec": "ebe_matvec_kernel", "bsb_matvec": "bsb_matvec_kernel"}
+               "ebe_matvec": "ebe_matvec_kernel", "bsb_matvec": "bsb_matvec_kernel",
+               "newmark_t": "newmark_t_kernel", "btd_sweep_t": "btd_sweep_t_kernel"}
 EARLIER_PER_STEP = {"M5 headline": 811.0, "23.7k btd": 887.5, "23.7k bsb": 8651.0}
 # csrc/btd_exchange_probe.cu's entry points: (sink, n, bt, barrier, stream)
 PROBE_SIGNATURES = {f"vf_btd_exchange_probe_{t}": [ctypes.c_void_p] + [ctypes.c_int] * 3
@@ -685,6 +743,10 @@ def phase_ops(torch, dev, large):
             # four vectors, each its own allocation as on the main path
             vecs = [torch.tensor(v, dtype=dtype, device=dev) for v in host[key]]
             results[("newmark", label, tag)] = newmark_op(torch, label, tag, vecs)
+            # K5T: two cotangents and K5's four inputs
+            vecs_t = [torch.tensor(v, dtype=dtype, device=dev)
+                      for v in np.concatenate([host[key][:2] * 1e-3, host[key]])]
+            results[("newmark_t", label, tag)] = newmark_t_op(torch, label, tag, vecs_t)
         newmark_edges(torch, dev, dtype)
         for (kname, label, tg), r in results.items():
             if tg != tag:
@@ -772,6 +834,50 @@ def newmark_op(torch, label, tag, vecs):
     r.update(max_abs_err=0.0, lib_err=None, bytes=newmark_work(n, es)[0],
              lib_call=yardsticks.LIBRARY_CALL["newmark"])
     r["bound_ms"], r["bound_by"] = bound_of(*newmark_work(n, es), tag)
+    return r
+
+
+def newmark_t_work(n, itemsize):
+    """K5T's (bytes, operations): the cotangents of v1 and a1, K5's four
+    inputs and the row in, four vector cotangents and the row's out (the
+    CTAs' partial sums stay in L2); 28 operations an entry."""
+    return (10 * n + 16) * itemsize, 28 * n
+
+
+def newmark_t_op(torch, label, tag, vecs):
+    """K5T (K5's backward) at one size against its plain version: the four
+    vector cotangents bit for bit, the row's cotangent within rtol 1e-13 /
+    1e-6 plus the bound on summation order, and bit-stable across three
+    launches; then its timing row (``measure``)."""
+    from vf_fem_tpu_torch import ops, yardsticks
+
+    what = f"ops newmark_t {label} {tag}"
+    row = newmark_row(vecs[0], DT, 0.75 * DT)
+    outs = [ops.newmark_update_t(*vecs, row) for _ in range(3)]
+    refs = ops.newmark_update_t_reference(*vecs, row)
+    torch.cuda.synchronize()
+    for name, out, ref in zip(("ub1", "ub0", "vb0", "ab0"), outs[0], refs):
+        require(torch.equal(out, ref), f"{what}: K5T's {name} not bit-equal to the plain"
+                f" version (max |diff| {(out - ref).abs().max().item():.3e})")
+    require(all(torch.equal(o[4], outs[0][4]) for o in outs[1:]),
+            f"{what}: the row's cotangent differs between launches")
+    vb1, ab1, u1, u0, v0, a0 = vecs
+    n = u1.numel()
+    bound = ops.dot_order_bound(ops.newmark_update_t_reference(
+        vb1.abs(), ab1.abs(), u1.abs(), -u0.abs(), -v0.abs(), -a0.abs(), row.abs())[4].abs(), n)
+    rtol = 1e-13 if vecs[0].dtype == torch.float64 else 1e-6
+    diff = (outs[0][4] - refs[4]).abs()
+    require(bool((diff <= rtol * refs[4].abs() + bound).all()),
+            f"{what}: the row's cotangent off the plain version's ({diff.max().item():.3e})")
+    r = measure(torch, lambda: ops.newmark_update_t(*vecs, row),
+                lambda: ops.newmark_update_t_reference(*vecs, row))
+    es = vecs[0].element_size()
+    r.update(max_abs_err=diff.max().item(), lib_err=None, bytes=newmark_t_work(n, es)[0],
+             lib_call=yardsticks.LIBRARY_CALL["newmark_t"])
+    r["bound_ms"], r["bound_by"] = bound_of(*newmark_t_work(n, es), tag)
+    log(f"[ops] newmark_t {label} {tag} (n = {n}): vector cotangents bit-equal to the plain"
+        f" version, the row's within its order bound (max |diff| {diff.max().item():.3e})"
+        f" and bit-stable across 3 launches")
     return r
 
 
@@ -885,6 +991,41 @@ def phase_ops_btd(torch, plan, blocks64):
                 f" {sp.ring} slots of {sp.stage_rows} rows, {sp.smem_bytes} B shared):"
                 f" {res['device_ms'] / n_sup * 1e3:.3f} us per row block")
             results[("btd_sweep", f"{label} {ftag}/{vtag}", vtag)] = res
+        # K6T, the transposed sweeps of btd_solve_t: forward on W from
+        # r / d, backward on V from the plain forward sweep's output
+        z = ops.btd_sweep_t_reference(fac.W, rb)
+        for label, A, inp, rev in (("forward", fac.W, rb, False), ("backward", fac.V, z, True)):
+            what = f"ops btd_sweep_t {label} {ftag}/{vtag}"
+            out = ops.btd_sweep_t(A, inp, reverse=rev)
+            outs = [out] + [ops.btd_sweep_t(A, inp, reverse=rev) for _ in range(2)]
+            torch.cuda.synchronize()
+            require(all(torch.equal(o, out) for o in outs[1:]),
+                    f"{what}: not the same bits in three launches")
+            row_ref, bound = ops.btd_sweep_t_rows_reference(A, inp, out, rev)
+            diff = (out - row_ref).abs()
+            off = int((diff > rtol * row_ref.abs() + bound).sum())
+            require(off == 0, f"{what}: {off} entries off their rows"
+                              f" (max |diff| {diff.max().item():.3e})")
+            full = ops.btd_sweep_t_reference(A, inp, rev)
+            err = (out - full).abs().max().item()
+            full_rel = err / full.abs().max().item()
+            require(full_rel <= SWEEP_FULL_GATES[acc],
+                    f"{what}: whole sweep off the plain one ({full_rel:.3e})")
+            res = measure(torch, lambda: ops.btd_sweep_t(A, inp, reverse=rev),
+                          lambda: ops.btd_sweep_t_reference(A, inp, rev))
+            # the n - 1 blocks the sweep reads, g in, the sweep out; 2 Bt^2
+            # operations a block
+            blk = A[0].numel()
+            nbytes = ((n_sup - 1) * blk * A.element_size()
+                      + 2 * inp.numel() * inp.element_size())
+            res.update(max_abs_err=err, bytes=nbytes, lib_ms=None, lib_runs=None,
+                       lib_call=yardsticks.LIBRARY_CALL["btd_sweep_t"])
+            res["bound_ms"], res["bound_by"] = bound_of(nbytes, 2 * (n_sup - 1) * blk, acc)
+            log(f"[ops] btd_sweep_t {label} {ftag} factors / {vtag} vector ({n_sup} x {bt} x"
+                f" {bt}): {fmt_times(res)}; row max |diff| {diff.max().item():.3e}, whole-sweep"
+                f" max_abs_err {err:.3e} (rel {full_rel:.3e}, gate {SWEEP_FULL_GATES[acc]:.0e});"
+                f" same bits in 3 launches; {res['device_ms'] / n_sup * 1e3:.3f} us per row block")
+            results[("btd_sweep_t", f"{label} {ftag}/{vtag}", vtag)] = res
     sweep_exchange(torch, dev, bt)
     return results
 
@@ -1027,7 +1168,9 @@ def phase_krylov(torch, card, models):
         log(f"[krylov] prod {ls}: f32 vs f64 final u max rel diff {rel:.3e}"
             f" (gate {f32_gate:.3e} = 10 x JAX CPU {gold['prod_f32_vs_f64']:.3e})")
         require(rel <= f32_gate, f"krylov prod {ls}: f32 run outside its gate")
-    bsb_profile(torch, card, models["float64"], times)
+    # the profile runs the first half of the steps (an eager Krylov step's
+    # host events take the profiler ~5 s to summarise)
+    bsb_profile(torch, card, models["float64"], times[: (len(times) - 1) // 2 + 1])
     return out
 
 
@@ -1103,12 +1246,16 @@ def profile_run(torch, run, n_steps, kernel):
     from torch.profiler import ProfilerActivity, profile
 
     before = read_launches()
+    # host and device activity: a trace of device activity alone lost a
+    # step's kernel records in 3 of 8 profiled graph runs on an H100 (the
+    # launch counts are held to the trace), none with both
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     after = read_launches()
+    t1 = time.perf_counter()
     ka = prof.key_averages()
     dev_events = [e for e in ka if e.device_type == DeviceType.CUDA
                   and not getattr(e, "is_user_annotation", False)]
@@ -1119,10 +1266,14 @@ def profile_run(torch, run, n_steps, kernel):
     table = ka.table(sort_by="self_cuda_time_total", row_limit=12)
     traced = {op: sum(e.count for e in dev_events if name in e.key)
               for op, name in TRACE_NAMES.items()}
+    require(n_dev > 0, "profile: no device kernel in the trace")
+    log(f"[profile] {n_dev} device kernels traced, summarised in"
+        f" {time.perf_counter() - t1:.1f} s")
+    # a checkout that predates a counter counts none of its launches
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle=1 - busy_ms / wall_ms,
                 per_step=n_dev / n_steps, k_ms=k_ms, k_launches=sum(e.count for e in mine),
                 table=table, traced=traced,
-                counted={op: after[op] - before[op] for op in TRACE_NAMES})
+                counted={op: after.get(op, 0) - before.get(op, 0) for op in TRACE_NAMES})
 
 
 def require_traced(prof, names, what):
@@ -1337,11 +1488,11 @@ def phase_integrate(torch, card, dev, large, btd_res):
                                        if name == "M5 headline" else large[tag])
             control = {k: v[0] for k, v in cs.items()}
 
-            def eager():
-                return forward._integrate_eager(model, state0, cs, prop, times, params)
+            def eager(ts=times):
+                return forward._integrate_eager(model, state0, cs, prop, ts, params)
 
-            def graph():
-                return forward.integrate_pure(model, state0, cs, prop, times, params)
+            def graph(ts=times):
+                return forward.integrate_pure(model, state0, cs, prop, ts, params)
 
             # the entry point a user calls; it captures the step where the
             # graph is not cached yet
@@ -1374,7 +1525,10 @@ def phase_integrate(torch, card, dev, large, btd_res):
                     f"{what}: integrate's final state or infos differ from the eager run's")
             for k, v in ref["res"][1].items():
                 require(bool(torch.isfinite(v).all()), f"{what}: non-finite {k}")
-            prof = {which: profile_run(torch, fn, n_steps, "newmark_kernel")
+            # the profiles run the first PROFILE_STEPS steps (the host's
+            # operator events of 100 eager steps take a minute to summarise)
+            prof = {which: profile_run(torch, lambda fn=fn: fn(times[:PROFILE_STEPS + 1]),
+                                       PROFILE_STEPS, "newmark_kernel")
                     for which, fn in (("eager", eager), ("graph", graph))}
             for which, p in prof.items():
                 require_traced(p, used, f"{what} {which}")
@@ -1439,6 +1593,176 @@ def phase_integrate(torch, card, dev, large, btd_res):
     return out
 
 
+def adjoint_loss(torch, seen):
+    """benchmarks/benchmark_adjoint.py:89-94's loss, sum(q[-20:]^2) 1e-6,
+    keeping the trajectory it was given in ``seen``."""
+    def loss(traj, controls, prop, times):
+        seen["traj"] = {k: v.detach() for k, v in traj.items()}
+        return torch.sum(traj["q"][-20:] ** 2) * 1e-6
+
+    return loss
+
+
+def forward_loss(torch, built, times, params):
+    """The no-grad forward of the loss, timed by CUDA events: (value,
+    trajectory, ms)."""
+    from vf_fem_tpu_torch import forward
+
+    model, state0, cs, prop = built
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    _, traj, _ = forward.integrate_pure(model, state0, cs, prop, times, params)
+    value = torch.sum(traj["q"][-20:] ** 2) * 1e-6
+    end.record()
+    torch.cuda.synchronize()
+    return float(value), traj, start.elapsed_time(end)
+
+
+def grad_run(torch, built, times, params, control=None):
+    """One value+grad run through the entry point ``adjoint.integrate_grad``
+    with the launch and adjoint counts set to 0 just before, timed by CUDA
+    events, with its peak device memory over what was allocated before."""
+    from vf_fem_tpu_torch import adjoint
+
+    model, state0, _, prop = built
+    seen = {}
+    solid = model.solid
+    solid.adjoint_counts.update(solves=0, refine_iterations=0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_launches()
+    start.record()
+    value, grads = adjoint.integrate_grad(model, adjoint_loss(torch, seen), state0,
+                                          [control or model.control], prop, times, params)
+    end.record()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    for group in ("ini_state", "controls", "prop"):
+        for k, g in grads[group].items():
+            require(np.isfinite(g).all(), f"grad: non-finite gradient {group}/{k}")
+    require(np.isfinite(grads["times"]).all(), "grad: non-finite gradient of the times")
+    return dict(value=value, grads=grads, traj=seen["traj"], ms=start.elapsed_time(end),
+                launches=launches, counts=dict(solid.adjoint_counts),
+                peak=torch.cuda.max_memory_allocated() - base)
+
+
+def grad_rel(a, b, value):
+    """Per group, the largest max|a - b| / max|b| over its keys; a key whose
+    gradient in ``b`` is below 1e-12 |value| (an analytically vanishing
+    derivative's rounding) must be that small in ``a`` and is left out."""
+    worst = {}
+    for group in ("ini_state", "controls", "prop"):
+        w = 0.0
+        for k, gb in b[group].items():
+            scale, floor = np.abs(gb).max(), 1e-12 * abs(value)
+            if scale <= floor:
+                require(np.abs(a[group][k]).max() <= floor,
+                        f"grad: {group}/{k} is {np.abs(a[group][k]).max():.3e}, not ~0")
+                continue
+            w = max(w, float(np.abs(a[group][k] - gb).max() / scale))
+        worst[group] = w
+    worst["times"] = float(np.abs(a["times"] - b["times"]).max() / np.abs(b["times"]).max())
+    return worst
+
+
+def phase_grad(torch, card, dev, large):
+    """Phase 9, the gradient path in f64: value+grad (``adjoint.integrate_grad``)
+    of benchmarks/benchmark_adjoint.py's loss over 100 steps at dt = 1e-4,
+    at M5 (ADJ_M5) and at 23.7k (ADJ_LARGE, the stale-factor refined adjoint
+    and the exact one)."""
+    times = DT * np.arange(N_STEPS + 1)
+    out = {}
+    # -- M5 ---------------------------------------------------------------------
+    m5 = build(torch, dev, "M5_3layers.msh", torch.float64)
+    model = m5[0]
+    forward_loss(torch, m5, times, ADJ_M5)  # warm-up
+    value_f, traj_f, ms_f = forward_loss(torch, m5, times, ADJ_M5)
+    g = grad_run(torch, m5, times, ADJ_M5)
+    require(g["value"] == value_f and all(torch.equal(g["traj"][k], traj_f[k]) for k in traj_f),
+            "grad M5: the value+grad run's trajectory is not the forward's bit for bit")
+    require_launched(g["launches"], ("gather", "scatter", "newmark", "newmark_t"), "grad M5")
+    fwd_s, grad_s = N_STEPS / (ms_f / 1e3), N_STEPS / (g["ms"] / 1e3)
+    log(f"[grad] M5 f64 ({model.solid.ndof} dofs), {N_STEPS} steps: forward loss"
+        f" {fwd_s:.2f} steps/s ({ms_f:.3f} ms), value+grad {grad_s:.2f} steps/s"
+        f" ({g['ms']:.3f} ms, CUDA events): gradient overhead {fwd_s / grad_s:.2f}x forward;"
+        f" J = {g['value']:.9e} (= the forward's, trajectory bit for bit); adjoint solves"
+        f" {g['counts']['solves']}, refinement iterations {g['counts']['refine_iterations']}"
+        f" ({g['counts']['refine_iterations'] / max(g['counts']['solves'], 1):.2f} a solve);"
+        f" peak device memory {g['peak'] / 1e6:.1f} MB over the model's; launches"
+        f" {g['launches']}, on {card}")
+    # central differences along psub and along a seeded random emod direction
+    cp = {k: v.copy() for k, v in model.control.items()}
+    checks = []
+    vals = []
+    for h in (1.0, -1.0):
+        cp["psub"] = model.control["psub"] + h
+        vals.append(forward_loss(torch, (model, m5[1], {k: v[None] for k, v in cp.items()},
+                                         m5[3]), times, ADJ_M5)[0])
+    checks.append(("psub (h = 1 Ba)", float(g["grads"]["controls"]["psub"].sum()),
+                   (vals[0] - vals[1]) / 2.0))
+    d = np.random.default_rng(9).standard_normal(model.prop["emod"].shape)
+    vals = []
+    for h in (5.0, -5.0):
+        p = {**model.prop, "emod": model.prop["emod"] + h * d}
+        vals.append(forward_loss(torch, (model, m5[1], m5[2], p), times, ADJ_M5)[0])
+    checks.append(("emod along a random direction (5 Ba a cell)",
+                   float(np.dot(g["grads"]["prop"]["emod"], d)), (vals[0] - vals[1]) / 10.0))
+    for what, adj, fd in checks:
+        rel = abs(adj - fd) / abs(fd)
+        log(f"[grad] M5 d J / d {what}: adjoint {adj:.9e}, central difference {fd:.9e},"
+            f" rel diff {rel:.3e} (rtol {FD_RTOL:.0e})")
+        require(fd != 0 and rel <= FD_RTOL, f"grad M5: {what} off its finite difference")
+    out["M5"] = dict(fwd_steps_s=fwd_s, grad_steps_s=grad_s, peak=g["peak"],
+                     launches=g["launches"])
+    # -- 23.7k ------------------------------------------------------------------
+    big = large["float64"]
+    forward_loss(torch, big, times, ADJ_LARGE)  # warm-up (captures the step)
+    value_f, traj_f, ms_f = forward_loss(torch, big, times, ADJ_LARGE)
+    grad_run(torch, big, times, ADJ_LARGE)  # warm-up
+    g = grad_run(torch, big, times, ADJ_LARGE)
+    require(g["value"] == value_f and all(torch.equal(g["traj"][k], traj_f[k]) for k in traj_f),
+            "grad 23.7k: the value+grad run's trajectory is not the forward's (graph) bit for bit")
+    used = ("gather", "scatter", "newmark", "newmark_t", "btd_sweep", "btd_sweep_t")
+    require_launched(g["launches"], used, "grad 23.7k")
+    x = grad_run(torch, big, times, {**ADJ_LARGE, "adjoint_refine": "exact"})
+    worst = grad_rel(g["grads"], x["grads"], x["value"])
+    fwd_s, grad_s = N_STEPS / (ms_f / 1e3), N_STEPS / (g["ms"] / 1e3)
+    per_step = {k: g["launches"][k] / N_STEPS for k in used}
+    log(f"[grad] 23.7k f64 ({big[0].solid.ndof} dofs), {N_STEPS} steps: forward loss (CUDA"
+        f" graph) {fwd_s:.2f} steps/s ({ms_f:.3f} ms), value+grad (stale refined)"
+        f" {grad_s:.2f} steps/s ({g['ms']:.3f} ms): gradient overhead {fwd_s / grad_s:.2f}x"
+        f" forward; exact-factor value+grad {N_STEPS / (x['ms'] / 1e3):.2f} steps/s;"
+        f" J = {g['value']:.9e} (= the forward's, trajectory bit for bit); refinement"
+        f" iterations {g['counts']['refine_iterations']} in {g['counts']['solves']} solves"
+        f" ({g['counts']['refine_iterations'] / max(g['counts']['solves'], 1):.2f} a solve);"
+        f" peak device memory {g['peak'] / 1e6:.1f} MB (exact {x['peak'] / 1e6:.1f} MB) over"
+        f" the model's; launches a step {per_step}, on {card}")
+    log(f"[grad] 23.7k stale vs exact gradient, max rel diff per group {worst}"
+        f" (bound {STALE_VS_EXACT:.0e})")
+    require(max(worst.values()) <= STALE_VS_EXACT, "grad 23.7k: stale gradient off the exact one")
+    from vf_fem_tpu_torch import adjoint
+
+    model = big[0]
+    prof = profile_run(torch, lambda: adjoint.integrate_grad(
+        model, adjoint_loss(torch, {}), big[1], [model.control], big[3],
+        times[:PROFILE_STEPS + 1], ADJ_LARGE), PROFILE_STEPS, "btd_sweep_t_kernel")
+    require_traced(prof, used, "grad")
+    log(f"[grad] profile 23.7k value+grad f64, {PROFILE_STEPS} steps: {prof['per_step']:.1f} device"
+        f" kernels per step, device busy {prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms"
+        f" profiled wall, idle share {prof['idle']:.3f}; K6T {prof['k_ms']:.3f} ms"
+        f" ({prof['k_ms'] / prof['busy_ms']:.1%} of busy) in {prof['k_launches']} launches,"
+        f" on {card}")
+    log(prof["table"])
+    out["23.7k"] = dict(fwd_steps_s=fwd_s, grad_steps_s=grad_s, peak=g["peak"],
+                        launches=g["launches"], worst=worst, idle=prof["idle"])
+    return out
+
+
 def main():
     import time
 
@@ -1455,15 +1779,22 @@ def main():
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(cuda_build.build, sources))
     log(f"[build] {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.1f} s")
-    kern = phase_kernels(torch, dev)
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        res = fn(*args)
+        log(f"[time] {name}: {time.perf_counter() - t:.1f} s (at {time.perf_counter() - t0:.1f} s)")
+        return res
+
+    kern = timed("kernels", phase_kernels, torch, dev)
     large = {"float64": build(torch, dev, LARGE_MESH, torch.float64),
              "float32": build(torch, dev, LARGE_MESH, torch.float32)}
-    ops_res = phase_ops(torch, dev, large["float64"][0])
-    phase_golden(torch, dev)
-    head = phase_headline(torch, dev, card)
-    kry = phase_krylov(torch, card, large)
-    btd_res = phase_btd(torch, card, large)
-    phase_integrate(torch, card, dev, large, btd_res)
+    ops_res = timed("ops", phase_ops, torch, dev, large["float64"][0])
+    timed("golden", phase_golden, torch, dev)
+    head = timed("headline", phase_headline, torch, dev, card)
+    kry = timed("krylov", phase_krylov, torch, card, large)
+    btd_res = timed("btd", phase_btd, torch, card, large)
+    timed("integrate", phase_integrate, torch, card, dev, large, btd_res)
+    grad = timed("grad", phase_grad, torch, card, dev, large)
 
     # per kernel: the timing at the 23.7k shapes of the btd main path (f64)
     timing = {
@@ -1473,15 +1804,20 @@ def main():
         "bsb_matvec": ops_res[("bsb_matvec", "23.7k", "float64")],
         "newmark": ops_res[("newmark", "23.7k", "float64")],
         "btd_sweep": ops_res[("btd_sweep", "forward bfloat16/float64", "float64")],
+        "newmark_t": ops_res[("newmark_t", "23.7k", "float64")],
+        "btd_sweep_t": ops_res[("btd_sweep_t", "forward bfloat16/float64", "float64")],
     }
     # the f64 runs whose launches count: (name, launches, steps)
     runs = [("M5 headline", head["float64"]["launches"], N_STEPS),
             ("23.7k btd", btd_res["float64"]["launches"], btd_res["float64"]["n_steps"]),
             ("23.7k bsb", kry[("bsb", "float64")]["launches"], kry[("bsb", "float64")]["n_steps"]),
-            ("23.7k cg", kry[("cg", "float64")]["launches"], kry[("cg", "float64")]["n_steps"])]
+            ("23.7k cg", kry[("cg", "float64")]["launches"], kry[("cg", "float64")]["n_steps"]),
+            ("M5 value+grad", grad["M5"]["launches"], N_STEPS),
+            ("23.7k value+grad", grad["23.7k"]["launches"], N_STEPS)]
     path = {  # the main-path run whose count is this kernel's ``launches``
         "gather": runs[0][1], "scatter": runs[0][1], "newmark": runs[0][1],
         "btd_sweep": runs[1][1], "ebe_matvec": runs[3][1], "bsb_matvec": runs[2][1],
+        "newmark_t": runs[5][1], "btd_sweep_t": runs[5][1],
     }
     kernels = []
     for op, (kname, replaces, source) in KERNELS.items():

@@ -123,3 +123,21 @@ def port_inputs(model):
     state0 = {k: np.zeros_like(v) for k, v in model.state0.items()}
     cs = {k: v[None] for k, v in model.control.items()}
     return state0, cs, model.prop
+
+
+def port_smooth_model(jm, device="cpu", dtype=torch.float64):
+    """The port's counterpart of ``tests/fixture_models.make_vf_fsi_model``
+    with ``BernoulliSmoothMinSep`` on ``vocal_fold_mesh(8, 4)`` (the JAX
+    package's differentiation default), with the JAX model ``jm``'s
+    properties and controls."""
+    from vf_fem_tpu_torch.load import load_fsi_model
+    from vf_fem_tpu_torch.mesh import vocal_fold_mesh
+    from vf_fem_tpu_torch.residuals import fluid as flr, solid as slr
+
+    tm = load_fsi_model(vocal_fold_mesh(8, 4), slr.KelvinVoigt,
+                        flr.BernoulliSmoothMinSep, device=device, dtype=dtype)
+    for k in tm.prop:
+        tm.prop[k][:] = np.asarray(jm.prop[k])
+    for k in tm.control:
+        tm.control[k][:] = np.asarray(jm.control[k])
+    return tm

@@ -687,3 +687,184 @@ def test_capture_with_a_host_sync_raises(cuda):
     with pytest.raises(RuntimeError):
         forward.integrate_pure(model, *args)
     assert step_graph.graph_stats(model) == {}
+
+
+# -- the gradient path: K5T, K6T and value+grad runs ----------------------------------
+
+
+@pytest.mark.parametrize("n", [1, 2, 93])
+@pytest.mark.parametrize("bt", kernels.SWEEP_WIDTHS)
+@pytest.mark.parametrize("pair", list(SWEEP_PAIRS))
+def test_btd_sweep_t_rows_every_width(cuda, pair, bt, n):
+    """K6T on random factors scaled to 0.5/sqrt(Bt), both sweeps: each row
+    within rtol 1e-13 (f64 vectors) / 1e-6 (f32) plus the dot-product order
+    bound of the plain row from the kernel's own previous row, and the
+    same bits in a second launch."""
+    _, _, Ad, gd = _random_sweep(pair, bt, n, seed=3 * bt + n, dev=cuda)
+    rtol = 1e-13 if gd.dtype == torch.float64 else 1e-6
+    n0 = ops.LAUNCHES["btd_sweep_t"]
+    for rev in (False, True):
+        out = ops.btd_sweep_t(Ad, gd, reverse=rev)
+        ref, bound = ops.btd_sweep_t_rows_reference(Ad, gd, out, rev)
+        assert_scatter_close(out, ref, bound, rtol)
+        assert torch.equal(out, ops.btd_sweep_t(Ad, gd, reverse=rev))
+    assert ops.LAUNCHES["btd_sweep_t"] == n0 + 4
+
+
+@pytest.mark.parametrize("pair", list(SWEEP_PAIRS))
+def test_btd_sweep_t_matches_plain(large_operator, pair):
+    """K6T against its plain version on the 23.7k model's own factors (W
+    forward, V backward), row by row as for K6; a transposed btd solve on
+    the card is two launches and solves A^T x = r to the factors'
+    accuracy."""
+    from vf_fem_tpu_torch.solvers import btd
+
+    op, plan, blocks = large_operator
+    fdt, vdt = SWEEP_PAIRS[pair]
+    fac = btd.btd_factor(plan, blocks.float() if fdt == torch.float32 else blocks,
+                         store_dtype="bfloat16" if fdt == torch.bfloat16 else None)
+    rng = np.random.default_rng(1)
+    g = torch.tensor(rng.standard_normal(tuple(fac.V.shape[:2])), dtype=vdt,
+                     device=blocks.device)
+    rtol = 1e-13 if vdt == torch.float64 else 1e-6
+    for A, rev in ((fac.W, False), (fac.V, True)):
+        out = ops.btd_sweep_t(A, g, reverse=rev)
+        ref, bound = ops.btd_sweep_t_rows_reference(A, g, out, rev)
+        assert_scatter_close(out, ref, bound, rtol)
+    n0 = ops.LAUNCHES["btd_sweep_t"]
+    r = torch.tensor(rng.standard_normal(plan.ndof), dtype=vdt, device=blocks.device)
+    fac_v = fac._replace(d=fac.d.to(vdt))
+    x = btd.btd_solve_t(plan, fac_v, r)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["btd_sweep_t"] == n0 + 2
+    assert bool(torch.isfinite(x).all())
+    if (fdt, vdt) == (torch.float64, torch.float64):
+        # the same solve through the plain sweeps on the CPU
+        cpu = btd.btd_solve_t(plan, btd.BTDFactors(*(t.cpu() for t in fac_v)), r.cpu())
+        torch.testing.assert_close(x.cpu(), cpu, rtol=1e-9, atol=1e-12 * cpu.abs().max())
+
+
+def test_btd_sweep_t_rejects_bad_input(large_operator):
+    _, _, blocks = large_operator
+    dev = blocks.device
+    A = torch.zeros((3, 256, 256), dtype=torch.bfloat16, device=dev)
+    g = torch.zeros((3, 256), dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.btd_sweep_t(A.transpose(1, 2), g)
+    with pytest.raises(ValueError, match="tensors on"):
+        ops.btd_sweep_t(A, g.cpu())
+    with pytest.raises(TypeError):
+        ops.btd_sweep_t(A.half(), g)
+    with pytest.raises(ValueError, match="row blocks"):
+        ops.btd_sweep_t(A[:, :16, :16].contiguous(), g[:, :16].contiguous())
+
+
+@pytest.mark.parametrize("n", [960, 23_754, 123])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_newmark_t_matches_plain(cuda, dtype, n):
+    """K5T against its plain version: the four vector cotangents bit for
+    bit, the row's cotangent within the bound on summation order (rtol
+    1e-13 / 1e-6 besides) and bit-stable across three launches."""
+    from vf_fem_tpu_torch.equations import newmark
+
+    rng = np.random.default_rng(n)
+    vecs = [torch.tensor(rng.standard_normal(n), dtype=dtype, device=cuda)
+            for _ in range(6)]
+    row = ops.newmark_row(newmark.coefficients(1e-4, 0.75e-4), dtype, cuda)
+    n0 = ops.LAUNCHES["newmark_t"]
+    outs = [ops.newmark_update_t(*vecs, row) for _ in range(3)]
+    refs = ops.newmark_update_t_reference(*vecs, row)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["newmark_t"] == n0 + 3
+    for out, ref in zip(outs[0][:4], refs[:4]):
+        assert torch.equal(out, ref)
+    vb1, ab1, u1, u0, v0, a0 = vecs
+    absrow = ops.newmark_update_t_reference(vb1.abs(), ab1.abs(), u1.abs(),
+                                            -u0.abs(), -v0.abs(), -a0.abs(),
+                                            row.abs())[4].abs()
+    bound = ops.dot_order_bound(absrow, n)
+    rtol = 1e-13 if dtype == torch.float64 else 1e-6
+    assert_scatter_close(outs[0][4], refs[4], bound, rtol)
+    assert all(torch.equal(o[4], outs[0][4]) for o in outs[1:])
+
+
+def _grad_model(cuda_or_cpu, config):
+    params, reorder, solid = GRAD_CONFIGS[config]
+    model = port_vf_model(solid, nx=8 if reorder is None else 10,
+                          ny=4 if reorder is None else 5, device=cuda_or_cpu,
+                          reorder=reorder)
+    return model, params
+
+
+# small value+grad runs: the M5 adjoint settings of benchmark_adjoint.py:79-88
+# scaled down, and the production adjoint's (bf16 btd factors, refresh 4)
+GRAD_CONFIGS = {
+    "dense": ({"jacobian_update": "once_per_step", "stagnation_ratio": 0.5,
+               "jacobian_refresh_steps": 4, "jacobian_refresh_mode": "ns",
+               "jacobian_full_refresh_windows": 4}, None, "KelvinVoigtWEpithelium"),
+    "btd": ({"linear_solver": "btd", "btd_store_dtype": "bfloat16",
+             "jacobian_refresh_steps": 4, "stagnation_ratio": 0.5}, "rcm",
+            "KelvinVoigtWEpithelium"),
+}
+
+
+def _loss(traj, controls, prop, times):
+    return torch.sum(traj["q"][-4:] ** 2) * 1e-6 + torch.sum(traj["u"][-1] ** 2) * 1e4
+
+
+@pytest.mark.parametrize("config", list(GRAD_CONFIGS))
+def test_value_and_grad_on_cuda_match_cpu(cuda, config):
+    """A small value+grad run (``adjoint.integrate_grad``) on the card
+    against the same run on the CPU: the values within 1e-10, every
+    gradient group per key within 1e-6 of its largest entry (the card sums
+    in other orders: cuBLAS, K6/K6T, the bf16 factors' f32 sums, and
+    the refined adjoint stops on its residual; adaptive Newton, so the
+    trajectories agree to its tolerance).  The value equals the
+    card's no-grad forward bit for bit; the run launches K5T (one a step
+    whose v1, a1 reach the loss) and, with btd factors, K6T; no step graph
+    is replayed."""
+    from vf_fem_tpu_torch import adjoint, step_graph
+
+    times = 2e-5 * np.arange(9)
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        model, params = _grad_model(dev, config)
+        state0, cs, prop = port_inputs(model)
+        ops.LAUNCHES.update(dict.fromkeys(ops.LAUNCHES, 0))
+        value, grads = adjoint.integrate_grad(model, _loss, state0, [model.control],
+                                              prop, times, params)
+        runs[dev.type] = (value, grads, dict(ops.LAUNCHES), model, params)
+    (vc, gc, lc, mc, params), (vh, gh, lh, _, _) = runs["cuda"], runs["cpu"]
+    assert abs(vc - vh) <= 1e-10 * abs(vh)
+    for group in ("ini_state", "controls", "prop"):
+        for k in gh[group]:
+            scale = np.abs(gh[group][k]).max()
+            assert np.isfinite(gc[group][k]).all()
+            assert np.abs(gc[group][k] - gh[group][k]).max() <= 1e-6 * scale, (group, k)
+    np.testing.assert_allclose(gc["times"], gh["times"], rtol=1e-6,
+                               atol=1e-6 * np.abs(gh["times"]).max())
+    # K5T runs in every step's backward but the last's, whose v1 and a1 do
+    # not reach the loss
+    assert lc["newmark_t"] == len(times) - 2 and lh["newmark_t"] == 0
+    if config == "btd":
+        assert lc["btd_sweep_t"] > 0
+    assert not step_graph.graph_stats(mc)
+    state0, cs, prop = port_inputs(mc)
+    _, traj, _ = forward.integrate_pure(mc, state0, cs, prop, times, params)
+    assert float(_loss(traj, None, None, None)) == vc
+
+
+def test_backward_raises_no_version_error_on_cuda(cuda):
+    """The value+grad run of a fixed-iteration stale-factor btd run (which a
+    no-grad run replays as a captured graph) raises no version-counter
+    error in backward: nothing the graph saves is written in place."""
+    from vf_fem_tpu_torch import adjoint
+
+    model, params = _grad_model(cuda, "btd")
+    params = {**params, "fixed_iterations": 3, "fixed_tail_residual": False}
+    state0, cs, prop = port_inputs(model)
+    times = 2e-5 * np.arange(9)
+    forward.integrate_pure(model, state0, cs, prop, times, params)  # a graph run first
+    value, grads = adjoint.integrate_grad(model, _loss, state0, [model.control], prop,
+                                          times, params)
+    assert np.isfinite(value) and all(np.isfinite(v).all() for v in grads["prop"].values())

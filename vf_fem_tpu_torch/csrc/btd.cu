@@ -1,4 +1,5 @@
-// The block-Thomas sweep (K6) for Hopper (sm_90a): one launch runs one
+// The block-Thomas sweep (K6) and its transpose (K6T) for Hopper
+// (sm_90a).  K6T is described after K6's kernel.  One launch of K6 runs one
 // whole serial sweep of the btd direct solve,
 //
 //   forward  (reverse = 0):  y_i = g_i - A_i y_{i-1},  y_{-1} = 0
@@ -284,6 +285,191 @@ int launch_sweep(const void* A, const void* g, void* out, int n, int bt,
 #undef VF_SWEEP_CALL
 }
 
+// ---------------------------------------------------------------------------
+// K6T, the transposed sweep of the btd adjoint solve (btd_solve_t): one
+// launch runs one whole serial sweep over the stored blocks, transposed and
+// shifted by one block inside the kernel,
+//
+//   forward  (reverse = 0):  y_i = g_i - A_{i-1}^T y_{i-1},  y_0 = g_0
+//   backward (reverse = 1):  x_i = g_i - A_{i+1}^T x_{i+1},  x_{n-1} = g_{n-1}
+//
+// (W forward, V backward), so no transposed or shifted copy of the factors
+// is made.  No TPU kernel is replaced: the JAX package runs these sweeps as
+// lax.scan (vf_fem_tpu/solvers/btd.py:340-358).  The plain version is
+// ops.kernels.btd_sweep_t_reference.
+//
+// Rounding follows K6's rule (the carried vector in the factor type, f32
+// sums for bf16 factors, the sum cast to the vector type before the
+// subtraction, rounded on its own).  Entry j of A^T y sums down column j:
+// thread t of the CTA takes column c = t % R of the CTA's R columns and
+// rows q, q + G, q + 2G, ... (q = t / R, G = THREADS / R groups), summing
+// by FMA in that order; then thread c adds the G group sums in group order.
+// Another order than the plain matvec's, within the bound on dot-product
+// order (ops.dot_order_bound); fixed, so the result is the same run to run.
+//
+// What bounds it: the same bytes as K6 (each block read once) and the same
+// serial chain of n row blocks with one exchange of the carried vector
+// each.  Design: K6's cluster (C CTAs, 16 for f64 factors, 8 otherwise) and
+// K6's exchange, unchanged: CTA r owns output entries [r R, (r+1) R) and
+// pushes them into every CTA's copy of the carried vector with st.async on
+// that buffer's mbarrier.  Where K6 reads a contiguous row slice of A_i,
+// CTA r reads the (Bt x R) column box of the block: lanes take adjacent
+// columns, so each row's R entries are one coalesced segment.  This first
+// version keeps the box in registers instead of a TMA ring: each thread
+// issues its loads of the next row block's box right after its dot
+// products, before it waits for the next carried vector, so the loads run
+// under the exchange.  A CTA is R G threads (G the most row groups, a power
+// of two, up to 512 threads: 512 at Bt = 256); the group sums meet in
+// shared memory after one __syncthreads a row block.
+//
+// Why the partial sums can be reused without a second barrier: a thread
+// writes row block s + 1's partial sum only after the wait for all of x_s,
+// which needs this CTA's own entries of x_s, pushed by the threads that
+// read row block s's partial sums after reading them.  The double-buffered
+// carried vector is safe by K6's argument: a peer's entries of x_{s+1}
+// come after it received this CTA's entries of x_s, which are pushed after
+// the __syncthreads that follows every read of x_{s-1} here.
+
+// the most row groups, a power of two, with at most 512 threads a CTA
+__host__ __device__ constexpr int t_groups(int r) {
+  int g = 1;
+  while (2 * g * r <= 512) g *= 2;
+  return g;
+}
+
+template <typename TA, int BT>
+struct TGeometry {
+  static constexpr int ES = static_cast<int>(sizeof(TA));
+  static constexpr int C = cluster_size(ES);
+  static constexpr int R = BT / C;          // output entries a CTA
+  static constexpr int G = t_groups(R);     // row groups
+  static constexpr int THREADS = R * G;
+  static constexpr int RPT = BT / G;        // rows of a box a thread
+  static_assert(BT % C == 0 && BT % G == 0 && THREADS % 32 == 0, "no partition");
+  static_assert(R % 2 == 0, "output entries are pushed in pairs");
+};
+
+template <typename TA, typename TV, int BT>
+__global__ void __launch_bounds__(TGeometry<TA, BT>::THREADS, 1)
+    btd_sweep_t_kernel(const TA* __restrict__ A, const TV* __restrict__ g,
+                       TV* __restrict__ out, int n, int reverse) {
+  using G = TGeometry<TA, BT>;
+  using AccT = typename Acc<TA>::type;
+  constexpr long long kBlock = static_cast<long long>(BT) * BT;
+
+  __shared__ __align__(16) unsigned char xs_bytes[2 * BT * sizeof(TA)];
+  __shared__ __align__(16) AccT part[G::THREADS];   // group sums, [group][column]
+  __shared__ __align__(8) uint64_t xready[2];
+  TA* xs = reinterpret_cast<TA*>(xs_bytes);         // x_i in xs[(s & 1) * BT]
+
+  const unsigned rank = cluster_rank();
+  const int t = threadIdx.x;
+  const int c = t % G::R;
+  const int q = t / G::R;
+  const int col = static_cast<int>(rank) * G::R + c;  // this thread's column
+  if (t == 0) {
+    for (int b = 0; b < 2; ++b) mbar_init(xready + b, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync_all();
+
+  // the box of step s: block s - 1 (forward) or n - s (backward)
+  TA a[G::RPT];
+  auto load_box = [&](int s) {
+    const TA* blk = A + static_cast<long long>(reverse ? n - s : s - 1) * kBlock;
+#pragma unroll
+    for (int m = 0; m < G::RPT; ++m)
+      a[m] = blk[static_cast<long long>(q + m * G::G) * BT + col];
+  };
+  if (n > 1) load_box(1);
+
+  // the lanes of this thread's warp that own output entries (t < R)
+  const int owners = G::R - 32 * (t >> 5);
+  const unsigned mask = owners >= 32 ? 0xffffffffu : ((1u << (owners & 31)) - 1u);
+  for (int s = 0; s < n; ++s) {
+    const int i = reverse ? n - 1 - s : s;
+    const int rb = s & 1;
+    const bool push = s + 1 < n;
+    if (push && t == 0)
+      mbar_arrive_expect_tx(xready + rb, BT * static_cast<unsigned>(sizeof(TA)));
+    TV gv = TV(0);
+    if (t < G::R) gv = g[static_cast<long long>(i) * BT + col];
+    AccT sum = AccT(0);
+    if (s > 0) {
+      mbar_wait<true>(xready + (rb ^ 1), ((s - 1) >> 1) & 1);
+      const TA* x = xs + (rb ^ 1) * BT;
+      AccT acc = AccT(0);
+#pragma unroll
+      for (int m = 0; m < G::RPT; ++m)
+        acc = fma_rn(to_acc(a[m]), to_acc(x[q + m * G::G]), acc);
+      if (push) load_box(s + 1);  // under the exchange of x_s
+      part[t] = acc;
+      __syncthreads();
+      if (t < G::R) {
+        sum = part[c];
+        for (int k = 1; k < G::G; ++k) sum = sum + part[k * G::R + c];
+      }
+    }
+    if (t < G::R) {
+      const TV y = s > 0 ? sub_rn(gv, static_cast<TV>(sum)) : gv;
+      out[static_cast<long long>(i) * BT + col] = y;
+      if (push) {
+        const TA yf = to_factor<TA, TV>(y);
+        const unsigned dst = smem_addr(xs + rb * BT + col);
+        const unsigned bar = smem_addr(xready + rb);
+        if constexpr (G::ES == 2) {
+          const unsigned bits = __bfloat16_as_ushort(yf);
+          const unsigned next = __shfl_down_sync(mask, bits, 1);
+          if ((c & 1) == 0) {
+            const uint32_t w = bits | (next << 16);
+            for (int p = 0; p < G::C; ++p)
+              st_async_word(map_rank(dst, p), w, map_rank(bar, p));
+          }
+        } else {
+          uint32_t w[G::ES / 4];
+          to_words<1>(&yf, w);
+          for (int p = 0; p < G::C; ++p) {
+            const unsigned d = map_rank(dst, p);
+            const unsigned b = map_rank(bar, p);
+#pragma unroll
+            for (int j = 0; j < G::ES / 4; ++j) st_async_word(d + 4 * j, w[j], b);
+          }
+        }
+      }
+    }
+  }
+  // no CTA leaves while a peer may still write into it
+  cluster_sync_all();
+}
+
+template <typename TA, typename TV, int BT>
+int launch_sweep_t_bt(const void* A, const void* g, void* out, int n, int reverse,
+                      int cluster, void* stream) {
+  using G = TGeometry<TA, BT>;
+  if (cluster != G::C) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = btd_sweep_t_kernel<TA, TV, BT>;
+  static const cudaError_t attr_err = set_attributes(kernel, 0, G::C);
+  if (attr_err != cudaSuccess) return static_cast<int>(attr_err);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_config(G::THREADS, 0, G::C, stream, cfg, attr);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const TA*>(A),
+                                       static_cast<const TV*>(g), static_cast<TV*>(out),
+                                       n, reverse);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TA, typename TV>
+int launch_sweep_t(const void* A, const void* g, void* out, int n, int bt,
+                   int reverse, int cluster, void* stream) {
+  if (n == 0) return 0;
+#define VF_SWEEP_T_CALL(BT) \
+  launch_sweep_t_bt<TA, TV, BT>(A, g, out, n, reverse, cluster, stream)
+  VF_BT_SWITCH(VF_SWEEP_T_CALL)
+#undef VF_SWEEP_T_CALL
+}
+
 }  // namespace
 
 // Each entry point returns the cudaError_t of its launch (0 on success).
@@ -303,6 +489,20 @@ VF_SWEEP_ENTRY(vf_btd_sweep_f64_f64, double, double)
 VF_SWEEP_ENTRY(vf_btd_sweep_f32_f32, float, float)
 
 #undef VF_SWEEP_ENTRY
+
+// K6T: the same arguments as K6's entry points
+#define VF_SWEEP_T_ENTRY(NAME, TA, TV)                                          \
+  int NAME(const void* A, const void* g, void* out, int n, int bt, int reverse, \
+           int cluster, void* stream) {                                         \
+    return launch_sweep_t<TA, TV>(A, g, out, n, bt, reverse, cluster, stream);  \
+  }
+
+VF_SWEEP_T_ENTRY(vf_btd_sweep_t_bf16_f64, __nv_bfloat16, double)
+VF_SWEEP_T_ENTRY(vf_btd_sweep_t_bf16_f32, __nv_bfloat16, float)
+VF_SWEEP_T_ENTRY(vf_btd_sweep_t_f64_f64, double, double)
+VF_SWEEP_T_ENTRY(vf_btd_sweep_t_f32_f32, float, float)
+
+#undef VF_SWEEP_T_ENTRY
 
 // make_plan(es, bt) into out[0 .. 9) in the order of its fields, for the
 // comparison with ops.kernels.sweep_plan; refuses a width or element size

@@ -66,6 +66,25 @@
 // launches overlap; that took 0.4-0.6 us off its ~1.7 us in a graph of
 // 200 launches on an H100 (PERF.md section 6).
 
+// K5T is K5's backward (no TPU kernel: the JAX package differentiates
+// equations/newmark.py's relations with its step).  With V, A the
+// cotangents of v1, a1 (the predictor u_next is not differentiated: the
+// Newton guess it seeds carries no sensitivity), one pass writes
+//   ub1 = c1 V + c4 A,  ub0 = -ub1,  vb0 = -(c2 V + dt (c4 A)),
+//   ab0 = -(c3 V + c5 A)
+// and each CTA's partial sums of the row's cotangent (sum V du, -sum V v0,
+// -sum V a0, sum A (du - dt v0), -sum A a0, -sum (c4 A) v0, 0, 0 with du =
+// u1 - u0); a second launch of one CTA adds the partial sums of each entry
+// in CTA order.  No atomics: the row's cotangent, on which the gradient
+// with respect to the step sizes rests, has the same bits run to run.  The
+// vector cotangents are rounded as the plain version
+// (ops.kernels.newmark_update_t_reference) rounds them, _rn throughout,
+// so they are its bits; the row's sums differ from its sums only in order.
+// Bound: bytes (six vectors in, four out; 2.28 MB in f64 at 23.7k dofs,
+// 0.68 us at 3.35 TB/s).  A grid-stride loop over at most two CTAs an SM,
+// 256 threads a CTA, the six partial sums reduced by an xor tree in each
+// warp and in warp order across the CTA.
+
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -408,6 +427,103 @@ int launch_newmark(const void* u1, const void* u0, const void* v0,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- K5T: K5's backward ----------------------------------------------------
+
+constexpr int kNewmarkTThreads = 256;
+constexpr int kNewmarkTMaxCtas = 1024;  // ops.kernels.NEWMARK_T_MAX_CTAS
+constexpr int kRowSums = 6;             // nonzero entries of the row's cotangent
+
+template <typename T>
+__global__ void __launch_bounds__(kNewmarkTThreads)
+    newmark_t_kernel(const T* __restrict__ vb1, const T* __restrict__ ab1,
+                     const T* __restrict__ u1, const T* __restrict__ u0,
+                     const T* __restrict__ v0, const T* __restrict__ a0,
+                     const T* __restrict__ coefs, T* __restrict__ ub1,
+                     T* __restrict__ ub0, T* __restrict__ vb0, T* __restrict__ ab0,
+                     T* __restrict__ partial, long long n) {
+  __shared__ T warp_sums[kNewmarkTThreads / 32][kRowSums];
+  const NewmarkRow<T> k(coefs);
+  T acc[kRowSums];
+#pragma unroll
+  for (int j = 0; j < kRowSums; ++j) acc[j] = T(0);
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; e < n;
+       e += step) {
+    const T V = vb1[e], A = ab1[e];
+    const T x0 = v0[e], z0 = a0[e];
+    const T du = sub_rn(u1[e], u0[e]);
+    const T ub = add_rn(mul_rn(k.c1, V), mul_rn(k.c4, A));
+    const T c4a = mul_rn(k.c4, A);
+    ub1[e] = ub;
+    ub0[e] = -ub;
+    vb0[e] = -add_rn(mul_rn(k.c2, V), mul_rn(k.dt, c4a));
+    ab0[e] = -add_rn(mul_rn(k.c3, V), mul_rn(k.c5, A));
+    acc[0] = add_rn(acc[0], mul_rn(V, du));
+    acc[1] = add_rn(acc[1], mul_rn(V, x0));
+    acc[2] = add_rn(acc[2], mul_rn(V, z0));
+    acc[3] = add_rn(acc[3], mul_rn(A, sub_rn(du, mul_rn(k.dt, x0))));
+    acc[4] = add_rn(acc[4], mul_rn(A, z0));
+    acc[5] = add_rn(acc[5], mul_rn(c4a, x0));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int j = 0; j < kRowSums; ++j)
+      acc[j] = add_rn(acc[j], __shfl_xor_sync(0xffffffffu, acc[j], off));
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0)
+#pragma unroll
+    for (int j = 0; j < kRowSums; ++j) warp_sums[warp][j] = acc[j];
+  __syncthreads();
+  if (threadIdx.x < kRowSums) {
+    T sum = warp_sums[0][threadIdx.x];
+    for (int w = 1; w < kNewmarkTThreads / 32; ++w)
+      sum = add_rn(sum, warp_sums[w][threadIdx.x]);
+    partial[blockIdx.x * kRowSums + threadIdx.x] = sum;
+  }
+}
+
+// warp j adds entry j of the CTAs' partial sums: lane l those of CTAs l,
+// l + 32, ... in order, then an xor tree; signs as the row's cotangent
+template <typename T>
+__global__ void __launch_bounds__(32 * kRowSums)
+    newmark_t_sum_kernel(const T* __restrict__ partial, int ctas, T* __restrict__ row_bar) {
+  const int j = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  T sum = T(0);
+  for (int b = lane; b < ctas; b += 32) sum = add_rn(sum, partial[b * kRowSums + j]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    sum = add_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
+  if (lane == 0) {
+    const bool negate = j == 1 || j == 2 || j == 4 || j == 5;
+    row_bar[j] = negate ? -sum : sum;
+    if (j < 2) row_bar[kRowSums + j] = T(0);  // dtp and c: u_next is not differentiated
+  }
+}
+
+template <typename T>
+int launch_newmark_t(const void* vb1, const void* ab1, const void* u1, const void* u0,
+                     const void* v0, const void* a0, const void* coefs, void* ub1,
+                     void* ub0, void* vb0, void* ab0, void* row_bar, void* partial,
+                     long long n, void* stream) {
+  if (n == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long ctas = std::min<long long>(
+      std::min<long long>(grid_for(n, kNewmarkTThreads), 2LL * sm_count()),
+      kNewmarkTMaxCtas);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  newmark_t_kernel<T><<<static_cast<unsigned>(ctas), kNewmarkTThreads, 0, st>>>(
+      static_cast<const T*>(vb1), static_cast<const T*>(ab1), static_cast<const T*>(u1),
+      static_cast<const T*>(u0), static_cast<const T*>(v0), static_cast<const T*>(a0),
+      static_cast<const T*>(coefs), static_cast<T*>(ub1), static_cast<T*>(ub0),
+      static_cast<T*>(vb0), static_cast<T*>(ab0), static_cast<T*>(partial), n);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  newmark_t_sum_kernel<T><<<1, 32 * kRowSums, 0, st>>>(
+      static_cast<const T*>(partial), static_cast<int>(ctas), static_cast<T*>(row_bar));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Each entry point returns the cudaError_t of its launch (0 on success).
@@ -447,6 +563,25 @@ int vf_newmark_f64(const void* u1, const void* u0, const void* v0,
                    const void* a0, void* v1, void* a1, void* un, long long n,
                    const void* coefs, void* stream) {
   return launch_newmark<double>(u1, u0, v0, a0, v1, a1, un, n, coefs, stream);
+}
+
+// K5T: the cotangents vb1, ab1 and K5's inputs in; ub1, ub0, vb0, ab0 (n
+// entries each) and row_bar (8) out; partial: scratch of 6 entries for
+// each of up to 1024 CTAs
+int vf_newmark_t_f32(const void* vb1, const void* ab1, const void* u1, const void* u0,
+                     const void* v0, const void* a0, const void* coefs, void* ub1,
+                     void* ub0, void* vb0, void* ab0, void* row_bar, void* partial,
+                     long long n, void* stream) {
+  return launch_newmark_t<float>(vb1, ab1, u1, u0, v0, a0, coefs, ub1, ub0, vb0, ab0,
+                                 row_bar, partial, n, stream);
+}
+
+int vf_newmark_t_f64(const void* vb1, const void* ab1, const void* u1, const void* u0,
+                     const void* v0, const void* a0, const void* coefs, void* ub1,
+                     void* ub0, void* vb0, void* ab0, void* row_bar, void* partial,
+                     long long n, void* stream) {
+  return launch_newmark_t<double>(vb1, ab1, u1, u0, v0, a0, coefs, ub1, ub0, vb0, ab0,
+                                  row_bar, partial, n, stream);
 }
 
 }  // extern "C"

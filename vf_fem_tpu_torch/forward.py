@@ -14,7 +14,11 @@ the run's configuration:
 - every other run is a Python loop of eager steps: adaptive Newton (the
   default) reads each iteration's residual norm on the host, the Krylov
   solvers 'cg' and 'bsb' read BiCGStab's norms, a run that factors in
-  every step syncs in its factorization, and a CPU model has no graphs.
+  every step syncs in its factorization, and a CPU model has no graphs;
+- a run whose initial state, controls, properties or times require grad
+  is the differentiable loop :func:`_integrate_diff` (the gradient path of
+  ``adjoint``): the same steps and windows, eager, never the graph, with
+  autograd recording each step.
 
 :func:`integrate` adds the HDF5 statefile (:mod:`.statefile`, which needs
 h5py; ``f=None`` needs none), the divergence flags and the certification
@@ -48,6 +52,18 @@ def _stack_controls(model, controls) -> dict:
             for k in model.control}
 
 
+def _wants_grad(*args) -> bool:
+    """Whether a run's inputs (dicts of arrays or tensors, and the times)
+    hold a tensor that requires grad, with grad mode on."""
+    if not torch.is_grad_enabled():
+        return False
+    for a in args:
+        for v in (a.values() if isinstance(a, dict) else (a,)):
+            if isinstance(v, torch.Tensor) and v.requires_grad:
+                return True
+    return False
+
+
 def integrate_pure(
     model,
     ini_state: dict,
@@ -55,6 +71,7 @@ def integrate_pure(
     prop: dict,
     times,
     params: Optional[dict] = None,
+    use_remat: bool = False,
 ):
     """Integrate from ``ini_state`` over ``times``.
 
@@ -76,8 +93,16 @@ def integrate_pure(
     solver ('dense', 'btd') replays one captured CUDA graph a step (see the
     module docstring; a capture that fails raises); its results are the
     eager loop's bit for bit.
+
+    Where an input requires grad the run is differentiable
+    (:func:`_integrate_diff`; its values are the eager loop's bit for bit).
+    ``use_remat`` is the JAX signature's; nothing is checkpointed here,
+    since each step's backward rebuilds its residual anyway.
     """
     params_d = solver_params(params)
+    if _wants_grad(ini_state, controls_stacked, prop, times):
+        return _integrate_diff(model, ini_state, controls_stacked, prop, times,
+                               params_d)
     if step_graph.captures(model, params_d):
         return step_graph.integrate(model, ini_state, controls_stacked, prop,
                                     times, params_d)
@@ -138,6 +163,68 @@ def _integrate_eager(model, ini_state, controls_stacked, prop, times,
 
     trajectory = {k: torch.stack([s[k] for s in traj]) for k in traj[0]}
     info = SolveInfo(*(torch.stack(x) for x in zip(*infos)))
+    return state, trajectory, info
+
+
+def _integrate_diff(model, ini_state, controls_stacked, prop, times,
+                    params_d):
+    """:func:`integrate_pure` as a differentiable eager loop: the windows of
+    :func:`_integrate_eager` (factors built or refreshed without a graph,
+    from detached inputs), each step by ``model.step_diff`` with its row of
+    ``equations.newmark.coefficient_rows`` of ``dts = times[1:] -
+    times[:-1]`` (float64, so the times get their gradient).  The step's
+    float ``dt`` (the eager loop's) drives the solves and factorizations.
+    Info tensors are detached."""
+    from .equations import newmark
+
+    dev, dtype = model.device, model.dtype
+    state = to_tensors(ini_state, dev, dtype)
+    controls = to_tensors(controls_stacked, dev, dtype)
+    prop = to_tensors(prop, dev, dtype)
+    times_t = (times if isinstance(times, torch.Tensor)
+               else torch.as_tensor(np.asarray(times, dtype=np.float64)))
+    times_t = times_t.to(device=dev, dtype=torch.float64)
+    n_steps = times_t.shape[0] - 1
+    if n_steps < 1:
+        raise ValueError("integrate_pure needs at least two time points")
+    dts_t = times_t[1:] - times_t[:-1]
+    dts = [float(x) for x in np.diff(times_t.detach().cpu().numpy())]
+    rows = newmark.coefficient_rows(dts_t).to(dtype)
+    n_controls = next(iter(controls.values())).shape[0]
+
+    def control_at(n):
+        i = min(n, n_controls - 1)
+        return {k: v[i] for k, v in controls.items()}
+
+    def detached(d):
+        return {k: v.detach() for k, v in d.items()}
+
+    traj, infos = [], []
+
+    def run(state, factors, n0, n1):
+        for n in range(n0, n1):
+            state, info = model.step_diff(state, control_at(n), prop, dts[n],
+                                          rows[n], params_d, factors)
+            traj.append(state)
+            infos.append(info)
+        return state
+
+    if int(params_d.get("jacobian_refresh_steps", 1)) <= 1:
+        state = run(state, None, 0, n_steps)
+    else:
+        factors = None
+        for n0, n1, how in step_graph.refresh_windows(n_steps, params_d):
+            with torch.no_grad():
+                args = (detached(state), detached(control_at(n0)),
+                        detached(prop), dts[n0], params_d)
+                if how == "factor":
+                    factors = model.factorize(*args)
+                else:
+                    factors = model.refresh_factors(factors, *args)
+            state = run(state, factors, n0, n1)
+
+    trajectory = {k: torch.stack([s[k] for s in traj]) for k in traj[0]}
+    info = SolveInfo(*(torch.stack(x).detach() for x in zip(*infos)))
     return state, trajectory, info
 
 

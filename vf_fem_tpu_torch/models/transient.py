@@ -19,6 +19,18 @@ tolerances (``solvers.newton``); ``assembly`` ('auto' | 'banded' |
 ``jacobian_full_refresh_windows``/``jacobian_refresh_iters``
 (``forward.integrate_pure``).  ``btd_offdiag_dtype`` and
 ``btd_factor_dtype`` raise unless None.
+
+The gradient path (``adjoint``): :meth:`SolidModel.solve_state1_diff`
+solves a step's u1 inside a ``torch.autograd.Function`` whose backward is
+the implicit-function-theorem rule of the JAX package's ``solve_u1`` /
+``solve_u1_stale`` custom VJPs (:class:`_SolveU1`): ``J(u1)^T lam = u1_bar``, then
+``theta_bar = -(dR/dtheta)^T lam`` for the state, control, properties and
+the step's coefficient row, on one residual graph rebuilt at u1.  Options:
+``adjoint_refine`` ('stale', the default: Richardson refinement with the
+window's carried factors, ``adjoint_refine_tol``/``adjoint_refine_iters``,
+stopped on ``stagnation_ratio``; 'exact': full-precision factors rebuilt
+at u1 and one transposed solve).  'dense' and 'btd' have transposed
+solves; 'cg' and 'bsb' raise.
 """
 
 from __future__ import annotations
@@ -35,7 +47,7 @@ from ..fem import assembly
 from ..residuals.base import FemResidual, FunctionalResidual
 from ..solverconst import DEFAULT_NEWTON_SOLVER_PRM
 from ..solvers import bsb, btd, linalg
-from ..solvers.newton import newton_solve
+from ..solvers.newton import SolveInfo, newton_solve
 
 # solvers whose factors are built from the element Jacobian blocks, once
 # per step by default: the matrix-free Newton-Krylov 'cg' (element-by-
@@ -53,6 +65,7 @@ _SUPPORTED = {
     "jacobian_refresh_mode": ("full", "ns"),
     "jacobian_update": ("every_iteration", "once_per_step"),
     "assembly": ("auto", "banded", "plain"),
+    "adjoint_refine": ("stale", "exact"),
 }
 
 
@@ -113,6 +126,51 @@ def _versions(tensors):
     return tuple(t._version for t in tensors)
 
 
+def _flatten(state0: dict, control: dict, prop: dict):
+    """A step's inputs as ``(layout, tensors)`` for an autograd.Function:
+    the key lists of the three dicts and their tensors in that order."""
+    layout = (tuple(state0), tuple(control), tuple(prop))
+    return layout, (*state0.values(), *control.values(), *prop.values())
+
+
+def _unflatten(layout, tensors):
+    """The inverse of :func:`_flatten`."""
+    out, i = [], 0
+    for keys in layout:
+        out.append(dict(zip(keys, tensors[i:i + len(keys)])))
+        i += len(keys)
+    return tuple(out)
+
+
+class _SolveU1(torch.autograd.Function):
+    """u1 of one step by Newton, with a refresh window's carried
+    ``factors`` or (None) factors built in the step; no graph is recorded.
+    Backward: the IFT rule (``SolidModel._ift_backward``).  The guess gets
+    no cotangent, nor do the factors: they were built without a graph from
+    detached inputs, and the root does not depend on them."""
+
+    @staticmethod
+    def forward(solid, params_d, dt, layout, factors, guess, row, *flat):
+        state0, control, prop = _unflatten(layout, flat)
+        u1, info = solid._newton(guess, state0, control, prop, dt, params_d,
+                                 factors)
+        # a Newton run that takes no iteration returns its guess, an input
+        return (u1.clone() if u1 is guess else u1, *info)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        solid, params_d, dt, layout, factors, guess, row, *flat = inputs
+        ctx.solid, ctx.params_d, ctx.dt, ctx.layout = solid, params_d, dt, layout
+        ctx.factors = factors  # a reference to the window's factors, not a copy
+        ctx.save_for_backward(output[0], row, *flat)
+        ctx.mark_non_differentiable(*output[1:])
+
+    @staticmethod
+    def backward(ctx, u1_bar, *_):
+        return (None,) * 6 + ctx.solid._ift_backward(ctx, u1_bar,
+                                                     ctx.needs_input_grad[6:])
+
+
 def _contact_traction(u1, X, n, y, k):
     """Cubic-penalty contact traction at the nodes (..., nv, dim)."""
     gap = (X + u1) @ n - y
@@ -165,6 +223,8 @@ class SolidModel:
         # predictors were taken from it or formed (``_predictor``)
         self._carry = None
         self.predictor_counts = {"carried": 0, "formed": 0}
+        # the gradient path's adjoint solves and their refinement iterations
+        self.adjoint_counts = {"solves": 0, "refine_iterations": 0}
         self.bc_dofs = torch.as_tensor(R.bc_dofs, device=self.device)
         bc_mask = np.zeros(self.ndof)
         bc_mask[R.bc_dofs] = 1.0
@@ -240,6 +300,18 @@ class SolidModel:
                                    self._prop_fields(prop))
         res = self._residual.assemble_res(fields, banded=banded).reshape(-1)
         return res * (1.0 - self._bc_mask) + u1_flat * self._bc_mask
+
+    def res_pure(self, state1, state0, control, prop, dt):
+        """The step residual of every block at ``state1``: the Newton 'u'
+        residual, and the Newmark identities of 'v' and 'a'."""
+        u1 = state1["u"].reshape(self.nvert, self.dim)
+        u0, v0, a0 = self._state0_2d(state0)
+        k = newmark_coefs(dt)
+        return {
+            "u": self.res_u(state1["u"], state0, control, prop, dt),
+            "v": state1["v"] - newmark.velocity_k(u1, u0, v0, a0, k).reshape(-1),
+            "a": state1["a"] - newmark.acceleration_k(u1, u0, v0, a0, k).reshape(-1),
+        }
 
     def jac_u_blocks(self, u1_flat, state0, control, prop, dt):
         """Per-element Jacobian blocks (Jc, Jf) of the Newton 'u' residual,
@@ -429,12 +501,25 @@ class SolidModel:
         ``dt_next``, the next step's dt where known, is the step of the
         predictor K5 writes with the state."""
         params_d = solver_params(params)
-        banded = self.use_banded(params_d)
         u_guess = self._predictor(state0, dt)
+        u1, info = self._newton(u_guess, state0, control, prop, dt, params_d)
+        return self._finish(u1, state0, dt, dt_next), info
+
+    def _newton(self, u_guess, state0, control, prop, dt, params_d,
+                factors=None):
+        """Newton's u1 of one step from ``u_guess``: with the carried
+        ``factors``, or by the Jacobian update of ``params_d``."""
+        banded = self.use_banded(params_d)
 
         def assem(u1):
             return self.res_u(u1, state0, control, prop, dt, banded)
 
+        if factors is not None:
+
+            def solve_jac(u1, r):
+                return self.solve_factors(factors, r, params_d)
+
+            return newton_solve(u_guess, assem, solve_jac, params_d)
         element = _element_solver(params_d)
         update = params_d.get("jacobian_update",
                               "once_per_step" if element else "every_iteration")
@@ -457,8 +542,7 @@ class SolidModel:
                 A = self.jac_u_dense(u1, state0, control, prop, dt)
                 return linalg.dense_solve(A, r)
 
-        u1, info = newton_solve(u_guess, assem, solve_jac, params_d)
-        return self._finish(u1, state0, dt, dt_next), info
+        return newton_solve(u_guess, assem, solve_jac, params_d)
 
     def factorize(self, state0, control, prop, dt, params=None):
         """Factors of the Jacobian at the predictor: the block-Thomas
@@ -499,17 +583,126 @@ class SolidModel:
         """One time step with carried (stale) Jacobian factors (``dt_next``
         as in :meth:`solve_state1_pure`)."""
         params_d = solver_params(params)
-        banded = self.use_banded(params_d)
         u_guess = self._predictor(state0, dt)
-
-        def assem(u1):
-            return self.res_u(u1, state0, control, prop, dt, banded)
-
-        def solve_jac(u1, r):
-            return self.solve_factors(factors, r, params_d)
-
-        u1, info = newton_solve(u_guess, assem, solve_jac, params_d)
+        u1, info = self._newton(u_guess, state0, control, prop, dt, params_d,
+                                factors)
         return self._finish(u1, state0, dt, dt_next), info
+
+    # -- the gradient path ---------------------------------------------------------
+    def solve_state1_diff(self, state0, control, prop, dt, row, params=None,
+                          factors=None):
+        """One time step as a differentiable function of ``state0``,
+        ``control``, ``prop`` and the step's coefficient row ``row`` (a row
+        of ``equations.newmark.coefficient_rows`` in the model's dtype,
+        whose values are those of the float ``dt`` and the next step's):
+        u1 by :class:`_SolveU1` (with a window's ``factors`` where given)
+        from the Newmark predictor of the detached state, then
+        v1, a1 by K5 under ``ops.newmark_step`` (K5T backward).  The values
+        are :meth:`solve_state1_pure`'s / :meth:`solve_state1_stale`'s bit
+        for bit; nothing is carried between steps."""
+        params_d = solver_params(params)
+        u0, v0, a0 = (state0[k] for k in ("u", "v", "a"))
+        guess = newmark.newmark_predict_u(u0.detach(), v0.detach(),
+                                          a0.detach(), dt)
+        layout, flat = _flatten(state0, control, prop)
+        out = _SolveU1.apply(self, params_d, dt, layout, factors, guess, row,
+                             *flat)
+        u1 = out[0]
+        v1, a1, _ = ops.newmark_step(u1, u0, v0, a0, row)
+        return {"u": u1, "v": v1, "a": a1}, SolveInfo(*out[1:])
+
+    def _ift_backward(self, ctx, u1_bar, needs):
+        """The IFT rule of one step: with ``J = dR/du1`` at the saved u1,
+        solve ``J^T lam = u1_bar`` (:meth:`_adjoint_solve`) and return
+        ``-(dR/dtheta)^T lam`` for the row and each flat input that
+        ``needs`` a gradient (None for the others).  Every ``J^T v`` and
+        the final product are reverse passes over one residual graph
+        rebuilt at u1, so the banded kernels K1 and K2 run through each
+        other's backward."""
+        u1, row, *flat = ctx.saved_tensors
+        params_d, layout = ctx.params_d, ctx.layout
+        if u1_bar is None or not any(needs):
+            return (None,) * len(needs)
+        ls = params_d.get("linear_solver", "dense")
+        if ls in ("cg", "bsb"):
+            op = ("EBEOperator.matvec_transpose" if ls == "cg"
+                  else "bsb_matvec_t (vf_fem_tpu/solvers/bsb.py:168)")
+            raise NotImplementedError(
+                f"the adjoint of linear_solver={ls!r} needs {op}, which is not"
+                " ported; use 'dense' or 'btd'")
+        banded = self.use_banded(params_d)
+        # only the residual is recorded: the solves below run without a
+        # graph (grad mode is off in backward), or factors built at u1
+        # would keep one alive
+        with torch.enable_grad():
+            u = u1.detach().requires_grad_()
+            leaves = [t.detach().requires_grad_(bool(w))
+                      for t, w in zip((row, *flat), needs)]
+            state0, control, prop = _unflatten(layout, leaves[1:])
+            r = self.res_u(u, state0, control, prop,
+                           StepCoefs(leaves[0], self.dtype), banded)
+
+        def JT(v):
+            return torch.autograd.grad(r, u, v, retain_graph=True)[0]
+
+        detached = _unflatten(layout, [t.detach() for t in flat])
+        lam = self._adjoint_solve(JT, u1.detach(), detached, ctx.dt, params_d,
+                                  ctx.factors, u1_bar.contiguous())
+        wanted = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad(r, wanted, -lam, allow_unused=True))
+        return tuple(next(grads) if t.requires_grad else None for t in leaves)
+
+    def _adjoint_solve(self, JT, u1, inputs, dt, params_d, factors, u1_bar):
+        """``lam`` with ``J(u1)^T lam = u1_bar``: refined with the carried
+        ``factors`` (``adjoint_refine='stale'``, the default where there
+        are factors), else one transposed solve with full-precision factors
+        built at u1 (the JAX package's 'exact' mode and its rule for a
+        step that factors itself)."""
+        self.adjoint_counts["solves"] += 1
+        if factors is not None and params_d.get("adjoint_refine", "stale") == "stale":
+            return self._refined_adjoint(JT, factors, u1_bar, params_d)
+        state0, control, prop = inputs
+        if params_d.get("linear_solver", "dense") == "btd":
+            exact = {k: v for k, v in params_d.items() if k != "btd_store_dtype"}
+            fac = self.make_iter_factors(u1, state0, control, prop, dt, exact)
+            return btd.btd_solve_t(self.bsb_plan()[0], fac, u1_bar)
+        A = self.jac_u_dense(u1, state0, control, prop, dt)
+        return linalg.dense_solve_transpose(A, u1_bar)
+
+    def solve_factors_t(self, factors, r):
+        """Carried factors applied as a transposed preconditioner,
+        ``M^-T r`` (block-Thomas factors or the dense inverse)."""
+        if isinstance(factors, btd.BTDFactors):
+            return btd.btd_solve_t(self.bsb_plan()[0], factors, r)
+        return linalg.dense_factor_solve_t(factors, r)
+
+    def _refined_adjoint(self, JT, factors, u1_bar, params_d):
+        """Richardson iteration ``lam += M^-T (u1_bar - J^T lam)`` with the
+        carried factors as ``M`` (``refined_adjoint_solve`` of the JAX
+        package): it keeps the lowest-residual iterate and stops below
+        ``adjoint_refine_tol`` relative to ``|u1_bar|``, when an iteration
+        fails to reduce the residual by ``stagnation_ratio``, or after
+        ``adjoint_refine_iters`` iterations.  Each test reads the norm on
+        the host."""
+        tol = params_d.get("adjoint_refine_tol", 1e-8)
+        max_it = int(params_d.get("adjoint_refine_iters", 25))
+        stag = params_d.get("stagnation_ratio", 0.9)
+        norm = torch.linalg.vector_norm
+        bnorm = float(norm(u1_bar))
+        lam = self.solve_factors_t(factors, u1_bar)
+        r = u1_bar - JT(lam)
+        rn = float(norm(r))
+        rn_prev = float("inf")
+        lam_best, rn_best, k = lam, rn, 0
+        while rn >= tol * bnorm and rn < stag * rn_prev and k < max_it:
+            lam = lam + self.solve_factors_t(factors, r)
+            r = u1_bar - JT(lam)
+            rn_prev, rn = rn, float(norm(r))
+            if rn < rn_best:
+                lam_best, rn_best = lam, rn
+            k += 1
+        self.adjoint_counts["refine_iterations"] += k
+        return lam_best
 
 
 class FluidModel:
@@ -521,6 +714,10 @@ class FluidModel:
         self.state0 = {k: np.array(v, dtype=float) for k, v in state.items()}
         self.control = {k: np.array(v, dtype=float) for k, v in control.items()}
         self.prop = {k: np.array(v, dtype=float) for k, v in prop.items()}
+
+    def res_pure(self, state, control, prop):
+        """The fluid residual at ``state``."""
+        return self._residual.res(state, control, prop)
 
     def solve_pure(self, control, prop, state_proto):
         """Quasi-steady solve: state1 = state - res(state, g, p), which does
@@ -600,6 +797,20 @@ class ExplicitFSIModel:
         )
         return {**uva1, **qp1}
 
+    def res_pure(self, state1, state0, control, prop, dt):
+        """The staggered step's residual of every block at ``state1``: the
+        solid's under the previous step's pressure, the fluid's on the
+        current geometry."""
+        sl_state0, sl_control, sl_prop = self._solid_inputs(state0, prop)
+        res = self.solid.res_pure({k: state1[k] for k in ("u", "v", "a")},
+                                  sl_state0, sl_control, sl_prop, dt)
+        _, fl_prop = self._split_prop(prop)
+        area = self._area_from_u1(state1["u"], prop)
+        fl_control = {"area": area, **{k: control[k] for k in control}}
+        res.update(self.fluid.res_pure({"q": state1["q"], "p": state1["p"]},
+                                       fl_control, fl_prop))
+        return res
+
     # -- pure step functions ------------------------------------------------------
     def step_pure(self, state0, control, prop, dt, params=None, dt_next=None):
         """One coupled step, re-assembling the Jacobian in each solve;
@@ -628,5 +839,18 @@ class ExplicitFSIModel:
         sl_state0, sl_control, sl_prop = self._solid_inputs(state0, prop)
         uva1, info = self.solid.solve_state1_stale(
             factors, sl_state0, sl_control, sl_prop, dt, params, dt_next
+        )
+        return self._fluid_step(uva1, state0, control, prop), info
+
+    def step_diff(self, state0, control, prop, dt, row, params=None,
+                  factors=None):
+        """One coupled step as a differentiable function of the state,
+        control, properties and the step's coefficient row (the gradient
+        path; ``SolidModel.solve_state1_diff``), with the window's carried
+        ``factors`` or factors built in the step; the values are
+        :meth:`step_pure`'s / :meth:`step_pure_stale`'s bit for bit."""
+        sl_state0, sl_control, sl_prop = self._solid_inputs(state0, prop)
+        uva1, info = self.solid.solve_state1_diff(
+            sl_state0, sl_control, sl_prop, dt, row, params, factors
         )
         return self._fluid_step(uva1, state0, control, prop), info

@@ -1,12 +1,18 @@
 """
 The solver kernels: K3 (element-by-element matvec), K4 (block-banded
-matvec), K5 (fused Newmark update) and K6 (block-Thomas sweep).
+matvec), K5 (fused Newmark update) and K6 (block-Thomas sweep), and the
+two kernels of the gradient path: K5T (K5's backward, under the
+``autograd.Function`` :func:`newmark_step`) and K6T (the transposed sweep
+of ``solvers.btd.btd_solve_t``).
 
 Counterparts of ``vf_fem_tpu/ops/pallas_kernels.py``: ``ebe_matvec``
 replaces ``_ebe_matvec_kernel``, ``bsb_matvec`` replaces
 ``_bsb_matvec_kernel``, ``newmark_update`` replaces ``_newmark_kernel``.
 ``btd_sweep`` has no TPU kernel: it runs the serial sweeps of
-``solvers.btd.btd_solve``, a ``lax.scan`` in the JAX package.  The CUDA
+``solvers.btd.btd_solve``, a ``lax.scan`` in the JAX package; neither has
+``btd_sweep_t`` (the ``lax.scan`` of ``btd_solve_t``) nor
+``newmark_update_t`` (the JAX package differentiates the Newmark relations
+with its step).  The CUDA
 sources are ``csrc/ops.cu`` and ``csrc/btd.cu`` (built with ``nvcc`` for
 ``sm_90a`` at first use, see ``cuda_build``).
 
@@ -38,15 +44,22 @@ __all__ = [
     "newmark_update_coefs_reference",
     "newmark_update_reference",
     "newmark_row",
+    "newmark_step",
+    "newmark_update_t",
+    "newmark_update_t_reference",
     "factor_matvec",
     "btd_sweep",
     "btd_sweep_reference",
     "btd_sweep_rows_reference",
+    "btd_sweep_t",
+    "btd_sweep_t_reference",
+    "btd_sweep_t_rows_reference",
     "sweep_plan",
     "dot_order_bound",
 ]
 
-LAUNCHES = {"ebe_matvec": 0, "bsb_matvec": 0, "newmark": 0, "btd_sweep": 0}
+LAUNCHES = {"ebe_matvec": 0, "bsb_matvec": 0, "newmark": 0, "btd_sweep": 0,
+            "newmark_t": 0, "btd_sweep_t": 0}
 
 BSB_BLOCK = 128  # the block size K4 is compiled for
 BSB_LANES = 4  # lanes a row of K4 (csrc/ops.cu: kBsbLanes), for its emulation
@@ -59,6 +72,7 @@ for _t in ("f32", "f64"):
     _SIGNATURES[f"vf_ebe_matvec_{_t}"] = [_P, _P, _P, _P, _I, _I, _P]
     _SIGNATURES[f"vf_bsb_matvec_{_t}"] = [_P] * 5 + [_I] * 3 + [_P]
     _SIGNATURES[f"vf_newmark_{_t}"] = [_P] * 7 + [_L, _P, _P]
+    _SIGNATURES[f"vf_newmark_t_{_t}"] = [_P] * 13 + [_L, _P]
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -325,6 +339,92 @@ def _newmark_fn(dtype):
     return getattr(_lib(), f"vf_newmark_{_SUFFIX[dtype]}")
 
 
+# -- K5T: K5's backward, and the autograd.Function around K5 -------------------
+
+NEWMARK_T_MAX_CTAS = 1024  # csrc/ops.cu: kNewmarkTMaxCtas
+NEWMARK_T_SUMS = 6  # partial sums a CTA writes (the row's nonzero entries)
+
+
+def newmark_update_t_reference(vb1, ab1, u1, u0, v0, a0, coefs: torch.Tensor):
+    """The cotangents of K5's inputs ``(ub1, ub0, vb0, ab0, row_bar)`` from
+    those of ``v1`` and ``a1`` (``vb1``, ``ab1``; the predictor ``u_next``
+    is not differentiated), with K5's coefficient row ``coefs``
+    (c1, c2, c3, c4, c5, dt, dtp, c): the transpose of
+    ``v1 = c1 (u1 - u0) - c2 v0 - c3 a0`` and
+    ``a1 = c4 ((u1 - u0) - dt v0) - c5 a0``, rounded in the order K5T
+    rounds them; ``row_bar`` (8,) holds the sums over the entries."""
+    k = coefs.unbind(0)
+    ub1 = k[0] * vb1 + k[3] * ab1
+    c4a = k[3] * ab1
+    du = u1 - u0
+    row_bar = torch.stack([
+        (vb1 * du).sum(), -(vb1 * v0).sum(), -(vb1 * a0).sum(),
+        (ab1 * (du - k[5] * v0)).sum(), -(ab1 * a0).sum(), -(c4a * v0).sum(),
+        coefs.new_zeros(()), coefs.new_zeros(()),
+    ])
+    return ub1, -ub1, -(k[1] * vb1 + k[5] * c4a), -(k[2] * vb1 + k[4] * ab1), row_bar
+
+
+def newmark_update_t(vb1, ab1, u1, u0, v0, a0, coefs: torch.Tensor):
+    """K5's backward (K5T on CUDA, one call of two launches: the vector
+    cotangents with each CTA's partial sums of the row's, then their sum in
+    CTA order; the plain :func:`newmark_update_t_reference` on the CPU)."""
+    _check_newmark(vb1, ab1, u1, u0)
+    _check_newmark(u1, u0, v0, a0)
+    if (coefs.dtype != u1.dtype or tuple(coefs.shape) != (newmark.NCOEFS,)
+            or coefs.device != u1.device):
+        raise ValueError(f"newmark_update_t: coefficients must be a {u1.dtype} row of"
+                         f" {newmark.NCOEFS} on {u1.device}")
+    if u1.device.type == "cpu":
+        return newmark_update_t_reference(vb1, ab1, u1, u0, v0, a0, coefs)
+    ins = (vb1, ab1, u1, u0, v0, a0, coefs)
+    if not all(t.is_contiguous() for t in ins):
+        raise ValueError("newmark_update_t: inputs must be contiguous")
+    n = u1.shape[0]
+    if n == 0:
+        raise ValueError("newmark_update_t: empty vectors")
+    outs = [torch.empty_like(u1) for _ in range(4)]
+    row_bar = torch.empty(newmark.NCOEFS, dtype=u1.dtype, device=u1.device)
+    partial = torch.empty(NEWMARK_T_SUMS * NEWMARK_T_MAX_CTAS, dtype=u1.dtype,
+                          device=u1.device)
+    fn = f"vf_newmark_t_{_SUFFIX[u1.dtype]}"
+    err = getattr(_lib(), fn)(*(t.data_ptr() for t in ins),
+                              *(t.data_ptr() for t in outs), row_bar.data_ptr(),
+                              partial.data_ptr(), n, _stream(u1))
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: cudaError_t {err}")
+    LAUNCHES["newmark_t"] += 1
+    return (*outs, row_bar)
+
+
+class _NewmarkStep(torch.autograd.Function):
+    """K5 (:func:`newmark_update_coefs`) with K5T as its backward.  The
+    predictor ``u_next`` is marked non-differentiable: it only seeds the
+    next step's Newton solve, whose converged state does not depend on it."""
+
+    @staticmethod
+    def forward(u1, u0, v0, a0, coefs):
+        return newmark_update_coefs(u1, u0, v0, a0, coefs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+        ctx.mark_non_differentiable(output[2])
+
+    @staticmethod
+    def backward(ctx, vb1, ab1, _):
+        u1, u0, v0, a0, coefs = ctx.saved_tensors
+        vb1 = torch.zeros_like(u1) if vb1 is None else vb1.contiguous()
+        ab1 = torch.zeros_like(u1) if ab1 is None else ab1.contiguous()
+        return newmark_update_t(vb1, ab1, u1, u0, v0, a0, coefs)
+
+
+def newmark_step(u1, u0, v0, a0, coefs: torch.Tensor):
+    """:func:`newmark_update_coefs` as a differentiable function of the four
+    vectors and the coefficient row (K5 forward, K5T backward)."""
+    return _NewmarkStep.apply(u1, u0, v0, a0, coefs)
+
+
 # -- K6: block-Thomas sweep ----------------------------------------------------
 
 # (factor dtype, vector dtype) -> entry-point suffix in csrc/btd.cu
@@ -342,8 +442,8 @@ SMEM_LIMIT = 232448  # shared memory a CTA can use on Hopper (227 KB)
 _MAX_WARPS = 16  # consumer warps a CTA
 _MAX_STAGES = 16  # ring slots
 _BAR_BYTES = (2 * _MAX_STAGES + 2) * 8
-_SWEEP_SIGNATURES = {f"vf_btd_sweep_{s}": [_P, _P, _P] + [_I] * 4 + [_P]
-                     for s in _SWEEP_TYPES.values()}
+_SWEEP_SIGNATURES = {f"vf_btd_sweep{t}_{s}": [_P, _P, _P] + [_I] * 4 + [_P]
+                     for s in _SWEEP_TYPES.values() for t in ("", "_t")}
 _SWEEP_SIGNATURES["vf_btd_sweep_plan"] = [_I, _I, _P]
 
 
@@ -486,4 +586,81 @@ def _sweep_launch(A: torch.Tensor, g: torch.Tensor, reverse: bool,
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: cudaError_t {err} (plan {plan})")
     LAUNCHES["btd_sweep"] += 1
+    return out
+
+
+# -- K6T: the transposed block-Thomas sweep ------------------------------------
+
+SWEEP_T_THREADS = 512  # threads a K6T CTA (csrc/btd.cu: TGeometry)
+
+
+def btd_sweep_t_reference(A: torch.Tensor, g: torch.Tensor,
+                          reverse: bool = False) -> torch.Tensor:
+    """The transposed sweep ``y_i = g_i - A_{i-1}^T y_{i-1}`` from
+    ``y_0 = g_0`` (``reverse=True``: ``x_i = g_i - A_{i+1}^T x_{i+1}`` from
+    ``x_{n-1} = g_{n-1}``), one :func:`factor_matvec` of a transposed block
+    per row: A (n, Bt, Bt), g (n, Bt) -> (n, Bt)."""
+    n = g.shape[0]
+    out = torch.empty_like(g)
+    rows = list(range(n - 1, -1, -1) if reverse else range(n))
+    carry = g[rows[0]]
+    out[rows[0]] = carry
+    for i in rows[1:]:
+        carry = g[i] - factor_matvec(A[i + 1 if reverse else i - 1].mT, carry)
+        out[i] = carry
+    return out
+
+
+def btd_sweep_t_rows_reference(A: torch.Tensor, g: torch.Tensor,
+                               out: torch.Tensor, reverse: bool = False):
+    """:func:`btd_sweep_rows_reference` for the transposed sweep: every row
+    of ``out`` recomputed by the plain version from the previous row of
+    ``out`` itself, and the bound on dot-product order of each entry:
+    ``(ref, bound)``."""
+    ref = g.clone()
+    bound = torch.zeros_like(g)
+    if g.shape[0] > 1:
+        if reverse:
+            At, prev, rows = A[1:].mT, out[1:], slice(0, -1)
+        else:
+            At, prev, rows = A[:-1].mT, out[:-1], slice(1, None)
+        acc = torch.float32 if A.dtype != g.dtype else A.dtype
+        ref[rows] = g[rows] - factor_matvec(At, prev)
+        bound[rows] = dot_order_bound(factor_matvec(At.abs(), prev.abs()),
+                                      A.shape[-1], acc)
+    return ref, bound
+
+
+def btd_sweep_t(A: torch.Tensor, g: torch.Tensor,
+                reverse: bool = False) -> torch.Tensor:
+    """One transposed sweep of the block-Thomas adjoint solve over the
+    stored blocks, shifted by one block (K6T on CUDA, one thread-block
+    cluster of K6's size; the plain :func:`btd_sweep_t_reference` on the
+    CPU).  The dtype pairs of :func:`btd_sweep`."""
+    if (A.dim() != 3 or A.shape[1] != A.shape[2]
+            or tuple(g.shape) != tuple(A.shape[:2])):
+        raise ValueError(f"btd_sweep_t: A {tuple(A.shape)}, g {tuple(g.shape)}")
+    suffix = _SWEEP_TYPES.get((A.dtype, g.dtype))
+    if suffix is None:
+        raise TypeError(f"btd_sweep_t: factor/vector dtypes {A.dtype}, {g.dtype}"
+                        f" not supported ({list(_SWEEP_TYPES)})")
+    if A.device != g.device:
+        raise ValueError(f"btd_sweep_t: tensors on {A.device} and {g.device}")
+    if g.device.type == "cpu":
+        return btd_sweep_t_reference(A, g, reverse)
+    if g.device.type != "cuda":
+        raise ValueError(f"btd_sweep_t: unsupported device {g.device}")
+    if not (A.is_contiguous() and g.is_contiguous()):
+        raise ValueError("btd_sweep_t: inputs must be contiguous")
+    n, bt = g.shape
+    if bt not in SWEEP_WIDTHS:
+        raise ValueError(f"btd_sweep_t: kernel built for row blocks {SWEEP_WIDTHS},"
+                         f" got {bt}")
+    out = torch.empty_like(g)
+    fn = f"vf_btd_sweep_t_{suffix}"
+    err = getattr(_sweep_lib(), fn)(A.data_ptr(), g.data_ptr(), out.data_ptr(), n, bt,
+                                    int(reverse), SWEEP_CLUSTER[A.dtype], _stream(g))
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: cudaError_t {err}")
+    LAUNCHES["btd_sweep_t"] += 1
     return out

@@ -15,10 +15,14 @@ U_{i-1}``, inverses stored explicitly) then solves the system directly:
   ``W = Sinv U`` (:class:`BTDFactors`).  Each sweep is one launch of the
   block-Thomas sweep kernel K6 on CUDA tensors (``ops.btd_sweep``).
 
+The transposed solve :func:`btd_solve_t` (the adjoint of a step) reads
+the same factors through the transposed sweep kernel K6T
+(``ops.btd_sweep_t``).
+
 Requires an RCM-renumbered mesh like ``bsb``; used through
-``linear_solver='btd'``.  Not ported: the transposed solve
-``btd_solve_t`` (adjoints only), the fp8 ``offdiag_dtype`` storage and
-the ``factor_dtype`` cast (the TPU's workaround for its missing f64 LU).
+``linear_solver='btd'``.  Not ported: the fp8 ``offdiag_dtype`` storage
+and the ``factor_dtype`` cast (the TPU's workaround for its missing f64
+LU).
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ import torch
 from .. import ops
 from .bsb import BSBPlan
 
-__all__ = ["BTDFactors", "btd_factor", "btd_solve", "btd_superblocks"]
+__all__ = ["BTDFactors", "btd_factor", "btd_solve", "btd_solve_t",
+           "btd_superblocks"]
 
 # storage dtypes of the factors, by the JAX package's names
 STORE_DTYPES = {"bfloat16": torch.bfloat16}
@@ -184,4 +189,25 @@ def btd_solve(plan: BSBPlan, factors: BTDFactors,
     g = ops.factor_matvec(Sinv, rb.reshape(n_sup, Bt))
     y = ops.btd_sweep(V, g)
     x = ops.btd_sweep(W, y, reverse=True)
+    return x.reshape(-1)[:n] / d[:n]
+
+
+def btd_solve_t(plan: BSBPlan, factors: BTDFactors,
+                r: torch.Tensor) -> torch.Tensor:
+    """Direct transposed solve ``A^T x = r`` with the stored factors
+    (``vf_fem_tpu.solvers.btd.btd_solve_t``).  With ``A_s = Lt Ut``,
+    ``A_s^T = Ut^T Lt^T``: the forward sweep ``z_i = r_i - W_{i-1}^T
+    z_{i-1}``, the backward sweep ``w_i = z_i - V_{i+1}^T w_{i+1}``, each
+    one launch of K6T on CUDA tensors (``ops.btd_sweep_t``, which shifts
+    and transposes the blocks itself), then ``x = Sinv^T w`` as one batched
+    product under :func:`~vf_fem_tpu_torch.ops.factor_matvec`'s rounding
+    rule.  The equilibration is symmetric, so the scaling is
+    :func:`btd_solve`'s."""
+    Sinv, V, W, d = factors
+    n_sup, Bt, _ = Sinv.shape
+    n = r.shape[0]
+    rb = torch.nn.functional.pad(r / d[:n], (0, n_sup * Bt - n))
+    z = ops.btd_sweep_t(W, rb.reshape(n_sup, Bt))
+    w = ops.btd_sweep_t(V, z, reverse=True)
+    x = ops.factor_matvec(Sinv.mT, w)
     return x.reshape(-1)[:n] / d[:n]

@@ -1,6 +1,7 @@
 """
 Linear solves of the Newmark Jacobian (counterpart of
-``vf_fem_tpu.solvers.linalg``): dense solves on ``torch.linalg``, and the
+``vf_fem_tpu.solvers.linalg``): dense solves on ``torch.linalg`` (and
+their transposes, for the adjoint), and the
 matrix-free Krylov solvers (``pcg``, ``bicgstab``) of the ``cg``/``bsb``
 paths.
 
@@ -28,6 +29,15 @@ def dense_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return y / d
 
 
+def dense_solve_transpose(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve ``A^T x = b`` with the same symmetric equilibration as
+    :func:`dense_solve` (the adjoint solve of a step's IFT rule)."""
+    d = _equilibrate(A)
+    As = A / d[:, None] / d[None, :]
+    y = torch.linalg.solve(As.mT, b / d)
+    return y / d
+
+
 def dense_factor(A: torch.Tensor):
     """Equilibrate and invert once; reuse with :func:`dense_factor_solve`
     (a frozen-Jacobian Newton iteration is then one matvec)."""
@@ -40,6 +50,13 @@ def dense_factor(A: torch.Tensor):
 def dense_factor_solve(factors, b: torch.Tensor) -> torch.Tensor:
     Ainv, d = factors
     return (Ainv @ (b / d)) / d
+
+
+def dense_factor_solve_t(factors, b: torch.Tensor) -> torch.Tensor:
+    """The transpose of :func:`dense_factor_solve`: ``(Ainv^T (b/d))/d``,
+    carried factors applied as a transposed preconditioner."""
+    Ainv, d = factors
+    return (Ainv.mT @ (b / d)) / d
 
 
 def dense_refresh(factors, A: torch.Tensor, iters: int = 2):

@@ -53,6 +53,7 @@ import torch
 from . import ops
 from .convert import to_tensors
 from .equations import newmark
+from .equations.newmark import coefficient_table  # noqa: F401 (the run's rows)
 from .fem import banded
 from .models.transient import StepCoefs
 from .solvers.newton import SolveInfo
@@ -95,15 +96,6 @@ def refresh_windows(n_steps: int, params_d: dict):
     if rem:
         how = "refresh" if use_ns and n_win and n_win % full_every else "factor"
         yield n_win * refresh_k, n_steps, how
-
-
-def coefficient_table(dts: np.ndarray) -> np.ndarray:
-    """(n_steps, 8) float64: row n holds the coefficients of step n and the
-    predictor of step n + 1 (the last step's predictor takes its own dt),
-    the rows the eager loop's Python floats give."""
-    n = len(dts)
-    return np.array([newmark.coefficients(float(dts[i]), float(dts[min(i + 1, n - 1)]))
-                     for i in range(n)], dtype=np.float64)
 
 
 def _counters(model):

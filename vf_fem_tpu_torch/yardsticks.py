@@ -11,7 +11,8 @@ call them.
   the kernel's order).
 - K4 (block-banded matvec) is one CSR SpMV: ``torch.sparse.mm`` on the
   entries of the plan's matvec pattern, the ones K4 reads.
-- K3, K5 and K6 have none.
+- K3, K5 and K6 have none, nor have K5's backward K5T and the
+  transposed sweep K6T.
 
 ``LIBRARY_CALL`` names, for each kernel, its library call or why there is
 none.
@@ -41,6 +42,9 @@ LIBRARY_CALL = {
     "newmark": "none: three outputs (v1, a1, u_next) from one pass",
     "btd_sweep": "none: a serial recurrence over row blocks that no library"
                  " call computes on these factors",
+    "newmark_t": "none: four vector cotangents and a reduction from one pass",
+    "btd_sweep_t": "none: a serial recurrence over transposed, shifted row"
+                   " blocks that no library call computes on these factors",
 }
 
 
