@@ -12,10 +12,12 @@ runs, in order:
 2. kernels: the banded gather (K1) and scatter (K2), and both backward
    paths, against their plain PyTorch versions on the card, at the
    M5-3layers plan and the 23.7k-dof RCM plan, in f64 and f32;
-3. ops: the element-by-element matvec (K3), the block-banded matvec (K4),
-   the fused Newmark update (K5) and its backward (K5T) against their
-   plain versions on the card, on the 23.7k-dof model's Jacobian (and at
-   M5 size for K3/K5/K5T), in f64 and f32; K5T's vector cotangents bit for
+3. ops: the element-by-element matvec (K3) and its transpose (K3T), the
+   block-banded matvec (K4) and its transpose (K4T, on the transposed
+   pattern: bit for bit its CPU emulation, the same bits in three
+   launches), the fused Newmark update (K5) and its backward (K5T) against
+   their plain versions on the card, on the 23.7k-dof model's Jacobian (and
+   at M5 size for K3/K3T/K5/K5T), in f64 and f32; K5T's vector cotangents bit for
    bit, its row's cotangent within the summation-order bound and
    bit-stable across three launches; K4 also bit for bit against its CPU
    emulation
@@ -81,7 +83,18 @@ runs, in order:
    profiled value+grad run over the first 25 steps, its idle share, and
    the peak device memory; on both every
    gradient is finite and the value+grad run's trajectory is the no-grad
-   forward's bit for bit (the captured graph's at 23.7k).
+   forward's bit for bit (the captured graph's at 23.7k);
+10. tangents: at 23.7k in f64, the 'cg' and 'bsb' value+grad (tight
+   Krylov settings, 10 steps of the same loss; a transposed BiCGStab solve
+   on K3T / K4T each step) against the exact btd gradient (per group within
+   1e-6), with steps/s and K3T/K4T launches a step held to a profiled
+   run's trace; ``forward.integrate_linear_pure`` (bf16 btd factors,
+   refresh 1) in duality with ``adjoint.integrate_grad`` along emod and
+   psub (rtol 1e-8); ``parameters.TractionShape`` on the card (banded:
+   its certificate ``|K umesh - T t| / |T t|`` with K applied by K4, jvp
+   linearity, vjp duality) and the composed shape gradient
+   (KelvinVoigtWShape + BernoulliSmoothMinSep, ``integrate_grad`` with
+   respect to umesh, then ``apply_vjp``) against a central difference.
 
 Phase 3 also holds the block-Thomas sweep kernel (K6) and its transpose
 (K6T, both sweeps of ``btd_solve_t``: forward on W, backward on V, each
@@ -97,7 +110,7 @@ Phases 2 and 3 time every kernel four ways, by CUDA events: its call time
 (the eager call, which the main path pays), its device time (200 launches
 captured in one CUDA graph and replayed), its plain version, and, where
 one PyTorch call computes the same function (``vf_fem_tpu_torch.yardsticks``:
-``index_select`` for K1, ``sparse.mm`` for K2 and K4), that call, in turns
+``index_select`` for K1, ``sparse.mm`` for K2, K4 and K4T), that call, in turns
 with the kernel (library, kernel, kernel, library).  Each kernel's bound
 is the larger of its bytes (each input read once, each output written
 once) over the HBM rate and its operations over the peak rate of their
@@ -177,6 +190,10 @@ KERNELS = {
                   " vf_fem_tpu/equations/newmark.py:21-72)", "vf_fem_tpu_torch/csrc/ops.cu"),
     "btd_sweep_t": ("btd_sweep_t", "none (lax.scan, vf_fem_tpu/solvers/btd.py:340-358)",
                     "vf_fem_tpu_torch/csrc/btd.cu"),
+    "ebe_matvec_t": ("ebe_matvec_t", "none (XLA einsum, vf_fem_tpu/fem/assembly.py:255-278)",
+                     "vf_fem_tpu_torch/csrc/ops.cu"),
+    "bsb_matvec_t": ("bsb_matvec_t", "none (XLA, vf_fem_tpu/solvers/bsb.py:168-188)",
+                     "vf_fem_tpu_torch/csrc/ops.cu"),
 }
 # benchmarks/benchmark_adjoint.py:68-88: the value+grad settings at M5 (the
 # accelerator branch: adaptive chord Newton, dense factors refreshed every
@@ -205,6 +222,28 @@ FD_RTOL = 1e-4
 # max|g_stale - g_exact| / max|g_exact| per key (the refinement stops at
 # 1e-8 of |u1_bar| each step)
 STALE_VS_EXACT = 1e-6
+# phase 10: steps of its runs at 23.7k (dt = 1e-4), the profiled steps of
+# its Krylov value+grad runs, and its gates: the 'cg' and 'bsb' gradients
+# (TIGHT, a transposed BiCGStab solve each step) against the exact btd one,
+# per group max|g - g_btd| / max|g_btd|; the duality <h, J x_dot> = <J^T h,
+# x_dot> of integrate_linear (forward mode) and integrate_grad (reverse);
+# TractionShape's solve certificate |K umesh - T t| / |T t|, its jvp's
+# linearity and its vjp duality (tests/test_functional.py:304-356); the
+# composed shape gradient against a central difference
+TANGENT_STEPS = 10
+TANGENT_PROFILE_STEPS = 3
+KRYLOV_VS_EXACT = 1e-6
+BTD_EXACT_GRAD = {"assembly": "banded", "linear_solver": "btd",
+                  "jacobian_refresh_steps": 1, "adjoint_refine": "exact"}
+LINEAR_BTD = {"assembly": "banded", "linear_solver": "btd", "btd_store_dtype": "bfloat16",
+              "jacobian_refresh_steps": 1}
+DUALITY_RTOL = 1e-8
+CERTIFICATE_GATE = 1e-10
+TRANSFORM_LINEAR_RTOL = 1e-7
+TRANSFORM_DUALITY_RTOL = 1e-9
+SHAPE_FD_RTOL = 1e-4
+SHAPE_PARAMS = {"assembly": "banded", "linear_solver": "btd", "jacobian_refresh_steps": 1}
+SHAPE_TIMES = 2e-5 * np.arange(6)  # tests/test_functional.py:411
 # benchmarks/benchmark_large.py:130-139: the tight btd settings of the
 # golden_large_btd_explicit.npz run
 BTD_TIGHT = {
@@ -264,7 +303,8 @@ PROFILE_STEPS = 25
 TRACE_NAMES = {"gather": "banded_gather_kernel", "scatter": "banded_scatter_kernel",
                "newmark": "newmark_kernel", "btd_sweep": "btd_sweep_kernel",
                "ebe_matvec": "ebe_matvec_kernel", "bsb_matvec": "bsb_matvec_kernel",
-               "newmark_t": "newmark_t_kernel", "btd_sweep_t": "btd_sweep_t_kernel"}
+               "newmark_t": "newmark_t_kernel", "btd_sweep_t": "btd_sweep_t_kernel",
+               "ebe_matvec_t": "ebe_matvec_t_kernel", "bsb_matvec_t": "bsb_matvec_t_kernel"}
 EARLIER_PER_STEP = {"M5 headline": 811.0, "23.7k btd": 887.5, "23.7k bsb": 8651.0}
 # csrc/btd_exchange_probe.cu's entry points: (sink, n, bt, barrier, stream)
 PROBE_SIGNATURES = {f"vf_btd_exchange_probe_{t}": [ctypes.c_void_p] + [ctypes.c_int] * 3
@@ -705,16 +745,17 @@ def phase_ops(torch, dev, large):
         es = dtype.itemsize
         for (kname, label), (J, x, d) in cases.items():
             ne, nld = J.shape[0], J.shape[-1]
-            results[(kname, label, tag)] = check_op(
-                torch, f"ops {kname} {label} {tag}",
-                lambda: (ops.ebe_matvec(J, x, d),),
-                lambda: (ops.ebe_matvec_reference(J, x, d),),
-                lambda: (ops.dot_order_bound(
-                    ops.ebe_matvec_reference(J.abs(), x.abs(), d), nld),),
-                rtol,
-                # J, x and the int64 dof map in, y out
-                ((J.numel() + x.numel() + ne * nld) * es + d.numel() * 8,
-                 2 * J.numel(), tag))
+            # K3 and its transpose K3T: J, x and the int64 dof map in, y out
+            for name, kern, plain in (
+                    (kname, ops.ebe_matvec, ops.ebe_matvec_reference),
+                    (kname + "_t", ops.ebe_matvec_t, ops.ebe_matvec_t_reference)):
+                results[(name, label, tag)] = check_op(
+                    torch, f"ops {name} {label} {tag}",
+                    lambda: (kern(J, x, d),), lambda: (plain(J, x, d),),
+                    lambda: (ops.dot_order_bound(plain(J.abs(), x.abs(), d), nld),),
+                    rtol,
+                    ((J.numel() + x.numel() + ne * nld) * es + d.numel() * 8,
+                     2 * J.numel(), tag))
         x = t["x"]
         csr = yardsticks.bsb_csr(plan, blocks, pattern)
         work = bsb_work(pattern, ndof, es)
@@ -739,6 +780,7 @@ def phase_ops(torch, dev, large):
             f" bound from the pattern's bytes {work[0] / 1e6:.3f} MB, {r['bound_ms']:.6f} ms;"
             f" the Pallas contract's bytes (the dense band) {bsb_band_bytes(plan, es) / 1e6:.3f}"
             f" MB, {band_ms:.6f} ms; bit-equal to the CPU emulation")
+        results[("bsb_matvec_t", "23.7k", tag)] = bsb_t_op(torch, plan, fill, blocks, x, tag)
         for label, key in (("23.7k", "nm"), ("M5", "m5_nm")):
             # four vectors, each its own allocation as on the main path
             vecs = [torch.tensor(v, dtype=dtype, device=dev) for v in host[key]]
@@ -757,6 +799,43 @@ def phase_ops(torch, dev, large):
                 + ("" if r["lib_err"] is None else f", library max_abs_err {r['lib_err']:.3e}"))
     results.update(phase_ops_btd(torch, plan, blocks64))
     return results
+
+
+def bsb_t_op(torch, plan, fill, blocks, x, tag):
+    """K4T (``ops.bsb_matvec_t`` on the transposed pattern) against its
+    plain version (the JAX package's algorithm over the whole band) within
+    rtol 1e-13 / 1e-6 plus the summation-order bound, against the library
+    call (``torch.sparse.mm`` on the CSR of A^T), bit for bit against its
+    CPU emulation (``tests/bsb_emulation.py``), and the same bits in three
+    launches; then its timing row."""
+    from vf_fem_tpu_torch import ops, yardsticks
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from bsb_emulation import emulate_bsb_matvec_t
+
+    es = x.element_size()
+    csr_t = yardsticks.bsb_csr_t(plan, blocks, fill.pattern_t)
+    r = check_op(
+        torch, f"ops bsb_matvec_t {tag}",
+        lambda: (ops.bsb_matvec_t(plan, blocks, x, fill.pattern_t),),
+        lambda: (ops.bsb_matvec_t_reference(plan, blocks, x),),
+        lambda: (ops.dot_order_bound(
+            ops.bsb_matvec_t_reference(plan, blocks.abs(), x.abs()), plan.nb * plan.b),),
+        1e-13 if x.dtype == torch.float64 else 1e-6,
+        (*bsb_work(fill.pattern_t, plan.ndof, es), tag),
+        lib=lambda: (yardsticks.csr_mm(csr_t, x).reshape(-1),))
+    ys = [ops.bsb_matvec_t(plan, blocks, x, fill.pattern_t) for _ in range(3)]
+    torch.cuda.synchronize()
+    require(all(torch.equal(y, ys[0]) for y in ys[1:]),
+            f"ops bsb_matvec_t {tag}: not the same bits in 3 launches")
+    host_t = type(fill.pattern_t)(*(a.cpu().numpy() for a in fill.pattern_t))
+    emul = emulate_bsb_matvec_t(plan, host_t, blocks.cpu().numpy(), x.cpu().numpy())
+    y = ys[0].cpu().numpy()
+    require(np.array_equal(y, emul), f"ops bsb_matvec_t {tag}: not bit-equal to the CPU"
+            f" emulation ({int((y != emul).sum())} entries differ)")
+    log(f"[ops] bsb_matvec_t {tag}: the same bits in 3 launches, bit-equal to the CPU"
+        f" emulation; bound from the transposed pattern's bytes {r['bytes'] / 1e6:.3f} MB")
+    return r
 
 
 def newmark_work(n, itemsize):
@@ -1763,6 +1842,206 @@ def phase_grad(torch, card, dev, large):
     return out
 
 
+def set_shape_props(model):
+    """The properties and controls of tests/fixture_models.make_vf_fsi_model
+    for KelvinVoigtWShape + BernoulliSmoothMinSep."""
+    ymax = model.solid.residual.mesh().coords[:, 1].max()
+    p = model.prop
+    for k, v in dict(emod=5e4, rho=1.0, eta=3.0, nu=0.45, ycontact=ymax + 0.05,
+                     kcontact=1e8, rho_air=1.1225e-3, zeta_min=1e-3, zeta_sep=1e-3,
+                     ymid=ymax + 0.01).items():
+        if k in p:
+            p[k][:] = v
+    model.control["psub"][:] = 8000.0
+    model.control["psup"][:] = 0.0
+
+
+def phase_tangents(torch, card, dev, large):
+    """Phase 10, tangents and the remaining adjoints at 23.7k in f64: (b)
+    the 'cg' and 'bsb' value+grad (K3T / K4T in each step's transposed
+    BiCGStab solve) against the exact btd gradient, with their launches
+    held to a profiled run's trace; (c) ``forward.integrate_linear_pure``
+    (bf16 btd factors, refresh 1; the tangent solves take f64 factors) in
+    duality with ``adjoint.integrate_grad`` along emod and psub; (d)
+    ``TractionShape`` on the card (banded: bsb fill, f64 btd factors, K6 /
+    K6T solves, K1/K2 in T t and T^T lam): its certificate by K4, jvp
+    linearity and vjp duality, then the composed shape gradient
+    (KelvinVoigtWShape + BernoulliSmoothMinSep, integrate_grad with respect
+    to umesh, then apply_vjp) against a central difference."""
+    from vf_fem_tpu_torch import adjoint, forward, ops
+    from vf_fem_tpu_torch.load import load_fsi_model
+    from vf_fem_tpu_torch.parameters import transform as tf
+    from vf_fem_tpu_torch.residuals import fluid as flr, solid as slr
+
+    times = DT * np.arange(TANGENT_STEPS + 1)
+    big = large["float64"]
+    model, s0, cs, prop = big
+    ndof = model.solid.ndof
+    out = {}
+    # -- (b) the Krylov adjoints --------------------------------------------------
+    ref = grad_run(torch, big, times, BTD_EXACT_GRAD)
+    for ls, kern, fwd_kern in (("cg", "ebe_matvec_t", "ebe_matvec"),
+                               ("bsb", "bsb_matvec_t", "bsb_matvec")):
+        params = {**TIGHT, "linear_solver": ls}
+        other = "bsb_matvec_t" if ls == "cg" else "ebe_matvec_t"
+        kc = model.solid.krylov_counts
+        kc.update(solves=0, iterations=0)
+        g = grad_run(torch, big, times, params)
+        worst = grad_rel(g["grads"], ref["grads"], ref["value"])
+        used = ("gather", "scatter", "newmark", "newmark_t", fwd_kern, kern)
+        require_launched(g["launches"], used, f"tangents {ls} value+grad")
+        require(g["launches"][other] == 0, f"tangents {ls} value+grad: {other} launched")
+        per_step = {k: g["launches"][k] / TANGENT_STEPS for k in used}
+        log(f"[tangents] 23.7k {ls} f64 value+grad (Krylov tolerance"
+            f" {params['krylov_tolerance']:.0e}, refresh 1), {TANGENT_STEPS} steps:"
+            f" {TANGENT_STEPS / (g['ms'] / 1e3):.2f} steps/s ({g['ms']:.3f} ms, CUDA events),"
+            f" J = {g['value']:.9e} (btd exact {ref['value']:.9e}); adjoint solves"
+            f" {g['counts']['solves']}, Krylov {kc['iterations']} iterations in {kc['solves']}"
+            f" solves; launches a step {per_step}; peak device memory {g['peak'] / 1e6:.1f} MB"
+            f" over the model's, on {card}")
+        log(f"[tangents] 23.7k {ls} gradient vs the exact btd gradient, max rel diff per"
+            f" group {worst} (bound {KRYLOV_VS_EXACT:.0e})")
+        require(max(worst.values()) <= KRYLOV_VS_EXACT,
+                f"tangents {ls}: gradient off the exact btd one")
+        prof = profile_run(torch, lambda: adjoint.integrate_grad(
+            model, adjoint_loss(torch, {}), s0, [model.control], prop,
+            times[:TANGENT_PROFILE_STEPS + 1], params), TANGENT_PROFILE_STEPS, kern + "_kernel")
+        require_traced(prof, used, f"tangents {ls}")
+        log(f"[tangents] profile 23.7k {ls} value+grad, {TANGENT_PROFILE_STEPS} steps:"
+            f" {prof['per_step']:.1f} device kernels per step, device busy"
+            f" {prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms profiled wall, idle share"
+            f" {prof['idle']:.3f}; {kern} {prof['k_ms']:.3f} ms"
+            f" ({prof['k_ms'] / prof['busy_ms']:.1%} of busy) in {prof['k_launches']} launches")
+        out[ls] = dict(launches=g["launches"], steps_s=TANGENT_STEPS / (g["ms"] / 1e3),
+                       worst=worst, idle=prof["idle"])
+    # -- (c) integrate_linear in duality with integrate_grad -----------------------
+    rng = np.random.default_rng(10)
+    h = torch.as_tensor(rng.standard_normal(ndof), device=dev)
+    zero = lambda d: {k: np.zeros_like(v) for k, v in d.items()}  # noqa: E731
+    directions = {
+        "emod": (zero(s0), zero(cs), {**zero(prop),
+                                      "emod": 5.0 * rng.standard_normal(prop["emod"].shape)}),
+        "psub": (zero(s0), {**zero(cs), "psub": np.ones_like(cs["psub"])}, zero(prop)),
+    }
+    lin = {}
+    for name, (ds0, dcs, dprop) in directions.items():
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        reset_launches()
+        start.record()
+        fin, dfin = forward.integrate_linear_pure(model, s0, cs, prop, times, ds0, dcs, dprop,
+                                                  np.zeros_like(times), LINEAR_BTD)
+        end.record()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        require_launched(launches, ("gather", "scatter", "newmark", "btd_sweep"),
+                         f"tangents integrate_linear {name}")
+        for k, v in dfin.items():
+            require(bool(torch.isfinite(v).all()), f"integrate_linear {name}: non-finite d{k}")
+        ms = start.elapsed_time(end)
+        lin[name] = dict(u=dfin["u"], launches=launches, ms=ms)
+        log(f"[tangents] integrate_linear 23.7k f64 ({name} direction), {TANGENT_STEPS}"
+            f" steps: {TANGENT_STEPS / (ms / 1e3):.2f} steps/s ({ms:.3f} ms, CUDA events);"
+            f" launches a step {({k: v / TANGENT_STEPS for k, v in launches.items() if v})}")
+    _, grads = adjoint.integrate_grad(model, lambda traj, c, p, t: torch.dot(h, traj["u"][-1]),
+                                      s0, [model.control], prop, times, LINEAR_BTD)
+    rhs = {"emod": float(np.dot(grads["prop"]["emod"], directions["emod"][2]["emod"])),
+           "psub": float(np.sum(grads["controls"]["psub"]))}
+    for name in directions:
+        lhs = float(torch.dot(h, lin[name]["u"]))
+        rel = abs(lhs - rhs[name]) / abs(rhs[name])
+        log(f"[tangents] duality along {name}: <h, J x_dot> {lhs:.12e} (integrate_linear),"
+            f" <J^T h, x_dot> {rhs[name]:.12e} (integrate_grad), rel diff {rel:.3e}"
+            f" (rtol {DUALITY_RTOL:.0e})")
+        require(rel <= DUALITY_RTOL, f"tangents: integrate_linear {name} off its duality")
+    out["linear"] = lin["emod"]
+    # -- (d) TractionShape on the card --------------------------------------------
+    sm = load_fsi_model(os.path.join(REPO, "meshes", LARGE_MESH), slr.KelvinVoigtWShape,
+                        flr.BernoulliSmoothMinSep, device=dev, dtype=torch.float64)
+    set_shape_props(sm)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    ts = tf.TractionShape(sm.solid)
+    t1.record()
+    torch.cuda.synchronize()
+    require(ts._solver == "banded", f"TractionShape picked {ts._solver!r} at 23.7k")
+    rng = np.random.default_rng(7)
+    x = {"tmesh": 1e2 * rng.standard_normal(ndof)}
+    reset_launches()
+    y = ts.apply(x)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    require_launched(launches, ("gather", "scatter", "btd_sweep"), "TractionShape.apply")
+    umesh = torch.as_tensor(y["umesh"], device=dev)
+    Tt = ts.T_mv(torch.as_tensor(x["tmesh"], device=dev))
+    K = ts.assemble_K_blocks()
+    cert = float((ops.bsb_matvec(ts._plan, K, umesh, ts._fill.pattern) - Tt).norm() / Tt.norm())
+    dx = {"tmesh": 10.0 * rng.standard_normal(ndof)}
+    dy = ts.apply_jvp(x, dx)
+    y2 = ts.apply({"tmesh": x["tmesh"] + dx["tmesh"]})
+    lin_err = float(np.abs(y2["umesh"] - y["umesh"] - dy["umesh"]).max()
+                    / np.abs(dy["umesh"]).max())
+    hy = {"umesh": rng.standard_normal(ndof)}
+    reset_launches()
+    hx = ts.apply_vjp(x, hy)
+    torch.cuda.synchronize()
+    vjp_launches = read_launches()
+    require_launched(vjp_launches, ("gather", "scatter", "btd_sweep_t"),
+                     "TractionShape.apply_vjp")
+    lhs, rhs = float(np.dot(hy["umesh"], dy["umesh"])), float(np.dot(hx["tmesh"], dx["tmesh"]))
+    dual = abs(lhs - rhs) / abs(rhs)
+    log(f"[tangents] TractionShape 23.7k (banded on the card; built and factored in"
+        f" {t0.elapsed_time(t1):.1f} ms): certificate |K umesh - T t| / |T t| = {cert:.3e}"
+        f" (K by K4; gate {CERTIFICATE_GATE:.0e}), jvp linearity {lin_err:.3e} (rtol"
+        f" {TRANSFORM_LINEAR_RTOL:.0e}), vjp duality {dual:.3e} (rtol"
+        f" {TRANSFORM_DUALITY_RTOL:.0e}); apply launches {launches}, apply_vjp launches"
+        f" {vjp_launches}")
+    require(cert <= CERTIFICATE_GATE, "TractionShape: solve certificate over its gate")
+    require(lin_err <= TRANSFORM_LINEAR_RTOL, "TractionShape: jvp not linear")
+    require(dual <= TRANSFORM_DUALITY_RTOL, "TractionShape: vjp off its duality")
+    # the composed shape gradient: a traction scaled to max|umesh| = 1e-4 cm
+    # (about 2% of an element), the loss of tests/test_functional.py:411-416
+    x = {"tmesh": rng.standard_normal(ndof)}
+    x["tmesh"] *= 1e-4 / np.abs(ts.apply(x)["umesh"]).max()
+    s_s0 = {k: np.zeros_like(v) for k, v in sm.state0.items()}
+    s_cs = {k: v[None] for k, v in sm.control.items()}
+
+    def loss(traj, controls, p, t):
+        return torch.sum(traj["u"][-1] ** 2) * 1e4 + 1e-6 * torch.sum(traj["q"] ** 2)
+
+    def value(tvec):
+        p = {**sm.prop, "umesh": ts.apply({"tmesh": tvec})["umesh"]}
+        _, traj, _ = forward.integrate_pure(sm, s_s0, s_cs, p, SHAPE_TIMES, SHAPE_PARAMS)
+        return float(loss(traj, None, None, None))
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    val, g = adjoint.integrate_grad(sm, loss, s_s0, [sm.control],
+                                    {**sm.prop, "umesh": ts.apply(x)["umesh"]}, SHAPE_TIMES,
+                                    SHAPE_PARAMS)
+    g_t = ts.apply_vjp(x, {"umesh": g["prop"]["umesh"]})["tmesh"]
+    end.record()
+    torch.cuda.synchronize()
+    require(np.isfinite(g_t).all() and np.linalg.norm(g_t) > 0, "shape gradient: not finite")
+    d = rng.standard_normal(ndof)
+    d /= np.linalg.norm(d)
+    step = 1e-3 * np.linalg.norm(x["tmesh"])
+    fd = (value(x["tmesh"] + step * d) - value(x["tmesh"] - step * d)) / (2 * step)
+    adj = float(g_t @ d)
+    rel = abs(adj - fd) / abs(fd)
+    log(f"[tangents] shape gradient 23.7k (KelvinVoigtWShape + BernoulliSmoothMinSep,"
+        f" {len(SHAPE_TIMES) - 1} steps, btd f64): value+grad and apply_vjp"
+        f" {start.elapsed_time(end):.1f} ms; J = {val:.9e}; d J / d t along a random unit"
+        f" direction: adjoint {adj:.9e}, central difference {fd:.9e} (h = {step:.3e}), rel"
+        f" diff {rel:.3e} (rtol {SHAPE_FD_RTOL:.0e}), on {card}")
+    require(fd != 0 and rel <= SHAPE_FD_RTOL, "shape gradient off its central difference")
+    return out
+
+
 def main():
     import time
 
@@ -1795,6 +2074,7 @@ def main():
     btd_res = timed("btd", phase_btd, torch, card, large)
     timed("integrate", phase_integrate, torch, card, dev, large, btd_res)
     grad = timed("grad", phase_grad, torch, card, dev, large)
+    tang = timed("tangents", phase_tangents, torch, card, dev, large)
 
     # per kernel: the timing at the 23.7k shapes of the btd main path (f64)
     timing = {
@@ -1806,6 +2086,8 @@ def main():
         "btd_sweep": ops_res[("btd_sweep", "forward bfloat16/float64", "float64")],
         "newmark_t": ops_res[("newmark_t", "23.7k", "float64")],
         "btd_sweep_t": ops_res[("btd_sweep_t", "forward bfloat16/float64", "float64")],
+        "ebe_matvec_t": ops_res[("ebe_matvec_t", "23.7k cells", "float64")],
+        "bsb_matvec_t": ops_res[("bsb_matvec_t", "23.7k", "float64")],
     }
     # the f64 runs whose launches count: (name, launches, steps)
     runs = [("M5 headline", head["float64"]["launches"], N_STEPS),
@@ -1813,11 +2095,14 @@ def main():
             ("23.7k bsb", kry[("bsb", "float64")]["launches"], kry[("bsb", "float64")]["n_steps"]),
             ("23.7k cg", kry[("cg", "float64")]["launches"], kry[("cg", "float64")]["n_steps"]),
             ("M5 value+grad", grad["M5"]["launches"], N_STEPS),
-            ("23.7k value+grad", grad["23.7k"]["launches"], N_STEPS)]
+            ("23.7k value+grad", grad["23.7k"]["launches"], N_STEPS),
+            ("23.7k cg value+grad", tang["cg"]["launches"], TANGENT_STEPS),
+            ("23.7k bsb value+grad", tang["bsb"]["launches"], TANGENT_STEPS)]
     path = {  # the main-path run whose count is this kernel's ``launches``
         "gather": runs[0][1], "scatter": runs[0][1], "newmark": runs[0][1],
         "btd_sweep": runs[1][1], "ebe_matvec": runs[3][1], "bsb_matvec": runs[2][1],
         "newmark_t": runs[5][1], "btd_sweep_t": runs[5][1],
+        "ebe_matvec_t": runs[6][1], "bsb_matvec_t": runs[7][1],
     }
     kernels = []
     for op, (kname, replaces, source) in KERNELS.items():

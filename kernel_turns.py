@@ -43,7 +43,9 @@ BiCGStab iteration at the run's middle state; then the production btd
 f64 run of ``chip_smoke.py`` phase 7 (``bench.py:411-434``, 100 steps
 after a warm-up run: the eager loop, or the captured CUDA-graph step where
 the checkout has one), timed by CUDA events, with the SHA-256 of its
-trajectory and infos.
+trajectory and infos; then the same run by the eager loop of steps
+(``forward._integrate_eager``: every banded gather and scatter called from
+Python, so its steps/s include their dispatch on the host).
 
 Each time is taken two ways by CUDA events: the eager call (200 calls
 after 20 warm-up calls) and the device time (200 calls captured in one CUDA
@@ -168,24 +170,25 @@ def child(root):
     # the production btd f64 run (bench.py:411-434, 100 steps): the SHA-256
     # of its trajectory and infos, and its time by CUDA events after a
     # warm-up run (the eager loop, or the captured step where the checkout
-    # has one)
+    # has one); then the same run by the eager loop of steps
     times = np.load(os.path.join(HERE, "tests", "data", "golden_large_btd_explicit.npz"))["times"]
-    btd = lambda: forward.integrate_pure(model, state0, cs, prop, times, BTD_PROD)
-    btd()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    _, traj, infos = btd()
-    end.record()
-    torch.cuda.synchronize()
-    digest = hashlib.sha256()
-    for k in sorted(traj):
-        digest.update(traj[k].cpu().numpy().tobytes())
-    for x in infos:
-        digest.update(x.cpu().numpy().tobytes())
-    out["btd prod f64 trajectory"] = dict(sha256=digest.hexdigest(),
-                                          run_ms=start.elapsed_time(end),
-                                          steps=len(times) - 1)
+    for key, fn in (("btd prod f64 trajectory", forward.integrate_pure),
+                    ("btd prod f64 eager", forward._integrate_eager)):
+        btd = lambda: fn(model, state0, cs, prop, times, BTD_PROD)
+        btd()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        _, traj, infos = btd()
+        end.record()
+        torch.cuda.synchronize()
+        digest = hashlib.sha256()
+        for k in sorted(traj):
+            digest.update(traj[k].cpu().numpy().tobytes())
+        for x in infos:
+            digest.update(x.cpu().numpy().tobytes())
+        out[key] = dict(sha256=digest.hexdigest(), run_ms=start.elapsed_time(end),
+                        steps=len(times) - 1)
     torch.cuda.synchronize()
     print(json.dumps(out), flush=True)
 

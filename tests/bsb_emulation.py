@@ -42,3 +42,28 @@ def emulate_bsb_matvec(plan, pattern, blocks: np.ndarray, x: np.ndarray,
         acc = acc + acc[:, lane ^ d]
         d //= 2
     return acc[:, 0]
+
+
+def emulate_bsb_matvec_t(plan, pattern_t, blocks: np.ndarray,
+                         x: np.ndarray) -> np.ndarray:
+    """K4T's ``y = A^T x`` (``csrc/ops.cu``: ``bsb_matvec_t_kernel``) with
+    ``pattern_t`` (``solvers.bsb.matvec_pattern_t``: CSR by column, each
+    offset into the band of its row's block row): column ``c`` adds the
+    products of its entries in CSR order (rows ascending) to a sum that
+    starts at +0, each product and sum rounded once in the working type."""
+    dtype = x.dtype
+    b, ndof = plan.b, plan.ndof
+    ptr = np.asarray(pattern_t.ptr, dtype=np.int64)
+    off = np.asarray(pattern_t.off, dtype=np.int64)
+    cols = np.repeat(np.arange(ndof), ptr[1:] - ptr[:-1])
+    n = cols // b - off // (b * b) + plan.h
+    rows = n * b + (off // b) % b
+    prod = blocks.reshape(plan.nblk, -1)[n, off] * x[rows]
+    pos = np.arange(off.size) - ptr[cols]
+    steps = int(pos.max()) + 1 if off.size else 0
+    P = np.zeros((ndof, steps), dtype=dtype)
+    P[cols, pos] = prod
+    acc = np.zeros(ndof, dtype=dtype)
+    for s in range(steps):
+        acc = acc + P[:, s]
+    return acc

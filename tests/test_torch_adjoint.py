@@ -16,9 +16,9 @@ max|g_jax|`` (rtol 1e-8; 1e-6 for the 'stale' refined btd case), and the
 value to the no-grad forward bit for bit.  Then the port's own checks:
 finite differences of psub, emod and the last time, the statefile replay
 (``adjoint.integrate``) on a file written by the JAX package, K5's
-backward (``ops.newmark_step``) by ``gradcheck``, the Taylor test, the
-Krylov solvers' missing transposes, no graph and no version error on the
-gradient path.
+backward (``ops.newmark_step``) by ``gradcheck``, the Taylor test, no
+graph and no version error on the gradient path.  The Krylov solvers'
+gradients are ``tests/test_torch_krylov_adjoint.py``'s.
 """
 
 import numpy as np
@@ -251,20 +251,6 @@ def test_newmark_step_backward_by_gradcheck():
     torch.testing.assert_close(mine[4], plain[4], rtol=1e-13, atol=1e-13 * float(plain[4].abs().max()))
     # the predictor output carries no gradient
     assert not ops.newmark_step(*vecs, row)[2].requires_grad
-
-
-@pytest.mark.parametrize("solver", ["cg", "bsb"])
-def test_krylov_backward_raises(solver):
-    """'cg' and 'bsb' have no transposed operator in the port: their
-    backward raises ``NotImplementedError`` naming it, and takes no other
-    path."""
-    tm = port_vf_model("KelvinVoigtWEpithelium", 10, 5, reorder="rcm")
-    s0, _, prop = port_inputs(tm)
-    params = {"linear_solver": solver, "krylov_tolerance": 1e-10,
-              "jacobian_refresh_steps": 2}
-    op = "matvec_transpose" if solver == "cg" else "bsb_matvec_t"
-    with pytest.raises(NotImplementedError, match=op):
-        adjoint.integrate_grad(tm, _functional, s0, [tm.control], prop, TIMES[:3], params)
 
 
 def test_requires_grad_never_takes_the_step_graph(monkeypatch, smooth):

@@ -122,6 +122,51 @@ def test_gradcheck_plain_pair():
     )
 
 
+def _probe_modes():
+    """Each way of calling ``fn(x)``, with whether ``x`` is differentiated
+    inside it."""
+    from torch.autograd import forward_ad as fwAD
+    from torch.func import grad, jacfwd, jvp, vjp
+
+    def plain(fn, x):
+        with torch.no_grad():
+            fn(x)
+
+    def autograd(fn, x):
+        fn(x.clone().requires_grad_())
+
+    def forward_ad(fn, x):
+        with fwAD.dual_level():
+            fn(fwAD.make_dual(x, torch.ones_like(x)))
+
+    return {
+        "plain": (plain, False),
+        "no_grad_mode": (lambda fn, x: plain(fn, x.clone().requires_grad_()), False),
+        "autograd": (autograd, True),
+        "forward_ad": (forward_ad, True),
+        "func_grad": (lambda fn, x: grad(lambda y: fn(y).sum())(x), True),
+        "func_vjp": (lambda fn, x: vjp(fn, x), True),
+        "func_jvp": (lambda fn, x: jvp(fn, (x,), (torch.ones_like(x),)), True),
+        "func_jacfwd": (lambda fn, x: jacfwd(fn)(x), True),
+    }
+
+
+@pytest.mark.parametrize("mode", list(_probe_modes()))
+def test_differentiated_probe(mode):
+    """``banded_gather``/``banded_scatter`` take their autograd Function
+    exactly when their input is differentiated, under every mode the port
+    uses (the probe reads only public queries)."""
+    call, expected = _probe_modes()[mode]
+    seen = []
+
+    def fn(x):
+        seen.append(tbanded._differentiated(x))
+        return x * 2.0
+
+    call(fn, torch.ones(3, dtype=torch.float64))
+    assert seen == [expected]
+
+
 def test_padding_rules(case):
     dp, nvert = case["dp"], case["nvert"]
     ncells = case["jp"].ncells

@@ -18,7 +18,7 @@ from vf_fem_tpu_torch.mesh import load_gmsh
 from vf_fem_tpu_torch.ops import kernels
 from vf_fem_tpu_torch.solvers import bsb
 
-from bsb_emulation import emulate_bsb_matvec
+from bsb_emulation import emulate_bsb_matvec, emulate_bsb_matvec_t
 from port_fixtures import (
     M5_PROPS, MESHES, assert_scatter_close, port_inputs, port_vf_model,
 )
@@ -868,3 +868,171 @@ def test_backward_raises_no_version_error_on_cuda(cuda):
     value, grads = adjoint.integrate_grad(model, _loss, state0, [model.control], prop,
                                           times, params)
     assert np.isfinite(value) and all(np.isfinite(v).all() for v in grads["prop"].values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_transposed_ops_match_plain(large_f64, large_operator, dtype):
+    """K3T (cells and facets) and K4T against their plain versions at the
+    23.7k shapes: rtol 1e-13 (f64) / 1e-6 (f32) per entry plus the bound on
+    summation-order differences (``ops.dot_order_bound``); K4T bit for bit
+    its CPU emulation and the same bits in 3 launches; one launch a call."""
+    op, plan, blocks64 = large_operator
+    fill = large_f64.solid.bsb_plan()[1]
+    dev = blocks64.device
+    rtol = 1e-13 if dtype == torch.float64 else 1e-6
+    x = torch.tensor(np.random.default_rng(8).standard_normal(plan.ndof), dtype=dtype,
+                     device=dev)
+    n0 = dict(ops.LAUNCHES)
+    for J, d in ((op.J_cells, op.cell_dofs), (op.J_facets, op.facet_dofs)):
+        J = J.to(dtype)
+        y, ref = ops.ebe_matvec_t(J, x, d), ops.ebe_matvec_t_reference(J, x, d)
+        bound = ops.dot_order_bound(ops.ebe_matvec_t_reference(J.abs(), x.abs(), d), 6)
+        assert bool(((y - ref).abs() <= rtol * ref.abs() + bound).all())
+    blocks = blocks64.to(dtype)
+    ys = [ops.bsb_matvec_t(plan, blocks, x, fill.pattern_t) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(y, ys[0]) for y in ys[1:])
+    ref = ops.bsb_matvec_t_reference(plan, blocks, x)
+    bound = ops.dot_order_bound(ops.bsb_matvec_t_reference(plan, blocks.abs(), x.abs()),
+                                plan.nb * plan.b)
+    assert bool(((ys[0] - ref).abs() <= rtol * ref.abs() + bound).all())
+    host_t = type(fill.pattern_t)(*(a.cpu().numpy() for a in fill.pattern_t))
+    emul = emulate_bsb_matvec_t(plan, host_t, blocks.cpu().numpy(), x.cpu().numpy())
+    assert np.array_equal(ys[0].cpu().numpy(), emul)
+    assert ops.LAUNCHES["ebe_matvec_t"] == n0["ebe_matvec_t"] + 2
+    assert ops.LAUNCHES["bsb_matvec_t"] == n0["bsb_matvec_t"] + 3
+
+
+def test_bsb_matvec_t_rejects_bad_input(large_f64, large_operator):
+    op, plan, blocks = large_operator
+    fill = large_f64.solid.bsb_plan()[1]
+    x = torch.zeros(plan.ndof, dtype=torch.float64, device=blocks.device)
+    n0 = ops.LAUNCHES["bsb_matvec_t"]
+    # K4T has no dense-band fallback: without its pattern it raises
+    with pytest.raises(ValueError, match="pattern_t"):
+        ops.bsb_matvec_t(plan, blocks, x)
+    with pytest.raises(ValueError, match="pattern.ptr"):
+        ops.bsb_matvec_t(plan, blocks, x,
+                         fill.pattern_t._replace(ptr=fill.pattern_t.ptr[1:]))
+    with pytest.raises(ValueError, match="tensors on"):
+        ops.bsb_matvec_t(plan, blocks, x.cpu(), fill.pattern_t)
+    assert ops.LAUNCHES["bsb_matvec_t"] == n0
+    with pytest.raises(TypeError):
+        ops.ebe_matvec_t(op.J_cells.float(), x, op.cell_dofs)
+
+
+@pytest.mark.parametrize("solver", ["cg", "bsb"])
+def test_krylov_value_and_grad_on_cuda_match_cpu(cuda, solver):
+    """A small 'cg' / 'bsb' value+grad run (Krylov tolerance 1e-12, a
+    transposed BiCGStab solve each step) on the card against the same run
+    on the CPU: the values within 1e-10, every gradient key within 1e-6 of
+    its largest entry; the card's run launches K3T / K4T, not the other."""
+    from vf_fem_tpu_torch import adjoint
+
+    params = {"linear_solver": solver, "krylov_tolerance": 1e-12,
+              "jacobian_refresh_steps": 1}
+    times = 2e-5 * np.arange(7)
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = port_vf_model("KelvinVoigtWEpithelium", 10, 5, device=dev, reorder="rcm")
+        state0, _, prop = port_inputs(model)
+        ops.LAUNCHES.update(dict.fromkeys(ops.LAUNCHES, 0))
+        runs[dev.type] = (*adjoint.integrate_grad(model, _loss, state0, [model.control],
+                                                  prop, times, params), dict(ops.LAUNCHES))
+    (vc, gc, lc), (vh, gh, lh) = runs["cuda"], runs["cpu"]
+    assert abs(vc - vh) <= 1e-10 * abs(vh)
+    for group in ("ini_state", "controls", "prop"):
+        for k in gh[group]:
+            scale = np.abs(gh[group][k]).max()
+            assert np.abs(gc[group][k] - gh[group][k]).max() <= 1e-6 * scale, (group, k)
+    mine, other = (("ebe_matvec_t", "bsb_matvec_t") if solver == "cg"
+                   else ("bsb_matvec_t", "ebe_matvec_t"))
+    assert lc[mine] > 0 and lc[other] == 0 and lh[mine] == 0
+
+
+def test_integrate_linear_on_cuda_matches_cpu(cuda):
+    """``forward.integrate_linear_pure`` on a CUDA model (bf16 btd factors,
+    refresh 1) dispatches K1, K2, K5 (three launches a step: the update and
+    its tangent's two) and K6, and its tangent meets the CPU model's within
+    1e-8 of each field's largest entry."""
+    times = 2e-5 * np.arange(6)
+    params = {"linear_solver": "btd", "btd_store_dtype": "bfloat16",
+              "jacobian_refresh_steps": 1, "assembly": "banded"}
+    rng = np.random.default_rng(12)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = port_vf_model("KelvinVoigtWEpithelium", 10, 5, device=dev, reorder="rcm")
+        s0, cs, prop = port_inputs(model)
+        if not out:
+            dprop = {k: np.zeros_like(v) for k, v in prop.items()}
+            dprop["emod"] = 100.0 * rng.standard_normal(prop["emod"].shape)
+            dcs = {k: rng.standard_normal(v.shape) for k, v in cs.items()}
+        ops.LAUNCHES.update(dict.fromkeys(ops.LAUNCHES, 0))
+        banded.LAUNCHES.update(dict.fromkeys(banded.LAUNCHES, 0))
+        _, dfin = forward.integrate_linear_pure(
+            model, s0, cs, prop, times, {k: np.zeros_like(v) for k, v in s0.items()}, dcs,
+            dprop, np.zeros_like(times), params)
+        out[dev.type] = ({k: v.cpu().numpy() for k, v in dfin.items()},
+                         {**ops.LAUNCHES, **banded.LAUNCHES})
+    (dc, lc), (dh, lh) = out["cuda"], out["cpu"]
+    n_steps = len(times) - 1
+    assert lc["gather"] > 0 and lc["scatter"] > 0 and lc["btd_sweep"] > 0
+    assert lc["newmark"] == 3 * n_steps
+    assert not any(lh.values())
+    for k, v in dh.items():
+        np.testing.assert_allclose(dc[k], v, rtol=1e-8, atol=1e-8 * np.abs(v).max(), err_msg=k)
+
+
+def test_traction_shape_on_cuda_matches_cpu(cuda):
+    """The banded ``TractionShape`` on the card (K6 / K6T solves, K1/K2 in
+    ``T t`` and ``T^T lam``) against the same transform on the CPU: apply
+    and apply_vjp within 1e-10 of their largest entries."""
+    from vf_fem_tpu_torch.load import load_solid_model
+    from vf_fem_tpu_torch.mesh import vocal_fold_mesh
+    from vf_fem_tpu_torch.parameters import TractionShape
+    from vf_fem_tpu_torch.residuals import solid as slr
+
+    rng = np.random.default_rng(13)
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        solid = load_solid_model(vocal_fold_mesh(10, 5), slr.KelvinVoigtWShape, device=dev,
+                                 reorder="rcm")
+        t = TractionShape(solid, solver="banded")
+        if not res:
+            x = {"tmesh": 1e2 * rng.standard_normal(solid.ndof)}
+            hy = {"umesh": rng.standard_normal(solid.ndof)}
+        ops.LAUNCHES.update(dict.fromkeys(ops.LAUNCHES, 0))
+        res[dev.type] = (t.apply(x)["umesh"], t.apply_vjp(x, hy)["tmesh"], dict(ops.LAUNCHES))
+    (uc, gc, lc), (uh, gh, _) = res["cuda"], res["cpu"]
+    assert lc["btd_sweep"] > 0 and lc["btd_sweep_t"] > 0
+    np.testing.assert_allclose(uc, uh, rtol=1e-10, atol=1e-10 * np.abs(uh).max())
+    np.testing.assert_allclose(gc, gh, rtol=1e-10, atol=1e-10 * np.abs(gh).max())
+
+
+def test_traction_shape_default_solver_stays_on_cuda(cuda):
+    """``TractionShape(solver='auto')`` on a card model at M5 size (960
+    dofs, below ``dense_max_dofs``) takes the banded path: its solves are
+    K6/K6T launches on the card, and its results match the dense host path
+    of the same transform on the CPU within 1e-9 of their largest entries."""
+    from vf_fem_tpu_torch.load import load_solid_model
+    from vf_fem_tpu_torch.parameters import TractionShape
+    from vf_fem_tpu_torch.residuals import solid as slr
+
+    mesh = load_gmsh(os.path.join(MESHES, "M5_3layers.msh"))
+    rng = np.random.default_rng(17)
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        solid = load_solid_model(mesh, slr.KelvinVoigtWShape, device=dev, reorder="rcm")
+        t = TractionShape(solid)
+        if not res:
+            assert solid.ndof <= 6000
+            x = {"tmesh": 1e2 * rng.standard_normal(solid.ndof)}
+            hy = {"umesh": rng.standard_normal(solid.ndof)}
+        ops.LAUNCHES.update(dict.fromkeys(ops.LAUNCHES, 0))
+        res[dev.type] = (t._solver, t.apply(x)["umesh"], t.apply_vjp(x, hy)["tmesh"],
+                         dict(ops.LAUNCHES))
+    (sc, uc, gc, lc), (sh, uh, gh, _) = res["cuda"], res["cpu"]
+    assert (sc, sh) == ("banded", "dense")
+    assert lc["btd_sweep"] > 0 and lc["btd_sweep_t"] > 0
+    np.testing.assert_allclose(uc, uh, rtol=1e-9, atol=1e-9 * np.abs(uh).max())
+    np.testing.assert_allclose(gc, gh, rtol=1e-9, atol=1e-9 * np.abs(gh).max())

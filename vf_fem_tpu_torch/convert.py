@@ -40,3 +40,20 @@ def to_numpy(d: dict) -> dict:
         else np.asarray(v)
         for k, v in d.items()
     }
+
+
+def from_blocks(bvec) -> dict:
+    """A block vector (the JAX package's ``BlockVector``: a transform's
+    ``x`` or ``y``, a model's ``prop``) as {label: numpy array}, in its
+    block order: the port's form of the same vector."""
+    return {k: np.array(v) for k, v in bvec.sub_items()}
+
+
+def to_blocks(d: dict, like):
+    """The port's vector ``d`` ({label: array or tensor}) as a copy of the
+    block vector ``like`` with each of its blocks taken from ``d``: the
+    way back to the JAX package's form."""
+    out = like.copy()
+    for k, v in to_numpy(d).items():
+        out[k] = v
+    return out

@@ -84,6 +84,31 @@
 // 0.68 us at 3.35 TB/s).  A grid-stride loop over at most two CTAs an SM,
 // 256 threads a CTA, the six partial sums reduced by an xor tree in each
 // warp and in warp order across the CTA.
+//
+// K3T and K4T are the transposed operators of the 'cg' and 'bsb' adjoint
+// solves (no TPU kernel: the JAX package transposes with XLA,
+// vf_fem_tpu/fem/assembly.py:255-278 and vf_fem_tpu/solvers/bsb.py:168-188).
+//
+// K3T: y[e, i] = sum_j J[e, j, i] x[dofs[e, j]], K3 with the column of
+// J[e] in place of its row: one thread an output (e, i), summing in j
+// order, so the threads of a warp read J[e, j, i..i+5] side by side for
+// each j.  Bound: bytes, as K3 (6.7 MB of J in f64 at 23.7k).
+//
+// K4T: y = A^T x over the band's pattern, CSR by output column
+// (solvers/bsb.py: matvec_pattern_t; the diag_ones entries of the
+// Dirichlet rows included).  An entry is one int32, its offset into the
+// band of its source row r's block row (as K4's offsets are into the band
+// of their row's), from which the column c and the offset give r itself:
+// m = off / B^2 is the block column, so r's block row is c / B - m + h and
+// r = (c / B - m + h) B + (off / B) % B.  So an entry costs K4's bytes,
+// nnz (sizeof(T) + 4) + (ndof + 1) 4 + 2 ndof sizeof(T): 4.39 MB in f64 at
+// 23.7k, 1.31 us at 3.35 TB/s.  One thread an output column, lanes on
+// adjacent columns: the two columns of a vertex have the same source rows
+// in the same order, so a warp's k-th entries read adjacent band values
+// (offsets one apart) and the same x entries.  Each thread sums its
+// column's entries in CSR order (rows ascending) with every product and
+// sum rounded separately (_rn), from 0: no atomics, the same bits every
+// launch, and tests/bsb_emulation.py:emulate_bsb_matvec_t reproduces it.
 
 #include <cuda_runtime.h>
 
@@ -118,6 +143,23 @@ __global__ void ebe_matvec_kernel(const T* __restrict__ J,
   const long long* d = dofs + e * nld;
   T acc = T(0);
   for (int j = 0; j < nld; ++j) acc += row[j] * x[d[j]];
+  y[t] = acc;
+}
+
+template <typename T>
+__global__ void ebe_matvec_t_kernel(const T* __restrict__ J,
+                                    const T* __restrict__ x,
+                                    const long long* __restrict__ dofs,
+                                    T* __restrict__ y, int nld,
+                                    long long total) {
+  long long t = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (t >= total) return;
+  long long e = t / nld;
+  const int i = static_cast<int>(t - e * nld);
+  const T* col = J + e * nld * nld + i;  // J[e, :, i]
+  const long long* d = dofs + e * nld;
+  T acc = T(0);
+  for (int j = 0; j < nld; ++j) acc += col[j * nld] * x[d[j]];
   y[t] = acc;
 }
 
@@ -240,6 +282,28 @@ __global__ void __launch_bounds__(kBsbTile * kBsbLanes)
   if (lane == 0 && row < ndof) y[row] = acc;
 }
 
+// y[c] = sum over the transposed pattern's entries k of column c (rows
+// ascending) of band_n[off[k]] * x[n * B + (off[k] / B) % B], n = c / B -
+// off[k] / B^2 + h the source row's block row, band_n = blocks + n nb B^2.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    bsb_matvec_t_kernel(const T* __restrict__ blocks, const T* __restrict__ x,
+                        const int* __restrict__ ptr, const int* __restrict__ off,
+                        T* __restrict__ y, int ndof, int nb, int h) {
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= ndof) return;
+  const int k1 = __ldg(ptr + c + 1);
+  const int cb = c / kBsbB + h;
+  T acc = T(0);
+  for (int k = __ldg(ptr + c); k < k1; ++k) {
+    const int o = __ldg(off + k);
+    const int n = cb - (o >> kBsbShift);
+    const T v = __ldg(blocks + (static_cast<long long>(n) * nb << kBsbShift) + o);
+    acc = add_rn(acc, mul_rn(v, __ldg(x + n * kBsbB + ((o / kBsbB) & (kBsbB - 1)))));
+  }
+  y[c] = acc;
+}
+
 // K5's coefficients: a row of eight values of the working type T in device
 // memory, in the order of equations/newmark.py:coefficients: c1 =
 // gamma/beta/dt, c2 = gamma/beta - 1, c3 = dt (gamma/2/beta - 1), c4 =
@@ -359,6 +423,31 @@ int launch_ebe(const void* J, const void* x, const void* dofs, void* y,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(J), static_cast<const T*>(x),
       static_cast<const long long*>(dofs), static_cast<T*>(y), nld, total);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_ebe_t(const void* J, const void* x, const void* dofs, void* y,
+                 int ne, int nld, void* stream) {
+  long long total = static_cast<long long>(ne) * nld;
+  if (total == 0) return 0;
+  ebe_matvec_t_kernel<T><<<grid_for(total, kThreads), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(J), static_cast<const T*>(x),
+      static_cast<const long long*>(dofs), static_cast<T*>(y), nld, total);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bsb_t(const void* blocks, const void* x, const void* ptr,
+                 const void* off, void* y, int ndof, int nb, int h,
+                 void* stream) {
+  if (ndof == 0) return 0;
+  bsb_matvec_t_kernel<T><<<grid_for(ndof, kThreads), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(blocks), static_cast<const T*>(x),
+      static_cast<const int*>(ptr), static_cast<const int*>(off),
+      static_cast<T*>(y), ndof, nb, h);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -549,6 +638,29 @@ int vf_bsb_matvec_f64(const void* blocks, const void* x, const void* ptr,
                       const void* off, void* y, int ndof, int nb, int h,
                       void* stream) {
   return launch_bsb<double>(blocks, x, ptr, off, y, ndof, nb, h, stream);
+}
+
+int vf_ebe_matvec_t_f32(const void* J, const void* x, const void* dofs,
+                        void* y, int ne, int nld, void* stream) {
+  return launch_ebe_t<float>(J, x, dofs, y, ne, nld, stream);
+}
+
+int vf_ebe_matvec_t_f64(const void* J, const void* x, const void* dofs,
+                        void* y, int ne, int nld, void* stream) {
+  return launch_ebe_t<double>(J, x, dofs, y, ne, nld, stream);
+}
+
+// ptr, off: the transposed pattern (CSR by output column)
+int vf_bsb_matvec_t_f32(const void* blocks, const void* x, const void* ptr,
+                        const void* off, void* y, int ndof, int nb, int h,
+                        void* stream) {
+  return launch_bsb_t<float>(blocks, x, ptr, off, y, ndof, nb, h, stream);
+}
+
+int vf_bsb_matvec_t_f64(const void* blocks, const void* x, const void* ptr,
+                        const void* off, void* y, int ndof, int nb, int h,
+                        void* stream) {
+  return launch_bsb_t<double>(blocks, x, ptr, off, y, ndof, nb, h, stream);
 }
 
 // v1, a1, un: the three outputs, n entries each; coefs: the device address

@@ -47,8 +47,9 @@ def coefficient_rows(dts: torch.Tensor, gamma=1 / 2, beta=1 / 4) -> torch.Tensor
     multiplies by them gives the float steps' results; their derivatives
     with respect to ``dts`` are those of the closed forms, added as
     ``g - g.detach()`` (zero in value)."""
-    values = torch.as_tensor(
-        coefficient_table(dts.detach().cpu().numpy(), gamma, beta), device=dts.device)
+    values = torch.as_tensor(  # tolist, not numpy: a torch.func transform's dts too
+        coefficient_table(np.array(dts.detach().cpu().tolist()), gamma, beta),
+        device=dts.device)
     dtp = torch.cat([dts[1:], dts[-1:]])
     one = torch.ones_like(dts)
     forms = torch.stack([

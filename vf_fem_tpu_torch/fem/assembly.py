@@ -229,6 +229,19 @@ class EBEOperator(NamedTuple):
         y[self.bc_dofs] = x[self.bc_dofs]
         return y
 
+    def matvec_transpose(self, x: torch.Tensor) -> torch.Tensor:
+        """``A^T x`` (the adjoint solves): x zeroed on the Dirichlet dofs,
+        each element block transposed (``ops.ebe_matvec_t``, kernel K3T on
+        CUDA; cells, then facets), the same scatter as :meth:`matvec`, then
+        ``x`` added back on the Dirichlet dofs, whose identity rows become
+        identity columns."""
+        xm = x.clone()
+        xm[self.bc_dofs] = 0.0
+        ys = [ops.ebe_matvec_t(J, xm, d) for J, d in self._parts()]
+        y = self.plans.dofs(torch.cat(ys))
+        y[self.bc_dofs] += x[self.bc_dofs]
+        return y
+
     def block_diag_inverse(self, dim: int) -> torch.Tensor:
         """Inverse of the nodal ``dim x dim`` diagonal blocks,
         (ndof/dim, dim, dim): each element's vertex-diagonal blocks summed

@@ -32,7 +32,9 @@ struct and a few sizes and reads the raw stream handle.
 device: on a CUDA tensor they launch the kernel (or raise); on a CPU
 tensor they run the plain PyTorch versions
 (:func:`banded_gather_reference`, :func:`banded_scatter_reference`).  Each
-is a ``torch.autograd.Function`` whose backward is the other op.
+is a ``torch.autograd.Function`` whose backward is the other op and whose
+tangent (forward mode, ``torch.autograd.forward_ad`` or ``torch.func.jvp``)
+is the same op on the tangent.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from .. import cuda_build
 
@@ -402,11 +405,18 @@ def _scatter(plan: DevicePlan, loc: torch.Tensor, n_rows: int,
 
 
 class _BandedGather(torch.autograd.Function):
+    """K1 with K2 as its backward (the scatter with the gather offsets) and
+    K1 again as its tangent: the gather is linear."""
+
     @staticmethod
-    def forward(ctx, F, plan):
+    def forward(F, plan):
+        return _gather(plan, F, plan.g)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        F, plan = inputs
         ctx.plan = plan
         ctx.n_cols = F.shape[1]
-        return _gather(plan, F, plan.g)
 
     @staticmethod
     def backward(ctx, ct):
@@ -414,12 +424,24 @@ class _BandedGather(torch.autograd.Function):
         # their cotangents flow back -- scatter with the gather offsets
         return _scatter(ctx.plan, ct.contiguous(), ctx.n_cols, ctx.plan.g), None
 
+    @staticmethod
+    def jvp(ctx, F_dot, _):
+        # through apply: under torch.func the rule sees the transform's
+        # tensors, which the Function hands to the kernel unwrapped
+        return _BandedGather.apply(F_dot.contiguous(), ctx.plan)
+
 
 class _BandedScatter(torch.autograd.Function):
+    """K2 with K1 as its backward (the gather with the scatter offsets) and
+    K2 again as its tangent: the scatter is linear."""
+
     @staticmethod
-    def forward(ctx, loc, plan, n_rows):
-        ctx.plan = plan
+    def forward(loc, plan, n_rows):
         return _scatter(plan, loc, n_rows, plan.s)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.plan, ctx.n_rows = inputs
 
     @staticmethod
     def backward(ctx, ct):
@@ -427,13 +449,29 @@ class _BandedScatter(torch.autograd.Function):
         # (padding slots get zero cotangents)
         return _gather(ctx.plan, ct.contiguous(), ctx.plan.s), None, None
 
+    @staticmethod
+    def jvp(ctx, loc_dot, *_):
+        return _BandedScatter.apply(loc_dot.contiguous(), ctx.plan, ctx.n_rows)
+
+
+def _differentiated(x: torch.Tensor) -> bool:
+    """Whether ``x`` is being differentiated: it requires grad with grad
+    mode on (autograd, ``torch.func.grad``/``vjp``), or it carries a
+    forward-mode tangent (``torch.autograd.forward_ad``,
+    ``torch.func.jvp``/``jacfwd``).  Public queries only, the cheaper
+    first."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return True
+    return fwAD.unpack_dual(x).tangent is not None
+
 
 def banded_gather(plan: DevicePlan, F: torch.Tensor) -> torch.Tensor:
     """Gather per-cell locals (nv, C, ngroups*gc) from stacked vertex
     fields ``F`` (C, n_vertices).  Reverse mode differentiates to the
-    banded scatter with the gather offsets; where no gradient is recorded
-    the call skips the autograd wrapper."""
-    if torch.is_grad_enabled() and F.requires_grad:
+    banded scatter with the gather offsets, forward mode to the gather of
+    the tangent; where nothing is differentiated the call skips the
+    autograd wrapper."""
+    if _differentiated(F):
         return _BandedGather.apply(F, plan)
     return _gather(plan, F, plan.g)
 
@@ -441,8 +479,9 @@ def banded_gather(plan: DevicePlan, F: torch.Tensor) -> torch.Tensor:
 def banded_scatter(plan: DevicePlan, loc: torch.Tensor, n_rows: int):
     """Scatter-add per-cell nodal values ``loc`` (nv, C, ngroups*gc) into
     (C, n_rows); padding slots are dropped.  Reverse mode differentiates to
-    the banded gather with the scatter offsets; where no gradient is
-    recorded the call skips the autograd wrapper."""
-    if torch.is_grad_enabled() and loc.requires_grad:
+    the banded gather with the scatter offsets, forward mode to the scatter
+    of the tangent; where nothing is differentiated the call skips the
+    autograd wrapper."""
+    if _differentiated(loc):
         return _BandedScatter.apply(loc, plan, n_rows)
     return _scatter(plan, loc, n_rows, plan.s)

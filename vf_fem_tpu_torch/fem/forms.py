@@ -179,6 +179,18 @@ class KelvinVoigtForm(BaseForm):
         return _stress_residual(local["prop/eta"][..., None, None] * rate, geom)
 
 
+class ShapeForm(BaseForm):
+    """Registers the mesh-shape parameter ``prop/umesh`` (the JAX package's
+    ``ShapeForm``).  The shape enters every other kernel through the
+    vertex coordinates (reference plus ``umesh``), so the kernel itself is
+    zero."""
+
+    COEFFICIENT_SPEC = {"prop/umesh": cg1_vector()}
+
+    def cell_kernel(self, geom, local):
+        return torch.zeros_like(geom.X)
+
+
 # -- Facet forms --------------------------------------------------------------
 
 

@@ -23,8 +23,10 @@ the run's configuration:
 :func:`integrate` adds the HDF5 statefile (:mod:`.statefile`, which needs
 h5py; ``f=None`` needs none), the divergence flags and the certification
 of fixed-iteration runs; :func:`integrate_extend` resumes from a file and
-:func:`integrate_step` takes one step.  Runs are dicts of numpy arrays or
-tensors where the JAX package takes BlockVectors.
+:func:`integrate_step` takes one step.  :func:`integrate_linear` (on a
+statefile's run) and :func:`integrate_linear_pure` propagate tangents
+through the differentiable loop in forward mode.  Runs are dicts of numpy
+arrays or tensors where the JAX package takes BlockVectors.
 
 Units are CGS.
 """
@@ -36,6 +38,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.func import jvp
 
 from . import step_graph
 from .convert import to_numpy, to_tensors
@@ -188,7 +191,8 @@ def _integrate_diff(model, ini_state, controls_stacked, prop, times,
     if n_steps < 1:
         raise ValueError("integrate_pure needs at least two time points")
     dts_t = times_t[1:] - times_t[:-1]
-    dts = [float(x) for x in np.diff(times_t.detach().cpu().numpy())]
+    # tolist, not numpy: the times may be a torch.func transform's tensor
+    dts = [float(x) for x in np.diff(np.array(times_t.detach().cpu().tolist()))]
     rows = newmark.coefficient_rows(dts_t).to(dtype)
     n_controls = next(iter(controls.values())).shape[0]
 
@@ -226,6 +230,88 @@ def _integrate_diff(model, ini_state, controls_stacked, prop, times,
     trajectory = {k: torch.stack([s[k] for s in traj]) for k in traj[0]}
     info = SolveInfo(*(torch.stack(x).detach() for x in zip(*infos)))
     return state, trajectory, info
+
+
+def integrate_linear_pure(
+    model,
+    ini_state: dict,
+    controls_stacked: dict,
+    prop: dict,
+    times,
+    dini_state: dict,
+    dcontrols_stacked: dict,
+    dprop: dict,
+    dtimes,
+    params: Optional[dict] = None,
+):
+    """The run of :func:`integrate_pure` from ``ini_state`` and its
+    tangent along ``(dini_state, dcontrols_stacked, dprop, dtimes)``:
+    ``(fin_state, dfin_state)``, dicts of tensors.  The JAX package takes
+    one ``jax.jvp`` through its scanned integrator with the custom-JVP
+    Newton solve (``integrate_pure(..., mode='fwd')``); here the
+    differentiable eager loop (:func:`_integrate_diff`, never the step
+    graph) runs under ``torch.func.jvp``, and each step's tangent follows
+    the rules of its autograd Functions: the
+    forward-mode IFT rule of the Newton solve (one solve with
+    full-precision factors built at u1), two K5 launches, the banded
+    gather and scatter of the tangent.  The tangent controls are
+    broadcast to the controls' stacked shape; ``dtimes`` moves the steps'
+    coefficient rows (``equations.newmark.coefficient_rows``)."""
+    params_d = solver_params(params)
+    dev, dtype = model.device, model.dtype
+    if isinstance(times, torch.Tensor):
+        times = times.detach().cpu().numpy()
+    times_t = torch.as_tensor(np.asarray(times, dtype=np.float64), device=dev)
+    primals = (to_tensors(ini_state, dev, dtype), to_tensors(controls_stacked, dev, dtype),
+               to_tensors(prop, dev, dtype), times_t)
+    tangents = tuple({k: _tensor_like(d[k], v) for k, v in p.items()}
+                     for d, p in zip((dini_state, dcontrols_stacked, dprop), primals[:3]))
+    tangents += (_tensor_like(dtimes, times_t),)
+
+    def run(state0, controls, prop, times):
+        return _integrate_diff(model, state0, controls, prop, times, params_d)[0]
+
+    with torch.no_grad():
+        return jvp(run, primals, tangents)
+
+
+def _tensor_like(x, like: torch.Tensor) -> torch.Tensor:
+    """``x`` (array or tensor) as a tensor of ``like``'s dtype and device,
+    broadcast to its shape (a tangent of ``like``)."""
+    t = torch.as_tensor(x.detach() if isinstance(x, torch.Tensor) else np.asarray(x))
+    return t.to(device=like.device, dtype=like.dtype).broadcast_to(like.shape).contiguous()
+
+
+def integrate_linear(
+    model,
+    f,
+    dini_state: dict,
+    dcontrols: list,
+    dprop: dict,
+    dtimes,
+    newton_solver_prm: Optional[Options] = None,
+):
+    """Linearized (tangent) integration about the run stored in the
+    statefile ``f`` (reference: ``forward.py:189-244``; the JAX package's
+    ``integrate_linear``): the initial state, control schedule, properties
+    and times are read from ``f``, and the tangent of the final state along
+    ``dini_state``, ``dcontrols`` (a list of control dicts, stacked and
+    broadcast as the file's controls), ``dprop`` and ``dtimes`` is returned
+    as a dict of numpy arrays in the initial state's key order
+    (:func:`integrate_linear_pure`).  ``newton_solver_prm`` are the solver
+    parameters of the run (the JAX package's defaults where None)."""
+    prop = f.get_prop()
+    times = np.asarray(f.get_times())
+    ini_state = f.get_state(0)
+    ctrl_keys = list(model.control.keys())
+    n_rows = f.root_group["control"][ctrl_keys[0]].shape[0]
+    controls = [f.get_control(n) for n in range(min(n_rows, f.size))]
+    _, dfin = integrate_linear_pure(
+        model, ini_state, _stack_controls(model, controls), prop, times,
+        dini_state, _stack_controls(model, dcontrols), dprop, dtimes,
+        newton_solver_prm)
+    dfin = to_numpy(dfin)
+    return {k: dfin[k] for k in ini_state}
 
 
 def _integrate_windowed(

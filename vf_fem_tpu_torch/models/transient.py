@@ -29,8 +29,8 @@ the step's coefficient row, on one residual graph rebuilt at u1.  Options:
 ``adjoint_refine`` ('stale', the default: Richardson refinement with the
 window's carried factors, ``adjoint_refine_tol``/``adjoint_refine_iters``,
 stopped on ``stagnation_ratio``; 'exact': full-precision factors rebuilt
-at u1 and one transposed solve).  'dense' and 'btd' have transposed
-solves; 'cg' and 'bsb' raise.
+at u1 and one transposed solve; 'cg' and 'bsb' always take the latter, a
+transposed BiCGStab solve on K3T / K4T).
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.func import jacfwd, vmap
+from torch.func import jacfwd, jvp, vmap
 
 from .. import ops
 from ..equations import newmark
@@ -145,9 +145,11 @@ def _unflatten(layout, tensors):
 class _SolveU1(torch.autograd.Function):
     """u1 of one step by Newton, with a refresh window's carried
     ``factors`` or (None) factors built in the step; no graph is recorded.
-    Backward: the IFT rule (``SolidModel._ift_backward``).  The guess gets
-    no cotangent, nor do the factors: they were built without a graph from
-    detached inputs, and the root does not depend on them."""
+    Backward: the IFT rule (``SolidModel._ift_backward``); forward mode
+    (``torch.func.jvp``): its tangent rule (``SolidModel._ift_jvp``).  The
+    guess gets no cotangent nor tangent, nor do the factors: they were
+    built without a graph from detached inputs, and the root does not
+    depend on them."""
 
     @staticmethod
     def forward(solid, params_d, dt, layout, factors, guess, row, *flat):
@@ -163,12 +165,32 @@ class _SolveU1(torch.autograd.Function):
         ctx.solid, ctx.params_d, ctx.dt, ctx.layout = solid, params_d, dt, layout
         ctx.factors = factors  # a reference to the window's factors, not a copy
         ctx.save_for_backward(output[0], row, *flat)
+        ctx.save_for_forward(output[0], row, *flat)
         ctx.mark_non_differentiable(*output[1:])
 
     @staticmethod
     def backward(ctx, u1_bar, *_):
         return (None,) * 6 + ctx.solid._ift_backward(ctx, u1_bar,
                                                      ctx.needs_input_grad[6:])
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        return (ctx.solid._ift_jvp(ctx, tangents[6:]), None, None, None)
+
+
+class _ExactSolve(torch.autograd.Function):
+    """``SolidModel._exact_solve`` (forward solve) as a Function: called in
+    :class:`_SolveU1`'s jvp rule, which ``torch.func.jvp`` hands its own
+    tensors, it passes the solve's kernels plain ones.  Never
+    differentiated itself."""
+
+    @staticmethod
+    def forward(solid, params_d, dt, layout, u1, rhs, *flat):
+        return solid._exact_solve(u1, _unflatten(layout, flat), dt, params_d, rhs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
 
 
 def _contact_traction(u1, X, n, y, k):
@@ -419,21 +441,25 @@ class SolidModel:
             return KrylovFactors(blocks, op.block_diag_inverse(self.dim))
         return KrylovFactors(op, op.block_diag_inverse(self.dim))
 
-    def iter_solve(self, factors, r, params_d):
+    def iter_solve(self, factors, r, params_d, transpose=False):
         """Solve with frozen Krylov factors: block-Jacobi BiCGStab (default;
         the Jacobian is nonsymmetric through the follower-pressure terms)
-        or PCG (``krylov='pcg'``)."""
+        or PCG (``krylov='pcg'``).  ``transpose`` solves ``A^T x = r`` (the
+        adjoint solves) with the transposed operator (K4T for 'bsb', K3T
+        for 'cg'), by BiCGStab whatever ``krylov`` says, preconditioned by
+        the same block-Jacobi inverse (the JAX package's ``_iter_solve``)."""
         A, Dinv = factors
         if params_d.get("linear_solver") == "bsb":
             plan, fill = self.bsb_plan()
+            mv, pattern = ((ops.bsb_matvec_t, fill.pattern_t) if transpose
+                           else (ops.bsb_matvec, fill.pattern))
 
             def matvec(v):
-                return ops.bsb_matvec(plan, A, v, fill.pattern)
+                return mv(plan, A, v, pattern)
         else:
-            matvec = A.matvec
-        solver = (linalg.pcg if params_d.get("krylov", "bicgstab") == "pcg"
-                  else linalg.bicgstab)
-        result = solver(
+            matvec = A.matvec_transpose if transpose else A.matvec
+        pcg = params_d.get("krylov", "bicgstab") == "pcg" and not transpose
+        result = (linalg.pcg if pcg else linalg.bicgstab)(
             matvec, r, precond=lambda v: assembly.block_jacobi_apply(Dinv, v),
             tol=params_d.get("krylov_tolerance", 1e-8),
             max_iter=params_d.get("krylov_max_iter", 1000),
@@ -623,13 +649,6 @@ class SolidModel:
         params_d, layout = ctx.params_d, ctx.layout
         if u1_bar is None or not any(needs):
             return (None,) * len(needs)
-        ls = params_d.get("linear_solver", "dense")
-        if ls in ("cg", "bsb"):
-            op = ("EBEOperator.matvec_transpose" if ls == "cg"
-                  else "bsb_matvec_t (vf_fem_tpu/solvers/bsb.py:168)")
-            raise NotImplementedError(
-                f"the adjoint of linear_solver={ls!r} needs {op}, which is not"
-                " ported; use 'dense' or 'btd'")
         banded = self.use_banded(params_d)
         # only the residual is recorded: the solves below run without a
         # graph (grad mode is off in backward), or factors built at u1
@@ -652,22 +671,61 @@ class SolidModel:
         grads = iter(torch.autograd.grad(r, wanted, -lam, allow_unused=True))
         return tuple(next(grads) if t.requires_grad else None for t in leaves)
 
+    def _ift_jvp(self, ctx, tangents):
+        """The forward-mode IFT rule of one step (the JAX package's
+        ``solve_u1_fwdmode`` custom JVP): ``R_dot = dR/dtheta theta_dot`` by
+        ``torch.func.jvp`` of the residual at the saved u1 (the banded path:
+        K1 and K2 on the tangent), then ``u1_dot = -J(u1)^{-1} R_dot`` with
+        full-precision factors built at u1 (:meth:`_exact_solve`: the
+        tangent is one uncorrected solve, so bf16 block-Thomas factors are
+        never used for it, nor the window's carried factors)."""
+        u1, row, *flat = ctx.saved_tensors
+        params_d, layout = ctx.params_d, ctx.layout
+        banded = self.use_banded(params_d)
+
+        def res(row_, *flat_):
+            state0, control, prop = _unflatten(layout, flat_)
+            return self.res_u(u1, state0, control, prop,
+                              StepCoefs(row_, self.dtype), banded)
+
+        primals = (row, *flat)
+        tangents = tuple(torch.zeros_like(p) if t is None else t
+                         for p, t in zip(primals, tangents))
+        _, r_dot = jvp(res, primals, tangents)
+        return -_ExactSolve.apply(self, params_d, ctx.dt, layout, u1, r_dot, *flat)
+
     def _adjoint_solve(self, JT, u1, inputs, dt, params_d, factors, u1_bar):
         """``lam`` with ``J(u1)^T lam = u1_bar``: refined with the carried
         ``factors`` (``adjoint_refine='stale'``, the default where there
-        are factors), else one transposed solve with full-precision factors
-        built at u1 (the JAX package's 'exact' mode and its rule for a
-        step that factors itself)."""
+        are dense or block-Thomas factors), else one transposed solve with
+        full-precision factors built at u1 (the JAX package's 'exact' mode
+        and its rule for a step that factors itself, and for the Krylov
+        solvers 'cg' and 'bsb' always: a transposed BiCGStab solve)."""
         self.adjoint_counts["solves"] += 1
-        if factors is not None and params_d.get("adjoint_refine", "stale") == "stale":
+        krylov = params_d.get("linear_solver", "dense") in ("cg", "bsb")
+        if (factors is not None and not krylov
+                and params_d.get("adjoint_refine", "stale") == "stale"):
             return self._refined_adjoint(JT, factors, u1_bar, params_d)
+        return self._exact_solve(u1, inputs, dt, params_d, u1_bar, transpose=True)
+
+    def _exact_solve(self, u1, inputs, dt, params_d, rhs, transpose=False):
+        """``J(u1)^{-1} rhs`` (``J(u1)^{-T} rhs`` with ``transpose``) with
+        factors built at u1 in full precision (``btd_store_dtype``
+        dropped): one uncorrected solve, the adjoint's and the tangent's
+        (the JAX package's ``solve_u1`` rules): a block-Thomas solve
+        ('btd', K6 / K6T), a Krylov solve to ``krylov_tolerance`` ('cg',
+        'bsb'), or a dense LU solve."""
         state0, control, prop = inputs
-        if params_d.get("linear_solver", "dense") == "btd":
+        ls = params_d.get("linear_solver", "dense")
+        if ls in ELEMENT_SOLVERS:
             exact = {k: v for k, v in params_d.items() if k != "btd_store_dtype"}
             fac = self.make_iter_factors(u1, state0, control, prop, dt, exact)
-            return btd.btd_solve_t(self.bsb_plan()[0], fac, u1_bar)
+            if ls == "btd":
+                solve = btd.btd_solve_t if transpose else btd.btd_solve
+                return solve(self.bsb_plan()[0], fac, rhs)
+            return self.iter_solve(fac, rhs, params_d, transpose)
         A = self.jac_u_dense(u1, state0, control, prop, dt)
-        return linalg.dense_solve_transpose(A, u1_bar)
+        return (linalg.dense_solve_transpose if transpose else linalg.dense_solve)(A, rhs)
 
     def solve_factors_t(self, factors, r):
         """Carried factors applied as a transposed preconditioner,

@@ -1,9 +1,11 @@
 """
 The solver kernels: K3 (element-by-element matvec), K4 (block-banded
 matvec), K5 (fused Newmark update) and K6 (block-Thomas sweep), and the
-two kernels of the gradient path: K5T (K5's backward, under the
-``autograd.Function`` :func:`newmark_step`) and K6T (the transposed sweep
-of ``solvers.btd.btd_solve_t``).
+kernels of the gradient path: K5T (K5's backward, under the
+``autograd.Function`` :func:`newmark_step`, whose tangent is two K5
+launches), K6T (the transposed sweep of ``solvers.btd.btd_solve_t``), and
+K3T and K4T (the transposed operators of the 'cg' and 'bsb' adjoint
+solves: :func:`ebe_matvec_t`, :func:`bsb_matvec_t`).
 
 Counterparts of ``vf_fem_tpu/ops/pallas_kernels.py``: ``ebe_matvec``
 replaces ``_ebe_matvec_kernel``, ``bsb_matvec`` replaces
@@ -12,7 +14,9 @@ replaces ``_ebe_matvec_kernel``, ``bsb_matvec`` replaces
 ``solvers.btd.btd_solve``, a ``lax.scan`` in the JAX package; neither has
 ``btd_sweep_t`` (the ``lax.scan`` of ``btd_solve_t``) nor
 ``newmark_update_t`` (the JAX package differentiates the Newmark relations
-with its step).  The CUDA
+with its step), nor ``ebe_matvec_t`` and ``bsb_matvec_t`` (XLA in the JAX
+package: ``EBEOperator.matvec_transpose``, ``solvers.bsb.bsb_matvec_t``).
+The CUDA
 sources are ``csrc/ops.cu`` and ``csrc/btd.cu`` (built with ``nvcc`` for
 ``sm_90a`` at first use, see ``cuda_build``).
 
@@ -37,8 +41,12 @@ __all__ = [
     "LAUNCHES",
     "ebe_matvec",
     "ebe_matvec_reference",
+    "ebe_matvec_t",
+    "ebe_matvec_t_reference",
     "bsb_matvec",
     "bsb_matvec_reference",
+    "bsb_matvec_t",
+    "bsb_matvec_t_reference",
     "newmark_update",
     "newmark_update_coefs",
     "newmark_update_coefs_reference",
@@ -59,7 +67,7 @@ __all__ = [
 ]
 
 LAUNCHES = {"ebe_matvec": 0, "bsb_matvec": 0, "newmark": 0, "btd_sweep": 0,
-            "newmark_t": 0, "btd_sweep_t": 0}
+            "newmark_t": 0, "btd_sweep_t": 0, "ebe_matvec_t": 0, "bsb_matvec_t": 0}
 
 BSB_BLOCK = 128  # the block size K4 is compiled for
 BSB_LANES = 4  # lanes a row of K4 (csrc/ops.cu: kBsbLanes), for its emulation
@@ -69,8 +77,9 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {}
 for _t in ("f32", "f64"):
-    _SIGNATURES[f"vf_ebe_matvec_{_t}"] = [_P, _P, _P, _P, _I, _I, _P]
-    _SIGNATURES[f"vf_bsb_matvec_{_t}"] = [_P] * 5 + [_I] * 3 + [_P]
+    for _op in ("", "_t"):
+        _SIGNATURES[f"vf_ebe_matvec{_op}_{_t}"] = [_P, _P, _P, _P, _I, _I, _P]
+        _SIGNATURES[f"vf_bsb_matvec{_op}_{_t}"] = [_P] * 5 + [_I] * 3 + [_P]
     _SIGNATURES[f"vf_newmark_{_t}"] = [_P] * 7 + [_L, _P, _P]
     _SIGNATURES[f"vf_newmark_t_{_t}"] = [_P] * 13 + [_L, _P]
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -129,27 +138,47 @@ def ebe_matvec_reference(J: torch.Tensor, x: torch.Tensor,
     return torch.einsum("eij,ej->ei", J, x[dofs])
 
 
-def ebe_matvec(J: torch.Tensor, x: torch.Tensor,
-               dofs: torch.Tensor) -> torch.Tensor:
-    """Batched element matvec through the element dof map (K3 on CUDA)."""
-    _check("ebe_matvec", J, x)
+def ebe_matvec_t_reference(J: torch.Tensor, x: torch.Tensor,
+                           dofs: torch.Tensor) -> torch.Tensor:
+    """``y[e] = J[e]^T @ x[dofs[e]]``, shapes as
+    :func:`ebe_matvec_reference`."""
+    return torch.einsum("eji,ej->ei", J, x[dofs])
+
+
+def _ebe(name: str, J: torch.Tensor, x: torch.Tensor, dofs: torch.Tensor,
+         reference) -> torch.Tensor:
+    """K3 or K3T (``name``) on CUDA, ``reference`` on the CPU."""
+    _check(name, J, x)
     ne, nld, nld2 = J.shape
     if nld != nld2 or tuple(dofs.shape) != (ne, nld) or x.dim() != 1:
         raise ValueError(
-            f"ebe_matvec: J {tuple(J.shape)}, x {tuple(x.shape)},"
+            f"{name}: J {tuple(J.shape)}, x {tuple(x.shape)},"
             f" dofs {tuple(dofs.shape)}"
         )
     if dofs.dtype != torch.int64 or dofs.device != J.device:
-        raise TypeError("ebe_matvec: dofs must be int64 on J's device")
+        raise TypeError(f"{name}: dofs must be int64 on J's device")
     if J.device.type == "cpu":
-        return ebe_matvec_reference(J, x, dofs)
+        return reference(J, x, dofs)
     if not dofs.is_contiguous():
-        raise ValueError("ebe_matvec: dofs must be contiguous")
+        raise ValueError(f"{name}: dofs must be contiguous")
     y = torch.empty((ne, nld), dtype=J.dtype, device=J.device)
-    _launch("vf_ebe_matvec", J.dtype, J.data_ptr(), x.data_ptr(),
+    _launch(f"vf_{name}", J.dtype, J.data_ptr(), x.data_ptr(),
             dofs.data_ptr(), y.data_ptr(), ne, nld, _stream(J))
-    LAUNCHES["ebe_matvec"] += 1
+    LAUNCHES[name] += 1
     return y
+
+
+def ebe_matvec(J: torch.Tensor, x: torch.Tensor,
+               dofs: torch.Tensor) -> torch.Tensor:
+    """Batched element matvec through the element dof map (K3 on CUDA)."""
+    return _ebe("ebe_matvec", J, x, dofs, ebe_matvec_reference)
+
+
+def ebe_matvec_t(J: torch.Tensor, x: torch.Tensor,
+                 dofs: torch.Tensor) -> torch.Tensor:
+    """Batched transposed element matvec ``J[e]^T @ x[dofs[e]]`` (K3T on
+    CUDA): the element products of ``EBEOperator.matvec_transpose``."""
+    return _ebe("ebe_matvec_t", J, x, dofs, ebe_matvec_t_reference)
 
 
 # -- K4: block-banded matvec ---------------------------------------------------
@@ -171,6 +200,32 @@ def bsb_matvec_reference(plan, blocks: torch.Tensor,
     return y.reshape(-1)[: plan.ndof]
 
 
+def bsb_matvec_t_reference(plan, blocks: torch.Tensor,
+                           x: torch.Tensor) -> torch.Tensor:
+    """``y = A^T x`` by the JAX package's algorithm
+    (``vf_fem_tpu.solvers.bsb.bsb_matvec_t``): ``blocks[n, m]^T @ x_n``
+    for every band position in one batched product, each added into block
+    row ``n + m - h`` of a padded output."""
+    b, h, nb, nblk = plan.b, plan.h, plan.nb, plan.nblk
+    pad_tail = nblk * b - plan.ndof
+    xpad = torch.nn.functional.pad(x, (0, pad_tail)).reshape(nblk, b)
+    contrib = torch.einsum("nmij,ni->nmj", blocks, xpad)
+    ypad = x.new_zeros((nblk + 2 * h) * b)
+    for m in range(nb):
+        ypad[m * b : m * b + nblk * b] += contrib[:, m].reshape(-1)
+    return ypad[h * b : h * b + plan.ndof]
+
+
+def _check_bsb(name: str, plan, blocks: torch.Tensor, x: torch.Tensor):
+    _check(name, blocks, x)
+    shape = (plan.nblk, plan.nb, plan.b, plan.b)
+    if tuple(blocks.shape) != shape or tuple(x.shape) != (plan.ndof,):
+        raise ValueError(
+            f"{name}: blocks {tuple(blocks.shape)} (plan {shape}),"
+            f" x {tuple(x.shape)} (ndof {plan.ndof})"
+        )
+
+
 def bsb_matvec(plan, blocks: torch.Tensor, x: torch.Tensor,
                pattern=None) -> torch.Tensor:
     """Block-banded matvec ``y = A x`` of ``solvers.bsb`` (K4 on CUDA).
@@ -180,41 +235,51 @@ def bsb_matvec(plan, blocks: torch.Tensor, x: torch.Tensor,
     ``blocks`` must be zero (as ``bsb_fill`` leaves it).  K4 reads only the
     pattern's entries and raises without one; the plain version on the CPU
     reads the whole band and ignores it."""
-    _check("bsb_matvec", blocks, x)
-    shape = (plan.nblk, plan.nb, plan.b, plan.b)
-    if tuple(blocks.shape) != shape or tuple(x.shape) != (plan.ndof,):
-        raise ValueError(
-            f"bsb_matvec: blocks {tuple(blocks.shape)} (plan {shape}),"
-            f" x {tuple(x.shape)} (ndof {plan.ndof})"
-        )
+    _check_bsb("bsb_matvec", plan, blocks, x)
     if x.device.type == "cpu":
         return bsb_matvec_reference(plan, blocks, x)
     return _bsb_launch(plan, blocks, x, pattern)
 
 
-def _bsb_launch(plan, blocks: torch.Tensor, x: torch.Tensor,
-                pattern) -> torch.Tensor:
-    """Launch K4 on CUDA tensors checked against ``plan``."""
+def bsb_matvec_t(plan, blocks: torch.Tensor, x: torch.Tensor,
+                 pattern_t=None) -> torch.Tensor:
+    """The transposed block-banded matvec ``y = A^T x`` (K4T on CUDA), the
+    operator of the 'bsb' adjoint solve.  ``pattern_t`` is the plan's
+    transposed pattern on the device (``fill_plan(plan, device).pattern_t``,
+    ``solvers.bsb.matvec_pattern_t``: CSR by output column); K4T reads only
+    its entries and raises without it; the plain version on the CPU reads
+    the whole band and ignores it."""
+    _check_bsb("bsb_matvec_t", plan, blocks, x)
+    if x.device.type == "cpu":
+        return bsb_matvec_t_reference(plan, blocks, x)
+    return _bsb_launch(plan, blocks, x, pattern_t, "bsb_matvec_t")
+
+
+def _bsb_launch(plan, blocks: torch.Tensor, x: torch.Tensor, pattern,
+                name: str = "bsb_matvec") -> torch.Tensor:
+    """Launch K4 or K4T (``name``) on CUDA tensors checked against
+    ``plan``, with its pattern (by row for K4, by column for K4T)."""
     if pattern is None:
-        raise ValueError("bsb_matvec: K4 needs the plan's matvec pattern"
-                         " (solvers.bsb.fill_plan(plan, device).pattern)")
+        which = "pattern" if name == "bsb_matvec" else "pattern_t"
+        raise ValueError(f"{name}: the kernel needs the plan's {which}"
+                         f" (solvers.bsb.fill_plan(plan, device).{which})")
     if plan.b != BSB_BLOCK:
-        raise ValueError(f"bsb_matvec: kernel built for b={BSB_BLOCK}, plan"
+        raise ValueError(f"{name}: kernel built for b={BSB_BLOCK}, plan"
                          f" has b={plan.b}")
     ptr, off = pattern
-    for name, t, n in (("ptr", ptr, plan.ndof + 1), ("off", off, None)):
+    for field, t, n in (("ptr", ptr, plan.ndof + 1), ("off", off, None)):
         if (t.dtype != torch.int32 or t.device != x.device or t.dim() != 1
                 or not t.is_contiguous() or (n is not None and t.numel() != n)):
-            raise ValueError(f"bsb_matvec: pattern.{name} must be a contiguous"
+            raise ValueError(f"{name}: pattern.{field} must be a contiguous"
                              f" int32 vector on {x.device}"
                              + ("" if n is None else f" of {n} entries"))
-    if x.data_ptr() % 16:
-        raise ValueError("bsb_matvec: x must be 16-byte aligned")
+    if name == "bsb_matvec" and x.data_ptr() % 16:  # K4's bulk copy of x
+        raise ValueError(f"{name}: x must be 16-byte aligned")
     y = torch.empty(plan.ndof, dtype=x.dtype, device=x.device)
-    _launch("vf_bsb_matvec", x.dtype, blocks.data_ptr(), x.data_ptr(),
+    _launch(f"vf_{name}", x.dtype, blocks.data_ptr(), x.data_ptr(),
             ptr.data_ptr(), off.data_ptr(), y.data_ptr(), plan.ndof, plan.nb,
             plan.h, _stream(x))
-    LAUNCHES["bsb_matvec"] += 1
+    LAUNCHES[name] += 1
     return y
 
 
@@ -398,9 +463,10 @@ def newmark_update_t(vb1, ab1, u1, u0, v0, a0, coefs: torch.Tensor):
 
 
 class _NewmarkStep(torch.autograd.Function):
-    """K5 (:func:`newmark_update_coefs`) with K5T as its backward.  The
-    predictor ``u_next`` is marked non-differentiable: it only seeds the
-    next step's Newton solve, whose converged state does not depend on it."""
+    """K5 (:func:`newmark_update_coefs`) with K5T as its backward and two
+    K5 launches as its tangent.  The predictor ``u_next`` is marked
+    non-differentiable: it only seeds the next step's Newton solve, whose
+    converged state does not depend on it."""
 
     @staticmethod
     def forward(u1, u0, v0, a0, coefs):
@@ -409,6 +475,7 @@ class _NewmarkStep(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.save_for_backward(*inputs)
+        ctx.save_for_forward(*inputs)
         ctx.mark_non_differentiable(output[2])
 
     @staticmethod
@@ -418,10 +485,34 @@ class _NewmarkStep(torch.autograd.Function):
         ab1 = torch.zeros_like(u1) if ab1 is None else ab1.contiguous()
         return newmark_update_t(vb1, ab1, u1, u0, v0, a0, coefs)
 
+    @staticmethod
+    def jvp(ctx, du1, du0, dv0, da0, dcoefs):
+        # v1 is linear in the vectors for a fixed row and in the row for
+        # fixed vectors, so its tangent is K5 on the tangents with the row
+        # plus K5 on the vectors with the row's tangent.  a1 = c4 ((u1 -
+        # u0) - dt v0) - c5 a0 has the product c4 dt, which K5 on the
+        # row's tangent takes as dc4 ddt: the rest of d(c4 dt) v0, (dc4 (dt
+        # - ddt) + c4 ddt) v0, is subtracted.  The predictor's tangent is
+        # not formed (u_next is not differentiated).  K5 runs through
+        # apply: under torch.func the rule sees the transform's tensors,
+        # which the Function hands to the kernel unwrapped.
+        u1, u0, v0, a0, coefs = ctx.saved_tensors
+        vecs = [torch.zeros_like(u1) if t is None else t.contiguous()
+                for t in (du1, du0, dv0, da0)]
+        v1_dot, a1_dot, _ = _NewmarkStep.apply(*vecs, coefs)
+        if dcoefs is None:
+            return v1_dot, a1_dot, None
+        dc = dcoefs.contiguous()
+        v1_row, a1_row, _ = _NewmarkStep.apply(u1, u0, v0, a0, dc)
+        c4, dt, dc4, ddt = coefs[3], coefs[5], dc[3], dc[5]
+        a1_row = a1_row - (dc4 * (dt - ddt) + c4 * ddt) * v0
+        return v1_dot + v1_row, a1_dot + a1_row, None
+
 
 def newmark_step(u1, u0, v0, a0, coefs: torch.Tensor):
     """:func:`newmark_update_coefs` as a differentiable function of the four
-    vectors and the coefficient row (K5 forward, K5T backward)."""
+    vectors and the coefficient row (K5 forward, K5T backward, two K5
+    launches forward-mode)."""
     return _NewmarkStep.apply(u1, u0, v0, a0, coefs)
 
 

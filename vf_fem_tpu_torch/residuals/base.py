@@ -16,6 +16,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.func import jacfwd, vmap
 
 from .. import config
 from ..fem import assembly, banded
@@ -38,6 +39,7 @@ class FemResidual:
     ):
         self._signed_forms = list(signed_forms)
         self._mesh = mesh
+        self._traction_subdomains = tuple(traction_subdomains)
         self.device = config.model_device(device)
         self.dtype = dtype
         if dirichlet_bc_specs is None:
@@ -273,6 +275,81 @@ class FemResidual:
             )
             res = res + self._facet_scatter(res_f)
         return res
+
+
+    # -- generic dense Jacobians ---------------------------------------------
+    def _wrt_cols(self, wrt_key: str):
+        """The column count of ``d res / d fields[wrt_key]`` and each cell's
+        and each facet cell's column indices (the JAX package's
+        ``_wrt_cols``)."""
+        space = self.coefficient_spec[wrt_key].space
+        mesh, topo = self._mesh, self.topology
+        dim, nc = mesh.dim, mesh.num_cells
+        cells = mesh.cells
+        fcells = topo.facet_cells.cpu().numpy()
+        if space == "cg1_vector":
+            ncols = mesh.num_vertices * dim
+            cdofs = assembly.cell_dof_array(cells, dim)
+            fdofs = assembly.cell_dof_array(cells[fcells], dim)
+        elif space == "cg1_scalar":
+            ncols, cdofs, fdofs = mesh.num_vertices, cells, cells[fcells]
+        elif space == "dg0_scalar":
+            ncols, cdofs, fdofs = nc, np.arange(nc)[:, None], fcells[:, None]
+        elif space == "const_scalar":
+            ncols = 1
+            cdofs = np.zeros((nc, 1), dtype=np.int64)
+            fdofs = np.zeros((len(fcells), 1), dtype=np.int64)
+        else:  # const_vector
+            ncols = dim
+            cdofs = np.tile(np.arange(dim), (nc, 1))
+            fdofs = np.tile(np.arange(dim), (len(fcells), 1))
+        dev = self.device
+        return (ncols, torch.as_tensor(cdofs, dtype=torch.int64, device=dev),
+                torch.as_tensor(fdofs, dtype=torch.int64, device=dev))
+
+    def assemble_jac_dense(self, fields: dict, wrt_key: str) -> torch.Tensor:
+        """Dense Jacobian ``d res / d fields[wrt_key]`` of the assembled 'u'
+        residual, (nvert*dim, ncols), by element-level ``jacfwd`` and a
+        scatter-add (the JAX package's ``assemble_jac_dense``, without its
+        linearized ``tangent_fields`` variant).  No Dirichlet handling:
+        callers mask rows as they need.  With a shape parameter
+        ``prop/umesh`` each element's coordinates are the reference plus
+        ``umesh``, so the Jacobian with respect to it includes the
+        geometry's."""
+        mesh, topo = self._mesh, self.topology
+        dim = mesh.dim
+        ndof = mesh.num_vertices * dim
+        has_shape = "prop/umesh" in self.coefficient_spec
+        ncols, cdofs, fdofs = self._wrt_cols(wrt_key)
+        out = torch.zeros((ndof, ncols), dtype=self.dtype, device=self.device)
+
+        def add(elem, Xref_e, rows, cols, local, axes, *extra):
+            def res_of(w, Xref, loc, *ex):
+                loc = {**loc, wrt_key: w}
+                X = Xref + loc["prop/umesh"] if has_shape else Xref
+                return elem(X, *ex, loc)
+
+            in_dims = (axes[wrt_key], 0, axes) + (0,) * len(extra)
+            J = vmap(jacfwd(res_of), in_dims=in_dims)(local[wrt_key], Xref_e,
+                                                      local, *extra)
+            ne, nld = rows.shape
+            J = J.reshape(ne, nld, -1)
+            idx = (rows[:, :, None].expand(J.shape), cols[:, None, :].expand(J.shape))
+            out.index_put_(idx, J, accumulate=True)
+
+        cells = topo.cells
+        local_c, axes_c = self.gather_cell_locals(fields)
+        row_c = torch.as_tensor(assembly.cell_dof_array(mesh.cells, dim), device=self.device)
+        add(self.cell_elem_fn(), self.X_ref[cells], row_c, cdofs, local_c, axes_c)
+        if self.has_facet_pass():
+            fcells = topo.facet_cells
+            local_f, axes_f = self.gather_facet_locals(fields)
+            row_f = torch.as_tensor(
+                assembly.cell_dof_array(mesh.cells[fcells.cpu().numpy()], dim),
+                device=self.device)
+            add(self.facet_elem_fn(), self.X_ref[cells[fcells]], row_f, fdofs,
+                local_f, axes_f, topo.facet_sel, topo.facet_opp_sel)
+        return out
 
 
 class FunctionalResidual:

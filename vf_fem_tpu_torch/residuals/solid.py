@@ -49,6 +49,21 @@ class KelvinVoigt(PredefinedSolidResidual):
         ]
 
 
+class KelvinVoigtWShape(PredefinedSolidResidual):
+    """KelvinVoigt with the mesh shape ``prop/umesh`` as a property (the
+    shape-optimization residual, ``parameters.transform.TractionShape``)."""
+
+    def init_form(self):
+        return [
+            (1.0, F.InertialForm()),
+            (1.0, F.IsotropicElasticForm()),
+            (1.0, F.KelvinVoigtForm()),
+            (-1.0, F.SurfacePressureForm()),
+            (-1.0, F.ManualSurfaceContactTractionForm()),
+            (-1.0, F.ShapeForm()),
+        ]
+
+
 class KelvinVoigtWEpithelium(PredefinedSolidResidual):
     def init_form(self):
         return [

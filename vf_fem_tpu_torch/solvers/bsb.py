@@ -10,7 +10,9 @@ blocks of ``b = 128``; block row ``n`` couples only to block columns
 
     y_n = sum_m  blocks[n, m] @ xpad[(n+m)*b : (n+m+1)*b]
 
-(``ops.bsb_matvec``: kernel K4 on CUDA, the plain version on the CPU).
+(``ops.bsb_matvec``: kernel K4 on CUDA, the plain version on the CPU),
+and its transpose ``y = A^T x`` of the adjoint solves is
+``ops.bsb_matvec_t`` (kernel K4T).
 
 The block array is filled from the per-element Jacobian blocks by one
 scatter-add per refresh, through a :class:`~..fem.assembly.ScatterPlan`
@@ -20,11 +22,14 @@ plan is the JAX package's, with identical arrays.
 The band is almost all zeros (2.1% of it can be written at 23.7k dofs).
 ``bsb_fill`` writes only the plan's targets and the Dirichlet ones, into
 an array that starts from zeros, so ``blocks`` is zero outside the
-:class:`MatvecPattern` of those entries, and K4 reads only them.
+:class:`MatvecPattern` of those entries, and K4 reads only them, by row
+(:func:`matvec_pattern`); K4T reads the same entries by column
+(:func:`matvec_pattern_t`).
 """
 
 from __future__ import annotations
 
+import functools
 import warnings
 from typing import NamedTuple, Sequence
 
@@ -34,7 +39,7 @@ import torch
 from ..fem.assembly import ScatterPlan
 
 __all__ = ["BSBPlan", "MatvecPattern", "plan_bsb", "matvec_pattern",
-           "fill_plan", "bsb_fill"]
+           "matvec_pattern_t", "fill_plan", "bsb_fill"]
 
 
 class BSBPlan(NamedTuple):
@@ -126,44 +131,69 @@ class MatvecPattern(NamedTuple):
     off: np.ndarray  # (nnz,) int32, below nb * b * b
 
 
-def matvec_pattern(plan: BSBPlan) -> MatvecPattern:
-    """K4's pattern of ``plan`` (host arrays)."""
+def _pattern_entries(plan: BSBPlan):
+    """Every entry :func:`bsb_fill` can write, as (offset into the band of
+    its block row, row, column)."""
     b, nb = plan.b, plan.nb
     flat = np.union1d(plan.tgt_idx[plan.src_keep].astype(np.int64),
                       plan.diag_ones.astype(np.int64))
     n, off = np.divmod(flat, nb * b * b)
     m, rest = np.divmod(off, b * b)
     i, q = np.divmod(rest, b)
-    rows = n * b + i
-    cols = (n + m - plan.h) * b + q
-    order = np.lexsort((cols, rows))
+    return off, n * b + i, (n + m - plan.h) * b + q
+
+
+def _csr(plan: BSBPlan, major, minor, off) -> MatvecPattern:
+    order = np.lexsort((minor, major))
     ptr = np.zeros(plan.ndof + 1, dtype=np.int64)
-    ptr[1:] = np.cumsum(np.bincount(rows, minlength=plan.ndof))
+    ptr[1:] = np.cumsum(np.bincount(major, minlength=plan.ndof))
     return MatvecPattern(ptr=ptr.astype(np.int32),
                          off=off[order].astype(np.int32))
 
 
-class DeviceFill(NamedTuple):
-    """What :func:`bsb_fill` needs on the device, and the pattern of what
-    it writes (K4's, as tensors)."""
+def matvec_pattern(plan: BSBPlan) -> MatvecPattern:
+    """K4's pattern of ``plan`` (host arrays)."""
+    off, rows, cols = _pattern_entries(plan)
+    return _csr(plan, rows, cols, off)
 
-    scatter: ScatterPlan  # element entries -> flat block array
-    keep: torch.Tensor  # (n_src,) bool
-    diag_ones: torch.Tensor  # (n_bc,) int64
-    pattern: MatvecPattern  # of torch tensors
+
+def matvec_pattern_t(plan: BSBPlan) -> MatvecPattern:
+    """K4T's pattern of ``plan`` (host arrays): the same entries as
+    :func:`matvec_pattern`, CSR by column with rows ascending in each
+    column.  Each offset is into the band of its row's block row, as in
+    K4's; with the column ``c`` it gives the row: block column ``m = off //
+    b^2``, block row ``n = c // b - m + h``, row ``n b + (off // b) % b``."""
+    off, rows, cols = _pattern_entries(plan)
+    return _csr(plan, cols, rows, off)
+
+
+def _on_device(pattern: MatvecPattern, device) -> MatvecPattern:
+    return MatvecPattern(*(torch.as_tensor(a, device=device) for a in pattern))
+
+
+class DeviceFill:
+    """What :func:`bsb_fill` needs on the device, and the patterns of what
+    it writes as tensors: K4's by row, built with the fill, and K4T's by
+    column, built on first use (only the transposed solve of a 'bsb'
+    adjoint reads it) and kept."""
+
+    def __init__(self, plan: BSBPlan, device):
+        size = plan.nblk * plan.nb * plan.b * plan.b
+        self._plan, self._device = plan, device
+        # element entries -> flat block array
+        self.scatter = ScatterPlan(plan.tgt_idx[:, None], size, device)
+        self.keep = torch.as_tensor(plan.src_keep, device=device)
+        self.diag_ones = torch.as_tensor(plan.diag_ones.astype(np.int64),
+                                         device=device)
+        self.pattern = _on_device(matvec_pattern(plan), device)
+
+    @functools.cached_property
+    def pattern_t(self) -> MatvecPattern:
+        return _on_device(matvec_pattern_t(self._plan), self._device)
 
 
 def fill_plan(plan: BSBPlan, device) -> DeviceFill:
-    size = plan.nblk * plan.nb * plan.b * plan.b
-    pattern = matvec_pattern(plan)
-    return DeviceFill(
-        scatter=ScatterPlan(plan.tgt_idx[:, None], size, device),
-        keep=torch.as_tensor(plan.src_keep, device=device),
-        diag_ones=torch.as_tensor(plan.diag_ones.astype(np.int64),
-                                  device=device),
-        pattern=MatvecPattern(*(torch.as_tensor(a, device=device)
-                                for a in pattern)),
-    )
+    return DeviceFill(plan, device)
 
 
 def bsb_fill(plan: BSBPlan, fill: DeviceFill,

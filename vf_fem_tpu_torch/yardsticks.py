@@ -10,9 +10,10 @@ call them.
   of ones built from the plan's own ``ptr``/``idx`` (the kernel's sums, in
   the kernel's order).
 - K4 (block-banded matvec) is one CSR SpMV: ``torch.sparse.mm`` on the
-  entries of the plan's matvec pattern, the ones K4 reads.
-- K3, K5 and K6 have none, nor have K5's backward K5T and the
-  transposed sweep K6T.
+  entries of the plan's matvec pattern, the ones K4 reads; K4T (its
+  transpose) the same on the CSR of ``A^T`` from the transposed pattern.
+- K3, K5 and K6 have none, nor have K3's transpose K3T, K5's backward
+  K5T and the transposed sweep K6T.
 
 ``LIBRARY_CALL`` names, for each kernel, its library call or why there is
 none.
@@ -31,6 +32,7 @@ __all__ = [
     "scatter_csr",
     "csr_mm",
     "bsb_csr",
+    "bsb_csr_t",
 ]
 
 LIBRARY_CALL = {
@@ -45,6 +47,9 @@ LIBRARY_CALL = {
     "newmark_t": "none: four vector cotangents and a reduction from one pass",
     "btd_sweep_t": "none: a serial recurrence over transposed, shifted row"
                    " blocks that no library call computes on these factors",
+    "ebe_matvec_t": "none: it gathers x[dofs] before the batched transposed"
+                    " product, two calls at least",
+    "bsb_matvec_t": "torch.sparse.mm (CSR of the transposed pattern)",
 }
 
 
@@ -111,3 +116,18 @@ def bsb_csr(plan, blocks: torch.Tensor, pattern) -> torch.Tensor:
     vals = blocks.reshape(plan.nblk, -1)[n, off]
     cols = (n + off // bb - h) * b + off % b
     return torch.sparse_csr_tensor(ptr, cols, vals, (plan.ndof, plan.ndof))
+
+
+def bsb_csr_t(plan, blocks: torch.Tensor, pattern_t) -> torch.Tensor:
+    """``A^T`` of the block-banded matrix as a CSR matrix (ndof, ndof) of
+    the entries of its transposed pattern (``solvers.bsb.matvec_pattern_t``
+    on ``blocks``' device): row ``c`` of ``A^T`` holds column ``c`` of
+    ``A``, rows of ``A`` ascending, the entries K4T reads."""
+    b, h, bb = plan.b, plan.h, plan.b * plan.b
+    ptr, off = pattern_t.ptr.long(), pattern_t.off.long()
+    cols_a = torch.repeat_interleave(
+        torch.arange(plan.ndof, device=blocks.device), ptr[1:] - ptr[:-1])
+    n = cols_a // b - off // bb + h
+    vals = blocks.reshape(plan.nblk, -1)[n, off]
+    rows_a = n * b + (off // b) % b
+    return torch.sparse_csr_tensor(ptr, rows_a, vals, (plan.ndof, plan.ndof))
