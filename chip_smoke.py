@@ -94,7 +94,25 @@ runs, in order:
    its certificate ``|K umesh - T t| / |T t|`` with K applied by K4, jvp
    linearity, vjp duality) and the composed shape gradient
    (KelvinVoigtWShape + BernoulliSmoothMinSep, ``integrate_grad`` with
-   respect to umesh, then ``apply_vjp``) against a central difference.
+   respect to umesh, then ``apply_vjp``) against a central difference;
+11. implicit: the implicit (Picard) coupling and the static solvers. The
+   implicit leg of ``bench.py`` (M5-3layers, KelvinVoigtWEpithelium +
+   BernoulliSmoothMinSep, dense factors refreshed every 25 steps,
+   stagnation ratio 0.5, Aitken; 100 steps at dt = 1e-4) in f64 against
+   ``tests/data/golden_m5_implicit.npz`` (u every 10 steps and the final
+   q within 1e-7 of max|x|; Picard counts beside the golden's) and in f32
+   (within 10x the JAX package's f32-vs-f64 difference at the end and at
+   each stored step before the reference run stops converging, step 15),
+   with steps/s by CUDA events after a warm-up, Picard and solid Newton
+   iterations a step, K1/K2/K5 launches a step and a ``torch.profiler``
+   pass over the first 5 steps; at 23.7k the same model on the production
+   btd settings plus Aitken (12 steps) against its exact-Jacobian implicit
+   run (5e-7) with K6's launches; the 23.7k static configuration of the
+   Hopf leg (``static.static_coupled_configuration_picard``, KelvinVoigt,
+   psub 500 Ba, static btd Newton) against the golden's (1e-6), timed,
+   and one backward of ``solve_static_u1`` there (K6T); M5 implicit
+   value+grad over 14 steps (the coupled IFT rule's dense Jacobian) against
+   a central difference in psub (rtol 1e-4), with its peak device memory.
 
 Phase 3 also holds the block-Thomas sweep kernel (K6) and its transpose
 (K6T, both sweeps of ``btd_solve_t``: forward on W, backward on V, each
@@ -306,6 +324,39 @@ TRACE_NAMES = {"gather": "banded_gather_kernel", "scatter": "banded_scatter_kern
                "newmark_t": "newmark_t_kernel", "btd_sweep_t": "btd_sweep_t_kernel",
                "ebe_matvec_t": "ebe_matvec_t_kernel", "bsb_matvec_t": "bsb_matvec_t_kernel"}
 EARLIER_PER_STEP = {"M5 headline": 811.0, "23.7k btd": 887.5, "23.7k bsb": 8651.0}
+# phase 11, implicit coupling: the implicit leg of bench.py (its settings,
+# :493-497; its model, build_implicit :787-822) at M5 against
+# tests/data/golden_m5_implicit.npz (u every 10 steps and the final q,
+# max|du|/max|u|); the 23.7k run on the production btd settings
+# (:411-434) with Aitken, gated against the exact-Jacobian implicit run
+# (no bf16 storage, refresh 1) by the reference's trajectory gate; the Hopf
+# leg's static configuration (:533-575: KelvinVoigt, psub 500 Ba, static
+# Newton on block-Thomas solves) against the golden's; and value+grad of
+# the M5 implicit run through the coupled IFT rule against a central
+# difference in psub
+IMPLICIT = {"jacobian_refresh_steps": 25, "stagnation_ratio": 0.5, "aitken": True}
+IMPLICIT_BTD = {**BTD_PROD, "aitken": True}
+IMPLICIT_BTD_EXACT = {**BTD_EXACT, "aitken": True}
+IMPLICIT_GOLDEN_GATE = 1e-7
+# steps of the 23.7k implicit runs: on this model the Picard loop stops
+# converging at step 13 and the state goes non-finite at step 15, in the
+# JAX package's run as in the port's (tests/probe_implicit_breakdown.py)
+IMPLICIT_LARGE_STEPS = 12
+STATIC_OPTIONS = {"linear_solver": "btd"}
+STATIC_PSUB = 500.0
+STATIC_GOLDEN_GATE = 1e-6
+# value+grad steps: the bench leg's model stops converging at step 15 (its
+# glottal area turns negative at step 16: the contact plane lies above the
+# midline), where the IFT rule, which assumes a root, is no derivative of
+# the run; at 20 steps the gradient is 9.4% off its central difference in
+# the JAX package and in the port alike, at 14 1.4e-6
+# (tests/probe_implicit_breakdown.py)
+IMPLICIT_GRAD_STEPS = 14
+# steps of phase 11's profiled M5 run: the profiler took 94.5 s to
+# summarise 25 eager implicit steps (181,224 device kernels) and 62.3 s for
+# 10 (108,676; NVIDIA H100 80GB HBM3, 700.00 W), so the phase profiles the
+# first 5
+IMPLICIT_PROFILE_STEPS = 5
 # csrc/btd_exchange_probe.cu's entry points: (sink, n, bt, barrier, stream)
 PROBE_SIGNATURES = {f"vf_btd_exchange_probe_{t}": [ctypes.c_void_p] + [ctypes.c_int] * 3
                     + [ctypes.c_void_p] for t in ("bf16", "f64")}
@@ -545,27 +596,30 @@ def phase_kernels(torch, dev):
 
 def set_bench_props(model):
     """Properties and controls of bench.py:111-129 (and
-    tests/test_golden.py:103-120)."""
+    tests/test_golden.py:103-120; with BernoulliSmoothMinSep its widths,
+    bench.py:808-821), each where the model has it."""
     ymax = model.solid.residual.mesh().coords[:, 1].max()
     p = model.prop
     for k, v in dict(
         emod=5e4, rho=1.0, eta=3.0, nu=0.45, emod_membrane=0.0,
         nu_membrane=0.3, th_membrane=0.0, ycontact=ymax + 0.05,
         kcontact=1e8, rho_air=1.1225e-3, r_sep=1.0, area_lb=1e-4,
-        ymid=ymax + 0.01,
+        zeta_min=1e-3, zeta_sep=1e-3, ymid=ymax + 0.01,
     ).items():
-        p[k][:] = v
+        if k in p:
+            p[k][:] = v
     model.control["psub"][:] = 8000.0
     model.control["psup"][:] = 0.0
 
 
-def build(torch, dev, mesh_name, dtype):
+def build(torch, dev, mesh_name, dtype, solid="KelvinVoigtWEpithelium",
+          fluid="BernoulliAreaRatioSep", coupling="explicit"):
     from vf_fem_tpu_torch.load import load_fsi_model
     from vf_fem_tpu_torch.residuals import fluid as flr, solid as slr
 
     model = load_fsi_model(
-        os.path.join(REPO, "meshes", mesh_name), slr.KelvinVoigtWEpithelium,
-        flr.BernoulliAreaRatioSep, device=dev, dtype=dtype,
+        os.path.join(REPO, "meshes", mesh_name), getattr(slr, solid),
+        getattr(flr, fluid), coupling=coupling, device=dev, dtype=dtype,
     )
     set_bench_props(model)
     state0 = {k: np.zeros_like(v) for k, v in model.state0.items()}
@@ -2042,6 +2096,209 @@ def phase_tangents(torch, card, dev, large):
     return out
 
 
+def implicit_counts(model):
+    """The implicit model's Picard and solid Newton iterations since its
+    last reset (``ImplicitFSIModel.picard_counts``), as host numbers."""
+    c = dict(model.picard_counts)
+    model.picard_counts.update(steps=0, iterations=0, newton_iterations=0)
+    return {k: int(v) for k, v in c.items()}
+
+
+def phase_implicit(torch, card, dev):
+    """Phase 11, implicit coupling and the static solvers: the M5 implicit
+    bench leg in f64 (against golden_m5_implicit.npz) and f32, timed and
+    profiled; the 23.7k implicit run on production btd factors against its
+    exact-Jacobian run; the 23.7k static configuration (Picard over static
+    btd Newton) against the golden's, and one backward of the static solve;
+    M5 implicit value+grad against a central difference."""
+    from vf_fem_tpu_torch import adjoint, forward, static
+
+    gold = np.load(os.path.join(REPO, "tests", "data", "golden_m5_implicit.npz"))
+    times = gold["times"]
+    n_steps = len(times) - 1
+    every = int(gold["steps"][0])
+    used = ("gather", "scatter", "newmark")
+    out = {}
+
+    def drive(built, params, times):
+        model, state0, cs, prop = built
+        implicit_counts(model)
+        res = run_timed(torch, model, lambda: forward.integrate_pure(
+            model, state0, cs, prop, times, params))
+        return res + (implicit_counts(model),)
+
+    # -- M5 implicit, f64 and f32 ---------------------------------------------------
+    m5 = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        built = build(torch, dev, "M5_3layers.msh", dtype, fluid="BernoulliSmoothMinSep",
+                      coupling="implicit")
+        m5[tag] = built
+        drive(built, IMPLICIT, times)  # warm-up
+        (fin, traj, infos), ms, launches, _, counts = drive(built, IMPLICIT, times)
+        require_launched(launches, used, f"implicit M5 {tag}")
+        for k, v in traj.items():
+            require(bool(torch.isfinite(v).all()), f"implicit M5 {tag}: non-finite {k}")
+        require(tuple(traj["u"].shape) == (n_steps, built[0].solid.ndof), "implicit: bad shape")
+        picard = infos.num_iter.cpu().numpy()
+        per_step = {k: launches[k] / n_steps for k in used}
+        log(f"[implicit] M5 {tag} ({built[0].solid.ndof} dofs), {n_steps} steps: "
+            f"{n_steps / (ms / 1e3):.2f} steps/s ({ms:.3f} ms, CUDA events); Picard"
+            f" {picard.mean():.2f} iterations a step, solid Newton"
+            f" {counts['newton_iterations'] / n_steps:.2f} a step"
+            f" ({counts['newton_iterations'] / max(counts['iterations'], 1):.2f} a Picard"
+            f" iteration); launches a step {per_step}, on {card}")
+        out[tag] = dict(u=traj["u"].double().cpu().numpy()[every - 1 :: every], q=traj["q"],
+                        launches=launches, steps_s=n_steps / (ms / 1e3), picard=picard)
+        if dtype != torch.float64:
+            continue
+        u = out[tag]["u"]
+        du = [float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(u, gold["u"])]
+        dq = rel_max(traj["q"][-1].cpu().numpy(), gold["q_final"])
+        same = int((picard == gold["num_iter"]).sum())
+        log(f"[implicit] M5 f64 vs golden (JAX CPU): max|du|/max|u| every {every} steps"
+            f" {[float(f'{x:.3e}') for x in du]}, final q {dq:.3e} (gate"
+            f" {IMPLICIT_GOLDEN_GATE:.0e}); Picard counts equal the golden's in {same} of"
+            f" {n_steps} steps (port {int(picard.sum())}, golden {int(gold['num_iter'].sum())}"
+            f" in all); the golden's Picard loop stops above 1e-8 relative residual"
+            f" first at step {int(np.argmax(gold['rel_err'] > 1e-8)) + 1}")
+        require(max(du) <= IMPLICIT_GOLDEN_GATE and dq <= IMPLICIT_GOLDEN_GATE,
+                "implicit M5 f64: off the golden")
+        model, state0, cs, prop = built
+        prof = profile_run(torch, lambda: forward.integrate_pure(
+            model, state0, cs, prop, times[:IMPLICIT_PROFILE_STEPS + 1], IMPLICIT),
+            IMPLICIT_PROFILE_STEPS, "newmark_kernel")
+        require_traced(prof, used, "implicit")
+        log(f"[implicit] profile M5 f64, {IMPLICIT_PROFILE_STEPS} steps: {prof['per_step']:.1f} device"
+            f" kernels per step, device busy {prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f}"
+            f" ms profiled wall, idle share {prof['idle']:.3f}, on {card}")
+        out["profile"] = {k: v for k, v in prof.items() if k != "table"}
+    # f32 against f64: the final u within 10x the JAX package's own
+    # difference, and so is every stored step before the golden's Picard
+    # loop first stops above 1e-8 relative residual (after it the runs
+    # leave the solution, and the JAX package's f32 and f64 runs differ by
+    # ~1x max|u| at the end)
+    steps32 = [float(np.abs(a - b).max() / np.abs(b).max())
+               for a, b in zip(out["float32"]["u"], out["float64"]["u"])]
+    jax32 = gold["f32_vs_f64_steps"]
+    converged = int(np.argmax(gold["rel_err"] > 1e-8))  # steps before the first
+    gated = [i for i, n in enumerate(gold["steps"]) if n <= converged] + [len(steps32) - 1]
+    log(f"[implicit] M5 f32 vs f64 every {every} steps {[float(f'{x:.3e}') for x in steps32]}"
+        f" (JAX CPU {[float(f'{x:.3e}') for x in jax32]}); gated at 10x JAX: steps"
+        f" {[int(gold['steps'][i]) for i in gated]}")
+    require(all(steps32[i] <= 10 * jax32[i] for i in gated),
+            "implicit M5: f32 run outside its gates")
+
+    # -- 23.7k implicit on production btd factors --------------------------------------
+    big = build(torch, dev, LARGE_MESH, torch.float64, fluid="BernoulliSmoothMinSep",
+                coupling="implicit")
+    t_large = DT * np.arange(IMPLICIT_LARGE_STEPS + 1)
+    drive(big, IMPLICIT_BTD, t_large)  # warm-up
+    (fin, traj, infos), ms, launches, _, counts = drive(big, IMPLICIT_BTD, t_large)
+    used_btd = used + ("btd_sweep",)
+    require_launched(launches, used_btd, "implicit 23.7k btd")
+    for k, v in traj.items():
+        require(bool(torch.isfinite(v).all()), f"implicit 23.7k: non-finite {k}")
+    (fin_x, traj_x, infos_x), ms_x, launches_x, _, counts_x = drive(big, IMPLICIT_BTD_EXACT,
+                                                                    t_large)
+    err = rel_max(fin["u"].cpu().numpy(), fin_x["u"].cpu().numpy())
+    err_all = rel_max(traj["u"].cpu().numpy(), traj_x["u"].cpu().numpy())
+    per_step = {k: launches[k] / IMPLICIT_LARGE_STEPS for k in used_btd}
+    log(f"[implicit] 23.7k btd prod + Aitken f64 ({big[0].solid.ndof} dofs),"
+        f" {IMPLICIT_LARGE_STEPS} steps: {IMPLICIT_LARGE_STEPS / (ms / 1e3):.2f} steps/s"
+        f" ({ms:.3f} ms, CUDA events); Picard {infos.num_iter.tolist()} (exact run"
+        f" {infos_x.num_iter.tolist()}), solid Newton {counts['newton_iterations']} in"
+        f" {counts['iterations']} Picard iterations; launches a step {per_step}; trajectory"
+        f" error vs the exact-Jacobian run {err:.3e} final, {err_all:.3e} over all steps"
+        f" (gate {TRAJ_ERR_GATE:.0e}); exact run {IMPLICIT_LARGE_STEPS / (ms_x / 1e3):.2f}"
+        f" steps/s, on {card}")
+    require(err <= TRAJ_ERR_GATE, "implicit 23.7k: trajectory error over its gate")
+    out["23.7k"] = dict(launches=launches, steps_s=IMPLICIT_LARGE_STEPS / (ms / 1e3),
+                        err=err)
+    del big, traj, traj_x
+
+    # -- 23.7k static ----------------------------------------------------------------
+    sm = build(torch, dev, LARGE_MESH, torch.float64, solid="KelvinVoigt",
+               fluid="BernoulliSmoothMinSep")[0]
+    control = {"psub": np.array([STATIC_PSUB]), "psup": np.array([0.0])}
+    sm.solid.bsb_plan()
+    reset_launches()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    state, info = static.static_coupled_configuration_picard(sm, control, sm.prop,
+                                                             STATIC_OPTIONS)
+    end.record()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    ms = start.elapsed_time(end)
+    require_launched(launches, ("gather", "scatter", "btd_sweep"), "static 23.7k")
+    du = rel_max(state["u"], gold["static_u"])
+    dp = rel_max(state["p"], gold["static_p"])
+    log(f"[implicit] static 23.7k f64 (Picard over static btd Newton): {ms / 1e3:.3f} s,"
+        f" {info['num_iter']} Picard iterations (golden {int(gold['static_num_iter'])}),"
+        f" |du| + |dp| {info['abs_err']:.3e}; K6 {launches['btd_sweep']} launches, launches"
+        f" {launches}; max|du|/max|u| vs golden {du:.3e} (gate {STATIC_GOLDEN_GATE:.0e}),"
+        f" p {dp:.3e}, on {card}")
+    require(np.isfinite(state["u"]).all() and du <= STATIC_GOLDEN_GATE,
+            "static 23.7k: off the golden")
+    # one backward of the static solve at the configuration: the transposed
+    # static solve (K6T), then the residual's vjp (K1/K2 as each other's)
+    solid = sm.solid
+    prop_t = {k: torch.as_tensor(sm.prop[k], dtype=torch.float64, device=dev)
+              .requires_grad_(k == "emod") for k in solid.prop}
+    p1 = sm._pressure_to_solid(torch.as_tensor(state["p"], device=dev)).requires_grad_()
+    u1, _ = solid.solve_static_u1(torch.as_tensor(state["u"], device=dev), {"p1": p1},
+                                  prop_t, STATIC_OPTIONS)
+    u_bar = torch.as_tensor(np.random.default_rng(11).standard_normal(solid.ndof), device=dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    start.record()
+    g_p1, g_emod = torch.autograd.grad(u1, (p1, prop_t["emod"]), u_bar)
+    end.record()
+    torch.cuda.synchronize()
+    launches_b = read_launches()
+    require_launched(launches_b, ("btd_sweep_t", "gather", "scatter"), "static backward")
+    require(bool(torch.isfinite(g_p1).all() and torch.isfinite(g_emod).all()),
+            "static backward: non-finite gradient")
+    log(f"[implicit] static 23.7k solve_static_u1 backward: {start.elapsed_time(end):.3f} ms"
+        f" (CUDA events; f64 factors at u1, one transposed btd solve); launches {launches_b},"
+        f" on {card}")
+    out["static"] = dict(launches=launches, backward_launches=launches_b, ms=ms,
+                         iterations=info["num_iter"])
+    del sm, solid, u1
+
+    # -- M5 implicit value+grad (no warm-up: this model's runs above warmed it) --------
+    from vf_fem_tpu_torch.models.transient import COUPLED_JAC_CHUNK
+
+    built = m5["float64"]
+    model = built[0]
+    t_grad = DT * np.arange(IMPLICIT_GRAD_STEPS + 1)
+    value_f, traj_f, ms_f = forward_loss(torch, built, t_grad, IMPLICIT)
+    g = grad_run(torch, built, t_grad, IMPLICIT)
+    require(g["value"] == value_f and all(torch.equal(g["traj"][k], traj_f[k]) for k in traj_f),
+            "implicit grad: the value+grad run's trajectory is not the forward's bit for bit")
+    require_launched(g["launches"], used, "implicit grad")
+    vals = []
+    for h in (1.0, -1.0):
+        cp = {k: v[None] for k, v in model.control.items()}
+        cp["psub"] = cp["psub"] + h
+        vals.append(forward_loss(torch, (model, built[1], cp, built[3]), t_grad, IMPLICIT)[0])
+    adj, fd = float(g["grads"]["controls"]["psub"].sum()), (vals[0] - vals[1]) / 2.0
+    rel = abs(adj - fd) / abs(fd)
+    n_state = sum(np.size(v) for v in model.state0.values())
+    log(f"[implicit] M5 value+grad f64, {IMPLICIT_GRAD_STEPS} steps: forward"
+        f" {IMPLICIT_GRAD_STEPS / (ms_f / 1e3):.2f} steps/s, value+grad"
+        f" {IMPLICIT_GRAD_STEPS / (g['ms'] / 1e3):.2f} steps/s (CUDA events); dense coupled"
+        f" Jacobian {n_state} x {n_state} by jacfwd in chunks of"
+        f" {COUPLED_JAC_CHUNK}: peak device memory {g['peak'] / 1e6:.1f} MB over the model's;"
+        f" dJ/dpsub adjoint {adj:.9e}, central difference {fd:.9e}, rel diff {rel:.3e}"
+        f" (rtol {FD_RTOL:.0e}); launches {g['launches']}, on {card}")
+    require(fd != 0 and rel <= FD_RTOL, "implicit grad: psub off its finite difference")
+    out["grad"] = dict(launches=g["launches"], peak=g["peak"], rel=rel)
+    return out
+
+
 def main():
     import time
 
@@ -2075,6 +2332,7 @@ def main():
     timed("integrate", phase_integrate, torch, card, dev, large, btd_res)
     grad = timed("grad", phase_grad, torch, card, dev, large)
     tang = timed("tangents", phase_tangents, torch, card, dev, large)
+    imp = timed("implicit", phase_implicit, torch, card, dev)
 
     # per kernel: the timing at the 23.7k shapes of the btd main path (f64)
     timing = {
@@ -2097,7 +2355,12 @@ def main():
             ("M5 value+grad", grad["M5"]["launches"], N_STEPS),
             ("23.7k value+grad", grad["23.7k"]["launches"], N_STEPS),
             ("23.7k cg value+grad", tang["cg"]["launches"], TANGENT_STEPS),
-            ("23.7k bsb value+grad", tang["bsb"]["launches"], TANGENT_STEPS)]
+            ("23.7k bsb value+grad", tang["bsb"]["launches"], TANGENT_STEPS),
+            ("M5 implicit", imp["float64"]["launches"], N_STEPS),
+            ("23.7k implicit btd", imp["23.7k"]["launches"], IMPLICIT_LARGE_STEPS),
+            ("23.7k static (a solve)", imp["static"]["launches"], 1),
+            ("23.7k static backward", imp["static"]["backward_launches"], 1),
+            ("M5 implicit value+grad", imp["grad"]["launches"], IMPLICIT_GRAD_STEPS)]
     path = {  # the main-path run whose count is this kernel's ``launches``
         "gather": runs[0][1], "scatter": runs[0][1], "newmark": runs[0][1],
         "btd_sweep": runs[1][1], "ebe_matvec": runs[3][1], "bsb_matvec": runs[2][1],

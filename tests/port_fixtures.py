@@ -47,15 +47,20 @@ def set_props(prop, control, ymax, props=M5_PROPS, area_lb=None):
     for k, v in props.items():
         if k in prop:
             prop[k][:] = v
-    if area_lb is not None:
+    if area_lb is not None and "area_lb" in prop:
         prop["area_lb"][:] = area_lb
+    # the smoothing widths of BernoulliSmoothMinSep (tests/fixture_models.py:42-45)
+    for k in ("zeta_min", "zeta_sep"):
+        if k in prop:
+            prop[k][:] = 1e-3
     prop["ycontact"][:] = ymax + 0.05
     prop["ymid"][:] = ymax + 0.01
     control["psub"][:] = 8000.0
     control["psup"][:] = 0.0
 
 
-def jax_vf_model(solid="KelvinVoigt", nx=12, ny=6, reorder=None):
+def jax_vf_model(solid="KelvinVoigt", nx=12, ny=6, reorder=None,
+                 fluid="BernoulliAreaRatioSep", coupling="explicit"):
     """JAX model of tests/fixture_models.make_vf_fsi_model (``reorder='rcm'``
     renumbers the mesh for the block-banded solver)."""
     from vf_fem_tpu.load import load_fsi_model
@@ -64,7 +69,7 @@ def jax_vf_model(solid="KelvinVoigt", nx=12, ny=6, reorder=None):
 
     model = load_fsi_model(
         vocal_fold_mesh(nx, ny), getattr(slr, solid),
-        flr.BernoulliAreaRatioSep, coupling="explicit", reorder=reorder,
+        getattr(flr, fluid), coupling=coupling, reorder=reorder,
     )
     mesh = model.solid.residual.mesh()
     set_props(model.prop, model.control, mesh.coords[:, 1].max(),
@@ -75,7 +80,8 @@ def jax_vf_model(solid="KelvinVoigt", nx=12, ny=6, reorder=None):
 
 
 def port_vf_model(solid="KelvinVoigt", nx=12, ny=6, device="cpu",
-                  dtype=torch.float64, reorder=None):
+                  dtype=torch.float64, reorder=None,
+                  fluid="BernoulliAreaRatioSep", coupling="explicit"):
     """The port's counterpart of :func:`jax_vf_model`."""
     from vf_fem_tpu_torch.load import load_fsi_model
     from vf_fem_tpu_torch.mesh import vocal_fold_mesh
@@ -83,7 +89,7 @@ def port_vf_model(solid="KelvinVoigt", nx=12, ny=6, device="cpu",
 
     model = load_fsi_model(
         vocal_fold_mesh(nx, ny), getattr(slr, solid),
-        flr.BernoulliAreaRatioSep, device=device, dtype=dtype,
+        getattr(flr, fluid), coupling=coupling, device=device, dtype=dtype,
         reorder=reorder,
     )
     mesh = model.solid.residual.mesh()
@@ -125,19 +131,45 @@ def port_inputs(model):
     return state0, cs, model.prop
 
 
-def port_smooth_model(jm, device="cpu", dtype=torch.float64):
+def port_smooth_model(jm, device="cpu", dtype=torch.float64, coupling="explicit",
+                      nx=8, ny=4):
     """The port's counterpart of ``tests/fixture_models.make_vf_fsi_model``
-    with ``BernoulliSmoothMinSep`` on ``vocal_fold_mesh(8, 4)`` (the JAX
-    package's differentiation default), with the JAX model ``jm``'s
-    properties and controls."""
+    with ``BernoulliSmoothMinSep`` on ``vocal_fold_mesh(nx, ny)`` (by
+    default 8 x 4, the JAX package's differentiation default), with the JAX
+    model ``jm``'s properties and controls."""
     from vf_fem_tpu_torch.load import load_fsi_model
     from vf_fem_tpu_torch.mesh import vocal_fold_mesh
     from vf_fem_tpu_torch.residuals import fluid as flr, solid as slr
 
-    tm = load_fsi_model(vocal_fold_mesh(8, 4), slr.KelvinVoigt,
-                        flr.BernoulliSmoothMinSep, device=device, dtype=dtype)
+    tm = load_fsi_model(vocal_fold_mesh(nx, ny), slr.KelvinVoigt,
+                        flr.BernoulliSmoothMinSep, coupling=coupling,
+                        device=device, dtype=dtype)
     for k in tm.prop:
         tm.prop[k][:] = np.asarray(jm.prop[k])
     for k in tm.control:
         tm.control[k][:] = np.asarray(jm.control[k])
     return tm
+
+
+def run_both(jm, tm, times, params):
+    """One run from rest of a JAX model ``jm`` and of the port's ``tm``
+    (``forward.integrate_pure``): ``(jax, port)``, each a (trajectory,
+    solver iterations) pair of numpy arrays."""
+    from vf_fem_tpu import forward as jforward
+    from vf_fem_tpu_torch import forward
+
+    _, jt, ji = jforward.integrate_pure(jm, *jax_inputs(jm), times, params)
+    _, pt, pi = forward.integrate_pure(tm, *port_inputs(tm), times, params)
+    return (({k: np.asarray(v) for k, v in jt.items()}, np.asarray(ji.num_iter)),
+            ({k: v.cpu().numpy() for k, v in pt.items()}, pi.num_iter.cpu().numpy()))
+
+
+def assert_runs_match(jax_run, port_run, rtol):
+    """Every field of the trajectory within ``rtol`` (atol 1e-12 of the
+    field's largest entry) and the iterations equal step by step."""
+    (jt, jn), (pt, pn) = jax_run, port_run
+    assert set(pt) == set(jt)
+    for k, ref in jt.items():
+        np.testing.assert_allclose(pt[k], ref, rtol=rtol,
+                                   atol=1e-12 * np.abs(ref).max(), err_msg=k)
+    np.testing.assert_array_equal(pn, jn)

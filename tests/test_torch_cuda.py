@@ -1036,3 +1036,54 @@ def test_traction_shape_default_solver_stays_on_cuda(cuda):
     assert lc["btd_sweep"] > 0 and lc["btd_sweep_t"] > 0
     np.testing.assert_allclose(uc, uh, rtol=1e-9, atol=1e-9 * np.abs(uh).max())
     np.testing.assert_allclose(gc, gh, rtol=1e-9, atol=1e-9 * np.abs(gh).max())
+
+
+# -- implicit coupling and the static solvers -----------------------------------
+
+
+def test_implicit_golden_on_cuda(cuda):
+    """``golden_fsi_implicit.npz`` (KelvinVoigt + BernoulliSmoothMinSep,
+    8 x 4, Picard coupling) in f64 on the card, through K1/K2 and K5, at
+    the golden's rtol 1e-8."""
+    data = np.load(os.path.join(os.path.dirname(__file__), "data", "golden_fsi_implicit.npz"))
+    model = port_vf_model("KelvinVoigt", 8, 4, device=cuda, fluid="BernoulliSmoothMinSep",
+                          coupling="implicit")
+    before = {**banded.LAUNCHES, **ops.LAUNCHES}
+    _, traj, _ = forward.integrate_pure(model, *port_inputs(model), data["times"])
+    torch.cuda.synchronize()
+    after = {**banded.LAUNCHES, **ops.LAUNCHES}
+    assert all(after[k] > before[k] for k in ("gather", "scatter", "newmark"))
+    np.testing.assert_allclose(traj["u"].cpu().numpy()[::6], data["u"], rtol=1e-8, atol=1e-12)
+    np.testing.assert_allclose(traj["q"].cpu().numpy().ravel(), data["q"], rtol=1e-8)
+
+
+def test_static_btd_on_cuda(cuda):
+    """The static solve on block-Thomas factors ('btd') on the card against
+    the CPU port, within 1e-9 of max|u|: K6 launched by the solve, K6T by
+    its backward, whose gradients match the CPU's within 1e-9 of their
+    largest entry."""
+    rng = np.random.default_rng(12)
+    results = {}
+    for dev in ("cpu", cuda):
+        model = port_vf_model("KelvinVoigt", 10, 5, device=dev, reorder="rcm",
+                              fluid="BernoulliSmoothMinSep")
+        s = model.solid
+        p1 = torch.as_tensor(rng.uniform(0.0, 500.0, s.nvert) if dev == "cpu"
+                             else results["cpu"][3], device=dev).requires_grad_()
+        prop = {k: torch.as_tensor(model.prop[k], device=dev).requires_grad_(k == "emod")
+                for k in s.prop}
+        n0 = dict(ops.LAUNCHES)
+        u1, _ = s.solve_static_u1(torch.zeros(s.ndof, dtype=torch.float64, device=dev),
+                                  {"p1": p1}, prop, {"linear_solver": "btd"})
+        n1 = dict(ops.LAUNCHES)
+        g = torch.autograd.grad(u1, (p1, prop["emod"]), torch.ones_like(u1))
+        n2 = dict(ops.LAUNCHES)
+        results[str(dev)] = (u1.detach().cpu().numpy(), [x.cpu().numpy() for x in g],
+                             (n1, n2, n0), p1.detach().cpu().numpy())
+    u_cpu, g_cpu, _, _ = results["cpu"]
+    u_gpu, g_gpu, (n1, n2, n0), _ = results["cuda"]
+    assert n1["btd_sweep"] > n0["btd_sweep"]
+    assert n2["btd_sweep_t"] > n1["btd_sweep_t"]
+    assert np.abs(u_gpu - u_cpu).max() <= 1e-9 * np.abs(u_cpu).max()
+    for a, b in zip(g_gpu, g_cpu):
+        assert np.abs(a - b).max() <= 1e-9 * np.abs(b).max()

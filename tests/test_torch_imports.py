@@ -47,7 +47,7 @@ def test_import_leaves_jax_unloaded():
         "import vf_fem_tpu_torch, vf_fem_tpu_torch.load, vf_fem_tpu_torch.forward\n"
         "import vf_fem_tpu_torch.adjoint, vf_fem_tpu_torch.functional\n"
         "import vf_fem_tpu_torch.stepfunctional, vf_fem_tpu_torch.misc.taylor\n"
-        "import vf_fem_tpu_torch.parameters\n"
+        "import vf_fem_tpu_torch.parameters, vf_fem_tpu_torch.static\n"
         f"bad = [m for m in set(sys.modules) - before"
         f" if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"

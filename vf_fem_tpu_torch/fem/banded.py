@@ -430,6 +430,16 @@ class _BandedGather(torch.autograd.Function):
         # tensors, which the Function hands to the kernel unwrapped
         return _BandedGather.apply(F_dot.contiguous(), ctx.plan)
 
+    @staticmethod
+    def vmap(info, in_dims, F, plan):
+        # a batch of fields is more channels: one launch for all of them
+        if in_dims[0] is None:
+            return _BandedGather.apply(F, plan), None
+        F = F.movedim(in_dims[0], 0)
+        B, C, n = F.shape
+        out = _BandedGather.apply(F.reshape(B * C, n).contiguous(), plan)
+        return out.reshape(out.shape[0], B, C, out.shape[2]), 1
+
 
 class _BandedScatter(torch.autograd.Function):
     """K2 with K1 as its backward (the gather with the scatter offsets) and
@@ -452,6 +462,16 @@ class _BandedScatter(torch.autograd.Function):
     @staticmethod
     def jvp(ctx, loc_dot, *_):
         return _BandedScatter.apply(loc_dot.contiguous(), ctx.plan, ctx.n_rows)
+
+    @staticmethod
+    def vmap(info, in_dims, loc, plan, n_rows):
+        # a batch of locals is more channels: one launch for all of them
+        if in_dims[0] is None:
+            return _BandedScatter.apply(loc, plan, n_rows), None
+        loc = loc.movedim(in_dims[0], 1)
+        nv, B, C, w = loc.shape
+        out = _BandedScatter.apply(loc.reshape(nv, B * C, w).contiguous(), plan, n_rows)
+        return out.reshape(B, C, n_rows), 0
 
 
 def _differentiated(x: torch.Tensor) -> bool:

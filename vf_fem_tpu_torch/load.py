@@ -1,5 +1,5 @@
 """
-Model factory: build solid, fluid and explicitly coupled FSI models from
+Model factory: build solid, fluid and coupled FSI models from
 meshes (counterpart of ``vf_fem_tpu.load``).  ``device`` and ``dtype`` are
 fixed here: every static array of the model is built on that device once.
 """
@@ -63,7 +63,7 @@ def load_fluid_model(
 def load_fsi_model(
     solid_mesh: Union[str, Mesh],
     SolidResidual: type = slr.KelvinVoigt,
-    FluidResidual: type = flr.BernoulliAreaRatioSep,
+    FluidResidual: type = flr.BernoulliSmoothMinSep,
     solid_kwargs: dict = None,
     fluid_kwargs: dict = None,
     coupling: str = "explicit",
@@ -71,11 +71,16 @@ def load_fsi_model(
     device=config.DEFAULT_DEVICE,
     dtype=config.DEFAULT_DTYPE,
     reorder: Optional[str] = None,
-) -> transient.ExplicitFSIModel:
+):
     """Build the solid, derive the 1D fluid interface from the 'pressure'
-    facet subdomain, build the fluid and couple the two explicitly."""
-    if coupling != "explicit":
-        raise NotImplementedError(f"coupling={coupling!r} is not ported")
+    facet subdomain, build the fluid and couple the two: staggered
+    (``coupling='explicit'``, :class:`~.models.transient.ExplicitFSIModel`)
+    or by Picard iteration (``'implicit'``,
+    :class:`~.models.transient.ImplicitFSIModel`)."""
+    models = {"explicit": transient.ExplicitFSIModel,
+              "implicit": transient.ImplicitFSIModel}
+    if coupling not in models:
+        raise ValueError(f"Invalid `coupling` {coupling!r} (use 'explicit' or 'implicit')")
     device = config.model_device(device)
     solid = load_solid_model(
         solid_mesh, SolidResidual, device=device, dtype=dtype,
@@ -88,6 +93,4 @@ def load_fsi_model(
     fluid = load_fluid_model(
         s, FluidResidual, device=device, dtype=dtype, **(fluid_kwargs or {})
     )
-    return transient.ExplicitFSIModel(
-        solid, fluid, dofs_fsi_solid, dofs_fsi_fluid
-    )
+    return models[coupling](solid, fluid, dofs_fsi_solid, dofs_fsi_fluid)

@@ -1,6 +1,7 @@
 """
-Programmatic mesh generator for the test fixtures: the analytic M5-like
-vocal-fold cross-section of ``vf_fem_tpu.mesh.primitives`` (plain numpy).
+Programmatic mesh generators for the test fixtures (plain numpy, from
+``vf_fem_tpu.mesh.primitives``): the analytic M5-like vocal-fold
+cross-section, and the unit square with the reference's fixture markers.
 """
 
 from __future__ import annotations
@@ -11,6 +12,54 @@ from .core import INT, Mesh
 
 EPS = 1e-12
 
+
+
+def unit_square_mesh(nx: int, ny: int) -> Mesh:
+    """Structured triangulation of the unit square (right-diagonal split)."""
+    xs = np.linspace(0.0, 1.0, nx + 1)
+    ys = np.linspace(0.0, 1.0, ny + 1)
+    X, Y = np.meshgrid(xs, ys, indexing="xy")
+    coords = np.stack([X.reshape(-1), Y.reshape(-1)], axis=-1)
+
+    def vid(i, j):
+        return j * (nx + 1) + i
+
+    cells = []
+    for j in range(ny):
+        for i in range(nx):
+            v00, v10 = vid(i, j), vid(i + 1, j)
+            v01, v11 = vid(i, j + 1), vid(i + 1, j + 1)
+            cells.append([v00, v10, v11])
+            cells.append([v00, v11, v01])
+    return Mesh(coords, np.array(cells, dtype=INT))
+
+
+def mark_unit_mesh_fixtures(mesh: Mesh) -> Mesh:
+    """The reference's test-fixture markers on a unit square mesh: facets
+    'fixed' = 1 on the bottom and 'pressure' = 0 elsewhere on the boundary,
+    the vertex 'separation' = 1 at the top-right corner, cells 'top' = 1
+    for y > 0.5 and 'bottom' = 0."""
+    dim = mesh.dim
+
+    def is_fixed(mids, vcoords):
+        return np.all(vcoords[..., 1] < EPS, axis=-1)
+
+    mesh.mark_entities(dim - 1, is_fixed, 1, name="fixed", boundary_only=True)
+    mesh.subdomains[dim - 1]["pressure"] = 0
+
+    def is_sep(mids, vcoords):
+        return np.all(
+            (vcoords[..., 0] > 1 - EPS) & (vcoords[..., 1] > 1 - EPS), axis=-1
+        )
+
+    mesh.mark_entities(dim - 2, is_sep, 1, name="separation")
+
+    def is_top(mids, vcoords):
+        return mids[:, 1] > 0.5 + EPS
+
+    mesh.mark_entities(dim, is_top, 1, name="top")
+    mesh.subdomains[dim]["bottom"] = 0
+    return mesh
 
 def _m5_surface_profile(x: np.ndarray, depth: float, tmed: float) -> np.ndarray:
     """

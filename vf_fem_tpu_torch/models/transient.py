@@ -45,9 +45,9 @@ from .. import ops
 from ..equations import newmark
 from ..fem import assembly
 from ..residuals.base import FemResidual, FunctionalResidual
-from ..solverconst import DEFAULT_NEWTON_SOLVER_PRM
+from ..solverconst import DEFAULT_NEWTON_SOLVER_PRM, FIXEDPOINT_SOLVER_PRM
 from ..solvers import bsb, btd, linalg
-from ..solvers.newton import SolveInfo, newton_solve
+from ..solvers.newton import SolveInfo, iterative_solve, newton_solve
 
 # solvers whose factors are built from the element Jacobian blocks, once
 # per step by default: the matrix-free Newton-Krylov 'cg' (element-by-
@@ -61,7 +61,7 @@ _SUPPORTED = {
     "btd_offdiag_dtype": (None,),
     "btd_factor_dtype": (None,),
     "krylov": ("bicgstab", "pcg"),
-    "initial_guess": ("predictor",),
+    "initial_guess": ("predictor", "given"),
     "jacobian_refresh_mode": ("full", "ns"),
     "jacobian_update": ("every_iteration", "once_per_step"),
     "assembly": ("auto", "banded", "plain"),
@@ -191,6 +191,46 @@ class _ExactSolve(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         pass
+
+
+class _SolveStaticU1(torch.autograd.Function):
+    """The static u1 by Newton (``SolidModel._static_newton``); backward:
+    ``J(u1)^T lam = u1_bar`` by the transposed static solve at u1, then
+    ``-(dR/dtheta)^T lam`` in the control and properties by a reverse pass
+    over :meth:`SolidModel.res_u_static` (the JAX package's
+    ``solve_static_u1`` custom VJP).  The guess gets no cotangent."""
+
+    @staticmethod
+    def forward(solid, params_d, layout, guess, *flat):
+        _, control, prop = _unflatten(layout, flat)
+        u1, info = solid._static_newton(guess, control, prop, params_d)
+        return (u1.clone() if u1 is guess else u1, *info)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        solid, params_d, layout, guess, *flat = inputs
+        ctx.solid, ctx.params_d, ctx.layout = solid, params_d, layout
+        ctx.save_for_backward(output[0], *flat)
+        ctx.mark_non_differentiable(*output[1:])
+
+    @staticmethod
+    def backward(ctx, u1_bar, *_):
+        solid, params_d = ctx.solid, ctx.params_d
+        u1, *flat = ctx.saved_tensors
+        needs = ctx.needs_input_grad[4:]
+        if u1_bar is None or not any(needs):
+            return (None,) * (4 + len(needs))
+        _, control, prop = _unflatten(ctx.layout, flat)
+        lam = solid._static_solve_jac(u1, u1_bar.contiguous(), control, prop,
+                                      params_d, transpose=True)
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(bool(w)) for t, w in zip(flat, needs)]
+            _, control, prop = _unflatten(ctx.layout, leaves)
+            r = solid.res_u_static(u1, control, prop, solid.use_banded(params_d))
+            wanted = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad(r, wanted, -lam, allow_unused=True))
+        return (None,) * 4 + tuple(next(grads) if t.requires_grad else None
+                                   for t in leaves)
 
 
 def _contact_traction(u1, X, n, y, k):
@@ -323,14 +363,14 @@ class SolidModel:
         res = self._residual.assemble_res(fields, banded=banded).reshape(-1)
         return res * (1.0 - self._bc_mask) + u1_flat * self._bc_mask
 
-    def res_pure(self, state1, state0, control, prop, dt):
+    def res_pure(self, state1, state0, control, prop, dt, banded=False):
         """The step residual of every block at ``state1``: the Newton 'u'
         residual, and the Newmark identities of 'v' and 'a'."""
         u1 = state1["u"].reshape(self.nvert, self.dim)
         u0, v0, a0 = self._state0_2d(state0)
         k = newmark_coefs(dt)
         return {
-            "u": self.res_u(state1["u"], state0, control, prop, dt),
+            "u": self.res_u(state1["u"], state0, control, prop, dt, banded),
             "v": state1["v"] - newmark.velocity_k(u1, u0, v0, a0, k).reshape(-1),
             "a": state1["a"] - newmark.acceleration_k(u1, u0, v0, a0, k).reshape(-1),
         }
@@ -338,12 +378,16 @@ class SolidModel:
     def jac_u_blocks(self, u1_flat, state0, control, prop, dt):
         """Per-element Jacobian blocks (Jc, Jf) of the Newton 'u' residual,
         by ``vmap(jacfwd(element residual))``."""
+        return self._jac_blocks(u1_flat, state0, control, prop, dt)
+
+    def _jac_blocks(self, u1_flat, state0, control, prop, dt):
+        """:meth:`jac_u_blocks`, or with ``state0`` None the static blocks
+        (:meth:`jac_u_static_blocks`: v1 = a1 = 0, held)."""
         R = self._residual
         topo = R.topology
         cells = topo.cells
         nld = cells.shape[1] * self.dim
         u1 = u1_flat.reshape(self.nvert, self.dim)
-        u0, v0, a0 = self._state0_2d(state0)
         prop_fields = self._prop_fields(prop)
         X = self.coords(prop_fields)
         fields = self._full_fields(u1, torch.zeros_like(u1),
@@ -351,21 +395,36 @@ class SolidModel:
         cell_elem = R.cell_elem_fn()
         facet_elem = R.facet_elem_fn()
         has_contact = self._has_contact
+        if state0 is None:
+            u0 = v0 = a0 = None
 
-        def with_state(loc, u1_e, s0_e):
-            u0_e, v0_e, a0_e = s0_e
-            loc = dict(loc)
-            loc["state/u1"] = u1_e
-            loc["state/v1"] = newmark.newmark_v(u1_e, u0_e, v0_e, a0_e, dt)
-            loc["state/a1"] = newmark.newmark_a(u1_e, u0_e, v0_e, a0_e, dt)
-            return loc
+            def with_state(loc, u1_e, s0_e):
+                loc = dict(loc)
+                loc["state/u1"] = u1_e
+                loc["state/v1"] = torch.zeros_like(u1_e)
+                loc["state/a1"] = torch.zeros_like(u1_e)
+                return loc
+        else:
+            u0, v0, a0 = self._state0_2d(state0)
+
+            def with_state(loc, u1_e, s0_e):
+                u0_e, v0_e, a0_e = s0_e
+                loc = dict(loc)
+                loc["state/u1"] = u1_e
+                loc["state/v1"] = newmark.newmark_v(u1_e, u0_e, v0_e, a0_e, dt)
+                loc["state/a1"] = newmark.newmark_a(u1_e, u0_e, v0_e, a0_e, dt)
+                return loc
+
+        def elem_state(idx):
+            # the per-element state0 (none for the static blocks)
+            return () if u0 is None else (u0[idx], v0[idx], a0[idx])
 
         def cell_fn(u1_e, Xe, s0_e, local):
             return cell_elem(Xe, with_state(local, u1_e, s0_e))
 
         local_c, axes_c = R.gather_cell_locals(fields)
         Jc = vmap(jacfwd(cell_fn), in_dims=(0, 0, 0, axes_c))(
-            u1[cells], X[cells], (u0[cells], v0[cells], a0[cells]), local_c
+            u1[cells], X[cells], elem_state(cells), local_c
         ).reshape(-1, nld, nld)
 
         if not R.has_facet_pass():
@@ -384,14 +443,19 @@ class SolidModel:
         cv = cells[topo.facet_cells]
         Jf = vmap(jacfwd(facet_fn), in_dims=(0, 0, 0, 0, 0, axes_f))(
             u1[cv], X[cv], topo.facet_sel, topo.facet_opp_sel,
-            (u0[cv], v0[cv], a0[cv]), local_f,
+            elem_state(cv), local_f,
         ).reshape(-1, nld, nld)
         return Jc, Jf
 
     def jac_u_dense(self, u1_flat, state0, control, prop, dt):
         """Dense Newton Jacobian with identity Dirichlet rows."""
-        blocks = [b for b in self.jac_u_blocks(u1_flat, state0, control,
-                                               prop, dt) if b is not None]
+        return self._dense_from_blocks(
+            self.jac_u_blocks(u1_flat, state0, control, prop, dt))
+
+    def _dense_from_blocks(self, blocks):
+        """The dense matrix of element Jacobian blocks (Jc, Jf), with
+        identity Dirichlet rows."""
+        blocks = [b for b in blocks if b is not None]
         if self._jac_plan is None:
             self._jac_plan = assembly.dense_jacobian_plan(
                 self._elem_dofs, self.ndof, self.device
@@ -519,15 +583,27 @@ class SolidModel:
                              dt if dt_next is None else dt_next)
         return {"u": u1, "v": v1, "a": a1}
 
+    def _initial_guess(self, guess, state0, dt, params_d):
+        """Newton's start: the Newmark predictor (:meth:`_predictor`), or
+        with ``initial_guess='given'`` the state1 guess ``guess['u']``
+        (the implicit coupling's Picard iterate), which neither reads nor
+        counts the carried predictor."""
+        if params_d.get("initial_guess", "predictor") == "given":
+            if guess is None:
+                raise ValueError("initial_guess='given' needs a state1 guess")
+            return guess["u"]
+        return self._predictor(state0, dt)
+
     def solve_state1_pure(self, state0, control, prop, dt, params=None,
-                          dt_next=None):
-        """One time step from the Newmark predictor.  The Jacobian is
+                          dt_next=None, guess=None):
+        """One time step from the Newmark predictor, or from ``guess``
+        (a state1 dict) with ``initial_guess='given'``.  The Jacobian is
         re-assembled every iteration (the dense default) or once per step
         (the default of the element-block solvers 'cg', 'bsb', 'btd').
         ``dt_next``, the next step's dt where known, is the step of the
         predictor K5 writes with the state."""
         params_d = solver_params(params)
-        u_guess = self._predictor(state0, dt)
+        u_guess = self._initial_guess(guess, state0, dt, params_d)
         u1, info = self._newton(u_guess, state0, control, prop, dt, params_d)
         return self._finish(u1, state0, dt, dt_next), info
 
@@ -605,11 +681,11 @@ class SolidModel:
         return linalg.dense_refresh(factors, A, iters)
 
     def solve_state1_stale(self, factors, state0, control, prop, dt,
-                           params=None, dt_next=None):
+                           params=None, dt_next=None, guess=None):
         """One time step with carried (stale) Jacobian factors (``dt_next``
-        as in :meth:`solve_state1_pure`)."""
+        and ``guess`` as in :meth:`solve_state1_pure`)."""
         params_d = solver_params(params)
-        u_guess = self._predictor(state0, dt)
+        u_guess = self._initial_guess(guess, state0, dt, params_d)
         u1, info = self._newton(u_guess, state0, control, prop, dt, params_d,
                                 factors)
         return self._finish(u1, state0, dt, dt_next), info
@@ -762,6 +838,64 @@ class SolidModel:
         self.adjoint_counts["refine_iterations"] += k
         return lam_best
 
+    # -- the static problem (v1 = a1 = 0) ----------------------------------------
+    def res_u_static(self, u1_flat, control, prop, banded=False):
+        """The static residual: the 'u' form at ``u1`` with v1 = a1 = 0;
+        Dirichlet rows read ``u1``."""
+        u1 = u1_flat.reshape(self.nvert, self.dim)
+        z = torch.zeros_like(u1)
+        fields = self._full_fields(u1, z, z, control, self._prop_fields(prop))
+        res = self._residual.assemble_res(fields, banded=banded).reshape(-1)
+        return res * (1.0 - self._bc_mask) + u1_flat * self._bc_mask
+
+    def jac_u_static_blocks(self, u1_flat, control, prop):
+        """Per-element blocks (Jc, Jf) of the static Jacobian in u1, with v1
+        and a1 held at zero (the transient blocks add the Newmark terms)."""
+        return self._jac_blocks(u1_flat, None, control, prop, None)
+
+    def jac_u_static_dense(self, u1_flat, control, prop):
+        """The dense static Jacobian with identity Dirichlet rows."""
+        return self._dense_from_blocks(
+            self.jac_u_static_blocks(u1_flat, control, prop))
+
+    def _static_solve_jac(self, u1, r, control, prop, params_d, transpose=False):
+        """``J(u1)^{-1} r`` of the static Jacobian (``J^{-T} r`` with
+        ``transpose``), factored at ``u1``: block-Thomas on the block-banded
+        fill (``linear_solver='btd'``: K6, K6T with ``transpose``; its plan
+        warns on a mesh that is not bandwidth-ordered), else a dense LU
+        solve."""
+        if params_d.get("linear_solver", "dense") == "btd":
+            Jc, Jf = self.jac_u_static_blocks(u1, control, prop)
+            plan, fill = self.bsb_plan()
+            blocks = bsb.bsb_fill(plan, fill, [Jc.contiguous(),
+                                               None if Jf is None else Jf.contiguous()])
+            fac = btd.btd_factor(plan, blocks,
+                                 store_dtype=params_d.get("btd_store_dtype"))
+            return (btd.btd_solve_t if transpose else btd.btd_solve)(plan, fac, r)
+        A = self.jac_u_static_dense(u1, control, prop)
+        return (linalg.dense_solve_transpose if transpose else linalg.dense_solve)(A, r)
+
+    def solve_static_u1(self, u_guess, control, prop, params=None):
+        """The static u1 by Newton from ``u_guess`` (the Jacobian rebuilt
+        every iteration), ``(u1, SolveInfo)``: a differentiable function
+        of ``control`` and ``prop`` (:class:`_SolveStaticU1`, whose backward
+        is the transposed static solve, then the vjp of
+        :meth:`res_u_static`)."""
+        layout, flat = _flatten({}, control, prop)
+        out = _SolveStaticU1.apply(self, solver_params(params), layout, u_guess, *flat)
+        return out[0], SolveInfo(*out[1:])
+
+    def _static_newton(self, u_guess, control, prop, params_d):
+        banded = self.use_banded(params_d)
+
+        def assem(u1):
+            return self.res_u_static(u1, control, prop, banded)
+
+        def solve_jac(u1, r):
+            return self._static_solve_jac(u1, r, control, prop, params_d)
+
+        return newton_solve(u_guess, assem, solve_jac, params_d)
+
 
 class FluidModel:
     """Quasi-steady fluid wrapping a :class:`FunctionalResidual`."""
@@ -772,6 +906,10 @@ class FluidModel:
         self.state0 = {k: np.array(v, dtype=float) for k, v in state.items()}
         self.control = {k: np.array(v, dtype=float) for k, v in control.items()}
         self.prop = {k: np.array(v, dtype=float) for k, v in prop.items()}
+
+    @property
+    def residual(self) -> FunctionalResidual:
+        return self._residual
 
     def res_pure(self, state, control, prop):
         """The fluid residual at ``state``."""
@@ -912,3 +1050,223 @@ class ExplicitFSIModel:
             sl_state0, sl_control, sl_prop, dt, row, params, factors
         )
         return self._fluid_step(uva1, state0, control, prop), info
+
+
+# tangents a vmapped jvp pushes at once where the coupled Jacobian of
+# ImplicitFSIModel's IFT rule is built (bounds the batched residual's memory)
+COUPLED_JAC_CHUNK = 256
+
+
+class _ImplicitStep(torch.autograd.Function):
+    """One Picard step of :class:`ImplicitFSIModel` (with a window's
+    carried ``factors``, or factors built in the step), run without a
+    graph.  Backward: the coupled IFT rule (``ImplicitFSIModel._ift_vjp``);
+    forward mode: its tangent rule (``_ift_jvp``).  The factors get no
+    cotangent nor tangent: the converged state does not depend on them."""
+
+    @staticmethod
+    def forward(model, params_d, dt, layout, factors, row, *flat):
+        state0, control, prop = _unflatten(layout, flat)
+        if factors is None:
+            x, info = model.step_pure(state0, control, prop, dt, params_d)
+        else:
+            x, info = model.step_pure_stale(factors, state0, control, prop, dt,
+                                            params_d)
+        # a Picard loop that takes no iteration returns its guess, the inputs
+        outs = tuple(x[k].clone() if any(x[k] is t for t in flat) else x[k]
+                     for k in model.state0)
+        return (*outs, *info)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        model, params_d, dt, layout, factors, row, *flat = inputs
+        ctx.model, ctx.params_d, ctx.layout = model, params_d, layout
+        n = len(model.state0)
+        ctx.save_for_backward(*output[:n], row, *flat)
+        ctx.save_for_forward(*output[:n], row, *flat)
+        ctx.mark_non_differentiable(*output[n:])
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        n = len(ctx.model.state0)
+        return (None,) * 5 + ctx.model._ift_vjp(ctx, cotangents[:n],
+                                                ctx.needs_input_grad[5:])
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        return (*ctx.model._ift_jvp(ctx, tangents[5:]), None, None, None)
+
+
+class ImplicitFSIModel(ExplicitFSIModel):
+    """Implicit coupling by fixed-point (Picard) iteration between the solid
+    and the fluid (``solvers.newton.iterative_solve``): the solid sees the
+    current iterate's pressure.  The Picard loop takes
+    ``FIXEDPOINT_SOLVER_PRM`` with only ``aitken`` and ``aitken_omega0``
+    from the caller's parameters; each iteration's solid solve takes the
+    caller's parameters with ``initial_guess='given'`` (Newton from the
+    iterate's u); the first iterate is the step's initial state.
+    ``factorize`` and ``refresh_factors`` are the explicit model's (the
+    solid at the initial state's pressure).  The Picard stop reads each
+    iteration's residual norm on the host, so the steps run eagerly.
+
+    The gradient path (:meth:`step_diff`) is the coupled IFT rule on the
+    dense Jacobian of :meth:`res_pure` over the whole state, built by
+    ``jacfwd``: for models of M5 size.  ``picard_counts`` counts steps,
+    Picard iterations and the solid solves' Newton iterations (a tensor on
+    the model's device once a solve added to it)."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.picard_counts = {"steps": 0, "iterations": 0, "newton_iterations": 0}
+
+    def res_pure(self, state1, state0, control, prop, dt, banded=False):
+        """The coupled residual of every block at ``state1``: the solid's
+        under ``state1``'s pressure, the fluid's on ``state1``'s geometry."""
+        sl_prop, fl_prop = self._split_prop(prop)
+        res = self.solid.res_pure(
+            {k: state1[k] for k in ("u", "v", "a")},
+            {k: state0[k] for k in ("u", "v", "a")},
+            {"p1": self._pressure_to_solid(state1["p"])}, sl_prop, dt, banded)
+        area = self._area_from_u1(state1["u"], prop)
+        fl_control = {"area": area, **{k: control[k] for k in control}}
+        res.update(self.fluid.res_pure({"q": state1["q"], "p": state1["p"]},
+                                       fl_control, fl_prop))
+        return res
+
+    def _picard(self, solve, state0, control, prop, dt, params_d, dt_next):
+        """The Picard loop of one step; ``solve`` is the solid's step solve
+        (:meth:`SolidModel.solve_state1_pure` or a stale one)."""
+        sl_state0 = {k: state0[k] for k in ("u", "v", "a")}
+        sl_prop, _ = self._split_prop(prop)
+        inner = {**params_d, "initial_guess": "given"}
+        fp_params = {**FIXEDPOINT_SOLVER_PRM,
+                     **{k: params_d[k] for k in ("aitken", "aitken_omega0")
+                        if k in params_d}}
+        banded = self.solid.use_banded(params_d)
+        counts = self.picard_counts
+
+        def picard(x):
+            uva1, info = solve(sl_state0, {"p1": self._pressure_to_solid(x["p"])},
+                               sl_prop, dt, inner, dt_next, guess=x)
+            counts["iterations"] += 1
+            counts["newton_iterations"] = counts["newton_iterations"] + info.num_iter
+            return self._fluid_step(uva1, x, control, prop)
+
+        def res_fn(x):
+            return self.res_pure(x, state0, control, prop, dt, banded)
+
+        counts["steps"] += 1
+        return iterative_solve(dict(state0), res_fn, picard, fp_params)
+
+    # -- pure step functions ------------------------------------------------------
+    def step_pure(self, state0, control, prop, dt, params=None, dt_next=None):
+        """One Picard-coupled step, each solid solve re-assembling its
+        Jacobian (``dt_next`` as in :meth:`ExplicitFSIModel.step_pure`)."""
+        return self._picard(self.solid.solve_state1_pure, state0, control, prop,
+                            dt, solver_params(params), dt_next)
+
+    def step_pure_stale(self, factors, state0, control, prop, dt, params=None,
+                        dt_next=None):
+        """One Picard-coupled step whose solid solves reuse carried factors."""
+
+        def solve(*args, **kwargs):
+            return self.solid.solve_state1_stale(factors, *args, **kwargs)
+
+        return self._picard(solve, state0, control, prop, dt,
+                            solver_params(params), dt_next)
+
+    # -- the gradient path ---------------------------------------------------------
+    def step_diff(self, state0, control, prop, dt, row, params=None,
+                  factors=None):
+        """One Picard step as a differentiable function of the state,
+        control, properties and the step's coefficient row
+        (:class:`_ImplicitStep`); its values are :meth:`step_pure`'s /
+        :meth:`step_pure_stale`'s bit for bit."""
+        layout, flat = _flatten(state0, control, prop)
+        out = _ImplicitStep.apply(self, solver_params(params), dt, layout,
+                                  factors, row, *flat)
+        n = len(self.state0)
+        return dict(zip(self.state0, out[:n])), SolveInfo(*out[n:])
+
+    def _coupled_jac(self, x, state0, control, prop, dt, banded):
+        """The dense Jacobian of :meth:`res_pure` in the state at ``x``, over
+        the state flattened in sorted key order (a, p, q, u, v, the JAX
+        package's ``ravel_pytree``), by a vmapped jvp over chunks of
+        ``COUPLED_JAC_CHUNK`` basis vectors."""
+        keys = sorted(x)
+        sizes = [x[k].numel() for k in keys]
+        x_flat = torch.cat([x[k] for k in keys])
+
+        def r_flat(xf):
+            r = self.res_pure(dict(zip(keys, torch.split(xf, sizes))), state0,
+                              control, prop, dt, banded)
+            return torch.cat([r[k] for k in keys])
+
+        def column(t):
+            return jvp(r_flat, (x_flat,), (t,))[1]
+
+        eye = torch.eye(x_flat.numel(), dtype=x_flat.dtype, device=x_flat.device)
+        cols = [vmap(column)(chunk) for chunk in eye.split(COUPLED_JAC_CHUNK)]
+        return torch.cat(cols).mT, keys, sizes
+
+    def _saved(self, ctx):
+        """A step's saved tensors: the state x (a dict), the coefficient
+        row and the flat inputs."""
+        n = len(self.state0)
+        saved = ctx.saved_tensors
+        x = dict(zip(self.state0, saved[:n]))
+        row, flat = saved[n], saved[n + 1:]
+        return x, row, flat
+
+    def _ift_vjp(self, ctx, x_bar, needs):
+        """The coupled IFT rule: ``J^T lam = x_bar`` with the dense coupled
+        Jacobian ``J`` at the converged state (``linalg.
+        dense_solve_transpose``), then ``-(dR/dtheta)^T lam`` for the row
+        and each flat input that ``needs`` a gradient, by a reverse pass
+        over :meth:`res_pure`."""
+        if all(g is None for g in x_bar) or not any(needs):
+            return (None,) * len(needs)
+        x, row, flat = self._saved(ctx)
+        banded = self.solid.use_banded(ctx.params_d)
+        state0, control, prop = _unflatten(ctx.layout, flat)
+        J, keys, sizes = self._coupled_jac(x, state0, control, prop,
+                                           StepCoefs(row, self.dtype), banded)
+        bar = {k: torch.zeros_like(x[k]) if g is None else g
+               for k, g in zip(self.state0, x_bar)}
+        lam = linalg.dense_solve_transpose(J, torch.cat([bar[k] for k in keys]))
+        lam = dict(zip(keys, torch.split(lam, sizes)))
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(bool(w))
+                      for t, w in zip((row, *flat), needs)]
+            state0, control, prop = _unflatten(ctx.layout, leaves[1:])
+            r = self.res_pure(x, state0, control, prop,
+                              StepCoefs(leaves[0], self.dtype), banded)
+            wanted = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad([r[k] for k in keys], wanted,
+                                             [-lam[k] for k in keys],
+                                             allow_unused=True))
+        return tuple(next(grads) if t.requires_grad else None for t in leaves)
+
+    def _ift_jvp(self, ctx, tangents):
+        """The coupled tangent rule (the JAX package's ``step_ift_f``
+        custom JVP): ``R_dot`` by a jvp of :meth:`res_pure` at the converged
+        state in the row and the flat inputs, then ``x_dot = -J^{-1} R_dot``
+        (``linalg.dense_solve``)."""
+        x, row, flat = self._saved(ctx)
+        banded = self.solid.use_banded(ctx.params_d)
+        layout = ctx.layout
+        state0, control, prop = _unflatten(layout, flat)
+        J, keys, sizes = self._coupled_jac(x, state0, control, prop,
+                                           StepCoefs(row, self.dtype), banded)
+
+        def res(row_, *flat_):
+            s0, c, p = _unflatten(layout, flat_)
+            r = self.res_pure(x, s0, c, p, StepCoefs(row_, self.dtype), banded)
+            return torch.cat([r[k] for k in keys])
+
+        primals = (row, *flat)
+        tangents = tuple(torch.zeros_like(p) if t is None else t
+                         for p, t in zip(primals, tangents))
+        _, r_dot = jvp(res, primals, tangents)
+        dx = dict(zip(keys, torch.split(-linalg.dense_solve(J, r_dot), sizes)))
+        return tuple(dx[k] for k in self.state0)

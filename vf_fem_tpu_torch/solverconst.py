@@ -29,3 +29,12 @@ DEFAULT_NEWTON_SOLVER_PRM = {
     "relative_tolerance": 1e-10,
     "maximum_iterations": 50,
 }
+
+# the Picard (fixed-point) loop of the implicit coupling and the static
+# solvers (``solvers.newton.iterative_solve``); its stagnation ratio
+# defaults to 0.98 there
+FIXEDPOINT_SOLVER_PRM = {
+    "absolute_tolerance": 1e-8,
+    "relative_tolerance": 1e-11,
+    "maximum_iterations": 50,
+}

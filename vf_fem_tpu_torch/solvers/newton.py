@@ -13,6 +13,10 @@ stays on the device), so a CUDA graph can capture it:
 certified mode assembles a trailing residual and keeps the best iterate;
 ``fixed_tail_residual=False`` skips that residual and commits the final
 iterate, reporting the penultimate residual.
+
+:func:`iterative_solve` is the fixed-point (Picard) loop of the implicit
+coupling, plain or with Aitken relaxation (counterpart of
+``vf_fem_tpu.solvers.newton.iterative_solve``).
 """
 
 from __future__ import annotations
@@ -103,3 +107,75 @@ def newton_solve(
         k += 1
     num_iter = torch.tensor(k, device=x0.device)
     return x_best, SolveInfo(num_iter, err_best_t, _rel(err_best_t, err0_t))
+
+
+def _leaves(tree: dict):
+    """A dict's tensors in the JAX package's leaf order (sorted keys)."""
+    return [tree[k] for k in sorted(tree)]
+
+
+def tree_norm(tree: dict) -> torch.Tensor:
+    """sqrt of the sum over the leaves (sorted keys) of their sums of
+    squares: the JAX package's default norm of ``iterative_solve``."""
+    return torch.sqrt(sum(torch.sum(torch.square(x)) for x in _leaves(tree)))
+
+
+def _tree_dot(a: dict, b: dict) -> torch.Tensor:
+    return sum(torch.dot(x, y) for x, y in zip(_leaves(a), _leaves(b)))
+
+
+def iterative_solve(
+    x0: dict,
+    assem_res: Callable[[dict], dict],
+    step: Callable[[dict], dict],
+    params: dict = None,
+):
+    """Fixed-point (Picard) iteration ``x <- step(x)`` on a dict of tensors
+    until the norm of ``assem_res(x)`` (:func:`tree_norm`) is below
+    ``absolute_tolerance`` or ``relative_tolerance`` times its initial
+    value (``DEFAULT_NEWTON_SOLVER_PRM`` where ``params`` has none; the
+    implicit model passes ``FIXEDPOINT_SOLVER_PRM``), fails to fall below
+    ``stagnation_ratio`` (default 0.98) times the previous one, or
+    ``maximum_iterations`` ran.  Returns the **last**
+    iterate (not the lowest-residual one, unlike :func:`newton_solve`) and
+    its ``SolveInfo``.
+
+    ``aitken=True`` relaxes each update, ``x <- x + w d`` with
+    ``d = step(x) - x``: ``w = aitken_omega0`` (default 1) in the first
+    iteration, then ``w = -w_prev <d_prev, d - d_prev> / |d - d_prev|^2``
+    (``w_prev`` where the denominator is 0), clipped to [0.05, 2].  The loop
+    is eager: one host read of the norm an iteration."""
+    params = {**DEFAULT_NEWTON_SOLVER_PRM, **(params or {})}
+    abs_tol = params["absolute_tolerance"]
+    rel_tol = params["relative_tolerance"]
+    max_iter = params.get("maximum_iterations", 50)
+    stag = params.get("stagnation_ratio", 0.98)
+    aitken = bool(params.get("aitken", False))
+
+    err0_t = tree_norm(assem_res(x0))
+    err0 = float(err0_t)
+    x, err_t, err, err_prev = x0, err0_t, err0, float("inf")
+    # the relaxation factor stays on the device, in the residual's dtype
+    w = torch.full((), float(params.get("aitken_omega0", 1.0)), dtype=err0_t.dtype,
+                   device=err0_t.device)
+    d_prev = None
+    k = 0
+    while (err >= abs_tol and err >= rel_tol * err0 and err < stag * err_prev
+           and k < max_iter):
+        x_new = step(x)
+        if aitken:
+            d = {key: x_new[key] - x[key] for key in x}
+            if d_prev is not None:
+                dd = {key: d[key] - d_prev[key] for key in d}
+                denom = _tree_dot(dd, dd)
+                safe = torch.where(denom == 0.0, torch.ones_like(denom), denom)
+                w = torch.where(denom > 0.0, -w * _tree_dot(d_prev, dd) / safe, w)
+            w = torch.clamp(w, 0.05, 2.0)
+            x_new = {key: x[key] + w * d[key] for key in x}
+            d_prev = d
+        x = x_new
+        err_t = tree_norm(assem_res(x))
+        err_prev, err = err, float(err_t)
+        k += 1
+    num_iter = torch.tensor(k, device=err0_t.device)
+    return x, SolveInfo(num_iter, err_t, _rel(err_t, err0_t))

@@ -55,7 +55,7 @@ from .convert import to_tensors
 from .equations import newmark
 from .equations.newmark import coefficient_table  # noqa: F401 (the run's rows)
 from .fem import banded
-from .models.transient import StepCoefs
+from .models.transient import ImplicitFSIModel, StepCoefs
 from .solvers.newton import SolveInfo
 
 # steps whose rows the buffers hold between two copies by the host
@@ -70,9 +70,12 @@ def captures(model, params_d: dict) -> bool:
     ``params_d`` (merged solver parameters) as a replayed CUDA graph: a
     fixed-iteration run on a CUDA model whose steps solve with factors
     carried through refresh windows of more than one step, by a direct
-    solver.  Every other run is eager by its configuration."""
+    solver.  Every other run is eager by its configuration, and so is every
+    run of an implicitly coupled model, whose Picard stop reads each
+    iteration's residual norm on the host."""
     return bool(
-        params_d.get("fixed_iterations")
+        not isinstance(model, ImplicitFSIModel)
+        and params_d.get("fixed_iterations")
         and model.device.type == "cuda"
         and int(params_d.get("jacobian_refresh_steps", 1)) > 1
         and params_d.get("linear_solver", "dense") in GRAPH_SOLVERS
