@@ -43,7 +43,7 @@ runs, in order:
    both solvers in f64 and f32 (20 steps after a warm-up run) with
    steps/s, Krylov and Newton iteration counts, kernel launches, and the
    trajectory and f32-vs-f64 errors against their gates; then one
-   ``torch.profiler`` pass of the production bsb f64 run over its first 10
+   ``torch.profiler`` pass of the production bsb f64 run over its first 5
    steps (K4's share of device busy, the idle share) and the ms per
    BiCGStab iteration;
 7. btd: the block-Thomas direct path on the 23.7k-dof RCM mesh (same
@@ -63,7 +63,7 @@ runs, in order:
    eager run with equal launch counts, the entry point's
    ``uncertified_steps`` and ``diverged`` equal to the eager run's, the
    graph's nodes a step, capture and instantiate ms and pool, a
-   ``torch.profiler`` pass of each path over the first 25 steps (device
+   ``torch.profiler`` pass of each path over the first 10 steps (device
    kernels a step, device busy, idle share), the peak device memory of the
    eager loop, the graph
    and the graph in windows of 25 steps, the gates of phases 5 and 7 on
@@ -80,7 +80,7 @@ runs, in order:
    the same timings, the refined stale-factor gradient against the
    exact-factor one (per key within 1e-6 of its largest entry), the
    launches a step of K1, K2, K5, K5T, K6 and K6T held to the trace of a
-   profiled value+grad run over the first 25 steps, its idle share, and
+   profiled value+grad run over the first 10 steps, its idle share, and
    the peak device memory; on both every
    gradient is finite and the value+grad run's trajectory is the no-grad
    forward's bit for bit (the captured graph's at 23.7k);
@@ -112,7 +112,39 @@ runs, in order:
    psub 500 Ba, static btd Newton) against the golden's (1e-6), timed,
    and one backward of ``solve_static_u1`` there (K6T); M5 implicit
    value+grad over 14 steps (the coupled IFT rule's dense Jacobian) against
-   a central difference in psub (rtol 1e-4), with its peak device memory.
+   a central difference in psub (rtol 1e-4), with its peak device memory;
+12. fsai: two-way fluid-solid-acoustic coupling (``models.fsai``,
+   ``load.load_fsai_model``). The M5 FSAI model of
+   ``tests/make_golden_fsai.py`` (``meshes/M5_CB_GA3.msh``, KelvinVoigt +
+   BernoulliAreaRatioSep, a 44-tube WRA tract, the contact plane below the
+   midline; headline solver settings, 100 steps at the tract's dt) through
+   ``forward.integrate`` (no lagged step) and then the eager loop and the
+   captured step in turns (each graph run bit for bit the eager run), in
+   f64 against ``tests/data/golden_m5_fsai.npz`` (rtol 1e-8) and in f32
+   against the JAX package's f32 run (10x its f32-vs-f64 difference at each
+   stored step), with steps/s, the step graph's nodes and replay time beside
+   the uncoupled FSI step's at the same settings (what the flow root solve
+   and the tract add: their share of the step), a profile of 10 graph steps
+   (device busy, idle share) and the peak device memory; the 23.7k
+   production btd model in the same tract on the production settings, f64
+   and f32, against its exact-Jacobian FSAI run (trajectory error <= 5e-7,
+   no lagged step), with K6's launches; and value+grad
+   (``adjoint.integrate_grad``) of the RMS radiated pressure
+   (``functional.acoustic``) over 50 steps, the value the no-grad
+   forward's bit for bit: at M5 against central differences in psub and
+   along a seeded direction of tract areas (rtol 1e-4), at 23.7k on the
+   production adjoint settings (K6T) against the exact-factor gradient;
+13. mesh94k: the 94.8k-dof mesh (``m5_mesh("M5_3layers", h=0.003,
+   smooth_iters=10)`` and RCM, ``vf_fem_tpu_torch/mesh/cached.py``), built
+   by a child process started after the kernels' build that runs beside
+   phases 2-12 and caches it in ``vf_fem_tpu_torch/_build/`` (a later run
+   on the same machine reads the cache): its vertex and cell counts
+   (47,405 / 93,945), then the production btd settings at refresh 64 (the
+   JAX package's margin configuration) on it, 100 steps in f64 and f32 (a
+   replay of the captured step a step), each against its exact-Jacobian
+   run (the f64 trajectory error gated at 5e-7, the f32 one logged), with
+   steps/s, a step's split (one refactorization's time), a profile of 10
+   steps and the peak device memory.
 
 Phase 3 also holds the block-Thomas sweep kernel (K6) and its transpose
 (K6T, both sweeps of ``btd_solve_t``: forward on W, backward on V, each
@@ -133,7 +165,7 @@ with the kernel (library, kernel, kernel, library).  Each kernel's bound
 is the larger of its bytes (each input read once, each output written
 once) over the HBM rate and its operations over the peak rate of their
 type.  The ``kernels`` line before the last carries all of it, with each
-kernel's launches per step on the main-path runs (phases 5 and 7).
+kernel's launches per step on the main-path runs (phases 5-13).
 
 Phases 5-7 print each production run's Newmark predictors, taken from
 K5's output or formed by four eager kernels, and each profile's device
@@ -311,10 +343,11 @@ GOLDEN_LARGE_GATES = {
     for ls, a_gate in (("bsb", 5.405e-8), ("cg", 2.090e-7))
 }
 WARMUP, REPS = 20, 200
-# steps of the profiled runs of phases 8 and 9 (an eager step's host events
-# cost the profiler ~0.6 s each to summarise; counts a step are read from
-# these runs)
-PROFILE_STEPS = 25
+# steps of the profiled runs of phases 8, 9, 12 and 13 (an eager step's
+# host events cost the profiler ~0.6 s each to summarise, a value+grad
+# step's ~3.4 s: the profiles took 351 s of a 916 s run at 25 steps on an
+# H100, so the window is 10 steps; counts a step are read from these runs)
+PROFILE_STEPS = 10
 # device kernels a step in the eager loop's f64 profiles of each run
 # (PERF.md section 5), printed beside this run's
 # each launch counter's kernel, by the name the profiler's trace gives it
@@ -357,6 +390,32 @@ IMPLICIT_GRAD_STEPS = 14
 # 10 (108,676; NVIDIA H100 80GB HBM3, 700.00 W), so the phase profiles the
 # first 5
 IMPLICIT_PROFILE_STEPS = 5
+# phase 12, fluid-solid-acoustic coupling (FSAI).  M5: the model of
+# tests/make_golden_fsai.py (benchmarks/probe_fsai.py:33-65, the contact
+# plane at ymax + 0.005 below the midline ymid = ymax + 0.01; its
+# configuration is stored in the golden) on the M5 headline's settings,
+# 100 steps at the tract's dt, f64 against the golden and f32 against the
+# JAX package's f32 run within 10x its own f32-vs-f64 difference at each
+# stored step (phase 11's f32 tolerance); 23.7k: the production btd model in
+# the same tract, the same contact plane, on BTD_PROD against its
+# exact-Jacobian FSAI run (TRAJ_ERR_GATE, or 1.5x the JAX package's CPU
+# value of the same runs where that exceeds it, as phase 7: the golden's
+# large_traj_err, large_f32_traj_err); value+grad of the RMS radiated
+# pressure over 50 steps of the M5 model (ADJ_M5) against central
+# differences in psub (1 Ba) and along a seeded direction of tract areas
+# (1e-4 cm^2 a tube)
+FSAI_GOLDEN_RTOL = 1e-8
+FSAI_GRAD_STEPS = 50
+FSAI_AREA_H = 1e-4
+# phase 13: the 94.8k-dof mesh of benchmarks/benchmark_large.py:24-51
+# (m5_mesh("M5_3layers", h=0.003, smooth_iters=10) then RCM), meshed by a
+# child process started with the phases (vf_fem_tpu_torch/mesh/cached.py,
+# cached in vf_fem_tpu_torch/_build/), its expected size, and the JAX
+# package's refresh-64 margin configuration (STATUS.md:360), gated in f64
+# against its exact-Jacobian run
+MESH94K = ("M5_3layers", 0.003, 10)
+MESH94K_COUNTS = (47405, 93945)
+BTD_R64 = {**BTD_PROD, "jacobian_refresh_steps": 64}
 # csrc/btd_exchange_probe.cu's entry points: (sink, n, bt, barrier, stream)
 PROBE_SIGNATURES = {f"vf_btd_exchange_probe_{t}": [ctypes.c_void_p] + [ctypes.c_int] * 3
                     + [ctypes.c_void_p] for t in ("bf16", "f64")}
@@ -609,17 +668,21 @@ def set_bench_props(model):
         if k in p:
             p[k][:] = v
     model.control["psub"][:] = 8000.0
-    model.control["psup"][:] = 0.0
+    if "psup" in model.control:  # the FSAI model's comes from its tract
+        model.control["psup"][:] = 0.0
 
 
 def build(torch, dev, mesh_name, dtype, solid="KelvinVoigtWEpithelium",
           fluid="BernoulliAreaRatioSep", coupling="explicit"):
+    """A model of ``bench.py``'s properties on ``meshes/<mesh_name>`` (or on
+    a Mesh): ``(model, state0, stacked controls, prop)``."""
     from vf_fem_tpu_torch.load import load_fsi_model
     from vf_fem_tpu_torch.residuals import fluid as flr, solid as slr
 
+    mesh = os.path.join(REPO, "meshes", mesh_name) if isinstance(mesh_name, str) else mesh_name
     model = load_fsi_model(
-        os.path.join(REPO, "meshes", mesh_name), getattr(slr, solid),
-        getattr(flr, fluid), coupling=coupling, device=dev, dtype=dtype,
+        mesh, getattr(slr, solid), getattr(flr, fluid), coupling=coupling, device=dev,
+        dtype=dtype,
     )
     set_bench_props(model)
     state0 = {k: np.zeros_like(v) for k, v in model.state0.items()}
@@ -1301,9 +1364,9 @@ def phase_krylov(torch, card, models):
         log(f"[krylov] prod {ls}: f32 vs f64 final u max rel diff {rel:.3e}"
             f" (gate {f32_gate:.3e} = 10 x JAX CPU {gold['prod_f32_vs_f64']:.3e})")
         require(rel <= f32_gate, f"krylov prod {ls}: f32 run outside its gate")
-    # the profile runs the first half of the steps (an eager Krylov step's
-    # host events take the profiler ~5 s to summarise)
-    bsb_profile(torch, card, models["float64"], times[: (len(times) - 1) // 2 + 1])
+    # the profile runs the first quarter of the steps (an eager Krylov
+    # step's host events take the profiler ~4 s to summarise)
+    bsb_profile(torch, card, models["float64"], times[: (len(times) - 1) // 4 + 1])
     return out
 
 
@@ -2299,6 +2362,414 @@ def phase_implicit(torch, card, dev):
     return out
 
 
+def build_fsai(torch, dev, dtype, large=False):
+    """An FSAI model (``load.load_fsai_model``): the M5 golden's
+    configuration (tests/make_golden_fsai.py), or with ``large`` the 23.7k
+    production btd model with bench.py's properties, both in the golden's
+    tract with the contact plane below the midline; ``(model, state0,
+    stacked controls, prop)``."""
+    from vf_fem_tpu_torch.load import load_fsai_model
+    from vf_fem_tpu_torch.residuals import fluid as flr, solid as slr
+
+    gold = np.load(os.path.join(REPO, "tests", "data", "golden_m5_fsai.npz"))
+    cfg = json.loads(str(gold["config"]))
+    mesh, solid = ((os.path.join("meshes", LARGE_MESH), "KelvinVoigtWEpithelium") if large
+                   else (cfg["mesh"], cfg["solid"]))
+    model = load_fsai_model(os.path.join(REPO, mesh), getattr(slr, solid),
+                            getattr(flr, cfg["fluid"]), num_tube=cfg["num_tube"],
+                            device=dev, dtype=dtype)
+    ymax = model.solid.residual.mesh().coords[:, 1].max()
+    p = model.prop
+    if large:
+        set_bench_props(model)
+    else:
+        for k, v in cfg["props"].items():
+            p[k][:] = v
+        model.control["psub"][:] = cfg["psub"]
+    p["ycontact"][:] = ymax + cfg["ycontact_above_ymax"]
+    p["ymid"][:] = ymax + cfg["ymid_above_ymax"]
+    p["area"][:] = cfg["tract_area"]
+    p["proploss"][:] = cfg["proploss"]
+    require(model.check_envelope(), "fsai: the configuration leaves the envelope")
+    state0 = {k: np.zeros_like(v) for k, v in model.state0.items()}
+    return model, state0, {k: v[None] for k, v in model.control.items()}, model.prop
+
+
+def fsai_value(torch, built, times, params):
+    """The no-grad forward of the RMS radiated pressure, as
+    ``adjoint.integrate_grad`` evaluates it (the trajectory with its initial
+    row, float64 times on the device), timed by CUDA events: (value, ms)."""
+    from vf_fem_tpu_torch import forward
+    from vf_fem_tpu_torch.convert import to_tensors
+    from vf_fem_tpu_torch.functional.acoustic import RmsRadiatedPressure
+
+    model, state0, cs, prop = built
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    _, traj, _ = forward.integrate_pure(model, state0, cs, prop, times, params)
+    s0 = to_tensors(state0, model.device, model.dtype)
+    full = {k: torch.cat([s0[k][None], traj[k]], 0) for k in traj}
+    times_t = torch.as_tensor(np.asarray(times, dtype=np.float64)).to(model.device)
+    value = RmsRadiatedPressure(model).eval_traj(full, times_t, None,
+                                                  to_tensors(prop, model.device, model.dtype))
+    end.record()
+    torch.cuda.synchronize()
+    return float(value), start.elapsed_time(end)
+
+
+def fsai_grad_run(torch, built, times, params):
+    """Value+grad of the RMS radiated pressure through
+    ``adjoint.integrate_grad`` with the launch and adjoint counts set to 0
+    just before, timed by CUDA events, with its peak device memory over what
+    was allocated before; every gradient finite."""
+    from vf_fem_tpu_torch import adjoint
+    from vf_fem_tpu_torch.functional.acoustic import RmsRadiatedPressure
+
+    model, state0, cs, prop = built
+    model.solid.adjoint_counts.update(solves=0, refine_iterations=0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    reset_launches()
+    start.record()
+    value, grads = adjoint.integrate_grad(model, RmsRadiatedPressure(model), state0,
+                                          [{k: v[0] for k, v in cs.items()}], prop, times,
+                                          params)
+    end.record()
+    torch.cuda.synchronize()
+    for group in ("ini_state", "controls", "prop"):
+        for k, g in grads[group].items():
+            require(np.isfinite(g).all(), f"fsai grad: non-finite gradient {group}/{k}")
+    return dict(value=value, grads=grads, ms=start.elapsed_time(end), launches=read_launches(),
+                peak=torch.cuda.max_memory_allocated() - base,
+                counts=dict(model.solid.adjoint_counts))
+
+
+def fsai_grad_large(torch, card, built, times):
+    """Value+grad of the RMS radiated pressure through the 23.7k FSAI model
+    on the production adjoint settings (ADJ_LARGE: bf16 btd factors refreshed
+    every 16 steps, fixed-3, the refined stale-factor adjoint on K6T), the
+    value the forward's (a graph run) bit for bit, the gradient against the
+    exact-factor one (STALE_VS_EXACT per group)."""
+    forward_value = fsai_value(torch, built, times, ADJ_LARGE)[0]  # captures the step
+    value_f, ms_f = fsai_value(torch, built, times, ADJ_LARGE)
+    fsai_grad_run(torch, built, times, ADJ_LARGE)  # warm-up
+    g = fsai_grad_run(torch, built, times, ADJ_LARGE)
+    x = fsai_grad_run(torch, built, times, {**ADJ_LARGE, "adjoint_refine": "exact"})
+    n = len(times) - 1
+    used = ("gather", "scatter", "newmark", "newmark_t", "btd_sweep", "btd_sweep_t")
+    require(g["value"] == value_f == forward_value,
+            f"fsai grad 23.7k: value {g['value']!r} != the forward's {value_f!r}")
+    require_launched(g["launches"], used, "fsai grad 23.7k")
+    worst = grad_rel(g["grads"], x["grads"], x["value"])
+    per_step = {k: g["launches"][k] / n for k in used}
+    log(f"[fsai] 23.7k value+grad f64 of the RMS radiated pressure over {n} steps: forward"
+        f" (CUDA graph) {n / (ms_f / 1e3):.2f} steps/s, value+grad (stale refined)"
+        f" {n / (g['ms'] / 1e3):.2f} steps/s, exact-factor {n / (x['ms'] / 1e3):.2f} (CUDA"
+        f" events); J = {g['value']:.9e} (= the forward's); refinement iterations"
+        f" {g['counts']['refine_iterations']} in {g['counts']['solves']} solves; stale vs exact"
+        f" gradient, max rel diff per group {worst} (bound {STALE_VS_EXACT:.0e}); peak device"
+        f" memory {g['peak'] / 2**20:.1f} MB over the model's; launches a step {per_step},"
+        f" on {card}")
+    require(max(worst.values()) <= STALE_VS_EXACT,
+            "fsai grad 23.7k: stale gradient off the exact one")
+    return dict(launches=g["launches"], steps_s=n / (g["ms"] / 1e3), worst=worst)
+
+
+def phase_fsai(torch, card, dev):
+    """Phase 12, two-way fluid-solid-acoustic coupling: the M5 FSAI model
+    through ``forward.integrate`` and the eager loop and the captured step in
+    turns, f64 against golden_m5_fsai.npz and f32 against its JAX f32 run,
+    with the step graph's nodes and replay time beside the uncoupled FSI
+    step's (the root solve's share), a profile and the peak memory; the
+    23.7k production btd model in the tract against its exact-Jacobian run,
+    and its value+grad; M5 value+grad of the RMS radiated pressure against
+    central differences."""
+    from vf_fem_tpu_torch import forward
+
+    gold = np.load(os.path.join(REPO, "tests", "data", "golden_m5_fsai.npz"))
+    times = gold["times"]
+    n_steps = len(times) - 1
+    every = int(gold["steps"][0])
+    used = ("gather", "scatter", "newmark")
+    out = {}
+    m5 = {}
+    # -- M5, f64 and f32 -------------------------------------------------------------
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        what = f"fsai M5 {tag}"
+        built = build_fsai(torch, dev, dtype)
+        m5[tag] = built
+        model, state0, cs, prop = built
+        control = {k: v[0] for k, v in cs.items()}
+
+        def eager(ts=times):
+            return forward._integrate_eager(model, state0, cs, prop, ts, HEADLINE)
+
+        def graph(ts=times):
+            return forward.integrate_pure(model, state0, cs, prop, ts, HEADLINE)
+
+        reset_launches()
+        fin_i, info_i = forward.integrate(model, None, state0, [control], prop, times,
+                                          newton_solver_prm=HEADLINE, write=False)
+        torch.cuda.synchronize()
+        require_launched(read_launches(), used, what)
+        require(info_i["lagged_fallback_steps"] == 0 and not info_i["diverged"],
+                f"{what}: {info_i['lagged_fallback_steps']} lagged steps, diverged"
+                f" {info_i['diverged']}")
+        entry = graph_entry(model, HEADLINE)
+        eager()  # warm-up
+        turns = []
+        for which in ("eager", "graph", "graph", "eager"):
+            res, ms, launches, _ = run_timed(torch, model, eager if which == "eager" else graph)
+            turns.append(dict(which=which, res=res, ms=ms, launches=launches,
+                              steps_s=n_steps / (ms / 1e3)))
+        ref = turns[0]
+        for t in turns[1:]:
+            require(same_run(torch, t["res"], ref["res"]),
+                    f"{what}: a {t['which']} run is not bit-equal to the first eager run")
+            require(t["launches"] == ref["launches"],
+                    f"{what}: {t['which']} launches {t['launches']} != {ref['launches']}")
+        fin, traj, infos = turns[1]["res"]
+        require(bool(infos.bracketed.all()), f"{what}: a step fell back to the lagged exchange")
+        for k, v in traj.items():
+            require(bool(torch.isfinite(v).all()), f"{what}: non-finite {k}")
+        require(all(np.array_equal(fin_i[k], fin[k].cpu().numpy()) for k in fin_i),
+                f"{what}: integrate's final state differs from the graph run's")
+        u = traj["u"].double().cpu().numpy()[every - 1 :: every]
+        if dtype == torch.float64:
+            du = rel_max(u, gold["u"])
+            dq = rel_max(traj["q"].cpu().numpy().ravel(), gold["q"])
+            finals = {k: rel_max(fin[k].cpu().numpy(), gold[f"{k}_final"])
+                      for k in ("p", "pinc", "pref")}
+            log(f"[fsai] M5 f64 vs golden (JAX CPU): max|du|/max|u| {du:.3e}, q {dq:.3e},"
+                f" final {', '.join(f'{k} {v:.3e}' for k, v in finals.items())}"
+                f" (rtol {FSAI_GOLDEN_RTOL:.0e}); Newton iterations equal the golden's:"
+                f" {np.array_equal(infos.num_iter.cpu().numpy(), gold['num_iter'])}")
+            np.testing.assert_allclose(u, gold["u"], rtol=FSAI_GOLDEN_RTOL, atol=1e-12)
+            np.testing.assert_allclose(traj["q"].cpu().numpy().ravel(), gold["q"],
+                                       rtol=FSAI_GOLDEN_RTOL)
+            for k in ("p", "pinc", "pref"):
+                ref_k = gold[f"{k}_final"]
+                np.testing.assert_allclose(fin[k].cpu().numpy(), ref_k, rtol=FSAI_GOLDEN_RTOL,
+                                           atol=1e-12 * np.abs(ref_k).max())
+        else:
+            diff = [float(np.abs(a - b).max() / np.abs(c).max())
+                    for a, b, c in zip(u, gold["f32_u"], gold["u"])]
+            gates = 10 * gold["f32_vs_f64_steps"]
+            log(f"[fsai] M5 f32 vs the JAX f32 run every {every} steps"
+                f" {[float(f'{x:.3e}') for x in diff]} (gates, 10x JAX f32 vs f64:"
+                f" {[float(f'{x:.3e}') for x in gates]})")
+            require(all(d <= g for d, g in zip(diff, gates)), "fsai M5 f32: outside its gates")
+        # the uncoupled FSI step at the same settings: what the root solve
+        # and the tract add to the captured step
+        fsi = model.fsi
+        fsi_args = ({k: state0[k] for k in fsi.state0},
+                    {"psub": cs["psub"], "psup": np.zeros_like(cs["psub"])},
+                    {k: prop[k] for k in fsi.prop})
+        for _ in range(2):
+            forward.integrate_pure(fsi, *fsi_args, times, HEADLINE)
+        fsi_entry = graph_entry(fsi, HEADLINE)
+        alone = replay_ms(torch, model, HEADLINE, n_steps)
+        fsi_alone = replay_ms(torch, fsi, HEADLINE, n_steps)
+        prof = profile_run(torch, lambda: graph(times[:PROFILE_STEPS + 1]), PROFILE_STEPS,
+                           "newmark_kernel")
+        require_traced(prof, used, what)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        graph()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        share = 1 - fsi_alone / alone
+        log(f"[fsai] M5 {tag} ({model.solid.ndof} dofs + {len(state0['pinc'])}x2 tract): steps/s"
+            f" by CUDA events, in turns " + ", ".join(f"{t['which']} {t['steps_s']:.2f}"
+                                                     for t in turns)
+            + f"; graph bit-equal to eager, launches {ref['launches']} both ways; integrate:"
+            f" lagged_fallback_steps {info_i['lagged_fallback_steps']}, uncertified_steps"
+            f" {info_i['uncertified_steps']}; step graph {entry['nodes']} nodes (the uncoupled"
+            f" FSI step's {fsi_entry['nodes']}: +{entry['nodes'] - fsi_entry['nodes']} for the"
+            f" root solve and the tract), replays alone {alone:.4f} ms a step (FSI"
+            f" {fsi_alone:.4f} ms): the root solve and the tract take {share:.1%} of the"
+            f" step; profile of {PROFILE_STEPS} graph steps: device busy {prof['busy_ms']:.3f} ms"
+            f" of {prof['wall_ms']:.3f} ms, idle share {prof['idle']:.3f},"
+            f" {prof['per_step']:.1f} device kernels a step; peak device memory"
+            f" {peak / 2**20:.1f} MB over the model's; on {card}")
+        out[tag] = dict(launches=turns[1]["launches"], n_steps=n_steps,
+                        steps_s=[t["steps_s"] for t in turns], nodes=entry["nodes"],
+                        fsi_nodes=fsi_entry["nodes"], replay_ms=alone, fsi_replay_ms=fsi_alone,
+                        share=share, idle=prof["idle"], peak=peak)
+
+    # -- 23.7k, production btd against the exact Jacobian ----------------------------------
+    used_btd = used + ("btd_sweep",)
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        what = f"fsai 23.7k {tag}"
+        built = build_fsai(torch, dev, dtype, large=True)
+        model, state0, cs, prop = built
+
+        def drive(params):
+            return run_timed(torch, model, lambda: forward.integrate_pure(
+                model, state0, cs, prop, times, params))
+
+        drive(BTD_PROD)  # warm-up (captures the step)
+        (fin, traj, infos), ms, launches, _ = drive(BTD_PROD)
+        require_launched(launches, used_btd, what)
+        solves = int(infos.num_iter.sum())
+        require(launches["btd_sweep"] == 2 * solves,
+                f"{what}: {launches['btd_sweep']} K6 launches for {solves} solves")
+        (fin_x, _, infos_x), ms_x, _, _ = drive(BTD_EXACT)
+        for k, v in traj.items():
+            require(bool(torch.isfinite(v).all()), f"{what}: non-finite {k}")
+        lagged = int((~infos.bracketed).sum()) + int((~infos_x.bracketed).sum())
+        err = rel_max(fin["u"].double().cpu().numpy(), fin_x["u"].double().cpu().numpy())
+        # the reference's gate, or 1.5x the JAX package's own CPU value of
+        # the same runs where that already exceeds it (phase 7's rule)
+        jax_err = float(gold["large_traj_err" if tag == "float64" else "large_f32_traj_err"])
+        gate = TRAJ_ERR_GATE if jax_err <= TRAJ_ERR_GATE else 1.5 * jax_err
+        log(f"[fsai] 23.7k btd prod {tag} ({model.solid.ndof} dofs), {n_steps} steps at dt"
+            f" {model.dt:.4e} s: {n_steps / (ms / 1e3):.2f} steps/s (CUDA graph), exact run"
+            f" {n_steps / (ms_x / 1e3):.2f}; trajectory error vs the exact-Jacobian run"
+            f" {err:.3e} (gate {gate:.3e}; JAX CPU {jax_err:.3e}); lagged steps {lagged};"
+            f" launches {launches} ({sum(launches.values()) / n_steps:.1f} a step), on {card}")
+        require(lagged == 0, f"{what}: {lagged} steps fell back to the lagged exchange")
+        require(err <= gate, f"{what}: trajectory error over its gate")
+        out[("23.7k", tag)] = dict(launches=launches, steps_s=n_steps / (ms / 1e3), err=err,
+                                   n_steps=n_steps)
+        if dtype == torch.float64:
+            out["grad 23.7k"] = fsai_grad_large(torch, card, built, times[:FSAI_GRAD_STEPS + 1])
+        del built, model, traj
+
+    # -- M5 value+grad ---------------------------------------------------------------------
+    built = m5["float64"]
+    model, state0, cs, prop = built
+    t_grad = times[:FSAI_GRAD_STEPS + 1]
+    fsai_value(torch, built, t_grad, ADJ_M5)  # warm-up
+    value_f, ms_f = fsai_value(torch, built, t_grad, ADJ_M5)
+    g = fsai_grad_run(torch, built, t_grad, ADJ_M5)
+    value, grads, launches, ms_g, peak = g["value"], g["grads"], g["launches"], g["ms"], g["peak"]
+    require(value == value_f, f"fsai grad: value {value!r} != the forward's {value_f!r}")
+    require_launched(launches, used + ("newmark_t",), "fsai grad")
+    g_area = grads["prop"]["area"]
+    require(np.abs(g_area).max() > 0, "fsai grad: the tract area's gradient is zero")
+    checks = []
+    vals = []
+    for h in (1.0, -1.0):
+        vals.append(fsai_value(torch, (model, state0, {"psub": cs["psub"] + h}, prop), t_grad,
+                               ADJ_M5)[0])
+    checks.append(("psub (h = 1 Ba)", float(grads["controls"]["psub"].sum()),
+                   (vals[0] - vals[1]) / 2.0))
+    d = np.random.default_rng(12).standard_normal(prop["area"].shape)
+    vals = []
+    for h in (FSAI_AREA_H, -FSAI_AREA_H):
+        p = {**prop, "area": prop["area"] + h * d}
+        vals.append(fsai_value(torch, (model, state0, cs, p), t_grad, ADJ_M5)[0])
+    checks.append((f"the tract areas along a random direction ({FSAI_AREA_H:g} cm^2 a tube)",
+                   float(np.dot(g_area, d)), (vals[0] - vals[1]) / (2 * FSAI_AREA_H)))
+    log(f"[fsai] M5 value+grad f64 of the RMS radiated pressure over {FSAI_GRAD_STEPS} steps:"
+        f" forward {FSAI_GRAD_STEPS / (ms_f / 1e3):.2f} steps/s, value+grad"
+        f" {FSAI_GRAD_STEPS / (ms_g / 1e3):.2f} steps/s (CUDA events); J = {value:.9e} (= the"
+        f" forward's); peak device memory {peak / 2**20:.1f} MB over the model's; launches"
+        f" {launches}, on {card}")
+    for what, adj, fd in checks:
+        rel = abs(adj - fd) / abs(fd)
+        log(f"[fsai] M5 d J / d {what}: adjoint {adj:.9e}, central difference {fd:.9e},"
+            f" rel diff {rel:.3e} (rtol {FD_RTOL:.0e})")
+        require(fd != 0 and rel <= FD_RTOL, f"fsai grad: {what} off its finite difference")
+    out["grad"] = dict(launches=launches, steps_s=FSAI_GRAD_STEPS / (ms_g / 1e3), peak=peak)
+    return out
+
+
+def start_mesher():
+    """The 94.8k mesh, built (or found in its cache) by a child process that
+    runs beside the phases: ``(process, start time)``."""
+    import time
+
+    name, h, iters = MESH94K
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "vf_fem_tpu_torch.mesh.cached", "--name", name, "--h", str(h),
+         "--smooth-iters", str(iters)], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env={**os.environ, "OMP_NUM_THREADS": "2"})
+    return proc, time.perf_counter()
+
+
+def phase_mesh94k(torch, card, dev, mesher):
+    """Phase 13: the 94.8k-dof mesh (its counts), then the production btd
+    configuration at refresh 64 on it, f64 and f32, 100 steps, against the
+    exact-Jacobian run of each, with steps/s, the launch counts, a step's
+    split (one refactorization's time), a profile and the peak memory."""
+    import time
+
+    from vf_fem_tpu_torch import forward
+    from vf_fem_tpu_torch.mesh.cached import load_cached_m5_mesh
+
+    proc, t_start = mesher
+    t0 = time.perf_counter()
+    text, _ = proc.communicate(timeout=900)
+    require(proc.returncode == 0, f"mesh94k: the mesher failed: {text}")
+    waited = time.perf_counter() - t0
+    name, h, iters = MESH94K
+    mesh, seconds = load_cached_m5_mesh(name, h, iters)
+    require(seconds is None, "mesh94k: the child process left no cache")
+    counts = (mesh.num_vertices, mesh.num_cells)
+    log(f"[mesh94k] {text.strip()}; the mesher ran beside phases 2-12 (this phase waited"
+        f" {waited:.1f} s for it, {time.perf_counter() - t_start:.1f} s after it started):"
+        f" {counts[0]} vertices, {counts[1]} cells (expected {MESH94K_COUNTS})")
+    require(counts == MESH94K_COUNTS, f"mesh94k: {counts} vertices and cells")
+    times = DT * np.arange(N_STEPS + 1)
+    used = ("gather", "scatter", "newmark", "btd_sweep")
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        what = f"mesh94k {tag}"
+        built = build(torch, dev, mesh, dtype)
+        model, state0, cs, prop = built
+
+        def drive(params, ts=times):
+            return run_timed(torch, model, lambda: forward.integrate_pure(
+                model, state0, cs, prop, ts, params))
+
+        drive(BTD_R64)  # warm-up (captures the step)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (fin, traj, infos), ms, launches, _ = drive(BTD_R64)
+        peak = torch.cuda.max_memory_allocated() - base
+        require_launched(launches, used, what)
+        solves = int(infos.num_iter.sum())
+        require(launches["btd_sweep"] == 2 * solves,
+                f"{what}: {launches['btd_sweep']} K6 launches for {solves} solves")
+        for k, v in traj.items():
+            require(bool(torch.isfinite(v).all()), f"{what}: non-finite {k}")
+        (fin_x, _, _), ms_x, _, _ = drive(BTD_EXACT)
+        err = rel_max(fin["u"].double().cpu().numpy(), fin_x["u"].double().cpu().numpy())
+        mid = {k: v[N_STEPS // 2 - 1] for k, v in traj.items()}
+        split, detail = step_split(torch, built, mid, BTD_R64, N_STEPS, ms / N_STEPS)
+        prof = profile_run(torch, lambda: forward.integrate_pure(
+            model, state0, cs, prop, times[:PROFILE_STEPS + 1], BTD_R64), PROFILE_STEPS,
+            "btd_sweep_kernel")
+        require_traced(prof, used, what)
+        log(f"[mesh94k] btd refresh 64 {tag} ({model.solid.ndof} dofs, {N_STEPS} steps):"
+            f" {N_STEPS / (ms / 1e3):.2f} steps/s (CUDA graph, CUDA events), exact run"
+            f" {N_STEPS / (ms_x / 1e3):.2f}; trajectory error vs the exact-Jacobian run"
+            f" {err:.3e} ({'gate' if dtype == torch.float64 else 'not gated; for reference'}"
+            f" {TRAJ_ERR_GATE:.0e}; for scale, TPU: 3.48e-7, STATUS.md:360); a graph step"
+            f" {ms / N_STEPS:.3f} ms with the two refactorizations amortized ({split['refresh']:.3f}"
+            f" ms of it); eager calls at step {N_STEPS // 2}: {detail}; profile of"
+            f" {PROFILE_STEPS} steps: device busy"
+            f" {prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms, idle share"
+            f" {prof['idle']:.3f}; peak device memory {peak / 2**20:.1f} MB over the model's;"
+            f" launches {launches} ({sum(launches.values()) / N_STEPS:.1f} a step), on {card}")
+        if dtype == torch.float64:
+            require(err <= TRAJ_ERR_GATE, f"{what}: trajectory error over its gate")
+        out[tag] = dict(launches=launches, steps_s=N_STEPS / (ms / 1e3), err=err,
+                        n_steps=N_STEPS, idle=prof["idle"], peak=peak)
+        del built, model, traj
+    return out
+
+
 def main():
     import time
 
@@ -2315,6 +2786,18 @@ def main():
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(cuda_build.build, sources))
     log(f"[build] {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.1f} s")
+    mesher = start_mesher()
+    try:
+        run_phases(torch, name, card, dev, t0, mesher)
+    finally:
+        if mesher[0].poll() is None:
+            mesher[0].kill()
+        mesher[0].wait()
+
+
+def run_phases(torch, name, card, dev, t0, mesher):
+    import time
+
     def timed(name, fn, *args):
         t = time.perf_counter()
         res = fn(*args)
@@ -2333,6 +2816,8 @@ def main():
     grad = timed("grad", phase_grad, torch, card, dev, large)
     tang = timed("tangents", phase_tangents, torch, card, dev, large)
     imp = timed("implicit", phase_implicit, torch, card, dev)
+    fsai = timed("fsai", phase_fsai, torch, card, dev)
+    m94 = timed("mesh94k", phase_mesh94k, torch, card, dev, mesher)
 
     # per kernel: the timing at the 23.7k shapes of the btd main path (f64)
     timing = {
@@ -2360,7 +2845,13 @@ def main():
             ("23.7k implicit btd", imp["23.7k"]["launches"], IMPLICIT_LARGE_STEPS),
             ("23.7k static (a solve)", imp["static"]["launches"], 1),
             ("23.7k static backward", imp["static"]["backward_launches"], 1),
-            ("M5 implicit value+grad", imp["grad"]["launches"], IMPLICIT_GRAD_STEPS)]
+            ("M5 implicit value+grad", imp["grad"]["launches"], IMPLICIT_GRAD_STEPS),
+            ("M5 fsai", fsai["float64"]["launches"], fsai["float64"]["n_steps"]),
+            ("23.7k fsai btd", fsai[("23.7k", "float64")]["launches"],
+             fsai[("23.7k", "float64")]["n_steps"]),
+            ("M5 fsai value+grad", fsai["grad"]["launches"], FSAI_GRAD_STEPS),
+            ("23.7k fsai value+grad", fsai["grad 23.7k"]["launches"], FSAI_GRAD_STEPS),
+            ("94.8k btd", m94["float64"]["launches"], m94["float64"]["n_steps"])]
     path = {  # the main-path run whose count is this kernel's ``launches``
         "gather": runs[0][1], "scatter": runs[0][1], "newmark": runs[0][1],
         "btd_sweep": runs[1][1], "ebe_matvec": runs[3][1], "bsb_matvec": runs[2][1],

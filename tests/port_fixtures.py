@@ -173,3 +173,43 @@ def assert_runs_match(jax_run, port_run, rtol):
         np.testing.assert_allclose(pt[k], ref, rtol=rtol,
                                    atol=1e-12 * np.abs(ref).max(), err_msg=k)
     np.testing.assert_array_equal(pn, jn)
+
+
+def port_fsai_model(jm, nx=10, ny=5, device="cpu", dtype=torch.float64):
+    """The port's counterpart of ``tests/test_fsai.make_fsai_model(nx, ny,
+    num_tube)`` (KelvinVoigt + BernoulliSmoothMinSep on
+    ``vocal_fold_mesh(nx, ny)``, a WRA tract of the JAX model's tubes), with
+    the JAX model ``jm``'s properties and controls."""
+    from vf_fem_tpu_torch.load import load_fsai_model
+    from vf_fem_tpu_torch.mesh import vocal_fold_mesh
+    from vf_fem_tpu_torch.residuals import fluid as flr, solid as slr
+
+    tm = load_fsai_model(vocal_fold_mesh(nx, ny), slr.KelvinVoigt,
+                         flr.BernoulliSmoothMinSep, num_tube=jm.acoustic.num_tube,
+                         device=device, dtype=dtype)
+    for k in tm.prop:
+        tm.prop[k][:] = np.asarray(jm.prop[k])
+    for k in tm.control:
+        tm.control[k][:] = np.asarray(jm.control[k])
+    return tm
+
+
+def port_m5_fsai_model(config, dtype=torch.float64, device="cpu"):
+    """The M5 FSAI model that ``tests/make_golden_fsai.py`` ran, built by the
+    port from the configuration stored in its golden (``config``, the
+    decoded JSON)."""
+    from vf_fem_tpu_torch.load import load_fsai_model
+    from vf_fem_tpu_torch.residuals import fluid as flr, solid as slr
+
+    tm = load_fsai_model(os.path.join(REPO, config["mesh"]), getattr(slr, config["solid"]),
+                         getattr(flr, config["fluid"]), num_tube=config["num_tube"],
+                         device=device, dtype=dtype)
+    ymax = tm.solid.residual.mesh().coords[:, 1].max()
+    for k, v in config["props"].items():
+        tm.prop[k][:] = v
+    tm.prop["ycontact"][:] = ymax + config["ycontact_above_ymax"]
+    tm.prop["ymid"][:] = ymax + config["ymid_above_ymax"]
+    tm.prop["area"][:] = config["tract_area"]
+    tm.prop["proploss"][:] = config["proploss"]
+    tm.control["psub"][:] = config["psub"]
+    return tm

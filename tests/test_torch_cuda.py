@@ -1087,3 +1087,38 @@ def test_static_btd_on_cuda(cuda):
     assert np.abs(u_gpu - u_cpu).max() <= 1e-9 * np.abs(u_cpu).max()
     for a, b in zip(g_gpu, g_cpu):
         assert np.abs(a - b).max() <= 1e-9 * np.abs(b).max()
+
+
+# -- fluid-solid-acoustic coupling -------------------------------------------------
+
+
+def test_fsai_graph_equals_eager(cuda):
+    """The M5 FSAI model of ``golden_m5_fsai.npz`` on the card with the M5
+    headline's settings: the step (solid, flow root solve, tract) is
+    captured once and replayed, its trajectory (``pinc``/``pref``
+    included), infos (``bracketed`` included) and final state equal the
+    eager loop's bit for bit, no step falls back to the lagged exchange,
+    and the stored displacements of the first 40 steps are the golden's
+    (rtol 1e-8)."""
+    import json
+
+    from port_fixtures import port_m5_fsai_model
+    from vf_fem_tpu_torch import step_graph
+
+    gold = np.load(os.path.join(os.path.dirname(__file__), "data", "golden_m5_fsai.npz"))
+    config = json.loads(str(gold["config"]))
+    model = port_m5_fsai_model(config, device=cuda)
+    params = {**config["params"], "assembly": "banded"}
+    assert step_graph.captures(model, forward.solver_params(params))
+    n_steps = 40
+    args = (*port_inputs(model), gold["times"][:n_steps + 1], params)
+    eager = forward._integrate_eager(model, *args)
+    graph = forward.integrate_pure(model, *args)
+    torch.cuda.synchronize()
+    assert _same_run(graph, eager)
+    (stats,) = step_graph.graph_stats(model).values()
+    assert stats["captures"] == 1 and stats["replays"] == n_steps - 1
+    assert bool(graph[2].bracketed.all())
+    every = int(gold["steps"][0])
+    np.testing.assert_allclose(graph[1]["u"].cpu().numpy()[every - 1 :: every],
+                               gold["u"][: n_steps // every], rtol=1e-8, atol=1e-12)

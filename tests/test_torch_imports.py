@@ -48,6 +48,9 @@ def test_import_leaves_jax_unloaded():
         "import vf_fem_tpu_torch.adjoint, vf_fem_tpu_torch.functional\n"
         "import vf_fem_tpu_torch.stepfunctional, vf_fem_tpu_torch.misc.taylor\n"
         "import vf_fem_tpu_torch.parameters, vf_fem_tpu_torch.static\n"
+        "import vf_fem_tpu_torch.models.acoustic, vf_fem_tpu_torch.models.fsai\n"
+        "import vf_fem_tpu_torch.functional.acoustic, vf_fem_tpu_torch.mesh.m5\n"
+        "import vf_fem_tpu_torch.mesh.writers, vf_fem_tpu_torch.mesh.triangulate\n"
         f"bad = [m for m in set(sys.modules) - before"
         f" if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"

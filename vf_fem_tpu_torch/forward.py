@@ -20,6 +20,12 @@ the run's configuration:
   ``adjoint``): the same steps and windows, eager, never the graph, with
   autograd recording each step.
 
+Any transient model with the FSI model's step functions runs here: the
+explicit and implicit FSI models, the FSAI model (``models.fsai``, whose
+step info adds ``bracketed``) and the WRA tract alone
+(``models.acoustic.WRAnalog``: no solid, no factors, always eager,
+without refresh windows).
+
 :func:`integrate` adds the HDF5 statefile (:mod:`.statefile`, which needs
 h5py; ``f=None`` needs none), the divergence flags and the certification
 of fixed-iteration runs; :func:`integrate_extend` resumes from a file and
@@ -43,7 +49,6 @@ from torch.func import jvp
 from . import step_graph
 from .convert import to_numpy, to_tensors
 from .models.transient import solver_params
-from .solvers.newton import SolveInfo
 
 Options = dict
 
@@ -165,7 +170,7 @@ def _integrate_eager(model, ini_state, controls_stacked, prop, times,
                 state = run(state, factors, n0, n1)
 
     trajectory = {k: torch.stack([s[k] for s in traj]) for k in traj[0]}
-    info = SolveInfo(*(torch.stack(x) for x in zip(*infos)))
+    info = type(infos[0])(*(torch.stack(x) for x in zip(*infos)))
     return state, trajectory, info
 
 
@@ -228,7 +233,7 @@ def _integrate_diff(model, ini_state, controls_stacked, prop, times,
             state = run(state, factors, n0, n1)
 
     trajectory = {k: torch.stack([s[k] for s in traj]) for k in traj[0]}
-    info = SolveInfo(*(torch.stack(x).detach() for x in zip(*infos)))
+    info = type(infos[0])(*(torch.stack(x).detach() for x in zip(*infos)))
     return state, trajectory, info
 
 
@@ -256,7 +261,13 @@ def integrate_linear_pure(
     full-precision factors built at u1), two K5 launches, the banded
     gather and scatter of the tangent.  The tangent controls are
     broadcast to the controls' stacked shape; ``dtimes`` moves the steps'
-    coefficient rows (``equations.newmark.coefficient_rows``)."""
+    coefficient rows (``equations.newmark.coefficient_rows``).  The FSAI
+    model's tangents (the JAX package's ``step_pure_fwd``) are not ported:
+    it raises."""
+    from .models.fsai import ExplicitFSAIModel
+
+    if isinstance(model, ExplicitFSAIModel):
+        raise NotImplementedError("tangents of the FSAI model are not ported")
     params_d = solver_params(params)
     dev, dtype = model.device, model.dtype
     if isinstance(times, torch.Tensor):
@@ -353,10 +364,10 @@ def _integrate_windowed(
             model, state, ctrl_win, prop, times[s : e + 1], params
         )
         trajs.append(to_numpy(traj))
-        infos_all.append(SolveInfo(*(x.cpu().numpy() for x in infos)))
+        infos_all.append(type(infos)(*(x.cpu().numpy() for x in infos)))
 
     traj = {k: np.concatenate([t[k] for t in trajs], axis=0) for k in trajs[0]}
-    infos = SolveInfo(*(np.concatenate(xs, axis=0) for xs in zip(*infos_all)))
+    infos = type(infos)(*(np.concatenate(xs, axis=0) for xs in zip(*infos_all)))
     return state, traj, infos
 
 
@@ -410,7 +421,7 @@ def integrate(
     controls_stacked = _stack_controls(model, controls)
     prop_d = to_numpy(prop)
     # models with a restricted supported regime verify the run's
-    # properties up front (the JAX package's FSAI model)
+    # properties up front (the FSAI model, ``models.fsai``)
     check = getattr(model, "check_envelope", None)
     if check is not None:
         check(prop_d)
@@ -503,11 +514,11 @@ def finalize_run(
     last_info["uncertified_steps"] = certify_fixed_iterations(
         newton_solver_prm, step_info
     )
-    # runtime half of an envelope guard (the JAX package's FSAI model):
+    # runtime half of an envelope guard (the FSAI model):
     # steps whose interactive flow solve fell back to the lagged exchange
     bracketed = getattr(infos, "bracketed", None)
     if bracketed is not None:
-        n_lagged = int((~np.asarray(bracketed).astype(bool)).sum())
+        n_lagged = int((~to_numpy({"bracketed": bracketed})["bracketed"]).sum())
         last_info["lagged_fallback_steps"] = n_lagged
         if n_lagged:
             warnings.warn(

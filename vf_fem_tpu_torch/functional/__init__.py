@@ -1,8 +1,8 @@
 """
 Functionals mapping solved trajectories to scalars (counterpart of
-``vf_fem_tpu.functional``; ``functional/acoustic.py`` waits for the
-acoustic models).
+``vf_fem_tpu.functional``), the acoustic ones (``functional/acoustic.py``)
+included.
 """
 
-from . import base, fluid, fsi, solid
+from . import acoustic, base, fluid, fsi, solid
 from .base import AbstractFunctional, Scalar

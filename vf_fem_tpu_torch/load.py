@@ -1,5 +1,5 @@
 """
-Model factory: build solid, fluid and coupled FSI models from
+Model factory: build solid, fluid, coupled FSI and FSAI models from
 meshes (counterpart of ``vf_fem_tpu.load``).  ``device`` and ``dtype`` are
 fixed here: every static array of the model is built on that device once.
 """
@@ -94,3 +94,30 @@ def load_fsi_model(
         s, FluidResidual, device=device, dtype=dtype, **(fluid_kwargs or {})
     )
     return models[coupling](solid, fluid, dofs_fsi_solid, dofs_fsi_fluid)
+
+
+def load_fsai_model(
+    solid_mesh: Union[str, Mesh],
+    SolidResidual: type = slr.KelvinVoigt,
+    FluidResidual: type = flr.BernoulliSmoothMinSep,
+    num_tube: int = 44,
+    device=config.DEFAULT_DEVICE,
+    dtype=config.DEFAULT_DTYPE,
+    **fsi_kwargs,
+):
+    """Build a two-way coupled fluid-solid-acoustic model
+    (:class:`~.models.fsai.ExplicitFSAIModel`): an explicitly coupled FSI
+    model (:func:`load_fsi_model` with ``coupling='explicit'``; passing
+    ``coupling`` raises, as in the JAX package) and a WRA vocal tract of
+    ``num_tube`` tubes whose input pressure is the fluid's supraglottal
+    pressure.  Drive it at the tract's geometry-locked time step,
+    ``model.dt``."""
+    from .models.acoustic import WRAnalog
+    from .models.fsai import ExplicitFSAIModel
+
+    device = config.model_device(device)
+    fsi = load_fsi_model(
+        solid_mesh, SolidResidual, FluidResidual, coupling="explicit",
+        device=device, dtype=dtype, **fsi_kwargs,
+    )
+    return ExplicitFSAIModel(fsi, WRAnalog(num_tube, device=device, dtype=dtype))

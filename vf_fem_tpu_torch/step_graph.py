@@ -11,14 +11,16 @@ and writes lives in static buffers of a cache entry (:class:`StepBuffers`),
 one per solver configuration (params), kept on the model, whatever the
 number of steps:
 
-- the state ``u, v, a, q, p`` and the Newmark predictor of the next step
+- the state (``u, v, a, q, p``, and the FSAI model's tract ``pinc, pref``)
+  and the Newmark predictor of the next step
   (the one K5 writes with the state, ``SolidModel.carry_predictor``);
 - the rows of a chunk of ``CHUNK`` steps: held-last controls, Newmark
   coefficients (``equations.newmark.coefficients`` of each step's dt and
   the next step's in float64, rounded to the model's dtype: K5's rows,
   ``ops.newmark_row``), and the trajectory and solver infos the steps
-  write, rows selected by a step counter on the device that the step
-  increments;
+  write (every field of the model's info type: the FSAI model's adds
+  ``bracketed``), rows selected by a step counter on the device that the
+  step increments;
 - copies of the run's properties, and the factors.
 
 The step writes its new state back into the state buffers (copy back, not
@@ -72,9 +74,11 @@ def captures(model, params_d: dict) -> bool:
     carried through refresh windows of more than one step, by a direct
     solver.  Every other run is eager by its configuration, and so is every
     run of an implicitly coupled model, whose Picard stop reads each
-    iteration's residual norm on the host."""
+    iteration's residual norm on the host, and of a model without a solid
+    (the WRA tract alone)."""
     return bool(
         not isinstance(model, ImplicitFSIModel)
+        and getattr(model, "solid", None) is not None
         and params_d.get("fixed_iterations")
         and model.device.type == "cuda"
         and int(params_d.get("jacobian_refresh_steps", 1)) > 1
@@ -130,10 +134,16 @@ def _pool_bytes(graph) -> Optional[int]:
     return sum(s["total_size"] for s in segs if tuple(s["segment_pool_id"]) == pool)
 
 
-def _infos(n: int, dtype, dev) -> SolveInfo:
-    return SolveInfo(torch.zeros(n, dtype=torch.int64, device=dev),
-                     torch.zeros(n, dtype=dtype, device=dev),
-                     torch.zeros(n, dtype=dtype, device=dev))
+# dtypes of the info fields that are not in the model's dtype
+_INFO_DTYPES = {"num_iter": torch.int64, "bracketed": torch.bool}
+
+
+def _infos(model, n: int):
+    """Zeroed rows of each field of the model's step info (``info_type``,
+    ``SolveInfo`` by default)."""
+    info_type = getattr(model, "info_type", SolveInfo)
+    return info_type(*(torch.zeros(n, dtype=_INFO_DTYPES.get(f, model.dtype),
+                                   device=model.device) for f in info_type._fields))
 
 
 class StepBuffers:
@@ -155,7 +165,7 @@ class StepBuffers:
         self.factors = None
         self.traj = {k: torch.zeros((CHUNK,) + tuple(v.shape), dtype=dtype, device=dev)
                      for k, v in self.state.items()}
-        self.infos = _infos(CHUNK, dtype, dev)
+        self.infos = _infos(model, CHUNK)
         self.graph = None
         self.delta = None
         self.stats = {"captures": 0, "replays": 0}
@@ -296,7 +306,7 @@ class _Run:
         self.coefs = ops.newmark_row(coefficient_table(dts), dtype, dev)
         self.traj = {k: torch.empty((n_steps,) + np.asarray(v).shape, dtype=dtype, device=dev)
                      for k, v in model.state0.items()}
-        self.infos = _infos(n_steps, dtype, dev)
+        self.infos = _infos(model, n_steps)
 
     def control_row(self, n: int) -> dict:
         return {k: t[n] for k, t in self.controls.items()}
