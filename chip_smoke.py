@@ -926,6 +926,7 @@ def bsb_t_op(torch, plan, fill, blocks, x, tag):
     CPU emulation (``tests/bsb_emulation.py``), and the same bits in three
     launches; then its timing row."""
     from vf_fem_tpu_torch import ops, yardsticks
+    from vf_fem_tpu_torch.ops import kernels
 
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from bsb_emulation import emulate_bsb_matvec_t
@@ -946,12 +947,14 @@ def bsb_t_op(torch, plan, fill, blocks, x, tag):
     require(all(torch.equal(y, ys[0]) for y in ys[1:]),
             f"ops bsb_matvec_t {tag}: not the same bits in 3 launches")
     host_t = type(fill.pattern_t)(*(a.cpu().numpy() for a in fill.pattern_t))
-    emul = emulate_bsb_matvec_t(plan, host_t, blocks.cpu().numpy(), x.cpu().numpy())
+    emul = emulate_bsb_matvec_t(plan, host_t, blocks.cpu().numpy(), x.cpu().numpy(),
+                                kernels.BSB_LANES)
     y = ys[0].cpu().numpy()
     require(np.array_equal(y, emul), f"ops bsb_matvec_t {tag}: not bit-equal to the CPU"
             f" emulation ({int((y != emul).sum())} entries differ)")
     log(f"[ops] bsb_matvec_t {tag}: the same bits in 3 launches, bit-equal to the CPU"
-        f" emulation; bound from the transposed pattern's bytes {r['bytes'] / 1e6:.3f} MB")
+        f" emulation; {-(-plan.ndof // kernels.BSB_T_COLS)} CTAs of {kernels.BSB_T_COLS}"
+        f" columns; bound from the transposed pattern's bytes {r['bytes'] / 1e6:.3f} MB")
     return r
 
 
@@ -1125,8 +1128,9 @@ def phase_ops_btd(torch, plan, blocks64):
     plain version's row computed from the kernel's own previous row
     (rtol 1e-13 / 1e-6 plus the dot-product order bound, exact), and the
     whole sweep to the plain sweep (``SWEEP_FULL_GATES``).  The launch
-    plan of every width and dtype pair is held to the built kernel's, and
-    the exchange is timed alone by ``sweep_exchange``."""
+    plans of K6 and K6T at every width and dtype pair are held to the built
+    kernel's, and the exchange is timed alone by ``sweep_exchange``, whose
+    time a row block K6T's line shows beside its own and K6's."""
     from vf_fem_tpu_torch import ops, yardsticks
     from vf_fem_tpu_torch.ops import kernels
     from vf_fem_tpu_torch.solvers import btd
@@ -1146,6 +1150,10 @@ def phase_ops_btd(torch, plan, blocks64):
             plan_py, plan_cu = ops.sweep_plan(w, fdt, vdt), kernels.built_sweep_plan(w, fdt)
             require(plan_py == plan_cu, f"btd_sweep plan {w} {fdt}/{vdt}: ops.sweep_plan"
                                         f" {plan_py} is not the kernel's {plan_cu}")
+            plan_py, plan_cu = ops.sweep_t_plan(w, fdt, vdt), kernels.built_sweep_t_plan(w, fdt)
+            require(plan_py == plan_cu, f"btd_sweep_t plan {w} {fdt}/{vdt}: ops.sweep_t_plan"
+                                        f" {plan_py} is not the kernel's {plan_cu}")
+    exchange_us = sweep_exchange(torch, dev, bt)
     results = {}
     for ftag, vdt in (("bfloat16", torch.float64), ("bfloat16", torch.float32),
                       ("float64", torch.float64), ("float32", torch.float32)):
@@ -1217,12 +1225,19 @@ def phase_ops_btd(torch, plan, blocks64):
             res.update(max_abs_err=err, bytes=nbytes, lib_ms=None, lib_runs=None,
                        lib_call=yardsticks.LIBRARY_CALL["btd_sweep_t"])
             res["bound_ms"], res["bound_by"] = bound_of(nbytes, 2 * (n_sup - 1) * blk, acc)
+            tp = ops.sweep_t_plan(bt, A.dtype, vdt)
+            k6 = results[("btd_sweep", f"{label} {ftag}/{vtag}", vtag)]["device_ms"]
             log(f"[ops] btd_sweep_t {label} {ftag} factors / {vtag} vector ({n_sup} x {bt} x"
                 f" {bt}): {fmt_times(res)}; row max |diff| {diff.max().item():.3e}, whole-sweep"
                 f" max_abs_err {err:.3e} (rel {full_rel:.3e}, gate {SWEEP_FULL_GATES[acc]:.0e});"
-                f" same bits in 3 launches; {res['device_ms'] / n_sup * 1e3:.3f} us per row block")
+                f" same bits in 3 launches; cluster of {tp.cluster} CTAs ({tp.warps} consumer"
+                f" warps, ring of {tp.ring} slots of {tp.stage_rows} box rows, {tp.smem_bytes} B"
+                f" shared): {res['device_ms'] / n_sup * 1e3:.3f} us per row block (K6"
+                f" {k6 / n_sup * 1e3:.3f}"
+                + ("" if A.dtype not in exchange_us else
+                   f", the exchange alone {exchange_us[A.dtype]:.3f}: a chain floor of"
+                   f" {n_sup * exchange_us[A.dtype] / 1e3:.6f} ms") + ")")
             results[("btd_sweep_t", f"{label} {ftag}/{vtag}", vtag)] = res
-    sweep_exchange(torch, dev, bt)
     return results
 
 
@@ -1251,7 +1266,9 @@ def sweep_exchange(torch, dev, bt):
     block from the difference of graph-replayed launches of 93 and 1023 row
     blocks (launch cost out).  Each CTA starts with only its own entries,
     entry k holding the bits k + 1, so every CTA's copy of the vector after
-    3 row blocks holds them all only if every push landed where it should."""
+    3 row blocks holds them all only if every push landed where it should.
+    Returns the st.async exchange's us per row block by factor dtype."""
+    us = {}
     for ftype, bits in ((torch.bfloat16, torch.int16), (torch.float64, torch.int64)):
         for barrier in (False, True):
             t = {n: graph_ms(torch, lambda: exchange_probe(torch, n, bt, ftype, barrier, dev),
@@ -1263,6 +1280,9 @@ def sweep_exchange(torch, dev, bt):
             log(f"[ops] btd_sweep exchange {str(ftype).replace('torch.', '')} x {bt},"
                 f" cluster {sink.shape[0]}, {how}: {(t[1023] - t[93]) / 930 * 1e3:.4f} us per"
                 f" row block ({t[93]:.6f} ms for 93 blocks, {t[1023]:.6f} ms for 1023)")
+            if not barrier:
+                us[ftype] = (t[1023] - t[93]) / 930 * 1e3
+    return us
 
 
 def run_timed(torch, model, run):

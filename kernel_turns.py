@@ -16,14 +16,15 @@ K1 ``banded_gather`` (11 channels) and K2 ``banded_scatter`` (2 channels)
 on the M5-3layers and the 23.7k-dof RCM plans, f64, random values from a
 seed;
 
-K6 ``ops.btd_sweep``, forward and backward, for every (factor, vector)
-dtype pair (bf16/f64 for the production runs, f64/f64 for the tight and
-exact-Jacobian runs, bf16/f32 and f32/f32 for the f32 runs) and every
-row-block width K6 is built for (128, 256, 384, 512), 93 row blocks:
-factors and right-hand sides from a seed, the factors scaled by
-0.5/sqrt(Bt) so that the recurrence stays bounded.  Each process prints the
-SHA-256 of each sweep's output bytes, so that equal digests show two
-kernels bit-equal; the sweeps at the 23.7k shapes (Bt = 256) are timed;
+K6 ``ops.btd_sweep`` and its transpose K6T ``ops.btd_sweep_t``, forward
+and backward, for every (factor, vector) dtype pair (bf16/f64 for the
+production runs, f64/f64 for the tight and exact-Jacobian runs, bf16/f32
+and f32/f32 for the f32 runs) and every row-block width they are built for
+(128, 256, 384, 512), 93 row blocks: factors and right-hand sides from a
+seed, the factors scaled by 0.5/sqrt(Bt) so that the recurrence stays
+bounded.  Each process prints the SHA-256 of each sweep's output bytes, so
+that equal digests show two kernels bit-equal; the sweeps at the 23.7k
+shapes (Bt = 256) are timed;
 
 K5 at 23.7k dofs, f64 and f32, with the next step's Newmark predictor:
 ``ops.newmark_update_coefs`` with its coefficients as a row in device
@@ -33,10 +34,12 @@ predictor, else K5 (v1, a1) and the plain predictor,
 ``equations.newmark``, four eager kernels), with the SHA-256 of the
 three outputs;
 
-K4 ``ops.bsb_matvec`` at 23.7k dofs, f64 and f32, on the model's
-block-banded Jacobian at rest under 500 Ba (the fill of ``chip_smoke.py``
-phase 3), with the checkout's own plan and, where the checkout has one,
-its matvec pattern; then the production bsb f64 run of ``chip_smoke.py``
+K4 ``ops.bsb_matvec`` and its transpose K4T ``ops.bsb_matvec_t`` (where
+the checkout has it, on its transposed pattern, with the SHA-256 of its
+output) at 23.7k dofs, f64 and f32, on the model's block-banded Jacobian at
+rest under 500 Ba (the fill of ``chip_smoke.py`` phase 3), with the
+checkout's own plan and, where the checkout has one, its matvec pattern;
+then the production bsb f64 run of ``chip_smoke.py``
 phase 6 (20 steps after a warm-up run) under ``torch.profiler``: K4's
 device time and share of device busy, the idle share, and the ms per
 BiCGStab iteration at the run's middle state; then the production btd
@@ -50,9 +53,16 @@ Python, so its steps/s include their dispatch on the host).
 Each time is taken two ways by CUDA events: the eager call (200 calls
 after 20 warm-up calls) and the device time (200 calls captured in one CUDA
 graph and replayed).  Prints one line per process and, last, a JSON object
-with every process's numbers, whether each K5, K6 and btd trajectory
-digest is the same in every process, and the card's name and power limit.  Exits nonzero without CUDA
-or when a process fails.
+with every process's numbers, whether each digest (K4T, K5, K6, K6T and
+the btd trajectory) is the same in every process and whether it is the same
+in the two processes of each checkout (a redesigned kernel that sums in
+another order has other bits than its parent's, the same bits every
+launch), and the card's name and power limit.  Exits nonzero without CUDA or
+when a process fails.
+
+To compare with the parent commit: ``mkdir -p _scratch/parent && git
+archive <parent> | tar -x -C _scratch/parent``, then ``python3
+kernel_turns.py _scratch/parent`` (about 15 minutes on an H100).
 """
 
 import hashlib
@@ -105,14 +115,15 @@ def child(root):
             A = torch.tensor(A64, device=dev).to(ftype)
             g = torch.tensor(g64, device=dev).to(vtype)
             for rev in (False, True):
-                fn = lambda: ops.btd_sweep(A, g, reverse=rev)
-                y = fn().cpu().numpy()
-                key = (f"btd_sweep {str(ftype).replace('torch.', '')}/"
-                       f"{str(vtype).replace('torch.', '')} {bt}"
-                       f" {'backward' if rev else 'forward'}")
-                out[key] = dict(sha256=hashlib.sha256(y.tobytes()).hexdigest())
-                if bt == 256:
-                    out[key].update(ms=cuda_ms(torch, fn), device_ms=graph_ms(torch, fn))
+                for name in ("btd_sweep", "btd_sweep_t"):
+                    fn = lambda: getattr(ops, name)(A, g, reverse=rev)
+                    y = fn().cpu().numpy()
+                    key = (f"{name} {str(ftype).replace('torch.', '')}/"
+                           f"{str(vtype).replace('torch.', '')} {bt}"
+                           f" {'backward' if rev else 'forward'}")
+                    out[key] = dict(sha256=hashlib.sha256(y.tobytes()).hexdigest())
+                    if bt == 256:
+                        out[key].update(ms=cuda_ms(torch, fn), device_ms=graph_ms(torch, fn))
 
     # K5 at 23.7k dofs: the state update and the next step's predictor, by
     # K5 alone where it writes all three, else by K5 and the plain predictor
@@ -150,6 +161,11 @@ def child(root):
         fn = lambda: ops.bsb_matvec(plan, B, x, *pattern)
         out[f"bsb_matvec {str(dtype).replace('torch.', '')}"] = dict(
             ms=cuda_ms(torch, fn), device_ms=graph_ms(torch, fn))
+        if hasattr(ops, "bsb_matvec_t"):
+            fn = lambda: ops.bsb_matvec_t(plan, B, x, fill.pattern_t)
+            out[f"bsb_matvec_t {str(dtype).replace('torch.', '')}"] = dict(
+                sha256=hashlib.sha256(fn().cpu().numpy().tobytes()).hexdigest(),
+                ms=cuda_ms(torch, fn), device_ms=graph_ms(torch, fn))
     times = np.load(os.path.join(HERE, "tests", "data", "golden_large_bsb_explicit.npz"))["times"]
     params = {**PROD, "linear_solver": "bsb"}
     traj = {}
@@ -224,11 +240,17 @@ def main():
             + (f" {v['steps'] / (v['run_ms'] / 1e3):.2f} steps/s ({v['run_ms']:.3f} ms)"
                if "run_ms" in v else "")
             for k, v in res.items() if isinstance(v, dict)), flush=True)
-    same = {k: len({r[k]["sha256"] for r in runs}) == 1
-            for k, v in runs[0].items() if isinstance(v, dict) and "sha256" in v}
+    keys = sorted({k for r in runs for k, v in r.items() if isinstance(v, dict) and "sha256" in v})
+    same = {k: len({r[k]["sha256"] for r in runs if k in r}) == 1 for k in keys}
+    # runs 0 and 3 are the old checkout's, 1 and 2 the new one's
+    stable = {k: all(a.get(k, {}).get("sha256") == b.get(k, {}).get("sha256")
+                     for a, b in ((runs[0], runs[3]), (runs[1], runs[2]))) for k in keys}
     print("bit-equal in every process: " + ", ".join(f"{k} {s}" for k, s in same.items()),
           flush=True)
-    print(json.dumps({"card": card, "runs": runs, "bit_equal": same}), flush=True)
+    print("bit-equal within each checkout: "
+          + ", ".join(f"{k} {s}" for k, s in stable.items()), flush=True)
+    print(json.dumps({"card": card, "runs": runs, "bit_equal": same,
+                      "bit_equal_within_checkout": stable}), flush=True)
 
 
 if __name__ == "__main__":

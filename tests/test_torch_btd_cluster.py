@@ -1,6 +1,7 @@
 """
-K6's cluster design on the CPU: the launch plan (``ops.sweep_plan``) for
-every row-block width and dtype pair, and the emulation of
+K6's cluster design on the CPU: the launch plans of K6 and K6T
+(``ops.sweep_plan``, ``ops.sweep_t_plan``) for every row-block width and
+dtype pair, and the emulation of
 the cluster schedule (``sweep_emulation.emulate_sweep``: row ownership,
 ring slots, the lane/chunk order and xor tree of each row, the buffer
 parity of the exchange) against the plain sweep ``ops.btd_sweep_reference``.
@@ -38,6 +39,35 @@ def test_sweep_plan_fits(pair, bt):
     assert p.rows_per_warp * es % 4 == 0
     assert 2 <= p.ring <= 16
     assert p.smem_bytes == (p.ring * p.stage_rows * bt * es + 2 * bt * es
+                            + (2 * 16 + 2) * 8)
+    assert p.smem_bytes <= kernels.SMEM_LIMIT == 232448
+    assert p.threads == (p.warps + 1) * 32 <= 1024
+
+
+@pytest.mark.parametrize("bt", kernels.SWEEP_WIDTHS)
+@pytest.mark.parametrize("pair", list(PAIRS))
+def test_sweep_t_plan_fits(pair, bt):
+    """K6T's plan: K6's cluster; the columns divide among the CTAs, a
+    consumer warp reads one 16-byte chunk of every box row, a ring slot
+    holds at most 256 box rows (whole lanes' worth) in tensor-map boxes of
+    a swizzle span (128, 64 or 32 bytes) that divides a box row, each box
+    a whole number of the swizzle's 1024-byte periods, and the ring, the
+    two buffers of the carried vector, the mbarriers and 1024 bytes of
+    alignment fit in 232,448 bytes."""
+    fdt, vdt = PAIRS[pair]
+    p = ops.sweep_t_plan(bt, fdt, vdt)
+    es = fdt.itemsize
+    row_bytes = p.cols_per_cta * es
+    assert p.cluster == ops.sweep_plan(bt, fdt, vdt).cluster
+    assert p.cols_per_cta * p.cluster == bt
+    assert p.warps * 16 == row_bytes and 1 <= p.warps <= 16
+    assert p.stage_rows * p.stages_per_block == bt
+    assert p.stage_rows % 32 == 0 and p.stage_rows <= 256
+    assert p.box_bytes in (32, 64, 128) and row_bytes % p.box_bytes == 0
+    assert row_bytes % (2 * p.box_bytes) != 0 or p.box_bytes == 128
+    assert p.stage_rows * p.box_bytes % 1024 == 0
+    assert 2 <= p.ring <= 16
+    assert p.smem_bytes == (1024 + p.ring * p.stage_rows * row_bytes + 2 * bt * es
                             + (2 * 16 + 2) * 8)
     assert p.smem_bytes <= kernels.SMEM_LIMIT == 232448
     assert p.threads == (p.warps + 1) * 32 <= 1024

@@ -692,23 +692,40 @@ def test_capture_with_a_host_sync_raises(cuda):
 # -- the gradient path: K5T, K6T and value+grad runs ----------------------------------
 
 
-@pytest.mark.parametrize("n", [1, 2, 93])
+@pytest.mark.parametrize("n", [1, 2, "ring-1", "ring+1", 93])
 @pytest.mark.parametrize("bt", kernels.SWEEP_WIDTHS)
 @pytest.mark.parametrize("pair", list(SWEEP_PAIRS))
 def test_btd_sweep_t_rows_every_width(cuda, pair, bt, n):
-    """K6T on random factors scaled to 0.5/sqrt(Bt), both sweeps: each row
-    within rtol 1e-13 (f64 vectors) / 1e-6 (f32) plus the dot-product order
-    bound of the plain row from the kernel's own previous row, and the
-    same bits in a second launch."""
+    """K6T on random factors scaled to 0.5/sqrt(Bt), both sweeps, at n = 1,
+    2, one row block below and above the depth of its ring of column boxes
+    (``ops.sweep_t_plan``) and 93: each row within rtol 1e-13 (f64 vectors)
+    / 1e-6 (f32) plus the dot-product order bound of the plain row from the
+    kernel's own previous row, the same bits in three launches, and one
+    launch a call.  (On random factors the order differences of the rows
+    compound along the sweep, so the whole sweep is held to the plain one
+    only on the model's factors, in ``chip_smoke.py`` phase 3.)"""
+    fdt, vdt = SWEEP_PAIRS[pair]
+    if isinstance(n, str):
+        n = ops.sweep_t_plan(bt, fdt, vdt).ring + (1 if n == "ring+1" else -1)
     _, _, Ad, gd = _random_sweep(pair, bt, n, seed=3 * bt + n, dev=cuda)
     rtol = 1e-13 if gd.dtype == torch.float64 else 1e-6
     n0 = ops.LAUNCHES["btd_sweep_t"]
     for rev in (False, True):
-        out = ops.btd_sweep_t(Ad, gd, reverse=rev)
+        outs = [ops.btd_sweep_t(Ad, gd, reverse=rev) for _ in range(3)]
+        out = outs[0]
         ref, bound = ops.btd_sweep_t_rows_reference(Ad, gd, out, rev)
         assert_scatter_close(out, ref, bound, rtol)
-        assert torch.equal(out, ops.btd_sweep_t(Ad, gd, reverse=rev))
-    assert ops.LAUNCHES["btd_sweep_t"] == n0 + 4
+        assert all(torch.equal(out, o) for o in outs[1:])
+    assert ops.LAUNCHES["btd_sweep_t"] == n0 + 6
+
+
+@pytest.mark.parametrize("bt", kernels.SWEEP_WIDTHS)
+@pytest.mark.parametrize("pair", list(SWEEP_PAIRS))
+def test_sweep_t_plan_is_the_kernels(cuda, pair, bt):
+    """``ops.sweep_t_plan`` (the CPU tests' copy) is K6T's plan compiled into
+    ``csrc/btd.cu``."""
+    fdt, vdt = SWEEP_PAIRS[pair]
+    assert ops.sweep_t_plan(bt, fdt, vdt) == kernels.built_sweep_t_plan(bt, fdt)
 
 
 @pytest.mark.parametrize("pair", list(SWEEP_PAIRS))
@@ -757,6 +774,9 @@ def test_btd_sweep_t_rejects_bad_input(large_operator):
         ops.btd_sweep_t(A.half(), g)
     with pytest.raises(ValueError, match="row blocks"):
         ops.btd_sweep_t(A[:, :16, :16].contiguous(), g[:, :16].contiguous())
+    # the ring's bulk copies need 16-byte aligned factors
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.btd_sweep_t(torch.zeros(A.numel() + 1, dtype=A.dtype, device=dev)[1:].view(A.shape), g)
 
 
 @pytest.mark.parametrize("n", [960, 23_754, 123])
@@ -897,10 +917,42 @@ def test_transposed_ops_match_plain(large_f64, large_operator, dtype):
                                 plan.nb * plan.b)
     assert bool(((ys[0] - ref).abs() <= rtol * ref.abs() + bound).all())
     host_t = type(fill.pattern_t)(*(a.cpu().numpy() for a in fill.pattern_t))
-    emul = emulate_bsb_matvec_t(plan, host_t, blocks.cpu().numpy(), x.cpu().numpy())
+    emul = emulate_bsb_matvec_t(plan, host_t, blocks.cpu().numpy(), x.cpu().numpy(),
+                                kernels.BSB_LANES)
     assert np.array_equal(ys[0].cpu().numpy(), emul)
     assert ops.LAUNCHES["ebe_matvec_t"] == n0["ebe_matvec_t"] + 2
     assert ops.LAUNCHES["bsb_matvec_t"] == n0["bsb_matvec_t"] + 3
+
+
+@pytest.mark.parametrize("fill", ["random 23.7k", "small"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_bsb_matvec_t_is_its_emulation(large_f64, large_operator, fill, dtype):
+    """K4T bit for bit its CPU emulation (``emulate_bsb_matvec_t``), the same
+    bits in three launches and one launch a call, on a fill from random
+    element Jacobians at 23.7k and on the 10 x 5 RCM model's plan, whose
+    132 dofs leave a ragged CTA of 4 columns and a window that starts
+    before row 0 and ends past the last."""
+    if fill == "small":
+        model = port_vf_model("KelvinVoigtWEpithelium", 10, 5, device=large_f64.solid.device,
+                              reorder="rcm")
+        plan, bfill = model.solid.bsb_plan()
+        assert plan.ndof % 64
+    else:
+        plan, bfill = large_f64.solid.bsb_plan()
+    dev = large_operator[2].device
+    rng = np.random.default_rng(9)
+    src = torch.tensor(rng.standard_normal(plan.tgt_idx.size), device=dev)
+    B = bsb.bsb_fill(plan, bfill, [src]).to(dtype)
+    x = torch.tensor(rng.standard_normal(plan.ndof), dtype=dtype, device=dev)
+    n0 = ops.LAUNCHES["bsb_matvec_t"]
+    ys = [ops.bsb_matvec_t(plan, B, x, bfill.pattern_t) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["bsb_matvec_t"] == n0 + 3
+    assert all(torch.equal(y, ys[0]) for y in ys[1:])
+    host_t = type(bfill.pattern_t)(*(a.cpu().numpy() for a in bfill.pattern_t))
+    emul = emulate_bsb_matvec_t(plan, host_t, B.cpu().numpy(), x.cpu().numpy(),
+                                kernels.BSB_LANES)
+    assert np.array_equal(ys[0].cpu().numpy(), emul)
 
 
 def test_bsb_matvec_t_rejects_bad_input(large_f64, large_operator):
@@ -916,6 +968,10 @@ def test_bsb_matvec_t_rejects_bad_input(large_f64, large_operator):
                          fill.pattern_t._replace(ptr=fill.pattern_t.ptr[1:]))
     with pytest.raises(ValueError, match="tensors on"):
         ops.bsb_matvec_t(plan, blocks, x.cpu(), fill.pattern_t)
+    # the bulk copy of x's window needs a 16-byte aligned x
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.bsb_matvec_t(plan, blocks, torch.zeros(plan.ndof + 1, dtype=x.dtype,
+                                                   device=x.device)[1:], fill.pattern_t)
     assert ops.LAUNCHES["bsb_matvec_t"] == n0
     with pytest.raises(TypeError):
         ops.ebe_matvec_t(op.J_cells.float(), x, op.cell_dofs)

@@ -26,6 +26,7 @@ from vf_fem_tpu import adjoint as jadjoint
 from vf_fem_tpu.solvers import bsb as jbsb
 from vf_fem_tpu_torch import adjoint, ops
 from vf_fem_tpu_torch.models.transient import KrylovFactors
+from vf_fem_tpu_torch.ops import kernels
 from vf_fem_tpu_torch.solvers import bsb as tbsb
 
 from bsb_emulation import emulate_bsb_matvec_t
@@ -159,13 +160,15 @@ def test_pattern_t_is_the_transposed_pattern(operators):
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 def test_emulated_t_order_matches_plain(operators, dtype):
-    """K4T's summation order (emulated: each column's entries in CSR order,
-    each product and sum rounded once) against the plain version within
-    rtol 1e-13 / 1e-6 (f64 / f32) plus the dot-product order bound."""
+    """K4T's summation order (emulated: each column's entries over
+    ``kernels.BSB_LANES`` lanes in K4's order, lane sums in CSR order then
+    the xor tree, each product and sum rounded once) against the plain
+    version within rtol 1e-13 / 1e-6 (f64 / f32) plus the dot-product order
+    bound."""
     plan, fill, bt = operators[4:]
     blocks = bt.numpy().astype(dtype)
     x = np.random.default_rng(4).standard_normal(plan.ndof).astype(dtype)
-    y = emulate_bsb_matvec_t(plan, fill.pattern_t, blocks, x)
+    y = emulate_bsb_matvec_t(plan, fill.pattern_t, blocks, x, kernels.BSB_LANES)
     assert y.dtype == dtype and y.shape == (plan.ndof,)
     ref = ops.bsb_matvec_t_reference(plan, torch.from_numpy(blocks), torch.from_numpy(x))
     bound = ops.dot_order_bound(ops.bsb_matvec_t_reference(
@@ -173,6 +176,36 @@ def test_emulated_t_order_matches_plain(operators, dtype):
         plan.nb * plan.b).numpy()
     rtol = 1e-13 if dtype == np.float64 else 1e-6
     assert (np.abs(y - ref.numpy()) <= rtol * np.abs(ref.numpy()) + bound).all()
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4])
+def test_emulated_t_order_on_a_random_fill(operators, lanes):
+    """The same on a fill from random element Jacobians (f64), for 1, 2 and
+    4 lanes a column: the lanes change only the order of each column's sum,
+    so every count stays within the bound, and one lane is the column's
+    entries added one after another in CSR order."""
+    plan, fill = operators[4:6]
+    rng = np.random.default_rng(lanes)
+    blocks = tbsb.bsb_fill(plan, fill, [torch.as_tensor(
+        rng.standard_normal(plan.tgt_idx.size))]).numpy()
+    x = rng.standard_normal(plan.ndof)
+    y = emulate_bsb_matvec_t(plan, fill.pattern_t, blocks, x, lanes)
+    ref = ops.bsb_matvec_t_reference(plan, torch.from_numpy(blocks), torch.from_numpy(x))
+    bound = ops.dot_order_bound(ops.bsb_matvec_t_reference(
+        plan, torch.from_numpy(np.abs(blocks)), torch.from_numpy(np.abs(x))),
+        plan.nb * plan.b).numpy()
+    assert (np.abs(y - ref.numpy()) <= 1e-13 * np.abs(ref.numpy()) + bound).all()
+    if lanes == 1:
+        ptr = np.asarray(fill.pattern_t.ptr)
+        c = int(np.argmax(np.diff(ptr)))  # the longest column
+        off = np.asarray(fill.pattern_t.off)[ptr[c]:ptr[c + 1]]
+        b = plan.b
+        n = c // b - off // (b * b) + plan.h
+        prods = blocks.reshape(plan.nblk, -1)[n, off] * x[n * b + (off // b) % b]
+        acc = 0.0
+        for p in prods:
+            acc = acc + p
+        assert y[c] == acc
 
 
 @pytest.mark.parametrize("solver", ["cg", "bsb"])

@@ -67,6 +67,10 @@
 // cluster size other than make_plan's) returns its error: there is no
 // fallback.  btd_exchange_probe.cu times the exchange alone.
 
+#include <cuda.h>
+
+#include <mutex>
+
 #include "cluster.cuh"
 
 namespace {
@@ -293,153 +297,388 @@ int launch_sweep(const void* A, const void* g, void* out, int n, int bt,
 //   forward  (reverse = 0):  y_i = g_i - A_{i-1}^T y_{i-1},  y_0 = g_0
 //   backward (reverse = 1):  x_i = g_i - A_{i+1}^T x_{i+1},  x_{n-1} = g_{n-1}
 //
-// (W forward, V backward), so no transposed or shifted copy of the factors
-// is made.  No TPU kernel is replaced: the JAX package runs these sweeps as
-// lax.scan (vf_fem_tpu/solvers/btd.py:340-358).  The plain version is
-// ops.kernels.btd_sweep_t_reference.
+// (W forward, V backward).  No TPU kernel is replaced: the JAX package runs
+// these sweeps as lax.scan (vf_fem_tpu/solvers/btd.py:340-358).  The plain
+// version is ops.kernels.btd_sweep_t_reference.
 //
-// Rounding follows K6's rule (the carried vector in the factor type, f32
-// sums for bf16 factors, the sum cast to the vector type before the
-// subtraction, rounded on its own).  Entry j of A^T y sums down column j:
-// thread t of the CTA takes column c = t % R of the CTA's R columns and
-// rows q, q + G, q + 2G, ... (q = t / R, G = THREADS / R groups), summing
-// by FMA in that order; then thread c adds the G group sums in group order.
-// Another order than the plain matvec's, within the bound on dot-product
-// order (ops.dot_order_bound); fixed, so the result is the same run to run.
+// What bounds it: K6's bytes (each block read once; 12.2 MB of bf16 factors
+// at 23.7k dofs, 3.6 us at 3.35 TB/s) and K6's serial chain of n row blocks
+// with one exchange of the carried vector each (0.30 us a bf16 row block on
+// an H100 alone, btd_exchange_probe.cu), which no design removes.  So the
+// factors stream ahead of the chain, and between the wait for x_{s-1} and
+// the push of x_s a thread does only its FMAs, a few shuffles and the push.
 //
-// What bounds it: the same bytes as K6 (each block read once) and the same
-// serial chain of n row blocks with one exchange of the carried vector
-// each.  Design: K6's cluster (C CTAs, 16 for f64 factors, 8 otherwise) and
-// K6's exchange, unchanged: CTA r owns output entries [r R, (r+1) R) and
-// pushes them into every CTA's copy of the carried vector with st.async on
-// that buffer's mbarrier.  Where K6 reads a contiguous row slice of A_i,
-// CTA r reads the (Bt x R) column box of the block: lanes take adjacent
-// columns, so each row's R entries are one coalesced segment.  This first
-// version keeps the box in registers instead of a TMA ring: each thread
-// issues its loads of the next row block's box right after its dot
-// products, before it waits for the next carried vector, so the loads run
-// under the exchange.  A CTA is R G threads (G the most row groups, a power
-// of two, up to 512 threads: 512 at Bt = 256); the group sums meet in
-// shared memory after one __syncthreads a row block.
+// Design: K6's cluster (C CTAs, 16 for f64 factors, 8 otherwise) and K6's
+// exchange, unchanged.  CTA r owns output entries [r R, (r+1) R), so it reads
+// the (Bt x R) column box [., r R : (r+1) R) of each block: R ES bytes of
+// every row (ES the factor size), cut into 16-byte chunks of VEC = 16 / ES
+// columns.
+// - A producer warp streams the boxes, in stages of SR rows (<= 256),
+//   through a ring of shared-memory slots on "full" / "empty" mbarriers, as
+//   K6 does, by TMA: the factors are one 2-D tensor map (n Bt rows of Bt,
+//   cuTensorMapEncodeTiled looked up by cudaGetDriverEntryPoint, passed as
+//   a __grid_constant__ parameter and encoded once per factors and width),
+//   whose boxes are SWB bytes of SR rows, SWB the widest of 128, 64 and 32
+//   that divides a box row (one box a stage at Bt = 256), swizzled over
+//   SWB (chunk j of row k lands at j ^ (bits 7.. of k SWB)), so the 8 lanes
+//   of a quarter warp reading one chunk of 8 consecutive rows hit 8
+//   different bank groups.  The ring holds as many stages as fit in 227 KB
+//   (make_t_plan; ops.sweep_t_plan).
+// - Consumer warp w owns chunk w, VEC columns.  Lane l takes rows l, l + 32,
+//   ... of each stage: it loads them from the slot into registers (converted
+//   to the accumulation type) and releases the slot before the wait for
+//   x_{s-1}, so no factor load sits on the chain.  After the wait it sums
+//   its rows by FMA in row order, one sum a column, then the warp adds its
+//   lanes: a reduce-scatter over lane bits 16, 8, ... (each level halves the
+//   columns a lane keeps) and an xor tree over the bits left, so column c of
+//   the chunk ends in lanes [c, c + 1) * 32 / VEC.  A column's sum never
+//   leaves its warp: no block barrier and no serial sum on the chain.
+// - The warp's four 32-bit words of x_s (its 16-byte chunk in the factor
+//   type) are gathered by shuffles so that lane l holds word l & 3 and
+//   pushes it with st.async into CTAs l / 4 (+ 8), counted on that CTA's
+//   mbarrier for the buffer (Bt ES bytes a phase).
+// - Rounding is K6's rule: the carried vector in the factor type, f32 sums
+//   for bf16 factors, the sum cast to the vector type before the
+//   subtraction, rounded on its own.  The order (rows within a lane, then
+//   the fixed lane tree) differs from the plain matvec's only within the
+//   bound on dot-product order (ops.dot_order_bound), and is the same every
+//   launch.
 //
-// Why the partial sums can be reused without a second barrier: a thread
-// writes row block s + 1's partial sum only after the wait for all of x_s,
-// which needs this CTA's own entries of x_s, pushed by the threads that
-// read row block s's partial sums after reading them.  The double-buffered
-// carried vector is safe by K6's argument: a peer's entries of x_{s+1}
-// come after it received this CTA's entries of x_s, which are pushed after
-// the __syncthreads that follows every read of x_{s-1} here.
+// Why a push never overwrites a carried vector still being read: the
+// double-buffered x_{s+1} goes to buffer (s + 1) & 1, which holds x_{s-1}.
+// A CTA computes x_{s+1} only after all of x_s has reached it, and every
+// warp of every CTA pushes its entries of x_s only after its own reads of
+// x_{s-1} (its FMAs, on which the pushed values depend).  The mbarrier
+// phases follow by K6's argument: thread 0 arms buffer s & 1 for x_s at the
+// start of row block s, after its own wait for x_{s-2} on that buffer, and
+// bytes of x_s reach a CTA only after that CTA's phase for x_{s-2} has
+// completed (bytes that come before the arming leave the transaction count
+// negative until it).  The last row block pushes nothing; a final cluster
+// barrier keeps every CTA resident until all are done.
+//
+// Measured on an H100 (PERF.md section 6; kernel_turns.py), 93 row blocks
+// of 256: 0.056 ms with bf16 factors and 0.076 ms with f64, against 0.082
+// and 0.110 ms for the kernel this one replaced (the box in registers, a
+// 512-thread __syncthreads and a serial 16-term shared-memory sum each row
+// block).  Two producers measured slower while this design was tried: 1-D
+// cp.async.bulk copies of each box row (one copy an instruction; they kept
+// the ring empty, an order of magnitude slower) and unswizzled boxes one
+// 16-byte chunk wide (as fast with bf16 factors, slower with f32 and f64,
+// whose stages have twice the bytes, as if the TMA spent about the same
+// time on a box row whatever its width).
+//
+// Not taken: a transposed and shifted copy of V and W made by btd_factor, so
+// that K6 itself could run the adjoint sweeps.  It would add 2 x 12.2 MB of
+// bf16 at 23.7k dofs (4x that at 94.8k) to every run with gradients and
+// change btd_factor, for a kernel whose chain, not its bytes, sets its time.
 
-// the most row groups, a power of two, with at most 512 threads a CTA
-__host__ __device__ constexpr int t_groups(int r) {
-  int g = 1;
-  while (2 * g * r <= 512) g *= 2;
-  return g;
+// K6T's launch plan for one (factor element size, Bt); mirrored by
+// ops.kernels.sweep_t_plan (vf_btd_sweep_t_plan returns it)
+struct TPlan {
+  int cluster;           // C CTAs (cluster_size, as K6)
+  int cols_per_cta;      // R = Bt / C output entries a CTA
+  int warps;             // W consumer warps: the 16-byte chunks of R entries
+  int stage_rows;        // SR box rows a ring slot (<= 256)
+  int stages_per_block;  // SPB = Bt / SR
+  int box_bytes;         // the inner width of a tensor-map box (its swizzle span)
+  int ring;              // slots
+  int smem;              // dynamic shared memory bytes
+  int threads;           // (W + 1) * 32
+};
+
+__host__ __device__ constexpr TPlan make_t_plan(int es, int bt) {
+  TPlan p{};
+  p.cluster = cluster_size(es);
+  p.cols_per_cta = bt / p.cluster;
+  const int row_bytes = p.cols_per_cta * es;
+  p.warps = row_bytes / 16;
+  p.stage_rows = bt <= 256 ? bt : bt / 2;
+  p.stages_per_block = bt / p.stage_rows;
+  p.box_bytes = row_bytes % 128 == 0 ? 128 : row_bytes % 64 == 0 ? 64 : 32;
+  const int stage_bytes = p.stage_rows * row_bytes;
+  const int room = (kSmemLimit - 1024 - 2 * bt * es - kBarBytes) / stage_bytes;
+  p.ring = room < kMaxStages ? room : kMaxStages;
+  p.smem = 1024 + p.ring * stage_bytes + 2 * bt * es + kBarBytes;
+  p.threads = (p.warps + 1) * 32;
+  return p;
 }
 
 template <typename TA, int BT>
 struct TGeometry {
   static constexpr int ES = static_cast<int>(sizeof(TA));
-  static constexpr int C = cluster_size(ES);
-  static constexpr int R = BT / C;          // output entries a CTA
-  static constexpr int G = t_groups(R);     // row groups
-  static constexpr int THREADS = R * G;
-  static constexpr int RPT = BT / G;        // rows of a box a thread
-  static_assert(BT % C == 0 && BT % G == 0 && THREADS % 32 == 0, "no partition");
-  static_assert(R % 2 == 0, "output entries are pushed in pairs");
+  static constexpr TPlan P = make_t_plan(ES, BT);
+  static constexpr int C = P.cluster;
+  static constexpr int R = P.cols_per_cta;
+  static constexpr int W = P.warps;
+  static constexpr int SR = P.stage_rows;
+  static constexpr int SPB = P.stages_per_block;
+  static constexpr int SWB = P.box_bytes;
+  static constexpr int NST = P.ring;
+  static constexpr int SMEM = P.smem;
+  static constexpr int THREADS = P.threads;
+  static constexpr int RB = R * ES;            // bytes of a box row
+  static constexpr int BOXES = RB / SWB;       // tensor-map boxes a stage
+  static constexpr int CPB = SWB / 16;         // 16-byte chunks a box row
+  static constexpr int VEC = 16 / ES;          // columns a warp owns
+  static constexpr int LV = VEC == 8 ? 3 : VEC == 4 ? 2 : 1;  // log2(VEC)
+  static constexpr int RPL = SR / 32;          // rows a lane takes a stage
+  static constexpr int STAGE_BYTES = SR * RB;
+  static constexpr int XS_OFFSET = NST * STAGE_BYTES;
+  static constexpr int BAR_OFFSET = XS_OFFSET + 2 * BT * ES;
+  static_assert(C * R == BT && W * 16 == RB && SPB * SR == BT && SR % 32 == 0 && SR <= 256,
+                "no partition");
+  static_assert(RB % SWB == 0 && SR * SWB % 1024 == 0 && BOXES <= 32, "no box layout");
+  static_assert(C == 8 || C == 16, "four words of a warp pushed into C CTAs by 32 lanes");
+  static_assert(NST >= 2 && SMEM <= kSmemLimit, "ring does not fit");
+
+  // byte offset of chunk w of box row k in a slot: box w / CPB holds SR rows
+  // of SWB bytes, chunk j = w % CPB of row k at j ^ (bits 7.. of k SWB),
+  // the TMA's swizzle of that span
+  __device__ static int offset(int k, int w) {
+    const int j = w % CPB;
+    return (w / CPB) * SR * SWB + k * SWB + 16 * (j ^ ((k * SWB >> 7) & (CPB - 1)));
+  }
 };
+
+// one box of the 2-D tensor map: columns [c0, c0 + SWB / ES), rows [r0, r0 + SR)
+__device__ __forceinline__ void tensor_load(void* dst, const CUtensorMap* map, int c0,
+                                            int r0, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The sum of v[c] over the warp's 32 lanes for the column c = lane >> (5 -
+// LV) this lane ends with (every lane of the column's group holds it): a
+// reduce-scatter over lane bits 16, 8, ... (LV levels), then an xor tree
+// over the 5 - LV bits left.
+template <int VEC, int LV, typename T>
+__device__ __forceinline__ T warp_column_sum(T (&v)[VEC], int lane) {
+#pragma unroll
+  for (int lev = 0; lev < LV; ++lev) {
+    const int h = VEC >> (lev + 1);
+    const int d = 16 >> lev;
+    const bool up = (lane & d) != 0;
+#pragma unroll
+    for (int q = 0; q < h; ++q) {
+      const T keep = up ? v[q + h] : v[q];
+      const T send = up ? v[q] : v[q + h];
+      v[q] = keep + __shfl_xor_sync(0xffffffffu, send, d);
+    }
+  }
+  T r = v[0];
+#pragma unroll
+  for (int d = 16 >> LV; d > 0; d >>= 1) r = r + __shfl_xor_sync(0xffffffffu, r, d);
+  return r;
+}
+
+// word m (0..3) of the warp's 16-byte chunk of x_s in the factor type, from
+// the lanes that hold its columns (word m of bf16 is columns 2m, 2m + 1; of
+// f32 column m; of f64 half m & 1 of column m / 2)
+__device__ __forceinline__ uint32_t chunk_word(__nv_bfloat16 y, int m) {
+  const unsigned b = __bfloat16_as_ushort(y);
+  const unsigned lo = __shfl_sync(0xffffffffu, b, 8 * m);
+  const unsigned hi = __shfl_sync(0xffffffffu, b, 8 * m + 4);
+  return lo | (hi << 16);
+}
+__device__ __forceinline__ uint32_t chunk_word(float y, int m) {
+  return __shfl_sync(0xffffffffu, __float_as_uint(y), 8 * m);
+}
+__device__ __forceinline__ uint32_t chunk_word(double y, int m) {
+  const unsigned lo = __shfl_sync(0xffffffffu, static_cast<unsigned>(__double2loint(y)),
+                                  16 * (m >> 1));
+  const unsigned hi = __shfl_sync(0xffffffffu, static_cast<unsigned>(__double2hiint(y)),
+                                  16 * (m >> 1));
+  return (m & 1) ? hi : lo;
+}
 
 template <typename TA, typename TV, int BT>
 __global__ void __launch_bounds__(TGeometry<TA, BT>::THREADS, 1)
-    btd_sweep_t_kernel(const TA* __restrict__ A, const TV* __restrict__ g,
+    btd_sweep_t_kernel(const __grid_constant__ CUtensorMap map, const TV* __restrict__ g,
                        TV* __restrict__ out, int n, int reverse) {
   using G = TGeometry<TA, BT>;
   using AccT = typename Acc<TA>::type;
-  constexpr long long kBlock = static_cast<long long>(BT) * BT;
+  constexpr int VEC = G::VEC;
 
-  __shared__ __align__(16) unsigned char xs_bytes[2 * BT * sizeof(TA)];
-  __shared__ __align__(16) AccT part[G::THREADS];   // group sums, [group][column]
-  __shared__ __align__(8) uint64_t xready[2];
-  TA* xs = reinterpret_cast<TA*>(xs_bytes);         // x_i in xs[(s & 1) * BT]
+  // the ring's boxes at a 1024-byte boundary (the swizzle's period)
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  unsigned char* ring = smem;                            // NST stages
+  TA* xs = reinterpret_cast<TA*>(smem + G::XS_OFFSET);   // [2][BT]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::BAR_OFFSET);
+  uint64_t* empty = full + G::NST;
+  uint64_t* xready = empty + G::NST;  // [2]: x_s complete in xs[s & 1]
 
   const unsigned rank = cluster_rank();
-  const int t = threadIdx.x;
-  const int c = t % G::R;
-  const int q = t / G::R;
-  const int col = static_cast<int>(rank) * G::R + c;  // this thread's column
-  if (t == 0) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G::NST; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, G::W);
+    }
     for (int b = 0; b < 2; ++b) mbar_init(xready + b, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  // every CTA's barriers are ready before any peer pushes into them
   cluster_sync_all();
 
-  // the box of step s: block s - 1 (forward) or n - s (backward)
-  TA a[G::RPT];
-  auto load_box = [&](int s) {
-    const TA* blk = A + static_cast<long long>(reverse ? n - s : s - 1) * kBlock;
-#pragma unroll
-    for (int m = 0; m < G::RPT; ++m)
-      a[m] = blk[static_cast<long long>(q + m * G::G) * BT + col];
-  };
-  if (n > 1) load_box(1);
-
-  // the lanes of this thread's warp that own output entries (t < R)
-  const int owners = G::R - 32 * (t >> 5);
-  const unsigned mask = owners >= 32 ? 0xffffffffu : ((1u << (owners & 31)) - 1u);
-  for (int s = 0; s < n; ++s) {
-    const int i = reverse ? n - 1 - s : s;
-    const int rb = s & 1;
-    const bool push = s + 1 < n;
-    if (push && t == 0)
-      mbar_arrive_expect_tx(xready + rb, BT * static_cast<unsigned>(sizeof(TA)));
-    TV gv = TV(0);
-    if (t < G::R) gv = g[static_cast<long long>(i) * BT + col];
-    AccT sum = AccT(0);
-    if (s > 0) {
-      mbar_wait<true>(xready + (rb ^ 1), ((s - 1) >> 1) & 1);
-      const TA* x = xs + (rb ^ 1) * BT;
-      AccT acc = AccT(0);
-#pragma unroll
-      for (int m = 0; m < G::RPT; ++m)
-        acc = fma_rn(to_acc(a[m]), to_acc(x[q + m * G::G]), acc);
-      if (push) load_box(s + 1);  // under the exchange of x_s
-      part[t] = acc;
-      __syncthreads();
-      if (t < G::R) {
-        sum = part[c];
-        for (int k = 1; k < G::G; ++k) sum = sum + part[k * G::R + c];
+  if (warp == G::W) {
+    // producer: stage t holds box rows [sub SR, + SR) of row block s = t /
+    // SPB + 1, whose block is s - 1 (forward) or n - s (backward)
+    const int total = (n - 1) * G::SPB;
+    for (int t = 0; t < total; ++t) {
+      const int st = t % G::NST;
+      if (lane == 0) {
+        if (t >= G::NST) mbar_wait<false>(empty + st, ((t / G::NST) - 1) & 1);
+        mbar_arrive_expect_tx(full + st, G::SR * G::RB);
       }
+      __syncwarp();
+      const int s = t / G::SPB + 1;
+      const int sub = t - (s - 1) * G::SPB;
+      const long long row0 = static_cast<long long>(reverse ? n - s : s - 1) * BT + sub * G::SR;
+      unsigned char* slot = ring + st * G::STAGE_BYTES;
+      if (lane < G::BOXES)
+        tensor_load(slot + lane * G::SR * G::SWB, &map,
+                    static_cast<int>(rank) * G::R + lane * (G::SWB / G::ES),
+                    static_cast<int>(row0), full + st);
     }
-    if (t < G::R) {
-      const TV y = s > 0 ? sub_rn(gv, static_cast<TV>(sum)) : gv;
-      out[static_cast<long long>(i) * BT + col] = y;
-      if (push) {
-        const TA yf = to_factor<TA, TV>(y);
-        const unsigned dst = smem_addr(xs + rb * BT + col);
-        const unsigned bar = smem_addr(xready + rb);
-        if constexpr (G::ES == 2) {
-          const unsigned bits = __bfloat16_as_ushort(yf);
-          const unsigned next = __shfl_down_sync(mask, bits, 1);
-          if ((c & 1) == 0) {
-            const uint32_t w = bits | (next << 16);
-            for (int p = 0; p < G::C; ++p)
-              st_async_word(map_rank(dst, p), w, map_rank(bar, p));
-          }
-        } else {
-          uint32_t w[G::ES / 4];
-          to_words<1>(&yf, w);
-          for (int p = 0; p < G::C; ++p) {
-            const unsigned d = map_rank(dst, p);
-            const unsigned b = map_rank(bar, p);
+    __syncwarp();
+  } else {
+    const int colw = static_cast<int>(rank) * G::R + warp * VEC;  // the warp's first column
+    const int col = colw + (lane >> (5 - G::LV));                  // this lane's column
+    const bool writer = (lane & ((32 >> G::LV) - 1)) == 0;
+    for (int s = 0; s < n; ++s) {
+      const int i = reverse ? n - 1 - s : s;
+      const int rb = s & 1;  // x_s goes to xs[rb]; x_{s-1} is in xs[rb ^ 1]
+      const bool push = s + 1 < n;
+      if (push && threadIdx.x == 0)
+        mbar_arrive_expect_tx(xready + rb, BT * static_cast<unsigned>(sizeof(TA)));
+      const TV gv = g[static_cast<long long>(i) * BT + col];  // before the wait
+      TV y = gv;
+      if (s > 0) {
+        // this lane's rows of the box, from the ring, before the wait
+        AccT a[G::SPB][G::RPL][VEC];
 #pragma unroll
-            for (int j = 0; j < G::ES / 4; ++j) st_async_word(d + 4 * j, w[j], b);
+        for (int sub = 0; sub < G::SPB; ++sub) {
+          const int t = (s - 1) * G::SPB + sub;
+          const int st = t % G::NST;
+          mbar_wait<false>(full + st, (t / G::NST) & 1);
+          const unsigned char* slot = ring + st * G::STAGE_BYTES;
+#pragma unroll
+          for (int j = 0; j < G::RPL; ++j) {
+            const int k = lane + 32 * j;
+            const uint4 q = *reinterpret_cast<const uint4*>(slot + G::offset(k, warp));
+            const TA* av = reinterpret_cast<const TA*>(&q);
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) a[sub][j][v] = to_acc(av[v]);
           }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty + st);  // the slot has been read
         }
+        mbar_wait<true>(xready + (rb ^ 1), ((s - 1) >> 1) & 1);
+        const TA* x = xs + (rb ^ 1) * BT;
+        AccT acc[VEC];
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) acc[v] = AccT(0);
+#pragma unroll
+        for (int sub = 0; sub < G::SPB; ++sub)
+#pragma unroll
+          for (int j = 0; j < G::RPL; ++j) {
+            const AccT xk = to_acc(x[sub * G::SR + lane + 32 * j]);
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) acc[v] = fma_rn(a[sub][j][v], xk, acc[v]);
+          }
+        y = sub_rn(gv, static_cast<TV>(warp_column_sum<VEC, G::LV>(acc, lane)));
+      }
+      if (writer) out[static_cast<long long>(i) * BT + col] = y;
+      if (push) {
+        const int m = lane & 3;  // lane l pushes word l & 3 into CTAs l / 4 (+ 8)
+        const uint32_t w = chunk_word(to_factor<TA, TV>(y), m);
+        const unsigned dst = smem_addr(xs + rb * BT + colw) + 4 * m;
+        const unsigned bar = smem_addr(xready + rb);
+#pragma unroll
+        for (int p = lane >> 2; p < G::C; p += 8)
+          st_async_word(map_rank(dst, p), w, map_rank(bar, p));
       }
     }
   }
   // no CTA leaves while a peer may still write into it
   cluster_sync_all();
+}
+
+// cuTensorMapEncodeTiled, looked up at run time (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+template <typename TA>
+constexpr CUtensorMapDataType map_type() {
+  return sizeof(TA) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                         : sizeof(TA) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                           : CU_TENSOR_MAP_DATA_TYPE_FLOAT64;
+}
+
+// The factors (n Bt rows of Bt) as a 2-D tensor map with boxes of SWB
+// bytes by SR rows, swizzled over SWB, encoded once per (address, n, Bt,
+// type) and kept: the map depends on nothing else, and btd_solve_t
+// launches K6T on the same factors many times.  A refused encoding
+// returns cudaErrorInvalidValue.
+template <typename TA, int BT>
+int tensor_map(const void* A, int n, CUtensorMap* out) {
+  using G = TGeometry<TA, BT>;
+  struct Entry {
+    const void* ptr;
+    int n, bt, es;
+    CUtensorMap map;
+  };
+  constexpr int kEntries = 16;
+  static std::mutex mu;
+  static Entry cache[kEntries] = {};
+  static int next = 0;
+  static EncodeTiled encode = nullptr;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& e : cache)
+    if (e.ptr == A && e.n == n && e.bt == BT && e.es == G::ES) {
+      *out = e.map;
+      return 0;
+    }
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
+    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess || fn == nullptr)
+      return static_cast<int>(err != cudaSuccess ? err : cudaErrorSymbolNotFound);
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(BT), static_cast<cuuint64_t>(n) * BT};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(BT) * G::ES};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(G::SWB / G::ES),
+                             static_cast<cuuint32_t>(G::SR)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUtensorMapSwizzle swizzle = G::SWB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : G::SWB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
+  Entry& e = cache[next];
+  const CUresult res = encode(&e.map, map_type<TA>(), 2, const_cast<void*>(A), dims, strides,
+                              box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (res != CUDA_SUCCESS) {
+    e.ptr = nullptr;
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  e.ptr = A;
+  e.n = n;
+  e.bt = BT;
+  e.es = G::ES;
+  next = (next + 1) % kEntries;
+  *out = e.map;
+  return 0;
 }
 
 template <typename TA, typename TV, int BT>
@@ -448,14 +687,18 @@ int launch_sweep_t_bt(const void* A, const void* g, void* out, int n, int revers
   using G = TGeometry<TA, BT>;
   if (cluster != G::C) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = btd_sweep_t_kernel<TA, TV, BT>;
-  static const cudaError_t attr_err = set_attributes(kernel, 0, G::C);
+  static const cudaError_t attr_err = set_attributes(kernel, G::SMEM, G::C);
   if (attr_err != cudaSuccess) return static_cast<int>(attr_err);
+  CUtensorMap map{};  // n = 1 reads no block
+  if (n > 1) {
+    const int err = tensor_map<TA, BT>(A, n, &map);
+    if (err != 0) return err;
+  }
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cluster_config(G::THREADS, 0, G::C, stream, cfg, attr);
-  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const TA*>(A),
-                                       static_cast<const TV*>(g), static_cast<TV*>(out),
-                                       n, reverse);
+  cluster_config(G::THREADS, G::SMEM, G::C, stream, cfg, attr);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, map, static_cast<const TV*>(g),
+                                       static_cast<TV*>(out), n, reverse);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -514,6 +757,19 @@ int vf_btd_sweep_plan(int es, int bt, int* out) {
   const vf_btd::Plan p = vf_btd::make_plan(es, bt);
   const int v[9] = {p.cluster, p.rows_per_cta, p.rows_per_warp, p.warps, p.stage_rows,
                     p.stages_per_block, p.ring, p.smem, p.threads};
+  for (int k = 0; k < 9; ++k) out[k] = v[k];
+  return 0;
+}
+
+// make_t_plan(es, bt) into out[0 .. 9) in the order of its fields, for the
+// comparison with ops.kernels.sweep_t_plan
+int vf_btd_sweep_t_plan(int es, int bt, int* out) {
+  if ((es != 2 && es != 4 && es != 8) ||
+      (bt != 128 && bt != 256 && bt != 384 && bt != 512))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const TPlan p = make_t_plan(es, bt);
+  const int v[9] = {p.cluster, p.cols_per_cta, p.warps, p.stage_rows, p.stages_per_block,
+                    p.box_bytes, p.ring, p.smem, p.threads};
   for (int k = 0; k < 9; ++k) out[k] = v[k];
   return 0;
 }

@@ -1,7 +1,8 @@
-// What K6 (btd.cu) and the measurement of its exchange
-// (btd_exchange_probe.cu) share: the launch plan, the PTX of thread-block
-// clusters, mbarriers and distributed shared memory, and the cluster
-// launch.  cuda_build hashes this header into every source's build.
+// What K6 and K6T (btd.cu) and the measurement of their exchange
+// (btd_exchange_probe.cu) share: K6's launch plan (K6T's is make_t_plan in
+// btd.cu), the PTX of thread-block clusters, mbarriers and distributed
+// shared memory, and the cluster launch.  cuda_build hashes this header
+// into every source's build.
 
 #pragma once
 

@@ -102,13 +102,26 @@
 // m = off / B^2 is the block column, so r's block row is c / B - m + h and
 // r = (c / B - m + h) B + (off / B) % B.  So an entry costs K4's bytes,
 // nnz (sizeof(T) + 4) + (ndof + 1) 4 + 2 ndof sizeof(T): 4.39 MB in f64 at
-// 23.7k, 1.31 us at 3.35 TB/s.  One thread an output column, lanes on
-// adjacent columns: the two columns of a vertex have the same source rows
-// in the same order, so a warp's k-th entries read adjacent band values
-// (offsets one apart) and the same x entries.  Each thread sums its
-// column's entries in CSR order (rows ascending) with every product and
-// sum rounded separately (_rn), from 0: no atomics, the same bits every
-// launch, and tests/bsb_emulation.py:emulate_bsb_matvec_t reproduces it.
+// 23.7k, 1.31 us at 3.35 TB/s.  K4's design carried to the transpose: one
+// CTA owns 64 consecutive columns (they lie in one block column cb, whose
+// source rows lie in block rows [cb - h, cb + h]) and stages x's window of
+// those rows in shared memory as K4 stages its own (one cp.async.bulk on an
+// mbarrier for the 16-byte aligned part, plain loads for the rest, zero
+// outside [0, ndof)).  A group of G = 4 lanes owns a column, as in K4: lane
+// l takes the column's entries l, l + G, ... (rows ascending), its first
+// kBsbTRegs / G offsets and band values (every entry of a column at 23.7k
+// dofs, which has 3-18) loaded into registers before the wait for the
+// window, sums their products in that order, and the G partial sums meet in
+// K4's fixed xor tree.  Every product and sum is rounded separately (_rn),
+// from 0: no atomics, the same bits every launch, and
+// tests/bsb_emulation.py:emulate_bsb_matvec_t reproduces it.  Measured on
+// an H100 (PERF.md section 6; kernel_turns.py): 0.0032 ms in f64 at 23.7k
+// dofs, against 0.0044 ms for the kernel this one replaced (a thread a
+// column, 256 a CTA, x read from device memory, three dependent loads an
+// entry).  While this design was tried, 4 lanes a column beat 2 and 1 (1
+// keeps the replaced kernel's CSR order, and was hardly faster than it): a
+// column's entries lie in as many band rows, so the lanes of a group read
+// the offsets side by side and split the scattered value loads.
 
 #include <cuda_runtime.h>
 
@@ -126,6 +139,7 @@ constexpr int kBsbB = 128;     // block size of the block-banded plan
 constexpr int kBsbTile = 64;   // rows a K4 CTA
 constexpr int kBsbLanes = 4;   // lanes a row (ops.kernels.BSB_LANES)
 constexpr int kBsbRegs = 8;    // entries a K4 lane holds in registers a pass
+constexpr int kBsbTRegs = 20;  // entries of a K4T column held in registers (1-18 at 23.7k)
 constexpr int kBsbShift = 14;  // log2(kBsbB * kBsbB): an offset's block column
 static_assert(1 << kBsbShift == kBsbB * kBsbB && kBsbB % kBsbTile == 0,
               "B must be 128, a CTA's rows within one block row");
@@ -284,24 +298,71 @@ __global__ void __launch_bounds__(kBsbTile * kBsbLanes)
 
 // y[c] = sum over the transposed pattern's entries k of column c (rows
 // ascending) of band_n[off[k]] * x[n * B + (off[k] / B) % B], n = c / B -
-// off[k] / B^2 + h the source row's block row, band_n = blocks + n nb B^2.
+// off[k] / B^2 + h the source row's block row, band_n = blocks + n nb B^2,
+// summed in K4's order on the column's entries (G lanes, xor tree).  A
+// CTA's 64 columns lie in one block column cb, so their source rows lie in
+// block rows [cb - h, cb + h]: x's window is K4's, staged the same way.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBsbTile * kBsbLanes)
     bsb_matvec_t_kernel(const T* __restrict__ blocks, const T* __restrict__ x,
                         const int* __restrict__ ptr, const int* __restrict__ off,
                         T* __restrict__ y, int ndof, int nb, int h) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= ndof) return;
-  const int k1 = __ldg(ptr + c + 1);
-  const int cb = c / kBsbB + h;
-  T acc = T(0);
-  for (int k = __ldg(ptr + c); k < k1; ++k) {
-    const int o = __ldg(off + k);
-    const int n = cb - (o >> kBsbShift);
-    const T v = __ldg(blocks + (static_cast<long long>(n) * nb << kBsbShift) + o);
-    acc = add_rn(acc, mul_rn(v, __ldg(x + n * kBsbB + ((o / kBsbB) & (kBsbB - 1)))));
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  T* xw = reinterpret_cast<T*>(smem + 16);  // (nb * B,) x window
+  const int c0 = blockIdx.x * kBsbTile;
+  const int cb = c0 / kBsbB;
+  const int r0 = (cb - h) * kBsbB;  // the window's first row (may be < 0)
+  const int wlen = nb * kBsbB;
+  const int lo = max(r0, 0);
+  const int hi = min(r0 + wlen, ndof);  // rows [lo, hi) are in x
+  constexpr int kVec = 16 / sizeof(T);
+  const int nbulk = (hi - lo) / kVec * kVec;
+  if (threadIdx.x == 0) bulk_stage(xw + (lo - r0), x + lo, nbulk * sizeof(T), bar);
+  for (int k = threadIdx.x; k < wlen; k += blockDim.x) {
+    const int r = r0 + k;
+    if (r < lo || r >= lo + nbulk) xw[k] = r < hi && r >= lo ? __ldg(x + r) : T(0);
   }
-  y[c] = acc;
+
+  constexpr int G = kBsbLanes;
+  constexpr int kRegs = kBsbTRegs / G;
+  const int c = c0 + static_cast<int>(threadIdx.x) / G;
+  const int lane = threadIdx.x % G;
+  int k0 = 0, k1 = 0;
+  if (c < ndof) {
+    k0 = __ldg(ptr + c) + lane;
+    k1 = __ldg(ptr + c + 1);
+  }
+  // an entry's band position m = o / B^2 puts its row in window block 2h - m
+  const long long band0 = static_cast<long long>(cb + h) * nb << kBsbShift;
+  const long long band_step = static_cast<long long>(nb) << kBsbShift;
+  // the lane's first kRegs entries (every entry of a column at 23.7k
+  // dofs): offsets, then values, in flight while the window lands
+  int o[kRegs];
+  T v[kRegs];
+#pragma unroll
+  for (int s = 0; s < kRegs; ++s) o[s] = k0 + s * G < k1 ? __ldg(off + k0 + s * G) : -1;
+#pragma unroll
+  for (int s = 0; s < kRegs; ++s)
+    v[s] = o[s] >= 0 ? __ldg(blocks + band0 - (o[s] >> kBsbShift) * band_step + o[s]) : T(0);
+  __syncthreads();
+  wait_first_phase(bar);
+
+  T acc = T(0);
+#pragma unroll
+  for (int s = 0; s < kRegs; ++s)
+    if (o[s] >= 0)
+      acc = add_rn(acc, mul_rn(v[s], xw[(2 * h - (o[s] >> kBsbShift)) * kBsbB +
+                                        ((o[s] >> 7) & (kBsbB - 1))]));
+  for (int k = k0 + kRegs * G; k < k1; k += G) {  // columns longer than that
+    const int ok = __ldg(off + k);
+    const T vk = __ldg(blocks + band0 - (ok >> kBsbShift) * band_step + ok);
+    acc = add_rn(acc, mul_rn(vk, xw[(2 * h - (ok >> kBsbShift)) * kBsbB + ((ok >> 7) & (kBsbB - 1))]));
+  }
+#pragma unroll
+  for (int d = G / 2; d > 0; d >>= 1)
+    acc = add_rn(acc, __shfl_xor_sync(0xffffffffu, acc, d, G));
+  if (lane == 0 && c < ndof) y[c] = acc;
 }
 
 // K5's coefficients: a row of eight values of the working type T in device
@@ -438,12 +499,26 @@ int launch_ebe_t(const void* J, const void* x, const void* dofs, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the x window of K4 and K4T: B entries for each of the nb band positions
+template <typename T, typename Kernel>
+cudaError_t window_smem(Kernel kernel, int nb, size_t* smem) {
+  *smem = 16 + static_cast<size_t>(nb) * kBsbB * sizeof(T);
+  if (*smem <= 48 * 1024) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(*smem));
+  if (err != cudaSuccess) cudaGetLastError();  // clear it: the next launch's check reads it
+  return err;
+}
+
 template <typename T>
 int launch_bsb_t(const void* blocks, const void* x, const void* ptr,
                  const void* off, void* y, int ndof, int nb, int h,
                  void* stream) {
   if (ndof == 0) return 0;
-  bsb_matvec_t_kernel<T><<<grid_for(ndof, kThreads), kThreads, 0,
+  size_t smem = 0;
+  const cudaError_t err = window_smem<T>(bsb_matvec_t_kernel<T>, nb, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bsb_matvec_t_kernel<T><<<(ndof + kBsbTile - 1) / kBsbTile, kBsbTile * kBsbLanes, smem,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(blocks), static_cast<const T*>(x),
       static_cast<const int*>(ptr), static_cast<const int*>(off),
@@ -456,16 +531,9 @@ int launch_bsb(const void* blocks, const void* x, const void* ptr,
                const void* off, void* y, int ndof, int nb, int h,
                void* stream) {
   if (ndof == 0) return 0;
-  const size_t smem = 16 + static_cast<size_t>(nb) * kBsbB * sizeof(T);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        bsb_matvec_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // clear it: the next launch's check reads it
-      return static_cast<int>(err);
-    }
-  }
+  size_t smem = 0;
+  const cudaError_t err = window_smem<T>(bsb_matvec_kernel<T>, nb, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   bsb_matvec_kernel<T><<<(ndof + kBsbTile - 1) / kBsbTile, kBsbTile * kBsbLanes, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(blocks), static_cast<const T*>(x),

@@ -29,4 +29,5 @@ from .kernels import (  # noqa: F401
     newmark_update_t,
     newmark_update_t_reference,
     sweep_plan,
+    sweep_t_plan,
 )

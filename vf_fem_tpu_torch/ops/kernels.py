@@ -63,6 +63,7 @@ __all__ = [
     "btd_sweep_t_reference",
     "btd_sweep_t_rows_reference",
     "sweep_plan",
+    "sweep_t_plan",
     "dot_order_bound",
 ]
 
@@ -70,7 +71,8 @@ LAUNCHES = {"ebe_matvec": 0, "bsb_matvec": 0, "newmark": 0, "btd_sweep": 0,
             "newmark_t": 0, "btd_sweep_t": 0, "ebe_matvec_t": 0, "bsb_matvec_t": 0}
 
 BSB_BLOCK = 128  # the block size K4 is compiled for
-BSB_LANES = 4  # lanes a row of K4 (csrc/ops.cu: kBsbLanes), for its emulation
+BSB_LANES = 4  # lanes a row of K4 and a column of K4T (csrc/ops.cu: kBsbLanes)
+BSB_T_COLS = 64  # columns a K4T CTA (csrc/ops.cu: kBsbTile)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -273,7 +275,7 @@ def _bsb_launch(plan, blocks: torch.Tensor, x: torch.Tensor, pattern,
             raise ValueError(f"{name}: pattern.{field} must be a contiguous"
                              f" int32 vector on {x.device}"
                              + ("" if n is None else f" of {n} entries"))
-    if name == "bsb_matvec" and x.data_ptr() % 16:  # K4's bulk copy of x
+    if x.data_ptr() % 16:  # the bulk copy of x's window
         raise ValueError(f"{name}: x must be 16-byte aligned")
     y = torch.empty(plan.ndof, dtype=x.dtype, device=x.device)
     _launch(f"vf_{name}", x.dtype, blocks.data_ptr(), x.data_ptr(),
@@ -536,6 +538,7 @@ _BAR_BYTES = (2 * _MAX_STAGES + 2) * 8
 _SWEEP_SIGNATURES = {f"vf_btd_sweep{t}_{s}": [_P, _P, _P] + [_I] * 4 + [_P]
                      for s in _SWEEP_TYPES.values() for t in ("", "_t")}
 _SWEEP_SIGNATURES["vf_btd_sweep_plan"] = [_I, _I, _P]
+_SWEEP_SIGNATURES["vf_btd_sweep_t_plan"] = [_I, _I, _P]
 
 
 class SweepPlan(NamedTuple):
@@ -682,7 +685,53 @@ def _sweep_launch(A: torch.Tensor, g: torch.Tensor, reverse: bool,
 
 # -- K6T: the transposed block-Thomas sweep ------------------------------------
 
-SWEEP_T_THREADS = 512  # threads a K6T CTA (csrc/btd.cu: TGeometry)
+
+class SweepTPlan(NamedTuple):
+    """K6T's launch plan for one row-block width and factor dtype (the
+    ``make_t_plan`` of ``csrc/btd.cu``)."""
+
+    cluster: int  # CTAs in the cluster (K6's)
+    cols_per_cta: int  # output entries a CTA owns: a column box of every block
+    warps: int  # consumer warps: the 16-byte chunks of a box row
+    stage_rows: int  # box rows a ring slot holds (at most 256)
+    stages_per_block: int  # ring slots a row block takes
+    box_bytes: int  # the inner width of a tensor-map box, its swizzle span
+    ring: int  # ring slots
+    smem_bytes: int  # dynamic shared memory a CTA (1024 of it to align the ring)
+    threads: int  # threads a CTA (one producer warp besides)
+
+
+@functools.lru_cache(maxsize=None)
+def sweep_t_plan(bt: int, factor_dtype, vector_dtype) -> SweepTPlan:
+    """The launch plan of K6T for row blocks of ``bt``: K6's cluster; each
+    CTA owns ``bt / cluster`` columns, whose box rows a consumer warp a
+    16-byte chunk reads; a ring slot holds up to 256 box rows, loaded as
+    tensor-map boxes of 128, 64 or 32 bytes (the widest that divides a box
+    row) swizzled over that span, and the ring as many slots as fit in
+    ``SMEM_LIMIT`` beside the carried vector's two buffers, the mbarriers
+    and 1024 bytes to align the ring."""
+    cluster = sweep_plan(bt, factor_dtype, vector_dtype).cluster
+    es = factor_dtype.itemsize
+    cols = bt // cluster
+    row_bytes = cols * es
+    stage_rows = bt if bt <= 256 else bt // 2
+    box = 128 if row_bytes % 128 == 0 else 64 if row_bytes % 64 == 0 else 32
+    stage_bytes = stage_rows * row_bytes
+    ring = min(_MAX_STAGES, (SMEM_LIMIT - 1024 - 2 * bt * es - _BAR_BYTES) // stage_bytes)
+    return SweepTPlan(cluster, cols, row_bytes // 16, stage_rows, bt // stage_rows, box,
+                      ring, 1024 + ring * stage_bytes + 2 * bt * es + _BAR_BYTES,
+                      (row_bytes // 16 + 1) * 32)
+
+
+def built_sweep_t_plan(bt: int, factor_dtype) -> SweepTPlan:
+    """The plan compiled into ``csrc/btd.cu`` (its ``make_t_plan``) for row
+    blocks of ``bt`` and the factor dtype, read from the built library (this
+    builds it), to hold :func:`sweep_t_plan` to it."""
+    vals = (ctypes.c_int * len(SweepTPlan._fields))()
+    err = _sweep_lib().vf_btd_sweep_t_plan(factor_dtype.itemsize, bt, vals)
+    if err != 0:
+        raise ValueError(f"vf_btd_sweep_t_plan: cudaError_t {err} for {bt}, {factor_dtype}")
+    return SweepTPlan(*vals)
 
 
 def btd_sweep_t_reference(A: torch.Tensor, g: torch.Tensor,
@@ -726,8 +775,9 @@ def btd_sweep_t(A: torch.Tensor, g: torch.Tensor,
                 reverse: bool = False) -> torch.Tensor:
     """One transposed sweep of the block-Thomas adjoint solve over the
     stored blocks, shifted by one block (K6T on CUDA, one thread-block
-    cluster of K6's size; the plain :func:`btd_sweep_t_reference` on the
-    CPU).  The dtype pairs of :func:`btd_sweep`."""
+    cluster launched with :func:`sweep_t_plan`; the plain
+    :func:`btd_sweep_t_reference` on the CPU).  The dtype pairs of
+    :func:`btd_sweep`."""
     if (A.dim() != 3 or A.shape[1] != A.shape[2]
             or tuple(g.shape) != tuple(A.shape[:2])):
         raise ValueError(f"btd_sweep_t: A {tuple(A.shape)}, g {tuple(g.shape)}")
@@ -743,15 +793,18 @@ def btd_sweep_t(A: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"btd_sweep_t: unsupported device {g.device}")
     if not (A.is_contiguous() and g.is_contiguous()):
         raise ValueError("btd_sweep_t: inputs must be contiguous")
+    if A.data_ptr() % 16:  # the tensor map's base
+        raise ValueError("btd_sweep_t: the factors must be 16-byte aligned")
     n, bt = g.shape
     if bt not in SWEEP_WIDTHS:
         raise ValueError(f"btd_sweep_t: kernel built for row blocks {SWEEP_WIDTHS},"
                          f" got {bt}")
+    plan = sweep_t_plan(bt, A.dtype, g.dtype)
     out = torch.empty_like(g)
     fn = f"vf_btd_sweep_t_{suffix}"
     err = getattr(_sweep_lib(), fn)(A.data_ptr(), g.data_ptr(), out.data_ptr(), n, bt,
-                                    int(reverse), SWEEP_CLUSTER[A.dtype], _stream(g))
+                                    int(reverse), plan.cluster, _stream(g))
     if err != 0:
-        raise RuntimeError(f"{fn} launch failed: cudaError_t {err}")
+        raise RuntimeError(f"{fn} launch failed: cudaError_t {err} (plan {plan})")
     LAUNCHES["btd_sweep_t"] += 1
     return out
