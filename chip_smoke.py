@@ -1039,19 +1039,19 @@ def newmark_op(torch, label, tag, vecs):
 def newmark_t_work(n, itemsize):
     """K5T's (bytes, operations): the cotangents of v1 and a1, K5's four
     inputs and the row in, four vector cotangents and the row's out (the
-    CTAs' partial sums stay in L2); 28 operations an entry."""
+    CTAs' partial sums, six a CTA in the launch's slot, stay in L2); 28
+    operations an entry."""
     return (10 * n + 16) * itemsize, 28 * n
 
 
-def newmark_t_op(torch, label, tag, vecs):
-    """K5T (K5's backward) at one size against its plain version: the four
-    vector cotangents bit for bit, the row's cotangent within rtol 1e-13 /
-    1e-6 plus the bound on summation order, and bit-stable across three
-    launches; then its timing row (``measure``)."""
-    from vf_fem_tpu_torch import ops, yardsticks
+def newmark_t_equal(torch, what, vecs, row):
+    """K5T on ``vecs`` (vb1, ab1, u1, u0, v0, a0) in three launches against
+    its plain version: the four vector cotangents bit for bit, the row's
+    cotangent the same bits in every launch, within rtol 1e-13 / 1e-6 plus
+    the bound on summation order, and its entries 6 and 7 zero; returns the
+    largest difference of the row's cotangent."""
+    from vf_fem_tpu_torch import ops
 
-    what = f"ops newmark_t {label} {tag}"
-    row = newmark_row(vecs[0], DT, 0.75 * DT)
     outs = [ops.newmark_update_t(*vecs, row) for _ in range(3)]
     refs = ops.newmark_update_t_reference(*vecs, row)
     torch.cuda.synchronize()
@@ -1061,22 +1061,138 @@ def newmark_t_op(torch, label, tag, vecs):
     require(all(torch.equal(o[4], outs[0][4]) for o in outs[1:]),
             f"{what}: the row's cotangent differs between launches")
     vb1, ab1, u1, u0, v0, a0 = vecs
-    n = u1.numel()
     bound = ops.dot_order_bound(ops.newmark_update_t_reference(
-        vb1.abs(), ab1.abs(), u1.abs(), -u0.abs(), -v0.abs(), -a0.abs(), row.abs())[4].abs(), n)
-    rtol = 1e-13 if vecs[0].dtype == torch.float64 else 1e-6
+        vb1.abs(), ab1.abs(), u1.abs(), -u0.abs(), -v0.abs(), -a0.abs(), row.abs())[4].abs(),
+        u1.numel())
+    rtol = 1e-13 if u1.dtype == torch.float64 else 1e-6
     diff = (outs[0][4] - refs[4]).abs()
     require(bool((diff <= rtol * refs[4].abs() + bound).all()),
             f"{what}: the row's cotangent off the plain version's ({diff.max().item():.3e})")
+    require(not bool(outs[0][4][6:].any()), f"{what}: the row's entries 6 and 7 not zero")
+    return diff.max().item()
+
+
+def newmark_t_graph(torch, what, vecs, replays=200):
+    """K5T captured once in a CUDA graph (its programmatic dependent launch
+    and its arrival counter captured) and replayed ``replays`` times with
+    a new coefficient row written in place between replays: the row's
+    cotangent has the bits of an eager launch on the same row, the vector
+    cotangents those of the plain version."""
+    from vf_fem_tpu_torch import ops
+    from vf_fem_tpu_torch.equations import newmark
+
+    dev, dtype = vecs[0].device, vecs[0].dtype
+    rows = ops.newmark_row([newmark.coefficients(DT * (1 + 0.01 * i), 0.75 * DT)
+                            for i in range(replays)], dtype, dev)
+    row = rows[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.newmark_update_t(*vecs, row)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ops.newmark_update_t(*vecs, row)
+    for i in range(replays):
+        row.copy_(rows[i])
+        graph.replay()
+        eager = ops.newmark_update_t(*vecs, rows[i])
+        refs = ops.newmark_update_t_reference(*vecs, rows[i])
+        torch.cuda.synchronize()
+        require(torch.equal(captured[4], eager[4]),
+                f"{what}: replay {i}: the row's cotangent differs from an eager launch's")
+        require(all(torch.equal(c, r) for c, r in zip(captured[:4], refs[:4])),
+                f"{what}: replay {i}: a vector cotangent differs from the plain version")
+
+
+def newmark_t_streams(torch, what, vecs, launches=20, replays=50):
+    """Two CUDA graphs of ``launches`` K5T launches each, both captured on
+    PyTorch's one capture stream, replayed ``replays`` times at once on two
+    other streams, new rows written into each graph's inputs on its stream
+    before each replay: every launch's row cotangent has the bits of an
+    eager launch on its row (each capture has slots of its own, so the two
+    graphs never share an arrival counter)."""
+    from vf_fem_tpu_torch import ops
+    from vf_fem_tpu_torch.equations import newmark
+
+    dev, dtype = vecs[0].device, vecs[0].dtype
+    table = ops.newmark_row([newmark.coefficients(DT * (1 + 1e-3 * i), 0.75 * DT)
+                             for i in range(replays * 2 * launches)], dtype, dev)
+    table = table.view(replays, 2, launches, -1)
+    rows = [table[0, g].clone() for g in range(2)]
+    graphs, sinks = [], []
+    for g in range(2):
+        graph, sink = torch.cuda.CUDAGraph(), torch.empty_like(rows[g])
+        with torch.cuda.graph(graph):
+            for k in range(launches):
+                sink[k].copy_(ops.newmark_update_t(*vecs, rows[g][k])[4])
+        graphs.append(graph)
+        sinks.append(sink)
+    record = torch.empty_like(table)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    for r in range(replays):
+        for g, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                rows[g].copy_(table[r, g])
+                graphs[g].replay()
+                record[r, g].copy_(sinks[g])
+    for st in streams:
+        torch.cuda.current_stream().wait_stream(st)
+    eager = torch.stack([ops.newmark_update_t(*vecs, row)[4]
+                         for row in table.view(-1, table.shape[-1])])
+    torch.cuda.synchronize()
+    off = int((record.view(eager.shape) != eager).any(dim=1).sum())
+    require(off == 0, f"{what}: {off} of {eager.shape[0]} launches in two graphs replayed at"
+            " once on two streams differ from eager launches")
+
+
+def newmark_t_trace(torch, what, vecs, row, calls=10):
+    """``calls`` calls of K5T under ``torch.profiler``: exactly one device
+    kernel a call, and that kernel is K5T's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vf_fem_tpu_torch import ops
+
+    ops.newmark_update_t(*vecs, row)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            ops.newmark_update_t(*vecs, row)
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.count) for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    require(sum(c for _, c in kernels) == calls
+            and all(TRACE_NAMES["newmark_t"] in k for k, _ in kernels),
+            f"{what}: not one K5T kernel a call in the trace: {kernels}")
+
+
+def newmark_t_op(torch, label, tag, vecs):
+    """K5T (K5's backward) at one size against its plain version
+    (``newmark_t_equal``), replayed 200 times in a CUDA graph on new rows
+    (``newmark_t_graph``), in two graphs replayed at once on two streams
+    (``newmark_t_streams``), one device kernel a call in the profiler's
+    trace (``newmark_t_trace``); then its timing row (``measure``)."""
+    from vf_fem_tpu_torch import ops, yardsticks
+
+    what = f"ops newmark_t {label} {tag}"
+    row = newmark_row(vecs[0], DT, 0.75 * DT)
+    err = newmark_t_equal(torch, what, vecs, row)
+    newmark_t_graph(torch, what, vecs)
+    newmark_t_streams(torch, what, vecs)
+    newmark_t_trace(torch, what, vecs, row)
     r = measure(torch, lambda: ops.newmark_update_t(*vecs, row),
                 lambda: ops.newmark_update_t_reference(*vecs, row))
-    es = vecs[0].element_size()
-    r.update(max_abs_err=diff.max().item(), lib_err=None, bytes=newmark_t_work(n, es)[0],
+    n, es = vecs[0].numel(), vecs[0].element_size()
+    r.update(max_abs_err=err, lib_err=None, bytes=newmark_t_work(n, es)[0],
              lib_call=yardsticks.LIBRARY_CALL["newmark_t"])
     r["bound_ms"], r["bound_by"] = bound_of(*newmark_t_work(n, es), tag)
     log(f"[ops] newmark_t {label} {tag} (n = {n}): vector cotangents bit-equal to the plain"
-        f" version, the row's within its order bound (max |diff| {diff.max().item():.3e})"
-        f" and bit-stable across 3 launches")
+        f" version, the row's within its order bound (max |diff| {err:.3e}), the same bits"
+        f" in 3 launches, in 200 graph replays on new rows and in two graphs replayed at once"
+        f" on two streams as eager; one device kernel a call")
     return r
 
 
@@ -1084,7 +1200,9 @@ def newmark_edges(torch, dev, dtype):
     """K5 bit-equal to its plain version off the main path's shapes: an odd
     length, views that start off the 16-byte alignment (all four in one
     phase, and in mixed phases: the scalar path), and a predictor of
-    another step than the update's."""
+    another step than the update's; then K5T (``newmark_t_equal``) at n =
+    1, 7, an odd length and the three meshes' sizes, on views off the
+    alignment and in mixed phases."""
     rng = np.random.default_rng(5)
     tag = str(dtype).replace("torch.", "")
     for n in (123, 960, 23_754):
@@ -1099,6 +1217,19 @@ def newmark_edges(torch, dev, dtype):
     log(f"[ops] newmark {tag}: bit-equal to the plain version at n = 123, 960, 23754,"
         " on views at +1 entry and at mixed phases, and with another predictor step,"
         " its coefficients read from a row in device memory")
+    for n in (1, 7, 123, 960, 23_754, 94_810):
+        host = rng.standard_normal((6, n + 3))
+        host[:2] *= 1e-3
+        full = [torch.tensor(h, dtype=dtype, device=dev) for h in host]
+        row = newmark_row(full[0], DT, 0.75 * DT)
+        newmark_t_equal(torch, f"newmark_t n={n} {tag}", [f[:n] for f in full], row)
+        newmark_t_equal(torch, f"newmark_t n={n} {tag} views at +1",
+                        [f[1:n + 1] for f in full], row)
+        newmark_t_equal(torch, f"newmark_t n={n} {tag} views at +1, +2, +3, +0, +1, +2",
+                        [f[k:n + k] for f, k in zip(full, (1, 2, 3, 0, 1, 2))], row)
+    log(f"[ops] newmark_t {tag}: vector cotangents bit-equal to the plain version and the"
+        " row's within its order bound, the same bits in 3 launches, at n = 1, 7, 123, 960,"
+        " 23754, 94810, on views at +1 entry and at mixed phases")
 
 
 def sweep_double_rounding(torch, dev):

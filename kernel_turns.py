@@ -34,6 +34,11 @@ predictor, else K5 (v1, a1) and the plain predictor,
 ``equations.newmark``, four eager kernels), with the SHA-256 of the
 three outputs;
 
+K5T ``ops.newmark_update_t`` (K5's backward) at 23.7k dofs, f64 and f32,
+from a seed of its own, with the SHA-256 of its four vector cotangents
+(the plain version's bits, in every checkout that has K5T) and of the
+row's cotangent (its summation order is the checkout's own);
+
 K4 ``ops.bsb_matvec`` and its transpose K4T ``ops.bsb_matvec_t`` (where
 the checkout has it, on its transposed pattern, with the SHA-256 of its
 output) at 23.7k dofs, f64 and f32, on the model's block-banded Jacobian at
@@ -48,13 +53,20 @@ after a warm-up run: the eager loop, or the captured CUDA-graph step where
 the checkout has one), timed by CUDA events, with the SHA-256 of its
 trajectory and infos; then the same run by the eager loop of steps
 (``forward._integrate_eager``: every banded gather and scatter called from
-Python, so its steps/s include their dispatch on the host).
+Python, so its steps/s include their dispatch on the host);
+
+the 23.7k FSAI value+grad of the RMS radiated pressure
+(``chip_smoke.py`` phase 12's cell: production adjoint settings, 50 steps,
+K5T 0.98 a step), three runs by CUDA events with the SHA-256 of the value
+and gradients (equal within a checkout; a K5T that sums in another order
+gives other bits), then one under ``cProfile``: the host time of K5T's
+wrapper and the run's function calls.
 
 Each time is taken two ways by CUDA events: the eager call (200 calls
 after 20 warm-up calls) and the device time (200 calls captured in one CUDA
 graph and replayed).  Prints one line per process and, last, a JSON object
-with every process's numbers, whether each digest (K4T, K5, K6, K6T and
-the btd trajectory) is the same in every process and whether it is the same
+with every process's numbers, whether each digest (K4T, K5, K5T, K6, K6T
+and the btd trajectory) is the same in every process and whether it is the same
 in the two processes of each checkout (a redesigned kernel that sums in
 another order has other bits than its parent's, the same bits every
 launch), and the card's name and power limit.  Exits nonzero without CUDA or
@@ -65,9 +77,11 @@ archive <parent> | tar -x -C _scratch/parent``, then ``python3
 kernel_turns.py _scratch/parent`` (about 15 minutes on an H100).
 """
 
+import cProfile
 import hashlib
 import json
 import os
+import pstats
 import subprocess
 import sys
 
@@ -80,7 +94,8 @@ def child(root):
 
     sys.path.insert(0, HERE)
     # this checkout's timers and drivers; they import the port when called
-    from chip_smoke import (BTD_PROD, LARGE_MESH, PROD, build, cuda_ms, graph_ms,
+    from chip_smoke import (ADJ_LARGE, BTD_PROD, FSAI_GRAD_STEPS, LARGE_MESH, PROD, build,
+                            build_fsai, cuda_ms, fsai_grad_run, fsai_value, graph_ms,
                             krylov_iteration_ms, profile_run, rest_operator)
 
     sys.path.insert(0, root)  # the port of the checkout under test
@@ -149,6 +164,25 @@ def child(root):
             sha256=hashlib.sha256(y.tobytes()).hexdigest(), ms=cuda_ms(torch, fn),
             device_ms=graph_ms(torch, fn), one_launch=whole, row=row_api)
 
+    # K5T at 23.7k dofs (its own seed, so that the inputs after it are the
+    # same with or without it): the eager call and the device time, with
+    # the SHA-256 of the four vector cotangents and of the row's cotangent
+    trng = np.random.default_rng(14)
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        host = trng.standard_normal((6, 23_754))
+        host[:2] *= 1e-3
+        vecs = [torch.tensor(h, dtype=dtype, device=dev) for h in host]
+        row = ops.newmark_row(newmark.coefficients(1e-4, 0.75e-4), dtype, dev)
+        fn = lambda: ops.newmark_update_t(*vecs, row)
+        outs = fn()
+        vec = torch.cat(outs[:4]).cpu().numpy()
+        out[f"newmark_t {tag}"] = dict(
+            sha256=hashlib.sha256(vec.tobytes()).hexdigest(), ms=cuda_ms(torch, fn),
+            device_ms=graph_ms(torch, fn))
+        out[f"newmark_t row {tag}"] = dict(
+            sha256=hashlib.sha256(outs[4].cpu().numpy().tobytes()).hexdigest())
+
     built = build(torch, dev, LARGE_MESH, torch.float64)
     model, state0, cs, prop = built
     op = rest_operator(torch, model, 500.0)
@@ -205,6 +239,37 @@ def child(root):
             digest.update(x.cpu().numpy().tobytes())
         out[key] = dict(sha256=digest.hexdigest(), run_ms=start.elapsed_time(end),
                         steps=len(times) - 1)
+
+    # the 23.7k FSAI value+grad of the RMS radiated pressure (chip_smoke.py
+    # phase 12's production adjoint settings, 50 steps; the gradient path
+    # that runs K5T): three runs by CUDA events after the forward that
+    # captures the step and a warm-up run, with the SHA-256 of the value and
+    # gradients; then one more under cProfile: the host time of K5T's
+    # wrapper (ops.newmark_update_t, inclusive) and the run's function calls
+    built = build_fsai(torch, dev, torch.float64, large=True)
+    times = np.load(os.path.join(HERE, "tests", "data", "golden_m5_fsai.npz"))["times"]
+    times = times[:FSAI_GRAD_STEPS + 1]
+    fsai_value(torch, built, times, ADJ_LARGE)
+    fsai_grad_run(torch, built, times, ADJ_LARGE)
+    for run in (1, 2, 3):
+        g = fsai_grad_run(torch, built, times, ADJ_LARGE)
+        digest = hashlib.sha256(np.float64(g["value"]).tobytes())
+        for group in ("ini_state", "controls", "prop"):
+            for k in sorted(g["grads"][group]):
+                digest.update(np.ascontiguousarray(g["grads"][group][k]).tobytes())
+        digest.update(np.ascontiguousarray(g["grads"]["times"]).tobytes())
+        out[f"fsai value+grad 23.7k f64 run {run}"] = dict(
+            sha256=digest.hexdigest(), run_ms=g["ms"], steps=FSAI_GRAD_STEPS)
+    host = cProfile.Profile()
+    host.enable()
+    g = fsai_grad_run(torch, built, times, ADJ_LARGE)
+    host.disable()
+    stats = pstats.Stats(host)
+    wrapper = [v for (path, _, name), v in stats.stats.items()
+               if name == "newmark_update_t" and path.endswith(os.path.join("ops", "kernels.py"))]
+    out["fsai value+grad 23.7k f64 host"] = dict(
+        k5t_calls=sum(v[1] for v in wrapper), k5t_host_ms=sum(v[3] for v in wrapper) * 1e3,
+        calls=stats.total_calls, profiled_ms=g["ms"])
     torch.cuda.synchronize()
     print(json.dumps(out), flush=True)
 
@@ -239,6 +304,9 @@ def main():
                f" per BiCGStab iteration ({v['iters']} a solve)" if "k4_ms" in v else "")
             + (f" {v['steps'] / (v['run_ms'] / 1e3):.2f} steps/s ({v['run_ms']:.3f} ms)"
                if "run_ms" in v else "")
+            + (f" under cProfile {v['profiled_ms']:.3f} ms, {v['calls']} function calls, K5T's"
+               f" wrapper {v['k5t_host_ms']:.3f} ms in {v['k5t_calls']} calls"
+               if "k5t_host_ms" in v else "")
             for k, v in res.items() if isinstance(v, dict)), flush=True)
     keys = sorted({k for r in runs for k, v in r.items() if isinstance(v, dict) and "sha256" in v})
     same = {k: len({r[k]["sha256"] for r in runs if k in r}) == 1 for k in keys}

@@ -779,18 +779,11 @@ def test_btd_sweep_t_rejects_bad_input(large_operator):
         ops.btd_sweep_t(torch.zeros(A.numel() + 1, dtype=A.dtype, device=dev)[1:].view(A.shape), g)
 
 
-@pytest.mark.parametrize("n", [960, 23_754, 123])
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_newmark_t_matches_plain(cuda, dtype, n):
-    """K5T against its plain version: the four vector cotangents bit for
-    bit, the row's cotangent within the bound on summation order (rtol
-    1e-13 / 1e-6 besides) and bit-stable across three launches."""
-    from vf_fem_tpu_torch.equations import newmark
-
-    rng = np.random.default_rng(n)
-    vecs = [torch.tensor(rng.standard_normal(n), dtype=dtype, device=cuda)
-            for _ in range(6)]
-    row = ops.newmark_row(newmark.coefficients(1e-4, 0.75e-4), dtype, cuda)
+def _newmark_t_check(vecs, row):
+    """K5T in three launches against its plain version: the four vector
+    cotangents bit for bit, the row's cotangent within the bound on
+    summation order (rtol 1e-13 / 1e-6 besides), the same bits in every
+    launch, and its entries 6 and 7 zero."""
     n0 = ops.LAUNCHES["newmark_t"]
     outs = [ops.newmark_update_t(*vecs, row) for _ in range(3)]
     refs = ops.newmark_update_t_reference(*vecs, row)
@@ -802,10 +795,151 @@ def test_newmark_t_matches_plain(cuda, dtype, n):
     absrow = ops.newmark_update_t_reference(vb1.abs(), ab1.abs(), u1.abs(),
                                             -u0.abs(), -v0.abs(), -a0.abs(),
                                             row.abs())[4].abs()
-    bound = ops.dot_order_bound(absrow, n)
-    rtol = 1e-13 if dtype == torch.float64 else 1e-6
+    bound = ops.dot_order_bound(absrow, u1.numel())
+    rtol = 1e-13 if u1.dtype == torch.float64 else 1e-6
     assert_scatter_close(outs[0][4], refs[4], bound, rtol)
     assert all(torch.equal(o[4], outs[0][4]) for o in outs[1:])
+    assert not outs[0][4][6:].any()
+
+
+@pytest.mark.parametrize("n", [960, 23_754, 123, 94_810, 1, 7])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_newmark_t_matches_plain(cuda, dtype, n):
+    """K5T against its plain version (``_newmark_t_check``) on separate
+    vectors, on views that start one entry off the 16-byte alignment (the
+    wrapper allocates the outputs in u1's phase: 16-byte vectors after a
+    scalar head) and on views in mixed phases (the scalar loop)."""
+    from vf_fem_tpu_torch.equations import newmark
+
+    rng = np.random.default_rng(n)
+    row = ops.newmark_row(newmark.coefficients(1e-4, 0.75e-4), dtype, cuda)
+    full = [torch.tensor(rng.standard_normal(n + 3), dtype=dtype, device=cuda)
+            for _ in range(6)]
+    _newmark_t_check([f[:n].clone() for f in full], row)
+    _newmark_t_check([f[1:n + 1] for f in full], row)
+    _newmark_t_check([f[k:n + k] for f, k in zip(full, (1, 2, 3, 0, 1, 2))], row)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_newmark_t_graph_replays(cuda, dtype):
+    """K5T captured in a CUDA graph and replayed 200 times, a new row
+    written in place between replays: the row's cotangent has the bits of
+    an eager launch on that row, the vector cotangents those of the plain
+    version."""
+    from vf_fem_tpu_torch.equations import newmark
+
+    rng = np.random.default_rng(3)
+    vecs = [torch.tensor(rng.standard_normal(23_754), dtype=dtype, device=cuda)
+            for _ in range(6)]
+    rows = ops.newmark_row([newmark.coefficients(1e-4 * (1 + 0.01 * i), 0.75e-4)
+                            for i in range(200)], dtype, cuda)
+    row = rows[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.newmark_update_t(*vecs, row)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ops.newmark_update_t(*vecs, row)
+    for i in range(200):
+        row.copy_(rows[i])
+        graph.replay()
+        eager = ops.newmark_update_t(*vecs, rows[i])
+        refs = ops.newmark_update_t_reference(*vecs, rows[i])
+        torch.cuda.synchronize()
+        assert torch.equal(captured[4], eager[4]), i
+        assert all(torch.equal(c, r) for c, r in zip(captured[:4], refs[:4])), i
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_newmark_t_graphs_on_two_streams(cuda, dtype):
+    """Two CUDA graphs of 20 K5T launches each, both captured on PyTorch's
+    one capture stream, replayed 50 times at once on two other streams,
+    new rows written into each graph's inputs on its stream before each
+    replay: every launch's row cotangent has the bits of an eager launch on
+    its row.  Each capture has its own slots (counter and partial sums), so
+    the two graphs never share one however their launches interleave."""
+    from vf_fem_tpu_torch.equations import newmark
+
+    rng = np.random.default_rng(6)
+    vecs = [torch.tensor(rng.standard_normal(94_810), dtype=dtype, device=cuda)
+            for _ in range(6)]
+    launches, replays = 20, 50
+    table = ops.newmark_row([newmark.coefficients(1e-4 * (1 + 1e-3 * i), 0.75e-4)
+                             for i in range(replays * 2 * launches)], dtype, cuda)
+    table = table.view(replays, 2, launches, -1)
+    rows = [table[0, g].clone() for g in range(2)]
+    ops.newmark_update_t(*vecs, rows[0][0])
+    torch.cuda.synchronize()
+    graphs, sinks = [], []
+    for g in range(2):
+        graph, sink = torch.cuda.CUDAGraph(), torch.empty_like(rows[g])
+        with torch.cuda.graph(graph):
+            for k in range(launches):
+                sink[k].copy_(ops.newmark_update_t(*vecs, rows[g][k])[4])
+        graphs.append(graph)
+        sinks.append(sink)
+    record = torch.empty_like(table)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    for r in range(replays):
+        for g, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                rows[g].copy_(table[r, g])
+                graphs[g].replay()
+                record[r, g].copy_(sinks[g])
+    for st in streams:
+        torch.cuda.current_stream().wait_stream(st)
+    eager = torch.stack([ops.newmark_update_t(*vecs, row)[4] for row in table.view(-1, 8)])
+    torch.cuda.synchronize()
+    off = (record.view(-1, 8) != eager).any(dim=1)
+    assert not off.any(), f"{int(off.sum())} of {off.numel()} captured launches differ"
+
+
+def test_newmark_t_one_kernel_a_call(cuda):
+    """Ten calls of K5T are ten device kernels in the profiler's trace,
+    all of them K5T's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vf_fem_tpu_torch.equations import newmark
+
+    rng = np.random.default_rng(4)
+    vecs = [torch.tensor(rng.standard_normal(23_754), device=cuda) for _ in range(6)]
+    row = ops.newmark_row(newmark.coefficients(1e-4, 0.75e-4), torch.float64, cuda)
+    ops.newmark_update_t(*vecs, row)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            ops.newmark_update_t(*vecs, row)
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.count) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    assert sum(c for _, c in kernels) == 10, kernels
+    assert all("newmark_t_kernel" in k for k, _ in kernels), kernels
+
+
+def test_newmark_t_rejects_bad_input(cuda):
+    """K5T's wrapper raises on what the kernel does not take."""
+    from vf_fem_tpu_torch.equations import newmark
+
+    vecs = [torch.zeros(8, dtype=torch.float64, device=cuda) for _ in range(6)]
+    row = ops.newmark_row(newmark.coefficients(1e-4), torch.float64, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.newmark_update_t(*vecs[:5], torch.zeros(16, dtype=torch.float64,
+                                                     device=cuda)[::2], row)
+    with pytest.raises(TypeError, match="mixed dtypes"):
+        ops.newmark_update_t(*vecs[:5], vecs[5].float(), row)
+    with pytest.raises(ValueError, match="tensors on"):
+        ops.newmark_update_t(*vecs[:5], vecs[5].cpu(), row)
+    with pytest.raises(ValueError, match="one shape"):
+        ops.newmark_update_t(*vecs[:5], vecs[5][:4], row)
+    with pytest.raises(ValueError, match="coefficients"):
+        ops.newmark_update_t(*vecs, row.float())
+    with pytest.raises(ValueError, match="empty"):
+        ops.newmark_update_t(*(v[:0] for v in vecs), row)
 
 
 def _grad_model(cuda_or_cpu, config):

@@ -69,21 +69,42 @@
 // K5T is K5's backward (no TPU kernel: the JAX package differentiates
 // equations/newmark.py's relations with its step).  With V, A the
 // cotangents of v1, a1 (the predictor u_next is not differentiated: the
-// Newton guess it seeds carries no sensitivity), one pass writes
+// Newton guess it seeds carries no sensitivity), one launch writes
 //   ub1 = c1 V + c4 A,  ub0 = -ub1,  vb0 = -(c2 V + dt (c4 A)),
 //   ab0 = -(c3 V + c5 A)
-// and each CTA's partial sums of the row's cotangent (sum V du, -sum V v0,
-// -sum V a0, sum A (du - dt v0), -sum A a0, -sum (c4 A) v0, 0, 0 with du =
-// u1 - u0); a second launch of one CTA adds the partial sums of each entry
-// in CTA order.  No atomics: the row's cotangent, on which the gradient
-// with respect to the step sizes rests, has the same bits run to run.  The
-// vector cotangents are rounded as the plain version
-// (ops.kernels.newmark_update_t_reference) rounds them, _rn throughout,
-// so they are its bits; the row's sums differ from its sums only in order.
-// Bound: bytes (six vectors in, four out; 2.28 MB in f64 at 23.7k dofs,
-// 0.68 us at 3.35 TB/s).  A grid-stride loop over at most two CTAs an SM,
-// 256 threads a CTA, the six partial sums reduced by an xor tree in each
-// warp and in warp order across the CTA.
+// and the row's cotangent, six sums over the entries (sum V du, -sum V v0,
+// -sum V a0, sum A (du - dt v0), -sum A a0, -sum (c4 A) v0 with du = u1 -
+// u0) and two zeros.  The vector cotangents are rounded as the plain
+// version (ops.kernels.newmark_update_t_reference) rounds them, _rn
+// throughout, so they are its bits; the row's sums differ from its sums
+// only in order.  Bound: bytes (six vectors in, four out; 1.90 MB in f64
+// at 23.7k dofs, 0.57 us at 3.35 TB/s); at these sizes the launch and the
+// reduction's latency cost more than the bytes.  K5's design: programmatic
+// dependent launch (griddepcontrol.wait before the first global access,
+// the row's included; launch_dependents after the loads), 16-byte loads
+// and stores where all ten vectors share one 16-byte phase (the wrapper
+// allocates the outputs in u1's), scalar entries elsewhere.  A grid-stride
+// loop over at most one CTA an SM (kNewmarkTMaxCtas at most), 256 threads
+// a CTA; each CTA adds its six sums by an xor tree in each warp and then
+// the warps in order, writes them to its row of its slot's partial sums
+// and takes a ticket from the slot's arrival counter (atom.acq_rel.gpu
+// after the block barrier); the CTA that takes the last adds the rows in
+// CTA order (lane l of warp j rows l, l + 32, ... of entry j, all loads
+// issued before the first sum, then an xor tree), whatever the order of
+// arrival, and sets the counter back to zero.  No float atomics: the row's
+// cotangent, on which the gradient with respect to the step sizes rests,
+// has the same bits every launch and every graph replay.
+//
+// A slot (a counter and kNewmarkTMaxCtas rows of partial sums in static
+// device memory, zero at load and left at zero by every launch) holds one
+// launch at a time.  That rests on two conditions, which ops.kernels keeps
+// by giving out the slots: launches that share a slot are ordered, and
+// each one's griddepcontrol.wait, before its first touch of the slot,
+// waits for the one before to end.  Eager launches take the slot of their
+// (device, stream); launches captured into a CUDA graph take the slot of
+// their (device, stream, capture), since a graph may be replayed on any
+// stream, beside eager work or other graphs, but never beside itself, and
+// within one capture the launches on one stream are chained.
 //
 // K3T and K4T are the transposed operators of the 'cg' and 'bsb' adjoint
 // solves (no TPU kernel: the JAX package transposes with XLA,
@@ -542,143 +563,257 @@ int launch_bsb(const void* blocks, const void* x, const void* ptr,
   return static_cast<int>(cudaGetLastError());
 }
 
-// head: the scalar entries before the span where all seven vectors are
-// 16-byte aligned (every entry when their phases differ)
+// The scalar entries before the span where the vector at `first` and all
+// of `others` are 16-byte aligned (every entry when their phases differ)
 template <typename T>
-int launch_newmark(const void* u1, const void* u0, const void* v0,
-                   const void* a0, void* v1, void* a1, void* un, long long n,
-                   const void* coefs, void* stream) {
-  if (n == 0) return 0;
+long long vector_head(const void* first, std::initializer_list<const void*> others,
+                      long long n) {
+  const uintptr_t phase = reinterpret_cast<uintptr_t>(first) % 16;
+  bool same = phase % sizeof(T) == 0;
+  for (const void* p : others) same = same && reinterpret_cast<uintptr_t>(p) % 16 == phase;
+  return same ? std::min<long long>(n, static_cast<long long>((16 - phase) % 16 / sizeof(T)))
+              : n;
+}
+
+// trips of the longer of the 16-byte loop over [head, n) and the scalar one
+template <typename T>
+long long vector_work(long long n, long long head) {
   constexpr long long V = 16 / sizeof(T);
-  const uintptr_t phase = reinterpret_cast<uintptr_t>(u1) % 16;
-  bool same = true;
-  for (const void* p : {u0, v0, a0, static_cast<const void*>(v1),
-                        static_cast<const void*>(a1), static_cast<const void*>(un)})
-    same = same && reinterpret_cast<uintptr_t>(p) % 16 == phase;
-  long long head = n;
-  if (same && phase % sizeof(T) == 0)
-    head = std::min<long long>(n, static_cast<long long>((16 - phase) % 16 / sizeof(T)));
-  const long long nvec = (n - head) / V;
-  const long long work = std::max(nvec, head + (n - head) % V);
-  const long long grid =
-      std::min<long long>(grid_for(work, kNewmarkThreads), 4LL * sm_count());
+  return std::max((n - head) / V, head + (n - head) % V);
+}
+
+// a launch of `grid` CTAs with programmatic stream serialization (used in
+// place: cfg points at attr)
+struct PdlLaunch {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(grid));
-  cfg.blockDim = dim3(kNewmarkThreads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(
-      &cfg, newmark_kernel<T>, static_cast<const T*>(u1),
-      static_cast<const T*>(u0), static_cast<const T*>(v0),
-      static_cast<const T*>(a0), static_cast<T*>(v1), static_cast<T*>(a1),
-      static_cast<T*>(un), n, head, static_cast<const T*>(coefs));
+  cudaLaunchAttribute attr = {};
+  PdlLaunch(long long grid, int threads, void* stream) {
+    cfg.gridDim = dim3(static_cast<unsigned>(grid));
+    cfg.blockDim = dim3(threads);
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr.val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// cudaLaunchKernelEx's result; a refused launch's error is cleared, since
+// the next launch's check reads it
+int checked_launch(cudaError_t err) {
   if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it: the next launch's check reads it
+    cudaGetLastError();
     return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_newmark(const void* u1, const void* u0, const void* v0,
+                   const void* a0, void* v1, void* a1, void* un, long long n,
+                   const void* coefs, void* stream) {
+  if (n == 0) return 0;
+  const long long head = vector_head<T>(u1, {u0, v0, a0, v1, a1, un}, n);
+  PdlLaunch l(std::min<long long>(grid_for(vector_work<T>(n, head), kNewmarkThreads),
+                                  4LL * sm_count()),
+              kNewmarkThreads, stream);
+  return checked_launch(cudaLaunchKernelEx(
+      &l.cfg, newmark_kernel<T>, static_cast<const T*>(u1),
+      static_cast<const T*>(u0), static_cast<const T*>(v0),
+      static_cast<const T*>(a0), static_cast<T*>(v1), static_cast<T*>(a1),
+      static_cast<T*>(un), n, head, static_cast<const T*>(coefs)));
+}
+
 // ---- K5T: K5's backward ----------------------------------------------------
 
-constexpr int kNewmarkTThreads = 256;
-constexpr int kNewmarkTMaxCtas = 1024;  // ops.kernels.NEWMARK_T_MAX_CTAS
 constexpr int kRowSums = 6;             // nonzero entries of the row's cotangent
+constexpr int kNewmarkTThreads = 256;   // threads a CTA
+constexpr int kNewmarkTMaxCtas = 132;   // CTAs a launch at most (an H100's SMs)
+constexpr int kNewmarkTSlots = 1024;    // slots a device (ops.kernels.NEWMARK_T_SLOTS)
+
+// The slots: an arrival counter and the CTAs' partial sums each (read as
+// T, f32 or f64).  Static device memory is zero when the module loads,
+// and the last CTA of a launch sets its counter back to zero, so no
+// allocation, fill or capture ever touches them.
+__device__ unsigned g_newmark_t_tickets[kNewmarkTSlots];
+__device__ double g_newmark_t_partials[kNewmarkTSlots][kNewmarkTMaxCtas * kRowSums];
 
 template <typename T>
-__global__ void __launch_bounds__(kNewmarkTThreads)
-    newmark_t_kernel(const T* __restrict__ vb1, const T* __restrict__ ab1,
-                     const T* __restrict__ u1, const T* __restrict__ u0,
-                     const T* __restrict__ v0, const T* __restrict__ a0,
-                     const T* __restrict__ coefs, T* __restrict__ ub1,
-                     T* __restrict__ ub0, T* __restrict__ vb0, T* __restrict__ ab0,
-                     T* __restrict__ partial, long long n) {
-  __shared__ T warp_sums[kNewmarkTThreads / 32][kRowSums];
-  const NewmarkRow<T> k(coefs);
-  T acc[kRowSums];
-#pragma unroll
-  for (int j = 0; j < kRowSums; ++j) acc[j] = T(0);
+struct NewmarkTArgs {
+  const T* vb1;  // the cotangents of v1, a1
+  const T* ab1;
+  const T* u1;  // K5's inputs
+  const T* u0;
+  const T* v0;
+  const T* a0;
+  const T* coefs;
+  T* ub1;  // the cotangents of u1, u0, v0, a0
+  T* ub0;
+  T* vb0;
+  T* ab0;
+  T* row_bar;  // the row's: 8 entries
+};
+
+// one entry's four cotangents and its terms of the row's six sums
+template <typename T>
+__device__ __forceinline__ void newmark_t_entry(const NewmarkRow<T>& k, T V, T A, T u1, T u0,
+                                                T v0, T a0, T& ub1, T& ub0, T& vb0, T& ab0,
+                                                T (&acc)[kRowSums]) {
+  const T du = sub_rn(u1, u0);
+  const T c4a = mul_rn(k.c4, A);
+  ub1 = add_rn(mul_rn(k.c1, V), c4a);
+  ub0 = -ub1;
+  vb0 = -add_rn(mul_rn(k.c2, V), mul_rn(k.dt, c4a));
+  ab0 = -add_rn(mul_rn(k.c3, V), mul_rn(k.c5, A));
+  acc[0] = add_rn(acc[0], mul_rn(V, du));
+  acc[1] = add_rn(acc[1], mul_rn(V, v0));
+  acc[2] = add_rn(acc[2], mul_rn(V, a0));
+  acc[3] = add_rn(acc[3], mul_rn(A, sub_rn(du, mul_rn(k.dt, v0))));
+  acc[4] = add_rn(acc[4], mul_rn(A, a0));
+  acc[5] = add_rn(acc[5], mul_rn(c4a, v0));
+}
+
+// The vector cotangents of this thread's entries in a grid-stride loop:
+// 16-byte vectors over [head, head + nvec * V) (V = 16 / sizeof(T)), the
+// rest one at a time; the thread's terms of the six sums added in the
+// order its entries come.  Called after griddepcontrol.wait.
+template <typename T>
+__device__ __forceinline__ void newmark_t_pass(const NewmarkTArgs<T>& a, long long n,
+                                               long long head, T (&acc)[kRowSums]) {
+  constexpr int V = 16 / sizeof(T);
+  using P = Pack16<T>;
+  using W = decltype(P::v);
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; e < n;
-       e += step) {
-    const T V = vb1[e], A = ab1[e];
-    const T x0 = v0[e], z0 = a0[e];
-    const T du = sub_rn(u1[e], u0[e]);
-    const T ub = add_rn(mul_rn(k.c1, V), mul_rn(k.c4, A));
-    const T c4a = mul_rn(k.c4, A);
-    ub1[e] = ub;
-    ub0[e] = -ub;
-    vb0[e] = -add_rn(mul_rn(k.c2, V), mul_rn(k.dt, c4a));
-    ab0[e] = -add_rn(mul_rn(k.c3, V), mul_rn(k.c5, A));
-    acc[0] = add_rn(acc[0], mul_rn(V, du));
-    acc[1] = add_rn(acc[1], mul_rn(V, x0));
-    acc[2] = add_rn(acc[2], mul_rn(V, z0));
-    acc[3] = add_rn(acc[3], mul_rn(A, sub_rn(du, mul_rn(k.dt, x0))));
-    acc[4] = add_rn(acc[4], mul_rn(A, z0));
-    acc[5] = add_rn(acc[5], mul_rn(c4a, x0));
+  const long long t = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  const long long nvec = (n - head) / V;
+  const long long body_end = head + nvec * V;
+  const long long nscalar = head + (n - body_end);
+  const NewmarkRow<T> k(a.coefs);
+  for (long long i = t; i < nvec; i += step) {
+    const long long e = head + i * V;
+    P gv, ga, x1, x0, y0, z0, o1, o0, ov, oa;
+    gv.v = __ldg(reinterpret_cast<const W*>(a.vb1 + e));
+    ga.v = __ldg(reinterpret_cast<const W*>(a.ab1 + e));
+    x1.v = __ldg(reinterpret_cast<const W*>(a.u1 + e));
+    x0.v = __ldg(reinterpret_cast<const W*>(a.u0 + e));
+    y0.v = __ldg(reinterpret_cast<const W*>(a.v0 + e));
+    z0.v = __ldg(reinterpret_cast<const W*>(a.a0 + e));
+    launch_dependents();
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      newmark_t_entry(k, gv.s[j], ga.s[j], x1.s[j], x0.s[j], y0.s[j], z0.s[j], o1.s[j],
+                      o0.s[j], ov.s[j], oa.s[j], acc);
+    *reinterpret_cast<W*>(a.ub1 + e) = o1.v;
+    *reinterpret_cast<W*>(a.ub0 + e) = o0.v;
+    *reinterpret_cast<W*>(a.vb0 + e) = ov.v;
+    *reinterpret_cast<W*>(a.ab0 + e) = oa.v;
   }
+  for (long long i = t; i < nscalar; i += step) {
+    const long long e = i < head ? i : body_end + (i - head);
+    newmark_t_entry(k, __ldg(a.vb1 + e), __ldg(a.ab1 + e), __ldg(a.u1 + e), __ldg(a.u0 + e),
+                    __ldg(a.v0 + e), __ldg(a.a0 + e), a.ub1[e], a.ub0[e], a.vb0[e], a.ab0[e],
+                    acc);
+  }
+}
+
+// The CTA's six sums: an xor tree in each warp, then the warps in order;
+// thread j < 6 returns sum j
+template <typename T>
+__device__ __forceinline__ T newmark_t_cta_sum(T (&acc)[kRowSums]) {
+  __shared__ T warp_sums[kNewmarkTThreads / 32][kRowSums];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
 #pragma unroll
     for (int j = 0; j < kRowSums; ++j)
       acc[j] = add_rn(acc[j], __shfl_xor_sync(0xffffffffu, acc[j], off));
-  const int warp = threadIdx.x >> 5;
   if ((threadIdx.x & 31) == 0)
 #pragma unroll
-    for (int j = 0; j < kRowSums; ++j) warp_sums[warp][j] = acc[j];
+    for (int j = 0; j < kRowSums; ++j) warp_sums[threadIdx.x >> 5][j] = acc[j];
   __syncthreads();
-  if (threadIdx.x < kRowSums) {
-    T sum = warp_sums[0][threadIdx.x];
-    for (int w = 1; w < kNewmarkTThreads / 32; ++w)
-      sum = add_rn(sum, warp_sums[w][threadIdx.x]);
-    partial[blockIdx.x * kRowSums + threadIdx.x] = sum;
-  }
-}
-
-// warp j adds entry j of the CTAs' partial sums: lane l those of CTAs l,
-// l + 32, ... in order, then an xor tree; signs as the row's cotangent
-template <typename T>
-__global__ void __launch_bounds__(32 * kRowSums)
-    newmark_t_sum_kernel(const T* __restrict__ partial, int ctas, T* __restrict__ row_bar) {
-  const int j = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
   T sum = T(0);
-  for (int b = lane; b < ctas; b += 32) sum = add_rn(sum, partial[b * kRowSums + j]);
+  if (threadIdx.x < kRowSums) {
+    sum = warp_sums[0][threadIdx.x];
+    for (int w = 1; w < kNewmarkTThreads / 32; ++w) sum = add_rn(sum, warp_sums[w][threadIdx.x]);
+  }
+  return sum;
+}
+
+// entry j of the row's cotangent from its sum (the signs of the transpose)
+template <typename T>
+__device__ __forceinline__ T row_entry(int j, T sum) {
+  return j == 1 || j == 2 || j == 4 || j == 5 ? -sum : sum;
+}
+
+// a ticket: release (the CTA's partial sums, ordered before it by the
+// block barrier) and acquire (the other CTAs' partial sums) at gpu scope
+__device__ __forceinline__ unsigned take_ticket(unsigned* counter) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.add.u32 %0, [%1], 1;" : "=r"(old) : "l"(counter) : "memory");
+  return old;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kNewmarkTThreads)
+    newmark_t_kernel(NewmarkTArgs<T> a, int slot, long long n, long long head) {
+  __shared__ bool last;
+  grid_dependency_wait();  // before the first global access, the row's and the slot's included
+  T acc[kRowSums] = {};
+  newmark_t_pass(a, n, head, acc);
+  const T sum = newmark_t_cta_sum(acc);
+  T* partial = reinterpret_cast<T*>(g_newmark_t_partials[slot]);
+  if (threadIdx.x < kRowSums) partial[blockIdx.x * kRowSums + threadIdx.x] = sum;
+  __syncthreads();
+  unsigned* counter = &g_newmark_t_tickets[slot];
+  if (threadIdx.x == 0) last = take_ticket(counter) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  // warp j adds entry j: lane l the CTAs l, l + 32, ... in order (every
+  // load issued before the first sum), then an xor tree
+  constexpr int kPer = (kNewmarkTMaxCtas + 31) / 32;
+  const int lane = threadIdx.x & 31;
+  for (int j = threadIdx.x >> 5; j < kRowSums; j += kNewmarkTThreads / 32) {
+    T v[kPer];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    sum = add_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
-  if (lane == 0) {
-    const bool negate = j == 1 || j == 2 || j == 4 || j == 5;
-    row_bar[j] = negate ? -sum : sum;
-    if (j < 2) row_bar[kRowSums + j] = T(0);  // dtp and c: u_next is not differentiated
+    for (int q = 0; q < kPer; ++q) {
+      const unsigned b = lane + 32 * q;
+      v[q] = b < gridDim.x ? __ldcg(partial + b * kRowSums + j) : T(0);
+    }
+    T s = T(0);
+#pragma unroll
+    for (int q = 0; q < kPer; ++q)
+      if (lane + 32 * q < gridDim.x) s = add_rn(s, v[q]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s = add_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
+    if (lane == 0) a.row_bar[j] = row_entry(j, s);
+  }
+  if (threadIdx.x == 0) {
+    a.row_bar[kRowSums] = T(0);  // dtp and c: u_next is not differentiated
+    a.row_bar[kRowSums + 1] = T(0);
+    *counter = 0u;  // the slot's next launch waits for this one to end
   }
 }
 
 template <typename T>
-int launch_newmark_t(const void* vb1, const void* ab1, const void* u1, const void* u0,
-                     const void* v0, const void* a0, const void* coefs, void* ub1,
-                     void* ub0, void* vb0, void* ab0, void* row_bar, void* partial,
-                     long long n, void* stream) {
-  if (n == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long ctas = std::min<long long>(
-      std::min<long long>(grid_for(n, kNewmarkTThreads), 2LL * sm_count()),
-      kNewmarkTMaxCtas);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  newmark_t_kernel<T><<<static_cast<unsigned>(ctas), kNewmarkTThreads, 0, st>>>(
-      static_cast<const T*>(vb1), static_cast<const T*>(ab1), static_cast<const T*>(u1),
-      static_cast<const T*>(u0), static_cast<const T*>(v0), static_cast<const T*>(a0),
-      static_cast<const T*>(coefs), static_cast<T*>(ub1), static_cast<T*>(ub0),
-      static_cast<T*>(vb0), static_cast<T*>(ab0), static_cast<T*>(partial), n);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  newmark_t_sum_kernel<T><<<1, 32 * kRowSums, 0, st>>>(
-      static_cast<const T*>(partial), static_cast<int>(ctas), static_cast<T*>(row_bar));
-  return static_cast<int>(cudaGetLastError());
+int launch_newmark_t(const NewmarkTArgs<T>& a, int slot, long long n, void* stream) {
+  if (n == 0 || slot < 0 || slot >= kNewmarkTSlots)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long head = vector_head<T>(
+      a.u1, {a.vb1, a.ab1, a.u0, a.v0, a.a0, a.ub1, a.ub0, a.vb0, a.ab0}, n);
+  PdlLaunch l(std::min<long long>(grid_for(vector_work<T>(n, head), kNewmarkTThreads),
+                                  std::min(sm_count(), kNewmarkTMaxCtas)),
+              kNewmarkTThreads, stream);
+  return checked_launch(cudaLaunchKernelEx(&l.cfg, newmark_t_kernel<T>, a, slot, n, head));
+}
+
+template <typename T>
+NewmarkTArgs<T> newmark_t_args(const void* vb1, const void* ab1, const void* u1,
+                               const void* u0, const void* v0, const void* a0,
+                               const void* coefs, void* ub1, void* ub0, void* vb0, void* ab0,
+                               void* row_bar) {
+  return {static_cast<const T*>(vb1), static_cast<const T*>(ab1), static_cast<const T*>(u1),
+          static_cast<const T*>(u0),  static_cast<const T*>(v0),  static_cast<const T*>(a0),
+          static_cast<const T*>(coefs), static_cast<T*>(ub1), static_cast<T*>(ub0),
+          static_cast<T*>(vb0), static_cast<T*>(ab0), static_cast<T*>(row_bar)};
 }
 
 }  // namespace
@@ -746,22 +881,35 @@ int vf_newmark_f64(const void* u1, const void* u0, const void* v0,
 }
 
 // K5T: the cotangents vb1, ab1 and K5's inputs in; ub1, ub0, vb0, ab0 (n
-// entries each) and row_bar (8) out; partial: scratch of 6 entries for
-// each of up to 1024 CTAs
+// entries each) and row_bar (8) out; slot: the launch's counter and partial
+// sums, [0, 1024), ordered after every other launch on it (ops.kernels)
 int vf_newmark_t_f32(const void* vb1, const void* ab1, const void* u1, const void* u0,
                      const void* v0, const void* a0, const void* coefs, void* ub1,
-                     void* ub0, void* vb0, void* ab0, void* row_bar, void* partial,
-                     long long n, void* stream) {
-  return launch_newmark_t<float>(vb1, ab1, u1, u0, v0, a0, coefs, ub1, ub0, vb0, ab0,
-                                 row_bar, partial, n, stream);
+                     void* ub0, void* vb0, void* ab0, void* row_bar, int slot, long long n,
+                     void* stream) {
+  return launch_newmark_t<float>(
+      newmark_t_args<float>(vb1, ab1, u1, u0, v0, a0, coefs, ub1, ub0, vb0, ab0, row_bar), slot,
+      n, stream);
 }
 
 int vf_newmark_t_f64(const void* vb1, const void* ab1, const void* u1, const void* u0,
                      const void* v0, const void* a0, const void* coefs, void* ub1,
-                     void* ub0, void* vb0, void* ab0, void* row_bar, void* partial,
-                     long long n, void* stream) {
-  return launch_newmark_t<double>(vb1, ab1, u1, u0, v0, a0, coefs, ub1, ub0, vb0, ab0,
-                                  row_bar, partial, n, stream);
+                     void* ub0, void* vb0, void* ab0, void* row_bar, int slot, long long n,
+                     void* stream) {
+  return launch_newmark_t<double>(
+      newmark_t_args<double>(vb1, ab1, u1, u0, v0, a0, coefs, ub1, ub0, vb0, ab0, row_bar), slot,
+      n, stream);
+}
+
+// *id: the id of the CUDA graph capture that stream takes part in, 0 when
+// it is not capturing
+int vf_capture_id(void* stream, unsigned long long* id) {
+  cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
+  *id = 0;
+  const cudaError_t err =
+      cudaStreamGetCaptureInfo(static_cast<cudaStream_t>(stream), &status, id);
+  if (status != cudaStreamCaptureStatusActive) *id = 0;
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

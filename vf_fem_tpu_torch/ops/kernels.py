@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import torch
@@ -83,7 +84,8 @@ for _t in ("f32", "f64"):
         _SIGNATURES[f"vf_ebe_matvec{_op}_{_t}"] = [_P, _P, _P, _P, _I, _I, _P]
         _SIGNATURES[f"vf_bsb_matvec{_op}_{_t}"] = [_P] * 5 + [_I] * 3 + [_P]
     _SIGNATURES[f"vf_newmark_{_t}"] = [_P] * 7 + [_L, _P, _P]
-    _SIGNATURES[f"vf_newmark_t_{_t}"] = [_P] * 13 + [_L, _P]
+    _SIGNATURES[f"vf_newmark_t_{_t}"] = [_P] * 12 + [_I, _L, _P]
+_SIGNATURES["vf_capture_id"] = [_P, _P]
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -326,20 +328,21 @@ def _newmark_row(device: torch.device, dtype, dt: float, gamma: float, beta: flo
     return newmark_row(newmark.coefficients(dt, dtp, gamma, beta), dtype, device)
 
 
-def _check_newmark(u1, u0, v0, a0):
+def _check_newmark(u1, *vecs, what="newmark_update"):
+    """Flat vectors of one shape, one float dtype (f32/f64) and one device
+    (CPU or CUDA)."""
     dtype, device = u1.dtype, u1.device
     if dtype not in _SUFFIX:
-        raise TypeError(f"newmark_update: float32 or float64 expected, got {dtype}")
-    for t in (u0, v0, a0):
+        raise TypeError(f"{what}: float32 or float64 expected, got {dtype}")
+    for t in vecs:
         if t.dtype != dtype:
-            raise TypeError(f"newmark_update: mixed dtypes {dtype} and {t.dtype}")
+            raise TypeError(f"{what}: mixed dtypes {dtype} and {t.dtype}")
         if t.device != device:
-            raise ValueError(f"newmark_update: tensors on {device} and {t.device}")
-    if not (u1.shape == u0.shape == v0.shape == a0.shape) or u1.dim() != 1:
-        raise ValueError("newmark_update: four flat vectors of one shape"
-                         " expected")
+            raise ValueError(f"{what}: tensors on {device} and {t.device}")
+    if u1.dim() != 1 or any(t.shape != u1.shape for t in vecs):
+        raise ValueError(f"{what}: flat vectors of one shape expected")
     if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"newmark_update: unsupported device {device}")
+        raise ValueError(f"{what}: unsupported device {device}")
 
 
 def newmark_update(u1, u0, v0, a0, dt: float, gamma=0.5, beta=0.25,
@@ -408,8 +411,11 @@ def _newmark_fn(dtype):
 
 # -- K5T: K5's backward, and the autograd.Function around K5 -------------------
 
-NEWMARK_T_MAX_CTAS = 1024  # csrc/ops.cu: kNewmarkTMaxCtas
-NEWMARK_T_SUMS = 6  # partial sums a CTA writes (the row's nonzero entries)
+NEWMARK_T_SLOTS = 1024  # K5T's slots a device (csrc/ops.cu: kNewmarkTSlots)
+
+# (device index, raw stream, capture id) -> the slot of K5T's launches there
+_T_SLOTS: dict = {}
+_T_SLOTS_LOCK = threading.Lock()
 
 
 def newmark_update_t_reference(vb1, ab1, u1, u0, v0, a0, coefs: torch.Tensor):
@@ -433,11 +439,18 @@ def newmark_update_t_reference(vb1, ab1, u1, u0, v0, a0, coefs: torch.Tensor):
 
 
 def newmark_update_t(vb1, ab1, u1, u0, v0, a0, coefs: torch.Tensor):
-    """K5's backward (K5T on CUDA, one call of two launches: the vector
-    cotangents with each CTA's partial sums of the row's, then their sum in
-    CTA order; the plain :func:`newmark_update_t_reference` on the CPU)."""
-    _check_newmark(vb1, ab1, u1, u0)
-    _check_newmark(u1, u0, v0, a0)
+    """K5's backward: K5T on CUDA, the plain
+    :func:`newmark_update_t_reference` on the CPU.
+
+    K5T is one launch (programmatic dependent launch) of up to one CTA an
+    SM.  Each CTA writes its six partial sums of the row's cotangent and
+    takes a ticket from an arrival counter; the CTA that takes the last
+    adds the partial sums in CTA order, so the row's bits do not depend on
+    the order of arrival.  The counter and the partial sums are a slot of
+    static device memory that holds one launch at a time
+    (:func:`_newmark_t_slot`).  The outputs are views of one allocation,
+    the vectors in u1's 16-byte phase."""
+    _check_newmark(u1, u0, v0, a0, vb1, ab1, what="newmark_update_t")
     if (coefs.dtype != u1.dtype or tuple(coefs.shape) != (newmark.NCOEFS,)
             or coefs.device != u1.device):
         raise ValueError(f"newmark_update_t: coefficients must be a {u1.dtype} row of"
@@ -450,18 +463,70 @@ def newmark_update_t(vb1, ab1, u1, u0, v0, a0, coefs: torch.Tensor):
     n = u1.shape[0]
     if n == 0:
         raise ValueError("newmark_update_t: empty vectors")
-    outs = [torch.empty_like(u1) for _ in range(4)]
-    row_bar = torch.empty(newmark.NCOEFS, dtype=u1.dtype, device=u1.device)
-    partial = torch.empty(NEWMARK_T_SUMS * NEWMARK_T_MAX_CTAS, dtype=u1.dtype,
-                          device=u1.device)
-    fn = f"vf_newmark_t_{_SUFFIX[u1.dtype]}"
-    err = getattr(_lib(), fn)(*(t.data_ptr() for t in ins),
-                              *(t.data_ptr() for t in outs), row_bar.data_ptr(),
-                              partial.data_ptr(), n, _stream(u1))
+    ub1, ub0, vb0, ab0, row_bar = _newmark_t_outputs(u1)
+    stream = _stream(u1)
+    slot = _newmark_t_slot(u1.get_device(), stream, _capture_id(stream))
+    err = _newmark_t_fn(u1.dtype)(
+        vb1.data_ptr(), ab1.data_ptr(), u1.data_ptr(), u0.data_ptr(), v0.data_ptr(),
+        a0.data_ptr(), coefs.data_ptr(), ub1.data_ptr(), ub0.data_ptr(), vb0.data_ptr(),
+        ab0.data_ptr(), row_bar.data_ptr(), slot, n, stream)
     if err != 0:
-        raise RuntimeError(f"{fn} launch failed: cudaError_t {err}")
+        raise RuntimeError(f"vf_newmark_t_{_SUFFIX[u1.dtype]} launch failed: cudaError_t {err}")
     LAUNCHES["newmark_t"] += 1
-    return (*outs, row_bar)
+    return ub1, ub0, vb0, ab0, row_bar
+
+
+def _newmark_t_outputs(u1):
+    """K5T's four vector cotangents and the row's cotangent as views of one
+    allocation: each vector in u1's 16-byte phase within its own span of
+    whole 16-byte vectors."""
+    n, es = u1.shape[0], u1.element_size()
+    lead = u1.data_ptr() % 16 // es
+    span = -(-(lead + n) * es // 16) * 16 // es
+    block = torch.empty(4 * span + newmark.NCOEFS, dtype=u1.dtype, device=u1.device)
+    vecs = block.as_strided((4, n), (span, 1), lead).unbind(0)
+    return (*vecs, block.as_strided((newmark.NCOEFS,), (1,), 4 * span))
+
+
+def _capture_id(stream: int) -> int:
+    """The id of the CUDA graph capture that ``stream`` (the current
+    stream) takes part in, 0 when it is not capturing."""
+    if not torch.cuda.is_current_stream_capturing():
+        return 0
+    out = ctypes.c_ulonglong(0)
+    err = _lib().vf_capture_id(stream, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"vf_capture_id failed: cudaError_t {err}")
+    return out.value
+
+
+def _newmark_t_slot(device: int, stream: int, capture: int) -> int:
+    """K5T's slot (arrival counter and partial sums) for a launch on
+    ``stream`` of ``device``, inside the graph capture ``capture`` (0:
+    eager).  A slot holds one launch at a time, so the launches that share
+    one must be ordered: eager launches share their stream's, which orders
+    them; captured ones share their capture's and stream's, since a graph
+    is replayed on any stream, beside eager work and other graphs, but
+    never beside itself.  Slots are never given back: a device has
+    ``NEWMARK_T_SLOTS`` for its streams and captures together."""
+    key = (device, stream, capture)
+    slot = _T_SLOTS.get(key)
+    if slot is not None:
+        return slot
+    with _T_SLOTS_LOCK:
+        if key not in _T_SLOTS:
+            taken = sum(k[0] == device for k in _T_SLOTS)
+            if taken >= NEWMARK_T_SLOTS:
+                raise RuntimeError(f"newmark_update_t: more than {NEWMARK_T_SLOTS} streams and"
+                                   f" graph captures on cuda:{device}")
+            _T_SLOTS[key] = taken
+        return _T_SLOTS[key]
+
+
+@functools.lru_cache(maxsize=None)
+def _newmark_t_fn(dtype):
+    """K5T's entry point for ``dtype`` (the library is built at first use)."""
+    return getattr(_lib(), f"vf_newmark_t_{_SUFFIX[dtype]}")
 
 
 class _NewmarkStep(torch.autograd.Function):
