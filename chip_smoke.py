@@ -144,7 +144,27 @@ runs, in order:
    replay of the captured step a step), each against its exact-Jacobian
    run (the f64 trajectory error gated at 5e-7, the f32 one logged), with
    steps/s, a step's split (one refactorization's time), a profile of 10
-   steps and the peak device memory.
+   steps and the peak device memory;
+14. hopf: linear stability (``misc.hopf``, ``models.dynamical``,
+   ``solvers.cbtd``). The Hopf leg of ``bench.py:533-575`` at 23.7k
+   (``M5_3layers_rcm_h006.msh``, KelvinVoigt + BernoulliSmoothMinSep with
+   the leg's properties; sigma = 2 pi 120 i, arnoldi_m 70, the static
+   solve on btd; f64 factors) at psub 500 then 1000 Ba: each point's
+   seconds and its parts by CUDA events (static solve, pencil assembly,
+   complex factorization, the nf coupling solves, Arnoldi, certificate),
+   the leading mode, ``n_conv``, the largest certificate, K4 and K6
+   launches and the peak memory, every returned mode certified and within
+   1e-5 max(|lambda|, 1) of the JAX package's f64 CPU run
+   (``tests/data/golden_hopf_23k.npz``) or its conjugate; K6 at the
+   embedded width 2Bt = 512 on the point's factors (f64, and f64 factors
+   stored f32), forward and backward, held row by row and as a whole to
+   its plain version, and its call and device time against its bound; the
+   psub 500 point with f32 factors (refined twice) against the f64 one at
+   ``tests/test_hopf.py:254-265``'s gates, its seconds beside f64's;
+   M5-3layers (RCM) dense QZ (the pencil assembled on the card before
+   phase 2, ``misc.hopf.dense_pencil``; its QZ, ``misc.hopf.qz_modes``,
+   in a child process on the host beside phases 2-13) against the banded
+   solver on the card at ``tests/test_hopf.py:176-203``'s gates.
 
 Phase 3 also holds the block-Thomas sweep kernel (K6) and its transpose
 (K6T, both sweeps of ``btd_solve_t``: forward on W, backward on V, each
@@ -165,7 +185,8 @@ with the kernel (library, kernel, kernel, library).  Each kernel's bound
 is the larger of its bytes (each input read once, each output written
 once) over the HBM rate and its operations over the peak rate of their
 type.  The ``kernels`` line before the last carries all of it, with each
-kernel's launches per step on the main-path runs (phases 5-13).
+kernel's launches per step on the main-path runs (phases 5-14; a Hopf
+point counts as one step).
 
 Phases 5-7 print each production run's Newmark predictors, taken from
 K5's output or formed by four eager kernels, and each profile's device
@@ -343,10 +364,11 @@ GOLDEN_LARGE_GATES = {
     for ls, a_gate in (("bsb", 5.405e-8), ("cg", 2.090e-7))
 }
 WARMUP, REPS = 20, 200
-# steps of the profiled runs of phases 8, 9, 12 and 13 (an eager step's
-# host events cost the profiler ~0.6 s each to summarise, a value+grad
-# step's ~3.4 s: the profiles took 351 s of a 916 s run at 25 steps on an
-# H100, so the window is 10 steps; counts a step are read from these runs)
+# steps of the profiled runs of phases 8, 9, 12 and 13 (by
+# ``key_averages()`` an eager step's host events cost ~0.6 s each to
+# summarise, a value+grad step's ~3.4 s: the profiles took 351 s of a 916 s
+# run at 25 steps on an H100, so the window is 10 steps; ``device_events``
+# now reads the raw trace instead; counts a step are read from these runs)
 PROFILE_STEPS = 10
 # device kernels a step in the eager loop's f64 profiles of each run
 # (PERF.md section 5), printed beside this run's
@@ -385,7 +407,7 @@ STATIC_GOLDEN_GATE = 1e-6
 # the JAX package and in the port alike, at 14 1.4e-6
 # (tests/probe_implicit_breakdown.py)
 IMPLICIT_GRAD_STEPS = 14
-# steps of phase 11's profiled M5 run: the profiler took 94.5 s to
+# steps of phase 11's profiled M5 run: ``key_averages()`` took 94.5 s to
 # summarise 25 eager implicit steps (181,224 device kernels) and 62.3 s for
 # 10 (108,676; NVIDIA H100 80GB HBM3, 700.00 W), so the phase profiles the
 # first 5
@@ -416,6 +438,23 @@ FSAI_AREA_H = 1e-4
 MESH94K = ("M5_3layers", 0.003, 10)
 MESH94K_COUNTS = (47405, 93945)
 BTD_R64 = {**BTD_PROD, "jacobian_refresh_steps": 64}
+# phase 14: the Hopf leg of bench.py:533-575 (KelvinVoigt +
+# BernoulliSmoothMinSep with the leg's properties, psub 500 then 1000 Ba,
+# sigma = 2 pi 120 i, arnoldi_m 70, static Newton on btd solves) at 23.7k
+# with f64 factors, its modes against the JAX package's f64 CPU run
+# (tests/data/golden_hopf_23k.npz) within the banded-vs-dense gate of
+# tests/test_hopf.py:176 (1e-5 max(|lambda|, 1)); the same point with f32
+# factors against it at tests/test_hopf.py:254-265's gates; M5-3layers
+# (RCM) dense QZ against the banded solver at tests/test_hopf.py:176-203's
+# gates (psub 500 Ba, arnoldi_m 60)
+HOPF_PROPS = dict(emod=5e4, rho=1.0, eta=3.0, nu=0.45, kcontact=1e8, rho_air=1.1225e-3,
+                  zeta_min=1e-3, zeta_sep=1e-3)
+HOPF_ARGS = dict(solver="banded", sigma=1j * 2 * np.pi * 120.0, arnoldi_m=70,
+                 static_options={"linear_solver": "btd"}, return_info=True)
+HOPF_PSUBS = (500.0, 1000.0)
+HOPF_GOLDEN_TOL = 1e-5
+HOPF_M5_PSUB = 500.0
+HOPF_M5_M = 60
 # csrc/btd_exchange_probe.cu's entry points: (sink, n, bt, barrier, stream)
 PROBE_SIGNATURES = {f"vf_btd_exchange_probe_{t}": [ctypes.c_void_p] + [ctypes.c_int] * 3
                     + [ctypes.c_void_p] for t in ("bf16", "f64")}
@@ -504,16 +543,25 @@ def graph_ms(torch, fn, reps=REPS):
     return start.elapsed_time(end) / reps
 
 
+def plain_ms(torch, plain):
+    """Call time of a plain version: ``REPS`` calls, or as many as take
+    about 0.2 s where one call takes over a millisecond (a plain sweep
+    takes 5-16 ms), at least 10."""
+    once = cuda_ms(torch, plain, reps=1, warmup=1)
+    reps = max(10, min(REPS, int(200.0 / max(once, 1e-3))))
+    return cuda_ms(torch, plain, reps=reps, warmup=min(WARMUP, reps // 10))
+
+
 def measure(torch, kernel, plain, lib=None):
     """Call time of ``kernel`` (the mean of two runs taken in turns with the
     library call where there is one: library, kernel, kernel, library),
-    its device time in a CUDA graph, the plain version's call time and the
-    library call's."""
+    its device time in a CUDA graph, the plain version's call time
+    (``plain_ms``) and the library call's."""
     lib_a = cuda_ms(torch, lib) if lib else None
     k_a, k_b = cuda_ms(torch, kernel), cuda_ms(torch, kernel)
     lib_b = cuda_ms(torch, lib) if lib else None
     return dict(ms=(k_a + k_b) / 2, ms_runs=(k_a, k_b), device_ms=graph_ms(torch, kernel),
-                plain_ms=cuda_ms(torch, plain),
+                plain_ms=plain_ms(torch, plain),
                 lib_ms=None if lib is None else (lib_a + lib_b) / 2,
                 lib_runs=None if lib is None else (lib_a, lib_b))
 
@@ -1580,16 +1628,47 @@ def step_split(torch, built, state, params, n_steps, step_ms):
     return split, detail
 
 
+def device_events(prof):
+    """The trace's device events as ``(name, self device us)``: every event
+    on the device that is neither hidden nor a user annotation, its self
+    time its duration (0 for an asynchronous one), as ``key_averages()``
+    reads them; taken from the raw trace, which is read in a second where
+    ``key_averages()`` took 5-50 s a profile on an H100's host."""
+    from torch.autograd import DeviceType
+
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != DeviceType.CUDA or e.is_user_annotation()
+                or getattr(e, "is_hidden_event", lambda: False)()):
+            continue
+        is_async = e.is_async() or e.start_thread_id() != e.end_thread_id()
+        out.append((e.name(), 0.0 if is_async else (e.end_ns() - e.start_ns()) / 1e3))
+    return out
+
+
+def device_table(events, busy_ms, rows=12):
+    """The device kernels with the most self time: name, launches, ms and
+    share of device busy."""
+    agg = {}
+    for name, us in events:
+        n, t = agg.get(name, (0, 0.0))
+        agg[name] = (n + 1, t + us)
+    top = sorted(agg.items(), key=lambda kv: -kv[1][1])[:rows]
+    lines = [f"{'device kernel':<72} {'launches':>9} {'ms':>10} {'busy':>6}"]
+    lines += [f"{name[:72]:<72} {n:>9} {t / 1e3:>10.3f} {t / 1e3 / busy_ms:>6.1%}"
+              for name, (n, t) in top]
+    return "\n".join(lines)
+
+
 def profile_run(torch, run, n_steps, kernel):
     """One run under ``torch.profiler``: device kernels per step, device
-    busy time (the table's "Self CUDA time total": device events' self
-    time), the idle share of the profiled wall time, the device time and
-    launches of the kernels whose name holds ``kernel``, and each port
-    kernel's launches in the trace (``traced``) beside the run's count of
-    them (``counted``: the launch counters' delta, replays included)."""
+    busy time (the device events' self time), the idle share of the
+    profiled wall time, the device time and launches of the kernels whose
+    name holds ``kernel``, and each port kernel's launches in the trace
+    (``traced``) beside the run's count of them (``counted``: the launch
+    counters' delta, replays included)."""
     import time
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     before = read_launches()
@@ -1603,22 +1682,20 @@ def profile_run(torch, run, n_steps, kernel):
         wall_ms = (time.perf_counter() - t0) * 1e3
     after = read_launches()
     t1 = time.perf_counter()
-    ka = prof.key_averages()
-    dev_events = [e for e in ka if e.device_type == DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)]
-    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
-    n_dev = sum(e.count for e in dev_events)
-    mine = [e for e in dev_events if kernel in e.key]
-    k_ms = sum(e.self_device_time_total for e in mine) / 1e3
-    table = ka.table(sort_by="self_cuda_time_total", row_limit=12)
-    traced = {op: sum(e.count for e in dev_events if name in e.key)
-              for op, name in TRACE_NAMES.items()}
+    events = device_events(prof)
+    busy_ms = sum(us for _, us in events) / 1e3
+    n_dev = len(events)
+    mine = [us for name, us in events if kernel in name]
+    k_ms = sum(mine) / 1e3
+    traced = {op: sum(1 for name, _ in events if trace in name)
+              for op, trace in TRACE_NAMES.items()}
     require(n_dev > 0, "profile: no device kernel in the trace")
+    table = device_table(events, busy_ms)
     log(f"[profile] {n_dev} device kernels traced, summarised in"
         f" {time.perf_counter() - t1:.1f} s")
     # a checkout that predates a counter counts none of its launches
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle=1 - busy_ms / wall_ms,
-                per_step=n_dev / n_steps, k_ms=k_ms, k_launches=sum(e.count for e in mine),
+                per_step=n_dev / n_steps, k_ms=k_ms, k_launches=len(mine),
                 table=table, traced=traced,
                 counted={op: after.get(op, 0) - before.get(op, 0) for op in TRACE_NAMES})
 
@@ -2833,6 +2910,259 @@ def phase_fsai(torch, card, dev):
     return out
 
 
+def build_hopf(torch, dev, mesh):
+    """The transient and the dynamical model of the Hopf leg on ``mesh``
+    (KelvinVoigt + BernoulliSmoothMinSep, ``HOPF_PROPS``, the contact plane
+    0.05 and the midline 0.01 above the mesh's top), f64 on the card."""
+    from vf_fem_tpu_torch.load import load_fsi_model
+    from vf_fem_tpu_torch.residuals import fluid as flr, solid as slr
+
+    ymax = mesh.coords[:, 1].max()
+    models = []
+    for model_type in ("transient", "dynamical"):
+        m = load_fsi_model(mesh, slr.KelvinVoigt, flr.BernoulliSmoothMinSep,
+                           model_type=model_type, device=dev, dtype=torch.float64)
+        for k, v in dict(HOPF_PROPS, ycontact=ymax + 0.05, ymid=ymax + 0.01).items():
+            m.prop[k][:] = v
+        models.append(m)
+    return models
+
+
+def hopf_point(torch, tm, dm, psub, **kw):
+    """One onset point, ``linear_stability`` at ``psub``: its modes, info and
+    equilibrium, its seconds on the host clock, its parts' seconds by CUDA
+    events (``dm.hopf_seconds``), its launches and peak memory."""
+    import time
+    import warnings
+
+    from vf_fem_tpu_torch.misc.hopf import linear_stability
+
+    control = {"psub": np.array([psub]), "psup": np.array([0.0])}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", RuntimeWarning)
+        eigs, eq, info = linear_stability(tm, dm, control, tm.prop, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    return dict(eigs=eigs, eq=eq, info=info, s=seconds, parts=dict(dm.hopf_seconds),
+                launches=read_launches(),
+                peak=torch.cuda.max_memory_allocated() - base,
+                warnings=[str(w.message)[:120] for w in caught])
+
+
+def nearest_mode(lam, ref):
+    """Distance of ``lam`` to the nearest of ``ref`` or of their conjugates,
+    relative to max(|lam|, 1)."""
+    d = np.minimum(np.abs(ref - lam), np.abs(np.conj(ref) - lam))
+    return float(d.min() / max(abs(lam), 1.0))
+
+
+def sweep_512(torch, tm, dm, sigma):
+    """K6 at the embedded width of the Hopf point's factors, on the shifted
+    pencil at the equilibrium, with the factors the point's solves read
+    (f64, and f64 factors stored f32 as ``factor_dtype='float32'`` stores
+    them, each with vectors of its dtype): the forward sweep over ``V`` from
+    ``g = Sinv r`` and the backward sweep over ``W`` from the plain forward
+    sweep's output, each held row by row to the plain version's row
+    computed from the kernel's own previous row (rtol 1e-13 / 1e-6 plus the
+    dot-product order bound) and as a whole to the plain sweep
+    (``SWEEP_FULL_GATES``), as phase 3 holds K6 at the btd path's width.
+    The forward sweep's call and device time against its bound (the
+    factors read once, the rhs in and the output out, over the HBM
+    rate)."""
+    from vf_fem_tpu_torch import ops
+    from vf_fem_tpu_torch.solvers import cbtd
+
+    plan, K, D, M = dm.solid.assem_banded_state_blocks(tm.solid.bsb_plan())
+    sr, si = sigma.real, sigma.imag
+    fac = cbtd.cbtd_factor(plan, K + sr * D + (sr * sr - si * si) * M,
+                           si * D + 2.0 * sr * si * M)
+    del K, D, M
+    n, bt, _ = fac.V.shape
+    rng = np.random.default_rng(1)
+    r = rng.standard_normal((2, plan.ndof))
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        Sinv, V, W = (a.to(dtype) for a in (fac.Sinv, fac.V, fac.W))
+        d = fac.d.to(dtype)[: plan.ndof]
+        halves = [torch.nn.functional.pad(torch.tensor(h, dtype=dtype, device=V.device) / d,
+                                          (0, n * bt // 2 - plan.ndof)).reshape(n, bt // 2)
+                  for h in r]
+        g = ops.factor_matvec(Sinv, torch.cat(halves, dim=1))
+        y = ops.btd_sweep_reference(V, g)
+        rtol = 1e-13 if dtype == torch.float64 else 1e-6
+        errs = {}
+        for label, A, inp, rev in (("forward", V, g, False), ("backward", W, y, True)):
+            what = f"hopf K6 {label} at 2Bt = {bt}, {tag}"
+            got = ops.btd_sweep(A, inp, reverse=rev)
+            torch.cuda.synchronize()
+            row_ref, bound = ops.btd_sweep_rows_reference(A, inp, got, rev)
+            diff = (got - row_ref).abs()
+            off = int((diff > rtol * row_ref.abs() + bound).sum())
+            require(off == 0, f"{what}: {off} entries off their rows"
+                              f" (max |diff| {diff.max().item():.3e})")
+            full = ops.btd_sweep_reference(A, inp, rev)
+            err = (got - full).abs().max().item()
+            full_rel = err / full.abs().max().item()
+            require(full_rel <= SWEEP_FULL_GATES[tag],
+                    f"{what}: whole sweep off the plain one ({full_rel:.3e})")
+            errs[label] = dict(row=diff.max().item(), err=err, rel=full_rel)
+        fn = lambda: ops.btd_sweep(V, g)  # noqa: E731
+        nbytes = (n * bt * bt + 2 * n * bt) * V.element_size()
+        bound_ms, bound_by = bound_of(nbytes, 2 * n * bt * bt, tag)
+        out[tag] = dict(rows=n, bt=bt, ms=cuda_ms(torch, fn, reps=50, warmup=5),
+                        device_ms=graph_ms(torch, fn, reps=50), bound_ms=bound_ms,
+                        bound_by=bound_by, errs=errs, gate=SWEEP_FULL_GATES[tag], rtol=rtol)
+    return out
+
+
+def phase_hopf(torch, card, dev, m5qz):
+    """Phase 14: linear stability.  The Hopf leg at 23.7k (psub 500 then
+    1000, f64 factors) against the JAX package's f64 golden, K6 at 2Bt = 512
+    timed on the point's factors, the same point with f32 factors against
+    the f64 one, and M5 dense QZ (``m5qz``, from ``start_m5_qz``) against
+    the banded solver."""
+    import time
+
+    from vf_fem_tpu_torch.mesh import load_gmsh
+    from vf_fem_tpu_torch.misc.hopf import growth_rate_and_frequency
+
+    golden = np.load(os.path.join(REPO, "tests", "data", "golden_hopf_23k.npz"))
+    mesh = load_gmsh(os.path.join(REPO, "meshes", LARGE_MESH))
+    tm, dm = build_hopf(torch, dev, mesh)
+    nf = dm.fluid.state["q"].numel() + dm.fluid.state["p"].numel()
+    out = {}
+    for psub in HOPF_PSUBS:
+        what = f"hopf 23.7k psub {psub:g} f64"
+        r = hopf_point(torch, tm, dm, psub, **HOPF_ARGS)
+        eigs, info, tag = r["eigs"], r["info"], f"_{int(psub)}"
+        n4, n6 = r["launches"]["bsb_matvec"], r["launches"]["btd_sweep"]
+        require(n4 > 0 and n6 > 0, f"{what}: K4 {n4} and K6 {n6} launches")
+        require(len(eigs) > 0 and bool(np.all(info["res_rel"] < info["cert_tol"])),
+                f"{what}: uncertified modes {info['res_rel']}")
+        ref = golden["eigs" + tag]
+        dist = [nearest_mode(lam, ref) for lam in eigs]
+        g, f = growth_rate_and_frequency(eigs)
+        u_err = abs(np.linalg.norm(r["eq"]["u"]) / float(golden["u_norm" + tag]) - 1.0)
+        parts = ", ".join(f"{k} {v:.3f}" for k, v in r["parts"].items())
+        log(f"[hopf] 23.7k psub {psub:g} f64 ({tm.solid.ndof} dofs, nf {nf}): {r['s']:.3f} s"
+            f" a point ({parts} s by CUDA events; W columns {r['parts']['w_columns'] / r['s']:.1%}"
+            f" of the point); growth {g:+.6f} 1/s at {f:.6f} Hz (JAX CPU f64"
+            f" {float(golden['growth' + tag]):+.6f} at {float(golden['freq' + tag]):.6f});"
+            f" {len(eigs)} modes (golden {len(ref)}), farthest from a golden mode"
+            f" {max(dist):.3e} (gate {HOPF_GOLDEN_TOL:.0e}); n_conv {info['n_conv']} (golden"
+            f" {int(golden['n_conv' + tag])}), res_rel max {info['res_rel'].max():.3e},"
+            f" dropped {info['n_cert_dropped']}; |u| vs golden {u_err:.3e}; launches K4 {n4},"
+            f" K6 {n6} ({2 * nf} for the W columns), all {r['launches']}; peak device memory"
+            f" {r['peak'] / 2**20:.1f} MB; on {card}")
+        log(f"[hopf] modes {np.round(eigs, 6).tolist()}")
+        require(max(dist) < HOPF_GOLDEN_TOL, f"{what}: modes off the JAX package's golden")
+        out[psub] = r
+    k6 = sweep_512(torch, tm, dm, complex(HOPF_ARGS["sigma"]))
+    for tag, v in k6.items():
+        checks = "; ".join(
+            f"{k} row max |diff| {e['row']:.3e} (rtol {v['rtol']:.0e} + order bound), whole-sweep"
+            f" max_abs_err {e['err']:.3e} (rel {e['rel']:.3e}, gate {v['gate']:.0e})"
+            for k, e in v["errs"].items())
+        log(f"[hopf] K6 at 2Bt = {v['bt']} ({v['rows']} row blocks), {tag} factors and vectors,"
+            f" against the plain sweep: {checks}; forward call {v['ms']:.6f} ms, device"
+            f" {v['device_ms']:.6f} ms, bound {v['bound_ms']:.6f} ms ({v['bound_by']}), device at"
+            f" {v['bound_ms'] / v['device_ms']:.1%} of it")
+
+    r64 = out[HOPF_PSUBS[0]]
+    r32 = hopf_point(torch, tm, dm, HOPF_PSUBS[0], **HOPF_ARGS, factor_dtype="float32")
+    e64, e32, i32 = r64["eigs"], r32["eigs"], r32["info"]
+    s64, f64_ = growth_rate_and_frequency(e64)
+    s32, f32_ = growth_rate_and_frequency(e32)
+    scale = abs(e64[0])
+    log(f"[hopf] 23.7k psub {HOPF_PSUBS[0]:g} f32 factors (refine {i32['refine']}):"
+        f" {r32['s']:.3f} s a point against f64's {r64['s']:.3f} (first point) and"
+        f" {out[HOPF_PSUBS[1]]['s']:.3f} (second) ({', '.join(f'{k} {v:.3f}' for k, v in r32['parts'].items())});"
+        f" growth {s32:+.6f} (f64 {s64:+.6f}, off {abs(s32 - s64) / scale:.3e} of |lambda_0|,"
+        f" gate 1e-05), f {f32_:.6f} Hz (rel {abs(f32_ - f64_) / f64_:.3e}, gate 1e-05);"
+        f" res_rel max {i32['res_rel'].max():.3e} (gate 2e-06), min {i32['res_rel'].min():.3e}"
+        f" (gate 1e-07); K6 {r32['launches']['btd_sweep']}, K4 {r32['launches']['bsb_matvec']};"
+        f" peak {r32['peak'] / 2**20:.1f} MB")
+    require(bool(np.all(i32["res_rel"] < 2e-6)), "hopf f32: certificates over 2e-6")
+    require(i32["res_rel"].min() < 1e-7, "hopf f32: no certificate under 1e-7")
+    require(abs(s32 - s64) < 1e-5 * scale, "hopf f32: growth off the f64 run")
+    require(abs(f32_ - f64_) <= 1e-5 * abs(f64_), "hopf f32: frequency off the f64 run")
+    out["float32"] = r32
+    del tm, dm
+
+    tm, dm, proc = m5qz["tm"], m5qz["dm"], m5qz["proc"]
+    t = time.perf_counter()
+    qz_out, _ = proc.communicate()
+    waited = time.perf_counter() - t
+    require(proc.returncode == 0, f"hopf M5: the QZ child exited {proc.returncode}:"
+                                  f" {qz_out[-2000:]}")
+    with np.load(m5qz["out"]) as qz:
+        eigs_d, t_dense = qz["eigs"], float(qz["seconds"])
+    sig_d, f_d = growth_rate_and_frequency(eigs_d)
+    rb = hopf_point(torch, tm, dm, HOPF_M5_PSUB, solver="banded", sigma=1j * 2 * np.pi * f_d,
+                    arnoldi_m=HOPF_M5_M, return_info=True)
+    eigs_b, ib = rb["eigs"], rb["info"]
+    sig_b, f_b = growth_rate_and_frequency(eigs_b)
+    dist = [nearest_mode(lam, eigs_d) for lam in eigs_b[:4]]
+    log(f"[hopf] M5 RCM ({tm.solid.ndof} dofs) psub {HOPF_M5_PSUB:g}: dense QZ (Jacobians on"
+        f" the card, QZ of {m5qz['n']} x {m5qz['n']} on the host, one thread, in a child"
+        f" process beside phases 2-13) {t_dense:.3f} s (this phase waited {waited:.1f} s for"
+        f" it), banded (m {HOPF_M5_M}, sigma"
+        f" 2 pi {f_d:.3f} i) {rb['s']:.3f} s; growth {sig_b:+.6f} against {sig_d:+.6f}, f"
+        f" {f_b:.6f} against {f_d:.6f} Hz; first four banded modes from the dense ones"
+        f" {max(dist):.3e} (gate 1e-05); res_rel[:4] max {ib['res_rel'][:4].max():.3e} (gate"
+        f" 1e-06); K4 {rb['launches']['bsb_matvec']}, K6 {rb['launches']['btd_sweep']}")
+    require(max(dist) < 1e-5, "hopf M5: banded modes off the dense ones")
+    require(abs(sig_b - sig_d) <= 1e-5 * abs(sig_d), "hopf M5: growth off the dense one")
+    require(abs(f_b - f_d) <= 1e-6 * abs(f_d), "hopf M5: frequency off the dense one")
+    require(bool(np.all(ib["res_rel"][:4] < 1e-6)), "hopf M5: certificates over 1e-6")
+    out["M5"] = rb
+    out["k6_512"] = k6
+    return out
+
+
+def start_m5_qz(torch, dev):
+    """Phase 14's M5 dense pencil, built on the card before the timed
+    phases (the static solve and the dense Jacobians), and its QZ in a
+    child process on the host, one thread, beside phases 2-13 (QZ took
+    24-75 s on an H100's host): a dict of the M5 models, the child, its
+    output file and the pencil's seconds."""
+    import time
+
+    from vf_fem_tpu_torch import cuda_build
+    from vf_fem_tpu_torch.mesh import load_gmsh
+    from vf_fem_tpu_torch.mesh.reorder import rcm_mesh
+    from vf_fem_tpu_torch.misc.hopf import dense_pencil
+
+    t = time.perf_counter()
+    m5 = rcm_mesh(load_gmsh(os.path.join(REPO, "meshes", "M5_3layers.msh")))
+    tm, dm = build_hopf(torch, dev, m5)
+    control = {"psub": np.array([HOPF_M5_PSUB]), "psup": np.array([0.0])}
+    A, B, _ = dense_pencil(tm, dm, control, tm.prop)
+    pencil_s = time.perf_counter() - t
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    pencil = cuda_build.BUILD_DIR / "hopf_m5_pencil.npz"
+    out = cuda_build.BUILD_DIR / "hopf_m5_qz.npz"
+    np.savez(pencil, A=A, B=B)
+    out.unlink(missing_ok=True)
+    code = ("import sys, time; import numpy as np;"
+            " from vf_fem_tpu_torch.misc.hopf import qz_modes;"
+            " p = np.load(sys.argv[1]); t = time.perf_counter(); w = qz_modes(p['A'], p['B']);"
+            " np.savez(sys.argv[2], eigs=w, seconds=time.perf_counter() - t)")
+    one = {k: "1" for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")}
+    proc = subprocess.Popen([sys.executable, "-c", code, str(pencil), str(out)], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            env={**os.environ, **one})
+    log(f"[hopf] M5 RCM ({tm.solid.ndof} dofs) dense pencil {A.shape[0]} x {A.shape[1]} on"
+        f" the card in {pencil_s:.1f} s; its QZ runs in a child process beside phases 2-13")
+    return dict(tm=tm, dm=dm, proc=proc, out=out, n=A.shape[0])
+
+
 def start_mesher():
     """The 94.8k mesh, built (or found in its cache) by a child process that
     runs beside the phases: ``(process, start time)``."""
@@ -2938,15 +3268,19 @@ def main():
         libs = list(pool.map(cuda_build.build, sources))
     log(f"[build] {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.1f} s")
     mesher = start_mesher()
+    children = [mesher[0]]
     try:
-        run_phases(torch, name, card, dev, t0, mesher)
+        m5qz = start_m5_qz(torch, dev)
+        children.append(m5qz["proc"])
+        run_phases(torch, name, card, dev, t0, mesher, m5qz)
     finally:
-        if mesher[0].poll() is None:
-            mesher[0].kill()
-        mesher[0].wait()
+        for proc in children:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
 
 
-def run_phases(torch, name, card, dev, t0, mesher):
+def run_phases(torch, name, card, dev, t0, mesher, m5qz):
     import time
 
     def timed(name, fn, *args):
@@ -2969,6 +3303,7 @@ def run_phases(torch, name, card, dev, t0, mesher):
     imp = timed("implicit", phase_implicit, torch, card, dev)
     fsai = timed("fsai", phase_fsai, torch, card, dev)
     m94 = timed("mesh94k", phase_mesh94k, torch, card, dev, mesher)
+    hopf = timed("hopf", phase_hopf, torch, card, dev, m5qz)
 
     # per kernel: the timing at the 23.7k shapes of the btd main path (f64)
     timing = {
@@ -3002,7 +3337,8 @@ def run_phases(torch, name, card, dev, t0, mesher):
              fsai[("23.7k", "float64")]["n_steps"]),
             ("M5 fsai value+grad", fsai["grad"]["launches"], FSAI_GRAD_STEPS),
             ("23.7k fsai value+grad", fsai["grad 23.7k"]["launches"], FSAI_GRAD_STEPS),
-            ("94.8k btd", m94["float64"]["launches"], m94["float64"]["n_steps"])]
+            ("94.8k btd", m94["float64"]["launches"], m94["float64"]["n_steps"]),
+            ("23.7k hopf (a point)", hopf[HOPF_PSUBS[0]]["launches"], 1)]
     path = {  # the main-path run whose count is this kernel's ``launches``
         "gather": runs[0][1], "scatter": runs[0][1], "newmark": runs[0][1],
         "btd_sweep": runs[1][1], "ebe_matvec": runs[3][1], "bsb_matvec": runs[2][1],

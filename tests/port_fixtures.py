@@ -213,3 +213,41 @@ def port_m5_fsai_model(config, dtype=torch.float64, device="cpu"):
     tm.prop["proploss"][:] = config["proploss"]
     tm.control["psub"][:] = config["psub"]
     return tm
+
+
+def band_blocks(h, nblk, ndof, A, b=128):
+    """The band blocks (nblk, 2h+1, b, b) of a (ndof, ndof) matrix (block
+    row n, block column n + m - h): zero outside the band and in the rows
+    and columns past ndof."""
+    Ap = np.zeros((nblk * b, nblk * b), dtype=A.dtype)
+    Ap[:ndof, :ndof] = A
+    blocks = np.zeros((nblk, 2 * h + 1, b, b), dtype=A.dtype)
+    for n in range(nblk):
+        for m in range(2 * h + 1):
+            c = n + m - h
+            if 0 <= c < nblk:
+                blocks[n, m] = Ap[n * b:(n + 1) * b, c * b:(c + 1) * b]
+    return blocks
+
+
+def complex_band_system(h, nblk, ndof, seed, b=128):
+    """A seeded complex banded matrix of dof bandwidth h*b - 1 (diagonally
+    dominant, rows and columns scaled over four decades) as ``(blocks, A,
+    r)``: its band blocks, the dense matrix and a complex rhs."""
+    rng = np.random.default_rng(seed)
+    i, j = np.indices((ndof, ndof))
+    A = np.where(np.abs(i - j) < h * b, rng.standard_normal((ndof, ndof))
+                 + 1j * rng.standard_normal((ndof, ndof)), 0.0)
+    A += np.diag(4.0 * h * b * (1.0 + rng.random(ndof)) * np.exp(1j * rng.random(ndof)))
+    s = 10.0 ** rng.uniform(-2, 2, ndof)
+    A = s[:, None] * A * s[None, :]
+    r = rng.standard_normal(ndof) + 1j * rng.standard_normal(ndof)
+    return band_blocks(h, nblk, ndof, A, b), A, r
+
+
+def bare_plan(cls, h, nblk, ndof, b=128):
+    """A block-banded plan (``cls``: either package's ``BSBPlan``) with no
+    fill targets: what the band solvers and matvecs read."""
+    z = np.zeros(0, np.int32)
+    return cls(ndof=ndof, b=b, nblk=nblk, nb=2 * h + 1, h=h, tgt_idx=z,
+               src_keep=np.zeros(0, bool), bc_dofs=z, diag_ones=z)

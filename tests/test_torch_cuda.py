@@ -1312,3 +1312,109 @@ def test_fsai_graph_equals_eager(cuda):
     every = int(gold["steps"][0])
     np.testing.assert_allclose(graph[1]["u"].cpu().numpy()[every - 1 :: every],
                                gold["u"][: n_steps // every], rtol=1e-8, atol=1e-12)
+
+
+# -- slice 6: the complex block-Thomas solve and the Hopf analysis -------------
+
+
+@pytest.mark.parametrize("factor_dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("h, nblk, ndof", [(1, 4, 4 * 128 - 37), (2, 5, 5 * 128 - 11)])
+def test_cbtd_solve_on_cuda_matches_cpu(cuda, h, nblk, ndof, factor_dtype):
+    """``cbtd_solve`` on the card (two K6 launches at 2Bt = 256 or 512, the
+    second with a pad super-block) against the same system solved on the
+    CPU (K6's plain version): factored in f64, the factors stored in
+    ``factor_dtype`` as ``misc.hopf`` stores them; rtol 1e-12 of the
+    solution's largest entry in f64, 1e-5 in f32."""
+    from vf_fem_tpu_torch.solvers import cbtd
+
+    from port_fixtures import bare_plan, complex_band_system
+
+    blocks, A, r = complex_band_system(h, nblk, ndof, seed=11 + h)
+    plan = bare_plan(bsb.BSBPlan, h, nblk, ndof)
+    xs = {}
+    for dev in (torch.device("cpu"), cuda):
+        fac = cbtd.cbtd_factor(plan, torch.tensor(blocks.real, device=dev),
+                               torch.tensor(blocks.imag, device=dev))
+        fac = fac._replace(Sinv=fac.Sinv.to(factor_dtype), V=fac.V.to(factor_dtype),
+                           W=fac.W.to(factor_dtype), d=fac.d.to(factor_dtype))
+        n0 = ops.LAUNCHES["btd_sweep"]
+        xr, xi = cbtd.cbtd_solve(plan, fac, torch.tensor(r.real, device=dev).to(factor_dtype),
+                                 torch.tensor(r.imag, device=dev).to(factor_dtype))
+        assert ops.LAUNCHES["btd_sweep"] - n0 == (2 if dev.type == "cuda" else 0)
+        xs[dev.type] = (xr.cpu().double() + 1j * xi.cpu().double()).numpy()
+    rtol = 1e-12 if factor_dtype == torch.float64 else 1e-5
+    scale = np.abs(xs["cpu"]).max()
+    np.testing.assert_allclose(xs["cuda"], xs["cpu"], rtol=0, atol=rtol * scale)
+    x = np.linalg.solve(A, r)
+    np.testing.assert_allclose(xs["cuda"], x, rtol=0,
+                               atol=(1e-10 if factor_dtype == torch.float64 else 1e-4)
+                               * np.abs(x).max())
+
+
+def test_cbtd_width_without_kernel_raises_on_cuda(cuda):
+    """A band of h = 3 blocks embeds at 2Bt = 768, a width K6 lacks."""
+    from vf_fem_tpu_torch.solvers import cbtd
+
+    from port_fixtures import bare_plan
+
+    plan = bare_plan(bsb.BSBPlan, 3, 4, 4 * 128)
+    blocks = torch.zeros((4, 7, 128, 128), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="2\\*h\\*b = 768"):
+        cbtd.cbtd_factor(plan, blocks, blocks)
+    with pytest.raises(ValueError, match="kernel built for row blocks"):
+        ops.btd_sweep(torch.zeros((2, 768, 768), dtype=torch.float64, device=cuda),
+                      torch.zeros((2, 768), dtype=torch.float64, device=cuda))
+
+
+def _hopf_models(dev):
+    from vf_fem_tpu_torch.load import load_fsi_model
+    from vf_fem_tpu_torch.mesh import vocal_fold_mesh
+    from vf_fem_tpu_torch.mesh.reorder import rcm_mesh
+    from vf_fem_tpu_torch.residuals import fluid as flr, solid as slr
+
+    mesh = rcm_mesh(vocal_fold_mesh(8, 4))
+    ymax = mesh.coords[:, 1].max()
+    out = []
+    for model_type in ("transient", "dynamical"):
+        m = load_fsi_model(mesh, slr.KelvinVoigt, flr.BernoulliSmoothMinSep,
+                           model_type=model_type, device=dev)
+        for k, v in dict(emod=3e4, rho=1.0, eta=2.0, ycontact=ymax + 0.05, kcontact=1e8,
+                         rho_air=1.1225e-3, zeta_min=1e-3, zeta_sep=1e-3,
+                         ymid=ymax + 0.01).items():
+            m.prop[k][:] = v
+        out.append(m)
+    return out
+
+
+@pytest.mark.parametrize("factor_dtype", ["float64", "float32"])
+def test_hopf_banded_on_cuda_matches_cpu(cuda, factor_dtype):
+    """The banded Hopf solver of ``tests/test_hopf.py:147-173``'s models on
+    the card (K4 for every band product, K6 for every solve, never a plain
+    version) against the same run on the CPU: each mode within 1e-7
+    max(|lambda|, 1) (f64 factors) or 1e-6 (f32) of a CPU mode.  The Ritz
+    filter accepts a relative residual of 1e-6, so two runs in different
+    arithmetic agree to about that backward error, not to rounding."""
+    import warnings
+
+    from vf_fem_tpu_torch.misc.hopf import linear_stability
+
+    c = {"psub": np.array([8000.0]), "psup": np.array([0.0])}
+    res = {}
+    for dev in ("cpu", cuda):
+        tm, dm = _hopf_models(dev)
+        launches = dict(ops.LAUNCHES)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            res[str(dev)] = linear_stability(
+                tm, dm, c, tm.prop, solver="banded", sigma=1j * 2 * np.pi * 130.0,
+                arnoldi_m=60, return_info=True, factor_dtype=factor_dtype)
+        if dev == cuda:
+            n4 = ops.LAUNCHES["bsb_matvec"] - launches["bsb_matvec"]
+            n6 = ops.LAUNCHES["btd_sweep"] - launches["btd_sweep"]
+            assert n4 > 0 and n6 > 0, (n4, n6)
+    (e_cpu, _, i_cpu), (e_gpu, _, i_gpu) = res["cpu"], res[str(cuda)]
+    assert i_gpu["device"].startswith("cuda") and i_gpu["factor_dtype"] == factor_dtype
+    assert len(e_gpu) == len(e_cpu) and np.all(i_gpu["res_rel"] < i_gpu["cert_tol"])
+    tol = 1e-7 if factor_dtype == "float64" else 1e-6
+    for lam in e_gpu:
+        assert np.abs(e_cpu - lam).min() < tol * max(abs(lam), 1.0), (lam, e_cpu)

@@ -51,6 +51,8 @@ def test_import_leaves_jax_unloaded():
         "import vf_fem_tpu_torch.models.acoustic, vf_fem_tpu_torch.models.fsai\n"
         "import vf_fem_tpu_torch.functional.acoustic, vf_fem_tpu_torch.mesh.m5\n"
         "import vf_fem_tpu_torch.mesh.writers, vf_fem_tpu_torch.mesh.triangulate\n"
+        "import vf_fem_tpu_torch.models.dynamical, vf_fem_tpu_torch.solvers.cbtd\n"
+        "import vf_fem_tpu_torch.misc.hopf\n"
         f"bad = [m for m in set(sys.modules) - before"
         f" if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"

@@ -239,7 +239,32 @@ def _contact_traction(u1, X, n, y, k):
     return -(k * torch.clamp(gap, min=0.0) ** 3)[..., None] * n
 
 
-class SolidModel:
+class SolidElements:
+    """The element arrays of a solid model and its block-banded plan, shared
+    by the transient solid and the dynamical ones: ``_elem_cells``, the
+    cells, then the facets' cells when the residual has a facet pass (the
+    order of the Jacobian blocks); ``_elem_dofs``, their dofs."""
+
+    def _init_elements(self):
+        R = self._residual
+        cells = R.mesh().cells
+        self._elem_cells = [cells]
+        if R.has_facet_pass():
+            self._elem_cells.append(cells[R.topology.facet_cells.cpu().numpy()])
+        self._elem_dofs = [assembly.cell_dof_array(c, self.dim)
+                           for c in self._elem_cells]
+        self._bsb = None
+
+    def bsb_plan(self):
+        """(BSBPlan, its fill plan on the device), built on first use;
+        raises ``ValueError`` unless the mesh is bandwidth-ordered."""
+        if self._bsb is None:
+            plan = bsb.plan_bsb(self._elem_dofs, self.ndof, self._residual.bc_dofs)
+            self._bsb = (plan, bsb.fill_plan(plan, self.device))
+        return self._bsb
+
+
+class SolidModel(SolidElements):
     """Transient solid with Newmark time discretization and nodal penalty
     contact."""
 
@@ -264,20 +289,11 @@ class SolidModel:
             if key.startswith("prop/")
         }
 
-        # element vertex arrays: the cells, then the facets' cells when the
-        # residual has a facet pass (the order of the Jacobian blocks)
-        cells = mesh.cells
-        fcells = R.topology.facet_cells.cpu().numpy()
-        self._elem_cells = [cells]
-        if R.has_facet_pass():
-            self._elem_cells.append(cells[fcells])
-        self._elem_dofs = [assembly.cell_dof_array(c, self.dim)
-                           for c in self._elem_cells]
+        self._init_elements()
         # static plans, built on first use: a Krylov model never builds the
         # dense Jacobian's plan, nor a dense one the Krylov plans
         self._jac_plan = None
         self._ebe = None
-        self._bsb = None
         # Krylov solves and iterations since the last reset (read on the
         # host by the stopping rule anyway)
         self.krylov_counts = {"solves": 0, "iterations": 0}
@@ -480,14 +496,6 @@ class SolidModel:
             facet_dofs=None if Jf is None else dofs[1],
             bc_dofs=self.bc_dofs, plans=plans,
         )
-
-    def bsb_plan(self):
-        """(BSBPlan, its fill plan on the device), built on first use;
-        raises ``ValueError`` unless the mesh is bandwidth-ordered."""
-        if self._bsb is None:
-            plan = bsb.plan_bsb(self._elem_dofs, self.ndof, self._residual.bc_dofs)
-            self._bsb = (plan, bsb.fill_plan(plan, self.device))
-        return self._bsb
 
     def make_iter_factors(self, u_lin, state0, control, prop, dt, params_d):
         """Frozen factors at ``u_lin`` from the element Jacobian blocks:
@@ -923,6 +931,26 @@ class FluidModel:
         return {k: zero[k] - r[k] for k in zero}
 
 
+def pressure_to_solid(p_fluid: torch.Tensor, nvert: int, solid_dofs: torch.Tensor,
+                      fluid_dofs: torch.Tensor) -> torch.Tensor:
+    """The fluid pressure at the interface as a solid vertex field (zero
+    elsewhere): the fluid-to-solid coupling map."""
+    out = p_fluid.new_zeros((nvert,))
+    out[solid_dofs] = p_fluid[fluid_dofs]
+    return out
+
+
+def area_from_surface(x: torch.Tensor, ymid, n_area: int, solid_dofs: torch.Tensor,
+                      fluid_dofs: torch.Tensor) -> torch.Tensor:
+    """The fluid area ``2*(ymid - y)`` at the interface vertices of the
+    current solid coordinates ``x`` (nvert, dim): the solid-to-fluid
+    coupling map."""
+    solid_area = 2.0 * (ymid - x[:, 1])
+    area = solid_area.new_zeros((n_area,))
+    area[fluid_dofs] = solid_area[solid_dofs]
+    return area
+
+
 class ExplicitFSIModel:
     """Staggered explicit coupling: the solid sees the previous step's
     fluid pressure; the fluid sees the current step's solid geometry.
@@ -959,19 +987,16 @@ class ExplicitFSIModel:
 
     # -- coupling maps ----------------------------------------------------------
     def _pressure_to_solid(self, p_fluid: torch.Tensor) -> torch.Tensor:
-        out = p_fluid.new_zeros((self.solid.nvert,))
-        out[self._solid_dofs] = p_fluid[self._fluid_dofs]
-        return out
+        return pressure_to_solid(p_fluid, self.solid.nvert, self._solid_dofs,
+                                 self._fluid_dofs)
 
     def _area_from_u1(self, u1_flat: torch.Tensor, prop: dict) -> torch.Tensor:
         """fluid area = 2*(ymid - y_surface)."""
         u1 = u1_flat.reshape(self.solid.nvert, self.solid.dim)
         sl_prop, _ = self._split_prop(prop)
         X = self.solid.coords(self.solid._prop_fields(sl_prop))
-        solid_area = 2.0 * (prop["ymid"][0] - (X + u1)[:, 1])
-        area = solid_area.new_zeros((self._n_area,))
-        area[self._fluid_dofs] = solid_area[self._solid_dofs]
-        return area
+        return area_from_surface(X + u1, prop["ymid"][0], self._n_area,
+                                 self._solid_dofs, self._fluid_dofs)
 
     def _split_prop(self, prop: dict):
         sl = {k: prop[k] for k in self._solid_prop_keys}

@@ -16,7 +16,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
-from torch.func import jacfwd, vmap
+from torch.func import jacfwd, jvp, vmap
 
 from .. import config
 from ..fem import assembly, banded
@@ -307,15 +307,18 @@ class FemResidual:
         return (ncols, torch.as_tensor(cdofs, dtype=torch.int64, device=dev),
                 torch.as_tensor(fdofs, dtype=torch.int64, device=dev))
 
-    def assemble_jac_dense(self, fields: dict, wrt_key: str) -> torch.Tensor:
+    def assemble_jac_dense(self, fields: dict, wrt_key: str,
+                           tangent_fields: Optional[dict] = None) -> torch.Tensor:
         """Dense Jacobian ``d res / d fields[wrt_key]`` of the assembled 'u'
         residual, (nvert*dim, ncols), by element-level ``jacfwd`` and a
-        scatter-add (the JAX package's ``assemble_jac_dense``, without its
-        linearized ``tangent_fields`` variant).  No Dirichlet handling:
-        callers mask rows as they need.  With a shape parameter
-        ``prop/umesh`` each element's coordinates are the reference plus
-        ``umesh``, so the Jacobian with respect to it includes the
-        geometry's."""
+        scatter-add (the JAX package's ``assemble_jac_dense``).  With
+        ``tangent_fields`` (the same keys as ``fields``) it differentiates
+        the linearized residual ``jvp(res, fields, tangent_fields)``
+        instead, the blocks of the linearized dynamical models.  No
+        Dirichlet handling: callers mask rows as they need.  With a shape
+        parameter ``prop/umesh`` each element's coordinates are the
+        reference plus ``umesh``, so the Jacobian with respect to it
+        includes the geometry's."""
         mesh, topo = self._mesh, self.topology
         dim = mesh.dim
         ndof = mesh.num_vertices * dim
@@ -323,32 +326,46 @@ class FemResidual:
         ncols, cdofs, fdofs = self._wrt_cols(wrt_key)
         out = torch.zeros((ndof, ncols), dtype=self.dtype, device=self.device)
 
-        def add(elem, Xref_e, rows, cols, local, axes, *extra):
-            def res_of(w, Xref, loc, *ex):
-                loc = {**loc, wrt_key: w}
+        def add(elem, Xref_e, rows, cols, gather, *extra):
+            local, axes = gather(fields)
+
+            def res_of(loc, Xref, ex):
                 X = Xref + loc["prop/umesh"] if has_shape else Xref
                 return elem(X, *ex, loc)
 
-            in_dims = (axes[wrt_key], 0, axes) + (0,) * len(extra)
-            J = vmap(jacfwd(res_of), in_dims=in_dims)(local[wrt_key], Xref_e,
-                                                      local, *extra)
+            if tangent_fields is None:
+                def elem_res(w, Xref, loc, *ex):
+                    return res_of({**loc, wrt_key: w}, Xref, ex)
+
+                args, in_dims = (local,), (axes,)
+            else:
+                tlocal, _ = gather(tangent_fields)
+
+                def elem_res(w, Xref, loc, tloc, *ex):
+                    # the linearized residual: jvp along the tangent locals
+                    return jvp(lambda l: res_of(l, Xref, ex),
+                               ({**loc, wrt_key: w},), (tloc,))[1]
+
+                args, in_dims = (local, tlocal), (axes, axes)
+            J = vmap(jacfwd(elem_res),
+                     in_dims=(axes[wrt_key], 0) + in_dims + (0,) * len(extra))(
+                local[wrt_key], Xref_e, *args, *extra)
             ne, nld = rows.shape
             J = J.reshape(ne, nld, -1)
             idx = (rows[:, :, None].expand(J.shape), cols[:, None, :].expand(J.shape))
             out.index_put_(idx, J, accumulate=True)
 
         cells = topo.cells
-        local_c, axes_c = self.gather_cell_locals(fields)
         row_c = torch.as_tensor(assembly.cell_dof_array(mesh.cells, dim), device=self.device)
-        add(self.cell_elem_fn(), self.X_ref[cells], row_c, cdofs, local_c, axes_c)
+        add(self.cell_elem_fn(), self.X_ref[cells], row_c, cdofs,
+            self.gather_cell_locals)
         if self.has_facet_pass():
             fcells = topo.facet_cells
-            local_f, axes_f = self.gather_facet_locals(fields)
             row_f = torch.as_tensor(
                 assembly.cell_dof_array(mesh.cells[fcells.cpu().numpy()], dim),
                 device=self.device)
             add(self.facet_elem_fn(), self.X_ref[cells[fcells]], row_f, fdofs,
-                local_f, axes_f, topo.facet_sel, topo.facet_opp_sel)
+                self.gather_facet_locals, topo.facet_sel, topo.facet_opp_sel)
         return out
 
 

@@ -44,8 +44,8 @@ class PredefinedFluidResidual(FunctionalResidual):
     def __init__(self, mesh: np.ndarray, device=config.DEFAULT_DEVICE,
                  dtype=config.DEFAULT_DTYPE):
         self._mesh = np.asarray(mesh)
-        s = torch.as_tensor(self._mesh, dtype=dtype,
-                            device=config.model_device(device))
+        self.device, self.dtype = config.model_device(device), dtype
+        s = torch.as_tensor(self._mesh, dtype=dtype, device=self.device)
         res, res_args = self._make_residual(s)
         super().__init__(res, res_args)
 

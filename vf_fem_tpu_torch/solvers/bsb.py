@@ -197,16 +197,17 @@ def fill_plan(plan: BSBPlan, device) -> DeviceFill:
 
 
 def bsb_fill(plan: BSBPlan, fill: DeviceFill,
-             J_list: Sequence[torch.Tensor]) -> torch.Tensor:
+             J_list: Sequence[torch.Tensor], identity: bool = True) -> torch.Tensor:
     """The block array (nblk, nb, b, b) from per-element Jacobian blocks
-    (in the order of the plan's dof arrays); Dirichlet rows get identity.
-    It is zero outside ``fill.pattern``: the scatter starts from zeros and
-    writes only the plan's targets."""
+    (in the order of the plan's dof arrays); Dirichlet rows get identity
+    (zero with ``identity=False``).  It is zero outside ``fill.pattern``:
+    the scatter starts from zeros and writes only the plan's targets."""
     src = torch.cat([J.reshape(-1) for J in J_list
                      if J is not None and J.numel()])
     src = torch.where(fill.keep, src, 0.0)
     flat = fill.scatter(src[:, None])
-    # each Dirichlet dof appears once: a plain indexed add is deterministic
-    flat[fill.diag_ones] += 1.0
+    if identity:
+        # each Dirichlet dof appears once: a plain indexed add is deterministic
+        flat[fill.diag_ones] += 1.0
     return flat.reshape(plan.nblk, plan.nb, plan.b, plan.b)
 

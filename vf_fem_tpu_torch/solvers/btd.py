@@ -127,24 +127,16 @@ def btd_superblocks(plan: BSBPlan, blocks: torch.Tensor):
     return D, L, U, d
 
 
-def btd_factor(plan: BSBPlan, blocks: torch.Tensor,
-               store_dtype=None) -> BTDFactors:
-    """Equilibrate and block-Thomas factor the banded Jacobian, in the
-    blocks' dtype.
-
-    ``store_dtype='bfloat16'`` stores ``Sinv``, ``V`` and ``W`` half-width
-    (the solve streams them); their matvecs cast the vector to bf16 and
-    accumulate in f32 (``ops.factor_matvec``).  The ~1e-2 relative factor
-    error is within what the chord Newton tolerates from stale factors.
+def thomas_factor(D: torch.Tensor, L: torch.Tensor, U: torch.Tensor,
+                  what: str):
+    """The serial block-Thomas loop of :func:`btd_factor` and of
+    ``solvers.cbtd.cbtd_factor`` on block-tridiagonal super-blocks
+    ``(D, L, U)``: the Schur-complement inverses ``Sinv_i = (D_i - L_i
+    W_{i-1})^-1`` and the products ``V = Sinv L``, ``W = Sinv U``.
 
     The ``n_sup`` inverses are ``torch.linalg.solve_ex`` calls, whose
-    ``info`` is read once after the loop (raises if a Schur complement is
-    singular), not once per row.
-    """
-    if store_dtype is not None and store_dtype not in STORE_DTYPES:
-        raise ValueError(f"btd_factor: store_dtype {store_dtype!r} is not"
-                         f" supported ({tuple(STORE_DTYPES)})")
-    D, L, U, d = btd_superblocks(plan, blocks)
+    ``info`` is read once after the loop (raises, naming ``what``, if a
+    Schur complement is singular), not once per row."""
     n_sup, Bt, _ = D.shape
     eye = torch.eye(Bt, dtype=D.dtype, device=D.device)
     Sinv = torch.empty_like(D)
@@ -163,10 +155,29 @@ def btd_factor(plan: BSBPlan, blocks: torch.Tensor,
     W[-1] = Sinv[-1] @ U[-1]
     bad = torch.nonzero(torch.stack(infos)).flatten()
     if bad.numel():
-        raise RuntimeError(f"btd_factor: singular Schur complement at"
+        raise RuntimeError(f"{what}: singular Schur complement at"
                            f" super-rows {bad.tolist()}")
     # V = Sinv @ L as one batched matmul, outside the serial loop
     V = torch.bmm(Sinv, L)
+    return Sinv, V, W
+
+
+def btd_factor(plan: BSBPlan, blocks: torch.Tensor,
+               store_dtype=None) -> BTDFactors:
+    """Equilibrate and block-Thomas factor the banded Jacobian, in the
+    blocks' dtype.
+
+    ``store_dtype='bfloat16'`` stores ``Sinv``, ``V`` and ``W`` half-width
+    (the solve streams them); their matvecs cast the vector to bf16 and
+    accumulate in f32 (``ops.factor_matvec``).  The ~1e-2 relative factor
+    error is within what the chord Newton tolerates from stale factors.
+    The serial loop is :func:`thomas_factor`.
+    """
+    if store_dtype is not None and store_dtype not in STORE_DTYPES:
+        raise ValueError(f"btd_factor: store_dtype {store_dtype!r} is not"
+                         f" supported ({tuple(STORE_DTYPES)})")
+    D, L, U, d = btd_superblocks(plan, blocks)
+    Sinv, V, W = thomas_factor(D, L, U, "btd_factor")
     if store_dtype is not None:
         dt = STORE_DTYPES[store_dtype]
         Sinv, V, W = Sinv.to(dt), V.to(dt), W.to(dt)
