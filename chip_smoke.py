@@ -164,7 +164,22 @@ runs, in order:
    M5-3layers (RCM) dense QZ (the pencil assembled on the card before
    phase 2, ``misc.hopf.dense_pencil``; its QZ, ``misc.hopf.qz_modes``,
    in a child process on the host beside phases 2-13) against the banded
-   solver on the card at ``tests/test_hopf.py:176-203``'s gates.
+   solver on the card at ``tests/test_hopf.py:176-203``'s gates;
+15. physics: the solid residuals and fluids of slice 7 on the main path
+   (``PHYSICS_*``; the banded cell pass K1/K2 runs each new element
+   kernel, K5 and K6 carry the step).  M5-3layers:
+   SwellingKelvinVoigtWEpithelium + BernoulliFixedSep and Rayleigh +
+   BernoulliFlowFixedSep (qsub-driven), 100 steps at dt 1e-4 on the
+   headline settings in f64, every eighth u, all q and the final p within
+   1e-8 of the JAX package's f64 CPU run
+   (``tests/data/golden_m5_physics.npz``), its Newton counts, the
+   uncertified steps beside the JAX run's and steps/s; 23.7k: the swelling
+   model on the production btd settings in f64 and f32 (graph and eager
+   steps/s, the step graph's replay ms and nodes a step, K1/K2/K5/K6
+   launches a step, uncertified steps) against its exact-Jacobian run
+   (``TRAJ_ERR_GATE``, or 1.5x the JAX package's own value where that is
+   over; ``tests/data/golden_physics_23k.npz``), the f64 final u against
+   the JAX package's, each beside phase 7-8's KelvinVoigtWEpithelium run.
 
 Phase 3 also holds the block-Thomas sweep kernel (K6) and its transpose
 (K6T, both sweeps of ``btd_solve_t``: forward on W, backward on V, each
@@ -185,7 +200,7 @@ with the kernel (library, kernel, kernel, library).  Each kernel's bound
 is the larger of its bytes (each input read once, each output written
 once) over the HBM rate and its operations over the peak rate of their
 type.  The ``kernels`` line before the last carries all of it, with each
-kernel's launches per step on the main-path runs (phases 5-14; a Hopf
+kernel's launches per step on the main-path runs (phases 5-15; a Hopf
 point counts as one step).
 
 Phases 5-7 print each production run's Newmark predictors, taken from
@@ -455,6 +470,47 @@ HOPF_PSUBS = (500.0, 1000.0)
 HOPF_GOLDEN_TOL = 1e-5
 HOPF_M5_PSUB = 500.0
 HOPF_M5_M = 60
+# phase 15, physics: the residuals and fluids of slice 7 through the main
+# path.  M5 (meshes/M5_3layers.msh, 960 dofs): SwellingKelvinVoigtWEpithelium
+# + BernoulliFixedSep (psub-driven) and Rayleigh + BernoulliFlowFixedSep
+# (flow-driven), 100 steps at dt 1e-4 on HEADLINE in f64, every eighth u,
+# all q and the final p within PHYSICS_GOLDEN_RTOL of the JAX package's f64
+# CPU run (tests/data/golden_m5_physics.npz); 23.7k: the swelling model on
+# BTD_PROD in f64 and f32 against its exact-Jacobian run (TRAJ_ERR_GATE, or
+# 1.5x the JAX package's CPU value of the same runs where that exceeds it,
+# tests/data/golden_physics_23k.npz), and the f64 final u against the JAX
+# package's within PHYSICS_U_GATE.  Both goldens: python
+# tests/make_golden_physics.py.  The values: bench.py's properties; the new
+# residuals' of tests/test_matrix.py:35-54, with the swelling volume of its
+# end-to-end runs (1.02, :134-137) at M5 and its default (1.0) at 23.7k;
+# separation at the interface position of the mesh's 'separation-inf'
+# vertex; the midline 0.05 above the medial surface's peak with the contact
+# plane 0.01 below it; psub 4000 Ba at M5 and 1000 Ba at 23.7k, qsub 100
+# cm^2/s.  Elsewhere these models leave the glottis or diverge in the JAX
+# package's own runs (tests/probe_physics_config.py; PERF.md section 6):
+# at M5 with bench.py's gap (the midline 0.01 above the peak, the
+# contact plane 0.04 beyond it), and the swelling model also with psub 8000
+# Ba or with separation at 'separation-sup' (max|u| 6.8-94 cm); at 23.7k
+# with a swelling volume of 1.02 (the exact-Jacobian run non-finite from
+# step 14-18 at psub 500-1000), and the production run from psub 1500 on
+# (non-finite from step 82-98)
+PHYSICS_M5 = {"swelling": ("SwellingKelvinVoigtWEpithelium", "BernoulliFixedSep"),
+              "rayleigh": ("Rayleigh", "BernoulliFlowFixedSep")}
+PHYSICS_LARGE = ("SwellingKelvinVoigtWEpithelium", "BernoulliFixedSep")
+PHYSICS_PROPS = dict(v_swelling=1.02, m_swelling=0.0, k_swelling=1e4, rayleigh_m=1.0,
+                     rayleigh_k=1e-4, u_ant=0.0, u_pos=0.0, length=1.0, muscle_stress=0.0)
+PHYSICS_LARGE_PROPS = {**PHYSICS_PROPS, "v_swelling": 1.0}
+PHYSICS_CONTROLS = {"psub": 4000.0, "qsub": 100.0, "psup": 0.0}
+PHYSICS_LARGE_CONTROLS = {**PHYSICS_CONTROLS, "psub": 1000.0}
+PHYSICS_SEPARATION = "separation-inf"
+PHYSICS_YMID_ABOVE_YMAX = 0.05
+PHYSICS_YCONTACT_ABOVE_YMAX = 0.04
+PHYSICS_GOLDEN_RTOL = 1e-8
+# the 23.7k production f64 run's final u against the JAX package's
+# (max|du| / max|u|): 10x the port's difference on a CPU (x86-64, plain
+# versions), 4.408e-8, as PROD_U_GATE (the bf16 factors round the two
+# packages' stale chord iterates apart)
+PHYSICS_U_GATE = 4.408e-7
 # csrc/btd_exchange_probe.cu's entry points: (sink, n, bt, barrier, stream)
 PROBE_SIGNATURES = {f"vf_btd_exchange_probe_{t}": [ctypes.c_void_p] + [ctypes.c_int] * 3
                     + [ctypes.c_void_p] for t in ("bf16", "f64")}
@@ -701,23 +757,51 @@ def phase_kernels(torch, dev):
     return results
 
 
-def set_bench_props(model):
-    """Properties and controls of bench.py:111-129 (and
-    tests/test_golden.py:103-120; with BernoulliSmoothMinSep its widths,
-    bench.py:808-821), each where the model has it."""
-    ymax = model.solid.residual.mesh().coords[:, 1].max()
-    p = model.prop
-    for k, v in dict(
+def bench_values(ymax):
+    """The properties of bench.py:111-129 (and tests/test_golden.py:103-120;
+    BernoulliSmoothMinSep's widths, bench.py:808-821) on a mesh whose
+    medial surface peaks at ``ymax``."""
+    return dict(
         emod=5e4, rho=1.0, eta=3.0, nu=0.45, emod_membrane=0.0,
         nu_membrane=0.3, th_membrane=0.0, ycontact=ymax + 0.05,
         kcontact=1e8, rho_air=1.1225e-3, r_sep=1.0, area_lb=1e-4,
         zeta_min=1e-3, zeta_sep=1e-3, ymid=ymax + 0.01,
-    ).items():
-        if k in p:
-            p[k][:] = v
-    model.control["psub"][:] = 8000.0
-    if "psup" in model.control:  # the FSAI model's comes from its tract
-        model.control["psup"][:] = 0.0
+    )
+
+
+def set_values(model, props, controls):
+    """Each property and control of ``props`` / ``controls`` the model has."""
+    for vec, values in ((model.prop, props), (model.control, controls)):
+        for k, v in values.items():
+            if k in vec:
+                vec[k][:] = v
+
+
+def set_bench_props(model):
+    """bench.py's properties and its psub-driven controls, each where the
+    model has it (the FSAI model's psup comes from its tract)."""
+    ymax = model.solid.residual.mesh().coords[:, 1].max()
+    set_values(model, bench_values(ymax), {"psub": 8000.0, "psup": 0.0})
+
+
+def physics_values(ymax, large=False):
+    """The physics phase's properties (``PHYSICS_PROPS`` at M5,
+    ``PHYSICS_LARGE_PROPS`` at 23.7k, over bench.py's) with its glottal gap
+    and contact plane, and its controls."""
+    props = {**bench_values(ymax), **(PHYSICS_LARGE_PROPS if large else PHYSICS_PROPS),
+             "ymid": ymax + PHYSICS_YMID_ABOVE_YMAX,
+             "ycontact": ymax + PHYSICS_YCONTACT_ABOVE_YMAX}
+    return props, PHYSICS_LARGE_CONTROLS if large else PHYSICS_CONTROLS
+
+
+def physics_config():
+    """The phase's configuration as stored with its goldens."""
+    return {"props": PHYSICS_PROPS, "controls": PHYSICS_CONTROLS,
+            "large_props": PHYSICS_LARGE_PROPS, "large_controls": PHYSICS_LARGE_CONTROLS,
+            "separation": PHYSICS_SEPARATION, "ymid_above_ymax": PHYSICS_YMID_ABOVE_YMAX,
+            "ycontact_above_ymax": PHYSICS_YCONTACT_ABOVE_YMAX,
+            "m5": {k: list(v) for k, v in PHYSICS_M5.items()},
+            "large": list(PHYSICS_LARGE)}
 
 
 def build(torch, dev, mesh_name, dtype, solid="KelvinVoigtWEpithelium",
@@ -2590,6 +2674,149 @@ def phase_implicit(torch, card, dev):
     return out
 
 
+def physics_model(torch, dev, mesh_name, dtype, solid, fluid):
+    """A model of the physics phase (``physics_values``; the 23.7k values on
+    ``LARGE_MESH``) on ``meshes/<mesh_name>``, separating at the interface
+    position of its ``PHYSICS_SEPARATION`` vertex: ``(model, state0,
+    stacked controls, prop)`` and that position."""
+    from vf_fem_tpu_torch import load
+    from vf_fem_tpu_torch.mesh import derive_1d_interface, load_gmsh
+    from vf_fem_tpu_torch.residuals import fluid as flr, solid as slr
+
+    mesh = load_gmsh(os.path.join(REPO, "meshes", mesh_name))
+    _, sdofs, _ = derive_1d_interface(mesh)
+    idx_sep = load.separation_index(mesh, sdofs, PHYSICS_SEPARATION)
+    require(idx_sep is not None, f"physics: {mesh_name} has no {PHYSICS_SEPARATION} vertex")
+    model = load.load_fsi_model(mesh, getattr(slr, solid), getattr(flr, fluid),
+                                fluid_kwargs={"idx_sep": idx_sep}, device=dev, dtype=dtype)
+    set_values(model, *physics_values(mesh.coords[:, 1].max(), mesh_name == LARGE_MESH))
+    state0 = {k: np.zeros_like(v) for k, v in model.state0.items()}
+    controls = {k: v[None] for k, v in model.control.items()}
+    return (model, state0, controls, model.prop), idx_sep
+
+
+def uncertified(params, infos):
+    """A run's uncertified fixed-iteration steps (without the warning that
+    ``forward.integrate`` gives its caller)."""
+    import warnings
+
+    from vf_fem_tpu_torch import forward
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return forward.certify_fixed_iterations(params, forward._step_info(infos))
+
+
+def phase_physics(torch, card, dev, head, btd_res, integ):
+    """The residuals and fluids of slice 7 on the main path: the two M5
+    models against the JAX package's f64 golden, then the 23.7k swelling
+    model on the production btd settings in f64 and f32 against its
+    exact-Jacobian run, each beside the KelvinVoigtWEpithelium run of the
+    same settings (phases 5, 7 and 8)."""
+    from vf_fem_tpu_torch import forward
+
+    gold = np.load(os.path.join(REPO, "tests", "data", "golden_m5_physics.npz"))
+    cfg = json.loads(str(gold["config"]))
+    require({k: cfg[k] for k in physics_config()} == json.loads(json.dumps(physics_config())),
+            "physics: golden_m5_physics.npz holds another configuration")
+    times = DT * np.arange(N_STEPS + 1)
+    out = {}
+    for tag, (solid, fluid) in PHYSICS_M5.items():
+        built, idx_sep = physics_model(torch, dev, "M5_3layers.msh", torch.float64, solid, fluid)
+        require(idx_sep == cfg[tag]["idx_sep"], f"physics {tag}: idx_sep {idx_sep} !="
+                f" the golden's {cfg[tag]['idx_sep']}")
+        model, state0, cs, prop = built
+        run = lambda: forward.integrate_pure(model, state0, cs, prop, times, HEADLINE)
+        (fin, traj, infos), ms_first, launches, _ = run_timed(torch, model, run)
+        require_launched(launches, ("gather", "scatter", "newmark"), f"physics M5 {tag}")
+        u = traj["u"].cpu().numpy()[::8]
+        q = traj["q"].cpu().numpy().ravel()
+        p_fin = traj["p"].cpu().numpy()[-1]
+        errs = {"u": rel_max(u, gold[f"{tag}|u"]), "q": rel_max(q, gold[f"{tag}|q"]),
+                "p": rel_max(p_fin, gold[f"{tag}|p_final"])}
+        for k, v in traj.items():
+            require(bool(torch.isfinite(v).all()), f"physics M5 {tag}: non-finite {k}")
+        np.testing.assert_allclose(u, gold[f"{tag}|u"], rtol=PHYSICS_GOLDEN_RTOL, atol=1e-12)
+        np.testing.assert_allclose(q, gold[f"{tag}|q"], rtol=PHYSICS_GOLDEN_RTOL)
+        np.testing.assert_allclose(p_fin, gold[f"{tag}|p_final"], rtol=PHYSICS_GOLDEN_RTOL,
+                                   atol=1e-8)
+        _, ms, _, _ = run_timed(torch, model, run)  # the captured step, replayed
+        entry = graph_entry(model, HEADLINE)
+        n_unc, j_unc = uncertified(HEADLINE, infos), int(gold[f"{tag}|uncertified"])
+        same_iters = np.array_equal(infos.num_iter.cpu().numpy(), gold[f"{tag}|num_iter"])
+        log(f"[physics] M5 {solid} + {fluid} (idx_sep {idx_sep}) f64, {N_STEPS} steps against"
+            f" the JAX golden: max|du|/max|u| {errs['u']:.3e}, q {errs['q']:.3e}, final p"
+            f" {errs['p']:.3e} (rtol {PHYSICS_GOLDEN_RTOL:.0e}); Newton counts as the golden's"
+            f" {same_iters}; uncertified {n_unc} (JAX {j_unc}); {N_STEPS / (ms / 1e3):.2f}"
+            f" steps/s (graph; first run with the capture {N_STEPS / (ms_first / 1e3):.2f}),"
+            f" {entry['nodes']} nodes a step, launches {launches}; on {card}")
+        require(same_iters, f"physics M5 {tag}: Newton counts differ from the golden's")
+        out[tag] = dict(launches=launches, steps_s=N_STEPS / (ms / 1e3), errs=errs,
+                        uncertified=(n_unc, j_unc), nodes=entry["nodes"])
+    hl = head["float64"]
+    log(f"[physics] beside phase 5's KelvinVoigtWEpithelium + BernoulliAreaRatioSep:"
+        f" {hl['steps_s']:.2f} steps/s, launches {hl['launches']}")
+
+    g23 = np.load(os.path.join(REPO, "tests", "data", "golden_physics_23k.npz"))
+    require(json.loads(str(g23["config"])) == json.loads(json.dumps(physics_config())),
+            "physics: golden_physics_23k.npz holds another configuration")
+    solid, fluid = PHYSICS_LARGE
+    used = ("gather", "scatter", "newmark", "btd_sweep")
+    finals = {}
+    for tag, jax_err, j_unc in (("float64", float(g23["traj_err"]), int(g23["uncertified"])),
+                                ("float32", float(g23["f32_traj_err"]),
+                                 int(g23["f32_uncertified"]))):
+        dtype = getattr(torch, tag)
+        built, idx_sep = physics_model(torch, dev, LARGE_MESH, dtype, solid, fluid)
+        require(idx_sep == int(g23["idx_sep"]), "physics 23.7k: idx_sep off the golden's")
+        model, state0, cs, prop = built
+
+        def drive(params, eager=False):
+            fn = forward._integrate_eager if eager else forward.integrate_pure
+            return run_timed(torch, model, lambda: fn(model, state0, cs, prop, times, params))
+
+        drive(BTD_PROD)  # warm-up: the capture
+        (fin, traj, infos), ms, launches, _ = drive(BTD_PROD)
+        require_launched(launches, used, f"physics 23.7k {tag}")
+        for k, v in traj.items():
+            require(bool(torch.isfinite(v).all()), f"physics 23.7k {tag}: non-finite {k}")
+        _, ms_eager, launches_eager, _ = drive(BTD_PROD, eager=True)
+        require(launches_eager == launches, f"physics 23.7k {tag}: eager launches"
+                f" {launches_eager} != graph {launches}")
+        alone = replay_ms(torch, model, BTD_PROD, N_STEPS)
+        entry = graph_entry(model, BTD_PROD)
+        (fin_x, _, infos_x), ms_x, launches_x, _ = drive(BTD_EXACT)
+        require_launched(launches_x, used, f"physics 23.7k exact {tag}")
+        finals[tag] = fin["u"].double().cpu().numpy()
+        traj_err = rel_max(finals[tag], fin_x["u"].double().cpu().numpy())
+        gate = TRAJ_ERR_GATE if jax_err <= TRAJ_ERR_GATE else 1.5 * jax_err
+        per_step = {k: launches[k] / N_STEPS for k in used}
+        kv = btd_res[tag]
+        kv_int = integ[("23.7k btd", tag)]
+        log(f"[physics] 23.7k {solid} + {fluid} (idx_sep {idx_sep}) prod {tag}:"
+            f" {N_STEPS / (ms / 1e3):.2f} steps/s graph, {N_STEPS / (ms_eager / 1e3):.2f} eager"
+            f" (CUDA events); the step graph alone {alone:.4f} ms a step, {entry['nodes']} nodes"
+            f" a step; launches a step {per_step}; uncertified {uncertified(BTD_PROD, infos)}"
+            f" (JAX {j_unc}); trajectory error vs the exact-Jacobian run {traj_err:.3e} (gate"
+            f" {gate:.1e}; JAX CPU {jax_err:.3e}; exact run {N_STEPS / (ms_x / 1e3):.2f}"
+            f" steps/s); on {card}")
+        log(f"[physics] beside phases 7-8's KelvinVoigtWEpithelium + BernoulliAreaRatioSep"
+            f" {tag}: {kv['steps_s']:.2f} steps/s graph, replay {kv_int['replay_ms']:.4f} ms a"
+            f" step, {kv_int['graph']['nodes']} nodes a step, launches a step"
+            f" { {k: kv['launches'][k] / kv['n_steps'] for k in used} }, trajectory error"
+            f" {kv['traj_err']:.3e}")
+        require(traj_err <= gate, f"physics 23.7k {tag}: trajectory error over its gate")
+        out[("23.7k", tag)] = dict(launches=launches, steps_s=N_STEPS / (ms / 1e3),
+                                   eager_steps_s=N_STEPS / (ms_eager / 1e3), replay_ms=alone,
+                                   nodes=entry["nodes"], traj_err=traj_err, n_steps=N_STEPS)
+    err = rel_max(finals["float64"], g23["u_final"])
+    log(f"[physics] 23.7k prod f64 final u vs the JAX package's: {err:.3e} (gate"
+        f" {PHYSICS_U_GATE:.1e}); f32 vs f64 {rel_max(finals['float32'], finals['float64']):.3e}"
+        f" (JAX CPU {float(g23['f32_vs_f64']):.3e})")
+    require(err <= PHYSICS_U_GATE, "physics 23.7k: final u off the JAX package's")
+    return out
+
+
 def build_fsai(torch, dev, dtype, large=False):
     """An FSAI model (``load.load_fsai_model``): the M5 golden's
     configuration (tests/make_golden_fsai.py), or with ``large`` the 23.7k
@@ -3297,13 +3524,14 @@ def run_phases(torch, name, card, dev, t0, mesher, m5qz):
     head = timed("headline", phase_headline, torch, dev, card)
     kry = timed("krylov", phase_krylov, torch, card, large)
     btd_res = timed("btd", phase_btd, torch, card, large)
-    timed("integrate", phase_integrate, torch, card, dev, large, btd_res)
+    integ = timed("integrate", phase_integrate, torch, card, dev, large, btd_res)
     grad = timed("grad", phase_grad, torch, card, dev, large)
     tang = timed("tangents", phase_tangents, torch, card, dev, large)
     imp = timed("implicit", phase_implicit, torch, card, dev)
     fsai = timed("fsai", phase_fsai, torch, card, dev)
     m94 = timed("mesh94k", phase_mesh94k, torch, card, dev, mesher)
     hopf = timed("hopf", phase_hopf, torch, card, dev, m5qz)
+    phys = timed("physics", phase_physics, torch, card, dev, head, btd_res, integ)
 
     # per kernel: the timing at the 23.7k shapes of the btd main path (f64)
     timing = {
@@ -3338,7 +3566,10 @@ def run_phases(torch, name, card, dev, t0, mesher, m5qz):
             ("M5 fsai value+grad", fsai["grad"]["launches"], FSAI_GRAD_STEPS),
             ("23.7k fsai value+grad", fsai["grad 23.7k"]["launches"], FSAI_GRAD_STEPS),
             ("94.8k btd", m94["float64"]["launches"], m94["float64"]["n_steps"]),
-            ("23.7k hopf (a point)", hopf[HOPF_PSUBS[0]]["launches"], 1)]
+            ("23.7k hopf (a point)", hopf[HOPF_PSUBS[0]]["launches"], 1),
+            ("M5 physics swelling", phys["swelling"]["launches"], N_STEPS),
+            ("M5 physics rayleigh", phys["rayleigh"]["launches"], N_STEPS),
+            ("23.7k physics btd", phys[("23.7k", "float64")]["launches"], N_STEPS)]
     path = {  # the main-path run whose count is this kernel's ``launches``
         "gather": runs[0][1], "scatter": runs[0][1], "newmark": runs[0][1],
         "btd_sweep": runs[1][1], "ebe_matvec": runs[3][1], "bsb_matvec": runs[2][1],

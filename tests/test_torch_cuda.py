@@ -1418,3 +1418,70 @@ def test_hopf_banded_on_cuda_matches_cpu(cuda, factor_dtype):
     tol = 1e-7 if factor_dtype == "float64" else 1e-6
     for lam in e_gpu:
         assert np.abs(e_cpu - lam).min() < tol * max(abs(lam), 1.0), (lam, e_cpu)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_swelling_banded_cell_pass_matches_plain(cuda, dtype):
+    """SwellingKelvinVoigtWEpithelium's residual with its cell pass through
+    K1/K2 (the banded path: the nonlinear Green-Lagrange element kernel on
+    the gathered locals) against its plain indexed pass on the card, on
+    M5-3layers with random fields (swelling volumes about 1): one launch
+    of each kernel, and the two within summation order (rtol 1e-12 and
+    atol 1e-14 of the largest entry in f64, 1e-5 and 1e-6 in f32)."""
+    from vf_fem_tpu_torch.residuals import solid as slr
+
+    mesh = load_gmsh(os.path.join(MESHES, "M5_3layers.msh"))
+    R = slr.SwellingKelvinVoigtWEpithelium(mesh, device=cuda, dtype=dtype)
+    rng = np.random.default_rng(7)
+    values = {"prop/emod": (1e4, 1e5), "prop/rho": (0.5, 1.5), "prop/eta": (1.0, 5.0),
+              "prop/v_swelling": (0.95, 1.05), "prop/m_swelling": (-1.0, 1.0),
+              "prop/emod_membrane": (1e4, 1e5), "prop/nu_membrane": (0.2, 0.45),
+              "prop/th_membrane": (0.0, 0.05), "prop/nu": (0.45, 0.45),
+              "prop/ycontact": (0.6, 0.6), "prop/kcontact": (1e8, 1e8)}
+    fields = {}
+    for key in R.coefficient_spec:
+        shape = R.coefficient_shape(key)
+        if key in values:
+            arr = rng.uniform(*values[key], shape)
+        elif key == "prop/ncontact":
+            arr = np.array([0.0, 1.0])
+        elif key == "control/p1":
+            arr = 1e3 * rng.random(shape)
+        else:  # states and the contact traction
+            arr = 1e-2 * rng.standard_normal(shape)
+        fields[key] = torch.as_tensor(arr, dtype=dtype, device=cuda)
+    assert R.banded_ok()
+    n0 = dict(banded.LAUNCHES)
+    out = R.assemble_res(fields, banded=True)
+    torch.cuda.synchronize()
+    assert banded.LAUNCHES["gather"] == n0["gather"] + 1
+    assert banded.LAUNCHES["scatter"] == n0["scatter"] + 1
+    ref = R.assemble_res(fields, banded=False)
+    rtol, atol = (1e-12, 1e-14) if dtype == torch.float64 else (1e-5, 1e-6)
+    scale = float(ref.abs().max())
+    assert scale > 0 and bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out, ref, rtol=rtol, atol=atol * scale)
+
+
+@pytest.mark.parametrize("solid, fluid", [
+    ("SwellingKelvinVoigtWEpithelium", "BernoulliFixedSep"),
+    ("Rayleigh", "BernoulliFlowFixedSep"),
+])
+def test_fixed_sep_graph_equals_eager(cuda, solid, fluid):
+    """The fixed-separation fluids hold their separation mask on the device:
+    a fixed-iteration run of the M5 physics models (``chip_smoke.py``'s
+    phase 15 configuration) captures its step and replays it bit for bit
+    the eager loop's, with K1, K2 and K5 launched."""
+    import chip_smoke as cs
+
+    built, _ = cs.physics_model(torch, cuda, "M5_3layers.msh", torch.float64, solid, fluid)
+    model, state0, controls, prop = built
+    times = cs.DT * np.arange(31)
+    eager = forward._integrate_eager(model, state0, controls, prop, times, cs.HEADLINE)
+    banded.LAUNCHES.update(dict.fromkeys(banded.LAUNCHES, 0))
+    ops.LAUNCHES.update(dict.fromkeys(ops.LAUNCHES, 0))
+    graph = forward.integrate_pure(model, state0, controls, prop, times, cs.HEADLINE)
+    torch.cuda.synchronize()
+    assert _same_run(graph, eager)
+    assert banded.LAUNCHES["gather"] > 0 and banded.LAUNCHES["scatter"] > 0
+    assert ops.LAUNCHES["newmark"] == 30

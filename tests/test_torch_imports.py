@@ -13,6 +13,9 @@ FORBIDDEN = ("jax", "jaxlib", "vf_fem_tpu")
 
 
 def _sources():
+    # the card's smoke script and kernel comparison stand on the port alone
+    yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "kernel_turns.py")
     for root, dirs, files in os.walk(PKG):
         dirs[:] = sorted(d for d in dirs if d != "_build")  # build outputs
         for f in sorted(files):
@@ -53,6 +56,9 @@ def test_import_leaves_jax_unloaded():
         "import vf_fem_tpu_torch.mesh.writers, vf_fem_tpu_torch.mesh.triangulate\n"
         "import vf_fem_tpu_torch.models.dynamical, vf_fem_tpu_torch.solvers.cbtd\n"
         "import vf_fem_tpu_torch.misc.hopf\n"
+        "import vf_fem_tpu_torch.fem.forms, vf_fem_tpu_torch.fem.continuum\n"
+        "import vf_fem_tpu_torch.fem.elements, vf_fem_tpu_torch.residuals.solid\n"
+        "import vf_fem_tpu_torch.residuals.fluid, vf_fem_tpu_torch.mesh.interface\n"
         f"bad = [m for m in set(sys.modules) - before"
         f" if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"

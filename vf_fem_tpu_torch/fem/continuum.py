@@ -24,6 +24,24 @@ def strain_inf(grad_u: torch.Tensor) -> torch.Tensor:
     return pad_to_3x3(0.5 * (grad_u + grad_u.transpose(-1, -2)))
 
 
+def def_grad(grad_u: torch.Tensor) -> torch.Tensor:
+    """Deformation gradient F = I + grad(u), padded to 3x3."""
+    eye = torch.eye(3, dtype=grad_u.dtype, device=grad_u.device)
+    return pad_to_3x3(grad_u) + eye
+
+
+def def_cauchy_green(grad_u: torch.Tensor) -> torch.Tensor:
+    """Right Cauchy-Green tensor C = F^T F, 3x3."""
+    F = def_grad(grad_u)
+    return F.transpose(-1, -2) @ F
+
+
+def strain_green_lagrange(grad_u: torch.Tensor) -> torch.Tensor:
+    """Green-Lagrange strain E = (C - I)/2, 3x3."""
+    eye = torch.eye(3, dtype=grad_u.dtype, device=grad_u.device)
+    return 0.5 * (def_cauchy_green(grad_u) - eye)
+
+
 def stress_isotropic(strain: torch.Tensor, emod, nu) -> torch.Tensor:
     """Linear isotropic stress from (E, nu); ``emod``/``nu`` carry the
     batch dimensions of ``strain`` without its two matrix axes."""

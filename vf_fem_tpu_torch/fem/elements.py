@@ -98,6 +98,11 @@ def facet_measure_normal(Xf: torch.Tensor, X_opp: torch.Tensor):
     return length, n
 
 
+def smallmat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for batches of tiny matrices (..., m, k) x (..., k, n)."""
+    return torch.matmul(a, b)
+
+
 def interp(values_e: torch.Tensor, bary: torch.Tensor):
     """Nodal values (..., nv, c) at barycentric points ``bary`` (nq, nv)
     -> (..., nq, c)."""

@@ -15,7 +15,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 
 from . import config
-from .mesh import Mesh, derive_1d_interface, load_gmsh
+from .mesh import Mesh, derive_1d_interface, load_gmsh, locate_separation_vertex
 from .mesh.reorder import rcm_mesh
 from .models import dynamical, transient
 from .residuals import fluid as flr
@@ -82,6 +82,18 @@ def load_fluid_model(
     return Model(Residual(mesh, device=device, dtype=dtype, **kwargs))
 
 
+def separation_index(mesh: Mesh, dofs_fsi_solid: np.ndarray,
+                     label: str = "separation") -> Optional[int]:
+    """The interface position of the mesh's ``label`` vertex, or None where
+    the mesh has no such single vertex or it is not on the interface."""
+    try:
+        sep_vert = locate_separation_vertex(mesh, label)
+    except ValueError:
+        return None
+    matches = np.nonzero(np.asarray(dofs_fsi_solid) == sep_vert)[0]
+    return int(matches[0]) if len(matches) else None
+
+
 def load_fsi_model(
     solid_mesh: Union[str, Mesh],
     SolidResidual: type = slr.KelvinVoigt,
@@ -103,7 +115,10 @@ def load_fsi_model(
     'dynamical' or 'linearized_dynamical' one is
     :class:`~.models.dynamical.FSIDynamicalModel` or
     :class:`~.models.dynamical.LinearizedFSIDynamicalModel`, whatever
-    ``coupling``."""
+    ``coupling``.  A fixed-separation fluid without ``idx_sep`` in
+    ``fluid_kwargs`` separates at the interface position of the mesh's
+    'separation' vertex where it has one (else at the residual's default,
+    0), as in the JAX package."""
     if model_type == "transient":
         models = {"explicit": transient.ExplicitFSIModel,
                   "implicit": transient.ImplicitFSIModel}
@@ -121,9 +136,15 @@ def load_fsi_model(
     s, dofs_fsi_solid, dofs_fsi_fluid = derive_1d_interface(
         mesh, fluid_interface_subdomains
     )
+    fluid_kwargs = dict(fluid_kwargs or {})
+    if (FluidResidual in (flr.BernoulliFixedSep, flr.BernoulliFlowFixedSep)
+            and "idx_sep" not in fluid_kwargs):
+        idx_sep = separation_index(mesh, dofs_fsi_solid)
+        if idx_sep is not None:
+            fluid_kwargs["idx_sep"] = idx_sep
     fluid = load_fluid_model(
         s, FluidResidual, model_type=model_type, device=device, dtype=dtype,
-        **(fluid_kwargs or {})
+        **fluid_kwargs
     )
     return FSIModel(solid, fluid, dofs_fsi_solid, dofs_fsi_fluid)
 

@@ -111,3 +111,17 @@ def derive_1d_interface(
     solid_dofs = verts.reshape(-1).astype(INT)
     fluid_dofs = np.arange(solid_dofs.size, dtype=INT)
     return s, solid_dofs, fluid_dofs
+
+
+def locate_separation_vertex(mesh: Mesh, label: str = "separation") -> int:
+    """The vertex marked ``label`` in the mesh's vertex functions; raises
+    ``ValueError`` unless exactly one vertex carries it."""
+    sub = mesh.subdomains.get(0, {})
+    if label not in sub:
+        raise ValueError(f"Couldn't find separation point label {label}")
+    verts = np.nonzero(mesh.mesh_functions[0] == sub[label])[0]
+    if len(verts) != 1:
+        raise ValueError(
+            f"A single separation point was expected but {len(verts)} were found"
+        )
+    return int(verts[0])

@@ -1,7 +1,7 @@
 """
-Predefined solid residuals on the port's path, with the same signed form
-composition as ``vf_fem_tpu.residuals.solid``.  Surface pressure and
-contact traction act on the 'pressure' facet subdomain.
+Predefined solid residuals, all ten of ``vf_fem_tpu.residuals.solid``, with
+the same signed form composition.  Surface pressure and contact traction
+act on the 'pressure' facet subdomain.
 """
 
 from __future__ import annotations
@@ -38,6 +38,19 @@ class PredefinedSolidResidual(FemResidual):
         raise NotImplementedError()
 
 
+class Rayleigh(PredefinedSolidResidual):
+    """Linear elasticity with Rayleigh (mass and stiffness) damping."""
+
+    def init_form(self):
+        return [
+            (1.0, F.InertialForm()),
+            (1.0, F.IsotropicElasticForm()),
+            (1.0, F.RayleighDampingForm()),
+            (-1.0, F.SurfacePressureForm()),
+            (-1.0, F.ManualSurfaceContactTractionForm()),
+        ]
+
+
 class KelvinVoigt(PredefinedSolidResidual):
     def init_form(self):
         return [
@@ -70,6 +83,73 @@ class KelvinVoigtWEpithelium(PredefinedSolidResidual):
             (1.0, F.InertialForm()),
             (1.0, F.IsotropicMembraneForm()),
             (1.0, F.IsotropicElasticForm()),
+            (1.0, F.KelvinVoigtForm()),
+            (-1.0, F.SurfacePressureForm()),
+            (-1.0, F.ManualSurfaceContactTractionForm()),
+        ]
+
+
+class IncompSwellingKelvinVoigt(PredefinedSolidResidual):
+    def init_form(self):
+        return [
+            (1.0, F.InertialForm()),
+            (1.0, F.IsotropicIncompressibleElasticSwellingForm()),
+            (1.0, F.KelvinVoigtForm()),
+            (-1.0, F.SurfacePressureForm()),
+            (-1.0, F.ManualSurfaceContactTractionForm()),
+        ]
+
+
+class SwellingKelvinVoigt(PredefinedSolidResidual):
+    def init_form(self):
+        return [
+            (1.0, F.InertialForm()),
+            (1.0, F.IsotropicElasticSwellingForm()),
+            (1.0, F.KelvinVoigtForm()),
+            (-1.0, F.SurfacePressureForm()),
+            (-1.0, F.ManualSurfaceContactTractionForm()),
+        ]
+
+
+def _swelling_w_epithelium(swelling_form):
+    return [
+        (1.0, F.InertialForm()),
+        (1.0, F.IsotropicMembraneForm()),
+        (1.0, swelling_form),
+        (1.0, F.KelvinVoigtForm()),
+        (-1.0, F.SurfacePressureForm()),
+        (-1.0, F.ManualSurfaceContactTractionForm()),
+    ]
+
+
+class SwellingKelvinVoigtWEpithelium(PredefinedSolidResidual):
+    def init_form(self):
+        return _swelling_w_epithelium(F.IsotropicElasticSwellingForm())
+
+
+class SwellingKelvinVoigtWEpitheliumNoShape(PredefinedSolidResidual):
+    """The same forms as :class:`SwellingKelvinVoigtWEpithelium` (neither
+    package's variant carries a shape parameter)."""
+
+    def init_form(self):
+        return _swelling_w_epithelium(F.IsotropicElasticSwellingForm())
+
+
+class SwellingPowerLawKelvinVoigtWEpitheliumNoShape(PredefinedSolidResidual):
+    def init_form(self):
+        return _swelling_w_epithelium(F.IsotropicElasticSwellingPowerLawForm())
+
+
+class Approximate3DKelvinVoigt(PredefinedSolidResidual):
+    """KelvinVoigt with an epithelium and the anterior-posterior force of
+    the clamped planes beside the section."""
+
+    def init_form(self):
+        return [
+            (1.0, F.InertialForm()),
+            (1.0, F.IsotropicMembraneForm()),
+            (1.0, F.IsotropicElasticForm()),
+            (-1.0, F.APForceForm()),
             (1.0, F.KelvinVoigtForm()),
             (-1.0, F.SurfacePressureForm()),
             (-1.0, F.ManualSurfaceContactTractionForm()),
