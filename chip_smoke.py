@@ -179,7 +179,26 @@ runs, in order:
    launches a step, uncertified steps) against its exact-Jacobian run
    (``TRAJ_ERR_GATE``, or 1.5x the JAX package's own value where that is
    over; ``tests/data/golden_physics_23k.npz``), the f64 final u against
-   the JAX package's, each beside phase 7-8's KelvinVoigtWEpithelium run.
+   the JAX package's, each beside phase 7-8's KelvinVoigtWEpithelium run;
+16. api: the stateful model API and the post-processing (``set_*``,
+   ``solve_state1``, ``assem_*``; ``postprocess``, ``misc.signal``), f64.
+   The M5 CAD golden's 80 steps through ``solve_state1`` /
+   ``set_ini_state`` against ``golden_m5cad_explicit.npz`` (rtol 1e-8) and
+   the eager loop (bit-equality reported), with ms a step of both;
+   M5-3layers' ``assem_res`` and block derivatives ``assem_dres_dstate1``
+   / ``_dstate0`` / ``_dcontrol`` on the card against the CPU's (1e-12 of
+   each block's largest entry), their Taylor remainders (order >= 1.9
+   where the residual is not affine: the state1 derivative, with the
+   contact penalty engaged), the ``solve_dres_dstate1`` round trip and the
+   adjoint's duality; 5 steps of ``solve_state1`` at 23.7k with 'btd',
+   'bsb' and 'cg' each against the eager loop on the same settings at
+   refresh 1, with K6, K4 and K3 launched beside K1/K2/K5; ``TimeSeries``
+   of 19 measures over phase 8's 23.7k production run (in memory,
+   ``RunReader``) on the card against its per-state loop and the CPU's
+   series; phonation: the M5 CAD model at psub 6000 Ba, 1,200 steps on the
+   headline settings in the step graph, the minimum glottal width's f0
+   and series against the JAX package's f64 CPU run
+   (``tests/data/golden_phonation_m5.npz``).
 
 Phase 3 also holds the block-Thomas sweep kernel (K6) and its transpose
 (K6T, both sweeps of ``btd_solve_t``: forward on W, backward on V, each
@@ -200,7 +219,7 @@ with the kernel (library, kernel, kernel, library).  Each kernel's bound
 is the larger of its bytes (each input read once, each output written
 once) over the HBM rate and its operations over the peak rate of their
 type.  The ``kernels`` line before the last carries all of it, with each
-kernel's launches per step on the main-path runs (phases 5-15; a Hopf
+kernel's launches per step on the main-path runs (phases 5-16; a Hopf
 point counts as one step).
 
 Phases 5-7 print each production run's Newmark predictors, taken from
@@ -512,6 +531,42 @@ PHYSICS_GOLDEN_RTOL = 1e-8
 # packages' stale chord iterates apart)
 PHYSICS_U_GATE = 4.408e-7
 # csrc/btd_exchange_probe.cu's entry points: (sink, n, bt, barrier, stream)
+# phase 16, the stateful API and the post-processing.  Phonation: the M5
+# CAD golden's model (KelvinVoigtWEpithelium + BernoulliAreaRatioSep,
+# bench.py's properties) at psub 6000 Ba, the configuration of the
+# self-oscillation STATUS.md:506-510 reports (f0 100.0 Hz, TPU f32), 1,200
+# steps at dt 5e-5 on the headline settings; f0 by rfft over the steady
+# two thirds of the minimum glottal width (tests/make_golden_phonation.py
+# writes the JAX package's f64 CPU run of it)
+PHONATION = {"mesh": "M5_CB_GA3.msh", "solid": "KelvinVoigtWEpithelium",
+             "fluid": "BernoulliAreaRatioSep", "psub": 6000.0, "dt": 5e-5,
+             "n_steps": 1200}
+# phase 16: the derivative API's gates (tests/test_transient_api.py:98-119),
+# its seeded solid state (the unit test's scales), the 23.7k stateful runs
+# (each against the eager loop on the same settings at refresh 1) and the
+# post-processing's measures (tests/test_functional.py:100-119)
+API_CPU_REL = 1e-12
+API_CONTACT_DEPTH = 0.01  # cm of the medial surface in contact
+API_TAYLOR_ORDER = 1.9
+API_ROUNDTRIP = dict(rtol=1e-6, atol=1e-8)
+API_DUALITY_RTOL = 1e-9
+API_EAGER_REL = 1e-12
+API_LARGE_STEPS = 5
+API_LARGE = {
+    "btd": ({**BTD_EXACT}, "btd_sweep"),
+    "bsb": ({**TIGHT, "linear_solver": "bsb"}, "bsb_matvec"),
+    "cg": ({**TIGHT, "linear_solver": "cg"}, "ebe_matvec"),
+}
+API_MEASURES = (
+    "StressI1Field", "StressI2Field", "StressVonMisesField", "StressHydrostaticField",
+    "ElasticStressField", "StrainEnergy", "StrainEnergyRate", "ContactPressureField",
+    "ViscousDissipationField", "ViscousDissipationRate", "ContactAreaDensity", "XMomentum",
+    "YMomentum", "MeanGlottalWidth", "MidpointGlottalWidth", "MinGlottalWidthFromSolid",
+    "FSIPressure", "FluidTractionPowerDensity",
+)
+SERIES_REL = 1e-12
+PHONATION_GW_STEPS = 200
+PHONATION_GW_REL = 1e-10
 PROBE_SIGNATURES = {f"vf_btd_exchange_probe_{t}": [ctypes.c_void_p] + [ctypes.c_int] * 3
                     + [ctypes.c_void_p] for t in ("bf16", "f64")}
 HBM_BYTES_S = 3.35e12  # H100 SXM data sheet
@@ -828,6 +883,32 @@ def predictors(model):
     counts = dict(model.solid.predictor_counts)
     model.solid.predictor_counts.update(carried=0, formed=0)
     return counts
+
+
+class RunReader:
+    """A run of ``forward.integrate_pure`` read as ``postprocess.TimeSeries``
+    reads a statefile (``size``, ``get_state``, ``get_control``,
+    ``get_prop``), held in memory: row 0 is the initial state, row n the
+    trajectory's row n - 1, as tensors where the trajectory lies (the
+    card's machine has no h5py for a ``StateFile``)."""
+
+    def __init__(self, ini_state, traj, control, prop):
+        import torch
+
+        like = next(iter(traj.values()))
+        self._ini = {k: torch.as_tensor(np.asarray(v), dtype=like.dtype, device=like.device)
+                     for k, v in ini_state.items()}
+        self._traj, self._control, self._prop = traj, control, prop
+        self.size = 1 + like.shape[0]
+
+    def get_state(self, n):
+        return dict(self._ini) if n == 0 else {k: v[n - 1] for k, v in self._traj.items()}
+
+    def get_control(self, n):
+        return self._control
+
+    def get_prop(self):
+        return self._prop
 
 
 def require_launched(launches, names, what):
@@ -2075,6 +2156,9 @@ def phase_integrate(torch, card, dev, large, btd_res):
                                     graph=entry, memory=memory,
                                     profile={w: {k: v for k, v in p.items() if k != "table"}
                                              for w, p in prof.items()})
+            if (name, tag) == ("23.7k btd", "float64"):
+                # the run phase 16 post-processes
+                out[(name, tag)]["run"] = (state0, ref["res"][1], control, prop)
             if name == "23.7k btd":
                 err = rel_max(finals[tag], btd_res[tag]["exact_u"])
                 log(f"[integrate] {name} {tag}: trajectory error vs the exact-Jacobian run"
@@ -2817,6 +2901,355 @@ def phase_physics(torch, card, dev, head, btd_res, integ):
     return out
 
 
+def stateful_run(m, times, options=None):
+    """The reference's drive of a run: each step ``m.dt`` (the run's own
+    step, as the eager loop takes it), ``solve_state1`` from the model's
+    state, then ``set_ini_state``.  Returns the states and Newton counts."""
+    states, iters = [], []
+    state = m.state0
+    for dt in np.diff(np.asarray(times, dtype=np.float64)):
+        m.dt = float(dt)
+        state, info = m.solve_state1(state, options)
+        m.set_ini_state(state)
+        states.append(state)
+        iters.append(info["num_iter"])
+    return states, iters
+
+
+def api_golden(torch, dev):
+    """The M5 CAD golden through the stateful loop: ``set_prop`` /
+    ``set_control`` / ``dt``, then ``solve_state1`` and ``set_ini_state``
+    each step, against ``golden_m5cad_explicit.npz`` and the eager loop of
+    the same model; host ms a step of both."""
+    import time
+
+    from vf_fem_tpu_torch import forward
+
+    data = np.load(os.path.join(REPO, "tests", "data", "golden_m5cad_explicit.npz"))
+    times = data["times"]
+    model, state0, cs, prop = build(torch, dev, "M5_CB_GA3.msh", torch.float64)
+    m = model
+    m.set_prop(prop)
+    m.set_control({k: v[0] for k, v in cs.items()})
+    m.set_ini_state(state0)
+    torch.cuda.synchronize()
+    reset_launches()
+    m.solid.predictor_counts.update(carried=0, formed=0)
+    t = time.perf_counter()
+    states, iters = stateful_run(m, times)
+    n_steps = len(states)
+    ms = (time.perf_counter() - t) * 1e3 / n_steps
+    launches = read_launches()
+    preds = predictors(m)
+    require_launched(launches, ("gather", "scatter", "newmark"), "api golden")
+    t = time.perf_counter()
+    _, traj, infos = forward._integrate_eager(m, state0, cs, prop, times)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t) * 1e3 / n_steps
+    stateful = {k: np.stack([x[k] for x in states]) for k in states[0]}
+    u = stateful["u"][::8]
+    np.testing.assert_allclose(u, data["u"], rtol=1e-8, atol=1e-12)
+    np.testing.assert_allclose(stateful["q"].ravel(), data["q"], rtol=1e-8)
+    np.testing.assert_allclose(stateful["p"][-1], data["p_final"], rtol=1e-8, atol=1e-8)
+    eager = {k: v.cpu().numpy() for k, v in traj.items()}
+    bit_equal = all(np.array_equal(stateful[k], eager[k]) for k in eager)
+    worst = max(float(np.abs(stateful[k] - eager[k]).max() / max(np.abs(eager[k]).max(), 1e-300))
+                for k in eager)
+    require(worst <= API_EAGER_REL, f"api golden: stateful vs eager {worst:.3e}")
+    require(iters == [int(x) for x in infos.num_iter.cpu()], "api golden: Newton counts differ")
+    log(f"[api] M5_CB_GA3 golden through solve_state1 / set_ini_state, {n_steps} steps f64:"
+        f" max|du| {np.abs(u - data['u']).max():.3e} (max|u| {np.abs(data['u']).max():.3e}),"
+        f" against the eager loop {worst:.3e} (bit-equal {bit_equal}; gate {API_EAGER_REL:.0e}),"
+        f" Newton iterations {sum(iters)} (eager the same); stateful {ms:.3f} ms a step, eager"
+        f" {eager_ms:.3f} (host clock); predictors {preds}; launches {launches}")
+    return dict(launches=launches, n_steps=n_steps, ms=ms, eager_ms=eager_ms,
+                bit_equal=bit_equal, err=worst)
+
+
+def _seed_solid(solid, seed=0):
+    """The unit API test's draws (tests/test_transient_api.py:14-29) on a
+    solid: state0 and state1 1e-4 N(0, 1), p1 500 U(0, 1), dt 1e-4; the
+    contact plane API_CONTACT_DEPTH below the medial surface, so that the
+    cubic penalty is engaged (without it the residual is affine in the
+    state and the Taylor remainder is rounding alone)."""
+    ymax = solid.residual.mesh().coords[:, 1].max()
+    solid.prop["ycontact"][:] = ymax - API_CONTACT_DEPTH
+    solid.set_prop(solid.prop)
+    rng = np.random.default_rng(seed)
+    for name, scale, normal in (("state0", 1e-4, True), ("state1", 1e-4, True),
+                                ("control", 500.0, False)):
+        vec = getattr(solid, name)
+        getattr(solid, {"state0": "set_ini_state", "state1": "set_fin_state",
+                        "control": "set_control"}[name])(
+            {k: scale * (rng.standard_normal(v.size) if normal else rng.random(v.size))
+             for k, v in vec.items()})
+    solid.dt = 1e-4
+
+
+def api_derivatives(torch, dev):
+    """The derivative API at M5 width (M5_3layers, 960 dofs) in f64 on the
+    card: each block of ``assem_res`` and the three ``assem_dres_d*``
+    against the same calls on the CPU, Taylor orders, the
+    ``solve_dres_dstate1`` round trip and the adjoint's duality."""
+    import time
+
+    from vf_fem_tpu_torch.misc.taylor import taylor_convergence
+    from vf_fem_tpu_torch.models.dynamical import to_mono
+
+    solids = {}
+    for where in (dev, "cpu"):
+        model = build(torch, where, "M5_3layers.msh", torch.float64)[0]
+        solid = model.solid
+        solid.set_prop({k: model.prop[k] for k in solid.prop})
+        _seed_solid(solid)
+        solids[str(where)] = solid
+    card, host = solids[str(dev)], solids["cpu"]
+    out = {}
+    for name in ("assem_res", "assem_dres_dstate1", "assem_dres_dstate0", "assem_dres_dcontrol"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = getattr(card, name)()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        ref = getattr(host, name)()
+        worst = 0.0
+        for key, r in ref.items():
+            r = np.asarray(r.cpu() if hasattr(r, "cpu") else r)
+            g = np.asarray(got[key].cpu() if hasattr(got[key], "cpu") else got[key])
+            scale = np.abs(r).max()
+            err = float(np.abs(g - r).max() / scale) if scale > 0 else float(np.abs(g).max())
+            worst = max(worst, err)
+        require(worst <= API_CPU_REL, f"api {name}: card vs CPU {worst:.3e}")
+        shape = (tuple(to_mono(got).shape) if name != "assem_res"
+                 else (sum(v.size for v in got.values()),))
+        out[name] = dict(err=worst, ms=ms)
+        log(f"[api] M5_3layers {name} {shape}: card vs CPU {worst:.3e} of each block's largest"
+            f" entry (gate {API_CPU_REL:.0e}), {ms:.1f} ms on the card")
+
+    def flat(d):
+        return np.concatenate([np.asarray(v).reshape(-1) for v in d.values()])
+
+    def unflat(like, x):
+        out, i = {}, 0
+        for k, v in like.items():
+            out[k] = x[i:i + v.size].reshape(v.shape)
+            i += v.size
+        return out
+
+    rng = np.random.default_rng(1)
+    for name, setter, assem, scale in (
+            ("state1", card.set_fin_state, card.assem_dres_dstate1, 1e-5),
+            ("state0", card.set_ini_state, card.assem_dres_dstate0, 1e-5),
+            ("control", card.set_control, card.assem_dres_dcontrol, 1.0)):
+        like = {k: v.copy() for k, v in getattr(card, name).items()}
+        x0 = flat(like)
+        dx = scale * rng.standard_normal(x0.size)
+
+        def f(x, setter=setter, like=like):
+            setter(unflat(like, x))
+            return flat(card.assem_res())
+
+        def jac(x, d, setter=setter, like=like, assem=assem):
+            setter(unflat(like, x))
+            return to_mono(assem()).cpu().numpy() @ d
+
+        errors, _ = taylor_convergence(x0, dx, f, jac)
+        rounding = 64 * np.finfo(np.float64).eps * float(np.linalg.norm(f(x0)))
+        setter(like)
+        rates = np.log2(errors[:-1] / errors[1:])
+        # an affine residual (in state0 and p1) leaves a remainder of rounding
+        # alone, which does not shrink with the step and says nothing of an
+        # order: it must stay under the rounding of the residual
+        affine = bool(errors[0] < 4 * errors[-1])
+        require(errors.max() <= rounding if affine
+                else float(np.min(rates)) >= API_TAYLOR_ORDER,
+                f"api taylor d/d{name}: errors {errors}, orders {rates}")
+        out[f"taylor {name}"] = rates
+        log(f"[api] Taylor d/d{name} on the card: errors {np.array2string(errors, precision=3)},"
+            f" orders {np.array2string(rates, precision=3)}"
+            + (f" (affine: the remainder is rounding, under 64 eps |R| = {rounding:.3e})"
+               if affine
+               else f" (gate >= {API_TAYLOR_ORDER})"))
+
+    A = card.assem_dres_dstate1()
+    b = unflat(card.state1, rng.standard_normal(flat(card.state1).size))
+    x = card.solve_dres_dstate1(A, card.state1, b)
+    Ax = to_mono(A).cpu().numpy() @ flat(x)
+    np.testing.assert_allclose(Ax, flat(b), **API_ROUNDTRIP)
+    b2 = unflat(card.state1, rng.standard_normal(flat(card.state1).size))
+    x2 = card.solve_dres_dstate1_adj(A, card.state1, b2)
+    lhs, rhs = float(np.dot(flat(b2), flat(x))), float(np.dot(flat(x2), flat(b)))
+    duality = abs(lhs - rhs) / abs(rhs)
+    require(duality <= API_DUALITY_RTOL, f"api duality {duality:.3e}")
+    rt = float(np.abs(Ax - flat(b)).max() / np.abs(flat(b)).max())
+    log(f"[api] solve_dres_dstate1 round trip max|A x - b| / max|b| {rt:.3e} (gate rtol"
+        f" {API_ROUNDTRIP['rtol']:.0e}, atol {API_ROUNDTRIP['atol']:.0e}); adjoint duality"
+        f" {duality:.3e} (gate {API_DUALITY_RTOL:.0e})")
+    out.update(roundtrip=rt, duality=duality)
+    return out
+
+
+def api_large(torch, large):
+    """``solve_state1`` at 23.7k in f64: 5 stateful steps with each of
+    'btd' (K6), 'bsb' (K4) and 'cg' (K3), each against the eager loop on
+    the same settings at refresh 1, with the kernels each must launch."""
+    import time
+
+    from vf_fem_tpu_torch import forward
+
+    model, state0, cs, prop = large
+    m = model
+    m.set_prop(prop)
+    m.set_control({k: v[0] for k, v in cs.items()})
+    times = DT * np.arange(API_LARGE_STEPS + 1)
+    out = {}
+    for solver, (params, kernel) in API_LARGE.items():
+        m.set_ini_state(state0)
+        m.solid.krylov_counts.update(solves=0, iterations=0)
+        m.solid.predictor_counts.update(carried=0, formed=0)
+        torch.cuda.synchronize()
+        reset_launches()
+        t = time.perf_counter()
+        states, iters = stateful_run(m, times, params)
+        ms = (time.perf_counter() - t) * 1e3 / API_LARGE_STEPS
+        launches = read_launches()
+        krylov = dict(m.solid.krylov_counts)
+        preds = predictors(m)
+        what = f"api 23.7k solve_state1 {solver}"
+        require_launched(launches, ("gather", "scatter", "newmark", kernel), what)
+        t = time.perf_counter()
+        _, traj, infos = forward._integrate_eager(m, state0, cs, prop, times, params)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t) * 1e3 / API_LARGE_STEPS
+        eager = {k: v.cpu().numpy() for k, v in traj.items()}
+        stateful = {k: np.stack([x[k] for x in states]) for k in eager}
+        require(all(np.isfinite(v).all() for v in stateful.values()), f"{what}: non-finite")
+        bit_equal = all(np.array_equal(stateful[k], eager[k]) for k in eager)
+        worst = max(float(np.abs(stateful[k] - eager[k]).max()
+                          / max(np.abs(eager[k]).max(), 1e-300)) for k in eager)
+        require(worst <= API_EAGER_REL, f"{what}: against the eager loop {worst:.3e}")
+        log(f"[api] 23.7k solve_state1 {solver}, {API_LARGE_STEPS} steps f64: against the eager"
+            f" loop {worst:.3e} (bit-equal {bit_equal}), Newton {iters} (eager"
+            f" {[int(x) for x in infos.num_iter.cpu()]}), Krylov {krylov}, predictors {preds};"
+            f" {ms:.2f} ms a step (eager {eager_ms:.2f}, host clock); launches {launches}")
+        out[solver] = dict(launches=launches, n_steps=API_LARGE_STEPS, ms=ms, eager_ms=eager_ms,
+                           bit_equal=bit_equal, err=worst)
+    return out
+
+
+def api_postprocess(torch, large, integ):
+    """``TimeSeries`` of every measure of tests/test_functional.py:100-119
+    and ``FieldStats(StressVonMisesField)`` over phase 8's 23.7k production
+    f64 run (101 states, in memory), on the card: against its per-state
+    loop on the card and the same series on the CPU."""
+    import time
+
+    from vf_fem_tpu_torch.postprocess import TimeSeries
+    from vf_fem_tpu_torch.postprocess import solid as psl
+
+    state0, traj, control, prop = integ[("23.7k btd", "float64")]["run"]
+    card_model = large[0]
+    host_model = build(torch, "cpu", LARGE_MESH, torch.float64)[0]
+    readers = (RunReader(state0, traj, control, prop),
+               RunReader(state0, {k: v.cpu() for k, v in traj.items()}, control, prop))
+
+    def measures(model):
+        out = {name: getattr(psl, name)(model) for name in API_MEASURES}
+        out["FieldStats(StressVonMisesField)"] = psl.FieldStats(
+            model, psl.StressVonMisesField(model))
+        return out
+
+    def worst_rel(a, b, scale=None):
+        if isinstance(b, dict):
+            # FieldStats: its max, min and avg at the field's scale (the
+            # least-stressed cell's value comes from a cancellation), its
+            # total at its own
+            field = np.abs(b["max"]).max()
+            return max(worst_rel(a[k], b[k], None if k == "total" else field) for k in b)
+        scale = np.abs(b).max() if scale is None else scale
+        return float(np.abs(a - b).max() / scale) if scale > 0 else float(np.abs(a).max())
+
+    card_ms, rows = {}, []
+    for (name, meas), host_meas in zip(measures(card_model).items(),
+                                       measures(host_model).values()):
+        series = TimeSeries(meas)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = series(readers[0])
+        torch.cuda.synchronize()
+        card_ms[name] = (time.perf_counter() - t) * 1e3
+        loop = series.assem_loop(readers[0], range(readers[0].size))
+        host = TimeSeries(host_meas)(readers[1])
+        err_loop, err_host = worst_rel(got, loop), worst_rel(got, host)
+        finite = (all(np.isfinite(v).all() for v in got.values()) if isinstance(got, dict)
+                  else bool(np.isfinite(got).all()))
+        require(finite, f"api series {name}: non-finite")
+        require(err_loop <= SERIES_REL and err_host <= SERIES_REL,
+                f"api series {name}: vmap vs loop {err_loop:.3e}, card vs CPU {err_host:.3e}")
+        rows.append(f"{name} {card_ms[name]:.2f} ms ({err_loop:.1e} / {err_host:.1e})")
+    log(f"[api] 23.7k TimeSeries of {len(rows)} measures over {readers[0].size} states f64 on"
+        f" the card, ms a series (vmap vs loop / card vs CPU, gate {SERIES_REL:.0e} of each"
+        f" series' largest entry, FieldStats' max, min and avg of the field's): "
+        + "; ".join(rows))
+    return card_ms
+
+
+def api_phonation(torch, dev, card):
+    """The M5 CAD model at psub 6000 Ba (``PHONATION``), 1,200 steps on the
+    headline settings in the step graph: the minimum glottal width's
+    series on the card and its f0 against the JAX package's f64 CPU run
+    (``tests/data/golden_phonation_m5.npz``)."""
+    from vf_fem_tpu_torch import forward
+    from vf_fem_tpu_torch.misc.signal import fundamental_mode_from_rfft, is_oscillating
+    from vf_fem_tpu_torch.postprocess import TimeSeries
+    from vf_fem_tpu_torch.postprocess.solid import MinGlottalWidthFromSolid
+
+    gold = np.load(os.path.join(REPO, "tests", "data", "golden_phonation_m5.npz"))
+    cfg = PHONATION
+    model, state0, _, prop = build(torch, dev, cfg["mesh"], torch.float64, cfg["solid"],
+                                   cfg["fluid"])
+    model.control["psub"][:] = cfg["psub"]
+    cs = {k: v[None] for k, v in model.control.items()}
+    n_steps, dt = cfg["n_steps"], cfg["dt"]
+    times = dt * np.arange(n_steps + 1)
+
+    def run():
+        return forward.integrate_pure(model, state0, cs, prop, times, HEADLINE)
+
+    run()  # warm-up: captures the step
+    (_, traj, infos), ms, launches, _ = run_timed(torch, model, run)
+    reader = RunReader(state0, traj, model.control, prop)
+    gw = TimeSeries(MinGlottalWidthFromSolid(model))(reader)[1:]
+    require(np.isfinite(gw).all(), "api phonation: non-finite width")
+    steady = gw[n_steps // 3:]
+    f0, amp = fundamental_mode_from_rfft(steady, dt)
+    bin_hz = 1.0 / (len(steady) * dt)
+    ref = gold["gw"]
+    dev_gw = float(np.abs(gw[:PHONATION_GW_STEPS] - ref[:PHONATION_GW_STEPS]).max()
+                   / np.abs(ref).max())
+    dev_all = float(np.abs(gw - ref).max() / np.abs(ref).max())
+    log(f"[api] phonation M5_CB_GA3 psub {cfg['psub']:.0f} Ba, {n_steps} steps at dt {dt:g} f64"
+        f" (graph): f0 {f0:.3f} Hz (JAX CPU {float(gold['f0']):.3f}; rfft bin {bin_hz:.3f} Hz),"
+        f" amplitude {amp:.5e} cm (JAX {float(gold['amplitude']):.5e}), oscillating"
+        f" {is_oscillating(gw)}; width vs JAX over {PHONATION_GW_STEPS} steps {dev_gw:.3e} of"
+        f" max|gw| (gate {PHONATION_GW_REL:.0e}), over all {dev_all:.3e}; gw in"
+        f" [{gw.min():.4e}, {gw.max():.4e}] cm; {n_steps / (ms / 1e3):.2f} steps/s (CUDA events),"
+        f" launches {launches}; on {card}")
+    require(abs(f0 - float(gold["f0"])) <= bin_hz, "api phonation: f0 off the JAX run's")
+    require(dev_gw <= PHONATION_GW_REL, "api phonation: width off the JAX run's")
+    require(amp > 1e-4, "api phonation: no oscillation")
+    return dict(launches=launches, n_steps=n_steps, f0=f0, steps_s=n_steps / (ms / 1e3))
+
+
+def phase_api(torch, card, dev, large, integ):
+    """Phase 16: the stateful model API and the post-processing (the
+    functions above, in order)."""
+    return dict(golden=api_golden(torch, dev), derivatives=api_derivatives(torch, dev),
+                large=api_large(torch, large["float64"]),
+                series_ms=api_postprocess(torch, large["float64"], integ),
+                phonation=api_phonation(torch, dev, card))
+
+
 def build_fsai(torch, dev, dtype, large=False):
     """An FSAI model (``load.load_fsai_model``): the M5 golden's
     configuration (tests/make_golden_fsai.py), or with ``large`` the 23.7k
@@ -3532,6 +3965,7 @@ def run_phases(torch, name, card, dev, t0, mesher, m5qz):
     m94 = timed("mesh94k", phase_mesh94k, torch, card, dev, mesher)
     hopf = timed("hopf", phase_hopf, torch, card, dev, m5qz)
     phys = timed("physics", phase_physics, torch, card, dev, head, btd_res, integ)
+    api = timed("api", phase_api, torch, card, dev, large, integ)
 
     # per kernel: the timing at the 23.7k shapes of the btd main path (f64)
     timing = {
@@ -3569,7 +4003,11 @@ def run_phases(torch, name, card, dev, t0, mesher, m5qz):
             ("23.7k hopf (a point)", hopf[HOPF_PSUBS[0]]["launches"], 1),
             ("M5 physics swelling", phys["swelling"]["launches"], N_STEPS),
             ("M5 physics rayleigh", phys["rayleigh"]["launches"], N_STEPS),
-            ("23.7k physics btd", phys[("23.7k", "float64")]["launches"], N_STEPS)]
+            ("23.7k physics btd", phys[("23.7k", "float64")]["launches"], N_STEPS),
+            ("M5 stateful golden", api["golden"]["launches"], api["golden"]["n_steps"]),
+            *((f"23.7k solve_state1 {k}", v["launches"], v["n_steps"])
+              for k, v in api["large"].items()),
+            ("M5 phonation", api["phonation"]["launches"], api["phonation"]["n_steps"])]
     path = {  # the main-path run whose count is this kernel's ``launches``
         "gather": runs[0][1], "scatter": runs[0][1], "newmark": runs[0][1],
         "btd_sweep": runs[1][1], "ebe_matvec": runs[3][1], "bsb_matvec": runs[2][1],

@@ -1485,3 +1485,62 @@ def test_fixed_sep_graph_equals_eager(cuda, solid, fluid):
     assert _same_run(graph, eager)
     assert banded.LAUNCHES["gather"] > 0 and banded.LAUNCHES["scatter"] > 0
     assert ops.LAUNCHES["newmark"] == 30
+
+
+def _reset_launches():
+    banded.LAUNCHES.update(dict.fromkeys(banded.LAUNCHES, 0))
+    ops.LAUNCHES.update(dict.fromkeys(ops.LAUNCHES, 0))
+
+
+@pytest.mark.parametrize("options", [None, {"fixed_iterations": 2,
+                                            "jacobian_update": "once_per_step"}])
+def test_solve_state1_matches_step_pure_on_cuda(cuda, options):
+    """The stateful ``solve_state1`` is the model's step function on the
+    card: from the same state (5 steps off rest), control, properties and
+    dt it gives ``step_pure``'s state bit for bit and the same Newton
+    count, with K1, K2 and K5 launched."""
+    import chip_smoke as cs
+    from vf_fem_tpu_torch.convert import to_tensors
+
+    model, state0, controls, prop = cs.build(torch, cuda, "M5_CB_GA3.msh", torch.float64)
+    _, traj, _ = forward.integrate_pure(model, state0, controls, prop, cs.DT * np.arange(6))
+    state = {k: v[-1].cpu().numpy() for k, v in traj.items()}
+    control = {k: v[0] for k, v in controls.items()}
+    model.set_ini_state(state)
+    model.set_control(control)
+    model.set_prop(prop)
+    model.dt = cs.DT
+    _reset_launches()
+    out, info = model.solve_state1(model.state0, options)
+    torch.cuda.synchronize()
+    assert banded.LAUNCHES["gather"] > 0 and banded.LAUNCHES["scatter"] > 0
+    assert ops.LAUNCHES["newmark"] == 1
+    args = [to_tensors(d, cuda, torch.float64) for d in (state, control, prop)]
+    with torch.no_grad():
+        ref, ref_info = model.step_pure(*args, cs.DT, options)
+    for k, v in ref.items():
+        np.testing.assert_array_equal(out[k], v.cpu().numpy(), err_msg=k)
+    assert info["num_iter"] == int(ref_info.num_iter)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_timeseries_vmap_matches_loop_on_cuda(cuda, dtype):
+    """``TimeSeries`` as one vmap over a stored run on the card against its
+    per-state loop, for a field (von Mises stress) and a reduction (the
+    minimum glottal width): 12 steps of the M5-3layers headline model read
+    in memory (``chip_smoke.RunReader``); within 1e-12 (f64) or 1e-5
+    (f32) of the series' largest entry."""
+    import chip_smoke as cs
+    from vf_fem_tpu_torch.postprocess import TimeSeries
+    from vf_fem_tpu_torch.postprocess import solid as psl
+
+    model, state0, controls, prop = cs.build(torch, cuda, "M5_3layers.msh", dtype)
+    _, traj, _ = forward.integrate_pure(model, state0, controls, prop, cs.DT * np.arange(13))
+    reader = cs.RunReader(state0, traj, {k: v[0] for k, v in controls.items()}, prop)
+    rel = 1e-12 if dtype == torch.float64 else 1e-5
+    for measure in (psl.StressVonMisesField(model), psl.MinGlottalWidthFromSolid(model)):
+        series = TimeSeries(measure)
+        batched = series(reader)
+        loop = series.assem_loop(reader, range(reader.size))
+        assert batched.shape[0] == reader.size and np.all(np.isfinite(batched))
+        np.testing.assert_allclose(batched, loop, rtol=rel, atol=rel * np.abs(loop).max())

@@ -59,6 +59,12 @@ def test_import_leaves_jax_unloaded():
         "import vf_fem_tpu_torch.fem.forms, vf_fem_tpu_torch.fem.continuum\n"
         "import vf_fem_tpu_torch.fem.elements, vf_fem_tpu_torch.residuals.solid\n"
         "import vf_fem_tpu_torch.residuals.fluid, vf_fem_tpu_torch.mesh.interface\n"
+        "import vf_fem_tpu_torch.postprocess, vf_fem_tpu_torch.postprocess.solid\n"
+        "import vf_fem_tpu_torch.postprocess.fluid, vf_fem_tpu_torch.vis\n"
+        "import vf_fem_tpu_torch.vis.vis, vf_fem_tpu_torch.vis.xdmfutils\n"
+        "import vf_fem_tpu_torch.utils, vf_fem_tpu_torch.constants\n"
+        "import vf_fem_tpu_torch.misc.signal, vf_fem_tpu_torch.mesh.dofmaps\n"
+        "import vf_fem_tpu_torch.equations.newmark, vf_fem_tpu_torch.models.transient\n"
         f"bad = [m for m in set(sys.modules) - before"
         f" if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"

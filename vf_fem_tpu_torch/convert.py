@@ -49,6 +49,13 @@ def from_blocks(bvec) -> dict:
     return {k: np.array(v) for k, v in bvec.sub_items()}
 
 
+def as_dict(vec) -> dict:
+    """A vector as ``{label: array or tensor}``: a dict as it is, anything
+    with ``sub_items()`` (the JAX package's BlockVector) by
+    :func:`from_blocks`."""
+    return from_blocks(vec) if hasattr(vec, "sub_items") else vec
+
+
 def to_blocks(d: dict, like):
     """The port's vector ``d`` ({label: array or tensor}) as a copy of the
     block vector ``like`` with each of its blocks taken from ``d``: the

@@ -89,3 +89,51 @@ def newmark_v(u, u0, v0, a0, dt, gamma=1 / 2, beta=1 / 4):
 def newmark_a(u, u0, v0, a0, dt, gamma=1 / 2, beta=1 / 4):
     """Acceleration update."""
     return acceleration_k(u, u0, v0, a0, coefficients(dt, gamma=gamma, beta=beta))
+
+
+# -- hand derivatives of the relations (the stateful model API's block
+# Jacobians, ``SolidModel.assem_dres_dstate1`` / ``assem_dres_dstate0``)
+
+def newmark_v_du1(dt, gamma=1 / 2, beta=1 / 4):
+    return gamma / beta / dt
+
+
+def newmark_v_du0(dt, gamma=1 / 2, beta=1 / 4):
+    return -gamma / beta / dt
+
+
+def newmark_v_dv0(dt, gamma=1 / 2, beta=1 / 4):
+    return -(gamma / beta - 1.0)
+
+
+def newmark_v_da0(dt, gamma=1 / 2, beta=1 / 4):
+    return -dt * (gamma / 2.0 / beta - 1.0)
+
+
+def newmark_v_dt(u, u0, v0, a0, dt, gamma=1 / 2, beta=1 / 4):
+    return -gamma / beta / dt**2 * (u - u0) - (gamma / 2.0 / beta - 1.0) * a0
+
+
+def newmark_a_du1(dt, gamma=1 / 2, beta=1 / 4):
+    return 1.0 / beta / dt**2
+
+
+def newmark_a_du0(dt, gamma=1 / 2, beta=1 / 4):
+    return -1.0 / beta / dt**2
+
+
+def newmark_a_dv0(dt, gamma=1 / 2, beta=1 / 4):
+    return -1.0 / beta / dt
+
+
+def newmark_a_da0(dt, gamma=1 / 2, beta=1 / 4):
+    return -(1 / 2 / beta - 1)
+
+
+def newmark_a_dt(u, u0, v0, a0, dt, gamma=1 / 2, beta=1 / 4):
+    return -2 / beta / dt**3 * (u - u0 - dt * v0) + 1 / beta / dt**2 * (-v0)
+
+
+def newmark_error_estimate(a1, a0, dt, beta=1 / 4):
+    """Zienkiewicz–Xie local error estimate."""
+    return 0.5 * dt**2 * (2 * beta - 1 / 3) * (a1 - a0)

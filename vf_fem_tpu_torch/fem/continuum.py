@@ -65,3 +65,19 @@ def pullback_area_normal(grad_u: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     detF = det2(F)
     Finv = inv2(F)
     return detF[..., None] * torch.einsum("...ji,...j->...i", Finv, n)
+
+
+def positive_gap(gap: torch.Tensor) -> torch.Tensor:
+    """Macaulay bracket <gap>."""
+    return torch.clamp(gap, min=0.0)
+
+
+def pressure_contact_cubic_penalty(gap, kcoll):
+    """Cubic penalty contact pressure ``kcoll <gap>^3``."""
+    return kcoll * positive_gap(gap) ** 3
+
+
+def dform_cubic_penalty_pressure(gap, kcoll):
+    """The contact pressure's derivative in the gap and ``<gap>^3``."""
+    pg = positive_gap(gap)
+    return kcoll * 3 * pg**2 * torch.sign(gap), pg**3

@@ -187,6 +187,18 @@ class Mesh:
         bset[self.boundary_facets] = True
         return facets[bset[facets]]
 
+    # -- element type helpers (``mesh.dofmaps``) -----------------------------
+    def element_type_dim(self, element_type) -> int:
+        if isinstance(element_type, (int, np.integer)):
+            return int(element_type)
+        mapping = {
+            "vertex": 0,
+            "edge": 1,
+            "facet": self.dim - 1,
+            "cell": self.dim,
+        }
+        return mapping[element_type]
+
 
 def sort_vertices_by_nearest_neighbours(
     vertex_coordinates: np.ndarray, origin: Optional[np.ndarray] = None

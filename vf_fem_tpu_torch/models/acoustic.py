@@ -29,8 +29,9 @@ import numpy as np
 import torch
 
 from .. import config
-from ..convert import to_tensors
+from ..convert import to_numpy, to_tensors
 from ..solvers.newton import SolveInfo
+from .transient import BaseTransientModel
 
 
 def make_wra_parts(n_tube: int):
@@ -157,7 +158,7 @@ def make_wra_step(n_tube: int):
     return step
 
 
-class WRAnalog:
+class WRAnalog(BaseTransientModel):
     """Transient WRA tract model (``vf_fem_tpu.models.acoustic.WRAnalog``):
     state ``{pinc, pref}``, control ``{qin}``, the properties of the module
     docstring, as dicts of numpy arrays (defaults: a 17.46 cm tract of unit
@@ -171,6 +172,7 @@ class WRAnalog:
         self.device, self.dtype = config.model_device(device), dtype
         n_junc2 = (num_tube // 2 + 1) * 2
         self.state0 = {"pinc": np.zeros(n_junc2), "pref": np.zeros(n_junc2)}
+        self.state1 = {"pinc": np.zeros(n_junc2), "pref": np.zeros(n_junc2)}
         self.control = {"qin": np.zeros(1)}
         self.prop = {
             "length": np.full(1, 17.46),  # tract length ~17.5 cm
@@ -200,6 +202,19 @@ class WRAnalog:
         zero = pinc1.new_zeros(())
         info = SolveInfo(torch.zeros((), dtype=torch.int64, device=pinc1.device), zero, zero)
         return {"pinc": pinc1, "pref": pref1}, info
+
+    def solve_state1(self, state1=None, options=None):
+        """The tract's step from the model's ``state0`` under its ``control``
+        and ``prop`` (there is nothing to solve: the info is empty)."""
+        state0, control, prop = self._tensors(self.state0, self.control, self.prop)
+        with torch.no_grad():
+            out, _ = self.step_pure(state0, control, prop, self.dt)
+        return to_numpy(out), {}
+
+    def assem_res(self) -> dict:
+        """``state1`` minus the step's update."""
+        out, _ = self.solve_state1()
+        return {k: self.state1[k] - out[k] for k in ("pinc", "pref")}
 
 
 def input_and_output_impedance(model: WRAnalog, n: int = 2**12):

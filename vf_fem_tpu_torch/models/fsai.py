@@ -39,7 +39,8 @@ import torch
 from torch.func import jvp
 
 from .acoustic import WRAnalog, make_wra_parts
-from .transient import ExplicitFSIModel
+from ..convert import to_numpy
+from .transient import BaseTransientModel, ExplicitFSIModel, copy_into, info_dict
 
 __all__ = ["ExplicitFSAIModel", "FSAISolveInfo", "solve_flow_root"]
 
@@ -121,7 +122,7 @@ def solve_flow_root(fluid_at, q0, n_expand=6, n_bisect=20):
     return fluid_at(q_out), bracketed
 
 
-class ExplicitFSAIModel:
+class ExplicitFSAIModel(BaseTransientModel):
     """Two-way coupled FSI + WRA acoustics.
 
     State ``{u, v, a, q, p, pinc, pref}``; control: the FSI model's without
@@ -144,6 +145,7 @@ class ExplicitFSAIModel:
         self.solid, self.fluid = fsi.solid, fsi.fluid
         self.device, self.dtype = fsi.device, fsi.dtype
         self.state0 = {**fsi.state0, **acoustic.state0}
+        self.state1 = {**fsi.state1, **acoustic.state1}
         self._ext_control_keys = [k for k in fsi.control if k != "psup"]
         self.control = {k: fsi.control[k] for k in self._ext_control_keys}
         self._ac_prop_keys = list(acoustic.prop)
@@ -191,12 +193,14 @@ class ExplicitFSAIModel:
         return ({**uva1, **qp1, "pinc": pinc1, "pref": pref1},
                 FSAISolveInfo(*info, bracketed))
 
-    def step_pure(self, state0, control, prop, dt, params=None, dt_next=None):
+    def step_pure(self, state0, control, prop, dt, params=None, dt_next=None,
+                  guess=None):
         """One coupled step, the solid re-assembling its Jacobian in each
-        solve (``dt_next`` as in ``ExplicitFSIModel.step_pure``)."""
+        solve (``dt_next`` and ``guess`` as in
+        ``ExplicitFSIModel.step_pure``)."""
         sl_state0, sl_control, sl_prop = self.fsi._solid_inputs(state0, prop)
         uva1, info = self.solid.solve_state1_pure(sl_state0, sl_control, sl_prop, dt,
-                                                  params, dt_next)
+                                                  params, dt_next, guess)
         return self._couple(uva1, info, state0, control, prop, params)
 
     def factorize(self, state0, control, prop, dt, params=None):
@@ -224,13 +228,13 @@ class ExplicitFSAIModel:
                                                   row, params, factors)
         return self._couple(uva1, info, state0, control, prop, params)
 
-    def res_pure(self, state1, state0, control, prop, dt):
+    def res_pure(self, state1, state0, control, prop, dt, banded=False):
         """The coupled step's residual of every block at ``state1``: the
         solid's under the previous step's pressure, the fluid's at the
         tract's input pressure ``psup(q1)``, the tract's update."""
         sl_state0, sl_control, sl_prop = self.fsi._solid_inputs(state0, prop)
         res = self.solid.res_pure({k: state1[k] for k in ("u", "v", "a")}, sl_state0,
-                                  sl_control, sl_prop, dt)
+                                  sl_control, sl_prop, dt, banded)
         ac_prop = self._ac_prop(prop)
         _, fl_prop = self.fsi._split_prop(prop)
         pinc_1 = self._half(state0["pinc"], state0["pref"], ac_prop)
@@ -281,3 +285,30 @@ class ExplicitFSAIModel:
         ac_dt = self.acoustic.dt
         if abs(float(value) - ac_dt) > 1e-12 * ac_dt:
             raise ValueError(f"FSAI dt is locked to the tract: {ac_dt!r}")
+        self.fsi.dt = value
+
+    # -- the stateful API -------------------------------------------------------------
+    def set_prop(self, prop):
+        """Copy ``prop`` into the model's arrays (the FSI model's and the
+        tract's own), then into the FSI model's submodels."""
+        copy_into(self.prop, prop)
+        self.fsi.set_prop(self.fsi.prop)
+
+    def solve_state1(self, state1, options=None):
+        """One coupled step from the model's ``state0`` at the tract's
+        ``dt`` (:meth:`step_pure`, ``state1`` as in
+        ``ExplicitFSIModel.solve_state1``).  Returns numpy arrays and an
+        info dict of Python numbers."""
+        guess, state0, control, prop = self._tensors(state1, self.state0,
+                                                     self.control, self.prop)
+        with torch.no_grad():
+            out, info = self.step_pure(state0, control, prop, self.dt, options,
+                                       guess=guess)
+        return to_numpy(out), info_dict(info)
+
+    def assem_res(self) -> dict:
+        """The coupled step's residual of every block at ``state1``."""
+        args = self._tensors(self.state1, self.state0, self.control, self.prop)
+        with torch.no_grad():
+            return to_numpy(self.res_pure(*args, self.dt,
+                                          banded=self.solid.use_banded({})))

@@ -31,6 +31,17 @@ window's carried factors, ``adjoint_refine_tol``/``adjoint_refine_iters``,
 stopped on ``stagnation_ratio``; 'exact': full-precision factors rebuilt
 at u1 and one transposed solve; 'cg' and 'bsb' always take the latter, a
 transposed BiCGStab solve on K3T / K4T).
+
+The reference's stateful API (:class:`BaseTransientModel`): each model
+owns ``state0``, ``state1``, ``control`` and ``prop`` as {label: numpy
+array} dicts and a time step ``dt``; ``set_*`` copy into them key by key;
+``solve_state1(state1, options)`` is one step of the pure step function
+above on the model's device from those values, returning numpy dicts and
+an info dict of Python numbers; ``assem_res`` is the step residual at
+``state1``.  The solid adds the dense block derivatives
+``assem_dres_dstate1`` / ``_dstate0`` / ``_dcontrol`` (``{(row, col):
+tensor}``, M5-sized as in the reference) and the Newmark-structured
+solves ``solve_dres_dstate1`` / ``_adj``.
 """
 
 from __future__ import annotations
@@ -42,6 +53,7 @@ import torch
 from torch.func import jacfwd, jvp, vmap
 
 from .. import ops
+from ..convert import as_dict, to_numpy, to_tensors
 from ..equations import newmark
 from ..fem import assembly
 from ..residuals.base import FemResidual, FunctionalResidual
@@ -233,6 +245,73 @@ class _SolveStaticU1(torch.autograd.Function):
                                    for t in leaves)
 
 
+def copy_into(dst: dict, src) -> None:
+    """Copy each block of ``src`` (a dict of arrays or tensors, or a
+    BlockVector) into the numpy array of ``dst`` under the same label, in
+    place: every label of ``dst`` must be in ``src``."""
+    src = to_numpy(as_dict(src))
+    for k, a in dst.items():
+        a[...] = np.asarray(src[k]).reshape(a.shape)
+
+
+def info_dict(info) -> dict:
+    """A step's ``num_iter``, ``abs_err`` and ``rel_err`` as Python
+    numbers, in one read from the device."""
+    vals = torch.stack([torch.as_tensor(x).to(torch.float64)
+                        for x in (info.num_iter, info.abs_err, info.rel_err)]).tolist()
+    return {"num_iter": int(vals[0]), "abs_err": vals[1], "rel_err": vals[2]}
+
+
+class BaseTransientModel:
+    """One time step ``F(state1, state0, control, prop, dt)`` with the
+    reference's stateful API.  ``state0``, ``state1``, ``control`` and
+    ``prop`` are the model's own {label: numpy array} dicts; ``set_*``
+    copy a vector into them key by key (:func:`copy_into`), so
+    ``m.prop['emod'][:] = x; m.set_prop(m.prop)`` works as in the
+    reference.  ``assem_res`` and ``solve_state1`` run on the model's
+    device."""
+
+    @property
+    def dt(self):
+        raise NotImplementedError
+
+    def set_ini_state(self, state):
+        copy_into(self.state0, state)
+
+    def set_fin_state(self, state):
+        copy_into(self.state1, state)
+
+    def set_control(self, control):
+        copy_into(self.control, control)
+
+    def set_prop(self, prop):
+        copy_into(self.prop, prop)
+
+    def control_to_dict(self, control) -> dict:
+        return to_numpy(as_dict(control))
+
+    def prop_to_dict(self, prop) -> dict:
+        return to_numpy(as_dict(prop))
+
+    def _tensors(self, *vecs):
+        """Vectors as dicts of tensors on the model's device and dtype."""
+        return tuple(to_tensors(as_dict(v), self.device, self.dtype) for v in vecs)
+
+    def assem_res(self) -> dict:
+        raise NotImplementedError
+
+    def solve_state1(self, state1, options=None):
+        raise NotImplementedError
+
+
+def properties_vec_from_residual(residual: FemResidual) -> dict:
+    """The property vector of a residual's 'prop/*' coefficients, ``{name:
+    flat numpy array}`` of their defaults, in the coefficient order."""
+    defaults = residual.default_coefficients()
+    return {key.split("/", 1)[1]: np.asarray(defaults[key]).reshape(-1).copy()
+            for key in residual.coefficient_spec if key.startswith("prop/")}
+
+
 def _contact_traction(u1, X, n, y, k):
     """Cubic-penalty contact traction at the nodes (..., nv, dim)."""
     gap = (X + u1) @ n - y
@@ -264,7 +343,7 @@ class SolidElements:
         return self._bsb
 
 
-class SolidModel(SolidElements):
+class SolidModel(SolidElements, BaseTransientModel):
     """Transient solid with Newmark time discretization and nodal penalty
     contact."""
 
@@ -281,13 +360,10 @@ class SolidModel(SolidElements):
         self._has_p1 = "control/p1" in spec
 
         self.state0 = {k: np.zeros(self.ndof) for k in ("u", "v", "a")}
+        self.state1 = {k: np.zeros(self.ndof) for k in ("u", "v", "a")}
         self.control = {"p1": np.zeros(self.nvert)}
-        defaults = R.default_coefficients()
-        self.prop = {
-            key.split("/", 1)[1]: defaults[key].reshape(-1).copy()
-            for key in spec
-            if key.startswith("prop/")
-        }
+        self.prop = properties_vec_from_residual(R)
+        self._dt = 1.0
 
         self._init_elements()
         # static plans, built on first use: a Krylov model never builds the
@@ -312,6 +388,121 @@ class SolidModel(SolidElements):
     @property
     def residual(self) -> FemResidual:
         return self._residual
+
+    @property
+    def solid(self):
+        return self
+
+    @property
+    def XREF(self) -> np.ndarray:
+        """The flat reference coordinates in dof order."""
+        return np.asarray(self._residual.mesh().coords).reshape(-1)
+
+    @property
+    def dt(self):
+        return self._dt
+
+    @dt.setter
+    def dt(self, value):
+        self._dt = float(value)
+
+    # -- the stateful API -------------------------------------------------------------
+    def _oo_args(self):
+        """The model's ``state1``, ``state0``, ``control`` and ``prop`` as
+        tensors."""
+        return self._tensors(self.state1, self.state0, self.control, self.prop)
+
+    def assem_res(self) -> dict:
+        """The step residual of every block at ``state1`` (the banded
+        kernels where the mesh admits them)."""
+        with torch.no_grad():
+            return to_numpy(self.res_pure(*self._oo_args(), self.dt,
+                                          self.use_banded({})))
+
+    def assem_dres_dstate1(self) -> dict:
+        """The 3x3 block Jacobian in the final state: the dense Newton
+        Jacobian of the 'u' block and the Newmark identities of 'v' and
+        'a' (``{(row, col): tensor}``, dense: for models of M5 size)."""
+        state1, state0, control, prop = self._oo_args()
+        with torch.no_grad():
+            A = self.jac_u_dense(state1["u"], state0, control, prop, self.dt)
+        eye = torch.eye(self.ndof, dtype=A.dtype, device=A.device)
+        dt = self.dt
+        return {("u", "u"): A, ("u", "v"): torch.zeros_like(A), ("u", "a"): torch.zeros_like(A),
+                ("v", "u"): -newmark.newmark_v_du1(dt) * eye, ("v", "v"): eye.clone(),
+                ("v", "a"): torch.zeros_like(A),
+                ("a", "u"): -newmark.newmark_a_du1(dt) * eye, ("a", "v"): torch.zeros_like(A),
+                ("a", "a"): eye}
+
+    def assem_dres_dstate0(self) -> dict:
+        """The 3x3 block Jacobian in the initial state: the 'u' row by
+        ``jacfwd`` of the Newton residual, the 'v' and 'a' rows the Newmark
+        hand derivatives."""
+        state1, state0, control, prop = self._oo_args()
+        banded = self.use_banded({})
+        dt = self.dt
+        with torch.no_grad():
+            jac = jacfwd(lambda s0: self.res_u(state1["u"], s0, control, prop, dt,
+                                                banded))(state0)
+        eye = torch.eye(self.ndof, dtype=self.dtype, device=self.device)
+        out = {("u", k): jac[k] for k in ("u", "v", "a")}
+        for row, derivs in (("v", (newmark.newmark_v_du0, newmark.newmark_v_dv0,
+                                   newmark.newmark_v_da0)),
+                            ("a", (newmark.newmark_a_du0, newmark.newmark_a_dv0,
+                                   newmark.newmark_a_da0))):
+            for col, d in zip(("u", "v", "a"), derivs):
+                out[row, col] = -d(dt) * eye
+        return out
+
+    def assem_dres_dcontrol(self) -> dict:
+        """The block Jacobian in the control (``p1``): the 'u' row by
+        ``jacfwd``, zero 'v' and 'a' rows."""
+        state1, state0, control, prop = self._oo_args()
+        banded = self.use_banded({})
+        dt = self.dt
+        with torch.no_grad():
+            jac = jacfwd(lambda c: self.res_u(state1["u"], state0, c, prop, dt,
+                                               banded))(control)
+        out = {("u", k): v for k, v in jac.items()}
+        for row in ("v", "a"):
+            out.update({(row, k): torch.zeros_like(v) for k, v in jac.items()})
+        return out
+
+    def solve_dres_dstate1(self, dres_dstate1: dict, x, b) -> dict:
+        """``x`` with ``dres_dstate1 x = b``: one dense solve of the 'u'
+        block, then the Newmark rows explicitly.  The result is a new dict
+        (the reference's ``x``, the output's template, is not read)."""
+        A = dres_dstate1["u", "u"]
+        (b,) = self._tensors(b)
+        with torch.no_grad():
+            xu = linalg.dense_solve(A, b["u"])
+            xv = b["v"] - dres_dstate1["v", "u"] @ xu
+            xa = b["a"] - dres_dstate1["a", "u"] @ xu
+        return to_numpy({"u": xu, "v": xv, "a": xa})
+
+    def solve_dres_dstate1_adj(self, dres_dstate1_adj: dict, x, b) -> dict:
+        """``x`` with ``dres_dstate1^T x = b``: the transposed
+        Newmark-structured solve (``x`` as in :meth:`solve_dres_dstate1`)."""
+        J = dres_dstate1_adj
+        (b,) = self._tensors(b)
+        with torch.no_grad():
+            rhs = b["u"] - (J["v", "u"].mT @ b["v"] + J["a", "u"].mT @ b["a"])
+            xu = linalg.dense_solve_transpose(J["u", "u"], rhs)
+        return to_numpy({"u": xu, "v": b["v"], "a": b["a"]})
+
+    def solve_state1(self, state1, options=None):
+        """One step from the model's ``state0`` under its ``control``,
+        ``prop`` and ``dt`` (:meth:`solve_state1_pure`; ``options`` are its
+        solver parameters, and ``state1`` is Newton's start only with
+        ``initial_guess='given'``).  Returns ``(state1, info)``: a dict of
+        numpy arrays and ``num_iter``, ``abs_err``, ``rel_err`` as Python
+        numbers."""
+        guess, state0, control, prop = self._tensors(state1, self.state0,
+                                                     self.control, self.prop)
+        with torch.no_grad():
+            out, info = self.solve_state1_pure(state0, control, prop, self.dt,
+                                               options, guess=guess)
+        return to_numpy(out), info_dict(info)
 
     # -- fields ----------------------------------------------------------------
     def _prop_fields(self, prop: dict) -> dict:
@@ -905,19 +1096,47 @@ class SolidModel(SolidElements):
         return newton_solve(u_guess, assem, solve_jac, params_d)
 
 
-class FluidModel:
+class FluidModel(BaseTransientModel):
     """Quasi-steady fluid wrapping a :class:`FunctionalResidual`."""
 
     def __init__(self, residual: FunctionalResidual):
         self._residual = residual
+        self.device, self.dtype = residual.device, residual.dtype
         state, control, prop = residual.res_args
         self.state0 = {k: np.array(v, dtype=float) for k, v in state.items()}
+        self.state1 = {k: v.copy() for k, v in self.state0.items()}
         self.control = {k: np.array(v, dtype=float) for k, v in control.items()}
         self.prop = {k: np.array(v, dtype=float) for k, v in prop.items()}
+        self._dt = 1.0
 
     @property
     def residual(self) -> FunctionalResidual:
         return self._residual
+
+    @property
+    def fluid(self):
+        return self
+
+    @property
+    def dt(self):
+        return self._dt
+
+    @dt.setter
+    def dt(self, value):
+        self._dt = value
+
+    def assem_res(self) -> dict:
+        """The fluid residual at ``state1``."""
+        state1, control, prop = self._tensors(self.state1, self.control, self.prop)
+        with torch.no_grad():
+            return to_numpy(self.res_pure(state1, control, prop))
+
+    def solve_state1(self, state1=None, options=None):
+        """The quasi-steady state under the model's ``control`` and
+        ``prop`` (it depends on no state); the info is empty."""
+        proto, control, prop = self._tensors(self.state1, self.control, self.prop)
+        with torch.no_grad():
+            return to_numpy(self.solve_pure(control, prop, proto)), {}
 
     def res_pure(self, state, control, prop):
         """The fluid residual at ``state``."""
@@ -951,12 +1170,14 @@ def area_from_surface(x: torch.Tensor, ymid, n_area: int, solid_dofs: torch.Tens
     return area
 
 
-class ExplicitFSIModel:
+class ExplicitFSIModel(BaseTransientModel):
     """Staggered explicit coupling: the solid sees the previous step's
     fluid pressure; the fluid sees the current step's solid geometry.
 
     State ``{u, v, a, q, p}``; control ``{psub, psup}``; props = solid props
-    + fluid props + the coupling midline ``ymid``."""
+    + fluid props + the coupling midline ``ymid``.  ``dt`` is the solid's
+    and the fluid's; :meth:`set_prop` also sets each submodel's
+    properties."""
 
     def __init__(self, solid: SolidModel, fluid: FluidModel,
                  solid_fsi_dofs: np.ndarray, fluid_fsi_dofs: np.ndarray):
@@ -966,6 +1187,10 @@ class ExplicitFSIModel:
         self.state0 = {
             **{k: v.copy() for k, v in solid.state0.items()},
             **{k: v.copy() for k, v in fluid.state0.items()},
+        }
+        self.state1 = {
+            **{k: v.copy() for k, v in solid.state1.items()},
+            **{k: v.copy() for k, v in fluid.state1.items()},
         }
         fl_keys = list(fluid.control)
         self._control_keys = fl_keys[1:]  # fluid control minus 'area'
@@ -984,6 +1209,41 @@ class ExplicitFSIModel:
         self._fluid_dofs = torch.as_tensor(
             np.asarray(fluid_fsi_dofs, dtype=np.int64), device=self.device
         )
+
+    # -- the stateful API -------------------------------------------------------------
+    @property
+    def dt(self):
+        return self.solid.dt
+
+    @dt.setter
+    def dt(self, value):
+        self.solid.dt = value
+        self.fluid.dt = value
+
+    def set_prop(self, prop):
+        copy_into(self.prop, prop)
+        self.solid.set_prop({k: self.prop[k] for k in self._solid_prop_keys})
+        self.fluid.set_prop({k: self.prop[k] for k in self._fluid_prop_keys})
+
+    def solve_state1(self, state1, options=None):
+        """One coupled step from the model's ``state0`` under its
+        ``control``, ``prop`` and ``dt`` (:meth:`step_pure`; ``state1`` is
+        the solid's Newton start with ``initial_guess='given'``, and the
+        implicit coupling's first Picard iterate).  Returns ``(state1,
+        info)``: numpy arrays and Python numbers."""
+        guess, state0, control, prop = self._tensors(state1, self.state0,
+                                                     self.control, self.prop)
+        with torch.no_grad():
+            out, info = self.step_pure(state0, control, prop, self.dt, options,
+                                       guess=guess)
+        return to_numpy(out), info_dict(info)
+
+    def assem_res(self) -> dict:
+        """The step residual of every block at ``state1``."""
+        args = self._tensors(self.state1, self.state0, self.control, self.prop)
+        with torch.no_grad():
+            return to_numpy(self.res_pure(*args, self.dt,
+                                          banded=self.solid.use_banded({})))
 
     # -- coupling maps ----------------------------------------------------------
     def _pressure_to_solid(self, p_fluid: torch.Tensor) -> torch.Tensor:
@@ -1018,13 +1278,13 @@ class ExplicitFSIModel:
         )
         return {**uva1, **qp1}
 
-    def res_pure(self, state1, state0, control, prop, dt):
+    def res_pure(self, state1, state0, control, prop, dt, banded=False):
         """The staggered step's residual of every block at ``state1``: the
         solid's under the previous step's pressure, the fluid's on the
         current geometry."""
         sl_state0, sl_control, sl_prop = self._solid_inputs(state0, prop)
         res = self.solid.res_pure({k: state1[k] for k in ("u", "v", "a")},
-                                  sl_state0, sl_control, sl_prop, dt)
+                                  sl_state0, sl_control, sl_prop, dt, banded)
         _, fl_prop = self._split_prop(prop)
         area = self._area_from_u1(state1["u"], prop)
         fl_control = {"area": area, **{k: control[k] for k in control}}
@@ -1033,13 +1293,16 @@ class ExplicitFSIModel:
         return res
 
     # -- pure step functions ------------------------------------------------------
-    def step_pure(self, state0, control, prop, dt, params=None, dt_next=None):
+    def step_pure(self, state0, control, prop, dt, params=None, dt_next=None,
+                  guess=None):
         """One coupled step, re-assembling the Jacobian in each solve;
         ``dt_next``, the next step's dt where known, is the step of the
-        predictor written with the state (``SolidModel._finish``)."""
+        predictor written with the state (``SolidModel._finish``);
+        ``guess``, a state1 dict, is Newton's start with
+        ``initial_guess='given'``."""
         sl_state0, sl_control, sl_prop = self._solid_inputs(state0, prop)
         uva1, info = self.solid.solve_state1_pure(
-            sl_state0, sl_control, sl_prop, dt, params, dt_next
+            sl_state0, sl_control, sl_prop, dt, params, dt_next, guess
         )
         return self._fluid_step(uva1, state0, control, prop), info
 
@@ -1158,8 +1421,10 @@ class ImplicitFSIModel(ExplicitFSIModel):
                                        fl_control, fl_prop))
         return res
 
-    def _picard(self, solve, state0, control, prop, dt, params_d, dt_next):
-        """The Picard loop of one step; ``solve`` is the solid's step solve
+    def _picard(self, solve, state0, control, prop, dt, params_d, dt_next,
+                start=None):
+        """The Picard loop of one step from ``start`` (by default the
+        initial state); ``solve`` is the solid's step solve
         (:meth:`SolidModel.solve_state1_pure` or a stale one)."""
         sl_state0 = {k: state0[k] for k in ("u", "v", "a")}
         sl_prop, _ = self._split_prop(prop)
@@ -1181,14 +1446,17 @@ class ImplicitFSIModel(ExplicitFSIModel):
             return self.res_pure(x, state0, control, prop, dt, banded)
 
         counts["steps"] += 1
-        return iterative_solve(dict(state0), res_fn, picard, fp_params)
+        return iterative_solve(dict(state0 if start is None else start), res_fn,
+                               picard, fp_params)
 
     # -- pure step functions ------------------------------------------------------
-    def step_pure(self, state0, control, prop, dt, params=None, dt_next=None):
+    def step_pure(self, state0, control, prop, dt, params=None, dt_next=None,
+                  guess=None):
         """One Picard-coupled step, each solid solve re-assembling its
-        Jacobian (``dt_next`` as in :meth:`ExplicitFSIModel.step_pure`)."""
+        Jacobian (``dt_next`` as in :meth:`ExplicitFSIModel.step_pure`),
+        from the first iterate ``guess`` (by default ``state0``)."""
         return self._picard(self.solid.solve_state1_pure, state0, control, prop,
-                            dt, solver_params(params), dt_next)
+                            dt, solver_params(params), dt_next, guess)
 
     def step_pure_stale(self, factors, state0, control, prop, dt, params=None,
                         dt_next=None):
