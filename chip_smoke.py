@@ -40,7 +40,8 @@ runs, in order:
    (same model): the tight f64 runs of ``linear_solver='bsb'`` and
    ``'cg'`` against ``tests/data/golden_large_bsb_explicit.npz``, then the
    production settings of ``benchmarks/benchmark_large.py:118-125`` for
-   both solvers in f64 and f32 (20 steps after a warm-up run) with
+   both solvers in f64 and f32 (20 steps, no warm-up run: the tight runs
+   warmed each solver's path, and the steps/s include the first run) with
    steps/s, Krylov and Newton iteration counts, kernel launches, and the
    trajectory and f32-vs-f64 errors against their gates; then one
    ``torch.profiler`` pass of the production bsb f64 run over its first 5
@@ -58,15 +59,16 @@ runs, in order:
 8. integrate: ``forward.integrate(model, None, ...)`` (the entry point a
    user calls, no statefile) on the M5 headline and the 23.7k production
    btd config, 100 steps, f64 and f32; then the eager loop and the
-   captured step in turns (eager, graph, graph, eager) with steps/s by
+   captured step in turns (f64: eager, graph, graph; f32: eager, graph; no
+   warm-up run, the entry point's run warms the path) with steps/s by
    CUDA events, each graph run held bit for bit (``torch.equal``) to the
    eager run with equal launch counts, the entry point's
    ``uncertified_steps`` and ``diverged`` equal to the eager run's, the
    graph's nodes a step, capture and instantiate ms and pool, a
    ``torch.profiler`` pass of each path over the first 10 steps (device
    kernels a step, device busy, idle share), the peak device memory of the
-   eager loop, the graph
-   and the graph in windows of 25 steps, the gates of phases 5 and 7 on
+   eager loop and the graph (their first turns)
+   and of the graph in windows of 25 steps, the gates of phases 5 and 7 on
    the graph's results, and the ms split of an eager btd step by CUDA
    events;
 9. grad: the gradient path, ``adjoint.integrate_grad`` (value+grad of
@@ -103,9 +105,9 @@ runs, in order:
    q within 1e-7 of max|x|; Picard counts beside the golden's) and in f32
    (within 10x the JAX package's f32-vs-f64 difference at the end and at
    each stored step before the reference run stops converging, step 15),
-   with steps/s by CUDA events after a warm-up, Picard and solid Newton
-   iterations a step, K1/K2/K5 launches a step and a ``torch.profiler``
-   pass over the first 5 steps; at 23.7k the same model on the production
+   with steps/s by CUDA events (no warm-up run: the first run's), Picard
+   and solid Newton iterations a step, K1/K2/K5 launches a step and a
+   ``torch.profiler`` pass over the first 5 steps; at 23.7k the same model on the production
    btd settings plus Aitken (12 steps) against its exact-Jacobian implicit
    run (5e-7) with K6's launches; the 23.7k static configuration of the
    Hopf leg (``static.static_coupled_configuration_picard``, KelvinVoigt,
@@ -141,8 +143,8 @@ runs, in order:
    on the same machine reads the cache): its vertex and cell counts
    (47,405 / 93,945), then the production btd settings at refresh 64 (the
    JAX package's margin configuration) on it, 100 steps in f64 and f32 (a
-   replay of the captured step a step), each against its exact-Jacobian
-   run (the f64 trajectory error gated at 5e-7, the f32 one logged), with
+   replay of the captured step a step), the f64 run against its
+   exact-Jacobian run (the trajectory error gated at 5e-7), with
    steps/s, a step's split (one refactorization's time), a profile of 10
    steps and the peak device memory;
 14. hopf: linear stability (``misc.hopf``, ``models.dynamical``,
@@ -198,7 +200,28 @@ runs, in order:
    series; phonation: the M5 CAD model at psub 6000 Ba, 1,200 steps on the
    headline settings in the step graph, the minimum glottal width's f0
    and series against the JAX package's f64 CPU run
-   (``tests/data/golden_phonation_m5.npz``).
+   (``tests/data/golden_phonation_m5.npz``);
+17. 3d: extruded 3D (P1 tetrahedra, one fluid channel a z-plane). The
+   small extruded stack (``EXTRUDED_SMALL``: M5_CB_GA3 at h 0.1 through 3
+   planes, 477 dofs) dense with the exact Jacobian and banded btd
+   (refresh 6, fixed-3, f64 and bf16 factors), 12 steps against the JAX
+   package's f64 CPU runs (``tests/data/golden_3d.npz``); the 45.8k-dof
+   fold (``MESH3D``, ``benchmarks/benchmark_large.py``'s
+   ``build_model(0.015, nz=8)``: 15,272 vertices, 76,419 tetrahedra, 8
+   channels; meshed by a child process started after the kernels' build,
+   and held to the JAX package's mesher's mesh: its ``mesh_digest`` and
+   coords in ``tests/data/golden_3d_45k.npz``): K1/K2 and their VJPs on
+   its plan (nv = 4, 16 channels gathered, 3 scattered), K3 (nld = 12)
+   and K4 (h = 10) on its Jacobian and K6 at Bt = 1280 (36 row blocks) on
+   its own factors in the four dtype pairs,
+   each against its plain version and timed as in phases 2-3; its first 5
+   tight f64 btd steps against ``tests/data/golden_3d_45k.npz``; the
+   production btd settings in f64 and f32 (100 steps, a replay of the
+   captured step a step, the f64 run bit for bit the eager loop's) against
+   their exact-Jacobian runs (``TRAJ_ERR_GATE``, or 1.5x the JAX
+   package's own value where that is over), with steps/s, launches a step,
+   graph nodes a step, one refactorization's ms, the peak device memory
+   and a profile of the f64 run (idle share).
 
 Phase 3 also holds the block-Thomas sweep kernel (K6) and its transpose
 (K6T, both sweeps of ``btd_solve_t``: forward on W, backward on V, each
@@ -219,7 +242,7 @@ with the kernel (library, kernel, kernel, library).  Each kernel's bound
 is the larger of its bytes (each input read once, each output written
 once) over the HBM rate and its operations over the peak rate of their
 type.  The ``kernels`` line before the last carries all of it, with each
-kernel's launches per step on the main-path runs (phases 5-16; a Hopf
+kernel's launches per step on the main-path runs (phases 5-17; a Hopf
 point counts as one step).
 
 Phases 5-7 print each production run's Newmark predictors, taken from
@@ -567,6 +590,41 @@ API_MEASURES = (
 SERIES_REL = 1e-12
 PHONATION_GW_STEPS = 200
 PHONATION_GW_REL = 1e-10
+# phase 17, extruded 3D.  The small stack of tests/test_bsb.py:296-340
+# (M5_CB_GA3 at h 0.1, 5 smoothing passes, extruded through 3 z-planes over
+# 1.5 cm and RCM-ordered: 477 dofs, Bt 128; KelvinVoigt +
+# BernoulliAreaRatioSep, psub 8000 Ba, 12 steps at dt 5e-5): its dense
+# exact run and its btd runs (refresh 6, fixed-3, f64 and bf16 factors)
+# against the JAX package's f64 CPU runs (tests/data/golden_3d.npz, python
+# tests/make_golden_3d.py); the 45.8k-dof fold of
+# benchmarks/benchmark_large.py's build_model(0.015, nz=8) (M5_3layers at
+# h 0.015, 10 smoothing passes, 8 planes over 1.5 cm, RCM: 15,272 vertices,
+# 76,419 tetrahedra, Bt 1280), bench.py's model and properties, its first 5
+# tight f64 btd steps against tests/data/golden_3d_45k.npz (make_golden_3d.py
+# --large) and the production btd settings in f64 and f32 against their
+# exact-Jacobian runs
+EXTRUDED_SMALL = {"profile": "M5_CB_GA3", "h": 0.1, "smooth_iters": 5, "nz": 3, "zlen": 1.5,
+                  "solid": "KelvinVoigt", "fluid": "BernoulliAreaRatioSep", "psub": 8000.0,
+                  "dt": 5e-5, "n_steps": 12}
+EXTRUDED_SMALL_RUNS = {
+    "dense": {"jacobian_refresh_steps": 1},
+    "btd": {"assembly": "banded", "linear_solver": "btd", "jacobian_refresh_steps": 6,
+            "fixed_iterations": 3},
+    "btd16": {"assembly": "banded", "linear_solver": "btd", "btd_store_dtype": "bfloat16",
+              "jacobian_refresh_steps": 6, "fixed_iterations": 3},
+}
+# the card against the JAX goldens, each field's max|d| / max|x|; the bf16
+# run's trajectory against the dense exact run's at tests/test_bsb.py:352-353
+GOLDEN_3D_RTOL = 1e-8
+EXTRUDED_BF16_VS_DENSE = 1e-5
+MESH3D = ("M5_3layers", 0.015, 10, 8, 1.5)  # profile, h, smoothing passes, planes, length
+MESH3D_COUNTS = (15272, 76419)
+MESH3D_BT = 1280
+GOLDEN_3D_STEPS = 5
+# the port's 45.8k mesh on the card against the JAX package's mesher's
+# (golden_3d_45k.npz): mesh_digest exactly, the coords within this of their
+# largest entry
+MESH3D_COORDS_RTOL = 1e-12
 PROBE_SIGNATURES = {f"vf_btd_exchange_probe_{t}": [ctypes.c_void_p] + [ctypes.c_int] * 3
                     + [ctypes.c_void_p] for t in ("bf16", "f64")}
 HBM_BYTES_S = 3.35e12  # H100 SXM data sheet
@@ -718,98 +776,109 @@ def fmt_times(r):
 
 
 def phase_kernels(torch, dev):
-    """K1/K2 and their VJPs against the plain versions, at the channel
-    counts of the KelvinVoigtWEpithelium main path: 11 gathered channels
-    (a1, u1, v1, p1, tcontact, X), 2 scattered (the residual)."""
-    from vf_fem_tpu_torch import config, yardsticks
-    from vf_fem_tpu_torch.fem import banded
+    """K1/K2 and their VJPs against the plain versions (``banded_contracts``)
+    on the M5-3layers plan and the 23.7k-dof RCM plan."""
     from vf_fem_tpu_torch.mesh import load_gmsh
 
     results = {}
     for label in ("M5_3layers", "M5_3layers_rcm_h006"):
         mesh = load_gmsh(os.path.join(REPO, "meshes", label + ".msh"))
-        nvert = mesh.num_vertices
-        hp = banded.plan_banded(mesh.cells, nvert, gc=config.BANDED_GC)
-        dp = banded.to_device(hp, dev)
-        log(f"[kernels] {label}: {nvert} vertices, {mesh.num_cells} cells,"
-            f" ngroups={dp.ngroups} gc={dp.gc} w={dp.w} nvert_pad={dp.nvert_pad}")
-        rng = np.random.default_rng(0)
-        host = dict(
-            F=rng.standard_normal((11, nvert)),
-            loc=rng.standard_normal((dp.nv, 2, dp.ncpad)),
-            ct_loc=rng.standard_normal((dp.nv, 11, dp.ncpad)),
-            ct_rows=rng.standard_normal((2, nvert)),
-        )
-        for dtype in (torch.float64, torch.float32):
-            t = {k: torch.tensor(v, dtype=dtype, device=dev) for k, v in host.items()}
-            # gathers are copies: exact.  Scatters: rtol 1e-13 (f64) or
-            # 1e-6 (f32), or within the bound on summation-order differences
-            rtol = 1e-13 if dtype == torch.float64 else 1e-6
-            F = t["F"].clone().requires_grad_()
-            loc = t["loc"].clone().requires_grad_()
-            g_out = banded.banded_gather(dp, F)
-            s_out = banded.banded_scatter(dp, loc, nvert)
-            (gF,) = torch.autograd.grad(g_out, F, t["ct_loc"])
-            (gloc,) = torch.autograd.grad(s_out, loc, t["ct_rows"])
-            checks = {
-                "gather": (g_out, banded.banded_gather_reference(dp, t["F"], dp.g), None),
-                "scatter": (s_out, banded.banded_scatter_reference(dp, t["loc"], nvert, dp.s),
-                            banded.scatter_order_bound(dp, t["loc"], nvert, dp.s)),
-                "gather_vjp": (gF, banded.banded_scatter_reference(dp, t["ct_loc"], nvert, dp.g),
-                               banded.scatter_order_bound(dp, t["ct_loc"], nvert, dp.g)),
-                "scatter_vjp": (gloc, banded.banded_gather_reference(dp, t["ct_rows"], dp.s), None),
-            }
-            torch.cuda.synchronize()
-            errs = {}
-            for op, (out, ref, bnd) in checks.items():
-                diff = (out - ref).abs()
-                errs[op] = diff.max().item()
-                if bnd is None:
-                    require(errs[op] == 0.0, f"{label} {dtype} {op}: not exact ({errs[op]:.3e})")
-                else:
-                    off = int((diff > rtol * ref.abs() + bnd).sum())
-                    require(off == 0, f"{label} {dtype} {op}: {off} entries off"
-                                      f" (max |diff| {errs[op]:.3e})")
-            F0, loc0 = t["F"], t["loc"]
-            idx, ok = yardsticks.gather_flat_index(dp, dp.g, 11, nvert)
-            require(bool(ok.all()), f"{label}: gather offsets with padding slots")
-            M = yardsticks.scatter_csr(dp, dp.s, 2, nvert, dtype)
-            lib_g = yardsticks.gather_index_select(F0, idx).reshape(dp.nv, 11, dp.ncpad)
-            lib_s = yardsticks.csr_mm(M, loc0).reshape(2, nvert)
-            lib_err = {"gather": (lib_g - checks["gather"][1]).abs().max().item(),
-                       "scatter": (lib_s - checks["scatter"][1]).abs().max().item()}
-            require(lib_err["gather"] == 0.0, f"{label} {dtype}: index_select not exact")
-            off = int(((lib_s - checks["scatter"][1]).abs()
-                       > rtol * checks["scatter"][1].abs() + checks["scatter"][2]).sum())
-            require(off == 0, f"{label} {dtype}: sparse.mm scatter off ({off} entries)")
-            es = F0.element_size()
-            nnz = int(dp.s.ptr[nvert])
-            times = {
-                "gather": measure(torch, lambda: banded.banded_gather(dp, F0),
-                                  lambda: banded.banded_gather_reference(dp, F0, dp.g),
-                                  lambda: yardsticks.gather_index_select(F0, idx)),
-                "scatter": measure(torch, lambda: banded.banded_scatter(dp, loc0, nvert),
-                                   lambda: banded.banded_scatter_reference(dp, loc0, nvert, dp.s),
-                                   lambda: yardsticks.csr_mm(M, loc0)),
-            }
-            nbytes = {
-                # locals out, F in, offsets and window starts
-                "gather": (dp.nv * 11 * dp.ncpad + 11 * nvert) * es
-                          + (dp.ngroups * dp.nv * dp.gc + dp.ngroups) * 4,
-                # locals in, rows out, CSR pointers and entries
-                "scatter": (dp.nv * 2 * dp.ncpad + 2 * nvert) * es + (nvert + 1 + nnz) * 4,
-            }
-            tag = str(dtype).replace("torch.", "")
-            for op in ("gather", "scatter"):
-                r = times[op]
-                r.update(max_abs_err=errs[op], bytes=nbytes[op], lib_err=lib_err[op],
-                         lib_call=yardsticks.LIBRARY_CALL[op])
-                r["bound_ms"], r["bound_by"] = bound_of(nbytes[op], 0, tag)
-                log(f"[kernels] {KERNELS[op][0]} {label} {tag}: {fmt_times(r)};"
-                    f" max_abs_err {errs[op]:.3e} (vjp {errs[op + '_vjp']:.3e}),"
-                    f" library max_abs_err {lib_err[op]:.3e}")
-                results[(label, tag, op)] = r
+        banded_contracts(torch, dev, label, mesh, results, "kernels")
     return results
+
+
+def banded_contracts(torch, dev, label, mesh, results, tag_line):
+    """K1/K2 and their VJPs against the plain versions on ``mesh``'s banded
+    plan, in f64 and f32, at the channel counts of the KelvinVoigtWEpithelium
+    main path: 5 dim + 1 gathered channels (a1, u1, v1, p1, tcontact, X: 11
+    in 2D, 16 in 3D), dim scattered (the residual); timed, with their
+    library calls, into ``results[(label, dtype, op)]``."""
+    from vf_fem_tpu_torch import config, yardsticks
+    from vf_fem_tpu_torch.fem import banded
+
+    nvert = mesh.num_vertices
+    ng, ns = 5 * mesh.dim + 1, mesh.dim
+    hp = banded.plan_banded(mesh.cells, nvert, gc=config.BANDED_GC)
+    dp = banded.to_device(hp, dev)
+    log(f"[{tag_line}] {label}: {nvert} vertices, {mesh.num_cells} cells, nv={dp.nv},"
+        f" ngroups={dp.ngroups} gc={dp.gc} w={dp.w} nvert_pad={dp.nvert_pad};"
+        f" {ng} channels gathered, {ns} scattered")
+    rng = np.random.default_rng(0)
+    host = dict(
+        F=rng.standard_normal((ng, nvert)),
+        loc=rng.standard_normal((dp.nv, ns, dp.ncpad)),
+        ct_loc=rng.standard_normal((dp.nv, ng, dp.ncpad)),
+        ct_rows=rng.standard_normal((ns, nvert)),
+    )
+    for dtype in (torch.float64, torch.float32):
+        t = {k: torch.tensor(v, dtype=dtype, device=dev) for k, v in host.items()}
+        # gathers are copies: exact.  Scatters: rtol 1e-13 (f64) or
+        # 1e-6 (f32), or within the bound on summation-order differences
+        rtol = 1e-13 if dtype == torch.float64 else 1e-6
+        F = t["F"].clone().requires_grad_()
+        loc = t["loc"].clone().requires_grad_()
+        g_out = banded.banded_gather(dp, F)
+        s_out = banded.banded_scatter(dp, loc, nvert)
+        (gF,) = torch.autograd.grad(g_out, F, t["ct_loc"])
+        (gloc,) = torch.autograd.grad(s_out, loc, t["ct_rows"])
+        checks = {
+            "gather": (g_out, banded.banded_gather_reference(dp, t["F"], dp.g), None),
+            "scatter": (s_out, banded.banded_scatter_reference(dp, t["loc"], nvert, dp.s),
+                        banded.scatter_order_bound(dp, t["loc"], nvert, dp.s)),
+            "gather_vjp": (gF, banded.banded_scatter_reference(dp, t["ct_loc"], nvert, dp.g),
+                           banded.scatter_order_bound(dp, t["ct_loc"], nvert, dp.g)),
+            "scatter_vjp": (gloc, banded.banded_gather_reference(dp, t["ct_rows"], dp.s), None),
+        }
+        torch.cuda.synchronize()
+        errs = {}
+        for op, (out, ref, bnd) in checks.items():
+            diff = (out - ref).abs()
+            errs[op] = diff.max().item()
+            if bnd is None:
+                require(errs[op] == 0.0, f"{label} {dtype} {op}: not exact ({errs[op]:.3e})")
+            else:
+                off = int((diff > rtol * ref.abs() + bnd).sum())
+                require(off == 0, f"{label} {dtype} {op}: {off} entries off"
+                                  f" (max |diff| {errs[op]:.3e})")
+        F0, loc0 = t["F"], t["loc"]
+        idx, ok = yardsticks.gather_flat_index(dp, dp.g, ng, nvert)
+        require(bool(ok.all()), f"{label}: gather offsets with padding slots")
+        M = yardsticks.scatter_csr(dp, dp.s, ns, nvert, dtype)
+        lib_g = yardsticks.gather_index_select(F0, idx).reshape(dp.nv, ng, dp.ncpad)
+        lib_s = yardsticks.csr_mm(M, loc0).reshape(ns, nvert)
+        lib_err = {"gather": (lib_g - checks["gather"][1]).abs().max().item(),
+                   "scatter": (lib_s - checks["scatter"][1]).abs().max().item()}
+        require(lib_err["gather"] == 0.0, f"{label} {dtype}: index_select not exact")
+        off = int(((lib_s - checks["scatter"][1]).abs()
+                   > rtol * checks["scatter"][1].abs() + checks["scatter"][2]).sum())
+        require(off == 0, f"{label} {dtype}: sparse.mm scatter off ({off} entries)")
+        es = F0.element_size()
+        nnz = int(dp.s.ptr[nvert])
+        times = {
+            "gather": measure(torch, lambda: banded.banded_gather(dp, F0),
+                              lambda: banded.banded_gather_reference(dp, F0, dp.g),
+                              lambda: yardsticks.gather_index_select(F0, idx)),
+            "scatter": measure(torch, lambda: banded.banded_scatter(dp, loc0, nvert),
+                               lambda: banded.banded_scatter_reference(dp, loc0, nvert, dp.s),
+                               lambda: yardsticks.csr_mm(M, loc0)),
+        }
+        nbytes = {
+            # locals out, F in, offsets and window starts
+            "gather": (dp.nv * ng * dp.ncpad + ng * nvert) * es
+                      + (dp.ngroups * dp.nv * dp.gc + dp.ngroups) * 4,
+            # locals in, rows out, CSR pointers and entries
+            "scatter": (dp.nv * ns * dp.ncpad + ns * nvert) * es + (nvert + 1 + nnz) * 4,
+        }
+        tag = str(dtype).replace("torch.", "")
+        for op in ("gather", "scatter"):
+            r = times[op]
+            r.update(max_abs_err=errs[op], bytes=nbytes[op], lib_err=lib_err[op],
+                     lib_call=yardsticks.LIBRARY_CALL[op])
+            r["bound_ms"], r["bound_by"] = bound_of(nbytes[op], 0, tag)
+            log(f"[{tag_line}] {KERNELS[op][0]} {label} {tag}: {fmt_times(r)};"
+                f" max_abs_err {errs[op]:.3e} (vjp {errs[op + '_vjp']:.3e}),"
+                f" library max_abs_err {lib_err[op]:.3e}")
+            results[(label, tag, op)] = r
 
 
 def bench_values(ymax):
@@ -830,6 +899,12 @@ def set_values(model, props, controls):
         for k, v in values.items():
             if k in vec:
                 vec[k][:] = v
+
+
+def extruded_small_values(ymax):
+    """The small extruded stack's properties (tests/test_bsb.py:311-322)."""
+    return dict(emod=5e4, rho=1.0, eta=3.0, nu=0.45, ycontact=ymax + 0.05, kcontact=1e8,
+                rho_air=1.1225e-3, r_sep=1.0, area_lb=1e-4, ymid=ymax + 0.01)
 
 
 def set_bench_props(model):
@@ -860,15 +935,16 @@ def physics_config():
 
 
 def build(torch, dev, mesh_name, dtype, solid="KelvinVoigtWEpithelium",
-          fluid="BernoulliAreaRatioSep", coupling="explicit"):
+          fluid="BernoulliAreaRatioSep", coupling="explicit", zs=None):
     """A model of ``bench.py``'s properties on ``meshes/<mesh_name>`` (or on
-    a Mesh): ``(model, state0, stacked controls, prop)``."""
+    a Mesh; a 3D one with a fluid channel on each z-plane of ``zs``):
+    ``(model, state0, stacked controls, prop)``."""
     from vf_fem_tpu_torch.load import load_fsi_model
     from vf_fem_tpu_torch.residuals import fluid as flr, solid as slr
 
     mesh = os.path.join(REPO, "meshes", mesh_name) if isinstance(mesh_name, str) else mesh_name
     model = load_fsi_model(
-        mesh, getattr(slr, solid), getattr(flr, fluid), coupling=coupling, device=dev,
+        mesh, getattr(slr, solid), getattr(flr, fluid), coupling=coupling, zs=zs, device=dev,
         dtype=dtype,
     )
     set_bench_props(model)
@@ -1127,7 +1203,10 @@ def phase_ops(torch, dev, large):
             log(f"[ops] {kname} {label} {tag}: {fmt_times(r)}; max_abs_err"
                 f" {r['max_abs_err']:.3e}"
                 + ("" if r["lib_err"] is None else f", library max_abs_err {r['lib_err']:.3e}"))
-    results.update(phase_ops_btd(torch, plan, blocks64))
+    cases = sweep_cases(torch, plan, blocks64)
+    k6 = phase_ops_btd(torch, cases)
+    results.update(k6)
+    results.update(phase_ops_btd_t(torch, cases, k6))
     return results
 
 
@@ -1464,19 +1543,12 @@ def sweep_double_rounding(torch, dev):
     return -ref[1, 0].item()
 
 
-def phase_ops_btd(torch, plan, blocks64):
-    """K6 against its plain version on the 23.7k model's own factors at
-    rest under 500 Ba: the forward sweep over V from g = Sinv r and the
-    backward sweep over W from the plain forward sweep's output, for every
-    (factor, vector) dtype pair of the btd path.  Each row is held to the
-    plain version's row computed from the kernel's own previous row
-    (rtol 1e-13 / 1e-6 plus the dot-product order bound, exact), and the
-    whole sweep to the plain sweep (``SWEEP_FULL_GATES``).  The launch
-    plans of K6 and K6T at every width and dtype pair are held to the built
-    kernel's, and the exchange is timed alone by ``sweep_exchange``, whose
-    time a row block K6T's line shows beside its own and K6's."""
-    from vf_fem_tpu_torch import ops, yardsticks
-    from vf_fem_tpu_torch.ops import kernels
+def sweep_cases(torch, plan, blocks64):
+    """The inputs of K6 and K6T on a model's own factors at rest under
+    500 Ba (the 23.7k model's in phase 3, the 45.8k 3D fold's, Bt = 1280,
+    in phase 17), for every (factor, vector) dtype pair of the btd path: a
+    list of ``(ftag, vdt, factors, rb)``, ``rb`` = r / d for a seeded r,
+    padded to the row blocks."""
     from vf_fem_tpu_torch.solvers import btd
 
     dev = blocks64.device
@@ -1487,29 +1559,50 @@ def phase_ops_btd(torch, plan, blocks64):
     }
     n_sup, bt, _ = factors["float64"].V.shape
     r = np.random.default_rng(1).standard_normal(plan.ndof)
-    cast = sweep_double_rounding(torch, dev)
-    log(f"[ops] btd_sweep: f64 -> bf16 cast of 1 + 2^-8 + 2^-40 as torch's: {cast!r}")
-    for w in kernels.SWEEP_WIDTHS:
-        for fdt, vdt in kernels._SWEEP_TYPES:
-            plan_py, plan_cu = ops.sweep_plan(w, fdt, vdt), kernels.built_sweep_plan(w, fdt)
-            require(plan_py == plan_cu, f"btd_sweep plan {w} {fdt}/{vdt}: ops.sweep_plan"
-                                        f" {plan_py} is not the kernel's {plan_cu}")
-            plan_py, plan_cu = ops.sweep_t_plan(w, fdt, vdt), kernels.built_sweep_t_plan(w, fdt)
-            require(plan_py == plan_cu, f"btd_sweep_t plan {w} {fdt}/{vdt}: ops.sweep_t_plan"
-                                        f" {plan_py} is not the kernel's {plan_cu}")
-    exchange_us = sweep_exchange(torch, dev, bt)
-    results = {}
+    cases = []
     for ftag, vdt in (("bfloat16", torch.float64), ("bfloat16", torch.float32),
                       ("float64", torch.float64), ("float32", torch.float32)):
         fac = factors[ftag]
-        vtag = str(vdt).replace("torch.", "")
         d = fac.d.to(vdt)[: plan.ndof]
         rb = torch.nn.functional.pad(torch.tensor(r, dtype=vdt, device=dev) / d,
                                      (0, n_sup * bt - plan.ndof)).reshape(n_sup, bt)
+        cases.append((ftag, vdt, fac, rb))
+    return cases
+
+
+def sweep_tolerances(torch, ftag, vdt):
+    """A row's rtol (beside its order bound) and the accumulation dtype
+    whose ``SWEEP_FULL_GATES`` entry holds the whole sweep."""
+    return (1e-13 if vdt == torch.float64 else 1e-6), ("float64" if ftag == "float64"
+                                                      else "float32")
+
+
+def phase_ops_btd(torch, cases, line="ops"):
+    """K6 against its plain version on ``sweep_cases``: the forward sweep
+    over V from g = Sinv r and the backward sweep over W from the plain
+    forward sweep's output.  Each row is held to the plain version's row
+    computed from the kernel's own previous row (rtol 1e-13 / 1e-6 plus the
+    dot-product order bound, exact), and the whole sweep to the plain sweep
+    (``SWEEP_FULL_GATES``); K6's launch plans at every width and dtype pair
+    are held to the built kernel's, and its f64 -> bf16 cast to torch's."""
+    from vf_fem_tpu_torch import ops, yardsticks
+    from vf_fem_tpu_torch.ops import kernels
+
+    dev = cases[0][3].device
+    n_sup, bt = cases[0][3].shape
+    cast = sweep_double_rounding(torch, dev)
+    log(f"[{line}] btd_sweep: f64 -> bf16 cast of 1 + 2^-8 + 2^-40 as torch's: {cast!r}")
+    for fdt, vdt in kernels._SWEEP_TYPES:
+        for w in kernels.SWEEP_WIDTHS:
+            plan_py, plan_cu = ops.sweep_plan(w, fdt, vdt), kernels.built_sweep_plan(w, fdt)
+            require(plan_py == plan_cu, f"btd_sweep plan {w} {fdt}/{vdt}: ops.sweep_plan"
+                                        f" {plan_py} is not the kernel's {plan_cu}")
+    results = {}
+    for ftag, vdt, fac, rb in cases:
+        vtag = str(vdt).replace("torch.", "")
         g = ops.factor_matvec(fac.Sinv, rb)
         y = ops.btd_sweep_reference(fac.V, g)
-        rtol = 1e-13 if vdt == torch.float64 else 1e-6
-        acc = "float64" if ftag == "float64" else "float32"
+        rtol, acc = sweep_tolerances(torch, ftag, vdt)
         for label, A, inp, rev in (("forward", fac.V, g, False), ("backward", fac.W, y, True)):
             what = f"ops btd_sweep {label} {ftag}/{vtag}"
             out = ops.btd_sweep(A, inp, reverse=rev)
@@ -1532,16 +1625,42 @@ def phase_ops_btd(torch, plan, blocks64):
                        lib_call=yardsticks.LIBRARY_CALL["btd_sweep"])
             res["bound_ms"], res["bound_by"] = bound_of(nbytes, 2 * A.numel(), acc)
             sp = ops.sweep_plan(bt, A.dtype, vdt)
-            log(f"[ops] btd_sweep {label} {ftag} factors / {vtag} vector ({n_sup} x {bt} x {bt}):"
+            log(f"[{line}] btd_sweep {label} {ftag} factors / {vtag} vector ({n_sup} x {bt} x {bt}):"
                 f" {fmt_times(res)}; row max |diff| {diff.max().item():.3e}, whole-sweep"
                 f" max_abs_err {err:.3e} (rel {full_rel:.3e}, gate {SWEEP_FULL_GATES[acc]:.0e});"
                 f" cluster of {sp.cluster} CTAs ({sp.warps} consumer warps, ring of"
                 f" {sp.ring} slots of {sp.stage_rows} rows, {sp.smem_bytes} B shared):"
                 f" {res['device_ms'] / n_sup * 1e3:.3f} us per row block")
             results[("btd_sweep", f"{label} {ftag}/{vtag}", vtag)] = res
-        # K6T, the transposed sweeps of btd_solve_t: forward on W from
-        # r / d, backward on V from the plain forward sweep's output
+    return results
+
+
+def phase_ops_btd_t(torch, cases, k6):
+    """K6T, the transposed sweeps of ``btd_solve_t``, against its plain
+    version on ``sweep_cases``: forward on W from r / d, backward on V from
+    the plain forward sweep's output, held as K6 is (``phase_ops_btd``,
+    whose results ``k6`` give K6's time a row block beside K6T's) and to
+    the same bits in three launches.  K6T's launch plans at every width and
+    dtype pair are held to the built kernel's, and K6's exchange is timed
+    alone by ``sweep_exchange``, whose time a row block K6T's line shows."""
+    from vf_fem_tpu_torch import ops, yardsticks
+    from vf_fem_tpu_torch.ops import kernels
+
+    dev = cases[0][3].device
+    n_sup, bt = cases[0][3].shape
+    for fdt, vdt in kernels._SWEEP_TYPES:
+        for w in kernels.SWEEP_T_WIDTHS:
+            plan_py = ops.sweep_t_plan(w, fdt, vdt)
+            plan_cu = kernels.built_sweep_t_plan(w, fdt)
+            require(plan_py == plan_cu, f"btd_sweep_t plan {w} {fdt}/{vdt}:"
+                                        f" ops.sweep_t_plan {plan_py} is not the"
+                                        f" kernel's {plan_cu}")
+    exchange_us = sweep_exchange(torch, dev, bt)
+    results = {}
+    for ftag, vdt, fac, rb in cases:
+        vtag = str(vdt).replace("torch.", "")
         z = ops.btd_sweep_t_reference(fac.W, rb)
+        rtol, acc = sweep_tolerances(torch, ftag, vdt)
         for label, A, inp, rev in (("forward", fac.W, rb, False), ("backward", fac.V, z, True)):
             what = f"ops btd_sweep_t {label} {ftag}/{vtag}"
             out = ops.btd_sweep_t(A, inp, reverse=rev)
@@ -1570,14 +1689,14 @@ def phase_ops_btd(torch, plan, blocks64):
                        lib_call=yardsticks.LIBRARY_CALL["btd_sweep_t"])
             res["bound_ms"], res["bound_by"] = bound_of(nbytes, 2 * (n_sup - 1) * blk, acc)
             tp = ops.sweep_t_plan(bt, A.dtype, vdt)
-            k6 = results[("btd_sweep", f"{label} {ftag}/{vtag}", vtag)]["device_ms"]
+            k6_ms = k6[("btd_sweep", f"{label} {ftag}/{vtag}", vtag)]["device_ms"]
             log(f"[ops] btd_sweep_t {label} {ftag} factors / {vtag} vector ({n_sup} x {bt} x"
                 f" {bt}): {fmt_times(res)}; row max |diff| {diff.max().item():.3e}, whole-sweep"
                 f" max_abs_err {err:.3e} (rel {full_rel:.3e}, gate {SWEEP_FULL_GATES[acc]:.0e});"
                 f" same bits in 3 launches; cluster of {tp.cluster} CTAs ({tp.warps} consumer"
                 f" warps, ring of {tp.ring} slots of {tp.stage_rows} box rows, {tp.smem_bytes} B"
                 f" shared): {res['device_ms'] / n_sup * 1e3:.3f} us per row block (K6"
-                f" {k6 / n_sup * 1e3:.3f}"
+                f" {k6_ms / n_sup * 1e3:.3f}"
                 + ("" if A.dtype not in exchange_us else
                    f", the exchange alone {exchange_us[A.dtype]:.3f}: a chain floor of"
                    f" {n_sup * exchange_us[A.dtype] / 1e3:.6f} ms") + ")")
@@ -1652,7 +1771,8 @@ def rel_max(a, b):
 
 def phase_krylov(torch, card, models):
     """Tight runs against the JAX package's golden, then the production
-    settings (each after a warm-up run) with their gates."""
+    settings (no warm-up run: the tight runs warmed each solver's path)
+    with their gates."""
     from vf_fem_tpu_torch import forward
 
     gold = np.load(os.path.join(REPO, "tests", "data", "golden_large_bsb_explicit.npz"))
@@ -1705,7 +1825,6 @@ def phase_krylov(torch, card, models):
         finals = {}
         for tag in ("float64", "float32"):
             params = {**PROD, "linear_solver": ls}
-            drive(tag, params)  # warm-up
             (fin, traj, infos), ms, launches, kc = drive(tag, params)
             require_launched(launches, used[ls], f"krylov prod {ls} {tag}")
             require(launches[unused[ls]] == 0, f"krylov prod {ls} {tag}: {unused[ls]} launched")
@@ -2028,20 +2147,15 @@ def replay_ms(torch, model, params, n_steps):
     return start.elapsed_time(end) / n_steps
 
 
-def peak_memory(torch, eager, graph, windowed):
-    """Peak device memory of each run above what was allocated before it
-    (the model, and the cached step graph's buffers and pool), in bytes:
-    the eager loop, the graph unwindowed and the graph in windows of
-    ``MEMORY_WINDOW`` steps (each window's trajectory moved to the host)."""
-    out = {}
-    for which, fn in (("eager", eager), ("graph", graph), ("graph windowed", windowed)):
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        fn()
-        torch.cuda.synchronize()
-        out[which] = torch.cuda.max_memory_allocated() - base
-    return out
+def peak_memory(torch, run):
+    """Peak device memory of ``run()`` above what was allocated before it
+    (the model, and the cached step graph's buffers and pool), in bytes."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
 
 
 def same_run(torch, a, b):
@@ -2054,9 +2168,9 @@ def same_run(torch, a, b):
 
 def phase_integrate(torch, card, dev, large, btd_res):
     """``forward.integrate(model, None, ...)`` at full width, then the eager
-    loop and the captured step in turns (eager, graph, graph, eager): the
-    M5 headline (960 dofs) and the 23.7k production btd config, 100 steps,
-    f64 and f32.  Each graph run is held bit for bit to the eager run, its
+    loop and the captured step in turns (f64: eager, graph, graph; f32:
+    eager, graph): the M5 headline (960 dofs) and the 23.7k production btd
+    config, 100 steps, f64 and f32.  Each graph run is held bit for bit to the eager run, its
     launch counts equal, and the entry point's certification and
     divergence flags equal the eager run's; then each run's gates and a
     profile of each path."""
@@ -2091,12 +2205,20 @@ def phase_integrate(torch, card, dev, large, btd_res):
             torch.cuda.synchronize()
             require_launched(read_launches(), ("gather", "scatter", "newmark"), what)
             entry = graph_entry(model, params)
-            eager()  # warm-up
+            # f64 in turns eager, graph, graph; f32 eager then graph (the
+            # bit-equality gate); no warm-up run: the entry point's run
+            # above warmed the path.  Each turn's peak device memory above
+            # what was allocated before it
             turns = []
-            for which in ("eager", "graph", "graph", "eager"):
+            for which in (("eager", "graph", "graph") if dtype == torch.float64
+                          else ("eager", "graph")):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
                 res, ms, launches, _ = run_timed(torch, model, eager if which == "eager" else graph)
                 turns.append(dict(which=which, res=res, ms=ms, launches=launches,
-                                  steps_s=n_steps / (ms / 1e3)))
+                                  steps_s=n_steps / (ms / 1e3),
+                                  peak=torch.cuda.max_memory_allocated() - base))
             ref = turns[0]
             for t in turns[1:]:
                 require(same_run(torch, t["res"], ref["res"]),
@@ -2121,10 +2243,11 @@ def phase_integrate(torch, card, dev, large, btd_res):
                     for which, fn in (("eager", eager), ("graph", graph))}
             for which, p in prof.items():
                 require_traced(p, used, f"{what} {which}")
-            memory = peak_memory(torch, eager, graph, lambda: forward._integrate_windowed(
-                model, state0, cs, prop, times, params, window=MEMORY_WINDOW))
+            memory = {"eager": turns[0]["peak"], "graph": turns[1]["peak"],
+                      "graph windowed": peak_memory(torch, lambda: forward._integrate_windowed(
+                          model, state0, cs, prop, times, params, window=MEMORY_WINDOW))}
             alone = replay_ms(torch, model, params, n_steps)
-            graph_ms = (turns[1]["ms"] + turns[2]["ms"]) / 2
+            graph_ms = np.mean([t["ms"] for t in turns if t["which"] == "graph"])
             windows = -(-n_steps // int(params["jacobian_refresh_steps"]))
             pool = entry["pool_bytes"]
             traj_bytes = sum(v.numel() * v.element_size() for v in ref["res"][1].values())
@@ -2166,12 +2289,12 @@ def phase_integrate(torch, card, dev, large, btd_res):
                 require(err <= btd_res[tag]["gate"], f"{what}: trajectory error over its gate")
                 if tag == "float64":
                     mid = {k: v[n_steps // 2 - 1] for k, v in ref["res"][1].items()}
-                    eager_ms = (turns[0]["ms"] + turns[3]["ms"]) / 2 / n_steps
+                    eager_ms = turns[0]["ms"] / n_steps
                     split, detail = step_split(torch, large[tag], mid, params, n_steps, eager_ms)
                     log(f"[integrate] {name} {tag} eager step {eager_ms:.3f} ms = "
                         + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
                         + f" ms ({detail}, eager calls at step {n_steps // 2}); graph step"
-                        f" {(turns[1]['ms'] + turns[2]['ms']) / 2 / n_steps:.3f} ms")
+                        f" {graph_ms / n_steps:.3f} ms")
         rel = rel_max(finals["float32"], finals["float64"])
         gate = (10 * JAX_CPU_F32_VS_F64 if name == "M5 headline"
                 else 10 * float(gold["prod_f32_vs_f64"]))
@@ -2272,7 +2395,19 @@ def phase_grad(torch, card, dev, large):
     # -- M5 ---------------------------------------------------------------------
     m5 = build(torch, dev, "M5_3layers.msh", torch.float64)
     model = m5[0]
-    forward_loss(torch, m5, times, ADJ_M5)  # warm-up
+    # central differences along psub and along a seeded random emod
+    # direction; their forward runs come first and warm the path
+    cp = {k: v.copy() for k, v in model.control.items()}
+    psub_vals = []
+    for h in (1.0, -1.0):
+        cp["psub"] = model.control["psub"] + h
+        psub_vals.append(forward_loss(torch, (model, m5[1], {k: v[None] for k, v in cp.items()},
+                                              m5[3]), times, ADJ_M5)[0])
+    d = np.random.default_rng(9).standard_normal(model.prop["emod"].shape)
+    emod_vals = []
+    for h in (5.0, -5.0):
+        p = {**model.prop, "emod": model.prop["emod"] + h * d}
+        emod_vals.append(forward_loss(torch, (model, m5[1], m5[2], p), times, ADJ_M5)[0])
     value_f, traj_f, ms_f = forward_loss(torch, m5, times, ADJ_M5)
     g = grad_run(torch, m5, times, ADJ_M5)
     require(g["value"] == value_f and all(torch.equal(g["traj"][k], traj_f[k]) for k in traj_f),
@@ -2287,23 +2422,10 @@ def phase_grad(torch, card, dev, large):
         f" ({g['counts']['refine_iterations'] / max(g['counts']['solves'], 1):.2f} a solve);"
         f" peak device memory {g['peak'] / 1e6:.1f} MB over the model's; launches"
         f" {g['launches']}, on {card}")
-    # central differences along psub and along a seeded random emod direction
-    cp = {k: v.copy() for k, v in model.control.items()}
-    checks = []
-    vals = []
-    for h in (1.0, -1.0):
-        cp["psub"] = model.control["psub"] + h
-        vals.append(forward_loss(torch, (model, m5[1], {k: v[None] for k, v in cp.items()},
-                                         m5[3]), times, ADJ_M5)[0])
-    checks.append(("psub (h = 1 Ba)", float(g["grads"]["controls"]["psub"].sum()),
-                   (vals[0] - vals[1]) / 2.0))
-    d = np.random.default_rng(9).standard_normal(model.prop["emod"].shape)
-    vals = []
-    for h in (5.0, -5.0):
-        p = {**model.prop, "emod": model.prop["emod"] + h * d}
-        vals.append(forward_loss(torch, (model, m5[1], m5[2], p), times, ADJ_M5)[0])
-    checks.append(("emod along a random direction (5 Ba a cell)",
-                   float(np.dot(g["grads"]["prop"]["emod"], d)), (vals[0] - vals[1]) / 10.0))
+    checks = [("psub (h = 1 Ba)", float(g["grads"]["controls"]["psub"].sum()),
+               (psub_vals[0] - psub_vals[1]) / 2.0),
+              ("emod along a random direction (5 Ba a cell)",
+               float(np.dot(g["grads"]["prop"]["emod"], d)), (emod_vals[0] - emod_vals[1]) / 10.0)]
     for what, adj, fd in checks:
         rel = abs(adj - fd) / abs(fd)
         log(f"[grad] M5 d J / d {what}: adjoint {adj:.9e}, central difference {fd:.9e},"
@@ -2315,8 +2437,7 @@ def phase_grad(torch, card, dev, large):
     big = large["float64"]
     forward_loss(torch, big, times, ADJ_LARGE)  # warm-up (captures the step)
     value_f, traj_f, ms_f = forward_loss(torch, big, times, ADJ_LARGE)
-    grad_run(torch, big, times, ADJ_LARGE)  # warm-up
-    g = grad_run(torch, big, times, ADJ_LARGE)
+    g = grad_run(torch, big, times, ADJ_LARGE)  # after the forward's warm-up
     require(g["value"] == value_f and all(torch.equal(g["traj"][k], traj_f[k]) for k in traj_f),
             "grad 23.7k: the value+grad run's trajectory is not the forward's (graph) bit for bit")
     used = ("gather", "scatter", "newmark", "newmark_t", "btd_sweep", "btd_sweep_t")
@@ -2593,7 +2714,6 @@ def phase_implicit(torch, card, dev):
         built = build(torch, dev, "M5_3layers.msh", dtype, fluid="BernoulliSmoothMinSep",
                       coupling="implicit")
         m5[tag] = built
-        drive(built, IMPLICIT, times)  # warm-up
         (fin, traj, infos), ms, launches, _, counts = drive(built, IMPLICIT, times)
         require_launched(launches, used, f"implicit M5 {tag}")
         for k, v in traj.items():
@@ -2652,7 +2772,6 @@ def phase_implicit(torch, card, dev):
     big = build(torch, dev, LARGE_MESH, torch.float64, fluid="BernoulliSmoothMinSep",
                 coupling="implicit")
     t_large = DT * np.arange(IMPLICIT_LARGE_STEPS + 1)
-    drive(big, IMPLICIT_BTD, t_large)  # warm-up
     (fin, traj, infos), ms, launches, _, counts = drive(big, IMPLICIT_BTD, t_large)
     used_btd = used + ("btd_sweep",)
     require_launched(launches, used_btd, "implicit 23.7k btd")
@@ -3343,7 +3462,6 @@ def fsai_grad_large(torch, card, built, times):
     exact-factor one (STALE_VS_EXACT per group)."""
     forward_value = fsai_value(torch, built, times, ADJ_LARGE)[0]  # captures the step
     value_f, ms_f = fsai_value(torch, built, times, ADJ_LARGE)
-    fsai_grad_run(torch, built, times, ADJ_LARGE)  # warm-up
     g = fsai_grad_run(torch, built, times, ADJ_LARGE)
     x = fsai_grad_run(torch, built, times, {**ADJ_LARGE, "adjoint_refine": "exact"})
     n = len(times) - 1
@@ -3408,9 +3526,12 @@ def phase_fsai(torch, card, dev):
                 f"{what}: {info_i['lagged_fallback_steps']} lagged steps, diverged"
                 f" {info_i['diverged']}")
         entry = graph_entry(model, HEADLINE)
-        eager()  # warm-up
+        # f64 in turns eager, graph, graph; f32 eager then graph (the
+        # bit-equality gate); no warm-up run: the entry point's run above
+        # warmed the path
         turns = []
-        for which in ("eager", "graph", "graph", "eager"):
+        for which in (("eager", "graph", "graph") if dtype == torch.float64
+                      else ("eager", "graph")):
             res, ms, launches, _ = run_timed(torch, model, eager if which == "eager" else graph)
             turns.append(dict(which=which, res=res, ms=ms, launches=launches,
                               steps_s=n_steps / (ms / 1e3)))
@@ -3534,8 +3655,7 @@ def phase_fsai(torch, card, dev):
     built = m5["float64"]
     model, state0, cs, prop = built
     t_grad = times[:FSAI_GRAD_STEPS + 1]
-    fsai_value(torch, built, t_grad, ADJ_M5)  # warm-up
-    value_f, ms_f = fsai_value(torch, built, t_grad, ADJ_M5)
+    value_f, ms_f = fsai_value(torch, built, t_grad, ADJ_M5)  # after the M5 runs above
     g = fsai_grad_run(torch, built, t_grad, ADJ_M5)
     value, grads, launches, ms_g, peak = g["value"], g["grads"], g["launches"], g["ms"], g["peak"]
     require(value == value_f, f"fsai grad: value {value!r} != the forward's {value_f!r}")
@@ -3823,17 +3943,29 @@ def start_m5_qz(torch, dev):
     return dict(tm=tm, dm=dm, proc=proc, out=out, n=A.shape[0])
 
 
-def start_mesher():
-    """The 94.8k mesh, built (or found in its cache) by a child process that
-    runs beside the phases: ``(process, start time)``."""
+def start_mesher(name, h, iters, nz=0, zlen=1.5):
+    """A cached M5 mesh (phase 13's 94.8k mesh, phase 17's extruded 45.8k
+    one), built (or found in its cache) by a child process that runs beside
+    the phases: ``(process, start time)``."""
     import time
 
-    name, h, iters = MESH94K
     proc = subprocess.Popen(
         [sys.executable, "-m", "vf_fem_tpu_torch.mesh.cached", "--name", name, "--h", str(h),
-         "--smooth-iters", str(iters)], cwd=REPO, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True, env={**os.environ, "OMP_NUM_THREADS": "2"})
+         "--smooth-iters", str(iters), "--extrude", str(nz), "--zlen", str(zlen)], cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "OMP_NUM_THREADS": "2"})
     return proc, time.perf_counter()
+
+
+def wait_mesher(mesher, what):
+    """The child's output once it has finished, and the seconds waited."""
+    import time
+
+    proc, _ = mesher
+    t0 = time.perf_counter()
+    text, _ = proc.communicate(timeout=900)
+    require(proc.returncode == 0, f"{what}: the mesher failed: {text}")
+    return text, time.perf_counter() - t0
 
 
 def phase_mesh94k(torch, card, dev, mesher):
@@ -3846,11 +3978,8 @@ def phase_mesh94k(torch, card, dev, mesher):
     from vf_fem_tpu_torch import forward
     from vf_fem_tpu_torch.mesh.cached import load_cached_m5_mesh
 
-    proc, t_start = mesher
-    t0 = time.perf_counter()
-    text, _ = proc.communicate(timeout=900)
-    require(proc.returncode == 0, f"mesh94k: the mesher failed: {text}")
-    waited = time.perf_counter() - t0
+    _, t_start = mesher
+    text, waited = wait_mesher(mesher, "mesh94k")
     name, h, iters = MESH94K
     mesh, seconds = load_cached_m5_mesh(name, h, iters)
     require(seconds is None, "mesh94k: the child process left no cache")
@@ -3884,8 +4013,15 @@ def phase_mesh94k(torch, card, dev, mesher):
                 f"{what}: {launches['btd_sweep']} K6 launches for {solves} solves")
         for k, v in traj.items():
             require(bool(torch.isfinite(v).all()), f"{what}: non-finite {k}")
-        (fin_x, _, _), ms_x, _, _ = drive(BTD_EXACT)
-        err = rel_max(fin["u"].double().cpu().numpy(), fin_x["u"].double().cpu().numpy())
+        # the f64 run against its exact-Jacobian run, the gate; the f32 run
+        # has no such gate and runs production alone
+        exact = ""
+        if dtype == torch.float64:
+            (fin_x, _, _), ms_x, _, _ = drive(BTD_EXACT)
+            err = rel_max(fin["u"].double().cpu().numpy(), fin_x["u"].double().cpu().numpy())
+            exact = (f", exact run {N_STEPS / (ms_x / 1e3):.2f}; trajectory error vs the"
+                     f" exact-Jacobian run {err:.3e} (gate {TRAJ_ERR_GATE:.0e}; for scale, TPU:"
+                     f" 3.48e-7, STATUS.md:360)")
         mid = {k: v[N_STEPS // 2 - 1] for k, v in traj.items()}
         split, detail = step_split(torch, built, mid, BTD_R64, N_STEPS, ms / N_STEPS)
         prof = profile_run(torch, lambda: forward.integrate_pure(
@@ -3893,10 +4029,7 @@ def phase_mesh94k(torch, card, dev, mesher):
             "btd_sweep_kernel")
         require_traced(prof, used, what)
         log(f"[mesh94k] btd refresh 64 {tag} ({model.solid.ndof} dofs, {N_STEPS} steps):"
-            f" {N_STEPS / (ms / 1e3):.2f} steps/s (CUDA graph, CUDA events), exact run"
-            f" {N_STEPS / (ms_x / 1e3):.2f}; trajectory error vs the exact-Jacobian run"
-            f" {err:.3e} ({'gate' if dtype == torch.float64 else 'not gated; for reference'}"
-            f" {TRAJ_ERR_GATE:.0e}; for scale, TPU: 3.48e-7, STATUS.md:360); a graph step"
+            f" {N_STEPS / (ms / 1e3):.2f} steps/s (CUDA graph, CUDA events){exact}; a graph step"
             f" {ms / N_STEPS:.3f} ms with the two refactorizations amortized ({split['refresh']:.3f}"
             f" ms of it); eager calls at step {N_STEPS // 2}: {detail}; profile of"
             f" {PROFILE_STEPS} steps: device busy"
@@ -3905,9 +4038,300 @@ def phase_mesh94k(torch, card, dev, mesher):
             f" launches {launches} ({sum(launches.values()) / N_STEPS:.1f} a step), on {card}")
         if dtype == torch.float64:
             require(err <= TRAJ_ERR_GATE, f"{what}: trajectory error over its gate")
-        out[tag] = dict(launches=launches, steps_s=N_STEPS / (ms / 1e3), err=err,
+        out[tag] = dict(launches=launches, steps_s=N_STEPS / (ms / 1e3),
+                        err=err if dtype == torch.float64 else None,
                         n_steps=N_STEPS, idle=prof["idle"], peak=peak)
         del built, model, traj
+    return out
+
+
+def mesh_digest(mesh):
+    """SHA-256 of a mesh's integer data in a form that does not depend on
+    the order of its facets and edges: the cells, the cell markers, each
+    lower dimension's marked entities (sorted vertex tuples with their
+    markers, in lexicographic order) and the subdomains' nonzero markers.
+    Either package's ``Mesh`` (numpy arrays); the coords are compared
+    apart."""
+    import hashlib
+
+    h = hashlib.sha256()
+    h.update(np.ascontiguousarray(mesh.cells, dtype=np.int64).tobytes())
+    for d in range(mesh.dim + 1):
+        m = mesh.mesh_functions.get(d)
+        if d == mesh.dim:
+            rows = np.zeros(len(mesh.cells), np.int64) if m is None else np.asarray(m, np.int64)
+        elif m is None:
+            rows = np.zeros((0, d + 2), np.int64)
+        else:
+            m = np.asarray(m, np.int64)
+            keep = m != 0
+            ents = np.sort(np.asarray(mesh.entities[d], np.int64)[keep], axis=1)
+            rows = np.column_stack([ents, m[keep]])
+            rows = rows[np.lexsort(rows.T[::-1])]
+        h.update(f"{d}:{rows.shape}".encode())
+        h.update(np.ascontiguousarray(rows).tobytes())
+    names = {int(d): sorted((str(k), int(v)) for k, v in sub.items() if int(v) != 0)
+             for d, sub in mesh.subdomains.items()}
+    h.update(json.dumps(sorted((d, v) for d, v in names.items() if v)).encode())
+    return h.hexdigest()
+
+
+def extruded_small(torch, dev):
+    """``EXTRUDED_SMALL``'s model (f64) on the card: ``(model, state0,
+    controls, prop, times)``."""
+    from vf_fem_tpu_torch.load import load_fsi_model
+    from vf_fem_tpu_torch.mesh import m5_mesh
+    from vf_fem_tpu_torch.mesh.extrude import extrude_mesh
+    from vf_fem_tpu_torch.mesh.reorder import rcm_mesh
+    from vf_fem_tpu_torch.residuals import fluid as flr, solid as slr
+
+    c = EXTRUDED_SMALL
+    zs = np.linspace(0.0, c["zlen"], c["nz"])
+    mesh = rcm_mesh(extrude_mesh(m5_mesh(c["profile"], h=c["h"], smooth_iters=c["smooth_iters"]),
+                                 zs))
+    model = load_fsi_model(mesh, getattr(slr, c["solid"]), getattr(flr, c["fluid"]),
+                           coupling="explicit", zs=zs, device=dev, dtype=torch.float64)
+    set_values(model, extruded_small_values(mesh.coords[:, 1].max()),
+               {"psub": c["psub"], "psup": 0.0})
+    state0 = {k: np.zeros_like(v) for k, v in model.state0.items()}
+    controls = {k: v[None] for k, v in model.control.items()}
+    return model, state0, controls, model.prop, c["dt"] * np.arange(c["n_steps"] + 1)
+
+
+def ops_3d(torch, model):
+    """K3 (nld = 12, the cells and the pressure facets) and K4 (h = 10)
+    against their plain versions on the 45.8k fold's Jacobian at rest under
+    500 Ba, f64 and f32; K6 at Bt = 1280 on its own factors
+    (``sweep_cases``, ``phase_ops_btd``)."""
+    from vf_fem_tpu_torch import ops, yardsticks
+    from vf_fem_tpu_torch.solvers import bsb
+
+    op = rest_operator(torch, model, 500.0)
+    plan, fill = model.solid.bsb_plan()
+    blocks64 = bsb.bsb_fill(plan, fill, [op.J_cells, op.J_facets])
+    pattern = fill.pattern
+    ndof = model.solid.ndof
+    log(f"[3d] 45.8k: J_cells {tuple(op.J_cells.shape)}, J_facets {tuple(op.J_facets.shape)},"
+        f" blocks {tuple(blocks64.shape)} (nblk {plan.nblk}, nb {plan.nb}, h {plan.h})")
+    require(op.J_cells.shape[-1] == 12 and plan.h * plan.b == MESH3D_BT,
+            f"3d: nld {op.J_cells.shape[-1]}, Bt {plan.h * plan.b}")
+    x_host = np.random.default_rng(0).standard_normal(ndof)
+    results = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        rtol = 1e-13 if dtype == torch.float64 else 1e-6
+        es = dtype.itemsize
+        x = torch.tensor(x_host, dtype=dtype, device=model.device)
+        for label, J, d in (("cells", op.J_cells.to(dtype), op.cell_dofs),
+                            ("facets", op.J_facets.to(dtype), op.facet_dofs)):
+            ne, nld = J.shape[0], J.shape[-1]
+            results[("ebe_matvec", f"45.8k {label}", tag)] = r = check_op(
+                torch, f"3d ebe_matvec {label} {tag}",
+                lambda: (ops.ebe_matvec(J, x, d),), lambda: (ops.ebe_matvec_reference(J, x, d),),
+                lambda: (ops.dot_order_bound(ops.ebe_matvec_reference(J.abs(), x.abs(), d),
+                                             nld),),
+                rtol, ((J.numel() + x.numel() + ne * nld) * es + d.numel() * 8,
+                       2 * J.numel(), tag))
+            r["lib_call"] = yardsticks.LIBRARY_CALL["ebe_matvec"]
+        blocks = blocks64.to(dtype)
+        csr = yardsticks.bsb_csr(plan, blocks, pattern)
+        results[("bsb_matvec", "45.8k", tag)] = r = check_op(
+            torch, f"3d bsb_matvec {tag}",
+            lambda: (ops.bsb_matvec(plan, blocks, x, pattern),),
+            lambda: (ops.bsb_matvec_reference(plan, blocks, x),),
+            lambda: (ops.dot_order_bound(ops.bsb_matvec_reference(plan, blocks.abs(), x.abs()),
+                                         plan.nb * plan.b),),
+            rtol, (*bsb_work(pattern, ndof, es), tag),
+            lib=lambda: (yardsticks.csr_mm(csr, x).reshape(-1),))
+        r["lib_call"] = yardsticks.LIBRARY_CALL["bsb_matvec"]
+        del blocks, csr
+        for (kname, label, tg), r in results.items():
+            if tg == tag:
+                log(f"[3d] {kname} {label} {tag}: {fmt_times(r)}; max_abs_err"
+                    f" {r['max_abs_err']:.3e}"
+                    + ("" if r["lib_err"] is None else f", library max_abs_err {r['lib_err']:.3e}"))
+    results.update(phase_ops_btd(torch, sweep_cases(torch, plan, blocks64), line="3d"))
+    return results
+
+
+def phase_3d(torch, card, dev, mesher3d):
+    """Phase 17: extruded 3D.  The small extruded stack against its JAX
+    golden (``small_3d``); the 45.8k-dof fold's mesh (from its child
+    process), K1/K2 on its plan, K3/K4 on its Jacobian and K6 at Bt = 1280
+    on its factors against their plain versions (``ops_3d``); its first
+    tight f64 btd steps against ``golden_3d_45k.npz``, which also holds the
+    JAX package's mesh (``mesh_digest`` and coords) that the port's is held
+    to; the production btd settings in f64 and f32 against their
+    exact-Jacobian runs (``production_3d``)."""
+    from vf_fem_tpu_torch.mesh.cached import load_cached_m5_mesh
+
+    out = {"small": small_3d(torch, card, dev)}
+    name, h, iters, nz, zlen = MESH3D
+    text, waited = wait_mesher(mesher3d, "3d")
+    mesh, _ = load_cached_m5_mesh(name, h, iters, nz=nz, zlen=zlen)
+    gold = np.load(os.path.join(REPO, "tests", "data", "golden_3d_45k.npz"))
+    digest = mesh_digest(mesh)
+    coords_off = (rel_max(mesh.coords, gold["mesh_coords"])
+                  if mesh.coords.shape == gold["mesh_coords"].shape else np.inf)
+    log(f"[3d] {text.strip()} (a child process beside phases 2-16; this phase waited"
+        f" {waited:.1f} s); against the JAX package's mesher (golden_3d_45k.npz): mesh_digest"
+        f" {'equal' if digest == str(gold['mesh_digest']) else 'DIFFERENT'}, coords"
+        f" {coords_off:.3e} of their largest (gate {MESH3D_COORDS_RTOL:.0e})")
+    require(digest == str(gold["mesh_digest"]) and coords_off <= MESH3D_COORDS_RTOL,
+            "3d: the port's mesh is not the JAX package's")
+    out["kernels"] = {}
+    banded_contracts(torch, dev, "45.8k", mesh, out["kernels"], "3d")
+    big = build_3d(torch, dev, mesh, torch.float64)
+    out["ops"] = ops_3d(torch, big[0])
+    golden_3d(torch, big)
+    out.update(production_3d(torch, card, dev, mesh, big))
+    return out
+
+
+def small_3d(torch, card, dev):
+    """The small extruded stack's dense exact and btd runs (f64 and bf16
+    factors) against the JAX golden and each other; the launches of each."""
+    from vf_fem_tpu_torch import forward
+
+    out = {}
+    gold = np.load(os.path.join(REPO, "tests", "data", "golden_3d.npz"))
+    model, state0, cs, prop, times = extruded_small(torch, dev)
+    n_small = len(times) - 1
+    u = {}
+    for run, params in EXTRUDED_SMALL_RUNS.items():
+        (fin, traj, infos), ms, launches, _ = run_timed(torch, model, lambda: (
+            forward.integrate_pure(model, state0, cs, prop, times, params)))
+        used = ("newmark",) + (("gather", "scatter", "btd_sweep") if run != "dense" else ())
+        require_launched(launches, used, f"3d small {run}")
+        u[run] = traj["u"].cpu().numpy()
+        errs = {k: rel_max(traj[k].cpu().numpy(), gold[f"btd3d|{run}|{k}"]) for k in ("u", "q")}
+        log(f"[3d] small extruded M5_CB_GA3 ({model.solid.ndof} dofs, {len(model.fluid.state0['q'])}"
+            f" channels) {run}, {n_small} steps: vs the JAX golden max|du|/max|u|"
+            f" {errs['u']:.3e}, q {errs['q']:.3e} (gate {GOLDEN_3D_RTOL:.0e});"
+            f" {n_small / (ms / 1e3):.2f} steps/s; launches {launches}, on {card}")
+        require(max(errs.values()) <= GOLDEN_3D_RTOL, f"3d small {run}: off the golden")
+        out[run] = dict(launches=launches, n_steps=n_small)
+    btd_vs_dense = rel_max(u["btd"], u["dense"])
+    bf16_vs_dense = rel_max(u["btd16"], u["dense"])
+    log(f"[3d] small: btd f64 vs dense exact {btd_vs_dense:.3e}, bf16 factors vs dense"
+        f" {bf16_vs_dense:.3e} (gate {EXTRUDED_BF16_VS_DENSE:.0e})")
+    require(np.allclose(u["btd"], u["dense"], rtol=1e-7, atol=1e-11)
+            and bf16_vs_dense < EXTRUDED_BF16_VS_DENSE, "3d small: btd off the dense run")
+    return out
+
+
+def build_3d(torch, dev, mesh, dtype):
+    """The 45.8k fold (``build`` on the extruded mesh, a fluid channel a
+    z-plane), its size checked."""
+    from vf_fem_tpu_torch.mesh.cached import extrusion_planes
+
+    counts = (mesh.num_vertices, mesh.num_cells)
+    require(mesh.dim == 3 and counts == MESH3D_COUNTS,
+            f"3d: mesh of {counts} vertices and tetrahedra (expected {MESH3D_COUNTS})")
+    return build(torch, dev, mesh, dtype, zs=extrusion_planes(*MESH3D[3:]))
+
+
+def golden_3d(torch, big):
+    """The first ``GOLDEN_3D_STEPS`` tight f64 btd steps against the JAX
+    package's (every eighth u entry and q)."""
+    from vf_fem_tpu_torch import forward
+
+    gold = np.load(os.path.join(REPO, "tests", "data", "golden_3d_45k.npz"))
+    every = int(gold["every"])
+    model, state0, cs, prop = big
+    (fin, traj, infos), ms, launches, _ = run_timed(torch, model, lambda: forward.integrate_pure(
+        model, state0, cs, prop, DT * np.arange(GOLDEN_3D_STEPS + 1), BTD_TIGHT))
+    errs = {"u": rel_max(traj["u"].cpu().numpy()[:, ::every], gold["u"]),
+            "q": rel_max(traj["q"].cpu().numpy(), gold["q"])}
+    log(f"[3d] 45.8k ({model.solid.ndof} dofs, {len(model.fluid.state0['q'])} channels) tight"
+        f" f64 btd, {GOLDEN_3D_STEPS} steps, vs golden_3d_45k.npz (JAX CPU): max|du|/max|u|"
+        f" {errs['u']:.3e}, q {errs['q']:.3e} (gate {GOLDEN_3D_RTOL:.0e}); Newton"
+        f" {infos.num_iter.tolist()} (golden {gold['num_iter'].tolist()}); launches {launches}")
+    require(max(errs.values()) <= GOLDEN_3D_RTOL, "3d: tight run off the golden")
+
+
+def production_3d(torch, card, dev, mesh, big):
+    """The production btd settings on the 45.8k fold, f64 (``big``) then
+    f32: 100 steps, a replay of the captured step a step (f64: bit-equal to
+    the eager loop), against the exact-Jacobian run (``TRAJ_ERR_GATE``, or
+    1.5x the JAX package's CPU value in ``golden_3d_45k.npz`` where that
+    exceeds it), with steps/s, launches a step, graph nodes, one
+    refactorization's ms, the peak device memory and a profile of the f64
+    run."""
+    from vf_fem_tpu_torch import forward
+
+    gold = np.load(os.path.join(REPO, "tests", "data", "golden_3d_45k.npz"))
+    jax_errs = {"float64": float(gold["traj_err"]), "float32": float(gold["f32_traj_err"])}
+    out = {}
+    used = ("gather", "scatter", "newmark", "btd_sweep")
+    times = DT * np.arange(N_STEPS + 1)
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        jax_err = jax_errs[tag]
+        what = f"3d 45.8k {tag}"
+        if dtype == torch.float32:
+            big = build_3d(torch, dev, mesh, dtype)
+        model, state0, cs, prop = big
+
+        def drive(params, ts=times):
+            return run_timed(torch, model, lambda: forward.integrate_pure(
+                model, state0, cs, prop, ts, params))
+
+        drive(BTD_PROD)  # warm-up (captures the step)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res, ms, launches, _ = drive(BTD_PROD)
+        peak = torch.cuda.max_memory_allocated() - base
+        fin, traj, infos = res
+        require_launched(launches, used, what)
+        solves = int(infos.num_iter.sum())
+        require(launches["btd_sweep"] == 2 * solves,
+                f"{what}: {launches['btd_sweep']} K6 launches for {solves} solves")
+        for k, v in traj.items():
+            require(bool(torch.isfinite(v).all()), f"{what}: non-finite {k}")
+        entry = graph_entry(model, BTD_PROD)
+        alone = replay_ms(torch, model, BTD_PROD, N_STEPS)
+        eager = ""
+        if dtype == torch.float64:
+            res_e, ms_e, launches_e, _ = run_timed(torch, model, lambda: forward._integrate_eager(
+                model, state0, cs, prop, times, BTD_PROD))
+            require(same_run(torch, res, res_e) and launches_e == launches,
+                    f"{what}: the graph run is not bit-equal to the eager loop")
+            eager = (f"; bit-equal to the eager loop ({N_STEPS / (ms_e / 1e3):.2f} steps/s,"
+                     f" the same launches)")
+            del res_e
+        (fin_x, _, _), ms_x, _, _ = drive(BTD_EXACT)
+        err = rel_max(fin["u"].double().cpu().numpy(), fin_x["u"].double().cpu().numpy())
+        gate = TRAJ_ERR_GATE if jax_err <= TRAJ_ERR_GATE else 1.5 * jax_err
+        mid = {k: v[N_STEPS // 2 - 1] for k, v in traj.items()}
+        split, detail = step_split(torch, big, mid, BTD_PROD, N_STEPS, ms / N_STEPS)
+        prof = ""
+        if dtype == torch.float64:
+            p = profile_run(torch, lambda: forward.integrate_pure(
+                model, state0, cs, prop, times[:PROFILE_STEPS + 1], BTD_PROD), PROFILE_STEPS,
+                "btd_sweep_kernel")
+            require_traced(p, used, what)
+            prof = (f"; profile of {PROFILE_STEPS} steps: device busy {p['busy_ms']:.3f} ms of"
+                    f" {p['wall_ms']:.3f} ms, idle share {p['idle']:.3f}, K6 {p['k_ms']:.3f} ms"
+                    f" ({p['k_ms'] / p['busy_ms']:.1%} of busy) in {p['k_launches']} launches")
+            out["profile"] = {k: v for k, v in p.items() if k != "table"}
+            log(p["table"])
+        per_step = {k: launches[k] / N_STEPS for k in used}
+        log(f"[3d] 45.8k production btd {tag} ({model.solid.ndof} dofs, {N_STEPS} steps):"
+            f" {N_STEPS / (ms / 1e3):.2f} steps/s (CUDA graph, CUDA events){eager}; exact run"
+            f" {N_STEPS / (ms_x / 1e3):.2f}; trajectory error vs the exact-Jacobian run"
+            f" {err:.3e} (gate {gate:.1e}; JAX CPU {jax_err:.3e}); graph {entry['nodes']} nodes"
+            f" a step, the replays alone {alone:.4f} ms a step; launches a step {per_step}; a graph"
+            f" step {ms / N_STEPS:.3f} ms with the two refactorizations amortized"
+            f" ({split['refresh']:.3f} ms of it); eager calls at step"
+            f" {N_STEPS // 2}: {detail}; peak device memory {peak / 2**20:.1f} MB over the"
+            f" model's{prof}; on {card}")
+        require(err <= gate, f"{what}: trajectory error over its gate")
+        out[tag] = dict(launches=launches, steps_s=N_STEPS / (ms / 1e3), err=err, gate=gate,
+                        n_steps=N_STEPS, peak=peak, nodes=entry["nodes"], split=split,
+                        replay_ms=alone)
+        del big, model, traj, res
     return out
 
 
@@ -3927,12 +4351,13 @@ def main():
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(cuda_build.build, sources))
     log(f"[build] {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.1f} s")
-    mesher = start_mesher()
-    children = [mesher[0]]
+    mesher = start_mesher(*MESH94K)
+    mesher3d = start_mesher(*MESH3D)
+    children = [mesher[0], mesher3d[0]]
     try:
         m5qz = start_m5_qz(torch, dev)
         children.append(m5qz["proc"])
-        run_phases(torch, name, card, dev, t0, mesher, m5qz)
+        run_phases(torch, name, card, dev, t0, mesher, mesher3d, m5qz)
     finally:
         for proc in children:
             if proc.poll() is None:
@@ -3940,7 +4365,7 @@ def main():
             proc.wait()
 
 
-def run_phases(torch, name, card, dev, t0, mesher, m5qz):
+def run_phases(torch, name, card, dev, t0, mesher, mesher3d, m5qz):
     import time
 
     def timed(name, fn, *args):
@@ -3966,6 +4391,7 @@ def run_phases(torch, name, card, dev, t0, mesher, m5qz):
     hopf = timed("hopf", phase_hopf, torch, card, dev, m5qz)
     phys = timed("physics", phase_physics, torch, card, dev, head, btd_res, integ)
     api = timed("api", phase_api, torch, card, dev, large, integ)
+    d3 = timed("3d", phase_3d, torch, card, dev, mesher3d)
 
     # per kernel: the timing at the 23.7k shapes of the btd main path (f64)
     timing = {
@@ -4007,7 +4433,9 @@ def run_phases(torch, name, card, dev, t0, mesher, m5qz):
             ("M5 stateful golden", api["golden"]["launches"], api["golden"]["n_steps"]),
             *((f"23.7k solve_state1 {k}", v["launches"], v["n_steps"])
               for k, v in api["large"].items()),
-            ("M5 phonation", api["phonation"]["launches"], api["phonation"]["n_steps"])]
+            ("M5 phonation", api["phonation"]["launches"], api["phonation"]["n_steps"]),
+            *((f"3D small {k}", v["launches"], v["n_steps"]) for k, v in d3["small"].items()),
+            ("45.8k 3D btd", d3["float64"]["launches"], d3["float64"]["n_steps"])]
     path = {  # the main-path run whose count is this kernel's ``launches``
         "gather": runs[0][1], "scatter": runs[0][1], "newmark": runs[0][1],
         "btd_sweep": runs[1][1], "ebe_matvec": runs[3][1], "bsb_matvec": runs[2][1],

@@ -73,19 +73,19 @@ def emulate_sweep(A: torch.Tensor, g: torch.Tensor,
         rb = s & 1
         push = s + 1 < n
         for r in range(C):
-            # the producer runs ahead into every slot released so far
-            while issued[r] < min(n * SPB, released[r] + NST):
-                t = issued[r]
-                ss, sub = divmod(t, SPB)
-                ii = n - 1 - ss if reverse else ss
-                lo = r * R + sub * RS
-                ring[r][t % NST] = (t, A[ii, lo:lo + RS])
-                issued[r] += 1
             if s > 0:  # all of x_{i-1} has landed in this CTA, once
                 assert landed[r][rb ^ 1] == bt * es, (s, r, landed[r])
                 landed[r][rb ^ 1] = 0
             x = xs[r][rb ^ 1]
             for sub in range(SPB):
+                # the producer runs ahead into every slot released so far
+                while issued[r] < min(n * SPB, released[r] + NST):
+                    t = issued[r]
+                    ss, k = divmod(t, SPB)
+                    ii = n - 1 - ss if reverse else ss
+                    lo = r * R + k * RS
+                    ring[r][t % NST] = (t, A[ii, lo:lo + RS])
+                    issued[r] += 1
                 t = s * SPB + sub
                 tag, rows = ring[r][t % NST]
                 assert tag == t, (r, t, tag)

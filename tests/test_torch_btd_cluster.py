@@ -44,7 +44,7 @@ def test_sweep_plan_fits(pair, bt):
     assert p.threads == (p.warps + 1) * 32 <= 1024
 
 
-@pytest.mark.parametrize("bt", kernels.SWEEP_WIDTHS)
+@pytest.mark.parametrize("bt", kernels.SWEEP_T_WIDTHS)
 @pytest.mark.parametrize("pair", list(PAIRS))
 def test_sweep_t_plan_fits(pair, bt):
     """K6T's plan: K6's cluster; the columns divide among the CTAs, a
@@ -81,6 +81,18 @@ def test_sweep_plan_default_cluster(pair):
     want = 16 if fdt == torch.float64 else 8
     assert kernels.SWEEP_CLUSTER[fdt] == want
     assert {ops.sweep_plan(bt, fdt, vdt).cluster for bt in kernels.SWEEP_WIDTHS} == {want}
+
+
+def test_sweep_plan_3d_width():
+    """At the 3D width (Bt = 1280) every pair keeps a ring of two slots: f64
+    factors take 10 warps of one row (16 would leave one slot of 160 KB),
+    the others 16 warps; K6T is not built there."""
+    for pair, (warps, ring) in {"bf16-f64": (16, 2), "bf16-f32": (16, 2),
+                                "f64-f64": (10, 2), "f32-f32": (16, 2)}.items():
+        p = ops.sweep_plan(1280, *PAIRS[pair])
+        assert (p.warps, p.ring) == (warps, ring), pair
+    with pytest.raises(ValueError, match="row blocks"):
+        ops.sweep_t_plan(1280, torch.bfloat16, torch.float64)
 
 
 def test_sweep_plan_rejects():
@@ -128,6 +140,18 @@ def test_emulation_bit_equal_to_plain(pair, n, bt, reverse):
     assert torch.equal(out, ref)
     if n > 1:  # the carried vector matters: not the trivial sweep y = g
         assert not torch.equal(ref, g)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "backward"])
+@pytest.mark.parametrize("pair", list(PAIRS))
+def test_emulation_bit_equal_to_plain_3d_width(pair, reverse):
+    """The same at the 3D width, Bt = 1280 (five to ten ring slots a row
+    block, two in the ring), over 3 row blocks."""
+    fdt, vdt = PAIRS[pair]
+    A, g = exact_inputs(3, 1280, fdt, vdt, seed=5)
+    ref = ops.btd_sweep(A, g, reverse=reverse)
+    assert torch.equal(emulate_sweep(A, g, reverse), ref)
+    assert not torch.equal(ref, g)
 
 
 @pytest.mark.parametrize("pair", list(PAIRS))

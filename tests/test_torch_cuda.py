@@ -693,7 +693,7 @@ def test_capture_with_a_host_sync_raises(cuda):
 
 
 @pytest.mark.parametrize("n", [1, 2, "ring-1", "ring+1", 93])
-@pytest.mark.parametrize("bt", kernels.SWEEP_WIDTHS)
+@pytest.mark.parametrize("bt", kernels.SWEEP_T_WIDTHS)
 @pytest.mark.parametrize("pair", list(SWEEP_PAIRS))
 def test_btd_sweep_t_rows_every_width(cuda, pair, bt, n):
     """K6T on random factors scaled to 0.5/sqrt(Bt), both sweeps, at n = 1,
@@ -719,7 +719,7 @@ def test_btd_sweep_t_rows_every_width(cuda, pair, bt, n):
     assert ops.LAUNCHES["btd_sweep_t"] == n0 + 6
 
 
-@pytest.mark.parametrize("bt", kernels.SWEEP_WIDTHS)
+@pytest.mark.parametrize("bt", kernels.SWEEP_T_WIDTHS)
 @pytest.mark.parametrize("pair", list(SWEEP_PAIRS))
 def test_sweep_t_plan_is_the_kernels(cuda, pair, bt):
     """``ops.sweep_t_plan`` (the CPU tests' copy) is K6T's plan compiled into
@@ -1544,3 +1544,103 @@ def test_timeseries_vmap_matches_loop_on_cuda(cuda, dtype):
         loop = series.assem_loop(reader, range(reader.size))
         assert batched.shape[0] == reader.size and np.all(np.isfinite(batched))
         np.testing.assert_allclose(batched, loop, rtol=rel, atol=rel * np.abs(loop).max())
+
+
+# -- extruded 3D ------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("pair", list(SWEEP_PAIRS))
+def test_btd_sweep_3d_width(cuda, pair):
+    """K6 at the 3D fold's width and depth (36 row blocks of 1280, a ring of
+    two slots in every pair; f64 factors take 10 warps), both sweeps: each
+    row within rtol 1e-13 / 1e-6 plus the order bound of the plain row from
+    the kernel's own previous row, one launch a sweep; K6T is not built
+    there and raises."""
+    fdt, vdt = SWEEP_PAIRS[pair]
+    plan = ops.sweep_plan(1280, fdt, vdt)
+    assert plan.ring >= 2 and plan == kernels.built_sweep_plan(1280, fdt)
+    _, _, Ad, gd = _random_sweep(pair, 1280, 36, seed=36, dev=cuda)
+    rtol = 1e-13 if gd.dtype == torch.float64 else 1e-6
+    n0 = ops.LAUNCHES["btd_sweep"]
+    for rev in (False, True):
+        out = ops.btd_sweep(Ad, gd, reverse=rev)
+        ref, bound = ops.btd_sweep_rows_reference(Ad, gd, out, rev)
+        assert_scatter_close(out, ref, bound, rtol)
+    assert ops.LAUNCHES["btd_sweep"] == n0 + 2
+    with pytest.raises(ValueError, match="row blocks"):
+        ops.btd_sweep_t(Ad, gd)
+
+
+@pytest.fixture(scope="module")
+def extruded(cuda):
+    """The small extruded M5_CB_GA3 stack of ``chip_smoke.py`` phase 17 on
+    the card and on the CPU."""
+    import chip_smoke as cs
+
+    return cs.extruded_small(torch, cuda), cs.extruded_small(torch, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_banded_kernels_3d_shapes(extruded, dtype):
+    """K1/K2 on the tetrahedral plan (nv = 4, 16 gathered channels, 3
+    scattered) and K3 on the extruded fold's cell Jacobians (nld = 12)
+    against their plain versions."""
+    from vf_fem_tpu_torch.convert import to_tensors
+
+    (model, *_), _ = extruded
+    dev = model.device
+    dp = model.solid.residual.banded_plan()
+    nvert = model.solid.nvert
+    assert dp.nv == 4
+    rng = np.random.default_rng(3)
+    F = torch.tensor(rng.standard_normal((16, nvert)), dtype=dtype, device=dev)
+    loc = torch.tensor(rng.standard_normal((4, 3, dp.ncpad)), dtype=dtype, device=dev)
+    rtol = 1e-13 if dtype == torch.float64 else 1e-6
+    torch.testing.assert_close(banded.banded_gather(dp, F),
+                               banded.banded_gather_reference(dp, F, dp.g), rtol=0, atol=0)
+    assert_scatter_close(banded.banded_scatter(dp, loc, nvert),
+                         banded.banded_scatter_reference(dp, loc, nvert, dp.s),
+                         banded.scatter_order_bound(dp, loc, nvert, dp.s), rtol)
+    solid = model.solid
+    s0 = {k: torch.zeros(solid.ndof, dtype=torch.float64, device=dev) for k in "uva"}
+    control = {"p1": torch.full((nvert,), 500.0, dtype=torch.float64, device=dev)}
+    prop = to_tensors({k: model.prop[k] for k in model._solid_prop_keys}, dev, torch.float64)
+    op = solid.jac_u_ebe(s0["u"], s0, control, prop, 1e-4)
+    J = op.J_cells.to(dtype)
+    assert J.shape[-1] == 12
+    x = torch.tensor(rng.standard_normal(solid.ndof), dtype=dtype, device=dev)
+    n0 = ops.LAUNCHES["ebe_matvec"]
+    y = ops.ebe_matvec(J, x, op.cell_dofs)
+    ref = ops.ebe_matvec_reference(J, x, op.cell_dofs)
+    assert_scatter_close(y, ref, ops.dot_order_bound(
+        ops.ebe_matvec_reference(J.abs(), x.abs(), op.cell_dofs), 12), rtol)
+    assert ops.LAUNCHES["ebe_matvec"] == n0 + 1
+
+
+def test_3d_step_runs_the_kernels(extruded):
+    """The extruded stack's btd run on the card (f64 and bf16 factors)
+    launches K1/K2 four times (fixed-3 chord with its trailing residual),
+    K5 once and K6 six times a step (a two-sweep solve an iteration), as a
+    replay of the captured step, and matches the CPU run, where no kernel
+    launches: within 1e-10 of max|u| with f64 factors, 2e-8 with bf16 (the
+    f64 factors of the two devices differ in their last bits, which moves
+    some entries across a bf16 rounding boundary: 6.9e-9 on an H100)."""
+    import chip_smoke as cs
+
+    (model, s0, ctl, prop, times), (cmodel, cs0, cctl, cprop, _) = extruded
+    n = len(times) - 1
+    for run in ("btd", "btd16"):
+        params = cs.EXTRUDED_SMALL_RUNS[run]
+        _reset_launches()
+        _, ctraj, _ = forward.integrate_pure(cmodel, cs0, cctl, cprop, times, params)
+        assert sum(ops.LAUNCHES.values()) + sum(banded.LAUNCHES.values()) == 0
+        forward.integrate_pure(model, s0, ctl, prop, times, params)  # captures the step
+        _reset_launches()
+        _, traj, infos = forward.integrate_pure(model, s0, ctl, prop, times, params)
+        torch.cuda.synchronize()
+        assert (banded.LAUNCHES["gather"], banded.LAUNCHES["scatter"]) == (4 * n, 4 * n)
+        assert ops.LAUNCHES["newmark"] == n
+        assert ops.LAUNCHES["btd_sweep"] == 2 * int(infos.num_iter.sum()) == 6 * n
+        u, cu = traj["u"].cpu().numpy(), ctraj["u"].numpy()
+        rel = 1e-10 if run == "btd" else 2e-8
+        np.testing.assert_allclose(u, cu, rtol=0, atol=rel * np.abs(cu).max())

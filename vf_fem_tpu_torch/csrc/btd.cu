@@ -31,7 +31,10 @@
 // their bytes (93 x 256 x 256 at 23.7k dofs: 12.2 MB in bf16, 48.8 MB in
 // f64; 3.6 / 14.6 us at 3.35 TB/s) can stream ahead of the recurrence;
 // only the Bt-entry carried vector is serial, and each row block costs at
-// least one exchange of it between the SMs that share the work.
+// least one exchange of it between the SMs that share the work.  At the
+// 3D width (36 x 1280 x 1280 at 45.8k dofs: 118 MB in bf16, 472 MB in f64;
+// 35 / 141 us) the bytes, not the chain, set the bound, and one cluster's
+// SMs share the whole stream.
 //
 // Design: one thread-block cluster of C CTAs (16 for f64 factors, 8
 // otherwise, on neighbouring SMs) per sweep, launched with
@@ -42,7 +45,9 @@
 //   cp.async.bulk copies completed on "full" mbarriers; the consumer warps
 //   release each slot on its "empty" mbarrier.  The ring holds as many
 //   stages as fit in 227 KB, so the factor stream runs ahead of the chain
-//   and no factor load sits on it.
+//   and no factor load sits on it; where a stage of one row a warp for
+//   16 warps would leave a single slot (f64 factors at Bt = 1280), the
+//   plan takes fewer warps, so smaller stages, and keeps two.
 // - Each consumer warp takes RPW rows of each stage (RPW x sizeof(factor)
 //   is a whole 32-bit word) against x_{i-1}, which every CTA holds in its
 //   own shared memory in the factor type.  Lane p < C then pushes
@@ -709,7 +714,7 @@ int launch_sweep_t(const void* A, const void* g, void* out, int n, int bt,
   if (n == 0) return 0;
 #define VF_SWEEP_T_CALL(BT) \
   launch_sweep_t_bt<TA, TV, BT>(A, g, out, n, reverse, cluster, stream)
-  VF_BT_SWITCH(VF_SWEEP_T_CALL)
+  VF_BT_T_SWITCH(VF_SWEEP_T_CALL)
 #undef VF_SWEEP_T_CALL
 }
 
@@ -752,7 +757,7 @@ VF_SWEEP_T_ENTRY(vf_btd_sweep_t_f32_f32, float, float)
 // the sweep is not built for
 int vf_btd_sweep_plan(int es, int bt, int* out) {
   if ((es != 2 && es != 4 && es != 8) ||
-      (bt != 128 && bt != 256 && bt != 384 && bt != 512))
+      (bt != 128 && bt != 256 && bt != 384 && bt != 512 && bt != 1280))
     return static_cast<int>(cudaErrorInvalidValue);
   const vf_btd::Plan p = vf_btd::make_plan(es, bt);
   const int v[9] = {p.cluster, p.rows_per_cta, p.rows_per_warp, p.warps, p.stage_rows,

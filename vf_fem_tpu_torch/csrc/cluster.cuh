@@ -36,20 +36,29 @@ struct Plan {
   int threads;           // (W + 1) * 32
 };
 
+// ring slots of `rows` rows of Bt entries that fit beside the carried
+// vector's two buffers and the mbarriers
+__host__ __device__ constexpr int ring_room(int es, int bt, int rows) {
+  return (kSmemLimit - 2 * bt * es - kBarBytes) / (rows * bt * es);
+}
+
 __host__ __device__ constexpr Plan make_plan(int es, int bt) {
   Plan p{};
   p.cluster = cluster_size(es);
   p.rows_per_cta = bt / p.cluster;
   p.rows_per_warp = es < 4 ? 4 / es : 1;
   const int units = p.rows_per_cta / p.rows_per_warp;
-  int w = 1;  // the most warps, up to kMaxWarps, that divide the units
+  // the most warps, up to kMaxWarps, that divide the units and leave a ring
+  // of at least two slots, so that the factor stream runs ahead of the chain
+  // (at Bt = 1280 in f64, 16 rows a slot would leave one: 10 rows leave two)
+  int w = 1;
   for (int d = 1; d <= kMaxWarps && d <= units; ++d)
-    if (units % d == 0) w = d;
+    if (units % d == 0 && ring_room(es, bt, d * p.rows_per_warp) >= 2) w = d;
   p.warps = w;
   p.stage_rows = w * p.rows_per_warp;
   p.stages_per_block = p.rows_per_cta / p.stage_rows;
   const int stage_bytes = p.stage_rows * bt * es;
-  const int room = (kSmemLimit - 2 * bt * es - kBarBytes) / stage_bytes;
+  const int room = ring_room(es, bt, p.stage_rows);
   p.ring = room < kMaxStages ? room : kMaxStages;
   p.smem = p.ring * stage_bytes + 2 * bt * es + kBarBytes;
   p.threads = (w + 1) * 32;
@@ -254,12 +263,22 @@ cudaError_t set_attributes(Kernel kernel, int smem, int cluster) {
 
 }  // namespace vf_btd
 
-// Bt = h * 128 for the block-banded plans of b = 128 (h = 1 .. 4)
+// Bt = h * 128 for the block-banded plans of b = 128: h = 1 .. 4 (the 2D
+// meshes; 2Bt of the complex embedding at h = 1, 2) and h = 10 (the
+// 45.8k-dof extruded 3D mesh).  K6T (btd.cu) is built for h = 1 .. 4 only.
+#define VF_BT_T_CASES(CALL)   \
+  case 128: return CALL(128); \
+  case 256: return CALL(256); \
+  case 384: return CALL(384); \
+  case 512: return CALL(512);
+#define VF_BT_T_SWITCH(CALL)                                 \
+  switch (bt) {                                              \
+    VF_BT_T_CASES(CALL)                                      \
+    default: return static_cast<int>(cudaErrorInvalidValue); \
+  }
 #define VF_BT_SWITCH(CALL)                                   \
   switch (bt) {                                              \
-    case 128: return CALL(128);                              \
-    case 256: return CALL(256);                              \
-    case 384: return CALL(384);                              \
-    case 512: return CALL(512);                              \
+    VF_BT_T_CASES(CALL)                                      \
+    case 1280: return CALL(1280);                            \
     default: return static_cast<int>(cudaErrorInvalidValue); \
   }

@@ -246,9 +246,7 @@ class EBEOperator(NamedTuple):
         """Inverse of the nodal ``dim x dim`` diagonal blocks,
         (ndof/dim, dim, dim): each element's vertex-diagonal blocks summed
         per vertex, Dirichlet rows and columns made identity, inverted in
-        closed form (2D)."""
-        if dim != 2:
-            raise NotImplementedError("block_diag_inverse: 2D only")
+        closed form (``elements.inv_small``: 2x2 or 3x3)."""
         diag = []
         for J, _ in self._parts():
             ne, nld, _ = J.shape
@@ -261,7 +259,7 @@ class EBEOperator(NamedTuple):
         D[nodes, comps, :] = 0.0
         D[nodes, :, comps] = 0.0
         D[nodes, comps, comps] = 1.0
-        return elements.inv2(D)
+        return elements.inv_small(D)
 
 
 def block_jacobi_apply(Dinv: torch.Tensor, r: torch.Tensor) -> torch.Tensor:

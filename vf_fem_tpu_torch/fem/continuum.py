@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as nnf
 
-from .elements import det2, inv2
+from .elements import det_small, inv_small
 
 
 def pad_to_3x3(A: torch.Tensor) -> torch.Tensor:
@@ -57,13 +57,13 @@ def stress_isotropic(strain: torch.Tensor, emod, nu) -> torch.Tensor:
 
 
 def pullback_area_normal(grad_u: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
-    """Nanson pullback cof(F) @ n = det(F) F^-T n, in 2D.
+    """Nanson pullback cof(F) @ n = det(F) F^-T n, in the mesh's dimension.
 
-    ``grad_u`` (..., 2, 2); ``n`` (..., 2) reference facet normal."""
-    eye = torch.eye(2, dtype=grad_u.dtype, device=grad_u.device)
+    ``grad_u`` (..., dim, dim); ``n`` (..., dim) reference facet normal."""
+    eye = torch.eye(n.shape[-1], dtype=grad_u.dtype, device=grad_u.device)
     F = grad_u + eye
-    detF = det2(F)
-    Finv = inv2(F)
+    detF = det_small(F)
+    Finv = inv_small(F)
     return detF[..., None] * torch.einsum("...ji,...j->...i", Finv, n)
 
 

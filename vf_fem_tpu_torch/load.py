@@ -103,12 +103,14 @@ def load_fsi_model(
     model_type: str = "transient",
     coupling: str = "explicit",
     fluid_interface_subdomains: Sequence[str] = ("pressure",),
+    zs: Optional[np.ndarray] = None,
     device=config.DEFAULT_DEVICE,
     dtype=config.DEFAULT_DTYPE,
     reorder: Optional[str] = None,
 ):
     """Build the solid, derive the 1D fluid interface from the 'pressure'
-    facet subdomain, build the fluid and couple the two.  A transient
+    facet subdomain (on a 3D mesh one channel on each z-plane of ``zs``),
+    build the fluid and couple the two.  A transient
     model is coupled staggered (``coupling='explicit'``,
     :class:`~.models.transient.ExplicitFSIModel`) or by Picard iteration
     (``'implicit'``, :class:`~.models.transient.ImplicitFSIModel`); a
@@ -134,7 +136,7 @@ def load_fsi_model(
     )
     mesh = solid.residual.mesh()
     s, dofs_fsi_solid, dofs_fsi_fluid = derive_1d_interface(
-        mesh, fluid_interface_subdomains
+        mesh, fluid_interface_subdomains, zs
     )
     fluid_kwargs = dict(fluid_kwargs or {})
     if (FluidResidual in (flr.BernoulliFixedSep, flr.BernoulliFlowFixedSep)

@@ -200,6 +200,11 @@ class Mesh:
         return mapping[element_type]
 
 
+def vertices_from_edges(edges: np.ndarray) -> np.ndarray:
+    """Unique vertex ids touched by a set of edges (edge->vertex array)."""
+    return np.unique(np.asarray(edges).reshape(-1))
+
+
 def sort_vertices_by_nearest_neighbours(
     vertex_coordinates: np.ndarray, origin: Optional[np.ndarray] = None
 ) -> np.ndarray:

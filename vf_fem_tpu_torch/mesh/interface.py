@@ -14,7 +14,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from .core import INT, Mesh, sort_vertices_by_nearest_neighbours
+from .core import INT, Mesh, sort_vertices_by_nearest_neighbours, vertices_from_edges
 
 
 def _boundary_edges_by_subdomain(mesh: Mesh, facet_values: set) -> np.ndarray:
@@ -60,7 +60,7 @@ def derive_edge_mesh_from_edges(mesh: Mesh, edges: np.ndarray):
     Arc-length coordinates + sorted vertex ids for a connected edge chain
     (reference: ``src/femvf/load.py:283-293``).
     """
-    vertices = np.unique(np.asarray(edges).reshape(-1))
+    vertices = vertices_from_edges(edges)
     coords = mesh.coords[vertices]
     idx_sort = sort_vertices_by_nearest_neighbours(coords)
     sorted_coords = coords[idx_sort]

@@ -1,17 +1,19 @@
 """
 Programmatic mesh generators for the test fixtures (plain numpy, from
 ``vf_fem_tpu.mesh.primitives``): the analytic M5-like vocal-fold
-cross-section, and the unit square with the reference's fixture markers.
+cross-section, and the unit square and cube with the reference's fixture
+markers.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 
 from .core import INT, Mesh
 
 EPS = 1e-12
-
 
 
 def unit_square_mesh(nx: int, ny: int) -> Mesh:
@@ -34,15 +36,48 @@ def unit_square_mesh(nx: int, ny: int) -> Mesh:
     return Mesh(coords, np.array(cells, dtype=INT))
 
 
+def unit_cube_mesh(nx: int, ny: int, nz: int) -> Mesh:
+    """Structured tetrahedralization of the unit cube (6 tets per box)."""
+    xs = np.linspace(0.0, 1.0, nx + 1)
+    ys = np.linspace(0.0, 1.0, ny + 1)
+    zs = np.linspace(0.0, 1.0, nz + 1)
+    X, Y, Z = np.meshgrid(xs, ys, zs, indexing="ij")
+    coords = np.stack([X.reshape(-1), Y.reshape(-1), Z.reshape(-1)], axis=-1)
+
+    def vid(i, j, k):
+        return (i * (ny + 1) + j) * (nz + 1) + k
+
+    # Kuhn subdivision: one tet per permutation of the unit steps
+    perms = list(itertools.permutations(range(3)))
+    cells = []
+    for i in range(nx):
+        for j in range(ny):
+            for k in range(nz):
+                for perm in perms:
+                    cur = np.array([i, j, k])
+                    verts = [vid(*cur)]
+                    for axis in perm:
+                        cur[axis] += 1
+                        verts.append(vid(*cur))
+                    cells.append(verts)
+    return Mesh(coords, np.array(cells, dtype=INT))
+
+
 def mark_unit_mesh_fixtures(mesh: Mesh) -> Mesh:
-    """The reference's test-fixture markers on a unit square mesh: facets
-    'fixed' = 1 on the bottom and 'pressure' = 0 elsewhere on the boundary,
-    the vertex 'separation' = 1 at the top-right corner, cells 'top' = 1
-    for y > 0.5 and 'bottom' = 0."""
+    """The reference's test-fixture markers on a unit square or cube mesh:
+    facets 'fixed' = 1 on the bottom (and, in 3D, the front and back faces
+    z = 1 and z = 0) and 'pressure' = 0 elsewhere on the boundary, the
+    codimension-2 'separation' = 1 at the top-right corner (a vertex in
+    2D, an edge in 3D), cells 'top' = 1 for y > 0.5 and 'bottom' = 0."""
     dim = mesh.dim
 
     def is_fixed(mids, vcoords):
-        return np.all(vcoords[..., 1] < EPS, axis=-1)
+        on_bottom = np.all(vcoords[..., 1] < EPS, axis=-1)
+        if dim == 3:
+            on_front = np.all(vcoords[..., 2] > 1 - EPS, axis=-1)
+            on_back = np.all(vcoords[..., 2] < EPS, axis=-1)
+            return on_bottom | on_front | on_back
+        return on_bottom
 
     mesh.mark_entities(dim - 1, is_fixed, 1, name="fixed", boundary_only=True)
     mesh.subdomains[dim - 1]["pressure"] = 0

@@ -592,7 +592,12 @@ _SWEEP_TYPES = {
     (torch.float64, torch.float64): "f64_f64",
     (torch.float32, torch.float32): "f32_f32",
 }
-SWEEP_WIDTHS = (128, 256, 384, 512)  # the row-block sizes K6 is compiled for
+# the row-block sizes K6T is compiled for, h = 1 .. 4 blocks of 128 (the 2D
+# meshes, and 2Bt of the complex embedding; csrc/cluster.cuh, VF_BT_T_CASES),
+# and K6 for these and h = 10 (the 45.8k-dof extruded 3D mesh; 3D gradients
+# wait)
+SWEEP_T_WIDTHS = (128, 256, 384, 512)
+SWEEP_WIDTHS = SWEEP_T_WIDTHS + (1280,)
 # CTAs a cluster for each factor dtype (csrc/cluster.cuh, cluster_size): the
 # faster of 8 and 16 at 93 row blocks of 256 on an H100 (PERF.md section 6)
 SWEEP_CLUSTER = {torch.bfloat16: 8, torch.float32: 8, torch.float64: 16}
@@ -627,9 +632,10 @@ def sweep_plan(bt: int, factor_dtype, vector_dtype) -> SweepPlan:
     """The launch plan of K6 for row blocks of ``bt``: each of the
     ``SWEEP_CLUSTER`` CTAs of the factor dtype owns ``bt / cluster``
     contiguous rows of every block; a consumer warp takes rows a whole
-    32-bit word of the carried vector at a time; the ring has as many slots
-    (of as many rows as the warps take together) as fit in ``SMEM_LIMIT``
-    beside the carried vector's two buffers and the mbarriers."""
+    32-bit word of the carried vector at a time, as many warps (up to 16) as
+    leave a ring of at least two slots; the ring has as many slots (of as
+    many rows as the warps take together) as fit in ``SMEM_LIMIT`` beside
+    the carried vector's two buffers and the mbarriers."""
     if (factor_dtype, vector_dtype) not in _SWEEP_TYPES:
         raise TypeError(f"btd_sweep: factor/vector dtypes {factor_dtype},"
                         f" {vector_dtype} not supported ({list(_SWEEP_TYPES)})")
@@ -641,10 +647,16 @@ def sweep_plan(bt: int, factor_dtype, vector_dtype) -> SweepPlan:
     rows = bt // cluster
     rpw = 4 // es if es < 4 else 1
     units = rows // rpw
-    warps = max(d for d in range(1, min(_MAX_WARPS, units) + 1) if units % d == 0)
+
+    def room(stage_rows):  # slots of ``stage_rows`` rows that fit
+        return (SMEM_LIMIT - 2 * bt * es - _BAR_BYTES) // (stage_rows * bt * es)
+
+    # the most warps that divide the units and leave at least two slots
+    warps = max(d for d in range(1, min(_MAX_WARPS, units) + 1)
+                if units % d == 0 and room(d * rpw) >= 2)
     stage_rows = warps * rpw
     stage_bytes = stage_rows * bt * es
-    ring = min(_MAX_STAGES, (SMEM_LIMIT - 2 * bt * es - _BAR_BYTES) // stage_bytes)
+    ring = min(_MAX_STAGES, room(stage_rows))
     return SweepPlan(cluster, rows, rpw, warps, stage_rows, rows // stage_rows,
                      ring, ring * stage_bytes + 2 * bt * es + _BAR_BYTES,
                      (warps + 1) * 32)
@@ -775,6 +787,9 @@ def sweep_t_plan(bt: int, factor_dtype, vector_dtype) -> SweepTPlan:
     row) swizzled over that span, and the ring as many slots as fit in
     ``SMEM_LIMIT`` beside the carried vector's two buffers, the mbarriers
     and 1024 bytes to align the ring."""
+    if bt not in SWEEP_T_WIDTHS:
+        raise ValueError(f"btd_sweep_t: kernel built for row blocks {SWEEP_T_WIDTHS},"
+                         f" got {bt}")
     cluster = sweep_plan(bt, factor_dtype, vector_dtype).cluster
     es = factor_dtype.itemsize
     cols = bt // cluster
@@ -861,10 +876,7 @@ def btd_sweep_t(A: torch.Tensor, g: torch.Tensor,
     if A.data_ptr() % 16:  # the tensor map's base
         raise ValueError("btd_sweep_t: the factors must be 16-byte aligned")
     n, bt = g.shape
-    if bt not in SWEEP_WIDTHS:
-        raise ValueError(f"btd_sweep_t: kernel built for row blocks {SWEEP_WIDTHS},"
-                         f" got {bt}")
-    plan = sweep_t_plan(bt, A.dtype, g.dtype)
+    plan = sweep_t_plan(bt, A.dtype, g.dtype)  # raises for a width it lacks
     out = torch.empty_like(g)
     fn = f"vf_btd_sweep_t_{suffix}"
     err = getattr(_sweep_lib(), fn)(A.data_ptr(), g.data_ptr(), out.data_ptr(), n, bt,

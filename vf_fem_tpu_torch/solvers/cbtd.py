@@ -15,7 +15,8 @@ modulus of the diagonal (a real diagonal scaling, valid for the embedded
 system).
 
 K6 is built for the row blocks ``ops.kernels.SWEEP_WIDTHS``; a plan whose
-``2 h b`` is not one of them raises (a band of ``h >= 3`` blocks of 128).
+``2 h b`` is not one of them raises (for blocks of 128, any band but
+``h = 1, 2, 5``).
 """
 
 from __future__ import annotations
