@@ -73,8 +73,9 @@ runs, in order:
    events;
 9. grad: the gradient path, ``adjoint.integrate_grad`` (value+grad of
    ``benchmarks/benchmark_adjoint.py``'s loss, sum(q[-20:]^2) 1e-6 over
-   100 steps at dt = 1e-4), f64: at M5 with its adjoint settings (adaptive
-   chord Newton, dense factors refreshed every 25 steps) the forward and
+   100 steps at dt = 1e-4; at M5 over its first 30), f64: at M5 with its
+   adjoint settings (adaptive chord Newton, dense factors refreshed every
+   25 steps) the forward and
    value+grad steps/s by CUDA events, the gradient overhead factor, and
    central differences along psub and a seeded random emod direction
    against the adjoint's directional derivative (rtol 1e-4); at 23.7k with
@@ -221,7 +222,25 @@ runs, in order:
    their exact-Jacobian runs (``TRAJ_ERR_GATE``, or 1.5x the JAX
    package's own value where that is over), with steps/s, launches a step,
    graph nodes a step, one refactorization's ms, the peak device memory
-   and a profile of the f64 run (idle share).
+   and a profile of the f64 run (idle share);
+18. dd: SPIKE and the DOF-sharded step (``solvers.spike``,
+   ``parallel.ddstep``; the shards stacked on the card).  K6 over slabs
+   (one cluster a slab) on the 23.7k model's own SPIKE factors, 8 slabs of
+   12 row blocks in bf16/f64, f64/f64 and f32/f32 and 4 and 16 slabs in
+   f64 (16 clusters of 16 CTAs run in waves), each slab's sweeps held row
+   by row and as a whole to the plain version and bit for bit to one
+   launch a slab, timed beside those separate launches; bench.py's
+   production settings with ``linear_solver='spike'`` (8 partitions, f64,
+   100 steps) eagerly and in the step graph (bit-equal), its trajectory
+   error against phase 7's exact-Jacobian btd run (5e-7) and steps/s
+   beside phase 8's btd graph; the DD step over 8 shards at 23.7k
+   (``assembly`` 'banded' and 'plain', f64 factors, refresh 8, adaptive
+   Newton, 20 steps) against the single-device run (max|du| < 1e-10
+   max|u|, q at rtol 1e-9) and 'banded' against 'plain' (1e-9), with
+   steps/s, peak memory and launches a step; K1/K2 on the stacked
+   per-shard plans of that partition and their VJPs against the plain
+   versions in f64 and f32, timed beside ``index_select`` and a
+   block-diagonal ``sparse.mm``.
 
 Phase 3 also holds the block-Thomas sweep kernel (K6) and its transpose
 (K6T, both sweeps of ``btd_solve_t``: forward on W, backward on V, each
@@ -322,6 +341,12 @@ KERNELS = {
                      "vf_fem_tpu_torch/csrc/ops.cu"),
     "bsb_matvec_t": ("bsb_matvec_t", "none (XLA, vf_fem_tpu/solvers/bsb.py:168-188)",
                      "vf_fem_tpu_torch/csrc/ops.cu"),
+    "gather_t": ("banded_gather_t", "vf_fem_tpu/fem/banded.py:445",
+                 "vf_fem_tpu_torch/csrc/banded.cu"),
+    "scatter_t": ("banded_scatter_t", "vf_fem_tpu/fem/banded.py:470",
+                  "vf_fem_tpu_torch/csrc/banded.cu"),
+    "btd_sweep_slabs": ("btd_sweep over slabs", "none (lax.scan, vf_fem_tpu/solvers/spike.py:172-199)",
+                        "vf_fem_tpu_torch/csrc/btd.cu"),
 }
 # benchmarks/benchmark_adjoint.py:68-88: the value+grad settings at M5 (the
 # accelerator branch: adaptive chord Newton, dense factors refreshed every
@@ -350,6 +375,10 @@ FD_RTOL = 1e-4
 # max|g_stale - g_exact| / max|g_exact| per key (the refinement stops at
 # 1e-8 of |u1_bar| each step)
 STALE_VS_EXACT = 1e-6
+# the M5 value+grad and its central differences over the loss's first 30
+# steps (the adjoint against central differences of the same loss: a gate
+# that holds at any depth)
+GRAD_M5_STEPS = 30
 # phase 10: steps of its runs at 23.7k (dt = 1e-4), the profiled steps of
 # its Krylov value+grad runs, and its gates: the 'cg' and 'bsb' gradients
 # (TIGHT, a transposed BiCGStab solve each step) against the exact btd one,
@@ -637,7 +666,7 @@ def reset_launches():
     from vf_fem_tpu_torch import ops
     from vf_fem_tpu_torch.fem import banded
 
-    for counts in (banded.LAUNCHES, ops.LAUNCHES):
+    for counts in (banded.LAUNCHES, banded.LAUNCHES_T, ops.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -646,7 +675,7 @@ def read_launches():
     from vf_fem_tpu_torch import ops
     from vf_fem_tpu_torch.fem import banded
 
-    return {**banded.LAUNCHES, **ops.LAUNCHES}
+    return {**banded.LAUNCHES, **banded.LAUNCHES_T, **ops.LAUNCHES}
 
 
 def require(cond, msg):
@@ -2388,9 +2417,10 @@ def grad_rel(a, b, value):
 def phase_grad(torch, card, dev, large):
     """Phase 9, the gradient path in f64: value+grad (``adjoint.integrate_grad``)
     of benchmarks/benchmark_adjoint.py's loss over 100 steps at dt = 1e-4,
-    at M5 (ADJ_M5) and at 23.7k (ADJ_LARGE, the stale-factor refined adjoint
+    at M5 (ADJ_M5, its first GRAD_M5_STEPS steps) and at 23.7k (ADJ_LARGE, the stale-factor refined adjoint
     and the exact one)."""
     times = DT * np.arange(N_STEPS + 1)
+    t_m5 = times[:GRAD_M5_STEPS + 1]
     out = {}
     # -- M5 ---------------------------------------------------------------------
     m5 = build(torch, dev, "M5_3layers.msh", torch.float64)
@@ -2402,19 +2432,19 @@ def phase_grad(torch, card, dev, large):
     for h in (1.0, -1.0):
         cp["psub"] = model.control["psub"] + h
         psub_vals.append(forward_loss(torch, (model, m5[1], {k: v[None] for k, v in cp.items()},
-                                              m5[3]), times, ADJ_M5)[0])
+                                              m5[3]), t_m5, ADJ_M5)[0])
     d = np.random.default_rng(9).standard_normal(model.prop["emod"].shape)
     emod_vals = []
     for h in (5.0, -5.0):
         p = {**model.prop, "emod": model.prop["emod"] + h * d}
-        emod_vals.append(forward_loss(torch, (model, m5[1], m5[2], p), times, ADJ_M5)[0])
-    value_f, traj_f, ms_f = forward_loss(torch, m5, times, ADJ_M5)
-    g = grad_run(torch, m5, times, ADJ_M5)
+        emod_vals.append(forward_loss(torch, (model, m5[1], m5[2], p), t_m5, ADJ_M5)[0])
+    value_f, traj_f, ms_f = forward_loss(torch, m5, t_m5, ADJ_M5)
+    g = grad_run(torch, m5, t_m5, ADJ_M5)
     require(g["value"] == value_f and all(torch.equal(g["traj"][k], traj_f[k]) for k in traj_f),
             "grad M5: the value+grad run's trajectory is not the forward's bit for bit")
     require_launched(g["launches"], ("gather", "scatter", "newmark", "newmark_t"), "grad M5")
-    fwd_s, grad_s = N_STEPS / (ms_f / 1e3), N_STEPS / (g["ms"] / 1e3)
-    log(f"[grad] M5 f64 ({model.solid.ndof} dofs), {N_STEPS} steps: forward loss"
+    fwd_s, grad_s = GRAD_M5_STEPS / (ms_f / 1e3), GRAD_M5_STEPS / (g["ms"] / 1e3)
+    log(f"[grad] M5 f64 ({model.solid.ndof} dofs), {GRAD_M5_STEPS} steps: forward loss"
         f" {fwd_s:.2f} steps/s ({ms_f:.3f} ms), value+grad {grad_s:.2f} steps/s"
         f" ({g['ms']:.3f} ms, CUDA events): gradient overhead {fwd_s / grad_s:.2f}x forward;"
         f" J = {g['value']:.9e} (= the forward's, trajectory bit for bit); adjoint solves"
@@ -4335,6 +4365,314 @@ def production_3d(torch, card, dev, mesh, big):
     return out
 
 
+# phase 18, SPIKE and the DOF-sharded step: K6 over slabs on the 23.7k
+# model's own SPIKE factors (at rest under 500 Ba, r / d of a seeded r) at
+# DD_SHARDS slabs in the three dtype pairs of the path and at SLAB_WAVES
+# (f64: 16 slabs of 16-CTA clusters run in waves); K1/K2 on the stacked
+# per-shard plans of the 23.7k DD_SHARDS partition; bench.py:411-434 with
+# linear_solver='spike' (spike_partitions 8) in f64 in the step graph and
+# eagerly, against phase 7's exact-Jacobian btd run (TRAJ_ERR_GATE); the
+# DD step (assembly 'banded' and 'plain', f64 factors, refresh 8, adaptive
+# Newton, DD_STEPS steps) against the single-device run with factors at
+# each step's predictor (tests/test_ddstep.py:85-120's gates: max|du| <
+# DD_U_GATE max|u|, q at rtol DD_Q_RTOL; 'banded' within DD_ASM_GATE of
+# 'plain', :499-536)
+SPIKE_PROD = {**BTD_PROD, "linear_solver": "spike", "spike_partitions": 8}
+DD_SHARDS = 8
+SLAB_WAVES = (4, 16)
+DD_STEPS = 20
+DD_PARAMS = {"assembly": "banded", "jacobian_refresh_steps": 8}
+DD_REF = {"assembly": "banded", "linear_solver": "btd", "jacobian_refresh_steps": 1}
+DD_U_GATE, DD_Q_RTOL, DD_ASM_GATE = 1e-10, 1e-9, 1e-9
+
+
+def slab_cases(torch, plan, blocks64):
+    """K6-over-slabs inputs on the model's own SPIKE factors: ``(S, ftag,
+    vdt, factors, g)`` with ``g = Sinv r`` of a seeded r / d in slabs."""
+    from vf_fem_tpu_torch import ops
+    from vf_fem_tpu_torch.solvers import spike
+
+    r = np.random.default_rng(2).standard_normal(plan.ndof)
+    out = []
+    for S, pairs in ((DD_SHARDS, (("bfloat16", torch.float64), ("float64", torch.float64),
+                                  ("float32", torch.float32))),
+                     *((s, (("float64", torch.float64),)) for s in SLAB_WAVES)):
+        for ftag, vdt in pairs:
+            fac = spike.spike_factor(plan, blocks64.float() if ftag == "float32" else blocks64, S,
+                                     store_dtype="bfloat16" if ftag == "bfloat16" else None)
+            _, m, bt, _ = fac.Sinv.shape
+            d = fac.d.to(vdt)[: plan.ndof]
+            rb = torch.nn.functional.pad(torch.tensor(r, dtype=vdt, device=blocks64.device) / d,
+                                         (0, S * m * bt - plan.ndof)).reshape(S, m, bt)
+            out.append((S, ftag, vdt, fac, ops.factor_matvec(fac.Sinv, rb)))
+    return out
+
+
+def dd_sweeps(torch, cases, card):
+    """K6 over slabs against its plain version: each slab's forward sweep
+    over P and backward sweep over Q held row by row (the plain row from the
+    kernel's own previous row, rtol 1e-13 / 1e-6 plus the dot-product order
+    bound) and as a whole (``SWEEP_FULL_GATES``), and bit for bit against
+    one launch of K6 a slab; timed with S separate launches beside it."""
+    from vf_fem_tpu_torch import ops, yardsticks
+
+    results = {}
+    for S, ftag, vdt, fac, g in cases:
+        vtag = str(vdt).replace("torch.", "")
+        rtol, acc = sweep_tolerances(torch, ftag, vdt)
+        y = ops.btd_sweep_slabs_reference(fac.P, g)
+        for label, A, inp, rev in (("forward", fac.P, g, False), ("backward", fac.Q, y, True)):
+            what = f"dd btd_sweep over {S} slabs {label} {ftag}/{vtag}"
+            out = ops.btd_sweep(A, inp, reverse=rev)
+            alone = torch.stack([ops.btd_sweep(A[s], inp[s], reverse=rev) for s in range(S)])
+            torch.cuda.synchronize()
+            require(torch.equal(out, alone), f"{what}: not bit-equal to a launch a slab")
+            worst = 0.0
+            for s in range(S):
+                row_ref, bound = ops.btd_sweep_rows_reference(A[s], inp[s], out[s], rev)
+                diff = (out[s] - row_ref).abs()
+                worst = max(worst, diff.max().item())
+                off = int((diff > rtol * row_ref.abs() + bound).sum())
+                require(off == 0, f"{what}: slab {s}, {off} entries off their rows")
+            full = ops.btd_sweep_slabs_reference(A, inp, rev)
+            err = (out - full).abs().max().item()
+            full_rel = err / full.abs().max().item()
+            require(full_rel <= SWEEP_FULL_GATES[acc], f"{what}: whole sweep off ({full_rel:.3e})")
+            res = measure(torch, lambda: ops.btd_sweep(A, inp, reverse=rev),
+                          lambda: ops.btd_sweep_slabs_reference(A, inp, rev))
+            sep_ms = cuda_ms(torch, lambda: [ops.btd_sweep(A[s], inp[s], reverse=rev)
+                                             for s in range(S)])
+            sep_dev = graph_ms(torch, lambda: [ops.btd_sweep(A[s], inp[s], reverse=rev)
+                                               for s in range(S)], reps=20)
+            nbytes = A.numel() * A.element_size() + 2 * inp.numel() * inp.element_size()
+            res.update(max_abs_err=err, bytes=nbytes, lib_ms=None, lib_runs=None,
+                       lib_call=yardsticks.LIBRARY_CALL["btd_sweep_slabs"],
+                       separate_ms=sep_ms, separate_device_ms=sep_dev)
+            res["bound_ms"], res["bound_by"] = bound_of(nbytes, 2 * A.numel(), acc)
+            _, m, bt, _ = A.shape
+            log(f"[dd] btd_sweep over {S} slabs {label} {ftag}/{vtag} ({S} x {m} x {bt} x {bt}):"
+                f" {fmt_times(res)}; {S} launches of one slab: call {sep_ms:.6f} ms, device"
+                f" {sep_dev:.6f} ms; bit-equal to them; row max |diff| {worst:.3e}, whole-sweep"
+                f" max_abs_err {err:.3e} (rel {full_rel:.3e}); on {card}")
+            results[(S, label, ftag, vtag)] = res
+    return results
+
+
+def dd_channels(model):
+    """The channels ``DDIntegrator``'s banded cell pass gathers: u1, u, v,
+    a, the cg1 coefficients, the coordinates."""
+    spec = model.solid.residual.coefficient_spec
+    dim = model.solid.dim
+    return 5 * dim + sum(dim if s.space == "cg1_vector" else 1 for k, s in spec.items()
+                         if s.space in ("cg1_vector", "cg1_scalar")
+                         and not k.startswith("state/") and k != "control/tcontact")
+
+
+def dd_banded(torch, integ, card):
+    """K1/K2 on the stacked per-shard plans of the 23.7k partition and
+    their VJPs (each the other) against the plain versions, f64 and f32, at
+    the DD cell pass's channel counts, with their library calls (one
+    ``index_select``, one block-diagonal ``sparse.mm``)."""
+    from vf_fem_tpu_torch import yardsticks
+    from vf_fem_tpu_torch.fem import banded
+
+    dp, p = integ.dplan, integ.plan
+    S, nvh, dim = p.S, integ._nvert_halo, p.dim
+    ng = dd_channels(integ.model)
+    log(f"[dd] stacked plan: {S} shards, ngroups={dp.ngroups} gc={dp.gc} w={dp.w}"
+        f" nvert_pad={dp.nvert_pad}, {nvh} vertices a shard with the halo; {ng} channels"
+        f" gathered, {dim} scattered")
+    rng = np.random.default_rng(3)
+    host = dict(F=rng.standard_normal((S, ng, nvh)), loc=rng.standard_normal((S, dp.nv, dim, dp.ncpad)),
+                ct_loc=rng.standard_normal((S, dp.nv, ng, dp.ncpad)),
+                ct_rows=rng.standard_normal((S, dim, nvh)))
+    results = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        t = {k: torch.tensor(v, dtype=dtype, device=dp.base.device) for k, v in host.items()}
+        rtol = 1e-13 if dtype == torch.float64 else 1e-6
+        F = t["F"].clone().requires_grad_()
+        loc = t["loc"].clone().requires_grad_()
+        g_out = banded.banded_gather_t(dp, F)
+        s_out = banded.banded_scatter_t(dp, loc, nvh)
+        (gF,) = torch.autograd.grad(g_out, F, t["ct_loc"])
+        (gloc,) = torch.autograd.grad(s_out, loc, t["ct_rows"])
+        checks = {
+            "gather_t": (g_out, banded.banded_gather_t_reference(dp, t["F"], dp.g), None),
+            "scatter_t": (s_out, banded.banded_scatter_t_reference(dp, t["loc"], nvh, dp.s),
+                          banded.scatter_order_bound(dp, t["loc"], nvh, dp.s)),
+            "gather_t_vjp": (gF, banded.banded_scatter_t_reference(dp, t["ct_loc"], nvh, dp.g),
+                             banded.scatter_order_bound(dp, t["ct_loc"], nvh, dp.g)),
+            "scatter_t_vjp": (gloc, banded.banded_gather_t_reference(dp, t["ct_rows"], dp.s), None),
+        }
+        torch.cuda.synchronize()
+        errs = {}
+        for op, (out, ref, bnd) in checks.items():
+            diff = (out - ref).abs()
+            errs[op] = diff.max().item()
+            if bnd is None:
+                require(errs[op] == 0.0, f"dd {tag} {op}: not exact ({errs[op]:.3e})")
+            else:
+                off = int((diff > rtol * ref.abs() + bnd).sum())
+                require(off == 0, f"dd {tag} {op}: {off} entries off (max {errs[op]:.3e})")
+        F0, loc0 = t["F"], t["loc"]
+        idx, ok = yardsticks.gather_flat_index_t(dp, dp.g, ng, nvh)
+        require(bool(ok.all()), "dd: gather offsets with padding slots")
+        M = yardsticks.scatter_csr_t(dp, dp.s, dim, nvh, dtype)
+        lib_g = yardsticks.gather_index_select(F0, idx).reshape(g_out.shape)
+        lib_s = yardsticks.csr_mm(M, loc0).reshape(s_out.shape)
+        lib_err = {"gather_t": (lib_g - checks["gather_t"][1]).abs().max().item(),
+                   "scatter_t": (lib_s - checks["scatter_t"][1]).abs().max().item()}
+        require(lib_err["gather_t"] == 0.0, f"dd {tag}: index_select not exact")
+        off = int(((lib_s - checks["scatter_t"][1]).abs()
+                   > rtol * checks["scatter_t"][1].abs() + checks["scatter_t"][2]).sum())
+        require(off == 0, f"dd {tag}: sparse.mm scatter off ({off} entries)")
+        times = {
+            "gather_t": measure(torch, lambda: banded.banded_gather_t(dp, F0),
+                                lambda: banded.banded_gather_t_reference(dp, F0, dp.g),
+                                lambda: yardsticks.gather_index_select(F0, idx)),
+            "scatter_t": measure(torch, lambda: banded.banded_scatter_t(dp, loc0, nvh),
+                                 lambda: banded.banded_scatter_t_reference(dp, loc0, nvh, dp.s),
+                                 lambda: yardsticks.csr_mm(M, loc0)),
+        }
+        es = F0.element_size()
+        nnz = sum(int(dp.s.ptr[s, nvh] - dp.s.ptr[s, 0]) for s in range(S))
+        nbytes = {
+            "gather_t": S * ((dp.nv * ng * dp.ncpad + ng * nvh) * es
+                             + (dp.ngroups * dp.nv * dp.gc + dp.ngroups) * 4),
+            "scatter_t": S * ((dp.nv * dim * dp.ncpad + dim * nvh) * es + (nvh + 1) * 4)
+                         + nnz * 4,
+        }
+        for op in ("gather_t", "scatter_t"):
+            r = times[op]
+            r.update(max_abs_err=errs[op], bytes=nbytes[op], lib_err=lib_err[op],
+                     lib_call=yardsticks.LIBRARY_CALL[op])
+            r["bound_ms"], r["bound_by"] = bound_of(nbytes[op], 0, tag)
+            log(f"[dd] banded_{op} 23.7k x {S} shards {tag}: {fmt_times(r)}; max_abs_err"
+                f" {errs[op]:.3e} (vjp {errs[op + '_vjp']:.3e}), library max_abs_err"
+                f" {lib_err[op]:.3e}; on {card}")
+            results[(tag, op)] = r
+    return results
+
+
+def dd_spike(torch, card, large, btd_res, integ):
+    """Single-device ``linear_solver='spike'`` at 23.7k on the production
+    settings (``SPIKE_PROD``, f64): eager, graph, graph, each graph run bit
+    for bit the eager one with equal launches; two K6-over-slabs launches a
+    solve and no K6 of one slab; the final u against phase 7's
+    exact-Jacobian btd run."""
+    from vf_fem_tpu_torch import forward
+
+    gold = np.load(os.path.join(REPO, "tests", "data", "golden_large_btd_explicit.npz"))
+    times = gold["times"]
+    n_steps = len(times) - 1
+    model, state0, cs, prop = large["float64"]
+    forward.integrate_pure(model, state0, cs, prop, times[:3], SPIKE_PROD)  # warm-up, capture
+    turns = []
+    for which in ("eager", "graph", "graph"):
+        fn = forward._integrate_eager if which == "eager" else forward.integrate_pure
+        res, ms, launches, _ = run_timed(torch, model, lambda: fn(model, state0, cs, prop, times,
+                                                                     SPIKE_PROD))
+        turns.append(dict(which=which, res=res, ms=ms, launches=launches,
+                          steps_s=n_steps / (ms / 1e3)))
+    ref = turns[0]
+    for t in turns[1:]:
+        require(same_run(torch, t["res"], ref["res"]), f"spike: a {t['which']} run is not"
+                                                       " bit-equal to the eager run")
+        require(t["launches"] == ref["launches"], f"spike: launches {t['launches']} !="
+                                                   f" {ref['launches']}")
+    fin, traj, infos = ref["res"]
+    launches = ref["launches"]
+    solves = int(infos.num_iter.sum())
+    require_launched(launches, ("gather", "scatter", "newmark", "btd_sweep_slabs"), "spike")
+    require(launches["btd_sweep_slabs"] == 2 * solves and launches["btd_sweep"] == 0,
+            f"spike: K6 launches {launches['btd_sweep_slabs']} over slabs,"
+            f" {launches['btd_sweep']} of one slab, for {solves} solves")
+    for k, v in traj.items():
+        require(bool(torch.isfinite(v).all()), f"spike: non-finite {k}")
+    err = rel_max(fin["u"].double().cpu().numpy(), btd_res["float64"]["exact_u"])
+    gate = btd_res["float64"]["gate"]
+    btd_graph = [t["steps_s"] for t in integ[("23.7k btd", "float64")]["turns"]
+                 if t["which"] == "graph"]
+    entry = graph_entry(model, SPIKE_PROD)
+    log(f"[dd] spike prod f64 (8 partitions): steps/s by CUDA events "
+        + ", ".join(f"{t['which']} {t['steps_s']:.2f}" for t in turns)
+        + f" (phase 8's btd graph: {', '.join(f'{x:.2f}' for x in btd_graph)}); graph bit-equal"
+        f" to eager; {entry['nodes']} graph nodes a step; K6 over slabs"
+        f" {launches['btd_sweep_slabs'] / n_steps:.1f} launches a step; trajectory error vs the"
+        f" exact-Jacobian btd run {err:.3e} (gate {gate:.1e}); launches {launches}; on {card}")
+    require(err <= gate, "spike prod: trajectory error over its gate")
+    return dict(launches=launches, n_steps=n_steps, traj_err=err,
+                steps_s=[t["steps_s"] for t in turns])
+
+
+def dd_step(torch, card, large):
+    """The DOF-sharded step at 23.7k over ``DD_SHARDS`` shards stacked on
+    the card (``parallel.ddstep.DDIntegrator``): 'banded' (K1/K2 on the
+    stacked plans) and 'plain' against each other and against the
+    single-device run, with steps/s, peak memory and launches a step."""
+    from vf_fem_tpu_torch import forward
+    from vf_fem_tpu_torch.parallel import ddstep
+
+    model, state0, cs, prop = large["float64"]
+    times = DT * np.arange(DD_STEPS + 1)
+    (fin_r, traj_r, infos_r), ms_r, _, _ = run_timed(
+        torch, model, lambda: forward.integrate_pure(model, state0, cs, prop, times, DD_REF))
+    out = {}
+    for asm in ("banded", "plain"):
+        integ = ddstep.DDIntegrator(model, DD_SHARDS, {**DD_PARAMS, "assembly": asm})
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (fin, traj, infos), ms, launches, _ = run_timed(
+            torch, model, lambda: integ.integrate_pure(state0, cs, prop, times))
+        peak = torch.cuda.max_memory_allocated() - base
+        for k, v in traj.items():
+            require(bool(torch.isfinite(v).all()), f"dd {asm}: non-finite {k}")
+        u, ur = traj["u"].cpu().numpy(), traj_r["u"].cpu().numpy()
+        du = float(np.abs(u - ur).max() / np.abs(ur).max())
+        q, qr = traj["q"].cpu().numpy(), traj_r["q"].cpu().numpy()
+        q_ok = bool(np.all(np.abs(q - qr) <= 1e-12 + DD_Q_RTOL * np.abs(qr)))
+        solves = int(infos.num_iter.sum())
+        per_step = {k: v / DD_STEPS for k, v in launches.items() if v}
+        log(f"[dd] DD {DD_SHARDS} shards, assembly {asm}, 23.7k f64, {DD_STEPS} steps:"
+            f" {DD_STEPS / (ms / 1e3):.2f} steps/s (single device, factors every step:"
+            f" {DD_STEPS / (ms_r / 1e3):.2f}); max|du|/max|u| vs the single-device run {du:.3e}"
+            f" (gate {DD_U_GATE:.0e}), q within rtol {DD_Q_RTOL:.0e}: {q_ok}; Newton"
+            f" {infos.num_iter.tolist()} ({solves} solves; single device"
+            f" {infos_r.num_iter.tolist()}); peak device memory {peak / 2**20:.1f} MB; launches a"
+            f" step {per_step}; on {card}")
+        require(du < DD_U_GATE, f"dd {asm}: trajectory off the single-device run ({du:.3e})")
+        require(q_ok, f"dd {asm}: q off the single-device run")
+        if asm == "banded":
+            require_launched(launches, ("gather_t", "scatter_t", "btd_sweep_slabs"), "dd banded")
+            require(launches["btd_sweep_slabs"] == 2 * solves,
+                    f"dd: {launches['btd_sweep_slabs']} K6 launches for {solves} solves")
+            out["integ"] = integ
+        out[asm] = dict(u=u, launches=launches, steps_s=DD_STEPS / (ms / 1e3), peak=peak,
+                        n_steps=DD_STEPS, err=du)
+    d_asm = float(np.abs(out["banded"]["u"] - out["plain"]["u"]).max()
+                  / np.abs(out["plain"]["u"]).max())
+    log(f"[dd] DD banded vs plain: max|du|/max|u| {d_asm:.3e} (gate {DD_ASM_GATE:.0e})")
+    require(d_asm < DD_ASM_GATE, "dd: banded assembly off the plain one")
+    return out
+
+
+def phase_dd(torch, card, large, btd_res, integ):
+    """Phase 18 (see the constants above)."""
+    from vf_fem_tpu_torch.solvers import bsb
+
+    model = large["float64"][0]
+    plan, fill = model.solid.bsb_plan()
+    op = rest_operator(torch, model, 500.0)
+    blocks = bsb.bsb_fill(plan, fill, [op.J_cells, op.J_facets])
+    sweeps = dd_sweeps(torch, slab_cases(torch, plan, blocks), card)
+    spk = dd_spike(torch, card, large, btd_res, integ)
+    step = dd_step(torch, card, large)
+    kern = dd_banded(torch, step["integ"], card)
+    return dict(sweeps=sweeps, spike=spk, step=step, banded=kern)
+
+
 def main():
     import time
 
@@ -4392,6 +4730,7 @@ def run_phases(torch, name, card, dev, t0, mesher, mesher3d, m5qz):
     phys = timed("physics", phase_physics, torch, card, dev, head, btd_res, integ)
     api = timed("api", phase_api, torch, card, dev, large, integ)
     d3 = timed("3d", phase_3d, torch, card, dev, mesher3d)
+    dd = timed("dd", phase_dd, torch, card, large, btd_res, integ)
 
     # per kernel: the timing at the 23.7k shapes of the btd main path (f64)
     timing = {
@@ -4405,13 +4744,16 @@ def run_phases(torch, name, card, dev, t0, mesher, mesher3d, m5qz):
         "btd_sweep_t": ops_res[("btd_sweep_t", "forward bfloat16/float64", "float64")],
         "ebe_matvec_t": ops_res[("ebe_matvec_t", "23.7k cells", "float64")],
         "bsb_matvec_t": ops_res[("bsb_matvec_t", "23.7k", "float64")],
+        "gather_t": dd["banded"][("float64", "gather_t")],
+        "scatter_t": dd["banded"][("float64", "scatter_t")],
+        "btd_sweep_slabs": dd["sweeps"][(DD_SHARDS, "forward", "bfloat16", "float64")],
     }
     # the f64 runs whose launches count: (name, launches, steps)
     runs = [("M5 headline", head["float64"]["launches"], N_STEPS),
             ("23.7k btd", btd_res["float64"]["launches"], btd_res["float64"]["n_steps"]),
             ("23.7k bsb", kry[("bsb", "float64")]["launches"], kry[("bsb", "float64")]["n_steps"]),
             ("23.7k cg", kry[("cg", "float64")]["launches"], kry[("cg", "float64")]["n_steps"]),
-            ("M5 value+grad", grad["M5"]["launches"], N_STEPS),
+            ("M5 value+grad", grad["M5"]["launches"], GRAD_M5_STEPS),
             ("23.7k value+grad", grad["23.7k"]["launches"], N_STEPS),
             ("23.7k cg value+grad", tang["cg"]["launches"], TANGENT_STEPS),
             ("23.7k bsb value+grad", tang["bsb"]["launches"], TANGENT_STEPS),
@@ -4435,12 +4777,16 @@ def run_phases(torch, name, card, dev, t0, mesher, mesher3d, m5qz):
               for k, v in api["large"].items()),
             ("M5 phonation", api["phonation"]["launches"], api["phonation"]["n_steps"]),
             *((f"3D small {k}", v["launches"], v["n_steps"]) for k, v in d3["small"].items()),
-            ("45.8k 3D btd", d3["float64"]["launches"], d3["float64"]["n_steps"])]
+            ("45.8k 3D btd", d3["float64"]["launches"], d3["float64"]["n_steps"]),
+            ("23.7k spike", dd["spike"]["launches"], dd["spike"]["n_steps"]),
+            (f"23.7k DD x {DD_SHARDS} banded", dd["step"]["banded"]["launches"], DD_STEPS),
+            (f"23.7k DD x {DD_SHARDS} plain", dd["step"]["plain"]["launches"], DD_STEPS)]
     path = {  # the main-path run whose count is this kernel's ``launches``
         "gather": runs[0][1], "scatter": runs[0][1], "newmark": runs[0][1],
         "btd_sweep": runs[1][1], "ebe_matvec": runs[3][1], "bsb_matvec": runs[2][1],
         "newmark_t": runs[5][1], "btd_sweep_t": runs[5][1],
         "ebe_matvec_t": runs[6][1], "bsb_matvec_t": runs[7][1],
+        "gather_t": runs[-2][1], "scatter_t": runs[-2][1], "btd_sweep_slabs": runs[-2][1],
     }
     kernels = []
     for op, (kname, replaces, source) in KERNELS.items():

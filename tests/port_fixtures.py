@@ -251,3 +251,33 @@ def bare_plan(cls, h, nblk, ndof, b=128):
     z = np.zeros(0, np.int32)
     return cls(ndof=ndof, b=b, nblk=nblk, nb=2 * h + 1, h=h, tgt_idx=z,
                src_keep=np.zeros(0, bool), bc_dofs=z, diag_ones=z)
+
+
+# tests/test_ddstep.py:_make_model's properties and controls
+DD_PROPS = dict(emod=5e4, rho=1.0, eta=3.0, nu=0.45, kcontact=1e8,
+                rho_air=1.1225e-3, zeta_min=1e-3, zeta_sep=1e-3)
+
+
+def set_dd_props(prop, control, ymax):
+    for k, v in DD_PROPS.items():
+        prop[k][:] = v
+    prop["ycontact"][:] = ymax + 0.05
+    prop["ymid"][:] = ymax + 0.01
+    control["psub"][:] = 8000.0
+    control["psup"][:] = 0.0
+
+
+def port_dd_model(nx=40, ny=20, device="cpu", dtype=torch.float64):
+    """The port's counterpart of ``tests/test_ddstep._make_model``: the
+    RCM-renumbered ``vocal_fold_mesh(nx, ny)``, KelvinVoigt +
+    BernoulliSmoothMinSep, explicit coupling."""
+    from vf_fem_tpu_torch.load import load_fsi_model
+    from vf_fem_tpu_torch.mesh import vocal_fold_mesh
+    from vf_fem_tpu_torch.mesh.reorder import rcm_mesh
+    from vf_fem_tpu_torch.residuals import fluid as flr, solid as slr
+
+    mesh = rcm_mesh(vocal_fold_mesh(nx, ny))
+    model = load_fsi_model(mesh, slr.KelvinVoigt, flr.BernoulliSmoothMinSep,
+                           coupling="explicit", device=device, dtype=dtype)
+    set_dd_props(model.prop, model.control, mesh.coords[:, 1].max())
+    return model

@@ -20,7 +20,7 @@ from vf_fem_tpu_torch.solvers import bsb
 
 from bsb_emulation import emulate_bsb_matvec, emulate_bsb_matvec_t
 from port_fixtures import (
-    M5_PROPS, MESHES, assert_scatter_close, port_inputs, port_vf_model,
+    M5_PROPS, MESHES, assert_scatter_close, port_dd_model, port_inputs, port_vf_model,
 )
 from sweep_emulation import emulate_sweep
 
@@ -488,6 +488,10 @@ GRAPH_CONFIGS = {
              "jacobian_refresh_steps": 8, "fixed_iterations": 3,
              "fixed_tail_residual": False, "stagnation_ratio": 0.5,
              "assembly": "banded"}, "rcm", 20),
+    "spike": ({"linear_solver": "spike", "spike_partitions": 2,
+               "btd_store_dtype": "bfloat16", "jacobian_refresh_steps": 8,
+               "fixed_iterations": 3, "fixed_tail_residual": False,
+               "stagnation_ratio": 0.5, "assembly": "banded"}, "rcm", 20),
 }
 
 
@@ -535,6 +539,8 @@ def test_graph_equals_eager(cuda, config, dtype):
     assert ops.LAUNCHES["newmark"] == n_steps
     if config == "btd":
         assert ops.LAUNCHES["btd_sweep"] == 2 * solves
+    if config == "spike":
+        assert ops.LAUNCHES["btd_sweep_slabs"] == 2 * solves
     # one predictor formed (the first step's), then one carried a step and
     # one at each refresh window's factorization
     windows = len(list(step_graph.refresh_windows(n_steps, forward.solver_params(args[4]))))
@@ -1644,3 +1650,120 @@ def test_3d_step_runs_the_kernels(extruded):
         u, cu = traj["u"].cpu().numpy(), ctraj["u"].numpy()
         rel = 1e-10 if run == "btd" else 2e-8
         np.testing.assert_allclose(u, cu, rtol=0, atol=rel * np.abs(cu).max())
+
+
+# -- SPIKE and the DOF-sharded step (slice 10) -------------------------------------
+
+
+@pytest.mark.parametrize("slabs", [1, 4, 8, 16])
+@pytest.mark.parametrize("pair", list(SWEEP_PAIRS))
+def test_btd_sweep_over_slabs(cuda, pair, slabs):
+    """K6 over slabs (one launch, one cluster a slab) bit for bit against a
+    launch a slab, and each slab's rows within their bound of the plain
+    version's; 16 slabs of f64 factors run in waves of clusters."""
+    fdt, vdt = SWEEP_PAIRS[pair]
+    rng = np.random.default_rng(slabs)
+    A = torch.tensor(rng.standard_normal((slabs, 12, 256, 256)) * (0.5 / 16)).to(fdt).to(cuda)
+    g = torch.tensor(rng.standard_normal((slabs, 12, 256))).to(vdt).to(cuda)
+    rtol = 1e-13 if vdt == torch.float64 else 1e-6
+    for rev in (False, True):
+        n0 = dict(ops.LAUNCHES)
+        out = ops.btd_sweep(A, g, reverse=rev)
+        assert ops.LAUNCHES["btd_sweep_slabs"] == n0["btd_sweep_slabs"] + 1
+        alone = torch.stack([ops.btd_sweep(A[s], g[s], reverse=rev) for s in range(slabs)])
+        torch.cuda.synchronize()
+        assert torch.equal(out, alone)
+        for s in range(slabs):
+            ref, bound = ops.btd_sweep_rows_reference(A[s], g[s], out[s], rev)
+            assert_scatter_close(out[s], ref, bound, rtol)
+
+
+@pytest.fixture(scope="module")
+def dd_small(cuda):
+    """The DD fixture model of tests/test_torch_ddstep.py on the card and
+    on the CPU (30 x 15 RCM vocal fold, KelvinVoigt + BernoulliSmoothMinSep)."""
+    return port_dd_model(30, 15, cuda), port_dd_model(30, 15, "cpu")
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_banded_t_matches_plain(dd_small, dtype):
+    """K1/K2 on the stacked per-shard plans of a 4-shard partition against
+    the plain versions (the gather exactly, the scatter to summation order)
+    and each one's VJP against the other."""
+    from vf_fem_tpu_torch.parallel import ddstep
+
+    model, _ = dd_small
+    p = ddstep.plan_dd(model, 4)
+    dp = banded.to_device_stacked(ddstep.plan_dd_banded(model, p)["plans"], model.device)
+    nvh = p.ndof_loc // p.dim + p.Bt // p.dim
+    rng = np.random.default_rng(0)
+    F = torch.tensor(rng.standard_normal((4, 13, nvh)), dtype=dtype, device=model.device)
+    loc = torch.tensor(rng.standard_normal((4, dp.nv, 2, dp.ncpad)), dtype=dtype,
+                       device=model.device)
+    rtol = 1e-13 if dtype == torch.float64 else 1e-6
+    n0 = dict(banded.LAUNCHES_T)
+    Fg = F.clone().requires_grad_()
+    out = banded.banded_gather_t(dp, Fg)
+    torch.testing.assert_close(out, banded.banded_gather_t_reference(dp, F, dp.g),
+                               rtol=0, atol=0)
+    ct = torch.randn_like(out)
+    (gF,) = torch.autograd.grad(out, Fg, ct)
+    assert_scatter_close(gF, banded.banded_scatter_t_reference(dp, ct, nvh, dp.g),
+                         banded.scatter_order_bound(dp, ct, nvh, dp.g), rtol)
+    assert_scatter_close(banded.banded_scatter_t(dp, loc, nvh),
+                         banded.banded_scatter_t_reference(dp, loc, nvh, dp.s),
+                         banded.scatter_order_bound(dp, loc, nvh, dp.s), rtol)
+    torch.cuda.synchronize()
+    assert banded.LAUNCHES_T["gather_t"] == n0["gather_t"] + 1
+    assert banded.LAUNCHES_T["scatter_t"] == n0["scatter_t"] + 2
+
+
+def test_dd_step_on_cuda_matches_cpu(dd_small):
+    """The banded DD step over 4 shards on the card against the same run
+    on the CPU (plain versions of every kernel), within 1e-10 of max|u|;
+    K1/K2 on the stacked plans and K6 over slabs carry it."""
+    from vf_fem_tpu_torch.parallel import ddstep
+
+    model, cmodel = dd_small
+    times = 5e-5 * np.arange(9)
+    params = {"jacobian_refresh_steps": 4, "assembly": "banded"}
+    runs = []
+    for m in (cmodel, model):
+        s0, cs, prop = port_inputs(m)
+        _reset_launches()
+        banded.LAUNCHES_T.update(dict.fromkeys(banded.LAUNCHES_T, 0))
+        runs.append(ddstep.DDIntegrator(m, 4, params).integrate_pure(s0, cs, prop, times))
+    torch.cuda.synchronize()
+    assert banded.LAUNCHES_T["gather_t"] > 0 and banded.LAUNCHES_T["scatter_t"] > 0
+    assert ops.LAUNCHES["btd_sweep_slabs"] == 2 * int(runs[1][2].num_iter.sum())
+    u, cu = runs[1][1]["u"].cpu().numpy(), runs[0][1]["u"].numpy()
+    np.testing.assert_allclose(u, cu, rtol=0, atol=1e-10 * np.abs(cu).max())
+
+
+def test_dd_auto_takes_banded_on_cuda(dd_small):
+    """``assembly='auto'`` on a card model takes the banded cell pass (K1/K2
+    on the stacked plans), as the JAX package takes it on the TPU; on the
+    CPU model, the plain one."""
+    from vf_fem_tpu_torch.parallel import ddstep
+
+    model, cmodel = dd_small
+    assert ddstep.DDIntegrator(model, 4, {"assembly": "auto"}).bplan is not None
+    assert ddstep.DDIntegrator(cmodel, 4, {"assembly": "auto"}).bplan is None
+
+
+def test_spike_solve_on_cuda(large_operator):
+    """The SPIKE solve on the 23.7k Jacobian (8 partitions, f64 factors)
+    on the card against the btd solve of the same matrix, two K6-over-slabs
+    launches a solve."""
+    from vf_fem_tpu_torch.solvers import btd, spike
+
+    _, plan, blocks = large_operator
+    r = torch.tensor(np.random.default_rng(0).standard_normal(plan.ndof),
+                     device=blocks.device)
+    fac = spike.spike_factor(plan, blocks, 8)
+    n0 = ops.LAUNCHES["btd_sweep_slabs"]
+    x = spike.spike_solve(plan, fac, r)
+    xb = btd.btd_solve(plan, btd.btd_factor(plan, blocks), r)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["btd_sweep_slabs"] == n0 + 2
+    assert float((x - xb).abs().max()) <= 1e-8 * float(xb.abs().max())

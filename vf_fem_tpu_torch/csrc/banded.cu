@@ -37,6 +37,15 @@
 //
 // Both take their plan arguments as one struct built once per plan on the
 // host, and the per-call sizes as ints.
+//
+// Stacked plans (the DOF-sharded step, parallel/ddstep.py): `shards` plans
+// of equal shape, each array with a leading shard axis, run in one launch,
+// the shard in blockIdx.z.  A shard's CTAs read its own base and offsets
+// and its own rows of F / loc and out; the scatter's CSR lists are the
+// shards' lists one after another, its row pointers offset into them.
+// This is the counterpart of the JAX package's traced-plan variants
+// banded_gather_t / banded_scatter_t (vf_fem_tpu/fem/banded.py:445, 470),
+// which reach the same two TPU kernels.  One shard is the single plan.
 
 #include <cuda_runtime.h>
 
@@ -61,6 +70,7 @@ struct ScatterArgs {
   const int* glo;   // (ntiles,) first group a tile stages
   const int* ngt;   // (ntiles,) groups a tile stages
   int nv, gc, ncpad, tile;
+  int nptr, ntiles;  // a shard's row pointers (nvert_pad + 1) and tiles
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -142,6 +152,13 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int nc = min(cpb, C - c0);
   const int npairs = a.nv * a.gc;
   const long long ncpad = static_cast<long long>(a.ngroups) * a.gc;
+  {  // this CTA's shard
+    const long long sh = blockIdx.z;
+    F += sh * C * nF;
+    out += sh * a.nv * C * ncpad;
+    a.base += sh * a.ngroups;
+    a.delta += sh * a.ngroups * npairs;
+  }
   for (int c = threadIdx.x; c < nc; c += blockDim.x) mbar_init(bars + c, blockDim.x);
   __syncthreads();
 
@@ -187,6 +204,14 @@ __global__ void __launch_bounds__(kMaxThreads)
   T* slab = reinterpret_cast<T*>(smem + bar_bytes(1));
   const int t = blockIdx.x;
   const int c = blockIdx.y;
+  {  // this CTA's shard
+    const long long sh = blockIdx.z;
+    loc += sh * a.nv * C * a.ncpad;
+    out += sh * C * n_out;
+    a.ptr += sh * a.nptr;
+    a.glo += sh * a.ntiles;
+    a.ngt += sh * a.ntiles;
+  }
   const int glo = a.glo[t];
   const int ngt = a.ngt[t];
   const int rows = ngt * a.nv;
@@ -235,12 +260,12 @@ int launch(dim3 grid, int threads, long long smem, void* stream, Args... args) {
 
 template <typename T>
 int launch_gather(const void* F, void* out, const GatherArgs* a, int C, int nF,
-                  int cpb, void* stream) {
+                  int cpb, int shards, void* stream) {
   if (a->ngroups == 0 || C == 0) return 0;
-  if (cpb < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (cpb < 1 || shards < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int npairs = a->nv * a->gc;
   const int threads = npairs < kMaxThreads ? (npairs + 31) / 32 * 32 : kMaxThreads;
-  const dim3 grid(a->ngroups, (C + cpb - 1) / cpb);
+  const dim3 grid(a->ngroups, (C + cpb - 1) / cpb, shards);
   return launch<banded_gather_kernel<T>>(grid, threads,
                 bar_bytes(cpb) + static_cast<long long>(cpb) * a->w * sizeof(T), stream,
                 static_cast<const T*>(F), static_cast<T*>(out), *a, C, nF, cpb);
@@ -248,9 +273,10 @@ int launch_gather(const void* F, void* out, const GatherArgs* a, int C, int nF,
 
 template <typename T>
 int launch_scatter(const void* loc, void* out, const ScatterArgs* a, int C,
-                   int n_out, int max_ngt, void* stream) {
+                   int n_out, int max_ngt, int shards, void* stream) {
   if (n_out == 0 || C == 0) return 0;
-  const dim3 grid((n_out + a->tile - 1) / a->tile, C);
+  if (shards < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n_out + a->tile - 1) / a->tile, C, shards);
   return launch<banded_scatter_kernel<T>>(
       grid, (a->tile + 31) / 32 * 32,
       bar_bytes(1) + static_cast<long long>(max_ngt) * a->nv * a->gc * sizeof(T),
@@ -261,31 +287,32 @@ int launch_scatter(const void* loc, void* out, const ScatterArgs* a, int C,
 
 // Each entry point returns the cudaError_t of its launch (0 on success).
 // `cpb` is the number of channels each gather CTA stages; `max_ngt` the
-// most groups a scatter tile stages.
+// most groups a scatter tile stages (of any shard); `shards` the plans
+// stacked (1 for a single plan).
 extern "C" {
 
 int vf_banded_gather_f32(const void* F, void* out, const void* args, int C,
-                         int nF, int cpb, void* stream) {
+                         int nF, int cpb, int shards, void* stream) {
   return launch_gather<float>(F, out, static_cast<const GatherArgs*>(args), C,
-                              nF, cpb, stream);
+                              nF, cpb, shards, stream);
 }
 
 int vf_banded_gather_f64(const void* F, void* out, const void* args, int C,
-                         int nF, int cpb, void* stream) {
+                         int nF, int cpb, int shards, void* stream) {
   return launch_gather<double>(F, out, static_cast<const GatherArgs*>(args), C,
-                               nF, cpb, stream);
+                               nF, cpb, shards, stream);
 }
 
 int vf_banded_scatter_f32(const void* loc, void* out, const void* args, int C,
-                          int n_out, int max_ngt, void* stream) {
+                          int n_out, int max_ngt, int shards, void* stream) {
   return launch_scatter<float>(loc, out, static_cast<const ScatterArgs*>(args),
-                               C, n_out, max_ngt, stream);
+                               C, n_out, max_ngt, shards, stream);
 }
 
 int vf_banded_scatter_f64(const void* loc, void* out, const void* args, int C,
-                          int n_out, int max_ngt, void* stream) {
+                          int n_out, int max_ngt, int shards, void* stream) {
   return launch_scatter<double>(loc, out, static_cast<const ScatterArgs*>(args),
-                                C, n_out, max_ngt, stream);
+                                C, n_out, max_ngt, shards, stream);
 }
 
 }  // extern "C"

@@ -6,7 +6,10 @@
 //   backward (reverse = 1):  x_i = g_i - A_i x_{i+1},  x_{n} = 0
 //
 // over n row blocks A_i of Bt x Bt (V = Sinv L forward, W = Sinv U
-// backward).  Plain C entry points, loaded with ctypes by
+// backward), or, with `slabs` > 1, that sweep over each of `slabs`
+// independent chains of n row blocks stored one after another (the SPIKE
+// solver's slabs, solvers/spike.py: P forward, Q backward).  Plain C entry
+// points, loaded with ctypes by
 // vf_fem_tpu_torch/ops/kernels.py, which also holds the plain PyTorch
 // version (btd_sweep_reference) and the launch plan (sweep_plan, a copy of
 // make_plan in cluster.cuh that the CPU tests read).
@@ -68,6 +71,14 @@
 // - The last row block pushes nothing, so after its wait for x_{n-2} no
 //   store is in flight into a CTA; a final cluster barrier keeps every CTA
 //   resident until all are done.
+// - Slabs: one launch of `slabs` clusters, cluster k (CTAs [k C, (k+1) C))
+//   running slab k's chain on its own rows of A, g and out.  Clusters never
+//   talk to each other, so nothing assumes they are resident together: at
+//   slabs x C > 132 SMs (16 slabs of f64 factors) they run in waves.  A
+//   cluster computes exactly what a launch of its slab alone computes, bit
+//   for bit.  This replaces the slab sweeps of the JAX package's SPIKE
+//   solver (vf_fem_tpu/solvers/spike.py:172-199, _scan_m over lax.scan),
+//   which no TPU kernel runs.
 // A refused launch (no room for the cluster, the shared memory, or a
 // cluster size other than make_plan's) returns its error: there is no
 // fallback.  btd_exchange_probe.cu times the exchange alone.
@@ -162,6 +173,13 @@ __global__ void __launch_bounds__(Geometry<TA, BT>::THREADS, 1)
   const unsigned rank = cluster_rank();
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  // this cluster's slab: its chain of n row blocks
+  {
+    const long long slab = blockIdx.x / G::C;
+    A += slab * n * kBlock;
+    g += slab * n * BT;
+    out += slab * n * BT;
+  }
   if (threadIdx.x == 0) {
     for (int s = 0; s < G::NST; ++s) {
       mbar_init(full + s, 1);
@@ -268,15 +286,15 @@ __global__ void __launch_bounds__(Geometry<TA, BT>::THREADS, 1)
 
 template <typename TA, typename TV, int BT>
 int launch_sweep_bt(const void* A, const void* g, void* out, int n, int reverse,
-                    int cluster, void* stream) {
+                    int cluster, int slabs, void* stream) {
   using G = Geometry<TA, BT>;
-  if (cluster != G::C) return static_cast<int>(cudaErrorInvalidValue);
+  if (cluster != G::C || slabs < 1) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = btd_sweep_kernel<TA, TV, BT>;
   static const cudaError_t attr_err = set_attributes(kernel, G::SMEM, G::C);
   if (attr_err != cudaSuccess) return static_cast<int>(attr_err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cluster_config(G::THREADS, G::SMEM, G::C, stream, cfg, attr);
+  cluster_config(G::THREADS, G::SMEM, G::C, stream, cfg, attr, slabs);
   cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const TA*>(A),
                                        static_cast<const TV*>(g), static_cast<TV*>(out),
                                        n, reverse);
@@ -286,10 +304,10 @@ int launch_sweep_bt(const void* A, const void* g, void* out, int n, int reverse,
 
 template <typename TA, typename TV>
 int launch_sweep(const void* A, const void* g, void* out, int n, int bt,
-                 int reverse, int cluster, void* stream) {
+                 int reverse, int cluster, int slabs, void* stream) {
   if (n == 0) return 0;
 #define VF_SWEEP_CALL(BT) \
-  launch_sweep_bt<TA, TV, BT>(A, g, out, n, reverse, cluster, stream)
+  launch_sweep_bt<TA, TV, BT>(A, g, out, n, reverse, cluster, slabs, stream)
   VF_BT_SWITCH(VF_SWEEP_CALL)
 #undef VF_SWEEP_CALL
 }
@@ -722,13 +740,15 @@ int launch_sweep_t(const void* A, const void* g, void* out, int n, int bt,
 
 // Each entry point returns the cudaError_t of its launch (0 on success).
 // Suffix: factor type, vector type.  `cluster` is the launch plan's
-// (ops.kernels.sweep_plan); any other is refused.
+// (ops.kernels.sweep_plan); any other is refused.  K6 takes `slabs` chains
+// of n row blocks each (1 for the btd solve).
 extern "C" {
 
 #define VF_SWEEP_ENTRY(NAME, TA, TV)                                          \
   int NAME(const void* A, const void* g, void* out, int n, int bt, int reverse, \
-           int cluster, void* stream) {                                         \
-    return launch_sweep<TA, TV>(A, g, out, n, bt, reverse, cluster, stream);    \
+           int cluster, int slabs, void* stream) {                              \
+    return launch_sweep<TA, TV>(A, g, out, n, bt, reverse, cluster, slabs,      \
+                                stream);                                        \
   }
 
 VF_SWEEP_ENTRY(vf_btd_sweep_bf16_f64, __nv_bfloat16, double)
@@ -738,7 +758,7 @@ VF_SWEEP_ENTRY(vf_btd_sweep_f32_f32, float, float)
 
 #undef VF_SWEEP_ENTRY
 
-// K6T: the same arguments as K6's entry points
+// K6T: K6's arguments but `slabs`
 #define VF_SWEEP_T_ENTRY(NAME, TA, TV)                                          \
   int NAME(const void* A, const void* g, void* out, int n, int bt, int reverse, \
            int cluster, void* stream) {                                         \

@@ -232,11 +232,13 @@ __device__ __forceinline__ void push_words(const uint32_t* w, const void* dst,
   }
 }
 
-// one cluster of `cluster` CTAs of `threads` threads
+// `copies` clusters (1 by default) of `cluster` CTAs of `threads` threads;
+// cluster k is CTAs [k cluster, (k + 1) cluster) of the grid
 inline void cluster_config(int threads, int smem, int cluster, void* stream,
-                           cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr) {
+                           cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
+                           int copies = 1) {
   cfg = {};
-  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.gridDim = dim3(cluster * copies, 1, 1);
   cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);

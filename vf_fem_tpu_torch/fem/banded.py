@@ -11,6 +11,13 @@ last):
 - locals:    (nv, C, ngroups*gc)
 - assembled: (C, n_rows)
 
+A plan stacked over S shards (:func:`to_device_stacked`, the per-shard
+plans of ``parallel.ddstep``, whose shape metadata agree) takes each of
+these with a leading shard axis: :func:`banded_gather_t` and
+:func:`banded_scatter_t`, the counterparts of the JAX package's traced-plan
+variants (``vf_fem_tpu/fem/banded.py:445, 470``), run K1 and K2 on all
+shards in one launch each, the shard in the grid.
+
 ``delta_g`` (gather offsets) duplicates a real cell of the group into the
 padding slots, so padded cells see finite geometry; ``delta_s`` (scatter
 offsets) marks those slots ``w`` so they never contribute.
@@ -52,20 +59,26 @@ __all__ = [
     "BandedPlan",
     "DevicePlan",
     "LAUNCHES",
+    "LAUNCHES_T",
     "SCATTER_TILE",
     "channels_per_cta",
     "plan_banded",
     "banded_gather",
+    "banded_gather_t",
     "banded_scatter",
+    "banded_scatter_t",
     "banded_gather_reference",
     "banded_scatter_reference",
     "scatter_order_bound",
+    "shard_view",
     "to_device",
+    "to_device_stacked",
 ]
 
 # Kernel launches since the last reset, by kernel; counted where the
-# kernel is launched and nowhere else.
+# kernel is launched and nowhere else (on a stacked plan in ``LAUNCHES_T``).
 LAUNCHES = {"gather": 0, "scatter": 0}
+LAUNCHES_T = {"gather_t": 0, "scatter_t": 0}
 
 SCATTER_TILE = 256  # output rows per CTA of the scatter kernel
 
@@ -90,6 +103,9 @@ def plan_banded(
     n_vertices: int,
     gc: int = 128,
     max_window: int = 2048,
+    n_real: int = None,
+    w_force: int = None,
+    nvert_pad_min: int = None,
 ) -> BandedPlan:
     """Chunk cells into groups of ``gc`` and compute their vertex windows.
 
@@ -97,11 +113,18 @@ def plan_banded(
     of 128, as in the JAX package (its TPU lane width), so the two packages
     build identical plans.  Raises ``ValueError`` if the realized window
     exceeds ``max_window`` (the mesh is not bandwidth-ordered).
+
+    ``n_real`` marks ``cells[n_real:]`` as duplicates whose scatter slots
+    are masked (0 masks every slot); ``w_force`` and ``nvert_pad_min`` force
+    a common window width and padded vertex count: the per-shard plans of
+    ``parallel.ddstep`` agree in shape this way, as in the JAX package.
     """
     if gc % 128:
         raise ValueError(f"gc must be a multiple of 128, got {gc}")
     cells = np.asarray(cells)
     nc, nv = cells.shape
+    if n_real is None:
+        n_real = nc
     ngroups = -(-nc // gc)
     npad = ngroups * gc - nc
     # padding duplicates the last real cell (finite geometry, masked in
@@ -122,19 +145,26 @@ def plan_banded(
             " bandwidth-ordered; renumber it (reverse Cuthill-McKee, cells"
             " sorted by min vertex) before building the model"
         )
+    if w_force is not None:
+        if w_force < w or w_force % 128:
+            raise ValueError(f"w_force {w_force}: a multiple of 128 >= {w} expected")
+        w = w_force
 
     delta_g = np.transpose(grouped - base[:, None, None], (0, 2, 1)).astype(
         np.int32
     )  # (ngroups, nv, gc) vertex-slot-major
     delta_s = delta_g.copy()
-    pad_slots = np.arange(ngroups * gc).reshape(ngroups, gc) >= nc
+    pad_slots = np.arange(ngroups * gc).reshape(ngroups, gc) >= n_real
     delta_s[np.broadcast_to(pad_slots[:, None, :], delta_s.shape)] = w
+    nvert_pad = int(base.max()) + w
+    if nvert_pad_min is not None:
+        nvert_pad = max(nvert_pad, int(nvert_pad_min))
     return BandedPlan(
         ngroups=ngroups,
         gc=gc,
         nv=nv,
         w=w,
-        nvert_pad=int(base.max()) + w,
+        nvert_pad=nvert_pad,
         ncells=nc,
         base=base.astype(np.int32),
         delta_g=delta_g,
@@ -145,7 +175,10 @@ def plan_banded(
 
 class _Pattern(NamedTuple):
     """One offset pattern (gather or scatter offsets) on the device, with
-    the arrays and argument structs of the kernels that use it."""
+    the arrays and argument structs of the kernels that use it (of a
+    stacked plan: each array with a leading shard axis, but ``idx`` and
+    ``lidx``, the shards' entries one after another, which ``ptr`` points
+    into)."""
 
     delta: torch.Tensor  # (ngroups, nv, gc) int32
     ptr: torch.Tensor  # (nvert_pad + 1,) int32 CSR row pointers
@@ -160,20 +193,27 @@ class _Pattern(NamedTuple):
 
 class DevicePlan(NamedTuple):
     """A :class:`BandedPlan` moved to a device, with the CSR transposes the
-    scatter kernel sums over."""
+    scatter kernel sums over; or S such plans stacked (``base`` (S,
+    ngroups), :func:`to_device_stacked`)."""
 
     ngroups: int
     gc: int
     nv: int
     w: int
     nvert_pad: int
-    base: torch.Tensor  # (ngroups,) int32
+    lead: tuple  # the shard axis of every tensor it takes: (S,) stacked, () single
+    base: torch.Tensor  # lead + (ngroups,) int32
     g: _Pattern  # gather offsets (the gather, and the gather's VJP)
     s: _Pattern  # scatter offsets (the scatter, and the scatter's VJP)
 
     @property
     def ncpad(self) -> int:
         return self.ngroups * self.gc
+
+    @property
+    def shards(self) -> int:
+        """S of a stacked plan, 1 of a single one."""
+        return self.lead[0] if self.lead else 1
 
 
 def _csr_transpose(plan: BandedPlan, delta: np.ndarray):
@@ -220,34 +260,76 @@ def _scatter_tiles(plan: BandedPlan, ptr: np.ndarray, idx: np.ndarray):
 
 
 def to_device(plan: BandedPlan, device) -> DevicePlan:
+    """One plan on the device: the stacked plan of ``[plan]`` without its
+    shard axis (views of the same memory, so the kernels' argument structs
+    stay valid)."""
+    st = to_device_stacked([plan], device)
+
+    def first(pat):
+        return pat._replace(delta=pat.delta[0], ptr=pat.ptr[0], glo=pat.glo[0],
+                            ngt=pat.ngt[0])
+
+    return st._replace(lead=(), base=st.base[0], g=first(st.g), s=first(st.s))
+
+
+def to_device_stacked(plans, device) -> DevicePlan:
+    """S per-shard plans of equal shape metadata (``ngroups``, ``gc``,
+    ``nv``, ``w``, ``nvert_pad``) as one stacked :class:`DevicePlan`: each
+    shard's CSR transposes built on the host, concatenated, its row
+    pointers offset by the entries of the shards before it."""
+    p0 = plans[0]
+    meta = (p0.ngroups, p0.gc, p0.nv, p0.w, p0.nvert_pad)
+    for p in plans:
+        if (p.ngroups, p.gc, p.nv, p.w, p.nvert_pad) != meta:
+            raise ValueError(f"to_device_stacked: shard plans differ in shape"
+                             f" ({(p.ngroups, p.gc, p.nv, p.w, p.nvert_pad)} vs {meta})")
+
     def i32(a):
-        return torch.as_tensor(
-            np.ascontiguousarray(a, dtype=np.int32), device=device
-        )
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=device)
 
-    base = i32(plan.base)
+    base = i32(np.stack([p.base for p in plans]))
 
-    def pattern(delta):
-        ptr, idx = _csr_transpose(plan, delta)
-        glo, ngt, lidx = _scatter_tiles(plan, ptr, idx)
-        t = dict(delta=i32(delta), ptr=i32(ptr), idx=i32(idx), lidx=i32(lidx),
-                 glo=i32(glo), ngt=i32(ngt))
-        gargs = _GatherArgs(base.data_ptr(), t["delta"].data_ptr(), plan.nv,
-                            plan.ngroups, plan.gc, plan.w)
+    def pattern(which):
+        parts = {k: [] for k in ("delta", "ptr", "idx", "lidx", "glo", "ngt")}
+        nnz = 0
+        for p in plans:
+            delta = getattr(p, which)
+            ptr, idx = _csr_transpose(p, delta)
+            glo, ngt, lidx = _scatter_tiles(p, ptr, idx)
+            for k, v in zip(parts, (delta, ptr.astype(np.int64) + nnz, idx, lidx,
+                                    glo, ngt)):
+                parts[k].append(v)
+            nnz += idx.shape[0]
+        # the CSR entries: the shards' one after another
+        t = {k: i32(np.concatenate(v) if k in ("idx", "lidx") else np.stack(v))
+             for k, v in parts.items()}
+        gargs = _GatherArgs(base.data_ptr(), t["delta"].data_ptr(), p0.nv,
+                            p0.ngroups, p0.gc, p0.w)
         sargs = _ScatterArgs(t["ptr"].data_ptr(), t["lidx"].data_ptr(),
-                             t["glo"].data_ptr(), t["ngt"].data_ptr(), plan.nv,
-                             plan.gc, plan.ngroups * plan.gc, SCATTER_TILE)
+                             t["glo"].data_ptr(), t["ngt"].data_ptr(), p0.nv,
+                             p0.gc, p0.ngroups * p0.gc, SCATTER_TILE,
+                             p0.nvert_pad + 1, t["glo"].shape[-1])
         # the structs hold raw pointers: keep their tensors alive with them
         gargs.tensors = (base, t["delta"])
         sargs.tensors = tuple(t.values())
-        return _Pattern(**t, max_ngt=int(ngt.max(initial=0)), gather_args=gargs,
-                        scatter_args=sargs)
+        max_ngt = max(int(n.max(initial=0)) for n in parts["ngt"])
+        return _Pattern(**t, max_ngt=max_ngt, gather_args=gargs, scatter_args=sargs)
 
     return DevicePlan(
-        ngroups=plan.ngroups, gc=plan.gc, nv=plan.nv, w=plan.w,
-        nvert_pad=plan.nvert_pad, base=base,
-        g=pattern(plan.delta_g), s=pattern(plan.delta_s),
+        ngroups=p0.ngroups, gc=p0.gc, nv=p0.nv, w=p0.w,
+        nvert_pad=p0.nvert_pad, lead=(len(plans),), base=base,
+        g=pattern("delta_g"), s=pattern("delta_s"),
     )
+
+
+def shard_view(plan: DevicePlan, s: int) -> DevicePlan:
+    """Shard ``s`` of a stacked plan as a single plan for the plain
+    versions (its offsets and row pointers; no kernel arguments)."""
+    def view(pat):
+        return _Pattern(pat.delta[s], pat.ptr[s], *(None,) * 4, pat.max_ngt,
+                        None, None)
+
+    return plan._replace(lead=(), base=plan.base[s], g=view(plan.g), s=view(plan.s))
 
 
 # -- Plain PyTorch versions ---------------------------------------------------
@@ -285,13 +367,41 @@ def banded_scatter_reference(
     return out[:n_rows].T
 
 
+def _shards(plan: DevicePlan, pattern: _Pattern):
+    """Each shard of a stacked plan as a single plan, and the name of
+    ``pattern`` in it."""
+    which = "g" if pattern is plan.g else "s"
+    return [(v, getattr(v, which))
+            for v in (shard_view(plan, k) for k in range(plan.shards))]
+
+
+def banded_gather_t_reference(plan: DevicePlan, F: torch.Tensor,
+                              pattern: _Pattern) -> torch.Tensor:
+    """:func:`banded_gather_reference` on each shard of a stacked plan:
+    F (S, C, nF) -> (S, nv, C, ngroups*gc)."""
+    return torch.stack([banded_gather_reference(v, x, pat)
+                        for (v, pat), x in zip(_shards(plan, pattern), F)])
+
+
+def banded_scatter_t_reference(plan: DevicePlan, loc: torch.Tensor,
+                               n_rows: int, pattern: _Pattern) -> torch.Tensor:
+    """:func:`banded_scatter_reference` on each shard of a stacked plan:
+    loc (S, nv, C, ngroups*gc) -> (S, C, n_rows)."""
+    return torch.stack([banded_scatter_reference(v, x, n_rows, pat)
+                        for (v, pat), x in zip(_shards(plan, pattern), loc)])
+
+
 def scatter_order_bound(
     plan: DevicePlan, loc: torch.Tensor, n_rows: int, pattern: _Pattern
 ) -> torch.Tensor:
     """Per-entry bound (C, n_rows) on the difference between two summation
     orders of the same scatter: ``2 (n-1) u sum|x|`` for an output summing
     ``n`` terms ``x`` in a dtype of unit roundoff ``u`` (the classic bound
-    of recursive summation, for each order)."""
+    of recursive summation, for each order).  Of a stacked plan: (S, C,
+    n_rows), shard by shard."""
+    if plan.lead:
+        return torch.stack([scatter_order_bound(v, x, n_rows, pat)
+                            for (v, pat), x in zip(_shards(plan, pattern), loc)])
     u = torch.finfo(loc.dtype).eps / 2
     abs_sum = banded_scatter_reference(plan, loc.abs(), n_rows, pattern)
     n = (pattern.ptr[1:] - pattern.ptr[:-1])[:n_rows].to(loc.dtype)
@@ -303,8 +413,8 @@ def scatter_order_bound(
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    **{f"vf_banded_gather_{t}": [_P, _P, _P, _I, _I, _I, _P] for t in ("f32", "f64")},
-    **{f"vf_banded_scatter_{t}": [_P, _P, _P, _I, _I, _I, _P] for t in ("f32", "f64")},
+    **{f"vf_banded_gather_{t}": [_P, _P, _P, _I, _I, _I, _I, _P] for t in ("f32", "f64")},
+    **{f"vf_banded_scatter_{t}": [_P, _P, _P, _I, _I, _I, _I, _P] for t in ("f32", "f64")},
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _SMS = 132  # the H100's streaming multiprocessors
@@ -322,7 +432,8 @@ class _ScatterArgs(ctypes.Structure):
     """``ScatterArgs`` of csrc/banded.cu."""
 
     _fields_ = [("ptr", _P), ("lidx", _P), ("glo", _P), ("ngt", _P),
-                ("nv", _I), ("gc", _I), ("ncpad", _I), ("tile", _I)]
+                ("nv", _I), ("gc", _I), ("ncpad", _I), ("tile", _I),
+                ("nptr", _I), ("ntiles", _I)]
 
 
 def channels_per_cta(C: int, ngroups: int, chan_bytes: int) -> int:
@@ -348,46 +459,59 @@ def _check(plan: DevicePlan, x: torch.Tensor, ndim: int, what: str):
         raise ValueError(f"{what}: unsupported device {x.device}")
 
 
-def _launch(op: str, x: torch.Tensor, out: torch.Tensor, args, *sizes):
+def _launch(op: str, x: torch.Tensor, out: torch.Tensor, args, plan: DevicePlan,
+            *sizes):
     if not x.is_contiguous():
         raise ValueError(f"banded {op}: input must be contiguous")
     lib = cuda_build.load("banded.cu", _SIGNATURES)
     err = getattr(lib, f"vf_banded_{op}_{_SUFFIX[x.dtype]}")(
         x.data_ptr(), out.data_ptr(), ctypes.addressof(args), *sizes,
-        cuda_build.raw_stream(x))
+        plan.shards, cuda_build.raw_stream(x))
     if err != 0:
         raise RuntimeError(f"banded {op} launch failed: cudaError_t {err}")
-    LAUNCHES[op] += 1
+    if plan.lead:
+        LAUNCHES_T[op + "_t"] += 1
+    else:
+        LAUNCHES[op] += 1
     return out
 
 
 def _gather(plan: DevicePlan, F: torch.Tensor, pattern: _Pattern):
-    _check(plan, F, 2, "banded gather")
-    C, n_cols = F.shape
+    lead = plan.lead
+    _check(plan, F, 2 + len(lead), "banded gather")
+    if tuple(F.shape[:len(lead)]) != lead:
+        raise ValueError(f"banded gather: fields {tuple(F.shape)} for {lead} shards")
+    C, n_cols = F.shape[-2:]
     if n_cols > plan.nvert_pad:
         raise ValueError(
             f"banded gather: {n_cols} columns > nvert_pad {plan.nvert_pad}"
         )
     if F.device.type == "cpu":
+        if lead:
+            return banded_gather_t_reference(plan, F, pattern)
         return banded_gather_reference(plan, F, pattern)
-    out = torch.empty((plan.nv, C, plan.ncpad), dtype=F.dtype, device=F.device)
-    cpb = channels_per_cta(C, plan.ngroups, plan.w * F.element_size())
-    return _launch("gather", F, out, pattern.gather_args, C, n_cols, cpb)
+    out = torch.empty(lead + (plan.nv, C, plan.ncpad), dtype=F.dtype, device=F.device)
+    cpb = channels_per_cta(C, plan.ngroups * plan.shards, plan.w * F.element_size())
+    return _launch("gather", F, out, pattern.gather_args, plan, C, n_cols, cpb)
 
 
 def _scatter(plan: DevicePlan, loc: torch.Tensor, n_rows: int,
              pattern: _Pattern):
-    _check(plan, loc, 3, "banded scatter")
-    if loc.shape[0] != plan.nv or loc.shape[2] != plan.ncpad:
+    lead = plan.lead
+    _check(plan, loc, 3 + len(lead), "banded scatter")
+    if (tuple(loc.shape[:len(lead)]) != lead or loc.shape[-3] != plan.nv
+            or loc.shape[-1] != plan.ncpad):
         raise ValueError(
             f"banded scatter: locals of shape {tuple(loc.shape)}, plan expects"
-            f" ({plan.nv}, C, {plan.ncpad})"
+            f" {lead + (plan.nv, 'C', plan.ncpad)}"
         )
     if n_rows > plan.nvert_pad:
         raise ValueError(
             f"banded scatter: {n_rows} rows > nvert_pad {plan.nvert_pad}"
         )
     if loc.device.type == "cpu":
+        if lead:
+            return banded_scatter_t_reference(plan, loc, n_rows, pattern)
         return banded_scatter_reference(plan, loc, n_rows, pattern)
     if loc.data_ptr() % 16:
         raise ValueError("banded scatter: locals must be 16-byte aligned")
@@ -398,9 +522,9 @@ def _scatter(plan: DevicePlan, loc: torch.Tensor, n_rows: int,
             f" {pattern.max_ngt} groups, {slab} bytes, more than a CTA holds"
             f" ({_SMEM}); renumber the mesh (reorder='rcm')"
         )
-    C = loc.shape[1]
-    out = torch.empty((C, n_rows), dtype=loc.dtype, device=loc.device)
-    return _launch("scatter", loc, out, pattern.scatter_args, C, n_rows,
+    C = loc.shape[-2]
+    out = torch.empty(lead + (C, n_rows), dtype=loc.dtype, device=loc.device)
+    return _launch("scatter", loc, out, pattern.scatter_args, plan, C, n_rows,
                    pattern.max_ngt)
 
 
@@ -504,4 +628,64 @@ def banded_scatter(plan: DevicePlan, loc: torch.Tensor, n_rows: int):
     autograd wrapper."""
     if _differentiated(loc):
         return _BandedScatter.apply(loc, plan, n_rows)
+    return _scatter(plan, loc, n_rows, plan.s)
+
+
+class _BandedGatherT(torch.autograd.Function):
+    """K1 on a stacked plan with K2 on it as its backward (the scatter with
+    the gather offsets), as ``banded_gather_t``'s custom VJP."""
+
+    @staticmethod
+    def forward(F, plan):
+        return _gather(plan, F, plan.g)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        F, plan = inputs
+        ctx.plan = plan
+        ctx.n_cols = F.shape[-1]
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _scatter(ctx.plan, ct.contiguous(), ctx.n_cols, ctx.plan.g), None
+
+
+class _BandedScatterT(torch.autograd.Function):
+    """K2 on a stacked plan with K1 on it as its backward (the gather with
+    the scatter offsets), as ``banded_scatter_t``'s custom VJP."""
+
+    @staticmethod
+    def forward(loc, plan, n_rows):
+        return _scatter(plan, loc, n_rows, plan.s)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.plan, ctx.n_rows = inputs
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _gather(ctx.plan, ct.contiguous(), ctx.plan.s), None, None
+
+
+def banded_gather_t(plan: DevicePlan, F: torch.Tensor) -> torch.Tensor:
+    """:func:`banded_gather` on every shard of a stacked plan: F (S, C,
+    n_vertices) -> (S, nv, C, ngroups*gc), one launch of K1 (the JAX
+    package's ``banded_gather_t``).  Reverse mode differentiates to
+    :func:`banded_scatter_t` with the gather offsets."""
+    if not plan.lead:
+        raise ValueError("banded_gather_t: a stacked plan expected")
+    if torch.is_grad_enabled() and F.requires_grad:
+        return _BandedGatherT.apply(F, plan)
+    return _gather(plan, F, plan.g)
+
+
+def banded_scatter_t(plan: DevicePlan, loc: torch.Tensor, n_rows: int):
+    """:func:`banded_scatter` on every shard of a stacked plan: loc (S, nv,
+    C, ngroups*gc) -> (S, C, n_rows), one launch of K2 (the JAX package's
+    ``banded_scatter_t``).  Reverse mode differentiates to
+    :func:`banded_gather_t` with the scatter offsets."""
+    if not plan.lead:
+        raise ValueError("banded_scatter_t: a stacked plan expected")
+    if torch.is_grad_enabled() and loc.requires_grad:
+        return _BandedScatterT.apply(loc, plan, n_rows)
     return _scatter(plan, loc, n_rows, plan.s)

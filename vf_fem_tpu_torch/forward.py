@@ -7,8 +7,8 @@ the run's configuration:
 
 - a fixed-iteration run on a CUDA model whose steps solve with factors
   carried through refresh windows (``fixed_iterations`` set,
-  ``jacobian_refresh_steps > 1``, ``linear_solver`` 'dense' or 'btd')
-  replays one captured CUDA graph a step, cached on the model like the JAX
+  ``jacobian_refresh_steps > 1``, ``linear_solver`` 'dense', 'btd' or
+  'spike') replays one captured CUDA graph a step, cached on the model like the JAX
   package's ``_scan_cache`` (:mod:`.step_graph`); the factorizations
   between windows run eagerly;
 - every other run is a Python loop of eager steps: adaptive Newton (the
@@ -98,7 +98,7 @@ def integrate_pure(
     same rule.  'full' mode refactors in every window.
 
     A fixed-iteration run of such windows on a CUDA model with a direct
-    solver ('dense', 'btd') replays one captured CUDA graph a step (see the
+    solver ('dense', 'btd', 'spike') replays one captured CUDA graph a step (see the
     module docstring; a capture that fails raises); its results are the
     eager loop's bit for bit.
 

@@ -9,10 +9,11 @@ order.  Newton runs on the 'u' block only; v1 and a1 follow from the
 Newmark relations.
 
 Solver parameters supported on this path: ``linear_solver`` ('dense' |
-'cg' | 'bsb' | 'btd'), with ``krylov`` ('bicgstab' | 'pcg'),
-``krylov_tolerance`` and ``krylov_max_iter`` for the two matrix-free ones
-and ``btd_store_dtype`` (None | 'bfloat16') for the block-Thomas direct
-one; ``jacobian_update`` ('every_iteration' | 'once_per_step');
+'cg' | 'bsb' | 'btd' | 'spike'), with ``krylov`` ('bicgstab' | 'pcg'),
+``krylov_tolerance`` and ``krylov_max_iter`` for the two matrix-free ones,
+``btd_store_dtype`` (None | 'bfloat16') for the two block-tridiagonal direct
+ones and ``spike_partitions`` (8) for the SPIKE one (``solvers.spike``:
+forward solves only, its gradient path raises); ``jacobian_update`` ('every_iteration' | 'once_per_step');
 ``fixed_iterations``/``fixed_tail_residual``/``stagnation_ratio`` and the
 tolerances (``solvers.newton``); ``assembly`` ('auto' | 'banded' |
 'plain'); ``jacobian_refresh_steps``/``jacobian_refresh_mode``/
@@ -58,14 +59,15 @@ from ..equations import newmark
 from ..fem import assembly
 from ..residuals.base import FemResidual, FunctionalResidual
 from ..solverconst import DEFAULT_NEWTON_SOLVER_PRM, FIXEDPOINT_SOLVER_PRM
-from ..solvers import bsb, btd, linalg
+from ..solvers import bsb, btd, linalg, spike
 from ..solvers.newton import SolveInfo, iterative_solve, newton_solve
 
 # solvers whose factors are built from the element Jacobian blocks, once
 # per step by default: the matrix-free Newton-Krylov 'cg' (element-by-
 # element operator) and 'bsb' (block-banded), both with nodal block-Jacobi,
-# and the block-Thomas direct 'btd' on the block-banded Jacobian
-ELEMENT_SOLVERS = ("cg", "bsb", "btd")
+# and the block-Thomas 'btd' and SPIKE 'spike' direct solvers on the
+# block-banded Jacobian
+ELEMENT_SOLVERS = ("cg", "bsb", "btd", "spike")
 
 _SUPPORTED = {
     "linear_solver": ("dense",) + ELEMENT_SOLVERS,
@@ -694,12 +696,17 @@ class SolidModel(SolidElements, BaseTransientModel):
         the Krylov operator with its block-Jacobi inverse ('cg' | 'bsb')."""
         op = self.jac_u_ebe(u_lin, state0, control, prop, dt)
         ls = params_d.get("linear_solver")
-        if ls in ("bsb", "btd"):
+        if ls in ("bsb", "btd", "spike"):
             plan, fill = self.bsb_plan()
             blocks = bsb.bsb_fill(plan, fill, [op.J_cells, op.J_facets])
             if ls == "btd":
                 return btd.btd_factor(
                     plan, blocks, store_dtype=params_d.get("btd_store_dtype")
+                )
+            if ls == "spike":
+                return spike.spike_factor(
+                    plan, blocks, int(params_d.get("spike_partitions", 8)),
+                    store_dtype=params_d.get("btd_store_dtype"),
                 )
             return KrylovFactors(blocks, op.block_diag_inverse(self.dim))
         return KrylovFactors(op, op.block_diag_inverse(self.dim))
@@ -862,6 +869,8 @@ class SolidModel(SolidElements, BaseTransientModel):
         """Solve with factors from :meth:`factorize`, by their kind."""
         if isinstance(factors, btd.BTDFactors):
             return btd.btd_solve(self.bsb_plan()[0], factors, r)
+        if isinstance(factors, spike.SPIKEFactors):
+            return spike.spike_solve(self.bsb_plan()[0], factors, r)
         if isinstance(factors, KrylovFactors):
             return self.iter_solve(factors, r, params_d)
         return linalg.dense_factor_solve(factors, r)
@@ -872,7 +881,8 @@ class SolidModel(SolidElements, BaseTransientModel):
         the current predictor; the block-Thomas and Krylov factors are
         rebuilt from the element Jacobian blocks."""
         params_d = solver_params(params)
-        if isinstance(factors, (btd.BTDFactors, KrylovFactors)):
+        if isinstance(factors, (btd.BTDFactors, spike.SPIKEFactors,
+                                KrylovFactors)):
             return self.factorize(state0, control, prop, dt, params_d)
         u_lin = self._predictor(state0, dt)
         A = self.jac_u_dense(u_lin, state0, control, prop, dt)
@@ -900,8 +910,11 @@ class SolidModel(SolidElements, BaseTransientModel):
         from the Newmark predictor of the detached state, then
         v1, a1 by K5 under ``ops.newmark_step`` (K5T backward).  The values
         are :meth:`solve_state1_pure`'s / :meth:`solve_state1_stale`'s bit
-        for bit; nothing is carried between steps."""
+        for bit; nothing is carried between steps.  ``linear_solver=
+        'spike'`` raises: its transposed solve is not ported."""
         params_d = solver_params(params)
+        if params_d.get("linear_solver") == "spike":
+            raise NotImplementedError(spike.TRANSPOSE_TODO)
         u0, v0, a0 = (state0[k] for k in ("u", "v", "a"))
         guess = newmark.newmark_predict_u(u0.detach(), v0.detach(),
                                           a0.detach(), dt)

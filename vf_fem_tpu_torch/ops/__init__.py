@@ -11,6 +11,7 @@ from .kernels import (  # noqa: F401
     btd_sweep,
     btd_sweep_reference,
     btd_sweep_rows_reference,
+    btd_sweep_slabs_reference,
     btd_sweep_t,
     btd_sweep_t_reference,
     btd_sweep_t_rows_reference,

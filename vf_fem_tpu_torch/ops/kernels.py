@@ -60,6 +60,7 @@ __all__ = [
     "btd_sweep",
     "btd_sweep_reference",
     "btd_sweep_rows_reference",
+    "btd_sweep_slabs_reference",
     "btd_sweep_t",
     "btd_sweep_t_reference",
     "btd_sweep_t_rows_reference",
@@ -69,7 +70,8 @@ __all__ = [
 ]
 
 LAUNCHES = {"ebe_matvec": 0, "bsb_matvec": 0, "newmark": 0, "btd_sweep": 0,
-            "newmark_t": 0, "btd_sweep_t": 0, "ebe_matvec_t": 0, "bsb_matvec_t": 0}
+            "newmark_t": 0, "btd_sweep_t": 0, "ebe_matvec_t": 0, "bsb_matvec_t": 0,
+            "btd_sweep_slabs": 0}
 
 BSB_BLOCK = 128  # the block size K4 is compiled for
 BSB_LANES = 4  # lanes a row of K4 and a column of K4T (csrc/ops.cu: kBsbLanes)
@@ -605,8 +607,9 @@ SMEM_LIMIT = 232448  # shared memory a CTA can use on Hopper (227 KB)
 _MAX_WARPS = 16  # consumer warps a CTA
 _MAX_STAGES = 16  # ring slots
 _BAR_BYTES = (2 * _MAX_STAGES + 2) * 8
-_SWEEP_SIGNATURES = {f"vf_btd_sweep{t}_{s}": [_P, _P, _P] + [_I] * 4 + [_P]
-                     for s in _SWEEP_TYPES.values() for t in ("", "_t")}
+# K6 takes the number of slabs beside K6T's arguments
+_SWEEP_SIGNATURES = {f"vf_btd_sweep{t}_{s}": [_P, _P, _P] + [_I] * (4 + n) + [_P]
+                     for s in _SWEEP_TYPES.values() for t, n in (("", 1), ("_t", 0))}
 _SWEEP_SIGNATURES["vf_btd_sweep_plan"] = [_I, _I, _P]
 _SWEEP_SIGNATURES["vf_btd_sweep_t_plan"] = [_I, _I, _P]
 
@@ -722,14 +725,26 @@ def btd_sweep_rows_reference(A: torch.Tensor, g: torch.Tensor,
     return g - factor_matvec(A, prev), bound
 
 
+def btd_sweep_slabs_reference(A: torch.Tensor, g: torch.Tensor,
+                              reverse: bool = False) -> torch.Tensor:
+    """:func:`btd_sweep_reference` over each slab: A (S, n, Bt, Bt),
+    g (S, n, Bt) -> (S, n, Bt)."""
+    return torch.stack([btd_sweep_reference(a, x, reverse) for a, x in zip(A, g)])
+
+
 def btd_sweep(A: torch.Tensor, g: torch.Tensor,
               reverse: bool = False) -> torch.Tensor:
     """One serial sweep of the block-Thomas solve (K6 on CUDA, one
     thread-block cluster launched with :func:`sweep_plan`; the plain
     :func:`btd_sweep_reference` on the CPU).  Factor and vector dtypes:
-    (bf16, f64), (bf16, f32), (f64, f64) or (f32, f32)."""
-    if (A.dim() != 3 or A.shape[1] != A.shape[2]
-            or tuple(g.shape) != tuple(A.shape[:2])):
+    (bf16, f64), (bf16, f32), (f64, f64) or (f32, f32).
+
+    With A (S, n, Bt, Bt) and g (S, n, Bt) it runs the sweep over each of
+    S independent slabs (the SPIKE solver's local sweeps): one launch of S
+    clusters, each bit for bit a launch of its slab alone, or
+    :func:`btd_sweep_slabs_reference` on the CPU."""
+    if (A.dim() not in (3, 4) or A.shape[-1] != A.shape[-2]
+            or tuple(g.shape) != tuple(A.shape[:-1])):
         raise ValueError(f"btd_sweep: A {tuple(A.shape)}, g {tuple(g.shape)}")
     suffix = _SWEEP_TYPES.get((A.dtype, g.dtype))
     if suffix is None:
@@ -738,25 +753,29 @@ def btd_sweep(A: torch.Tensor, g: torch.Tensor,
     if A.device != g.device:
         raise ValueError(f"btd_sweep: tensors on {A.device} and {g.device}")
     if g.device.type == "cpu":
+        if g.dim() == 3:
+            return btd_sweep_slabs_reference(A, g, reverse)
         return btd_sweep_reference(A, g, reverse)
     if g.device.type != "cuda":
         raise ValueError(f"btd_sweep: unsupported device {g.device}")
     if not (A.is_contiguous() and g.is_contiguous()):
         raise ValueError("btd_sweep: inputs must be contiguous")
-    return _sweep_launch(A, g, reverse, sweep_plan(g.shape[1], A.dtype, g.dtype))
+    return _sweep_launch(A, g, reverse, sweep_plan(g.shape[-1], A.dtype, g.dtype))
 
 
 def _sweep_launch(A: torch.Tensor, g: torch.Tensor, reverse: bool,
                   plan: SweepPlan) -> torch.Tensor:
-    """Launch K6 with ``plan``'s cluster size on checked CUDA tensors."""
-    n, bt = g.shape
+    """Launch K6 with ``plan``'s cluster size on checked CUDA tensors, one
+    cluster a slab."""
+    n, bt = g.shape[-2:]
+    slabs = g.shape[0] if g.dim() == 3 else 1
     out = torch.empty_like(g)
     fn = f"vf_btd_sweep_{_SWEEP_TYPES[(A.dtype, g.dtype)]}"
     err = getattr(_sweep_lib(), fn)(A.data_ptr(), g.data_ptr(), out.data_ptr(), n, bt,
-                                    int(reverse), plan.cluster, _stream(g))
+                                    int(reverse), plan.cluster, slabs, _stream(g))
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: cudaError_t {err} (plan {plan})")
-    LAUNCHES["btd_sweep"] += 1
+    LAUNCHES["btd_sweep_slabs" if g.dim() == 3 else "btd_sweep"] += 1
     return out
 
 

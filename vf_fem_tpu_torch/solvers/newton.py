@@ -43,14 +43,17 @@ def newton_solve(
     assem_res: Callable[[torch.Tensor], torch.Tensor],
     solve_jac: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
     params: dict = None,
+    norm_fn: Callable[[torch.Tensor], torch.Tensor] = None,
 ):
     """Solve ``assem_res(x) = 0``; ``solve_jac(x, r)`` returns
-    ``J(x)^{-1} r`` (or an approximation of it)."""
+    ``J(x)^{-1} r`` (or an approximation of it).  ``norm_fn`` measures the
+    residual (default the 2-norm; the DOF-sharded step passes the norm of a
+    vector sharded over its shards, ``parallel.shards.pnorm``)."""
     params = {**DEFAULT_NEWTON_SOLVER_PRM, **(params or {})}
     abs_tol = params["absolute_tolerance"]
     rel_tol = params["relative_tolerance"]
     max_iter = params["maximum_iterations"]
-    norm = torch.linalg.vector_norm
+    norm = norm_fn or torch.linalg.vector_norm
 
     n_fixed = params.get("fixed_iterations")
     if n_fixed:

@@ -1,0 +1,300 @@
+"""
+SPIKE-partitioned block-tridiagonal direct solver (counterpart of
+``vf_fem_tpu.solvers.spike``).
+
+The ``n_sup`` super-rows of the block-tridiagonal Jacobian (``solvers.btd``)
+are split into ``S`` contiguous slabs of ``m`` super-rows (identity rows pad
+``n_sup`` to ``S m``).  Each slab is block-Thomas factored on its own, all
+slabs advancing together (batched over the slab axis); the couplings
+between slabs become the "spikes" ``V_j = A_j^-1 (e_last C_j)`` and
+``W_j = A_j^-1 (e_first B_j)``, and a reduced block-tridiagonal system of
+``2S`` interface unknowns in ``2 Bt`` blocks ties the slabs together.
+
+A solve is ``g = Sinv r`` (one batched product), the two local sweeps over
+every slab (``y_i = g_i - P_i y_{i-1}``, ``x_i = y_i - Q_i x_{i+1}``: one
+launch each of K6 over slabs on CUDA tensors, ``ops.btd_sweep`` with
+(S, m, Bt, Bt) factors), the reduced solve for the interface values, and
+the spike correction ``x_j = g_j - V_j x_{j+1}^t - W_j x_{j-1}^b``.
+
+Precision follows ``ops.factor_matvec``: stored bf16 factors take the
+vector cast to bf16, sum in f32 and return the vector's dtype.  The spikes
+are computed before the cast, in the blocks' dtype, and the reduced factors
+stay in it.  The spikes' matrix sweeps and the reduced system's serial
+Thomas loop are plain batched products (the JAX package's ``lax.scan``
+einsums); the reduced solve reads nothing on the host, so a step that
+solves with carried factors can be captured.
+
+Not ported: the transposed solve ``spike_solve_t`` (it waits for K6T over
+slabs; ROADMAP item 22), fp8 ``offdiag_dtype`` and the ``factor_dtype``
+cast (``btd_factor``'s rule).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .. import ops
+from .bsb import BSBPlan
+from .btd import STORE_DTYPES, btd_superblocks
+
+__all__ = ["SPIKEFactors", "factor_slabs", "solve_slabs", "spike_factor",
+           "spike_solve", "spike_solve_t", "spike_superblocks"]
+
+TRANSPOSE_TODO = ("the transposed SPIKE solve (the gradient path of"
+                  " linear_solver='spike' and of parallel.ddstep) waits for K6T"
+                  " over slabs: ROADMAP item 22")
+
+
+class SPIKEFactors(NamedTuple):
+    """Per-slab product-form Thomas factors, spikes and the reduced
+    interface system's Thomas factors (leading axis ``S``, ``m`` super-rows
+    a slab of ``Bt``).  Every field is a tensor, so a step graph copies
+    refreshed factors into its buffers field by field."""
+
+    Sinv: torch.Tensor  # (S, m, Bt, Bt) local Schur-complement inverses
+    P: torch.Tensor  # (S, m, Bt, Bt) products Sinv L (P[:, 0] = 0)
+    Q: torch.Tensor  # (S, m, Bt, Bt) products Sinv U (Q[:, -1] = 0)
+    V: torch.Tensor  # (S, m, Bt, Bt) right spikes (V[S-1] = 0)
+    W: torch.Tensor  # (S, m, Bt, Bt) left spikes (W[0] = 0)
+    Sinv_r: torch.Tensor  # (S, 2Bt, 2Bt) reduced Schur-complement inverses
+    L_r: torch.Tensor  # (S, 2Bt, 2Bt) reduced sub-diagonal blocks
+    U_r: torch.Tensor  # (S, 2Bt, 2Bt) reduced super-diagonal blocks
+    d: torch.Tensor  # (nblk * b,) Jacobi scale; (S, ndof_loc) of a DD step
+
+    @property
+    def red(self):
+        return self.Sinv_r, self.L_r, self.U_r
+
+
+def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return (A @ x.unsqueeze(-1)).squeeze(-1)
+
+
+def split_slabs(D, L, U):
+    """(n, Bt, Bt) super-blocks reshaped to (S, m, Bt, Bt) slabs with the
+    inter-slab couplings split off: ``B_j = L[j, 0]`` (to the previous
+    slab) and ``C_j = U[j, m-1]`` (to the next), zeroed in L and U."""
+    B = L[:, 0].clone()
+    C = U[:, -1].clone()
+    L = L.clone()
+    U = U.clone()
+    L[:, 0] = 0.0
+    U[:, -1] = 0.0
+    return D, L, U, B, C
+
+
+def spike_superblocks(plan: BSBPlan, blocks: torch.Tensor, n_parts: int):
+    """Slab-partitioned ``(D, L, U, B, C, d)`` of the banded Jacobian: the
+    equilibrated super-blocks of ``btd_superblocks``, padded with identity
+    rows to ``S m`` super-rows, as (S, m, Bt, Bt) slabs with the couplings
+    ``B``, ``C`` (S, Bt, Bt) split off."""
+    D, L, U, d = btd_superblocks(plan, blocks)
+    n_sup, Bt, _ = D.shape
+    S = int(n_parts)
+    m = -(-n_sup // S)
+    pad = S * m - n_sup
+    if pad:
+        eye = torch.eye(Bt, dtype=D.dtype, device=D.device).expand(pad, Bt, Bt)
+        D = torch.cat([D, eye])
+        L = torch.cat([L, torch.zeros_like(eye)])
+        U = torch.cat([U, torch.zeros_like(eye)])
+    D, L, U = (x.reshape(S, m, Bt, Bt) for x in (D, L, U))
+    return (*split_slabs(D, L, U), d)
+
+
+def local_factor(D, L, U):
+    """Block-Thomas factors of every slab at once, ``(Sinv, P, Q)`` with
+    ``P = Sinv L``, ``Q = Sinv U``: a serial loop of ``m`` batched
+    ``solve_ex`` calls (their ``info`` read once, after the loop)."""
+    S, m, Bt, _ = D.shape
+    eye = torch.eye(Bt, dtype=D.dtype, device=D.device).expand(S, Bt, Bt)
+    Sinv = torch.empty_like(D)
+    Q = torch.empty_like(D)
+    infos = []
+    for i in range(m):
+        if i == 0:
+            Sm = D[:, 0]
+        else:
+            # Q_{i-1} = Sinv_{i-1} U_{i-1} falls out of the recurrence
+            Q[:, i - 1] = Sinv[:, i - 1] @ U[:, i - 1]
+            Sm = D[:, i] - L[:, i] @ Q[:, i - 1]
+        Sinv[:, i], info = torch.linalg.solve_ex(Sm, eye)
+        infos.append(info)
+    Q[:, -1] = Sinv[:, -1] @ U[:, -1]
+    bad = torch.nonzero(torch.stack(infos, dim=1))
+    if bad.numel():
+        raise RuntimeError("spike_factor: singular Schur complement at (slab,"
+                           f" super-row) {bad.tolist()}")
+    return Sinv, Sinv @ L, Q
+
+
+def _local_solve_mat(Sinv, P, Q, R):
+    """The product-form Thomas solve of every slab for matrix right-hand
+    sides R (S, m, Bt, k): the spikes, in the factors' dtype."""
+    g = Sinv @ R
+    m = R.shape[1]
+    y = torch.empty_like(g)
+    y[:, 0] = g[:, 0]
+    for i in range(1, m):
+        y[:, i] = g[:, i] - P[:, i] @ y[:, i - 1]
+    x = torch.empty_like(g)
+    x[:, -1] = y[:, -1]
+    for i in range(m - 2, -1, -1):
+        x[:, i] = y[:, i] - Q[:, i] @ x[:, i + 1]
+    return x
+
+
+def local_solve(Sinv, P, Q, R):
+    """The product-form Thomas solve of every slab for vector right-hand
+    sides R (S, m, Bt): ``g = Sinv R`` (``ops.factor_matvec``), then the
+    forward sweep on P and the backward sweep on Q, one launch of K6 over
+    slabs each (``ops.btd_sweep``)."""
+    g = ops.factor_matvec(Sinv, R)
+    y = ops.btd_sweep(P, g)
+    return ops.btd_sweep(Q, y, reverse=True)
+
+
+def spikes(Sinv, P, Q, B, C):
+    """The right and left spikes ``V = A_j^-1 (e_last C_j)``, ``W =
+    A_j^-1 (e_0 B_j)`` from the local factors (forward solves only)."""
+    S, m, Bt, _ = Sinv.shape
+    R_V = Sinv.new_zeros((S, m, Bt, Bt))
+    R_V[:, -1] = C
+    R_W = Sinv.new_zeros((S, m, Bt, Bt))
+    R_W[:, 0] = B
+    return _local_solve_mat(Sinv, P, Q, R_V), _local_solve_mat(Sinv, P, Q, R_W)
+
+
+def reduced_blocks(V_tips, W_tips):
+    """The reduced interface system from the spike tips (rows 0 and m-1 of
+    each slab's spikes, ``(S, k, Bt, Bt)``, k >= 1): row j reads ``z_j +
+    L_r[j] z_{j-1} + U_r[j] z_{j+1} = g_j`` with ``z_j = (x_j^t, x_j^b)``.
+    Returns ``(D_r, L_r, U_r)``, (S, 2Bt, 2Bt) each."""
+    S, _, Bt, _ = V_tips.shape
+    Z = V_tips.new_zeros((S, Bt, Bt))
+
+    def blk(tl, tr, bl, br):
+        return torch.cat([torch.cat([tl, tr], -1), torch.cat([bl, br], -1)], -2)
+
+    L_r = blk(Z, W_tips[:, 0], Z, W_tips[:, -1])
+    U_r = blk(V_tips[:, 0], Z, V_tips[:, -1], Z)
+    D_r = torch.eye(2 * Bt, dtype=V_tips.dtype, device=V_tips.device).expand(S, 2 * Bt, 2 * Bt)
+    return D_r, L_r, U_r
+
+
+def seq_thomas_factor(D, L, U):
+    """Serial block-Thomas factorization of the (tiny) reduced system:
+    the Schur-complement inverses ``Sinv_i = (D_i - L_i Sinv_{i-1}
+    U_{i-1})^-1``."""
+    n, Bt, _ = D.shape
+    eye = torch.eye(Bt, dtype=D.dtype, device=D.device)
+    Sinv = torch.empty_like(D)
+    infos = []
+    for i in range(n):
+        Sm = D[0] if i == 0 else D[i] - L[i] @ (Sinv[i - 1] @ U[i - 1])
+        Sinv[i], info = torch.linalg.solve_ex(Sm, eye)
+        infos.append(info)
+    if torch.stack(infos).any():
+        raise RuntimeError("spike_factor: singular reduced interface system")
+    return Sinv
+
+
+def seq_thomas_solve(Sinv, L, U, r):
+    """Solve the reduced system (n, 2Bt) with its factors: a loop of small
+    matvecs on the device, no host read."""
+    n = r.shape[0]
+    y = torch.empty_like(r)
+    y[0] = _mv(Sinv[0], r[0])
+    for i in range(1, n):
+        y[i] = _mv(Sinv[i], r[i] - _mv(L[i], y[i - 1]))
+    x = torch.empty_like(r)
+    x[-1] = y[-1]
+    for i in range(n - 2, -1, -1):
+        x[i] = y[i] - _mv(Sinv[i], _mv(U[i], x[i + 1]))
+    return x
+
+
+def reduced_factor(V_tips, W_tips):
+    """``(Sinv_r, L_r, U_r)`` of the reduced system of the spike tips."""
+    D_r, L_r, U_r = reduced_blocks(V_tips, W_tips)
+    return seq_thomas_factor(D_r, L_r, U_r), L_r, U_r
+
+
+def store(factors: SPIKEFactors, store_dtype) -> SPIKEFactors:
+    """``Sinv``, ``P``, ``Q``, ``V`` and ``W`` of ``factors`` cast to the
+    storage dtype (by the JAX package's name; the reduced factors keep full
+    precision)."""
+    if store_dtype is None:
+        return factors
+    if store_dtype not in STORE_DTYPES:
+        raise ValueError(f"spike_factor: store_dtype {store_dtype!r} is not"
+                         f" supported ({tuple(STORE_DTYPES)})")
+    dt = STORE_DTYPES[store_dtype]
+    return factors._replace(**{k: getattr(factors, k).to(dt)
+                               for k in ("Sinv", "P", "Q", "V", "W")})
+
+
+def spike_factor(plan: BSBPlan, blocks: torch.Tensor, n_parts: int = 8,
+                 store_dtype=None) -> SPIKEFactors:
+    """Factor the banded Jacobian with ``n_parts`` SPIKE slabs, in the
+    blocks' dtype; ``store_dtype='bfloat16'`` stores the large factor
+    arrays half-width (as ``btd_factor``)."""
+    return store(factor_slabs(*spike_superblocks(plan, blocks, n_parts)), store_dtype)
+
+
+def factor_slabs(D, L, U, B, C, d) -> SPIKEFactors:
+    """SPIKE factors of equilibrated slabs ``D, L, U`` (S, m, Bt, Bt) with
+    their couplings ``B, C`` (S, Bt, Bt) split off (:func:`split_slabs`) and
+    the scale ``d`` they were equilibrated with: the local Thomas factors,
+    the spikes and the reduced system of the spike tips."""
+    Sinv, P, Q = local_factor(D, L, U)
+    V, W = spikes(Sinv, P, Q, B, C)
+    return SPIKEFactors(Sinv, P, Q, V, W, *reduced_factor(V, W), d)
+
+
+def interface_values(z: torch.Tensor, Bt: int):
+    """From the reduced solution z (S, 2Bt): each slab's next slab's top
+    ``x_{j+1}^t`` and previous slab's bottom ``x_{j-1}^b`` (zero past the
+    ends)."""
+    xt, xb = z[:, :Bt], z[:, Bt:]
+    zero = torch.zeros_like(xt[:1])
+    return torch.cat([xt[1:], zero]), torch.cat([zero, xb[:-1]])
+
+
+def spike_correct(g, V, W, xt_next, xb_prev):
+    """``g - V x_{j+1}^t - W x_{j-1}^b`` slab by slab, under
+    ``ops.factor_matvec``'s rounding rule."""
+    return (g - ops.factor_matvec(V, xt_next[:, None]) -
+            ops.factor_matvec(W, xb_prev[:, None]))
+
+
+def interface_correct(g, factors: SPIKEFactors):
+    """The reduced interface solve and the spike correction of the local
+    solutions ``g`` (S, m, Bt)."""
+    rhs = torch.cat([g[:, 0], g[:, -1]], dim=-1)  # (S, 2Bt)
+    z = seq_thomas_solve(*factors.red, rhs)
+    return spike_correct(g, factors.V, factors.W, *interface_values(z, g.shape[-1]))
+
+
+def spike_solve(plan: BSBPlan, factors: SPIKEFactors,
+                r: torch.Tensor) -> torch.Tensor:
+    """Direct solve ``A x = r`` with the SPIKE factors."""
+    S, m, Bt, _ = factors.Sinv.shape
+    d = factors.d
+    n = r.shape[0]
+    rb = torch.nn.functional.pad(r / d[:n], (0, S * m * Bt - n)).reshape(S, m, Bt)
+    return solve_slabs(factors, rb).reshape(-1)[:n] / d[:n]
+
+
+def solve_slabs(factors: SPIKEFactors, rb: torch.Tensor) -> torch.Tensor:
+    """Solve the equilibrated slab system for right-hand sides ``rb`` (S,
+    m, Bt): the local solves, then the interface correction."""
+    g = local_solve(factors.Sinv, factors.P, factors.Q, rb)
+    return interface_correct(g, factors)
+
+
+def spike_solve_t(plan: BSBPlan, factors: SPIKEFactors, r: torch.Tensor):
+    """The transposed solve ``A^T x = r``: not ported yet."""
+    raise NotImplementedError(TRANSPOSE_TODO)

@@ -5,7 +5,7 @@ counterpart of the JAX package's jitted ``lax.scan`` and its
 
 A fixed-iteration chord step with factors carried through a refresh
 window (``fixed_iterations`` set, ``jacobian_refresh_steps > 1``, a direct
-solver: 'dense' or 'btd') makes no host synchronisation, so one step is
+solver: 'dense', 'btd' or 'spike') makes no host synchronisation, so one step is
 captured once and replayed for every step of the run.  What the step reads
 and writes lives in static buffers of a cache entry (:class:`StepBuffers`),
 one per solver configuration (params), kept on the model, whatever the
@@ -64,7 +64,7 @@ from .solvers.newton import SolveInfo
 CHUNK = 16
 # linear solvers whose carried factors a step solves with, on the device,
 # without reading anything on the host
-GRAPH_SOLVERS = ("dense", "btd")
+GRAPH_SOLVERS = ("dense", "btd", "spike")
 
 
 def captures(model, params_d: dict) -> bool:

@@ -12,8 +12,11 @@ call them.
 - K4 (block-banded matvec) is one CSR SpMV: ``torch.sparse.mm`` on the
   entries of the plan's matvec pattern, the ones K4 reads; K4T (its
   transpose) the same on the CSR of ``A^T`` from the transposed pattern.
+- K1 and K2 on a plan stacked over shards (``banded_gather_t`` /
+  ``banded_scatter_t``) are the same calls over every shard at once: one
+  flat index, one block-diagonal CSR matrix.
 - K3, K5 and K6 have none, nor have K3's transpose K3T, K5's backward
-  K5T and the transposed sweep K6T.
+  K5T, the transposed sweep K6T and K6 over slabs.
 
 ``LIBRARY_CALL`` names, for each kernel, its library call or why there is
 none.
@@ -23,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from .fem.banded import DevicePlan, _Pattern
+from .fem.banded import DevicePlan, _Pattern, shard_view
 
 __all__ = [
     "LIBRARY_CALL",
@@ -31,6 +34,8 @@ __all__ = [
     "gather_index_select",
     "scatter_csr",
     "csr_mm",
+    "gather_flat_index_t",
+    "scatter_csr_t",
     "bsb_csr",
     "bsb_csr_t",
 ]
@@ -44,6 +49,10 @@ LIBRARY_CALL = {
     "newmark": "none: three outputs (v1, a1, u_next) from one pass",
     "btd_sweep": "none: a serial recurrence over row blocks that no library"
                  " call computes on these factors",
+    "btd_sweep_slabs": "none: serial recurrences over each slab's row blocks"
+                       " that no library call computes on these factors",
+    "gather_t": "torch.index_select",
+    "scatter_t": "torch.sparse.mm (block-diagonal CSR of ones)",
     "newmark_t": "none: four vector cotangents and a reduction from one pass",
     "btd_sweep_t": "none: a serial recurrence over transposed, shifted row"
                    " blocks that no library call computes on these factors",
@@ -93,6 +102,47 @@ def scatter_csr(plan: DevicePlan, pattern: _Pattern, C: int, n_rows: int,
     return torch.sparse_csr_tensor(
         crow, cols.reshape(-1), vals,
         (C * n_rows, plan.nv * C * plan.ncpad),
+    )
+
+
+def gather_flat_index_t(plan: DevicePlan, pattern: _Pattern, C: int,
+                        n_cols: int):
+    """:func:`gather_flat_index` of a stacked plan: the index of every
+    entry of the (S, nv, C, ngroups*gc) output into ``F.reshape(-1)`` of an
+    (S, C, n_cols) ``F``, and whether it reads F at all."""
+    which = "g" if pattern is plan.g else "s"
+    idx, ok = [], []
+    for s in range(plan.shards):
+        view = shard_view(plan, s)
+        i, k = gather_flat_index(view, getattr(view, which), C, n_cols)
+        idx.append(i + s * C * n_cols)
+        ok.append(k)
+    return torch.cat(idx), torch.stack(ok)
+
+
+def scatter_csr_t(plan: DevicePlan, pattern: _Pattern, C: int, n_rows: int,
+                  dtype) -> torch.Tensor:
+    """:func:`scatter_csr` of a stacked plan: the block-diagonal CSR matrix
+    of ones, (S C n_rows, S nv C ncpad), of every shard's scatter (its rows
+    and its locals offset by the shards before it)."""
+    crows, cols = [torch.zeros(1, dtype=torch.long, device=pattern.ptr.device)], []
+    for s in range(plan.shards):
+        ptr = pattern.ptr[s].long()
+        lo = int(ptr[0])
+        ptr = ptr[: n_rows + 1] - lo
+        nnz = int(ptr[-1])
+        e = pattern.idx.long()[lo:lo + nnz]
+        v, cell = e // plan.ncpad, e % plan.ncpad
+        counts = (ptr[1:] - ptr[:-1]).repeat(C)
+        crows.append(torch.cumsum(counts, 0) + crows[-1][-1])
+        chan = torch.arange(C, device=e.device)[:, None]
+        cols.append(((v[None, :] * C + chan) * plan.ncpad + cell[None, :]).reshape(-1)
+                    + s * plan.nv * C * plan.ncpad)
+    col = torch.cat(cols)
+    S = plan.shards
+    return torch.sparse_csr_tensor(
+        torch.cat(crows), col, torch.ones(col.numel(), dtype=dtype, device=col.device),
+        (S * C * n_rows, S * plan.nv * C * plan.ncpad),
     )
 
 
