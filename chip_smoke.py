@@ -240,7 +240,22 @@ runs, in order:
    steps/s, peak memory and launches a step; K1/K2 on the stacked
    per-shard plans of that partition and their VJPs against the plain
    versions in f64 and f32, timed beside ``index_select`` and a
-   block-diagonal ``sparse.mm``.
+   block-diagonal ``sparse.mm``;
+19. sweep: batched parameter sweeps (``parallel.sweep``, BASELINE config
+   5).  bench.py's sweep leg (64 variants of M5 geometry and stiffness x
+   50 steps, its settings ``tol_s``) in 'plain' and in 'banded' assembly:
+   the batched eager loop and the replayed graph of the batched step
+   (bit-equal), variant-steps/s of each, peak memory, the idle share of a
+   profiled graph run, launches a batched step (one K5 for the batch, and
+   in 'banded' as many K1/K2 as one variant's run); 'banded' within 1e-12
+   of 'plain'; rows 0, 31 and 63 against their variants run alone (rtol
+   1e-10); rows 0, 9, ..., 63 against the JAX package's f64 CPU run
+   (``tests/data/golden_sweep_m5.npz``, rtol 1e-8); BASELINE config 5, 256
+   x 100, the same figures; ``sweep_grad`` over 8 x 20 (adaptive), a
+   variant's shape gradient against central differences.  Phase 3 holds
+   K5 and K5T over batches of 8, 64 and 256 M5 vectors (K5T a CTA a
+   variant, a row cotangent a variant) to their plain versions, and times
+   them with their inputs cold in L2 (``graph_ms_cold``).
 
 Phase 3 also holds the block-Thomas sweep kernel (K6) and its transpose
 (K6T, both sweeps of ``btd_solve_t``: forward on W, backward on V, each
@@ -257,11 +272,12 @@ Phases 2 and 3 time every kernel four ways, by CUDA events: its call time
 captured in one CUDA graph and replayed), its plain version, and, where
 one PyTorch call computes the same function (``vf_fem_tpu_torch.yardsticks``:
 ``index_select`` for K1, ``sparse.mm`` for K2, K4 and K4T), that call, in turns
-with the kernel (library, kernel, kernel, library).  Each kernel's bound
+with the kernel (library, kernel, kernel, library), and that call's device
+time in a CUDA graph, as the kernel's.  Each kernel's bound
 is the larger of its bytes (each input read once, each output written
 once) over the HBM rate and its operations over the peak rate of their
 type.  The ``kernels`` line before the last carries all of it, with each
-kernel's launches per step on the main-path runs (phases 5-17; a Hopf
+kernel's launches per step on the main-path runs (phases 5-19; a Hopf
 point counts as one step).
 
 Phases 5-7 print each production run's Newmark predictors, taken from
@@ -347,7 +363,24 @@ KERNELS = {
                   "vf_fem_tpu_torch/csrc/banded.cu"),
     "btd_sweep_slabs": ("btd_sweep over slabs", "none (lax.scan, vf_fem_tpu/solvers/spike.py:172-199)",
                         "vf_fem_tpu_torch/csrc/btd.cu"),
+    # K5 and K5T at the batch shapes that phase 19's runs give them (M5's
+    # 960 dofs): K5 at 64 and 256 variants (the sweeps) and at 8 (the
+    # gradient sweep's forward), K5T at 8 (its backward); each batch one
+    # launch
+    "newmark x8": ("newmark_update over a batch of 8", "vf_fem_tpu/ops/pallas_kernels.py:153",
+                   "vf_fem_tpu_torch/csrc/ops.cu"),
+    "newmark x64": ("newmark_update over a batch of 64", "vf_fem_tpu/ops/pallas_kernels.py:153",
+                    "vf_fem_tpu_torch/csrc/ops.cu"),
+    "newmark x256": ("newmark_update over a batch of 256",
+                     "vf_fem_tpu/ops/pallas_kernels.py:153", "vf_fem_tpu_torch/csrc/ops.cu"),
+    "newmark_t x8": ("newmark_update_t over a batch of 8", "none (K5's backward; the JAX"
+                     " package differentiates vf_fem_tpu/equations/newmark.py:21-72 under vmap)",
+                     "vf_fem_tpu_torch/csrc/ops.cu"),
 }
+# the launch counter of a row of KERNELS whose key is not its counter's
+KERNEL_COUNTER = {"newmark x8": "newmark", "newmark x64": "newmark", "newmark x256": "newmark",
+                  "newmark_t x8": "newmark_t"}
+
 # benchmarks/benchmark_adjoint.py:68-88: the value+grad settings at M5 (the
 # accelerator branch: adaptive chord Newton, dense factors refreshed every
 # 25 steps) and at 23.7k (bf16 btd factors, refresh 16, fixed-3), and its
@@ -656,7 +689,35 @@ GOLDEN_3D_STEPS = 5
 MESH3D_COORDS_RTOL = 1e-12
 PROBE_SIGNATURES = {f"vf_btd_exchange_probe_{t}": [ctypes.c_void_p] + [ctypes.c_int] * 3
                     + [ctypes.c_void_p] for t in ("bf16", "f64")}
+# phase 19, batched sweeps (``parallel.sweep``): bench.py's sweep leg
+# (:612-697; build_sweep :748-785, M5_3layers with KelvinVoigtWShape +
+# BernoulliAreaRatioSep; per-variant umesh bump and emod 4e4 .. 6e4; its
+# solver settings tol_s :656-664, assembly set by the run) at 64 variants x
+# 50 steps in each assembly, BASELINE config 5 at 256 x 100 in the sweep's
+# default assembly, and sweep_grad over 8 x 20 (default adaptive solver;
+# test_parallel.py's loss); rows SWEEP_ALONE of the 64 against their
+# variants run alone, the rows of tests/data/golden_sweep_m5.npz (the JAX
+# package's f64 CPU run of the leg) at the M5 golden's rtol
+SWEEP_PARAMS = {
+    "jacobian_refresh_steps": 8,
+    "jacobian_refresh_mode": "ns",
+    "jacobian_full_refresh_windows": 8,
+    "stagnation_ratio": 0.5,
+    "fixed_iterations": 2,
+    "jacobian_refresh_precision": "default",
+}
+SWEEP_LEG = (64, 50)
+SWEEP_BASELINE = (256, 100)
+SWEEP_GRAD = (8, 20)
+SWEEP_ALONE = (0, 31, 63)
+SWEEP_ALONE_RTOL, SWEEP_ALONE_ATOL = 1e-10, 1e-14  # tests/test_parallel.py:59-62 (u)
+SWEEP_ALONE_VA = 1e-9  # v and a, of their max, once u's gap is taken out
+SWEEP_GOLDEN_RTOL = 1e-8  # tests/test_golden.py:36-44
+SWEEP_ASM_GATE = 1e-12  # 'plain' against 'banded': of max|u|
+SWEEP_FD_H = 1e-6  # tests/test_parallel.py:297
+SWEEP_PROFILE_STEPS = 16  # a profiled graph run: two refresh windows
 HBM_BYTES_S = 3.35e12  # H100 SXM data sheet
+L2_BYTES = 50 * 2**20  # H100 SXM data sheet
 # peak rates outside the tensor cores (H100 SXM data sheet): f32 67
 # TFLOP/s, f64 34 TFLOP/s; bf16 products accumulate in f32
 PEAK_FLOP_S = {"float32": 67e12, "float64": 34e12}
@@ -741,6 +802,36 @@ def graph_ms(torch, fn, reps=REPS):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms_cold(torch, fn, vecs, nbytes, reps=REPS):
+    """Device time of ``fn(*vecs)`` with its inputs and outputs cold in L2:
+    ``reps`` calls captured once in a CUDA graph, each on the next of as
+    many copies of ``vecs`` as make the traffic between two calls on one
+    copy at least twice the L2 (``nbytes`` a call), each call's outputs
+    kept to the end of the capture (so that no call writes into lines an
+    earlier call's outputs hold); the mean over one replay."""
+    copies = max(2, -(-2 * L2_BYTES // nbytes))
+    sets = [[v.clone() for v in vecs] for _ in range(copies)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(3):
+            fn(*sets[i % copies])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn(*sets[i % copies]) for i in range(reps)]
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del outs, graph
+    return start.elapsed_time(end) / reps
+
+
 def plain_ms(torch, plain):
     """Call time of a plain version: ``REPS`` calls, or as many as take
     about 0.2 s where one call takes over a millisecond (a plain sweep
@@ -754,14 +845,16 @@ def measure(torch, kernel, plain, lib=None):
     """Call time of ``kernel`` (the mean of two runs taken in turns with the
     library call where there is one: library, kernel, kernel, library),
     its device time in a CUDA graph, the plain version's call time
-    (``plain_ms``) and the library call's."""
+    (``plain_ms``), and the library call's call time and its device time
+    in a CUDA graph (``lib_device_ms``), read as the kernel's are."""
     lib_a = cuda_ms(torch, lib) if lib else None
     k_a, k_b = cuda_ms(torch, kernel), cuda_ms(torch, kernel)
     lib_b = cuda_ms(torch, lib) if lib else None
     return dict(ms=(k_a + k_b) / 2, ms_runs=(k_a, k_b), device_ms=graph_ms(torch, kernel),
                 plain_ms=plain_ms(torch, plain),
                 lib_ms=None if lib is None else (lib_a + lib_b) / 2,
-                lib_runs=None if lib is None else (lib_a, lib_b))
+                lib_runs=None if lib is None else (lib_a, lib_b),
+                lib_device_ms=None if lib is None else graph_ms(torch, lib))
 
 
 def bound_of(nbytes, flops, acc):
@@ -797,7 +890,7 @@ def bsb_band_bytes(plan, itemsize):
 def fmt_times(r):
     lib = "" if r.get("lib_ms") is None else (
         f", {r['lib_call']} {r['lib_ms']:.6f} ms (runs {r['lib_runs'][0]:.6f},"
-        f" {r['lib_runs'][1]:.6f})")
+        f" {r['lib_runs'][1]:.6f}), its device {r['lib_device_ms']:.6f} ms")
     return (f"call {r['ms']:.6f} ms (runs {r['ms_runs'][0]:.6f}, {r['ms_runs'][1]:.6f}),"
             f" device {r['device_ms']:.6f} ms, plain {r['plain_ms']:.6f} ms{lib};"
             f" {r['bytes'] / 1e6:.3f} MB, bound {r['bound_ms']:.6f} ms ({r['bound_by']}),"
@@ -1224,6 +1317,18 @@ def phase_ops(torch, dev, large):
             vecs_t = [torch.tensor(v, dtype=dtype, device=dev)
                       for v in np.concatenate([host[key][:2] * 1e-3, host[key]])]
             results[("newmark_t", label, tag)] = newmark_t_op(torch, label, tag, vecs_t)
+        # phase 19's batches; K5T at 64 and 256 too, the shapes a gradient
+        # sweep of the leg or of BASELINE config 5 would give it (no run of
+        # this script launches it there, and the kernels line has no row)
+        for batch in (SWEEP_GRAD[0], SWEEP_LEG[0], SWEEP_BASELINE[0]):
+            # a sweep's batch of M5 vectors (phase 19), (B, 960) each
+            host_b = np.random.default_rng(batch).standard_normal((6, batch, 2 * m5.num_vertices))
+            vecs = [torch.tensor(v, dtype=dtype, device=dev) for v in host_b[2:]]
+            label = f"M5 x {batch}"
+            results[("newmark", label, tag)] = newmark_batch_op(torch, label, tag, vecs)
+            host_b[:2] *= 1e-3
+            vecs_t = [torch.tensor(v, dtype=dtype, device=dev) for v in host_b]
+            results[("newmark_t", label, tag)] = newmark_t_batch_op(torch, label, tag, vecs_t)
         newmark_edges(torch, dev, dtype)
         for (kname, label, tg), r in results.items():
             if tg != tag:
@@ -1514,6 +1619,104 @@ def newmark_t_op(torch, label, tag, vecs):
         f" version, the row's within its order bound (max |diff| {err:.3e}), the same bits"
         f" in 3 launches, in 200 graph replays on new rows and in two graphs replayed at once"
         f" on two streams as eager; one device kernel a call")
+    return r
+
+
+def newmark_batch_op(torch, label, tag, vecs):
+    """K5 on a batch of variants ((B, n) vectors under one row, one launch
+    over B n entries) bit-equal to its plain version, eagerly and replayed
+    in a CUDA graph; then its timing row."""
+    from vf_fem_tpu_torch import ops, yardsticks
+
+    what = f"ops newmark {label} {tag}"
+    row = newmark_row(vecs[0], DT, 0.75 * DT)
+    before = ops.LAUNCHES["newmark"]
+    outs = ops.newmark_update_coefs(*vecs, row)
+    require(ops.LAUNCHES["newmark"] == before + 1, f"{what}: not one launch for the batch")
+    refs = ops.newmark_update_coefs_reference(*vecs, row)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.newmark_update_coefs(*vecs, row)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        captured = ops.newmark_update_coefs(*vecs, row)
+    graph.replay()
+    torch.cuda.synchronize()
+    for name, out, cap, ref in zip(("v1", "a1", "u_next"), outs, captured, refs):
+        require(torch.equal(out, ref) and torch.equal(cap, ref),
+                f"{what}: K5's {name} not bit-equal to the plain version")
+    r = measure(torch, lambda: ops.newmark_update_coefs(*vecs, row),
+                lambda: ops.newmark_update_coefs_reference(*vecs, row))
+    n, es = vecs[0].numel(), vecs[0].element_size()
+    r.update(max_abs_err=0.0, lib_err=None, bytes=newmark_work(n, es)[0],
+             lib_call=yardsticks.LIBRARY_CALL["newmark"])
+    r["bound_ms"], r["bound_by"] = bound_of(*newmark_work(n, es), tag)
+    cold_device(torch, r, lambda *v: ops.newmark_update_coefs(*v, row), vecs)
+    log(f"[ops] newmark {label} {tag} ({tuple(vecs[0].shape)}): one launch, bit-equal to the"
+        f" plain version eagerly and in a graph replay; device {r['device_ms']:.6f} ms with"
+        f" its inputs cold in L2, {r['device_warm_ms']:.6f} ms warm")
+    return r
+
+
+def cold_device(torch, r, fn, vecs):
+    """A batched K5 / K5T row's device time with its inputs cold in L2
+    (``graph_ms_cold``; a batch of 256 moves 14-20 MB, which 200 replays
+    on one set of inputs find in the 50 MB L2), the warm graph time kept
+    as ``device_warm_ms``."""
+    r["device_warm_ms"] = r["device_ms"]
+    r["device_ms"] = graph_ms_cold(torch, fn, vecs, r["bytes"])
+
+
+def newmark_t_batch_op(torch, label, tag, vecs):
+    """K5T on a batch of variants (``ops.newmark_update_t_batch``, a CTA a
+    variant) against its batched plain version: the vector cotangents bit
+    for bit, each variant's row within rtol 1e-13 / 1e-6 plus its summation
+    order bound, the same bits in three launches and in a graph replay;
+    then its timing row."""
+    from vf_fem_tpu_torch import ops, yardsticks
+
+    what = f"ops newmark_t {label} {tag}"
+    row = newmark_row(vecs[0], DT, 0.75 * DT)
+    outs = [ops.newmark_update_t_batch(*vecs, row) for _ in range(3)]
+    refs = ops.newmark_update_t_batch_reference(*vecs, row)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.newmark_update_t_batch(*vecs, row)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ops.newmark_update_t_batch(*vecs, row)
+    graph.replay()
+    torch.cuda.synchronize()
+    for name, out, ref in zip(("ub1", "ub0", "vb0", "ab0"), outs[0], refs):
+        require(torch.equal(out, ref), f"{what}: K5T's {name} not bit-equal to the plain version")
+    require(all(torch.equal(o[4], outs[0][4]) for o in outs[1:] + [captured]),
+            f"{what}: the rows' cotangents differ between launches")
+    vb1, ab1, u1, u0, v0, a0 = vecs
+    bound = ops.dot_order_bound(ops.newmark_update_t_batch_reference(
+        vb1.abs(), ab1.abs(), u1.abs(), -u0.abs(), -v0.abs(), -a0.abs(), row.abs())[4].abs(),
+        u1.shape[-1])
+    rtol = 1e-13 if u1.dtype == torch.float64 else 1e-6
+    diff = (outs[0][4] - refs[4]).abs()
+    require(bool((diff <= rtol * refs[4].abs() + bound).all()),
+            f"{what}: a row's cotangent off the plain version's ({diff.max().item():.3e})")
+    require(not bool(outs[0][4][:, 6:].any()), f"{what}: the rows' entries 6 and 7 not zero")
+    r = measure(torch, lambda: ops.newmark_update_t_batch(*vecs, row),
+                lambda: ops.newmark_update_t_batch_reference(*vecs, row))
+    n, es = vecs[0].numel(), vecs[0].element_size()
+    work = ((10 * n + 8 + 8 * vecs[0].shape[0]) * es, 28 * n)
+    r.update(max_abs_err=diff.max().item(), lib_err=None, bytes=work[0],
+             lib_call=yardsticks.LIBRARY_CALL["newmark_t"])
+    r["bound_ms"], r["bound_by"] = bound_of(*work, tag)
+    cold_device(torch, r, lambda *v: ops.newmark_update_t_batch(*v, row), vecs)
+    log(f"[ops] newmark_t {label} {tag} ({tuple(u1.shape)}): vector cotangents bit-equal to"
+        f" the plain version, each variant's row within its order bound (max |diff|"
+        f" {diff.max().item():.3e}), the same bits in 3 launches and a graph replay; device"
+        f" {r['device_ms']:.6f} ms with its inputs cold in L2, {r['device_warm_ms']:.6f} ms"
+        f" warm")
     return r
 
 
@@ -2154,15 +2357,16 @@ def graph_entry(model, params):
     return stats[key]
 
 
-def replay_ms(torch, model, params, n_steps):
-    """The cached step graph alone: ``n_steps`` replays of the rows its
-    buffers hold (the last run's last chunk; the counter back to 0 after
-    each chunk), by CUDA events, in ms a step; the rest of a graph run is
-    its eager factorizations, the copies between chunks and host work."""
+def replay_ms(torch, model, params, n_steps, batch=None):
+    """The cached step graph alone (of a batched run: ``batch``, ``(B,
+    batch_controls)``): ``n_steps`` replays of the rows its buffers hold
+    (the last run's last chunk; the counter back to 0 after each chunk), by
+    CUDA events, in ms a step; the rest of a graph run is its eager
+    factorizations, the copies between chunks and host work."""
     from vf_fem_tpu_torch import step_graph
     from vf_fem_tpu_torch.models.transient import solver_params
 
-    buf = model._step_graphs[step_graph.params_key(solver_params(params))]
+    buf = model._step_graphs[step_graph.cache_key(solver_params(params), batch)]
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -4673,6 +4877,272 @@ def phase_dd(torch, card, large, btd_res, integ):
     return dict(sweeps=sweeps, spike=spk, step=step, banded=kern)
 
 
+def sweep_props(model, batch):
+    """bench.py:628-655: ``batch`` variants of the model's properties, emod
+    4e4 .. 6e4 and the umesh bump scaled -1 .. 1."""
+    X = model.solid.residual.mesh().coords
+    bump = np.zeros_like(X)
+    bump[:, 1] = (0.004 * np.sin(np.pi * (X[:, 0] - X[:, 0].min()) / max(np.ptp(X[:, 0]), 1e-9))
+                  * (X[:, 1] - X[:, 1].min()) / max(np.ptp(X[:, 1]), 1e-9))
+    pb = {k: np.broadcast_to(v, (batch,) + v.shape).copy() for k, v in model.prop.items()}
+    pb["emod"] = np.broadcast_to(np.linspace(4e4, 6e4, batch)[:, None],
+                                 (batch,) + model.prop["emod"].shape).copy()
+    pb["umesh"] = np.linspace(-1.0, 1.0, batch)[:, None] * bump.reshape(-1)[None, :]
+    return pb
+
+
+def sweep_close(got, ref, gap):
+    """A row against its variant run alone, as tests/test_parallel.py:59-62
+    holds u: u within SWEEP_ALONE_RTOL and SWEEP_ALONE_ATOL, q and p at
+    that rtol with the atol of the field's scale, max(1, max|ref|); v and a,
+    which carry u's rounding gap scaled by 2/dt and 4/dt^2 and their own
+    rounding through the undamped Newmark recurrence, within
+    SWEEP_ALONE_VA of their max once ``gap`` (``tests/port_fixtures.
+    newmark_gap`` of the gaps in u over the run) is taken out.  Returns
+    each field's max|diff| / max|ref| (v and a: before and after the gap)."""
+    out = {}
+    for k, r in ref.items():
+        g, r = np.asarray(got[k]), np.asarray(r)
+        rel = float(np.abs(g - r).max() / np.abs(r).max())
+        if k in gap:
+            g = g - gap[k][-1]
+            out[k] = (rel, float(np.abs(g - r).max() / np.abs(r).max()))
+            ok = out[k][1] <= SWEEP_ALONE_VA
+        else:
+            out[k] = rel
+            atol = SWEEP_ALONE_ATOL * (1.0 if k == "u" else max(1.0, float(np.abs(r).max())))
+            ok = np.allclose(g, r, rtol=SWEEP_ALONE_RTOL, atol=atol)
+        require(ok, f"sweep: {k} off its variant's run alone ({np.abs(g - r).max():.3e})")
+    return out
+
+
+def sweep_leg(torch, card, built, batch, n_steps, assembly, profile=True):
+    """One batched sweep run of ``batch`` variants x ``n_steps`` steps in
+    ``assembly``: a short graph run that captures the batched step (and
+    warms up), the batched eager loop, then the graph run, bit-equal to the
+    eager loop; variant-steps/s of each, the graph run's peak memory,
+    launches a step, the replay alone, and (with ``profile``) the idle
+    share of a profiled graph run of its first SWEEP_PROFILE_STEPS steps."""
+    from vf_fem_tpu_torch import forward, step_graph
+    from vf_fem_tpu_torch.models.transient import solver_params
+
+    model, state0, cs, _ = built
+    pb = sweep_props(model, batch)
+    params = solver_params({**SWEEP_PARAMS, "assembly": assembly})
+    times = DT * np.arange(n_steps + 1)
+    batch_key = (batch, False)
+
+    def graph_run(steps=n_steps):
+        return forward.integrate_batch_pure(model, state0, cs, pb, times[:steps + 1], params)
+
+    run_timed(torch, model, lambda: graph_run(3))  # captures the batched step, and warms up
+    eager, e_ms, e_launch, _ = run_timed(torch, model, lambda: forward._integrate_eager(
+        model, state0, cs, pb, times, params, batch_key))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    graph, g_ms, g_launch, _ = run_timed(torch, model, graph_run)
+    peak = torch.cuda.max_memory_allocated() - base
+    eager = (eager[0], {k: v.movedim(0, 1) for k, v in eager[1].items()},
+             type(eager[2])(*(x.movedim(0, 1) for x in eager[2])))
+    require(same_run(torch, graph, eager), f"sweep {batch} {assembly}: the graph run differs"
+            " from the batched eager loop")
+    fin = {k: v.cpu().numpy() for k, v in graph[0].items()}
+    for k, v in fin.items():
+        require(bool(np.isfinite(v).all()), f"sweep {batch} {assembly}: non-finite {k}")
+    u = fin["u"]
+    require(len({u[b].tobytes() for b in range(batch)}) == batch,
+            f"sweep {batch} {assembly}: rows not distinct")
+    per_step = {k: v / n_steps for k, v in g_launch.items() if v}
+    require(g_launch["newmark"] == n_steps,
+            f"sweep {batch} {assembly}: {g_launch['newmark']} K5 launches in {n_steps} steps")
+    if assembly == "banded":
+        require_launched(g_launch, ("gather", "scatter", "newmark"), f"sweep {batch} banded")
+    stats = model._step_graphs[step_graph.cache_key(params, batch_key)].stats
+    replay = replay_ms(torch, model, params, n_steps, batch_key)
+    out = dict(fin=fin, pb=pb, params=params, times=times, launches=g_launch,
+               traj_u=graph[1]["u"].cpu().numpy(),
+               eager_launches=e_launch, per_step=per_step, peak=peak,
+               graph_vs=batch * n_steps / (g_ms / 1e3), eager_vs=batch * n_steps / (e_ms / 1e3),
+               graph_ms=g_ms, eager_ms=e_ms, nodes=stats.get("nodes"), replay_ms=replay)
+    if profile:
+        prof = profile_run(torch, lambda: graph_run(SWEEP_PROFILE_STEPS), SWEEP_PROFILE_STEPS,
+                           "newmark_kernel")
+        out["idle"], out["busy_ms"], out["wall_ms"] = prof["idle"], prof["busy_ms"], prof["wall_ms"]
+        out["table"] = prof["table"]
+    log(f"[sweep] {batch} variants x {n_steps} steps, M5 f64 ({model.solid.ndof} dofs),"
+        f" assembly {assembly}: graph {out['graph_vs']:.1f} variant-steps/s ({g_ms:.3f} ms),"
+        f" eager {out['eager_vs']:.1f} variant-steps/s ({e_ms:.3f} ms); graph bit-equal to the"
+        f" batched eager loop; {stats.get('nodes')} graph nodes a batched step, a replay"
+        f" {replay:.3f} ms (the windows' factorizations and refreshes the rest of the run,"
+        f" {g_ms - n_steps * replay:.3f} ms); peak device"
+        f" memory {peak / 2**20:.1f} MB over the model's; launches a batched step {per_step}"
+        + ("" if not profile else f"; profiled graph run: device busy {out['busy_ms']:.3f} ms"
+           f" of {out['wall_ms']:.3f} ms wall over {SWEEP_PROFILE_STEPS} steps, idle share"
+           f" {out['idle']:.3f}")
+        + f"; on {card}")
+    if profile:
+        log(out["table"])
+    return out
+
+
+def phase_sweep(torch, card, dev):
+    """Phase 19 (see the constants above)."""
+    from vf_fem_tpu_torch import forward
+    from vf_fem_tpu_torch.parallel import sweep
+
+    built = build(torch, dev, "M5_3layers.msh", torch.float64, solid="KelvinVoigtWShape")
+    model, state0, cs, prop = built
+    gold = np.load(os.path.join(REPO, "tests", "data", "golden_sweep_m5.npz"))
+    batch, n_steps = SWEEP_LEG
+    require((int(gold["m5_batch"]), int(gold["m5_steps"])) == SWEEP_LEG, "sweep: golden's leg")
+    out = {}
+    for asm in ("plain", "banded"):
+        out[asm] = sweep_leg(torch, card, built, batch, n_steps, asm, profile=asm == "banded")
+    leg = out["plain"]
+    d_asm = rel_max(out["banded"]["fin"]["u"], leg["fin"]["u"])
+    log(f"[sweep] 'banded' vs 'plain' at {batch} x {n_steps}: max|du| / max|u| {d_asm:.3e}"
+        f" (gate {SWEEP_ASM_GATE:.0e}); default assembly '{sweep.ASSEMBLY}', faster here:"
+        f" '{max(('plain', 'banded'), key=lambda a: out[a]['graph_vs'])}' (graph)")
+    require(d_asm <= SWEEP_ASM_GATE, "sweep: 'banded' off 'plain'")
+    # the golden rows: the same properties, then the final states
+    rows = gold["m5_rows"]
+    for k in ("emod", "umesh"):
+        require(np.array_equal(leg["pb"][k][rows], gold[f"m5_prop_{k}"]),
+                f"sweep: the variants' {k} differ from the golden's")
+    fin = leg["fin"]
+    for k, kw in (("u", dict(atol=1e-12)), ("q", {}), ("p", dict(atol=1e-8))):
+        np.testing.assert_allclose(fin[k][rows], gold[f"m5_fin_{k}"], rtol=SWEEP_GOLDEN_RTOL,
+                                   **kw)
+    gold_rel = {k: rel_max(fin[k][rows], gold[f"m5_fin_{k}"]) for k in fin}
+    require(max(gold_rel.values()) <= SWEEP_GOLDEN_RTOL, f"sweep: golden rows off {gold_rel}")
+    # rows run alone: integrate_pure of the variant (its own step graph);
+    # the batched products round otherwise than one variant's
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from port_fixtures import newmark_gap
+
+    alone = {}
+    for b in SWEEP_ALONE:
+        one, traj, _ = forward.integrate_pure(
+            model, state0, cs, {k: v[b] for k, v in leg["pb"].items()}, leg["times"],
+            leg["params"])
+        du = leg["traj_u"][b] - traj["u"].cpu().numpy()
+        gap = newmark_gap(np.concatenate([np.zeros_like(du[:1]), du]), 0.0, 0.0, DT)
+        alone[b] = sweep_close({k: fin[k][b] for k in fin},
+                               {k: v.cpu().numpy() for k, v in one.items()}, gap)
+    # one variant's 'banded' run of the same steps launches each kernel as
+    # often as the batch of 64 does
+    banded = out["banded"]
+    _, _, single, _ = run_timed(torch, model, lambda: forward.integrate_pure(
+        model, state0, cs, {k: v[0] for k, v in banded["pb"].items()}, banded["times"],
+        banded["params"]))
+    single = {k: v for k, v in single.items() if v}
+    for k in ("newmark", "gather", "scatter"):
+        require(banded["launches"][k] == single[k], f"sweep: {k} launched"
+                f" {banded['launches'][k]} times for the batch, {single[k]} for one variant")
+    log(f"[sweep] golden rows {list(rows)} (tests/data/golden_sweep_m5.npz, the JAX package's"
+        f" f64 CPU run) max|diff| / max|ref| {gold_rel} (rtol {SWEEP_GOLDEN_RTOL:.0e}); rows"
+        f" {list(SWEEP_ALONE)} against their variants alone, max|diff| / max|ref| (v, a: before"
+        f" and after the Newmark gap) {alone} (u: rtol {SWEEP_ALONE_RTOL:.0e}, atol"
+        f" {SWEEP_ALONE_ATOL:.0e}); launches of one variant's"
+        f" run of the same steps {single}")
+    # BASELINE config 5 in the default assembly
+    b256, s256 = SWEEP_BASELINE
+    sweep_banded_width(torch, model, b256)
+    out["baseline"] = sweep_leg(torch, card, built, b256, s256, sweep.ASSEMBLY)
+    out["grad"] = sweep_grad_check(torch, card, built)
+    out["alone"] = alone
+    out["golden"] = gold_rel
+    return out
+
+
+def sweep_banded_width(torch, model, batch):
+    """K1/K2 through their vmap rules at a batch's width on the model's
+    plan (the batch's channels in one launch each: ``batch`` x 13 gathered,
+    ``batch`` x 2 scattered), against the plain versions: the gather
+    exactly, the scatter within its summation-order bound."""
+    from torch.func import vmap
+
+    from vf_fem_tpu_torch.fem import banded
+
+    plan = model.solid.residual.banded_plan()
+    nvert = model.solid.nvert
+    rng = np.random.default_rng(batch)
+    dev, dt = model.device, model.dtype
+    F = torch.tensor(rng.standard_normal((batch, 13, nvert)), dtype=dt, device=dev)
+    loc = torch.tensor(rng.standard_normal((batch, plan.nv, 2, plan.ncpad)), dtype=dt, device=dev)
+    before = dict(banded.LAUNCHES)
+    g = vmap(lambda f: banded.banded_gather(plan, f))(F)
+    sc = vmap(lambda x: banded.banded_scatter(plan, x, nvert))(loc)
+    launched = {k: banded.LAUNCHES[k] - before[k] for k in ("gather", "scatter")}
+    require(launched == {"gather": 1, "scatter": 1}, f"sweep K1/K2 at {batch}: {launched}")
+    g_ref = banded.banded_gather_reference(plan, F.reshape(-1, nvert), plan.g)
+    require(torch.equal(g, g_ref.reshape(plan.nv, batch, 13, -1).movedim(1, 0)),
+            f"sweep K1 at {batch} x 13 channels: not the plain gather")
+    flat = loc.movedim(0, 1).reshape(plan.nv, batch * 2, plan.ncpad)
+    s_ref = banded.banded_scatter_reference(plan, flat, nvert, plan.s).reshape(batch, 2, nvert)
+    bound = banded.scatter_order_bound(plan, flat, nvert, plan.s).reshape(batch, 2, nvert)
+    off = int(((sc - s_ref).abs() > 1e-13 * s_ref.abs() + bound).sum())
+    require(off == 0, f"sweep K2 at {batch} x 2 channels: {off} entries off")
+    log(f"[sweep] K1/K2 under vmap at {batch} variants: one launch each ({batch * 13} channels"
+        f" gathered, {batch * 2} scattered), the gather exact, the scatter within its order bound")
+
+
+def sweep_loss(torch):
+    """tests/test_parallel.py:281-285."""
+    def loss(traj, controls, prop, times):
+        return torch.sum(traj["u"][-1] ** 2) * 1e4 + 1e-6 * torch.sum(traj["q"] ** 2)
+    return loss
+
+
+def sweep_grad_check(torch, card, built):
+    """``sweep_grad`` of ``SWEEP_GRAD`` (default adaptive solver, the
+    sweep's default assembly): finite, distinct values; variant 2's value
+    the forward run's, its shape gradient along a seeded direction against
+    central differences of its runs alone (FD_RTOL); K5T launched (the
+    batched launch: one a step)."""
+    from vf_fem_tpu_torch import forward
+    from vf_fem_tpu_torch.parallel import sweep
+
+    model, state0, cs, _ = built
+    batch, n_steps = SWEEP_GRAD
+    pb = sweep_props(model, batch)
+    times = DT * np.arange(n_steps + 1)
+    loss = sweep_loss(torch)
+    (vals, grads), ms, launches, _ = run_timed(torch, model, lambda: sweep.sweep_grad(
+        model, loss, state0, cs, pb, times))
+    vals = vals.cpu().numpy()
+    g_um = grads["umesh"].cpu().numpy()
+    require(np.isfinite(vals).all() and np.isfinite(g_um).all(), "sweep grad: non-finite")
+    require(np.unique(vals).size == batch, "sweep grad: values not distinct")
+    # the last step's v1, a1 reach no loss: its K5 gets no cotangent
+    require(launches["newmark_t"] == n_steps - 1, f"sweep grad: {launches['newmark_t']} K5T"
+            f" launches in {n_steps} steps")
+    params = {"assembly": sweep.ASSEMBLY}
+
+    def value(p):
+        _, traj, _ = forward.integrate_pure(model, state0, cs, p, times, params)
+        return float(loss(traj, None, None, None))
+
+    pv = {k: v[2] for k, v in pb.items()}
+    d = np.random.default_rng(3).standard_normal(g_um.shape[1])
+    d /= np.linalg.norm(d)
+    h = SWEEP_FD_H
+    fd = (value({**pv, "umesh": pv["umesh"] + h * d})
+          - value({**pv, "umesh": pv["umesh"] - h * d})) / (2 * h)
+    adj = float(g_um[2] @ d)
+    rel = abs(adj - fd) / abs(fd)
+    v2 = value(pv)
+    log(f"[sweep] sweep_grad {batch} variants x {n_steps} steps (adaptive, assembly"
+        f" '{sweep.ASSEMBLY}'): {batch * n_steps / (ms / 1e3):.1f} variant-steps/s"
+        f" ({ms:.3f} ms, value+grad); variant 2's value {vals[2]:.12e} (alone {v2:.12e}); its"
+        f" shape gradient along a seeded direction {adj:.9e}, central difference {fd:.9e},"
+        f" rel diff {rel:.3e} (rtol {FD_RTOL:.0e}); launches {launches}; on {card}")
+    require(abs(vals[2] - v2) <= 1e-12 * abs(v2), "sweep grad: value off the variant's alone")
+    require(rel <= FD_RTOL, "sweep grad: shape gradient off its central difference")
+    return dict(launches=launches, n_steps=n_steps, vs=batch * n_steps / (ms / 1e3), fd_rel=rel)
+
+
 def main():
     import time
 
@@ -4731,6 +5201,7 @@ def run_phases(torch, name, card, dev, t0, mesher, mesher3d, m5qz):
     api = timed("api", phase_api, torch, card, dev, large, integ)
     d3 = timed("3d", phase_3d, torch, card, dev, mesher3d)
     dd = timed("dd", phase_dd, torch, card, large, btd_res, integ)
+    sw = timed("sweep", phase_sweep, torch, card, dev)
 
     # per kernel: the timing at the 23.7k shapes of the btd main path (f64)
     timing = {
@@ -4747,6 +5218,9 @@ def run_phases(torch, name, card, dev, t0, mesher, mesher3d, m5qz):
         "gather_t": dd["banded"][("float64", "gather_t")],
         "scatter_t": dd["banded"][("float64", "scatter_t")],
         "btd_sweep_slabs": dd["sweeps"][(DD_SHARDS, "forward", "bfloat16", "float64")],
+        **{f"newmark x{b}": ops_res[("newmark", f"M5 x {b}", "float64")]
+           for b in (SWEEP_GRAD[0], SWEEP_LEG[0], SWEEP_BASELINE[0])},
+        "newmark_t x8": ops_res[("newmark_t", f"M5 x {SWEEP_GRAD[0]}", "float64")],
     }
     # the f64 runs whose launches count: (name, launches, steps)
     runs = [("M5 headline", head["float64"]["launches"], N_STEPS),
@@ -4780,26 +5254,36 @@ def run_phases(torch, name, card, dev, t0, mesher, mesher3d, m5qz):
             ("45.8k 3D btd", d3["float64"]["launches"], d3["float64"]["n_steps"]),
             ("23.7k spike", dd["spike"]["launches"], dd["spike"]["n_steps"]),
             (f"23.7k DD x {DD_SHARDS} banded", dd["step"]["banded"]["launches"], DD_STEPS),
-            (f"23.7k DD x {DD_SHARDS} plain", dd["step"]["plain"]["launches"], DD_STEPS)]
+            (f"23.7k DD x {DD_SHARDS} plain", dd["step"]["plain"]["launches"], DD_STEPS),
+            ("M5 sweep 64 x 50 plain (a batched step)", sw["plain"]["launches"], SWEEP_LEG[1]),
+            ("M5 sweep 64 x 50 banded (a batched step)", sw["banded"]["launches"], SWEEP_LEG[1]),
+            ("M5 sweep 256 x 100 (a batched step)", sw["baseline"]["launches"],
+             SWEEP_BASELINE[1]),
+            ("M5 sweep_grad 8 x 20 (a batched step)", sw["grad"]["launches"], SWEEP_GRAD[1])]
     path = {  # the main-path run whose count is this kernel's ``launches``
         "gather": runs[0][1], "scatter": runs[0][1], "newmark": runs[0][1],
         "btd_sweep": runs[1][1], "ebe_matvec": runs[3][1], "bsb_matvec": runs[2][1],
         "newmark_t": runs[5][1], "btd_sweep_t": runs[5][1],
         "ebe_matvec_t": runs[6][1], "bsb_matvec_t": runs[7][1],
-        "gather_t": runs[-2][1], "scatter_t": runs[-2][1], "btd_sweep_slabs": runs[-2][1],
+        "gather_t": runs[-6][1], "scatter_t": runs[-6][1], "btd_sweep_slabs": runs[-6][1],
+        "newmark x8": runs[-1][1], "newmark x64": runs[-4][1], "newmark x256": runs[-2][1],
+        "newmark_t x8": runs[-1][1],
     }
     kernels = []
     for op, (kname, replaces, source) in KERNELS.items():
         r = timing[op]
-        per_step = {name: launches[op] / steps for name, launches, steps in runs
-                    if launches[op]}
+        counter = KERNEL_COUNTER.get(op, op)
+        per_step = {name: launches[counter] / steps for name, launches, steps in runs
+                    if launches.get(counter)}
         # the library call's time under both names the kernel table is read
-        # by: library_ms (every kernels line) and lib_ms (the table's column)
+        # by: library_ms (every kernels line) and lib_ms (the table's
+        # column), and its device time in a CUDA graph beside the kernel's
         kernels.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
-            launches=path[op][op], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            launches=path[op][counter], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["lib_ms"], lib_ms=r["lib_ms"], lib_call=r["lib_call"],
+            library_device_ms=r.get("lib_device_ms"),
             device_ms=r["device_ms"], launches_per_step=per_step, bytes=r["bytes"],
         ))
     print(json.dumps({"kernels": kernels}))

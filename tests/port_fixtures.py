@@ -42,6 +42,21 @@ def assert_scatter_close(out, ref, bound, rtol):
     )
 
 
+def newmark_gap(du, dv0, da0, dt):
+    """The gaps in v and a that gaps ``du`` in u (rows 0 .. M, row 0 the
+    start) leave through the Newmark relations over a constant ``dt``,
+    from gaps ``dv0``, ``da0`` at the start: rows 0 .. M, in float64."""
+    from vf_fem_tpu_torch.equations import newmark
+
+    k = newmark.coefficients(dt)
+    dv, da = np.zeros_like(du), np.zeros_like(du)
+    dv[0], da[0] = dv0, da0
+    for n in range(1, len(du)):
+        dv[n] = newmark.velocity_k(du[n], du[n - 1], dv[n - 1], da[n - 1], k)
+        da[n] = newmark.acceleration_k(du[n], du[n - 1], dv[n - 1], da[n - 1], k)
+    return {"v": dv, "a": da}
+
+
 def set_props(prop, control, ymax, props=M5_PROPS, area_lb=None):
     """Fill a model's props/controls in place (BlockVector or dict)."""
     for k, v in props.items():

@@ -20,7 +20,8 @@ from vf_fem_tpu_torch.solvers import bsb
 
 from bsb_emulation import emulate_bsb_matvec, emulate_bsb_matvec_t
 from port_fixtures import (
-    M5_PROPS, MESHES, assert_scatter_close, port_dd_model, port_inputs, port_vf_model,
+    M5_PROPS, MESHES, assert_scatter_close, newmark_gap, port_dd_model, port_inputs,
+    port_vf_model,
 )
 from sweep_emulation import emulate_sweep
 
@@ -1767,3 +1768,112 @@ def test_spike_solve_on_cuda(large_operator):
     torch.cuda.synchronize()
     assert ops.LAUNCHES["btd_sweep_slabs"] == n0 + 2
     assert float((x - xb).abs().max()) <= 1e-8 * float(xb.abs().max())
+
+
+# -- batched sweeps (parallel.sweep) --------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(64, 960), (256, 960), (3, 23754), (5, 123)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_newmark_batch_matches_plain(cuda, shape, dtype):
+    """K5 over a (B, n) batch is one launch, bit-equal to its plain version;
+    its vmap rule takes that launch; batched K5T (a CTA a variant) has the
+    plain version's vector cotangents bit for bit and each variant's row
+    within its summation-order bound, also at a row length whose variants
+    start in different 16-byte phases (n = 123)."""
+    from torch.func import vmap
+
+    rng = np.random.default_rng(1)
+    vb1, ab1, u1, u0, v0, a0 = (torch.tensor(rng.standard_normal(shape), dtype=dtype,
+                                             device=cuda) for _ in range(6))
+    row = ops.newmark_row(ops.kernels.newmark.coefficients(1e-4, 7.5e-5), dtype, cuda)
+    n0 = ops.LAUNCHES["newmark"]
+    outs = ops.newmark_update_coefs(u1, u0, v0, a0, row)
+    mapped = vmap(ops.newmark_step, in_dims=(0, 0, 0, 0, None))(u1, u0, v0, a0, row)
+    assert ops.LAUNCHES["newmark"] == n0 + 2
+    for o, m, r in zip(outs, mapped, ops.newmark_update_coefs_reference(u1, u0, v0, a0, row)):
+        assert torch.equal(o, r) and torch.equal(m, r)
+    t0 = ops.LAUNCHES["newmark_t"]
+    got = ops.newmark_update_t_batch(vb1, ab1, u1, u0, v0, a0, row)
+    assert ops.LAUNCHES["newmark_t"] == t0 + 1
+    ref = ops.newmark_update_t_batch_reference(vb1, ab1, u1, u0, v0, a0, row)
+    for g, r in zip(got[:4], ref[:4]):
+        assert torch.equal(g, r)
+    bound = ops.dot_order_bound(ops.newmark_update_t_batch_reference(
+        vb1.abs(), ab1.abs(), u1.abs(), -u0.abs(), -v0.abs(), -a0.abs(), row.abs())[4].abs(),
+        shape[1])
+    rtol = 1e-13 if dtype == torch.float64 else 1e-6
+    assert bool(((got[4] - ref[4]).abs() <= rtol * ref[4].abs() + bound).all())
+    assert not bool(got[4][:, 6:].any())
+
+
+@pytest.fixture(scope="module")
+def sweep_small(cuda):
+    model = port_vf_model(solid="KelvinVoigtWShape", nx=6, ny=3, device=cuda)
+    state0, cs, prop = port_inputs(model)
+    rng = np.random.default_rng(4)
+    pb = {k: np.stack([v] * 16) for k, v in prop.items()}
+    pb["emod"] = pb["emod"] * np.linspace(0.8, 1.2, 16)[:, None]
+    pb["umesh"] = 1e-3 * rng.standard_normal(pb["umesh"].shape)
+    return model, state0, cs, pb
+
+
+@pytest.mark.parametrize("assembly", ["plain", "banded"])
+def test_sweep_graph_equals_eager_on_cuda(sweep_small, assembly):
+    """A fixed-iteration sweep with refresh windows replays one captured
+    graph of the batched step, bit-equal to the batched eager loop, with one
+    K5 launch a step for the batch; a row equals its variant alone (u, q, p
+    at rtol 1e-10; v and a within 1e-12 of their max once u's gap is taken
+    out)."""
+    from vf_fem_tpu_torch.models.transient import solver_params
+
+    model, state0, cs, pb = sweep_small
+    params = solver_params({"jacobian_refresh_steps": 4, "jacobian_refresh_mode": "ns",
+                            "jacobian_full_refresh_windows": 2, "stagnation_ratio": 0.5,
+                            "fixed_iterations": 2, "assembly": assembly})
+    times = 1e-4 * np.arange(11)
+    eager = forward._integrate_eager(model, state0, cs, pb, times, params, (16, False))
+    forward.integrate_batch_pure(model, state0, cs, pb, times, params)  # captures
+    n0 = ops.LAUNCHES["newmark"]
+    fin, traj, infos = forward.integrate_batch_pure(model, state0, cs, pb, times, params)
+    assert ops.LAUNCHES["newmark"] == n0 + 10
+    for k in fin:
+        assert torch.equal(fin[k], eager[0][k]) and torch.equal(traj[k], eager[1][k].movedim(0, 1))
+    one, one_traj, _ = forward.integrate_pure(model, state0, cs,
+                                              {k: v[7] for k, v in pb.items()}, times, params)
+    # the batched products round otherwise than one variant's: v and a
+    # carry u's rounding gap scaled by 2/dt and 4/dt^2, taken out here
+    du = (traj["u"][7] - one_traj["u"]).cpu().numpy()
+    gap = newmark_gap(np.concatenate([np.zeros_like(du[:1]), du]), 0.0, 0.0, 1e-4)
+    for k in one:
+        ref = one[k].cpu().numpy()
+        if k in gap:
+            got = fin[k][7].cpu().numpy() - gap[k][-1]
+            assert np.abs(got - ref).max() <= 1e-12 * np.abs(ref).max(), k
+        else:
+            np.testing.assert_allclose(fin[k][7].cpu().numpy(), ref, rtol=1e-10,
+                                       atol=1e-14 * max(1.0, np.abs(ref).max()), err_msg=k)
+
+
+def test_sweep_grad_on_cuda_matches_cpu(sweep_small):
+    """``sweep_grad`` on the card (K5T's batched launch backward) against the
+    same sweep on the CPU: values and gradients within 1e-10 of each key's
+    largest entry."""
+    from vf_fem_tpu_torch.parallel import sweep_grad
+
+    model, state0, cs, pb = sweep_small
+    cpu = port_vf_model(solid="KelvinVoigtWShape", nx=6, ny=3)
+    pb4 = {k: v[:4] for k, v in pb.items()}
+
+    def loss(traj, controls, prop, times):
+        return torch.sum(traj["u"][-1] ** 2) * 1e4 + 1e-6 * torch.sum(traj["q"] ** 2)
+
+    times = 2e-5 * np.arange(6)
+    t0 = ops.LAUNCHES["newmark_t"]
+    v, g = sweep_grad(model, loss, state0, cs, pb4, times)
+    assert ops.LAUNCHES["newmark_t"] == t0 + 4  # the last step's v1, a1 reach no loss
+    vc, gc = sweep_grad(cpu, loss, state0, cs, pb4, times)
+    torch.testing.assert_close(v.cpu(), vc, rtol=0, atol=1e-10 * vc.abs().max().item())
+    for k in ("emod", "umesh"):
+        torch.testing.assert_close(g[k].cpu(), gc[k], rtol=0,
+                                   atol=1e-10 * gc[k].abs().max().item())

@@ -65,6 +65,7 @@ def test_import_leaves_jax_unloaded():
         "import vf_fem_tpu_torch.utils, vf_fem_tpu_torch.constants\n"
         "import vf_fem_tpu_torch.misc.signal, vf_fem_tpu_torch.mesh.dofmaps\n"
         "import vf_fem_tpu_torch.equations.newmark, vf_fem_tpu_torch.models.transient\n"
+        "import vf_fem_tpu_torch.parallel.sweep, vf_fem_tpu_torch.parallel.ddstep\n"
         f"bad = [m for m in set(sys.modules) - before"
         f" if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"

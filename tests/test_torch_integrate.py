@@ -19,7 +19,8 @@ from vf_fem_tpu_torch import forward as tforward, statefile as tsf, step_graph
 from vf_fem_tpu_torch.equations import newmark
 from vf_fem_tpu_torch.models.transient import StepCoefs, solver_params
 
-from port_fixtures import HEADLINE_SMALL, jax_vf_model, port_inputs, port_vf_model
+from port_fixtures import (HEADLINE_SMALL, jax_vf_model, newmark_gap as _newmark_gap,
+                           port_inputs, port_vf_model)
 
 DT = 2.0 ** -13  # times n * DT are exact, so a resumed run sees the same dts
 N_STEPS = 12
@@ -104,19 +105,6 @@ def _port_run(tm, path, times, params, values, **kw):
         with tsf.StateFile(tm, path, mode="w") as f:
             return tforward.integrate(tm, f, ini, _controls(tm, values), tm.prop, times,
                                       newton_solver_prm=params, **kw)
-
-
-def _newmark_gap(du, dv0, da0, dt):
-    """The gaps in v and a that gaps ``du`` in u (rows 0 .. M, row 0 the
-    start) leave through the Newmark relations over a constant ``dt``,
-    from gaps ``dv0``, ``da0`` at the start: rows 0 .. M, in float64."""
-    k = newmark.coefficients(dt)
-    dv, da = np.zeros_like(du), np.zeros_like(du)
-    dv[0], da[0] = dv0, da0
-    for n in range(1, len(du)):
-        dv[n] = newmark.velocity_k(du[n], du[n - 1], dv[n - 1], da[n - 1], k)
-        da[n] = newmark.acceleration_k(du[n], du[n - 1], dv[n - 1], da[n - 1], k)
-    return {"v": dv, "a": da}
 
 
 def _read(path):

@@ -565,14 +565,23 @@ int launch_bsb(const void* blocks, const void* x, const void* ptr,
 
 // The scalar entries before the span where the vector at `first` and all
 // of `others` are 16-byte aligned (every entry when their phases differ)
+// Whether `first` and all of `others` share one 16-byte phase, a whole
+// number of T's
+template <typename T>
+bool same_phase(const void* first, std::initializer_list<const void*> others) {
+  const uintptr_t phase = reinterpret_cast<uintptr_t>(first) % 16;
+  bool same = phase % sizeof(T) == 0;
+  for (const void* p : others) same = same && reinterpret_cast<uintptr_t>(p) % 16 == phase;
+  return same;
+}
+
 template <typename T>
 long long vector_head(const void* first, std::initializer_list<const void*> others,
                       long long n) {
   const uintptr_t phase = reinterpret_cast<uintptr_t>(first) % 16;
-  bool same = phase % sizeof(T) == 0;
-  for (const void* p : others) same = same && reinterpret_cast<uintptr_t>(p) % 16 == phase;
-  return same ? std::min<long long>(n, static_cast<long long>((16 - phase) % 16 / sizeof(T)))
-              : n;
+  return same_phase<T>(first, others)
+             ? std::min<long long>(n, static_cast<long long>((16 - phase) % 16 / sizeof(T)))
+             : n;
 }
 
 // trips of the longer of the 16-byte loop over [head, n) and the scalar one
@@ -673,6 +682,11 @@ __device__ __forceinline__ void newmark_t_entry(const NewmarkRow<T>& k, T V, T A
   acc[5] = add_rn(acc[5], mul_rn(c4a, v0));
 }
 
+template <typename T>
+__device__ __forceinline__ void newmark_t_pass(const NewmarkTArgs<T>& a, long long n,
+                                               long long head, long long t, long long step,
+                                               T (&acc)[kRowSums]);
+
 // The vector cotangents of this thread's entries in a grid-stride loop:
 // 16-byte vectors over [head, head + nvec * V) (V = 16 / sizeof(T)), the
 // rest one at a time; the thread's terms of the six sums added in the
@@ -680,11 +694,19 @@ __device__ __forceinline__ void newmark_t_entry(const NewmarkRow<T>& k, T V, T A
 template <typename T>
 __device__ __forceinline__ void newmark_t_pass(const NewmarkTArgs<T>& a, long long n,
                                                long long head, T (&acc)[kRowSums]) {
+  newmark_t_pass(a, n, head, blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x,
+                 static_cast<long long>(gridDim.x) * blockDim.x, acc);
+}
+
+// the same over the entries t, t + step, ... (of the vectors, or of one
+// variant's: a's pointers moved to its first entry)
+template <typename T>
+__device__ __forceinline__ void newmark_t_pass(const NewmarkTArgs<T>& a, long long n,
+                                               long long head, long long t, long long step,
+                                               T (&acc)[kRowSums]) {
   constexpr int V = 16 / sizeof(T);
   using P = Pack16<T>;
   using W = decltype(P::v);
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long t = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
   const long long nvec = (n - head) / V;
   const long long body_end = head + nvec * V;
   const long long nscalar = head + (n - body_end);
@@ -805,6 +827,46 @@ int launch_newmark_t(const NewmarkTArgs<T>& a, int slot, long long n, void* stre
   return checked_launch(cudaLaunchKernelEx(&l.cfg, newmark_t_kernel<T>, a, slot, n, head));
 }
 
+// K5T over a batch of B variants, (B, n) vectors under one row: CTA b is
+// variant b (the grid's variant axis), its threads stride over the
+// variant's n entries as newmark_t_pass, and the CTA's six sums
+// (newmark_t_cta_sum) are the variant's row, written to row_bar[8 b ..]:
+// each is one ordered sum, whatever the order in which the CTAs run, and
+// no CTA waits for another (no ticket, no slot).  `same`: the ten vectors
+// share one 16-byte phase (so does each variant's span of them); a
+// variant's scalar head is then its own entries before its first 16-byte
+// boundary.
+template <typename T>
+__global__ void __launch_bounds__(kNewmarkTThreads)
+    newmark_t_batch_kernel(NewmarkTArgs<T> a, long long n, bool same) {
+  const long long off = blockIdx.x * n;
+  NewmarkTArgs<T> v = a;
+  v.vb1 += off; v.ab1 += off; v.u1 += off; v.u0 += off; v.v0 += off; v.a0 += off;
+  v.ub1 += off; v.ub0 += off; v.vb0 += off; v.ab0 += off;
+  const long long lead =
+      static_cast<long long>((16 - reinterpret_cast<uintptr_t>(v.u1) % 16) % 16 / sizeof(T));
+  const long long head = same && lead < n ? lead : n;
+  grid_dependency_wait();  // before the first global access, the row's included
+  T acc[kRowSums] = {};
+  newmark_t_pass(v, n, head, threadIdx.x, blockDim.x, acc);
+  const T sum = newmark_t_cta_sum(acc);
+  T* row = a.row_bar + blockIdx.x * static_cast<long long>(kRowSums + 2);
+  if (threadIdx.x < kRowSums) row[threadIdx.x] = row_entry(static_cast<int>(threadIdx.x), sum);
+  else if (threadIdx.x < kRowSums + 2) row[threadIdx.x] = T(0);  // dtp and c
+}
+
+template <typename T>
+int launch_newmark_t_batch(const NewmarkTArgs<T>& a, long long batch, long long n,
+                           void* stream) {
+  if (n <= 0 || batch <= 0 || batch > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // one phase for all ten vectors (a variant's span moves them all alike)
+  const bool same =
+      same_phase<T>(a.u1, {a.vb1, a.ab1, a.u0, a.v0, a.a0, a.ub1, a.ub0, a.vb0, a.ab0});
+  PdlLaunch l(batch, kNewmarkTThreads, stream);
+  return checked_launch(cudaLaunchKernelEx(&l.cfg, newmark_t_batch_kernel<T>, a, n, same));
+}
+
 template <typename T>
 NewmarkTArgs<T> newmark_t_args(const void* vb1, const void* ab1, const void* u1,
                                const void* u0, const void* v0, const void* a0,
@@ -899,6 +961,26 @@ int vf_newmark_t_f64(const void* vb1, const void* ab1, const void* u1, const voi
   return launch_newmark_t<double>(
       newmark_t_args<double>(vb1, ab1, u1, u0, v0, a0, coefs, ub1, ub0, vb0, ab0, row_bar), slot,
       n, stream);
+}
+
+// K5T over a batch: vb1 .. a0 and ub1 .. ab0 (B, n) row-major, row_bar
+// (B, 8); one launch, a CTA a variant
+int vf_newmark_t_batch_f32(const void* vb1, const void* ab1, const void* u1, const void* u0,
+                           const void* v0, const void* a0, const void* coefs, void* ub1,
+                           void* ub0, void* vb0, void* ab0, void* row_bar, long long batch,
+                           long long n, void* stream) {
+  return launch_newmark_t_batch<float>(
+      newmark_t_args<float>(vb1, ab1, u1, u0, v0, a0, coefs, ub1, ub0, vb0, ab0, row_bar),
+      batch, n, stream);
+}
+
+int vf_newmark_t_batch_f64(const void* vb1, const void* ab1, const void* u1, const void* u0,
+                           const void* v0, const void* a0, const void* coefs, void* ub1,
+                           void* ub0, void* vb0, void* ab0, void* row_bar, long long batch,
+                           long long n, void* stream) {
+  return launch_newmark_t_batch<double>(
+      newmark_t_args<double>(vb1, ab1, u1, u0, v0, a0, coefs, ub1, ub0, vb0, ab0, row_bar),
+      batch, n, stream);
 }
 
 // *id: the id of the CUDA graph capture that stream takes part in, 0 when

@@ -609,13 +609,21 @@ def _differentiated(x: torch.Tensor) -> bool:
     return fwAD.unpack_dual(x).tangent is not None
 
 
+def _through_function(x: torch.Tensor) -> bool:
+    """Whether a call on ``x`` goes through its ``autograd.Function``: ``x``
+    is being differentiated (:func:`_differentiated`) or is a
+    ``torch.func`` transform's tensor, such as a batch under ``vmap``
+    (whose rule makes the batch more channels of one launch)."""
+    return _differentiated(x) or torch._C._functorch.is_functorch_wrapped_tensor(x)
+
+
 def banded_gather(plan: DevicePlan, F: torch.Tensor) -> torch.Tensor:
     """Gather per-cell locals (nv, C, ngroups*gc) from stacked vertex
     fields ``F`` (C, n_vertices).  Reverse mode differentiates to the
     banded scatter with the gather offsets, forward mode to the gather of
     the tangent; where nothing is differentiated the call skips the
-    autograd wrapper."""
-    if _differentiated(F):
+    autograd wrapper, unless ``F`` is a batch under ``torch.func.vmap``."""
+    if _through_function(F):
         return _BandedGather.apply(F, plan)
     return _gather(plan, F, plan.g)
 
@@ -625,8 +633,8 @@ def banded_scatter(plan: DevicePlan, loc: torch.Tensor, n_rows: int):
     (C, n_rows); padding slots are dropped.  Reverse mode differentiates to
     the banded gather with the scatter offsets, forward mode to the scatter
     of the tangent; where nothing is differentiated the call skips the
-    autograd wrapper."""
-    if _differentiated(loc):
+    autograd wrapper, unless ``loc`` is a batch under ``torch.func.vmap``."""
+    if _through_function(loc):
         return _BandedScatter.apply(loc, plan, n_rows)
     return _scatter(plan, loc, n_rows, plan.s)
 

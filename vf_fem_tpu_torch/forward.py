@@ -20,6 +20,14 @@ the run's configuration:
   ``adjoint``): the same steps and windows, eager, never the graph, with
   autograd recording each step.
 
+:func:`integrate_batch_pure` runs a batch of variants of one model at
+once (``parallel.sweep``): the same three loops over a leading batch axis
+of the properties (and of the controls, with ``batch_controls``), each
+step one batched step of the explicit FSI model (its ``*_batch`` step
+functions), so that a step launches each kernel once for the whole batch;
+a fixed-iteration run with refresh windows replays one captured graph of
+the batched step.
+
 Any transient model with the FSI model's step functions runs here: the
 explicit and implicit FSI models, the FSAI model (``models.fsai``, whose
 step info adds ``bracketed``) and the WRA tract alone
@@ -118,15 +126,104 @@ def integrate_pure(
                             params_d)
 
 
-def _integrate_eager(model, ini_state, controls_stacked, prop, times,
-                     params=None):
-    """:func:`integrate_pure` as a Python loop of eager steps, whatever the
-    configuration (the CUDA graph's reference on the card)."""
+def integrate_batch_pure(
+    model,
+    ini_state: dict,
+    controls_stacked: dict,
+    prop_batch: dict,
+    times,
+    params: Optional[dict] = None,
+    batch_controls: bool = False,
+):
+    """:func:`integrate_pure` of a batch of variants of one explicit FSI
+    model at once, the JAX package's ``vmap(integrate_pure)`` over a leading
+    batch axis: of every tensor of ``prop_batch``, and with
+    ``batch_controls`` of ``controls_stacked`` (each variant's stacked
+    controls); ``ini_state`` is every variant's.  Returns ``(fin_state,
+    trajectory, infos)`` with the batch axis first: ``(B, ...)``,
+    ``(B, n_steps, ...)`` and ``(B, n_steps)`` tensors.
+
+    Each step is one batched step (the model's ``step_batch`` /
+    ``step_batch_stale``, dense solver only), by the windows and refresh
+    rule of :func:`integrate_pure`: a fixed-iteration run of refresh windows
+    on a CUDA model replays one captured graph of the batched step, every
+    other run is the eager loop (the adaptive Newton in lockstep, one host
+    read a batch iteration), and a run whose properties, controls or
+    initial state require grad is the differentiable loop (the batch's
+    values, with each variant's gradient its own: the variants share
+    nothing but the times).  Row b equals :func:`integrate_pure` of variant
+    b alone to the rounding of batched against unbatched products."""
+    if not hasattr(model, "step_batch"):
+        raise NotImplementedError(f"a batch of {type(model).__name__} variants is not ported")
     params_d = solver_params(params)
+    batch = (_batch_size(prop_batch), bool(batch_controls))
+    if _wants_grad(ini_state, controls_stacked, prop_batch, times):
+        out = _integrate_diff(model, ini_state, controls_stacked, prop_batch, times,
+                              params_d, batch)
+    elif step_graph.captures(model, params_d):
+        out = step_graph.integrate(model, ini_state, controls_stacked, prop_batch, times,
+                                   params_d, batch)
+    else:
+        out = _integrate_eager(model, ini_state, controls_stacked, prop_batch, times,
+                               params_d, batch)
+    fin, traj, info = out
+    return (fin, {k: v.movedim(0, 1) for k, v in traj.items()},
+            type(info)(*(x.movedim(0, 1) for x in info)))
+
+
+def _batch_size(prop_batch: dict) -> int:
+    sizes = {int(np.shape(v)[0]) for v in prop_batch.values()}
+    if len(sizes) != 1:
+        raise ValueError(f"the properties' batch axes differ: {sorted(sizes)}")
+    return sizes.pop()
+
+
+def run_inputs(model, ini_state, controls_stacked, prop, batch=None):
+    """A run's initial state, stacked controls and properties as tensors on
+    the model's device and dtype.  ``batch``, ``(B, batch_controls)`` of a
+    batched run: the state is broadcast to (B, ...) (one copy a variant),
+    the controls made (n_controls, B, ...) (a view of shared controls, or
+    each variant's moved behind the control axis), the properties kept
+    (B, ...)."""
     dev, dtype = model.device, model.dtype
     state = to_tensors(ini_state, dev, dtype)
     controls = to_tensors(controls_stacked, dev, dtype)
     prop = to_tensors(prop, dev, dtype)
+    if batch is not None:
+        B, batch_controls = batch
+        state = {k: v.expand(B, *v.shape).contiguous() for k, v in state.items()}
+        controls = {k: (v.movedim(0, 1) if batch_controls
+                        else v.unsqueeze(1).expand(v.shape[0], B, *v.shape[1:]))
+                    for k, v in controls.items()}
+    return state, controls, prop
+
+
+_STEPPERS = ("step_pure", "step_pure_stale", "factorize", "refresh_factors", "step_diff")
+
+
+def steppers(model, batch=None):
+    """The model's ``(step, step_stale, factorize, refresh_factors,
+    step_diff)``, of one variant or (``batch``) of a batch of them (the
+    ``*_batch`` methods); each looked up when called, since a model without
+    factors (the WRA tract) has only some."""
+    names = _STEPPERS if batch is None else (
+        "step_batch", "step_batch_stale", "factorize_batch", "refresh_factors_batch",
+        "step_diff_batch")
+
+    def method(name):
+        return lambda *args: getattr(model, name)(*args)
+
+    return tuple(method(n) for n in names)
+
+
+def _integrate_eager(model, ini_state, controls_stacked, prop, times,
+                     params=None, batch=None):
+    """:func:`integrate_pure` as a Python loop of eager steps, whatever the
+    configuration (the CUDA graph's reference on the card); ``batch`` as
+    :func:`run_inputs`."""
+    params_d = solver_params(params)
+    state, controls, prop = run_inputs(model, ini_state, controls_stacked, prop, batch)
+    step, step_stale, factorize, refresh, _ = steppers(model, batch)
     dts = [float(x) for x in np.diff(np.asarray(times, dtype=np.float64))]
     n_steps = len(dts)
     if not n_steps:
@@ -144,14 +241,11 @@ def _integrate_eager(model, ini_state, controls_stacked, prop, times,
             # the step after this one: the predictor K5 writes with the state
             dt_next = dts[min(n + 1, n_steps - 1)]
             if factors is None:
-                state, info = model.step_pure(
-                    state, control_at(n), prop, dts[n], params_d, dt_next
-                )
+                state, info = step(state, control_at(n), prop, dts[n], params_d,
+                                   dt_next)
             else:
-                state, info = model.step_pure_stale(
-                    factors, state, control_at(n), prop, dts[n], params_d,
-                    dt_next,
-                )
+                state, info = step_stale(factors, state, control_at(n), prop, dts[n],
+                                         params_d, dt_next)
             traj.append(state)
             infos.append(info)
         return state
@@ -164,9 +258,9 @@ def _integrate_eager(model, ini_state, controls_stacked, prop, times,
             for n0, n1, how in step_graph.refresh_windows(n_steps, params_d):
                 args = (state, control_at(n0), prop, dts[n0], params_d)
                 if how == "factor":
-                    factors = model.factorize(*args)
+                    factors = factorize(*args)
                 else:
-                    factors = model.refresh_factors(factors, *args)
+                    factors = refresh(factors, *args)
                 state = run(state, factors, n0, n1)
 
     trajectory = {k: torch.stack([s[k] for s in traj]) for k in traj[0]}
@@ -175,20 +269,20 @@ def _integrate_eager(model, ini_state, controls_stacked, prop, times,
 
 
 def _integrate_diff(model, ini_state, controls_stacked, prop, times,
-                    params_d):
+                    params_d, batch=None):
     """:func:`integrate_pure` as a differentiable eager loop: the windows of
     :func:`_integrate_eager` (factors built or refreshed without a graph,
     from detached inputs), each step by ``model.step_diff`` with its row of
     ``equations.newmark.coefficient_rows`` of ``dts = times[1:] -
     times[:-1]`` (float64, so the times get their gradient).  The step's
     float ``dt`` (the eager loop's) drives the solves and factorizations.
-    Info tensors are detached."""
+    Info tensors are detached.  ``batch`` as :func:`run_inputs` (the
+    model's ``step_diff_batch``)."""
     from .equations import newmark
 
     dev, dtype = model.device, model.dtype
-    state = to_tensors(ini_state, dev, dtype)
-    controls = to_tensors(controls_stacked, dev, dtype)
-    prop = to_tensors(prop, dev, dtype)
+    state, controls, prop = run_inputs(model, ini_state, controls_stacked, prop, batch)
+    _, _, factorize, refresh, step_diff = steppers(model, batch)
     times_t = (times if isinstance(times, torch.Tensor)
                else torch.as_tensor(np.asarray(times, dtype=np.float64)))
     times_t = times_t.to(device=dev, dtype=torch.float64)
@@ -212,8 +306,8 @@ def _integrate_diff(model, ini_state, controls_stacked, prop, times,
 
     def run(state, factors, n0, n1):
         for n in range(n0, n1):
-            state, info = model.step_diff(state, control_at(n), prop, dts[n],
-                                          rows[n], params_d, factors)
+            state, info = step_diff(state, control_at(n), prop, dts[n], rows[n],
+                                    params_d, factors)
             traj.append(state)
             infos.append(info)
         return state
@@ -227,9 +321,9 @@ def _integrate_diff(model, ini_state, controls_stacked, prop, times,
                 args = (detached(state), detached(control_at(n0)),
                         detached(prop), dts[n0], params_d)
                 if how == "factor":
-                    factors = model.factorize(*args)
+                    factors = factorize(*args)
                 else:
-                    factors = model.refresh_factors(factors, *args)
+                    factors = refresh(factors, *args)
             state = run(state, factors, n0, n1)
 
     trajectory = {k: torch.stack([s[k] for s in traj]) for k in traj[0]}

@@ -17,9 +17,24 @@ forward solves only, its gradient path raises); ``jacobian_update`` ('every_iter
 ``fixed_iterations``/``fixed_tail_residual``/``stagnation_ratio`` and the
 tolerances (``solvers.newton``); ``assembly`` ('auto' | 'banded' |
 'plain'); ``jacobian_refresh_steps``/``jacobian_refresh_mode``/
-``jacobian_full_refresh_windows``/``jacobian_refresh_iters``
-(``forward.integrate_pure``).  ``btd_offdiag_dtype`` and
+``jacobian_full_refresh_windows``/``jacobian_refresh_iters``/
+``jacobian_refresh_precision`` (``forward.integrate_pure``; every
+precision the JAX package takes computes IEEE products here: see
+``_SUPPORTED``).  ``btd_offdiag_dtype`` and
 ``btd_factor_dtype`` raise unless None.
+
+A batch of variants (``parallel.sweep``, ``forward.integrate_batch_pure``):
+the ``*_batch`` step functions take states, controls and properties with
+a leading batch axis and step every variant at once, with the dense
+solver only.  What is the same for every variant runs with that explicit
+axis: the Newton loop (``solvers.newton.newton_solve(batched=True)``,
+whose adaptive stop is one host read a batch iteration), the Newmark
+predictor and K5 (one launch over the batch), the refresh windows, and
+the IFT rule's adjoint solves and its refinement loop.  The per-variant
+algebra runs under ``torch.func.vmap`` of the single-variant methods: the
+residual (K1/K2 through their vmap rules: the batch is more channels of
+one launch), the element Jacobian, the dense factorization, its
+Newton-Schulz refresh and solves, the coupling maps and the fluid step.
 
 The gradient path (``adjoint``): :meth:`SolidModel.solve_state1_diff`
 solves a step's u1 inside a ``torch.autograd.Function`` whose backward is
@@ -60,7 +75,7 @@ from ..fem import assembly
 from ..residuals.base import FemResidual, FunctionalResidual
 from ..solverconst import DEFAULT_NEWTON_SOLVER_PRM, FIXEDPOINT_SOLVER_PRM
 from ..solvers import bsb, btd, linalg, spike
-from ..solvers.newton import SolveInfo, iterative_solve, newton_solve
+from ..solvers.newton import SolveInfo, _select, iterative_solve, newton_solve
 
 # solvers whose factors are built from the element Jacobian blocks, once
 # per step by default: the matrix-free Newton-Krylov 'cg' (element-by-
@@ -80,6 +95,12 @@ _SUPPORTED = {
     "jacobian_update": ("every_iteration", "once_per_step"),
     "assembly": ("auto", "banded", "plain"),
     "adjoint_refine": ("stale", "exact"),
+    # the JAX package's precisions of the Newton-Schulz products, where
+    # 'default' picks single-pass bfloat16 products on a TPU; here every
+    # one computes them in the factors' own IEEE dtype (TF32 stays off,
+    # PyTorch's default for matmuls, which the port never changes), so a
+    # refresh rounds as the plain matmul does, whatever the value
+    "jacobian_refresh_precision": (None, "default", "high", "highest"),
 }
 
 
@@ -92,8 +113,6 @@ def solver_params(params) -> dict:
             raise NotImplementedError(
                 f"{key}={p[key]!r} is not ported (supported: {allowed})"
             )
-    if p.get("jacobian_refresh_precision") is not None:
-        raise NotImplementedError("jacobian_refresh_precision is not ported")
     return p
 
 
@@ -190,6 +209,42 @@ class _SolveU1(torch.autograd.Function):
     @staticmethod
     def jvp(ctx, *tangents):
         return (ctx.solid._ift_jvp(ctx, tangents[6:]), None, None, None)
+
+
+class _SolveU1Batch(_SolveU1):
+    """:class:`_SolveU1` of a batch of steps (``SolidModel.
+    solve_state1_diff_batch``): the forward is the lockstep batched Newton
+    (``SolidModel._newton_batch``), the backward the IFT rule of each
+    variant at once (``SolidModel._ift_backward(batched=True)``); tangents
+    of a batch are not ported."""
+
+    @staticmethod
+    def forward(solid, params_d, dt, layout, factors, guess, row, *flat):
+        state0, control, prop = _unflatten(layout, flat)
+        u1, info = solid._newton_batch(guess, state0, control, prop, dt, params_d,
+                                       factors)
+        return (u1.clone() if u1 is guess else u1, *info)
+
+    @staticmethod
+    def backward(ctx, u1_bar, *_):
+        return (None,) * 6 + ctx.solid._ift_backward(ctx, u1_bar,
+                                                     ctx.needs_input_grad[6:],
+                                                     batched=True)
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        raise NotImplementedError("tangents of a batch of steps are not ported")
+
+
+def _batch_params(params) -> dict:
+    """:func:`solver_params` of a batched step, which solves with the dense
+    solver only (the JAX package's sweep of M5-size models)."""
+    p = solver_params(params)
+    if p.get("linear_solver", "dense") != "dense":
+        raise NotImplementedError(
+            f"a batch of variants steps with linear_solver='dense' only, not"
+            f" {p['linear_solver']!r}")
+    return p
 
 
 class _ExactSolve(torch.autograd.Function):
@@ -899,6 +954,86 @@ class SolidModel(SolidElements, BaseTransientModel):
                                 factors)
         return self._finish(u1, state0, dt, dt_next), info
 
+    # -- a batch of variants ---------------------------------------------------------
+    def solve_state1_batch(self, state0, control, prop, dt, params=None,
+                           dt_next=None, factors=None):
+        """One time step of a batch of variants (a leading batch axis on
+        every tensor of ``state0``, ``control`` and ``prop``): Newton from
+        the Newmark predictor on the batch (:meth:`_newton_batch`), with
+        carried ``factors`` where given, then K5 over the batch.  Returns
+        the state and a ``SolveInfo`` of (B,) tensors."""
+        params_d = _batch_params(params)
+        u_guess = self._initial_guess(None, state0, dt, params_d)
+        u1, info = self._newton_batch(u_guess, state0, control, prop, dt, params_d,
+                                      factors)
+        return self._finish(u1, state0, dt, dt_next), info
+
+    def _vmapped_jac(self, dt, fn):
+        """``vmap`` of ``fn(dense Jacobian at u1, *args)`` over ``(u1,
+        state0, control, prop, *args)``."""
+        return vmap(lambda u1, s0, c, p, *args: fn(self.jac_u_dense(u1, s0, c, p, dt), *args))
+
+    def _newton_batch(self, u_guess, state0, control, prop, dt, params_d,
+                      factors=None):
+        """:meth:`_newton` of a batch: the lockstep batched Newton over the
+        vmapped residual, solving with the batch's carried ``factors``, or
+        factors built in the step (``jacobian_update='once_per_step'``), or
+        the dense Jacobian at each iterate."""
+        banded = self.use_banded(params_d)
+        res = vmap(lambda u1, s0, c, p: self.res_u(u1, s0, c, p, dt, banded))
+
+        def assem(u1):
+            return res(u1, state0, control, prop)
+
+        if factors is None and params_d.get("jacobian_update") == "once_per_step":
+            factors = self.factorize_batch(state0, control, prop, dt, params_d)
+        if factors is None:
+            solve = self._vmapped_jac(dt, linalg.dense_solve)
+
+            def solve_jac(u1, r):
+                return solve(u1, state0, control, prop, r)
+        else:
+            solve_f = vmap(linalg.dense_factor_solve)
+
+            def solve_jac(u1, r):
+                return solve_f(factors, r)
+
+        return newton_solve(u_guess, assem, solve_jac, params_d, batched=True)
+
+    def factorize_batch(self, state0, control, prop, dt, params=None):
+        """:meth:`factorize` of a batch: the equilibrated explicit inverse
+        of each variant's Jacobian at its predictor."""
+        _batch_params(params)
+        u_lin = self._predictor(state0, dt)
+        return self._vmapped_jac(dt, linalg.dense_factor)(u_lin, state0, control, prop)
+
+    def refresh_factors_batch(self, factors, state0, control, prop, dt, params=None):
+        """:meth:`refresh_factors` of a batch: each variant's Newton-Schulz
+        refresh toward its Jacobian at its predictor."""
+        params_d = _batch_params(params)
+        u_lin = self._predictor(state0, dt)
+        iters = int(params_d.get("jacobian_refresh_iters", 2))
+
+        def refresh(A, f):
+            return linalg.dense_refresh(f, A, iters)
+
+        return self._vmapped_jac(dt, refresh)(u_lin, state0, control, prop, factors)
+
+    def solve_state1_diff_batch(self, state0, control, prop, dt, row, params=None,
+                                factors=None):
+        """:meth:`solve_state1_diff` of a batch (leading batch axes as in
+        :meth:`solve_state1_batch`; one coefficient row for the batch):
+        u1 by :class:`_SolveU1Batch`, then K5 over the batch under
+        ``ops.newmark_step`` (K5T's batched launch backward, a row
+        cotangent a variant, summed over the batch for the shared row)."""
+        params_d = _batch_params(params)
+        u0, v0, a0 = (state0[k] for k in ("u", "v", "a"))
+        guess = newmark.newmark_predict_u(u0.detach(), v0.detach(), a0.detach(), dt)
+        layout, flat = _flatten(state0, control, prop)
+        out = _SolveU1Batch.apply(self, params_d, dt, layout, factors, guess, row, *flat)
+        v1, a1, _ = ops.newmark_step(out[0], u0, v0, a0, row)
+        return {"u": out[0], "v": v1, "a": a1}, SolveInfo(*out[1:])
+
     # -- the gradient path ---------------------------------------------------------
     def solve_state1_diff(self, state0, control, prop, dt, row, params=None,
                           factors=None):
@@ -925,14 +1060,18 @@ class SolidModel(SolidElements, BaseTransientModel):
         v1, a1, _ = ops.newmark_step(u1, u0, v0, a0, row)
         return {"u": u1, "v": v1, "a": a1}, SolveInfo(*out[1:])
 
-    def _ift_backward(self, ctx, u1_bar, needs):
+    def _ift_backward(self, ctx, u1_bar, needs, batched=False):
         """The IFT rule of one step: with ``J = dR/du1`` at the saved u1,
         solve ``J^T lam = u1_bar`` (:meth:`_adjoint_solve`) and return
         ``-(dR/dtheta)^T lam`` for the row and each flat input that
         ``needs`` a gradient (None for the others).  Every ``J^T v`` and
         the final product are reverse passes over one residual graph
         rebuilt at u1, so the banded kernels K1 and K2 run through each
-        other's backward."""
+        other's backward.  ``batched``: a batch of steps (leading batch
+        axes, one row), the residual vmapped over it; each variant's
+        residual depends on its own inputs only, so one reverse pass gives
+        every variant's ``J^T v``, and the row's cotangent is the batch's
+        sum."""
         u1, row, *flat = ctx.saved_tensors
         params_d, layout = ctx.params_d, ctx.layout
         if u1_bar is None or not any(needs):
@@ -945,16 +1084,19 @@ class SolidModel(SolidElements, BaseTransientModel):
             u = u1.detach().requires_grad_()
             leaves = [t.detach().requires_grad_(bool(w))
                       for t, w in zip((row, *flat), needs)]
-            state0, control, prop = _unflatten(layout, leaves[1:])
-            r = self.res_u(u, state0, control, prop,
-                           StepCoefs(leaves[0], self.dtype), banded)
+            coefs = StepCoefs(leaves[0], self.dtype)
+
+            def res(u_, *flat_):
+                return self.res_u(u_, *_unflatten(layout, flat_), coefs, banded)
+
+            r = (vmap(res) if batched else res)(u, *leaves[1:])
 
         def JT(v):
             return torch.autograd.grad(r, u, v, retain_graph=True)[0]
 
         detached = _unflatten(layout, [t.detach() for t in flat])
         lam = self._adjoint_solve(JT, u1.detach(), detached, ctx.dt, params_d,
-                                  ctx.factors, u1_bar.contiguous())
+                                  ctx.factors, u1_bar.contiguous(), batched)
         wanted = [t for t in leaves if t.requires_grad]
         grads = iter(torch.autograd.grad(r, wanted, -lam, allow_unused=True))
         return tuple(next(grads) if t.requires_grad else None for t in leaves)
@@ -982,17 +1124,26 @@ class SolidModel(SolidElements, BaseTransientModel):
         _, r_dot = jvp(res, primals, tangents)
         return -_ExactSolve.apply(self, params_d, ctx.dt, layout, u1, r_dot, *flat)
 
-    def _adjoint_solve(self, JT, u1, inputs, dt, params_d, factors, u1_bar):
+    def _adjoint_solve(self, JT, u1, inputs, dt, params_d, factors, u1_bar,
+                       batched=False):
         """``lam`` with ``J(u1)^T lam = u1_bar``: refined with the carried
         ``factors`` (``adjoint_refine='stale'``, the default where there
         are dense or block-Thomas factors), else one transposed solve with
         full-precision factors built at u1 (the JAX package's 'exact' mode
         and its rule for a step that factors itself, and for the Krylov
-        solvers 'cg' and 'bsb' always: a transposed BiCGStab solve)."""
+        solvers 'cg' and 'bsb' always: a transposed BiCGStab solve).
+        ``batched``: a batch of dense steps, each variant's solve its own
+        (:meth:`_refined_adjoint`, or the vmapped transposed dense
+        solve)."""
         self.adjoint_counts["solves"] += 1
         krylov = params_d.get("linear_solver", "dense") in ("cg", "bsb")
-        if (factors is not None and not krylov
-                and params_d.get("adjoint_refine", "stale") == "stale"):
+        refine = (factors is not None and not krylov
+                  and params_d.get("adjoint_refine", "stale") == "stale")
+        if batched:
+            if refine:
+                return self._refined_adjoint(JT, factors, u1_bar, params_d, batched=True)
+            return self._vmapped_jac(dt, linalg.dense_solve_transpose)(u1, *inputs, u1_bar)
+        if refine:
             return self._refined_adjoint(JT, factors, u1_bar, params_d)
         return self._exact_solve(u1, inputs, dt, params_d, u1_bar, transpose=True)
 
@@ -1022,32 +1173,62 @@ class SolidModel(SolidElements, BaseTransientModel):
             return btd.btd_solve_t(self.bsb_plan()[0], factors, r)
         return linalg.dense_factor_solve_t(factors, r)
 
-    def _refined_adjoint(self, JT, factors, u1_bar, params_d):
+    def _refined_adjoint(self, JT, factors, u1_bar, params_d, batched=False):
         """Richardson iteration ``lam += M^-T (u1_bar - J^T lam)`` with the
         carried factors as ``M`` (``refined_adjoint_solve`` of the JAX
         package): it keeps the lowest-residual iterate and stops below
         ``adjoint_refine_tol`` relative to ``|u1_bar|``, when an iteration
         fails to reduce the residual by ``stagnation_ratio``, or after
-        ``adjoint_refine_iters`` iterations.  Each test reads the norm on
-        the host."""
+        ``adjoint_refine_iters`` iterations.  ``batched``: a batch of
+        variants (rows) in lockstep, each with its own norms, test and
+        lowest-residual iterate (the JAX package's loop under ``vmap``);
+        unbatched, the same loop at rank 0.  One host read an iteration,
+        of whether any variant goes on; the tests compare in float64, as
+        :func:`solvers.newton.newton_solve`'s do."""
         tol = params_d.get("adjoint_refine_tol", 1e-8)
         max_it = int(params_d.get("adjoint_refine_iters", 25))
         stag = params_d.get("stagnation_ratio", 0.9)
-        norm = torch.linalg.vector_norm
-        bnorm = float(norm(u1_bar))
-        lam = self.solve_factors_t(factors, u1_bar)
+        if batched:
+            solve_b = vmap(linalg.dense_factor_solve_t)
+
+            def solve_t(r):
+                return solve_b(factors, r)
+
+            def norm(x):
+                return torch.linalg.vector_norm(x, dim=-1)
+        else:
+            def solve_t(r):
+                return self.solve_factors_t(factors, r)
+
+            norm = torch.linalg.vector_norm
+
+        bound = tol * norm(u1_bar).double()
+        lam = solve_t(u1_bar)
         r = u1_bar - JT(lam)
-        rn = float(norm(r))
-        rn_prev = float("inf")
-        lam_best, rn_best, k = lam, rn, 0
-        while rn >= tol * bnorm and rn < stag * rn_prev and k < max_it:
-            lam = lam + self.solve_factors_t(factors, r)
-            r = u1_bar - JT(lam)
-            rn_prev, rn = rn, float(norm(r))
-            if rn < rn_best:
-                lam_best, rn_best = lam, rn
-            k += 1
-        self.adjoint_counts["refine_iterations"] += k
+        rn = norm(r)
+        rn_prev = torch.full_like(rn, float("inf"))
+        lam_best, rn_best = lam, rn
+        k = torch.zeros(rn.shape, dtype=torch.int64, device=rn.device)
+
+        def active():
+            e = rn.double()
+            return (e >= bound) & (e < stag * rn_prev.double()) & (k < max_it)
+
+        act = active()
+        while bool(act.any()):
+            lam_new = lam + solve_t(r)
+            r_new = u1_bar - JT(lam_new)
+            rn_new = norm(r_new)
+            better = act & (rn_new < rn_best)
+            lam_best = _select(better, lam_new, lam_best)
+            rn_best = torch.where(better, rn_new, rn_best)
+            lam = _select(act, lam_new, lam)
+            r = _select(act, r_new, r)
+            rn_prev = torch.where(act, rn, rn_prev)
+            rn = torch.where(act, rn_new, rn)
+            k = k + act.to(k.dtype)
+            act = active()
+        self.adjoint_counts["refine_iterations"] += int(k.sum())
         return lam_best
 
     # -- the static problem (v1 = a1 = 0) ----------------------------------------
@@ -1352,6 +1533,47 @@ class ExplicitFSIModel(BaseTransientModel):
         )
         return self._fluid_step(uva1, state0, control, prop), info
 
+    # -- a batch of variants ------------------------------------------------------
+    def _solid_inputs_batch(self, state0, prop):
+        """:meth:`_solid_inputs` of a batch: the solid's state and property
+        tensors themselves (K5's carried predictor is kept with the
+        state's very tensors), the pressure map vmapped."""
+        sl_prop, _ = self._split_prop(prop)
+        p_solid = vmap(self._pressure_to_solid)(state0["p"])
+        return {k: state0[k] for k in ("u", "v", "a")}, {"p1": p_solid}, sl_prop
+
+    def step_batch(self, state0, control, prop, dt, params=None, dt_next=None):
+        """:meth:`step_pure` of a batch of variants: a leading batch axis on
+        every tensor of ``state0``, ``control`` and ``prop``
+        (``SolidModel.solve_state1_batch``, then the vmapped fluid step)."""
+        return self.step_batch_stale(None, state0, control, prop, dt, params, dt_next)
+
+    def step_batch_stale(self, factors, state0, control, prop, dt, params=None,
+                         dt_next=None):
+        """:meth:`step_pure_stale` of a batch, with the batch's carried
+        factors (:meth:`factorize_batch`); None: as :meth:`step_batch`."""
+        sl_state0, sl_control, sl_prop = self._solid_inputs_batch(state0, prop)
+        uva1, info = self.solid.solve_state1_batch(sl_state0, sl_control, sl_prop, dt,
+                                                   params, dt_next, factors)
+        return vmap(self._fluid_step)(uva1, state0, control, prop), info
+
+    def factorize_batch(self, state0, control, prop, dt, params=None):
+        return self.solid.factorize_batch(*self._solid_inputs_batch(state0, prop), dt,
+                                          params)
+
+    def refresh_factors_batch(self, factors, state0, control, prop, dt, params=None):
+        return self.solid.refresh_factors_batch(
+            factors, *self._solid_inputs_batch(state0, prop), dt, params)
+
+    def step_diff_batch(self, state0, control, prop, dt, row, params=None,
+                        factors=None):
+        """:meth:`step_diff` of a batch (``SolidModel.
+        solve_state1_diff_batch``, then the vmapped fluid step)."""
+        sl_state0, sl_control, sl_prop = self._solid_inputs_batch(state0, prop)
+        uva1, info = self.solid.solve_state1_diff_batch(
+            sl_state0, sl_control, sl_prop, dt, row, params, factors)
+        return vmap(self._fluid_step)(uva1, state0, control, prop), info
+
 
 # tangents a vmapped jvp pushes at once where the coupled Jacobian of
 # ImplicitFSIModel's IFT rule is built (bounds the batched residual's memory)
@@ -1419,6 +1641,12 @@ class ImplicitFSIModel(ExplicitFSIModel):
     def __init__(self, *args):
         super().__init__(*args)
         self.picard_counts = {"steps": 0, "iterations": 0, "newton_iterations": 0}
+
+    def _no_batch(self, *args, **kwargs):
+        raise NotImplementedError("a batch of implicitly coupled variants is not ported")
+
+    step_batch = step_batch_stale = step_diff_batch = _no_batch
+    factorize_batch = refresh_factors_batch = _no_batch
 
     def res_pure(self, state1, state0, control, prop, dt, banded=False):
         """The coupled residual of every block at ``state1``: the solid's

@@ -56,6 +56,8 @@ __all__ = [
     "newmark_step",
     "newmark_update_t",
     "newmark_update_t_reference",
+    "newmark_update_t_batch",
+    "newmark_update_t_batch_reference",
     "factor_matvec",
     "btd_sweep",
     "btd_sweep_reference",
@@ -87,6 +89,7 @@ for _t in ("f32", "f64"):
         _SIGNATURES[f"vf_bsb_matvec{_op}_{_t}"] = [_P] * 5 + [_I] * 3 + [_P]
     _SIGNATURES[f"vf_newmark_{_t}"] = [_P] * 7 + [_L, _P, _P]
     _SIGNATURES[f"vf_newmark_t_{_t}"] = [_P] * 12 + [_I, _L, _P]
+    _SIGNATURES[f"vf_newmark_t_batch_{_t}"] = [_P] * 12 + [_L, _L, _P]
 _SIGNATURES["vf_capture_id"] = [_P, _P]
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -330,9 +333,9 @@ def _newmark_row(device: torch.device, dtype, dt: float, gamma: float, beta: flo
     return newmark_row(newmark.coefficients(dt, dtp, gamma, beta), dtype, device)
 
 
-def _check_newmark(u1, *vecs, what="newmark_update"):
-    """Flat vectors of one shape, one float dtype (f32/f64) and one device
-    (CPU or CUDA)."""
+def _check_newmark(u1, *vecs, what="newmark_update", batch=False):
+    """Flat vectors of one shape (with ``batch``, also (B, n) batches of
+    them), one float dtype (f32/f64) and one device (CPU or CUDA)."""
     dtype, device = u1.dtype, u1.device
     if dtype not in _SUFFIX:
         raise TypeError(f"{what}: float32 or float64 expected, got {dtype}")
@@ -341,8 +344,9 @@ def _check_newmark(u1, *vecs, what="newmark_update"):
             raise TypeError(f"{what}: mixed dtypes {dtype} and {t.dtype}")
         if t.device != device:
             raise ValueError(f"{what}: tensors on {device} and {t.device}")
-    if u1.dim() != 1 or any(t.shape != u1.shape for t in vecs):
-        raise ValueError(f"{what}: flat vectors of one shape expected")
+    if u1.dim() not in ((1, 2) if batch else (1,)) or any(t.shape != u1.shape for t in vecs):
+        raise ValueError(f"{what}: flat vectors of one shape expected"
+                         + (", or (B, n) batches of them" if batch else ""))
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {device}")
 
@@ -355,8 +359,10 @@ def newmark_update(u1, u0, v0, a0, dt: float, gamma=0.5, beta=0.25,
     default ``dt``): ``(v1, a1, u_next)``, one launch of K5 on CUDA (with a
     coefficient row on the device, formed at the first call with these
     steps and kept), the plain version on the CPU.  The time loop passes
-    its rows itself: :func:`newmark_update_coefs`."""
-    _check_newmark(u1, u0, v0, a0)
+    its rows itself: :func:`newmark_update_coefs`.  A batch of variants,
+    (B, n) vectors under one row, is one launch over B n entries (K5 is
+    elementwise)."""
+    _check_newmark(u1, u0, v0, a0, batch=True)
     if u1.device.type == "cpu":
         return newmark_update_reference(u1, u0, v0, a0, dt, gamma, beta, dt_next)
     dt = float(dt)
@@ -369,8 +375,9 @@ def newmark_update_coefs(u1, u0, v0, a0, coefs: torch.Tensor):
     """:func:`newmark_update` with the step's coefficients as a row on the
     vectors' device, in their dtype (:func:`newmark_row`; a contiguous (8,)
     tensor, for example a row of a run's table): K5 reads it from device
-    memory, so a CUDA graph of the step takes each replay's row."""
-    _check_newmark(u1, u0, v0, a0)
+    memory, so a CUDA graph of the step takes each replay's row.  Batches
+    of (B, n) vectors as :func:`newmark_update`."""
+    _check_newmark(u1, u0, v0, a0, batch=True)
     if (coefs.dtype != u1.dtype or tuple(coefs.shape) != (newmark.NCOEFS,)
             or coefs.device != u1.device):
         raise ValueError(f"newmark_update: coefficients must be a {u1.dtype} row of"
@@ -382,10 +389,14 @@ def newmark_update_coefs(u1, u0, v0, a0, coefs: torch.Tensor):
 
 
 def _newmark_launch(u1, u0, v0, a0, coefs: torch.Tensor):
-    """Launch K5 on checked CUDA vectors with the row ``coefs``."""
+    """Launch K5 on checked CUDA vectors with the row ``coefs``; a (B, n)
+    batch is one launch over its B n entries."""
     if not (u1.is_contiguous() and u0.is_contiguous() and v0.is_contiguous()
             and a0.is_contiguous() and coefs.is_contiguous()):
         raise ValueError("newmark_update: inputs must be contiguous")
+    if u1.dim() == 2:
+        outs = _newmark_launch(*(t.reshape(-1) for t in (u1, u0, v0, a0)), coefs)
+        return tuple(o.view(u1.shape) for o in outs)
     dtype, device = u1.dtype, u1.device
     n = u1.shape[0]
     lead = u1.data_ptr() % 16 // u1.element_size()
@@ -440,9 +451,27 @@ def newmark_update_t_reference(vb1, ab1, u1, u0, v0, a0, coefs: torch.Tensor):
     return ub1, -ub1, -(k[1] * vb1 + k[5] * c4a), -(k[2] * vb1 + k[4] * ab1), row_bar
 
 
+def newmark_update_t_batch_reference(vb1, ab1, u1, u0, v0, a0, coefs: torch.Tensor):
+    """:func:`newmark_update_t_reference` of a batch: (B, n) vectors under
+    one coefficient row, the row's cotangent (B, 8), a row of sums a
+    variant (sums over the last axis)."""
+    k = coefs.unbind(0)
+    ub1 = k[0] * vb1 + k[3] * ab1
+    c4a = k[3] * ab1
+    du = u1 - u0
+    zero = vb1.new_zeros(vb1.shape[:-1])
+    row_bar = torch.stack([
+        (vb1 * du).sum(-1), -(vb1 * v0).sum(-1), -(vb1 * a0).sum(-1),
+        (ab1 * (du - k[5] * v0)).sum(-1), -(ab1 * a0).sum(-1), -(c4a * v0).sum(-1),
+        zero, zero,
+    ], dim=-1)
+    return ub1, -ub1, -(k[1] * vb1 + k[5] * c4a), -(k[2] * vb1 + k[4] * ab1), row_bar
+
+
 def newmark_update_t(vb1, ab1, u1, u0, v0, a0, coefs: torch.Tensor):
     """K5's backward: K5T on CUDA, the plain
-    :func:`newmark_update_t_reference` on the CPU.
+    :func:`newmark_update_t_reference` on the CPU.  A batch of (B, n)
+    vectors under one row takes :func:`newmark_update_t_batch`.
 
     K5T is one launch (programmatic dependent launch) of up to one CTA an
     SM.  Each CTA writes its six partial sums of the row's cotangent and
@@ -452,11 +481,9 @@ def newmark_update_t(vb1, ab1, u1, u0, v0, a0, coefs: torch.Tensor):
     static device memory that holds one launch at a time
     (:func:`_newmark_t_slot`).  The outputs are views of one allocation,
     the vectors in u1's 16-byte phase."""
-    _check_newmark(u1, u0, v0, a0, vb1, ab1, what="newmark_update_t")
-    if (coefs.dtype != u1.dtype or tuple(coefs.shape) != (newmark.NCOEFS,)
-            or coefs.device != u1.device):
-        raise ValueError(f"newmark_update_t: coefficients must be a {u1.dtype} row of"
-                         f" {newmark.NCOEFS} on {u1.device}")
+    if u1.dim() == 2:
+        return newmark_update_t_batch(vb1, ab1, u1, u0, v0, a0, coefs)
+    _check_newmark_t(vb1, ab1, u1, u0, v0, a0, coefs)
     if u1.device.type == "cpu":
         return newmark_update_t_reference(vb1, ab1, u1, u0, v0, a0, coefs)
     ins = (vb1, ab1, u1, u0, v0, a0, coefs)
@@ -474,6 +501,47 @@ def newmark_update_t(vb1, ab1, u1, u0, v0, a0, coefs: torch.Tensor):
         ab0.data_ptr(), row_bar.data_ptr(), slot, n, stream)
     if err != 0:
         raise RuntimeError(f"vf_newmark_t_{_SUFFIX[u1.dtype]} launch failed: cudaError_t {err}")
+    LAUNCHES["newmark_t"] += 1
+    return ub1, ub0, vb0, ab0, row_bar
+
+
+def _check_newmark_t(vb1, ab1, u1, u0, v0, a0, coefs, batch=False):
+    _check_newmark(u1, u0, v0, a0, vb1, ab1, what="newmark_update_t", batch=batch)
+    if (coefs.dtype != u1.dtype or tuple(coefs.shape) != (newmark.NCOEFS,)
+            or coefs.device != u1.device):
+        raise ValueError(f"newmark_update_t: coefficients must be a {u1.dtype} row of"
+                         f" {newmark.NCOEFS} on {u1.device}")
+
+
+def newmark_update_t_batch(vb1, ab1, u1, u0, v0, a0, coefs: torch.Tensor):
+    """K5's backward over a batch of variants: (B, n) vectors under one
+    coefficient row, and the row's cotangent of each variant, (B, 8).  On
+    CUDA one launch of K5T's batched kernel, a CTA a variant (its grid's
+    variant axis): the CTA adds its variant's six sums as K5T's CTAs add
+    theirs (each thread in entry order, an xor tree in each warp, the warps
+    in order), so each variant's row is one ordered sum, whatever the order
+    in which the CTAs run, with no partial sums to meet and no slot.  On
+    the CPU :func:`newmark_update_t_batch_reference`."""
+    _check_newmark_t(vb1, ab1, u1, u0, v0, a0, coefs, batch=True)
+    if u1.dim() != 2:
+        raise ValueError("newmark_update_t_batch: (B, n) vectors expected")
+    if u1.device.type == "cpu":
+        return newmark_update_t_batch_reference(vb1, ab1, u1, u0, v0, a0, coefs)
+    ins = (vb1, ab1, u1, u0, v0, a0, coefs)
+    if not all(t.is_contiguous() for t in ins):
+        raise ValueError("newmark_update_t: inputs must be contiguous")
+    B, n = u1.shape
+    if B == 0 or n == 0:
+        raise ValueError("newmark_update_t: empty vectors")
+    ub1, ub0, vb0, ab0 = (torch.empty_like(u1) for _ in range(4))
+    row_bar = torch.empty((B, newmark.NCOEFS), dtype=u1.dtype, device=u1.device)
+    err = _newmark_t_batch_fn(u1.dtype)(
+        vb1.data_ptr(), ab1.data_ptr(), u1.data_ptr(), u0.data_ptr(), v0.data_ptr(),
+        a0.data_ptr(), coefs.data_ptr(), ub1.data_ptr(), ub0.data_ptr(), vb0.data_ptr(),
+        ab0.data_ptr(), row_bar.data_ptr(), B, n, _stream(u1))
+    if err != 0:
+        raise RuntimeError(f"vf_newmark_t_batch_{_SUFFIX[u1.dtype]} launch failed:"
+                           f" cudaError_t {err}")
     LAUNCHES["newmark_t"] += 1
     return ub1, ub0, vb0, ab0, row_bar
 
@@ -531,6 +599,46 @@ def _newmark_t_fn(dtype):
     return getattr(_lib(), f"vf_newmark_t_{_SUFFIX[dtype]}")
 
 
+@functools.lru_cache(maxsize=None)
+def _newmark_t_batch_fn(dtype):
+    """K5T's batched entry point for ``dtype``."""
+    return getattr(_lib(), f"vf_newmark_t_batch_{_SUFFIX[dtype]}")
+
+
+def _batch_first(info, in_dims, *tensors):
+    """``torch.func.vmap`` rule inputs with the batch axis first: a tensor
+    without one is expanded to the batch, and each is made contiguous."""
+    return tuple((t.movedim(d, 0) if d is not None else t.expand(info.batch_size, *t.shape))
+                 .contiguous() for t, d in zip(tensors, in_dims))
+
+
+class _NewmarkStepT(torch.autograd.Function):
+    """K5T (:func:`newmark_update_t`) as a Function, so that the backward
+    of :class:`_NewmarkStep` runs under ``torch.func.vmap`` (a vmapped
+    gradient): its vmap rule is one batched launch
+    (:func:`newmark_update_t_batch`), a row cotangent a variant.  Never
+    differentiated itself."""
+
+    @staticmethod
+    def forward(vb1, ab1, u1, u0, v0, a0, coefs):
+        return newmark_update_t(vb1, ab1, u1, u0, v0, a0, coefs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, vb1, ab1, u1, u0, v0, a0, coefs):
+        if in_dims[6] is not None:
+            raise NotImplementedError("K5T takes one coefficient row for the batch")
+        vecs = _batch_first(info, in_dims[:6], vb1, ab1, u1, u0, v0, a0)
+        outs = _NewmarkStepT.apply(*(v.reshape(-1, v.shape[-1]) for v in vecs), coefs)
+        shape = vecs[0].shape
+        outs = tuple(o.reshape(shape) for o in outs[:4]) + (
+            outs[4].reshape(shape[:-1] + (newmark.NCOEFS,)),)
+        return outs, (0,) * 5
+
+
 class _NewmarkStep(torch.autograd.Function):
     """K5 (:func:`newmark_update_coefs`) with K5T as its backward and two
     K5 launches as its tangent.  The predictor ``u_next`` is marked
@@ -552,7 +660,14 @@ class _NewmarkStep(torch.autograd.Function):
         u1, u0, v0, a0, coefs = ctx.saved_tensors
         vb1 = torch.zeros_like(u1) if vb1 is None else vb1.contiguous()
         ab1 = torch.zeros_like(u1) if ab1 is None else ab1.contiguous()
-        return newmark_update_t(vb1, ab1, u1, u0, v0, a0, coefs)
+        if torch._C._functorch.is_functorch_wrapped_tensor(vb1):
+            # a vmapped gradient: through apply, so that K5T gets its
+            # batched launch (_NewmarkStepT.vmap)
+            return _NewmarkStepT.apply(vb1, ab1, u1, u0, v0, a0, coefs)
+        *vecs, row_bar = newmark_update_t(vb1, ab1, u1, u0, v0, a0, coefs)
+        if row_bar.dim() > coefs.dim():  # (B, n) vectors under one row
+            row_bar = row_bar.sum(0)
+        return (*vecs, row_bar)
 
     @staticmethod
     def jvp(ctx, du1, du0, dv0, da0, dcoefs):
@@ -576,6 +691,16 @@ class _NewmarkStep(torch.autograd.Function):
         c4, dt, dc4, ddt = coefs[3], coefs[5], dc[3], dc[5]
         a1_row = a1_row - (dc4 * (dt - ddt) + c4 * ddt) * v0
         return v1_dot + v1_row, a1_dot + a1_row, None
+
+    @staticmethod
+    def vmap(info, in_dims, u1, u0, v0, a0, coefs):
+        # a batch of vectors under one row is one launch over all of them
+        if in_dims[4] is not None:
+            raise NotImplementedError("K5 takes one coefficient row for the batch")
+        vecs = _batch_first(info, in_dims[:4], u1, u0, v0, a0)
+        shape = vecs[0].shape
+        outs = _NewmarkStep.apply(*(v.reshape(-1, shape[-1]) for v in vecs), coefs)
+        return tuple(o.reshape(shape) for o in outs), (0, 0, 0)
 
 
 def newmark_step(u1, u0, v0, a0, coefs: torch.Tensor):

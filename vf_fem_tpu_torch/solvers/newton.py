@@ -14,6 +14,16 @@ certified mode assembles a trailing residual and keeps the best iterate;
 ``fixed_tail_residual=False`` skips that residual and commits the final
 iterate, reporting the penultimate residual.
 
+``batched=True`` solves a batch of independent systems at once, x of
+shape (B, n), each row with its own norms and its own ``SolveInfo``
+entries (tensors of shape (B,)), as the JAX package's ``newton_solve``
+under ``vmap``: the fixed-iteration mode selects each row's best iterate
+by itself, and the adaptive loop runs in lockstep, one host read of the
+batch's stopping test an iteration (does any row go on?), each row's
+iterate, residual and counts held by ``torch.where`` once its own test
+has stopped it, so that each row is the one its own solve gives.  An
+unbatched adaptive solve runs the same loop at rank 0.
+
 :func:`iterative_solve` is the fixed-point (Picard) loop of the implicit
 coupling, plain or with Aitken relaxation (counterpart of
 ``vf_fem_tpu.solvers.newton.iterative_solve``).
@@ -38,28 +48,44 @@ def _rel(err, err0):
     return err / torch.where(err0 == 0, 1.0, err0)
 
 
+def _select(mask, a, b):
+    """``torch.where`` of a mask with one entry a row of ``a`` (a 0-d mask
+    for an unbatched solve)."""
+    return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - mask.dim())), a, b)
+
+
 def newton_solve(
     x0: torch.Tensor,
     assem_res: Callable[[torch.Tensor], torch.Tensor],
     solve_jac: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
     params: dict = None,
     norm_fn: Callable[[torch.Tensor], torch.Tensor] = None,
+    batched: bool = False,
 ):
     """Solve ``assem_res(x) = 0``; ``solve_jac(x, r)`` returns
     ``J(x)^{-1} r`` (or an approximation of it).  ``norm_fn`` measures the
     residual (default the 2-norm; the DOF-sharded step passes the norm of a
-    vector sharded over its shards, ``parallel.shards.pnorm``)."""
+    vector sharded over its shards, ``parallel.shards.pnorm``).  With
+    ``batched`` the rows of ``x0`` (B, n) are B systems (see the module
+    docstring), and the default norm is each row's."""
     params = {**DEFAULT_NEWTON_SOLVER_PRM, **(params or {})}
     abs_tol = params["absolute_tolerance"]
     rel_tol = params["relative_tolerance"]
     max_iter = params["maximum_iterations"]
-    norm = norm_fn or torch.linalg.vector_norm
+    if norm_fn is not None:
+        norm = norm_fn
+    elif batched:
+        def norm(r):
+            return torch.linalg.vector_norm(r, dim=-1)
+    else:
+        norm = torch.linalg.vector_norm
 
     n_fixed = params.get("fixed_iterations")
     if n_fixed:
         n_fixed = int(n_fixed)
         # a fill, not a host-to-device copy: the step stays capturable
-        num_iter = torch.full((), n_fixed, dtype=torch.int64, device=x0.device)
+        num_iter = torch.full(x0.shape[:-1] if batched else (), n_fixed, dtype=torch.int64,
+                              device=x0.device)
         x = x0
         res = assem_res(x)
         err0 = norm(res)
@@ -79,37 +105,55 @@ def newton_solve(
             res = assem_res(x)
             err = norm(res)
             better = err < err_best
-            x_best = torch.where(better, x, x_best)
+            x_best = _select(better, x, x_best)
             err_best = torch.where(better, err, err_best)
         return x_best, SolveInfo(num_iter, err_best, _rel(err_best, err0))
 
     stagnation_ratio = params.get("stagnation_ratio", 0.9)
+    return _adaptive(x0, assem_res, solve_jac, norm, abs_tol, rel_tol, max_iter,
+                     stagnation_ratio)
+
+
+def _adaptive(x0, assem_res, solve_jac, norm, abs_tol, rel_tol, max_iter,
+              stagnation_ratio):
+    """The adaptive loop of :func:`newton_solve`, in lockstep over a batch
+    of systems (rows of ``x0``, one norm each): every iteration steps every
+    row and commits the step in the rows whose own test has not stopped
+    them; the loop ends when no row goes on, the one host read an
+    iteration.  An unbatched solve is the batch at rank 0 (0-d norms and
+    masks).  The tests compare in float64, as Python floats would, so that
+    an f32 norm meets a tolerance such as 1e-8 unrounded."""
     res = assem_res(x0)
-    err0_t = norm(res)
-    err0 = float(err0_t)
+    err0 = norm(res)
     # finite sentinel for the first progress test
-    err_prev = float(torch.finfo(err0_t.dtype).max) * 0.125
-    x = x_best = x0
+    big = float(torch.finfo(err0.dtype).max) * 0.125
+    err_prev = torch.full_like(err0, big)
     err = err_best = err0
-    err_best_t = err0_t
-    k = 0
-    while (
-        err >= abs_tol
-        and err >= rel_tol * err0
-        and err < stagnation_ratio * err_prev
-        and k < max_iter
-    ):
-        x = x - solve_jac(x, res)
-        res = assem_res(x)
-        err_t = norm(res)
-        err_prev, err = err, float(err_t)
+    x = x_best = x0
+    k = torch.zeros(err0.shape, dtype=torch.int64, device=x0.device)
+
+    def active():
+        e = err.double()
+        return ((e >= abs_tol) & (e >= rel_tol * err0.double())
+                & (e < stagnation_ratio * err_prev.double()) & (k < max_iter))
+
+    act = active()
+    while bool(act.any()):
+        x_new = x - solve_jac(x, res)
+        res_new = assem_res(x_new)
+        err_new = norm(res_new)
         # with an approximate Jacobian an iteration can overshoot: keep the
         # lowest-residual iterate, not the last
-        if err < err_best:
-            x_best, err_best, err_best_t = x, err, err_t
-        k += 1
-    num_iter = torch.tensor(k, device=x0.device)
-    return x_best, SolveInfo(num_iter, err_best_t, _rel(err_best_t, err0_t))
+        better = act & (err_new < err_best)
+        x_best = _select(better, x_new, x_best)
+        err_best = torch.where(better, err_new, err_best)
+        x = _select(act, x_new, x)
+        res = _select(act, res_new, res)
+        err_prev = torch.where(act, err, err_prev)
+        err = torch.where(act, err_new, err)
+        k = k + act.to(k.dtype)
+        act = active()
+    return x_best, SolveInfo(k, err_best, _rel(err_best, err0))
 
 
 def _leaves(tree: dict):

@@ -38,9 +38,16 @@ the captured step made (``ops.LAUNCHES``, ``fem.banded.LAUNCHES``, the
 solid's ``predictor_counts`` and ``krylov_counts``), which count Python
 calls.
 
+A batch of variants (``forward.integrate_batch_pure``) is one graph of
+the batched step (the model's ``step_batch_stale``): every buffer holds
+the batch (state, predictor, properties and factors (B, ...); controls,
+trajectory and info rows (CHUNK, B, ...)), cached under the params and
+the batch's size.
+
 On the CPU :func:`integrate` runs the same step on the same buffers
 uncaptured: ``tests/test_torch_integrate.py`` holds it to the eager loop
-bit for bit.
+bit for bit, ``tests/test_torch_sweep.py`` the batched step to the batched
+eager loop.
 """
 
 from __future__ import annotations
@@ -138,9 +145,9 @@ def _pool_bytes(graph) -> Optional[int]:
 _INFO_DTYPES = {"num_iter": torch.int64, "bracketed": torch.bool}
 
 
-def _infos(model, n: int):
-    """Zeroed rows of each field of the model's step info (``info_type``,
-    ``SolveInfo`` by default)."""
+def _infos(model, n):
+    """Zeroed rows (``n``, an int or a shape) of each field of the model's
+    step info (``info_type``, ``SolveInfo`` by default)."""
     info_type = getattr(model, "info_type", SolveInfo)
     return info_type(*(torch.zeros(n, dtype=_INFO_DTYPES.get(f, model.dtype),
                                    device=model.device) for f in info_type._fields))
@@ -148,16 +155,18 @@ def _infos(model, n: int):
 
 class StepBuffers:
     """Static buffers of one captured step (see the module docstring) and,
-    once captured, its graph with what the capture measured (``stats``)."""
+    once captured, its graph with what the capture measured (``stats``);
+    ``batch``, ``(B, batch_controls)``, of a batched step."""
 
-    def __init__(self, model, params_d: dict):
+    def __init__(self, model, params_d: dict, batch=None):
         dev, dtype = model.device, model.dtype
-        self.model, self.params_d = model, params_d
-        self.state = {k: torch.zeros(np.asarray(v).shape, dtype=dtype, device=dev)
+        self.model, self.params_d, self.batch = model, params_d, batch
+        lead = () if batch is None else (batch[0],)
+        self.state = {k: torch.zeros(lead + np.asarray(v).shape, dtype=dtype, device=dev)
                       for k, v in model.state0.items()}
         self.pred = torch.zeros_like(self.state["u"])
         self.counter = torch.zeros(1, dtype=torch.int64, device=dev)
-        self.controls = {k: torch.zeros((CHUNK,) + np.asarray(v).shape, dtype=dtype,
+        self.controls = {k: torch.zeros((CHUNK,) + lead + np.asarray(v).shape, dtype=dtype,
                                         device=dev)
                          for k, v in model.control.items()}
         self.coefs = torch.zeros((CHUNK, newmark.NCOEFS), dtype=dtype, device=dev)
@@ -165,7 +174,7 @@ class StepBuffers:
         self.factors = None
         self.traj = {k: torch.zeros((CHUNK,) + tuple(v.shape), dtype=dtype, device=dev)
                      for k, v in self.state.items()}
-        self.infos = _infos(model, CHUNK)
+        self.infos = _infos(model, (CHUNK,) + lead)
         self.graph = None
         self.delta = None
         self.stats = {"captures": 0, "replays": 0}
@@ -177,7 +186,8 @@ class StepBuffers:
         tensors are never the graph's)."""
         dev, dtype = self.model.device, self.model.dtype
         for k, v in to_tensors(ini_state, dev, dtype).items():
-            self.state[k].copy_(v.reshape(self.state[k].shape))
+            t = self.state[k]  # every variant starts from ini_state
+            t.copy_(v.reshape(t.shape[self.batch is not None:]).expand(t.shape))
         prop = to_tensors(prop, dev, dtype)
         if self.prop is None:
             self.prop = {k: v.clone() for k, v in prop.items()}
@@ -227,13 +237,14 @@ class StepBuffers:
         coefs = StepCoefs(self.coefs.index_select(0, n)[0], model.dtype)
         control = {k: t.index_select(0, n)[0] for k, t in self.controls.items()}
         model.solid.carry_predictor(self.solid_state(), self.pred, coefs)
-        state1, info = model.step_pure_stale(self.factors, self.state, control,
-                                             self.prop, coefs, self.params_d)
+        step = model.step_pure_stale if self.batch is None else model.step_batch_stale
+        state1, info = step(self.factors, self.state, control, self.prop, coefs,
+                            self.params_d)
         u_next = model.solid.carried_predictor()
         for k, t in self.traj.items():
             t.index_copy_(0, n, state1[k].unsqueeze(0))
         for t, x in zip(self.infos, info):
-            t.index_copy_(0, n, x.reshape(1))
+            t.index_copy_(0, n, x.unsqueeze(0))
         for k, t in self.state.items():
             t.copy_(state1[k])
         self.pred.copy_(u_next)
@@ -283,6 +294,13 @@ def params_key(params_d: dict) -> tuple:
     return tuple(sorted(params_d.items(), key=lambda kv: kv[0]))
 
 
+def cache_key(params_d: dict, batch=None) -> tuple:
+    """The key of a run's step graph in ``model._step_graphs``: its merged
+    solver parameters, and a batched run's ``(B, batch_controls)``."""
+    key = params_key(params_d)
+    return key if batch is None else key + (("batch", batch),)
+
+
 def graph_stats(model) -> dict:
     """``{params key: stats}`` of the model's cached step graphs: captures,
     replays, nodes, capture_ms, instantiate_ms, pool_bytes."""
@@ -294,42 +312,51 @@ class _Run:
     coefficients, a row a step, and the trajectory and infos its steps
     write, which the caller gets."""
 
-    def __init__(self, model, controls_stacked, dts):
+    def __init__(self, model, controls, dts, batch=None):
         dev, dtype = model.device, model.dtype
         n_steps = len(dts)
-        controls = to_tensors(controls_stacked, dev, dtype)
+        lead = () if batch is None else (batch[0],)
         n_controls = next(iter(controls.values())).shape[0]
         held = torch.as_tensor(np.minimum(np.arange(n_steps), n_controls - 1), device=dev)
         self.controls = {k: controls[k].index_select(0, held).reshape(
-                             (n_steps,) + np.asarray(v).shape)
+                             (n_steps,) + lead + np.asarray(v).shape)
                          for k, v in model.control.items()}
         self.coefs = ops.newmark_row(coefficient_table(dts), dtype, dev)
-        self.traj = {k: torch.empty((n_steps,) + np.asarray(v).shape, dtype=dtype, device=dev)
+        self.traj = {k: torch.empty((n_steps,) + lead + np.asarray(v).shape, dtype=dtype,
+                                    device=dev)
                      for k, v in model.state0.items()}
-        self.infos = _infos(model, n_steps)
+        self.infos = _infos(model, (n_steps,) + lead)
 
     def control_row(self, n: int) -> dict:
         return {k: t[n] for k, t in self.controls.items()}
 
 
-def integrate(model, ini_state, controls_stacked, prop, times, params_d: dict):
+def integrate(model, ini_state, controls_stacked, prop, times, params_d: dict,
+              batch=None):
     """:func:`~vf_fem_tpu_torch.forward.integrate_pure` of a run that
     :func:`captures` selects: each step a replay of the cached graph (its
     first step, where the graph is new, a warm-up before the capture).  A
-    CPU model runs the same step uncaptured on fresh buffers."""
+    CPU model runs the same step uncaptured on fresh buffers.  ``batch``,
+    ``(B, batch_controls)``: the batched run of
+    ``forward.integrate_batch_pure`` (trajectory and infos (n_steps, B,
+    ...))."""
+    from .forward import run_inputs, steppers
+
     dts = np.diff(np.asarray(times, dtype=np.float64))
     n_steps = len(dts)
     if n_steps < 1:
         raise ValueError("integrate_pure needs at least two time points")
     capture = model.device.type == "cuda"
     cache = model.__dict__.setdefault("_step_graphs", {})
-    key = params_key(params_d)
+    key = cache_key(params_d, batch)
     buf = cache.get(key) if capture else None
     if buf is None:
-        buf = StepBuffers(model, params_d)
+        buf = StepBuffers(model, params_d, batch)
     solid = model.solid
+    _, _, factorize, refresh, _ = steppers(model, batch)
     with torch.no_grad():
-        run = _Run(model, controls_stacked, dts)
+        _, controls, prop = run_inputs(model, {}, controls_stacked, prop, batch)
+        run = _Run(model, controls, dts, batch)
         buf.load(ini_state, prop)
         buf.form_predictor(float(dts[0]))
         for n0, n1, how in refresh_windows(n_steps, params_d):
@@ -337,11 +364,10 @@ def integrate(model, ini_state, controls_stacked, prop, times, params_d: dict):
             # the window's factors at the carried predictor of step n0
             solid.carry_predictor(buf.solid_state(), buf.pred, dt0)
             if how == "factor":
-                factors = model.factorize(buf.state, run.control_row(n0), buf.prop, dt0,
-                                          params_d)
+                factors = factorize(buf.state, run.control_row(n0), buf.prop, dt0, params_d)
             else:
-                factors = model.refresh_factors(buf.factors, buf.state, run.control_row(n0),
-                                                buf.prop, dt0, params_d)
+                factors = refresh(buf.factors, buf.state, run.control_row(n0), buf.prop, dt0,
+                                  params_d)
             buf.set_factors(factors)
             for n in range(n0, n1):
                 j = n % CHUNK
