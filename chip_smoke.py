@@ -59,7 +59,7 @@ runs, in order:
 8. integrate: ``forward.integrate(model, None, ...)`` (the entry point a
    user calls, no statefile) on the M5 headline and the 23.7k production
    btd config, 100 steps, f64 and f32; then the eager loop and the
-   captured step in turns (f64: eager, graph, graph; f32: eager, graph; no
+   captured step in turns (eager, graph; no
    warm-up run, the entry point's run warms the path) with steps/s by
    CUDA events, each graph run held bit for bit (``torch.equal``) to the
    eager run with equal launch counts, the entry point's
@@ -255,7 +255,26 @@ runs, in order:
    variant's shape gradient against central differences.  Phase 3 holds
    K5 and K5T over batches of 8, 64 and 256 M5 vectors (K5T a CTA a
    variant, a row cotangent a variant) to their plain versions, and times
-   them with their inputs cold in L2 (``graph_ms_cold``).
+   them with their inputs cold in L2 (``graph_ms_cold``);
+20. grad_more: gradients and tangents where phases 17-18 ran only the
+   forward pass.  K6T over slabs (one cluster a slab) on the 23.7k model's
+   SPIKE factors with their transposed parts (8 x 12 x 256^2, bf16/f64 and
+   f64/f64: the sweeps of the transposed local solves), each slab held row
+   by row and as a whole to the plain version and bit for bit to one
+   launch a slab; K6T at Bt = 1280 on the 45.8k fold's factors (36 row
+   blocks, the four dtype pairs) as phase 3 holds it at 256.  (A)
+   'spike' value+grad at 23.7k on bench.py's production settings (20
+   steps): the trajectory the forward graph's bit for bit, the stale
+   gradient within 1e-6 of the exact one, a tangent run in duality with
+   it (1e-8); (B) the DD step's value+grad over 8 shards at 23.7k
+   (tests/test_ddstep.py:123-167's settings: 8 steps, refresh 4) against
+   the single-device btd adjoint with exact factors (value rtol 1e-10,
+   emod rtol 1e-4 / atol 1e-7 max|g|, ymid rtol 1e-6); (C) the 45.8k
+   fold's value+grad on the production btd settings (bf16 factors, 10
+   steps), the trajectory the forward's bit for bit, stale within 1e-6
+   of exact (f64 factors: K6T f64/f64 at 1280); each with steps/s, peak
+   memory, a profile's idle share and its kernels counted launched.  It
+   reuses phase 8's 23.7k model and phase 17's 45.8k fold.
 
 Phase 3 also holds the block-Thomas sweep kernel (K6) and its transpose
 (K6T, both sweeps of ``btd_solve_t``: forward on W, backward on V, each
@@ -277,7 +296,7 @@ time in a CUDA graph, as the kernel's.  Each kernel's bound
 is the larger of its bytes (each input read once, each output written
 once) over the HBM rate and its operations over the peak rate of their
 type.  The ``kernels`` line before the last carries all of it, with each
-kernel's launches per step on the main-path runs (phases 5-19; a Hopf
+kernel's launches per step on the main-path runs (phases 5-20; a Hopf
 point counts as one step).
 
 Phases 5-7 print each production run's Newmark predictors, taken from
@@ -376,10 +395,18 @@ KERNELS = {
     "newmark_t x8": ("newmark_update_t over a batch of 8", "none (K5's backward; the JAX"
                      " package differentiates vf_fem_tpu/equations/newmark.py:21-72 under vmap)",
                      "vf_fem_tpu_torch/csrc/ops.cu"),
+    # K6T over slabs (the transposed SPIKE solve) and at the 3D width
+    # (phase 20's runs)
+    "btd_sweep_t_slabs": ("btd_sweep_t over slabs",
+                          "none (lax.scan, vf_fem_tpu/solvers/spike.py:201-235)",
+                          "vf_fem_tpu_torch/csrc/btd.cu"),
+    "btd_sweep_t x1280": ("btd_sweep_t at Bt = 1280",
+                          "none (lax.scan, vf_fem_tpu/solvers/btd.py:340-358)",
+                          "vf_fem_tpu_torch/csrc/btd.cu"),
 }
 # the launch counter of a row of KERNELS whose key is not its counter's
 KERNEL_COUNTER = {"newmark x8": "newmark", "newmark x64": "newmark", "newmark x256": "newmark",
-                  "newmark_t x8": "newmark_t"}
+                  "newmark_t x8": "newmark_t", "btd_sweep_t x1280": "btd_sweep_t"}
 
 # benchmarks/benchmark_adjoint.py:68-88: the value+grad settings at M5 (the
 # accelerator branch: adaptive chord Newton, dense factors refreshed every
@@ -496,7 +523,10 @@ TRACE_NAMES = {"gather": "banded_gather_kernel", "scatter": "banded_scatter_kern
                "newmark": "newmark_kernel", "btd_sweep": "btd_sweep_kernel",
                "ebe_matvec": "ebe_matvec_kernel", "bsb_matvec": "bsb_matvec_kernel",
                "newmark_t": "newmark_t_kernel", "btd_sweep_t": "btd_sweep_t_kernel",
-               "ebe_matvec_t": "ebe_matvec_t_kernel", "bsb_matvec_t": "bsb_matvec_t_kernel"}
+               "ebe_matvec_t": "ebe_matvec_t_kernel", "bsb_matvec_t": "bsb_matvec_t_kernel",
+               # K6T over slabs is K6T's kernel launched as several clusters:
+               # held to the trace in runs that launch no K6T of one slab
+               "btd_sweep_t_slabs": "btd_sweep_t_kernel"}
 EARLIER_PER_STEP = {"M5 headline": 811.0, "23.7k btd": 887.5, "23.7k bsb": 8651.0}
 # phase 11, implicit coupling: the implicit leg of bench.py (its settings,
 # :493-497; its model, build_implicit :787-822) at M5 against
@@ -1867,7 +1897,7 @@ def phase_ops_btd(torch, cases, line="ops"):
     return results
 
 
-def phase_ops_btd_t(torch, cases, k6):
+def phase_ops_btd_t(torch, cases, k6, line="ops"):
     """K6T, the transposed sweeps of ``btd_solve_t``, against its plain
     version on ``sweep_cases``: forward on W from r / d, backward on V from
     the plain forward sweep's output, held as K6 is (``phase_ops_btd``,
@@ -1922,7 +1952,7 @@ def phase_ops_btd_t(torch, cases, k6):
             res["bound_ms"], res["bound_by"] = bound_of(nbytes, 2 * (n_sup - 1) * blk, acc)
             tp = ops.sweep_t_plan(bt, A.dtype, vdt)
             k6_ms = k6[("btd_sweep", f"{label} {ftag}/{vtag}", vtag)]["device_ms"]
-            log(f"[ops] btd_sweep_t {label} {ftag} factors / {vtag} vector ({n_sup} x {bt} x"
+            log(f"[{line}] btd_sweep_t {label} {ftag} factors / {vtag} vector ({n_sup} x {bt} x"
                 f" {bt}): {fmt_times(res)}; row max |diff| {diff.max().item():.3e}, whole-sweep"
                 f" max_abs_err {err:.3e} (rel {full_rel:.3e}, gate {SWEEP_FULL_GATES[acc]:.0e});"
                 f" same bits in 3 launches; cluster of {tp.cluster} CTAs ({tp.warps} consumer"
@@ -2401,8 +2431,7 @@ def same_run(torch, a, b):
 
 def phase_integrate(torch, card, dev, large, btd_res):
     """``forward.integrate(model, None, ...)`` at full width, then the eager
-    loop and the captured step in turns (f64: eager, graph, graph; f32:
-    eager, graph): the M5 headline (960 dofs) and the 23.7k production btd
+    loop and the captured step in turns (eager, graph): the M5 headline (960 dofs) and the 23.7k production btd
     config, 100 steps, f64 and f32.  Each graph run is held bit for bit to the eager run, its
     launch counts equal, and the entry point's certification and
     divergence flags equal the eager run's; then each run's gates and a
@@ -2438,13 +2467,11 @@ def phase_integrate(torch, card, dev, large, btd_res):
             torch.cuda.synchronize()
             require_launched(read_launches(), ("gather", "scatter", "newmark"), what)
             entry = graph_entry(model, params)
-            # f64 in turns eager, graph, graph; f32 eager then graph (the
-            # bit-equality gate); no warm-up run: the entry point's run
-            # above warmed the path.  Each turn's peak device memory above
-            # what was allocated before it
+            # eager then graph (the bit-equality gate); no warm-up run: the
+            # entry point's run above warmed the path.  Each turn's peak
+            # device memory above what was allocated before it
             turns = []
-            for which in (("eager", "graph", "graph") if dtype == torch.float64
-                          else ("eager", "graph")):
+            for which in ("eager", "graph"):
                 torch.cuda.synchronize()
                 base = torch.cuda.memory_allocated()
                 torch.cuda.reset_peak_memory_stats()
@@ -2568,14 +2595,17 @@ def forward_loss(torch, built, times, params):
     return float(value), traj, start.elapsed_time(end)
 
 
-def grad_run(torch, built, times, params, control=None):
+def grad_run(torch, built, times, params, control=None, loss=None):
     """One value+grad run through the entry point ``adjoint.integrate_grad``
     with the launch and adjoint counts set to 0 just before, timed by CUDA
-    events, with its peak device memory over what was allocated before."""
+    events, with its peak device memory over what was allocated before;
+    ``loss(torch, seen)`` makes the functional (``adjoint_loss`` by
+    default)."""
     from vf_fem_tpu_torch import adjoint
 
     model, state0, _, prop = built
     seen = {}
+    loss = loss or adjoint_loss
     solid = model.solid
     solid.adjoint_counts.update(solves=0, refine_iterations=0)
     torch.cuda.synchronize()
@@ -2585,7 +2615,7 @@ def grad_run(torch, built, times, params, control=None):
     end = torch.cuda.Event(enable_timing=True)
     reset_launches()
     start.record()
-    value, grads = adjoint.integrate_grad(model, adjoint_loss(torch, seen), state0,
+    value, grads = adjoint.integrate_grad(model, loss(torch, seen), state0,
                                           [control or model.control], prop, times, params)
     end.record()
     torch.cuda.synchronize()
@@ -3208,18 +3238,15 @@ def phase_physics(torch, card, dev, head, btd_res, integ):
         require(idx_sep == int(g23["idx_sep"]), "physics 23.7k: idx_sep off the golden's")
         model, state0, cs, prop = built
 
-        def drive(params, eager=False):
-            fn = forward._integrate_eager if eager else forward.integrate_pure
-            return run_timed(torch, model, lambda: fn(model, state0, cs, prop, times, params))
+        def drive(params):
+            return run_timed(torch, model, lambda: forward.integrate_pure(
+                model, state0, cs, prop, times, params))
 
         drive(BTD_PROD)  # warm-up: the capture
         (fin, traj, infos), ms, launches, _ = drive(BTD_PROD)
         require_launched(launches, used, f"physics 23.7k {tag}")
         for k, v in traj.items():
             require(bool(torch.isfinite(v).all()), f"physics 23.7k {tag}: non-finite {k}")
-        _, ms_eager, launches_eager, _ = drive(BTD_PROD, eager=True)
-        require(launches_eager == launches, f"physics 23.7k {tag}: eager launches"
-                f" {launches_eager} != graph {launches}")
         alone = replay_ms(torch, model, BTD_PROD, N_STEPS)
         entry = graph_entry(model, BTD_PROD)
         (fin_x, _, infos_x), ms_x, launches_x, _ = drive(BTD_EXACT)
@@ -3231,8 +3258,7 @@ def phase_physics(torch, card, dev, head, btd_res, integ):
         kv = btd_res[tag]
         kv_int = integ[("23.7k btd", tag)]
         log(f"[physics] 23.7k {solid} + {fluid} (idx_sep {idx_sep}) prod {tag}:"
-            f" {N_STEPS / (ms / 1e3):.2f} steps/s graph, {N_STEPS / (ms_eager / 1e3):.2f} eager"
-            f" (CUDA events); the step graph alone {alone:.4f} ms a step, {entry['nodes']} nodes"
+            f" {N_STEPS / (ms / 1e3):.2f} steps/s graph (CUDA events); the step graph alone {alone:.4f} ms a step, {entry['nodes']} nodes"
             f" a step; launches a step {per_step}; uncertified {uncertified(BTD_PROD, infos)}"
             f" (JAX {j_unc}); trajectory error vs the exact-Jacobian run {traj_err:.3e} (gate"
             f" {gate:.1e}; JAX CPU {jax_err:.3e}; exact run {N_STEPS / (ms_x / 1e3):.2f}"
@@ -3244,7 +3270,7 @@ def phase_physics(torch, card, dev, head, btd_res, integ):
             f" {kv['traj_err']:.3e}")
         require(traj_err <= gate, f"physics 23.7k {tag}: trajectory error over its gate")
         out[("23.7k", tag)] = dict(launches=launches, steps_s=N_STEPS / (ms / 1e3),
-                                   eager_steps_s=N_STEPS / (ms_eager / 1e3), replay_ms=alone,
+                                   replay_ms=alone,
                                    nodes=entry["nodes"], traj_err=traj_err, n_steps=N_STEPS)
     err = rel_max(finals["float64"], g23["u_final"])
     log(f"[physics] 23.7k prod f64 final u vs the JAX package's: {err:.3e} (gate"
@@ -3760,12 +3786,10 @@ def phase_fsai(torch, card, dev):
                 f"{what}: {info_i['lagged_fallback_steps']} lagged steps, diverged"
                 f" {info_i['diverged']}")
         entry = graph_entry(model, HEADLINE)
-        # f64 in turns eager, graph, graph; f32 eager then graph (the
-        # bit-equality gate); no warm-up run: the entry point's run above
-        # warmed the path
+        # eager then graph (the bit-equality gate); no warm-up run: the
+        # entry point's run above warmed the path
         turns = []
-        for which in (("eager", "graph", "graph") if dtype == torch.float64
-                      else ("eager", "graph")):
+        for which in ("eager", "graph"):
             res, ms, launches, _ = run_timed(torch, model, eager if which == "eager" else graph)
             turns.append(dict(which=which, res=res, ms=ms, launches=launches,
                               steps_s=n_steps / (ms / 1e3)))
@@ -4419,6 +4443,7 @@ def phase_3d(torch, card, dev, mesher3d):
     out["ops"] = ops_3d(torch, big[0])
     golden_3d(torch, big)
     out.update(production_3d(torch, card, dev, mesh, big))
+    out["big"] = big  # phase 20's value+grad runs on it
     return out
 
 
@@ -4612,6 +4637,32 @@ def slab_cases(torch, plan, blocks64):
     return out
 
 
+def check_slab_sweep(torch, what, sweep, slabs_ref, rows_ref, A, inp, rev, rtol, acc):
+    """One launch of a sweep over slabs (``sweep``: K6 or K6T) on (S, n,
+    Bt, Bt) factors held bit for bit to one launch a slab, each slab's rows
+    to the plain row from the kernel's own previous row (``rows_ref``: rtol
+    plus the dot-product order bound) and the whole sweep to the plain one
+    (``slabs_ref``, ``SWEEP_FULL_GATES[acc]``): ``(err, full_rel, worst
+    row |diff|)``."""
+    S = A.shape[0]
+    out = sweep(A, inp, reverse=rev)
+    alone = torch.stack([sweep(A[s], inp[s], reverse=rev) for s in range(S)])
+    torch.cuda.synchronize()
+    require(torch.equal(out, alone), f"{what}: not bit-equal to a launch a slab")
+    worst = 0.0
+    for s in range(S):
+        row_ref, bound = rows_ref(A[s], inp[s], out[s], rev)
+        diff = (out[s] - row_ref).abs()
+        worst = max(worst, diff.max().item())
+        off = int((diff > rtol * row_ref.abs() + bound).sum())
+        require(off == 0, f"{what}: slab {s}, {off} entries off their rows")
+    full = slabs_ref(A, inp, rev)
+    err = (out - full).abs().max().item()
+    full_rel = err / full.abs().max().item()
+    require(full_rel <= SWEEP_FULL_GATES[acc], f"{what}: whole sweep off ({full_rel:.3e})")
+    return err, full_rel, worst
+
+
 def dd_sweeps(torch, cases, card):
     """K6 over slabs against its plain version: each slab's forward sweep
     over P and backward sweep over Q held row by row (the plain row from the
@@ -4626,22 +4677,10 @@ def dd_sweeps(torch, cases, card):
         rtol, acc = sweep_tolerances(torch, ftag, vdt)
         y = ops.btd_sweep_slabs_reference(fac.P, g)
         for label, A, inp, rev in (("forward", fac.P, g, False), ("backward", fac.Q, y, True)):
-            what = f"dd btd_sweep over {S} slabs {label} {ftag}/{vtag}"
-            out = ops.btd_sweep(A, inp, reverse=rev)
-            alone = torch.stack([ops.btd_sweep(A[s], inp[s], reverse=rev) for s in range(S)])
-            torch.cuda.synchronize()
-            require(torch.equal(out, alone), f"{what}: not bit-equal to a launch a slab")
-            worst = 0.0
-            for s in range(S):
-                row_ref, bound = ops.btd_sweep_rows_reference(A[s], inp[s], out[s], rev)
-                diff = (out[s] - row_ref).abs()
-                worst = max(worst, diff.max().item())
-                off = int((diff > rtol * row_ref.abs() + bound).sum())
-                require(off == 0, f"{what}: slab {s}, {off} entries off their rows")
-            full = ops.btd_sweep_slabs_reference(A, inp, rev)
-            err = (out - full).abs().max().item()
-            full_rel = err / full.abs().max().item()
-            require(full_rel <= SWEEP_FULL_GATES[acc], f"{what}: whole sweep off ({full_rel:.3e})")
+            err, full_rel, worst = check_slab_sweep(
+                torch, f"dd btd_sweep over {S} slabs {label} {ftag}/{vtag}", ops.btd_sweep,
+                ops.btd_sweep_slabs_reference, ops.btd_sweep_rows_reference, A, inp, rev, rtol,
+                acc)
             res = measure(torch, lambda: ops.btd_sweep(A, inp, reverse=rev),
                           lambda: ops.btd_sweep_slabs_reference(A, inp, rev))
             sep_ms = cuda_ms(torch, lambda: [ops.btd_sweep(A[s], inp[s], reverse=rev)
@@ -4761,7 +4800,7 @@ def dd_banded(torch, integ, card):
 
 def dd_spike(torch, card, large, btd_res, integ):
     """Single-device ``linear_solver='spike'`` at 23.7k on the production
-    settings (``SPIKE_PROD``, f64): eager, graph, graph, each graph run bit
+    settings (``SPIKE_PROD``, f64): eager, graph, the graph run bit
     for bit the eager one with equal launches; two K6-over-slabs launches a
     solve and no K6 of one slab; the final u against phase 7's
     exact-Jacobian btd run."""
@@ -4773,7 +4812,7 @@ def dd_spike(torch, card, large, btd_res, integ):
     model, state0, cs, prop = large["float64"]
     forward.integrate_pure(model, state0, cs, prop, times[:3], SPIKE_PROD)  # warm-up, capture
     turns = []
-    for which in ("eager", "graph", "graph"):
+    for which in ("eager", "graph"):
         fn = forward._integrate_eager if which == "eager" else forward.integrate_pure
         res, ms, launches, _ = run_timed(torch, model, lambda: fn(model, state0, cs, prop, times,
                                                                      SPIKE_PROD))
@@ -5142,6 +5181,312 @@ def sweep_grad_check(torch, card, built):
     require(rel <= FD_RTOL, "sweep grad: shape gradient off its central difference")
     return dict(launches=launches, n_steps=n_steps, vs=batch * n_steps / (ms / 1e3), fd_rel=rel)
 
+# phase 20, gradients and tangents where the card ran only the forward
+# pass: K6T over slabs on the 23.7k model's SPIKE factors
+# with their transposed parts (T_SLABS slabs, the spike production shape
+# 8 x 12 x 256^2, bf16/f64 and f64/f64) and K6T at Bt = 1280 on the 45.8k
+# fold's factors (36 x 1280^2, the four dtype pairs); (A) 'spike'
+# value+grad at 23.7k on SPIKE_PROD over GRAD_MORE_STEPS steps (the
+# trajectory the forward's bit for bit, stale within STALE_VS_EXACT of the
+# exact gradient, one tangent run in duality with it at DUALITY_RTOL);
+# (B) the DD step's value+grad over DD_SHARDS shards at 23.7k with the
+# settings of tests/test_ddstep.py:123-167 (DD_GRAD_STEPS steps, refresh
+# DD_GRAD_REFRESH) against the single-device btd adjoint with exact
+# factors at its gates (DD_GRAD_GATES); (C) the 45.8k fold's value+grad on
+# the production btd settings (bf16 factors) over GRAD_3D_STEPS steps, the
+# trajectory the forward's bit for bit, stale within STALE_VS_EXACT of
+# the exact gradient (f64 factors: K6T f64/f64 at 1280)
+T_SLABS = 8
+GRAD_MORE_STEPS = 20
+GRAD_MORE_PROFILE_STEPS = 5
+DD_GRAD_STEPS, DD_GRAD_REFRESH = 8, 4
+DD_GRAD_REF = {"assembly": "banded", "linear_solver": "btd", "jacobian_refresh_steps": 1,
+               "adjoint_refine": "exact"}
+# value rtol; emod rtol with atol a fraction of max|g|; ymid rtol
+DD_GRAD_GATES = {"value": 1e-10, "emod": (1e-4, 1e-7), "ymid": 1e-6}
+GRAD_3D_STEPS = 10
+
+
+def final_u_loss(torch, seen):
+    """``1e4 sum(u_final^2)`` (tests/test_spike.py:126-133's loss), keeping
+    the trajectory it was given in ``seen``."""
+    def loss(traj, controls, prop, times):
+        seen["traj"] = {k: v.detach() for k, v in traj.items()}
+        return torch.sum(traj["u"][-1] ** 2) * 1e4
+
+    return loss
+
+
+def slab_t_cases(torch, plan, blocks64):
+    """K6T-over-slabs inputs on the 23.7k model's own SPIKE factors (with
+    their transposed parts): ``(S, ftag, vdt, factors, rb)``, ``rb`` = r / d
+    of a seeded r in slabs."""
+    from vf_fem_tpu_torch.solvers import spike
+
+    r = np.random.default_rng(3).standard_normal(plan.ndof)
+    out = []
+    for ftag, vdt in (("bfloat16", torch.float64), ("float64", torch.float64)):
+        fac = spike.spike_factor(plan, blocks64, T_SLABS, with_transpose=True,
+                                 store_dtype="bfloat16" if ftag == "bfloat16" else None)
+        _, m, bt, _ = fac.Sinv.shape
+        d = fac.d.to(vdt)[: plan.ndof]
+        rb = torch.nn.functional.pad(torch.tensor(r, dtype=vdt, device=blocks64.device) / d,
+                                     (0, T_SLABS * m * bt - plan.ndof)).reshape(T_SLABS, m, bt)
+        out.append((T_SLABS, ftag, vdt, fac, rb))
+    return out
+
+
+def slab_t_sweeps(torch, cases, card):
+    """K6T over slabs against its plain version: each slab's transposed
+    forward sweep over Q from r / d and backward sweep over P from the plain
+    forward sweep's output (the two sweeps of ``spike.local_solve_t``), held
+    row by row (rtol 1e-13 plus the dot-product order bound) and as a whole
+    (``SWEEP_FULL_GATES``), and bit for bit against one launch of K6T a
+    slab; timed with S separate launches beside it."""
+    from vf_fem_tpu_torch import ops, yardsticks
+
+    results = {}
+    for S, ftag, vdt, fac, rb in cases:
+        vtag = str(vdt).replace("torch.", "")
+        rtol, acc = sweep_tolerances(torch, ftag, vdt)
+        z = ops.btd_sweep_t_slabs_reference(fac.Q, rb)
+        for label, A, inp, rev in (("forward", fac.Q, rb, False), ("backward", fac.P, z, True)):
+            what = f"grad_more btd_sweep_t over {S} slabs {label} {ftag}/{vtag}"
+            n0 = ops.LAUNCHES["btd_sweep_t_slabs"]
+            err, full_rel, worst = check_slab_sweep(
+                torch, what, ops.btd_sweep_t, ops.btd_sweep_t_slabs_reference,
+                ops.btd_sweep_t_rows_reference, A, inp, rev, rtol, acc)
+            require(ops.LAUNCHES["btd_sweep_t_slabs"] == n0 + 1, f"{what}: not one launch")
+            res = measure(torch, lambda: ops.btd_sweep_t(A, inp, reverse=rev),
+                          lambda: ops.btd_sweep_t_slabs_reference(A, inp, rev))
+            sep_ms = cuda_ms(torch, lambda: [ops.btd_sweep_t(A[s], inp[s], reverse=rev)
+                                             for s in range(S)])
+            sep_dev = graph_ms(torch, lambda: [ops.btd_sweep_t(A[s], inp[s], reverse=rev)
+                                               for s in range(S)], reps=20)
+            _, m, bt, _ = A.shape
+            # the m - 1 blocks a slab's sweep reads, g in, the sweep out
+            blk = S * (m - 1) * bt * bt
+            nbytes = blk * A.element_size() + 2 * inp.numel() * inp.element_size()
+            res.update(max_abs_err=err, bytes=nbytes, lib_ms=None, lib_runs=None,
+                       lib_call=yardsticks.LIBRARY_CALL["btd_sweep_t_slabs"],
+                       separate_ms=sep_ms, separate_device_ms=sep_dev)
+            res["bound_ms"], res["bound_by"] = bound_of(nbytes, 2 * blk, acc)
+            log(f"[grad_more] btd_sweep_t over {S} slabs {label} {ftag}/{vtag} ({S} x {m} x {bt}"
+                f" x {bt}): {fmt_times(res)}; {S} launches of one slab: call {sep_ms:.6f} ms,"
+                f" device {sep_dev:.6f} ms; bit-equal to them; row max |diff| {worst:.3e},"
+                f" whole-sweep max_abs_err {err:.3e} (rel {full_rel:.3e}); on {card}")
+            results[(S, label, ftag, vtag)] = res
+    return results
+
+
+def grad_spike(torch, card, large):
+    """(A): 'spike' value+grad at 23.7k (``SPIKE_PROD``, f64): the
+    trajectory the forward graph's bit for bit, K6T over slabs in the
+    transposed solves (none of one slab), the stale gradient against the
+    exact one, one tangent run (``integrate_linear_pure`` along a seeded
+    emod direction) in duality with the exact gradient, a profile (idle
+    share)."""
+    from vf_fem_tpu_torch import adjoint, forward
+
+    big = large["float64"]
+    model, s0, cs, prop = big
+    times = DT * np.arange(GRAD_MORE_STEPS + 1)
+    _, traj_f, _ = forward.integrate_pure(model, s0, cs, prop, times, SPIKE_PROD)
+    g = grad_run(torch, big, times, SPIKE_PROD, loss=final_u_loss)
+    require(all(torch.equal(g["traj"][k], traj_f[k]) for k in traj_f),
+            "grad_more spike: the value+grad trajectory is not the forward's bit for bit")
+    used = ("gather", "scatter", "newmark", "newmark_t", "btd_sweep_slabs", "btd_sweep_t_slabs")
+    require_launched(g["launches"], used, "grad_more spike")
+    require(g["launches"]["btd_sweep_t"] == 0 and g["launches"]["btd_sweep"] == 0,
+            "grad_more spike: a K6 / K6T launch of one slab")
+    x = grad_run(torch, big, times, {**SPIKE_PROD, "adjoint_refine": "exact"}, loss=final_u_loss)
+    require_launched(x["launches"], ("btd_sweep_t_slabs",), "grad_more spike exact")
+    worst = grad_rel(g["grads"], x["grads"], x["value"])
+    # the tangent of u_final along emod, and the exact gradient's product
+    d = np.random.default_rng(20).standard_normal(prop["emod"].shape) * 5.0
+    zero = lambda dd: {k: np.zeros_like(v) for k, v in dd.items()}  # noqa: E731
+    reset_launches()
+    t = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t[0].record()
+    fin, dfin = forward.integrate_linear_pure(model, s0, cs, prop, times, zero(s0), zero(cs),
+                                              {**zero(prop), "emod": d}, np.zeros_like(times),
+                                              SPIKE_PROD)
+    t[1].record()
+    torch.cuda.synchronize()
+    lin_launches = read_launches()
+    require_launched(lin_launches, ("btd_sweep_slabs",), "grad_more spike tangent")
+    lhs = 2e4 * float(torch.dot(fin["u"], dfin["u"]))
+    rhs = float(np.dot(x["grads"]["prop"]["emod"], d))
+    dual = abs(lhs - rhs) / abs(rhs)
+    prof = profile_run(torch, lambda: adjoint.integrate_grad(
+        model, final_u_loss(torch, {}), s0, [model.control], prop,
+        times[:GRAD_MORE_PROFILE_STEPS + 1], SPIKE_PROD), GRAD_MORE_PROFILE_STEPS,
+        "btd_sweep_t_kernel")
+    require_traced(prof, ("btd_sweep_t_slabs",), "grad_more spike")
+    n = GRAD_MORE_STEPS
+    per_step = {k: g["launches"][k] / n for k in used}
+    log(f"[grad_more] (A) 23.7k spike value+grad f64 (8 partitions, bf16 factors), {n} steps:"
+        f" {n / (g['ms'] / 1e3):.2f} steps/s ({g['ms']:.3f} ms, CUDA events), exact"
+        f" {n / (x['ms'] / 1e3):.2f}; J = {g['value']:.9e} (the forward graph's trajectory bit"
+        f" for bit); refinement iterations {g['counts']['refine_iterations']} in"
+        f" {g['counts']['solves']} solves; stale vs exact max rel diff per group {worst}"
+        f" (bound {STALE_VS_EXACT:.0e}); tangent {n / (t[0].elapsed_time(t[1]) / 1e3):.2f}"
+        f" steps/s, <dJ/du, u_dot> {lhs:.12e} vs <g, d> {rhs:.12e}: {dual:.3e} (rtol"
+        f" {DUALITY_RTOL:.0e}); peak device memory {g['peak'] / 1e6:.1f} MB (exact"
+        f" {x['peak'] / 1e6:.1f} MB) over the model's; profile of {GRAD_MORE_PROFILE_STEPS}"
+        f" steps: idle share {prof['idle']:.3f}, device busy {prof['busy_ms']:.3f} ms of"
+        f" {prof['wall_ms']:.3f} ms, K6T {prof['k_ms']:.3f} ms in {prof['k_launches']} launches;"
+        f" launches a step {per_step}; on {card}")
+    require(max(worst.values()) <= STALE_VS_EXACT, "grad_more spike: stale gradient off exact")
+    require(dual <= DUALITY_RTOL, "grad_more spike: tangent and gradient not in duality")
+    return dict(launches=g["launches"], n_steps=n, steps_s=n / (g["ms"] / 1e3),
+                idle=prof["idle"], peak=g["peak"], worst=worst, duality=dual)
+
+
+def dd_loss(torch, fin, traj):
+    """tests/test_ddstep.py:142-152's loss."""
+    return torch.sum(fin["u"] ** 2) * 1e4 + 1e-6 * torch.sum(traj["q"] ** 2)
+
+
+def dd_traj_loss(torch, seen):
+    """:func:`dd_loss` as a functional of the trajectory (its last row the
+    final state), keeping the trajectory in ``seen``."""
+    def loss(traj, controls, prop, times):
+        seen["traj"] = {k: v.detach() for k, v in traj.items()}
+        return dd_loss(torch, {"u": traj["u"][-1]}, traj)
+
+    return loss
+
+
+def grad_dd(torch, card, large):
+    """(B): the DD step's value+grad over ``DD_SHARDS`` stacked shards at
+    23.7k (banded assembly, refresh ``DD_GRAD_REFRESH``; the IFT backward
+    with the refined transposed SPIKE solve) against the single-device btd
+    adjoint with exact factors, at ``DD_GRAD_GATES``; K1T/K2T and K6T over
+    slabs counted launched; steps/s, peak memory, a profile (idle share)."""
+    from vf_fem_tpu_torch import adjoint
+    from vf_fem_tpu_torch.parallel import ddstep
+
+    model, s0, cs, prop = large["float64"]
+    dev = model.device
+    times = DT * np.arange(DD_GRAD_STEPS + 1)
+    integ = ddstep.DDIntegrator(model, DD_SHARDS, {"assembly": "banded",
+                                                   "jacobian_refresh_steps": DD_GRAD_REFRESH})
+
+    def dd_value_grad(times=times):
+        p = {k: torch.tensor(np.asarray(v), dtype=torch.float64, device=dev,
+                             requires_grad=True) for k, v in prop.items()}
+        fin, traj, _ = integ.integrate_pure(s0, cs, p, times)
+        value = dd_loss(torch, fin, traj)
+        grads = torch.autograd.grad(value, list(p.values()), allow_unused=True)
+        return float(value.detach()), {k: (torch.zeros_like(p[k]) if gk is None else gk)
+                                       .cpu().numpy() for k, gk in zip(p, grads)}
+
+    integ.adjoint_counts.update(solves=0, refine_iterations=0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (value, grads), ms, launches, _ = run_timed(torch, model, dd_value_grad)
+    peak = torch.cuda.max_memory_allocated() - base
+    counts = dict(integ.adjoint_counts)
+    used = ("gather_t", "scatter_t", "btd_sweep_slabs", "btd_sweep_t_slabs")
+    require_launched(launches, used, "grad_more dd")
+    require(launches["btd_sweep_t"] == 0, "grad_more dd: a K6T launch of one slab")
+    ref = grad_run(torch, large["float64"], times, DD_GRAD_REF, loss=dd_traj_loss)
+    rv, rg = ref["value"], ref["grads"]["prop"]
+    v_rel = abs(value - rv) / abs(rv)
+    e_rtol, e_atol = DD_GRAD_GATES["emod"]
+    e_scale = np.abs(rg["emod"]).max()
+    e_ok = bool(np.all(np.abs(grads["emod"] - rg["emod"])
+                       <= e_atol * e_scale + e_rtol * np.abs(rg["emod"])))
+    e_rel = float(np.abs(grads["emod"] - rg["emod"]).max() / e_scale)
+    y_rel = float(np.abs(grads["ymid"] - rg["ymid"]).max() / np.abs(rg["ymid"]).max())
+    # one refresh window profiled
+    prof = profile_run(torch, lambda: dd_value_grad(times[:DD_GRAD_REFRESH + 1]),
+                       DD_GRAD_REFRESH, "btd_sweep_t_kernel")
+    require_traced(prof, ("btd_sweep_t_slabs",), "grad_more dd")
+    n = DD_GRAD_STEPS
+    log(f"[grad_more] (B) 23.7k DD x {DD_SHARDS} value+grad f64 (banded, refresh"
+        f" {DD_GRAD_REFRESH}), {n} steps: {n / (ms / 1e3):.2f} steps/s ({ms:.3f} ms, CUDA"
+        f" events); single-device btd exact adjoint {n / (ref['ms'] / 1e3):.2f} steps/s;"
+        f" value {value:.12e} vs {rv:.12e} (rel {v_rel:.3e}, rtol {DD_GRAD_GATES['value']:.0e});"
+        f" emod max|dg|/max|g| {e_rel:.3e} (rtol {e_rtol:.0e}, atol {e_atol:.0e} max|g|: {e_ok});"
+        f" ymid {y_rel:.3e} (rtol {DD_GRAD_GATES['ymid']:.0e}); refinement iterations"
+        f" {counts['refine_iterations']} in {counts['solves']} solves; peak device memory"
+        f" {peak / 1e6:.1f} MB over the model's; profile of {DD_GRAD_REFRESH} steps: idle share"
+        f" {prof['idle']:.3f}, device busy {prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms,"
+        f" K6T {prof['k_ms']:.3f} ms in {prof['k_launches']} launches; launches a step"
+        f" { {k: launches[k] / n for k in used} }; on {card}")
+    require(v_rel <= DD_GRAD_GATES["value"], "grad_more dd: value off the single-device one")
+    require(e_ok, "grad_more dd: emod gradient off the single-device one")
+    require(bool(np.allclose(grads["ymid"], rg["ymid"], rtol=DD_GRAD_GATES["ymid"], atol=0.0)),
+            "grad_more dd: ymid gradient off the single-device one")
+    return dict(launches=launches, n_steps=n, steps_s=n / (ms / 1e3), idle=prof["idle"],
+                peak=peak, value_rel=v_rel, emod_rel=e_rel, ymid_rel=y_rel)
+
+
+def grad_3d(torch, card, big):
+    """(C): the 45.8k fold's value+grad (production btd, bf16 factors,
+    f64): the trajectory the forward graph's bit for bit, K6T at Bt = 1280
+    in the refined adjoint, the stale gradient against the exact one (f64
+    factors at u1, K6T f64/f64 at 1280), peak memory and a profile (idle
+    share)."""
+    from vf_fem_tpu_torch import adjoint, forward
+
+    model, s0, cs, prop = big
+    times = DT * np.arange(GRAD_3D_STEPS + 1)
+    _, traj_f, _ = forward.integrate_pure(model, s0, cs, prop, times, BTD_PROD)
+    g = grad_run(torch, big, times, BTD_PROD, loss=final_u_loss)
+    require(all(torch.equal(g["traj"][k], traj_f[k]) for k in traj_f),
+            "grad_more 3d: the value+grad trajectory is not the forward's bit for bit")
+    used = ("gather", "scatter", "newmark", "newmark_t", "btd_sweep", "btd_sweep_t")
+    require_launched(g["launches"], used, "grad_more 3d")
+    x = grad_run(torch, big, times, {**BTD_PROD, "adjoint_refine": "exact"}, loss=final_u_loss)
+    require_launched(x["launches"], ("btd_sweep_t",), "grad_more 3d exact")
+    worst = grad_rel(g["grads"], x["grads"], x["value"])
+    prof = profile_run(torch, lambda: adjoint.integrate_grad(
+        model, final_u_loss(torch, {}), s0, [model.control], prop,
+        times[:GRAD_MORE_PROFILE_STEPS + 1], BTD_PROD), GRAD_MORE_PROFILE_STEPS,
+        "btd_sweep_t_kernel")
+    require_traced(prof, ("btd_sweep_t",), "grad_more 3d")
+    n = GRAD_3D_STEPS
+    per_step = {k: g["launches"][k] / n for k in used}
+    log(f"[grad_more] (C) 45.8k 3D value+grad f64 (production btd, bf16 factors, Bt 1280), {n}"
+        f" steps: {n / (g['ms'] / 1e3):.2f} steps/s ({g['ms']:.3f} ms, CUDA events), exact"
+        f" {n / (x['ms'] / 1e3):.2f}; J = {g['value']:.9e} (the forward graph's trajectory bit"
+        f" for bit); refinement iterations {g['counts']['refine_iterations']} in"
+        f" {g['counts']['solves']} solves; stale vs exact max rel diff per group {worst} (bound"
+        f" {STALE_VS_EXACT:.0e}); peak device memory {g['peak'] / 1e6:.1f} MB (exact"
+        f" {x['peak'] / 1e6:.1f} MB) over the model's; profile of {GRAD_MORE_PROFILE_STEPS}"
+        f" steps: idle share {prof['idle']:.3f}, device busy {prof['busy_ms']:.3f} ms of"
+        f" {prof['wall_ms']:.3f} ms, K6T {prof['k_ms']:.3f} ms in {prof['k_launches']}"
+        f" launches; launches a step {per_step}; on {card}")
+    require(max(worst.values()) <= STALE_VS_EXACT, "grad_more 3d: stale gradient off exact")
+    return dict(launches=g["launches"], n_steps=n, steps_s=n / (g["ms"] / 1e3),
+                idle=prof["idle"], peak=g["peak"], worst=worst)
+
+
+def phase_grad_more(torch, card, large, d3):
+    """Phase 20 (see the constants above)."""
+    from vf_fem_tpu_torch.solvers import bsb
+
+    model = large["float64"][0]
+    plan, fill = model.solid.bsb_plan()
+    op = rest_operator(torch, model, 500.0)
+    blocks = bsb.bsb_fill(plan, fill, [op.J_cells, op.J_facets])
+    slabs = slab_t_sweeps(torch, slab_t_cases(torch, plan, blocks), card)
+    del op, blocks
+    big = d3["big"]
+    plan3, fill3 = big[0].solid.bsb_plan()
+    op = rest_operator(torch, big[0], 500.0)
+    blocks = bsb.bsb_fill(plan3, fill3, [op.J_cells, op.J_facets])
+    t1280 = phase_ops_btd_t(torch, sweep_cases(torch, plan3, blocks), d3["ops"],
+                            line="grad_more")
+    del op, blocks
+    return dict(slabs=slabs, t1280=t1280, spike=grad_spike(torch, card, large),
+                dd=grad_dd(torch, card, large), g3d=grad_3d(torch, card, big))
+
+
 
 def main():
     import time
@@ -5202,6 +5547,7 @@ def run_phases(torch, name, card, dev, t0, mesher, mesher3d, m5qz):
     d3 = timed("3d", phase_3d, torch, card, dev, mesher3d)
     dd = timed("dd", phase_dd, torch, card, large, btd_res, integ)
     sw = timed("sweep", phase_sweep, torch, card, dev)
+    gm = timed("grad_more", phase_grad_more, torch, card, large, d3)
 
     # per kernel: the timing at the 23.7k shapes of the btd main path (f64)
     timing = {
@@ -5221,6 +5567,8 @@ def run_phases(torch, name, card, dev, t0, mesher, mesher3d, m5qz):
         **{f"newmark x{b}": ops_res[("newmark", f"M5 x {b}", "float64")]
            for b in (SWEEP_GRAD[0], SWEEP_LEG[0], SWEEP_BASELINE[0])},
         "newmark_t x8": ops_res[("newmark_t", f"M5 x {SWEEP_GRAD[0]}", "float64")],
+        "btd_sweep_t_slabs": gm["slabs"][(T_SLABS, "forward", "bfloat16", "float64")],
+        "btd_sweep_t x1280": gm["t1280"][("btd_sweep_t", "forward bfloat16/float64", "float64")],
     }
     # the f64 runs whose launches count: (name, launches, steps)
     runs = [("M5 headline", head["float64"]["launches"], N_STEPS),
@@ -5259,15 +5607,26 @@ def run_phases(torch, name, card, dev, t0, mesher, mesher3d, m5qz):
             ("M5 sweep 64 x 50 banded (a batched step)", sw["banded"]["launches"], SWEEP_LEG[1]),
             ("M5 sweep 256 x 100 (a batched step)", sw["baseline"]["launches"],
              SWEEP_BASELINE[1]),
-            ("M5 sweep_grad 8 x 20 (a batched step)", sw["grad"]["launches"], SWEEP_GRAD[1])]
+            ("M5 sweep_grad 8 x 20 (a batched step)", sw["grad"]["launches"], SWEEP_GRAD[1]),
+            ("23.7k spike value+grad", gm["spike"]["launches"], gm["spike"]["n_steps"]),
+            (f"23.7k DD x {DD_SHARDS} value+grad", gm["dd"]["launches"], gm["dd"]["n_steps"]),
+            ("45.8k 3D value+grad", gm["g3d"]["launches"], gm["g3d"]["n_steps"])]
+    by_name = {name: launches for name, launches, _ in runs}
+    dd_banded = by_name[f"23.7k DD x {DD_SHARDS} banded"]
     path = {  # the main-path run whose count is this kernel's ``launches``
-        "gather": runs[0][1], "scatter": runs[0][1], "newmark": runs[0][1],
-        "btd_sweep": runs[1][1], "ebe_matvec": runs[3][1], "bsb_matvec": runs[2][1],
-        "newmark_t": runs[5][1], "btd_sweep_t": runs[5][1],
-        "ebe_matvec_t": runs[6][1], "bsb_matvec_t": runs[7][1],
-        "gather_t": runs[-6][1], "scatter_t": runs[-6][1], "btd_sweep_slabs": runs[-6][1],
-        "newmark x8": runs[-1][1], "newmark x64": runs[-4][1], "newmark x256": runs[-2][1],
-        "newmark_t x8": runs[-1][1],
+        "gather": by_name["M5 headline"], "scatter": by_name["M5 headline"],
+        "newmark": by_name["M5 headline"], "btd_sweep": by_name["23.7k btd"],
+        "ebe_matvec": by_name["23.7k cg"], "bsb_matvec": by_name["23.7k bsb"],
+        "newmark_t": by_name["23.7k value+grad"], "btd_sweep_t": by_name["23.7k value+grad"],
+        "ebe_matvec_t": by_name["23.7k cg value+grad"],
+        "bsb_matvec_t": by_name["23.7k bsb value+grad"],
+        "gather_t": dd_banded, "scatter_t": dd_banded, "btd_sweep_slabs": dd_banded,
+        "newmark x8": by_name["M5 sweep_grad 8 x 20 (a batched step)"],
+        "newmark x64": by_name["M5 sweep 64 x 50 plain (a batched step)"],
+        "newmark x256": by_name["M5 sweep 256 x 100 (a batched step)"],
+        "newmark_t x8": by_name["M5 sweep_grad 8 x 20 (a batched step)"],
+        "btd_sweep_t_slabs": by_name["23.7k spike value+grad"],
+        "btd_sweep_t x1280": by_name["45.8k 3D value+grad"],
     }
     kernels = []
     for op, (kname, replaces, source) in KERNELS.items():

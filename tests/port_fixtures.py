@@ -296,3 +296,16 @@ def port_dd_model(nx=40, ny=20, device="cpu", dtype=torch.float64):
                            coupling="explicit", device=device, dtype=dtype)
     set_dd_props(model.prop, model.control, mesh.coords[:, 1].max())
     return model
+
+
+def seeded_tangents(s0, cs, prop, times, seed):
+    """Seeded tangents of the initial state, the controls, ``emod`` and the
+    times after the first two: ``(ds0, dcs, dprop, dtimes)`` (numpy)."""
+    rng = np.random.default_rng(seed)
+    ds0 = {k: 1e-6 * rng.standard_normal(np.shape(v)) for k, v in s0.items()}
+    dcs = {k: rng.standard_normal(np.shape(v)) for k, v in cs.items()}
+    dprop = {k: np.zeros(np.shape(v)) for k, v in prop.items()}
+    dprop["emod"] = 100.0 * rng.standard_normal(np.shape(prop["emod"]))
+    dt = np.zeros(len(times))
+    dt[2:] = 1e-7
+    return ds0, dcs, dprop, dt

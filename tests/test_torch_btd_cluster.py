@@ -48,7 +48,8 @@ def test_sweep_plan_fits(pair, bt):
 @pytest.mark.parametrize("pair", list(PAIRS))
 def test_sweep_t_plan_fits(pair, bt):
     """K6T's plan: K6's cluster; the columns divide among the CTAs, a
-    consumer warp reads one 16-byte chunk of every box row, a ring slot
+    consumer warp reads one 16-byte chunk of every box row (up to Bt = 512;
+    an equal share of at most 16 warps at 1280), a ring slot
     holds at most 256 box rows (whole lanes' worth) in tensor-map boxes of
     a swizzle span (128, 64 or 32 bytes) that divides a box row, each box
     a whole number of the swizzle's 1024-byte periods, and the ring, the
@@ -60,7 +61,8 @@ def test_sweep_t_plan_fits(pair, bt):
     row_bytes = p.cols_per_cta * es
     assert p.cluster == ops.sweep_plan(bt, fdt, vdt).cluster
     assert p.cols_per_cta * p.cluster == bt
-    assert p.warps * 16 == row_bytes and 1 <= p.warps <= 16
+    assert row_bytes % (16 * p.warps) == 0 and 1 <= p.warps <= 16
+    assert p.warps * 16 == row_bytes or bt == 1280
     assert p.stage_rows * p.stages_per_block == bt
     assert p.stage_rows % 32 == 0 and p.stage_rows <= 256
     assert p.box_bytes in (32, 64, 128) and row_bytes % p.box_bytes == 0
@@ -86,13 +88,28 @@ def test_sweep_plan_default_cluster(pair):
 def test_sweep_plan_3d_width():
     """At the 3D width (Bt = 1280) every pair keeps a ring of two slots: f64
     factors take 10 warps of one row (16 would leave one slot of 160 KB),
-    the others 16 warps; K6T is not built there."""
+    the others 16 warps.  K6T is built there too: 10 consumer warps of 2
+    (bf16) or 4 (f32, f64) 16-byte chunks, 352 threads (at most 1,024),
+    stages of 128 box rows (at most 256, the TMA's box limit) in five
+    boxes, and a ring of 5 slots of 40 KB (bf16) or 2 of 80 KB, all within
+    232,448 bytes."""
     for pair, (warps, ring) in {"bf16-f64": (16, 2), "bf16-f32": (16, 2),
                                 "f64-f64": (10, 2), "f32-f32": (16, 2)}.items():
         p = ops.sweep_plan(1280, *PAIRS[pair])
         assert (p.warps, p.ring) == (warps, ring), pair
-    with pytest.raises(ValueError, match="row blocks"):
-        ops.sweep_t_plan(1280, torch.bfloat16, torch.float64)
+    for pair, (cluster, box, ring) in {"bf16-f64": (8, 64, 5), "bf16-f32": (8, 64, 5),
+                                       "f64-f64": (16, 128, 2),
+                                       "f32-f32": (8, 128, 2)}.items():
+        fdt, vdt = PAIRS[pair]
+        p = ops.sweep_t_plan(1280, fdt, vdt)
+        row_bytes = p.cols_per_cta * fdt.itemsize
+        assert (p.cluster, p.warps, p.stage_rows, p.box_bytes, p.ring) == (
+            cluster, 10, 128, box, ring), pair
+        assert row_bytes // 16 // p.warps == (2 if fdt == torch.bfloat16 else 4), pair
+        assert row_bytes // p.box_bytes == 5, pair
+        assert p.threads == 352 <= 1024 and p.ring >= 2 and p.stage_rows <= 256
+        assert p.smem_bytes == (1024 + p.ring * p.stage_rows * row_bytes + 2 * 1280 * fdt.itemsize
+                                + (2 * 16 + 2) * 8) <= 232448, pair
 
 
 def test_sweep_plan_rejects():

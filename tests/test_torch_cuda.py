@@ -1561,8 +1561,8 @@ def test_btd_sweep_3d_width(cuda, pair):
     """K6 at the 3D fold's width and depth (36 row blocks of 1280, a ring of
     two slots in every pair; f64 factors take 10 warps), both sweeps: each
     row within rtol 1e-13 / 1e-6 plus the order bound of the plain row from
-    the kernel's own previous row, one launch a sweep; K6T is not built
-    there and raises."""
+    the kernel's own previous row, one launch a sweep; K6T is built there
+    too (10 warps of several chunks) and is held the same way."""
     fdt, vdt = SWEEP_PAIRS[pair]
     plan = ops.sweep_plan(1280, fdt, vdt)
     assert plan.ring >= 2 and plan == kernels.built_sweep_plan(1280, fdt)
@@ -1574,8 +1574,12 @@ def test_btd_sweep_3d_width(cuda, pair):
         ref, bound = ops.btd_sweep_rows_reference(Ad, gd, out, rev)
         assert_scatter_close(out, ref, bound, rtol)
     assert ops.LAUNCHES["btd_sweep"] == n0 + 2
-    with pytest.raises(ValueError, match="row blocks"):
-        ops.btd_sweep_t(Ad, gd)
+    n0 = ops.LAUNCHES["btd_sweep_t"]
+    for rev in (False, True):
+        out = ops.btd_sweep_t(Ad, gd, reverse=rev)
+        ref, bound = ops.btd_sweep_t_rows_reference(Ad, gd, out, rev)
+        assert_scatter_close(out, ref, bound, rtol)
+    assert ops.LAUNCHES["btd_sweep_t"] == n0 + 2
 
 
 @pytest.fixture(scope="module")
@@ -1677,6 +1681,50 @@ def test_btd_sweep_over_slabs(cuda, pair, slabs):
         for s in range(slabs):
             ref, bound = ops.btd_sweep_rows_reference(A[s], g[s], out[s], rev)
             assert_scatter_close(out[s], ref, bound, rtol)
+
+
+@pytest.mark.parametrize("bt, slabs, n", [(256, 1, 12), (256, 8, 12), (256, 16, 12),
+                                           (1280, 4, 3)])
+@pytest.mark.parametrize("pair", list(SWEEP_PAIRS))
+def test_btd_sweep_t_over_slabs(cuda, pair, bt, slabs, n):
+    """K6T over slabs (one launch, one cluster a slab, the slabs' boxes rows
+    of one tensor map) bit for bit against a launch a slab, and each slab's
+    rows within their bound of the plain version's, at the spike
+    production width and at the 3D width; 16 slabs of f64 factors run in
+    waves of clusters."""
+    fdt, vdt = SWEEP_PAIRS[pair]
+    rng = np.random.default_rng(slabs + bt)
+    A = torch.tensor(rng.standard_normal((slabs, n, bt, bt)) * (0.5 / bt ** 0.5)).to(fdt).to(cuda)
+    g = torch.tensor(rng.standard_normal((slabs, n, bt))).to(vdt).to(cuda)
+    rtol = 1e-13 if vdt == torch.float64 else 1e-6
+    for rev in (False, True):
+        n0 = dict(ops.LAUNCHES)
+        out = ops.btd_sweep_t(A, g, reverse=rev)
+        assert ops.LAUNCHES["btd_sweep_t_slabs"] == n0["btd_sweep_t_slabs"] + 1
+        assert ops.LAUNCHES["btd_sweep_t"] == n0["btd_sweep_t"]
+        alone = torch.stack([ops.btd_sweep_t(A[s], g[s], reverse=rev) for s in range(slabs)])
+        torch.cuda.synchronize()
+        assert torch.equal(out, alone)
+        for s in range(slabs):
+            ref, bound = ops.btd_sweep_t_rows_reference(A[s], g[s], out[s], rev)
+            assert_scatter_close(out[s], ref, bound, rtol)
+
+
+def test_btd_sweep_t_slabs_rejects_bad_input(cuda):
+    """On CUDA tensors K6T over slabs raises where it cannot launch, and
+    never takes the plain version or a launch a slab: a width it is not
+    built for, a cluster other than its plan's, mismatched shapes."""
+    A = torch.zeros((2, 3, 256, 256), dtype=torch.bfloat16, device=cuda)
+    g = torch.zeros((2, 3, 256), dtype=torch.float64, device=cuda)
+    n0 = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="row blocks"):
+        ops.btd_sweep_t(A[..., :64, :64].contiguous(), g[..., :64].contiguous())
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kernels._sweep_t_launch(A, g, False,
+                                ops.sweep_t_plan(256, A.dtype, g.dtype)._replace(cluster=4))
+    with pytest.raises(ValueError, match="btd_sweep_t"):
+        ops.btd_sweep_t(A, g[:1])
+    assert ops.LAUNCHES == n0
 
 
 @pytest.fixture(scope="module")

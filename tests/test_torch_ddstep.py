@@ -251,7 +251,7 @@ def _raising(case):
     return port_dd_model(8, 4), {"dp_axis": "dp"} if case == "dp_axis" else {}
 
 
-@pytest.mark.parametrize("case", ["implicit", "fsai", "dp_axis", "umesh", "backward"])
+@pytest.mark.parametrize("case", ["implicit", "fsai", "dp_axis", "umesh"])
 def test_unported_cases_raise(case):
     """What the port's DD step does not take raises, naming the ROADMAP item."""
     model, kw = _raising(case)

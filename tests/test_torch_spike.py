@@ -3,9 +3,12 @@ The port's SPIKE solver (``solvers.spike``, ``linear_solver='spike'``)
 against the JAX package on the CPU in f64: the factor arrays and solves on the same
 block-banded Jacobian (KelvinVoigt on the RCM-renumbered
 ``vocal_fold_mesh(20, 10)`` at rest under 800 Ba, as
-``tests/test_ddstep.py:53-83``), bf16 storage, the plain slab sweep of K6,
-and an FSI trajectory through ``linear_solver='spike'``
-(``tests/test_spike.py:77-143``).
+``tests/test_ddstep.py:53-83``), bf16 storage, the plain slab sweeps of K6
+and K6T, the transposed parts (``with_transpose``: the spikes of ``A^T``,
+its reduced factors) and the transposed solve ``spike_solve_t``
+(``tests/test_spike.py:40-74``), and an FSI trajectory through
+``linear_solver='spike'`` (``tests/test_spike.py:77-143``); the gradients
+and tangents through it are ``tests/test_torch_spike_grad.py``'s.
 """
 
 import functools
@@ -22,7 +25,7 @@ from vf_fem_tpu.mesh.reorder import rcm_mesh as jrcm_mesh
 from vf_fem_tpu.residuals import solid as jslr
 from vf_fem_tpu.solvers import bsb as jbsb
 from vf_fem_tpu.solvers import spike as jspike
-from vf_fem_tpu_torch import adjoint, forward, ops
+from vf_fem_tpu_torch import forward, ops
 from vf_fem_tpu_torch.load import load_solid_model
 from vf_fem_tpu_torch.mesh import vocal_fold_mesh
 from vf_fem_tpu_torch.mesh.reorder import rcm_mesh
@@ -83,13 +86,15 @@ def system():
 
 @functools.lru_cache(maxsize=None)
 def _jax_run(n_parts, store, rhs_seed=0):
-    """The JAX package's factors and solve of the module's system (each
-    configuration compiled once for the module's tests)."""
+    """The JAX package's factors (with the transposed parts), solve and
+    transposed solve of the module's system (each configuration compiled
+    once for the module's tests)."""
     jp, jb = _SYSTEM["jp"], _SYSTEM["jb"]
     fj = jspike.spike_factor(jp, jb, n_parts=n_parts, store_dtype=store,
-                             with_transpose=False)
-    r = np.random.default_rng(rhs_seed).standard_normal(jp.ndof)
-    return fj, np.asarray(jspike.spike_solve(jp, fj, jnp.asarray(r)))
+                             with_transpose=True)
+    r = jnp.asarray(np.random.default_rng(rhs_seed).standard_normal(jp.ndof))
+    return (fj, np.asarray(jspike.spike_solve(jp, fj, r)),
+            np.asarray(jspike.spike_solve_t(jp, fj, r)))
 
 
 _SYSTEM = {}
@@ -114,7 +119,7 @@ def test_factors_match_jax(system, n_parts):
     complements' conditioning); with 8 slabs for 4 super-rows the tail
     slabs are identity padding."""
     _, _, _, tp, tb = system
-    fj, _ = _jax_run(n_parts, None)
+    fj = _jax_run(n_parts, None)[0]
     ft = spike.spike_factor(tp, tb, n_parts=n_parts)
     for f in ("Sinv", "P", "Q", "V", "W"):
         a, r = getattr(ft, f), np.asarray(getattr(fj, f))
@@ -155,6 +160,61 @@ def test_bf16_storage_matches_jax(system, rhs, n_parts):
     assert _rel(x, _jax_run(n_parts, "bfloat16")[1]) <= 2 * Bt * F32_U / (1 - Bt * F32_U)
 
 
+@pytest.mark.parametrize("n_parts", PARTS)
+def test_transposed_factors_match_jax(system, n_parts):
+    """``with_transpose``: the spikes of ``A^T`` (``Vh``, ``Wh``) and its
+    reduced factors within 1e-12 of their largest entry of the JAX
+    package's, and every other field the forward-only factors' bit for
+    bit."""
+    _, _, _, tp, tb = system
+    fj = _jax_run(n_parts, None)[0]
+    ft = spike.spike_factor(tp, tb, n_parts=n_parts, with_transpose=True)
+    for f in ("Vh", "Wh"):
+        a, r = getattr(ft, f), np.asarray(getattr(fj, f))
+        assert tuple(a.shape) == r.shape and a.dtype == torch.float64, f
+        assert _rel(a, r) <= 1e-12, f
+    for a, r in zip(ft.red_t, fj.red_t):
+        assert _rel(a, r) <= 1e-12
+    plain = spike.spike_factor(tp, tb, n_parts=n_parts)
+    assert plain.Vh is None and plain.Sinv_rt is None
+    for f in spike.SPIKEFactors._fields[:9]:
+        assert torch.equal(getattr(ft, f), getattr(plain, f)), f
+
+
+@pytest.mark.parametrize("n_parts", PARTS)
+def test_solve_t_matches_jax_and_dense(system, rhs, n_parts):
+    """``spike_solve_t`` within 1e-12 of max|x| of the JAX package's and at
+    rtol 1e-8 of the dense ``A^T`` solve (``tests/test_spike.py:50-52``);
+    factors without the transposed parts refuse it."""
+    _, _, A, tp, tb = system
+    ft = spike.spike_factor(tp, tb, n_parts=n_parts, with_transpose=True)
+    r = torch.as_tensor(rhs)
+    before = dict(ops.LAUNCHES)
+    x = spike.spike_solve_t(tp, ft, r)
+    assert ops.LAUNCHES == before
+    assert _rel(x, _jax_run(n_parts, None)[2]) <= 1e-12
+    np.testing.assert_allclose(x.numpy(), np.linalg.solve(A.T, rhs), rtol=1e-8, atol=1e-10)
+    with pytest.raises(ValueError, match="with_transpose"):
+        spike.spike_solve_t(tp, spike.spike_factor(tp, tb, n_parts=n_parts), r)
+
+
+@pytest.mark.parametrize("n_parts", PARTS)
+def test_bf16_storage_t_matches_jax(system, rhs, n_parts):
+    """bf16-stored factors, transposed: ``Vh`` and ``Wh`` stored bf16 and
+    the reduced factors f64 (``vf_fem_tpu/solvers/spike.py:409-418``), and
+    the transposed solve within the f32 summation bound of one row block of
+    the JAX package's bf16 transposed solve."""
+    _, _, _, tp, tb = system
+    ft = spike.spike_factor(tp, tb, n_parts=n_parts, store_dtype="bfloat16",
+                            with_transpose=True)
+    for f in ("Sinv", "P", "Q", "V", "W", "Vh", "Wh"):
+        assert getattr(ft, f).dtype == torch.bfloat16, f
+    assert all(t.dtype == torch.float64 for t in ft.red_t)
+    x = spike.spike_solve_t(tp, ft, torch.as_tensor(rhs))
+    Bt = ft.Sinv.shape[-1]
+    assert _rel(x, _jax_run(n_parts, "bfloat16")[2]) <= 2 * Bt * F32_U / (1 - Bt * F32_U)
+
+
 @pytest.mark.parametrize("pair", [(torch.bfloat16, torch.float64), (torch.float64, torch.float64),
                                   (torch.float32, torch.float32)], ids=["bf16-f64", "f64", "f32"])
 def test_plain_slab_sweep_is_unbatched_sweeps(pair):
@@ -169,6 +229,22 @@ def test_plain_slab_sweep_is_unbatched_sweeps(pair):
         assert torch.equal(out, torch.stack([ops.btd_sweep(A[s], g[s], reverse=rev)
                                              for s in range(5)]))
         assert torch.equal(out, ops.btd_sweep_slabs_reference(A, g, rev))
+
+
+@pytest.mark.parametrize("pair", [(torch.bfloat16, torch.float64), (torch.float64, torch.float64),
+                                  (torch.float32, torch.float32)], ids=["bf16-f64", "f64", "f32"])
+def test_plain_slab_sweep_t_is_unbatched_sweeps(pair):
+    """The plain version of K6T over slabs is S unbatched plain transposed
+    sweeps, bit for bit, both directions."""
+    fdt, vdt = pair
+    rng = np.random.default_rng(2)
+    A = torch.tensor(rng.standard_normal((5, 7, 128, 128)) * 0.05).to(fdt)
+    g = torch.tensor(rng.standard_normal((5, 7, 128))).to(vdt)
+    for rev in (False, True):
+        out = ops.btd_sweep_t(A, g, reverse=rev)
+        assert torch.equal(out, torch.stack([ops.btd_sweep_t(A[s], g[s], reverse=rev)
+                                             for s in range(5)]))
+        assert torch.equal(out, ops.btd_sweep_t_slabs_reference(A, g, rev))
 
 
 def test_spike_fsi_trajectory():
@@ -200,20 +276,3 @@ def test_solver_params_take_spike():
     p = solver_params({"linear_solver": "spike", "spike_partitions": 4,
                        "btd_store_dtype": "bfloat16"})
     assert p["linear_solver"] == "spike"
-
-
-def test_transposed_solves_raise(system, rhs):
-    """The gradient path waits for K6T over slabs: the transposed SPIKE
-    solve, and value+grad through ``linear_solver='spike'``, raise (the DD
-    step's backward: ``tests/test_torch_ddstep.py``)."""
-    _, _, _, tp, tb = system
-    fac = spike.spike_factor(tp, tb, 2)
-    r = torch.as_tensor(rhs)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 22"):
-        spike.spike_solve_t(tp, fac, r)
-    tm = port_dd_model(8, 4)
-    s0, cs, prop = port_inputs(tm)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 22"):
-        adjoint.integrate_grad(tm, lambda traj, *_: traj["u"].square().sum(), s0,
-                               [tm.control], prop, 5e-5 * np.arange(4),
-                               {"linear_solver": "spike", "spike_partitions": 2})

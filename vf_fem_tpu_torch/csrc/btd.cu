@@ -320,9 +320,13 @@ int launch_sweep(const void* A, const void* g, void* out, int n, int bt,
 //   forward  (reverse = 0):  y_i = g_i - A_{i-1}^T y_{i-1},  y_0 = g_0
 //   backward (reverse = 1):  x_i = g_i - A_{i+1}^T x_{i+1},  x_{n-1} = g_{n-1}
 //
-// (W forward, V backward).  No TPU kernel is replaced: the JAX package runs
-// these sweeps as lax.scan (vf_fem_tpu/solvers/btd.py:340-358).  The plain
-// version is ops.kernels.btd_sweep_t_reference.
+// (W forward, V backward), or, with `slabs` > 1, that sweep over each of
+// `slabs` chains of n blocks stored one after another (the transposed local
+// solves of the SPIKE slabs, solvers/spike.py: Q forward, P backward).  No
+// TPU kernel is replaced: the JAX package runs these sweeps as lax.scan
+// (vf_fem_tpu/solvers/btd.py:340-358, vf_fem_tpu/solvers/spike.py:201-235).
+// The plain versions are ops.kernels.btd_sweep_t_reference and
+// btd_sweep_t_slabs_reference.
 //
 // What bounds it: K6's bytes (each block read once; 12.2 MB of bf16 factors
 // at 23.7k dofs, 3.6 us at 3.35 TB/s) and K6's serial chain of n row blocks
@@ -367,6 +371,18 @@ int launch_sweep(const void* A, const void* g, void* out, int n, int bt,
 //   bound on dot-product order (ops.dot_order_bound), and is the same every
 //   launch.
 //
+// - Slabs: as K6, one launch of `slabs` clusters; cluster k runs slab k's
+//   chain on rows [k n Bt, (k+1) n Bt) of the one tensor map and its own
+//   rows of g and out, bit for bit a launch of that slab alone.
+// - Bt = 1280 (the extruded 3D mesh): a CTA's box row has 20 (bf16) or 40
+//   (f32, f64) chunks, more than a warp each allows (1,024 threads), and a
+//   box does not fit in a lane's registers.  So 10 warps own 2 or 4 chunks
+//   each, stages are 128 box rows (2 slots of 80 KB for f32 and f64, 5 of
+//   40 KB for bf16), and the lanes read their rows from each slot after the
+//   wait for x_{s-1}, in the same row order: the factor loads sit on the
+//   chain there.  Its bytes (118 MB of bf16 factors at 45.8k dofs, 35 us at
+//   3.35 TB/s) bound it, not the chain.
+//
 // Why a push never overwrites a carried vector still being read: the
 // double-buffered x_{s+1} goes to buffer (s + 1) & 1, which holds x_{s-1}.
 // A CTA computes x_{s+1} only after all of x_s has reached it, and every
@@ -400,7 +416,7 @@ int launch_sweep(const void* A, const void* g, void* out, int n, int bt,
 struct TPlan {
   int cluster;           // C CTAs (cluster_size, as K6)
   int cols_per_cta;      // R = Bt / C output entries a CTA
-  int warps;             // W consumer warps: the 16-byte chunks of R entries
+  int warps;             // W consumer warps, CPW = R ES / 16 / W chunks each
   int stage_rows;        // SR box rows a ring slot (<= 256)
   int stages_per_block;  // SPB = Bt / SR
   int box_bytes;         // the inner width of a tensor-map box (its swizzle span)
@@ -414,8 +430,17 @@ __host__ __device__ constexpr TPlan make_t_plan(int es, int bt) {
   p.cluster = cluster_size(es);
   p.cols_per_cta = bt / p.cluster;
   const int row_bytes = p.cols_per_cta * es;
-  p.warps = row_bytes / 16;
-  p.stage_rows = bt <= 256 ? bt : bt / 2;
+  // a warp a 16-byte chunk; past kMaxWarps chunks (Bt = 1280: 20 in bf16,
+  // 40 in f32 and f64), the most warps up to kMaxWarps that divide them
+  const int chunks = row_bytes / 16;
+  int w = chunks;
+  if (chunks > kMaxWarps)
+    for (int d = 1; d <= kMaxWarps; ++d)
+      if (chunks % d == 0) w = d;
+  p.warps = w;
+  // stages of at most 256 box rows (the TMA's box limit); at Bt = 1280, 128
+  // rows, so that every dtype pair keeps a ring of at least two slots
+  p.stage_rows = bt <= 256 ? bt : bt <= 512 ? bt / 2 : 128;
   p.stages_per_block = bt / p.stage_rows;
   p.box_bytes = row_bytes % 128 == 0 ? 128 : row_bytes % 64 == 0 ? 64 : 32;
   const int stage_bytes = p.stage_rows * row_bytes;
@@ -440,6 +465,7 @@ struct TGeometry {
   static constexpr int SMEM = P.smem;
   static constexpr int THREADS = P.threads;
   static constexpr int RB = R * ES;            // bytes of a box row
+  static constexpr int CPW = RB / 16 / W;      // 16-byte chunks a warp owns
   static constexpr int BOXES = RB / SWB;       // tensor-map boxes a stage
   static constexpr int CPB = SWB / 16;         // 16-byte chunks a box row
   static constexpr int VEC = 16 / ES;          // columns a warp owns
@@ -448,7 +474,8 @@ struct TGeometry {
   static constexpr int STAGE_BYTES = SR * RB;
   static constexpr int XS_OFFSET = NST * STAGE_BYTES;
   static constexpr int BAR_OFFSET = XS_OFFSET + 2 * BT * ES;
-  static_assert(C * R == BT && W * 16 == RB && SPB * SR == BT && SR % 32 == 0 && SR <= 256,
+  static_assert(C * R == BT && W * CPW * 16 == RB && SPB * SR == BT && SR % 32 == 0 &&
+                    SR <= 256 && W <= kMaxWarps,
                 "no partition");
   static_assert(RB % SWB == 0 && SR * SWB % 1024 == 0 && BOXES <= 32, "no box layout");
   static_assert(C == 8 || C == 16, "four words of a warp pushed into C CTAs by 32 lanes");
@@ -524,6 +551,7 @@ __global__ void __launch_bounds__(TGeometry<TA, BT>::THREADS, 1)
   using G = TGeometry<TA, BT>;
   using AccT = typename Acc<TA>::type;
   constexpr int VEC = G::VEC;
+  constexpr int CPW = G::CPW;
 
   // the ring's boxes at a 1024-byte boundary (the swizzle's period)
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -537,6 +565,11 @@ __global__ void __launch_bounds__(TGeometry<TA, BT>::THREADS, 1)
   const unsigned rank = cluster_rank();
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  // this cluster's slab: its chain of n row blocks, rows [slab n Bt, + n Bt)
+  // of the tensor map
+  const long long slab = blockIdx.x / G::C;
+  g += slab * n * BT;
+  out += slab * n * BT;
   if (threadIdx.x == 0) {
     for (int s = 0; s < G::NST; ++s) {
       mbar_init(full + s, 1);
@@ -561,7 +594,7 @@ __global__ void __launch_bounds__(TGeometry<TA, BT>::THREADS, 1)
       __syncwarp();
       const int s = t / G::SPB + 1;
       const int sub = t - (s - 1) * G::SPB;
-      const long long row0 = static_cast<long long>(reverse ? n - s : s - 1) * BT + sub * G::SR;
+      const long long row0 = (slab * n + (reverse ? n - s : s - 1)) * BT + sub * G::SR;
       unsigned char* slot = ring + st * G::STAGE_BYTES;
       if (lane < G::BOXES)
         tensor_load(slot + lane * G::SR * G::SWB, &map,
@@ -570,8 +603,10 @@ __global__ void __launch_bounds__(TGeometry<TA, BT>::THREADS, 1)
     }
     __syncwarp();
   } else {
-    const int colw = static_cast<int>(rank) * G::R + warp * VEC;  // the warp's first column
-    const int col = colw + (lane >> (5 - G::LV));                  // this lane's column
+    // chunk c of the warp: columns colw(c) + [0, VEC); this lane's column in
+    // it colw(c) + (lane >> (5 - LV))
+    auto colw = [&](int c) { return static_cast<int>(rank) * G::R + (warp * CPW + c) * VEC; };
+    const int lcol = lane >> (5 - G::LV);
     const bool writer = (lane & ((32 >> G::LV) - 1)) == 0;
     for (int s = 0; s < n; ++s) {
       const int i = reverse ? n - 1 - s : s;
@@ -579,12 +614,57 @@ __global__ void __launch_bounds__(TGeometry<TA, BT>::THREADS, 1)
       const bool push = s + 1 < n;
       if (push && threadIdx.x == 0)
         mbar_arrive_expect_tx(xready + rb, BT * static_cast<unsigned>(sizeof(TA)));
-      const TV gv = g[static_cast<long long>(i) * BT + col];  // before the wait
-      TV y = gv;
-      if (s > 0) {
-        // this lane's rows of the box, from the ring, before the wait
-        AccT a[G::SPB][G::RPL][VEC];
+      TV y[CPW];  // g before the wait, then x_s
 #pragma unroll
+      for (int c = 0; c < CPW; ++c) y[c] = g[static_cast<long long>(i) * BT + colw(c) + lcol];
+      if constexpr (CPW == 1) {
+        if (s > 0) {
+          // this lane's rows of the box, from the ring, before the wait
+          AccT a[G::SPB][G::RPL][VEC];
+#pragma unroll
+          for (int sub = 0; sub < G::SPB; ++sub) {
+            const int t = (s - 1) * G::SPB + sub;
+            const int st = t % G::NST;
+            mbar_wait<false>(full + st, (t / G::NST) & 1);
+            const unsigned char* slot = ring + st * G::STAGE_BYTES;
+#pragma unroll
+            for (int j = 0; j < G::RPL; ++j) {
+              const int k = lane + 32 * j;
+              const uint4 q = *reinterpret_cast<const uint4*>(slot + G::offset(k, warp));
+              const TA* av = reinterpret_cast<const TA*>(&q);
+#pragma unroll
+              for (int v = 0; v < VEC; ++v) a[sub][j][v] = to_acc(av[v]);
+            }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(empty + st);  // the slot has been read
+          }
+          mbar_wait<true>(xready + (rb ^ 1), ((s - 1) >> 1) & 1);
+          const TA* x = xs + (rb ^ 1) * BT;
+          AccT acc[VEC];
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) acc[v] = AccT(0);
+#pragma unroll
+          for (int sub = 0; sub < G::SPB; ++sub)
+#pragma unroll
+            for (int j = 0; j < G::RPL; ++j) {
+              const AccT xk = to_acc(x[sub * G::SR + lane + 32 * j]);
+#pragma unroll
+              for (int v = 0; v < VEC; ++v) acc[v] = fma_rn(a[sub][j][v], xk, acc[v]);
+            }
+          y[0] = sub_rn(y[0], static_cast<TV>(warp_column_sum<VEC, G::LV>(acc, lane)));
+        }
+      } else if (s > 0) {
+        // several chunks a warp (Bt = 1280): the box does not fit in
+        // registers, so the lanes read it from each slot after the wait, in
+        // the same row order
+        mbar_wait<true>(xready + (rb ^ 1), ((s - 1) >> 1) & 1);
+        const TA* x = xs + (rb ^ 1) * BT;
+        AccT acc[CPW][VEC];
+#pragma unroll
+        for (int c = 0; c < CPW; ++c)
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) acc[c][v] = AccT(0);
+#pragma unroll 1
         for (int sub = 0; sub < G::SPB; ++sub) {
           const int t = (s - 1) * G::SPB + sub;
           const int st = t % G::NST;
@@ -593,38 +673,37 @@ __global__ void __launch_bounds__(TGeometry<TA, BT>::THREADS, 1)
 #pragma unroll
           for (int j = 0; j < G::RPL; ++j) {
             const int k = lane + 32 * j;
-            const uint4 q = *reinterpret_cast<const uint4*>(slot + G::offset(k, warp));
-            const TA* av = reinterpret_cast<const TA*>(&q);
+            const AccT xk = to_acc(x[sub * G::SR + k]);
 #pragma unroll
-            for (int v = 0; v < VEC; ++v) a[sub][j][v] = to_acc(av[v]);
+            for (int c = 0; c < CPW; ++c) {
+              const uint4 q =
+                  *reinterpret_cast<const uint4*>(slot + G::offset(k, warp * CPW + c));
+              const TA* av = reinterpret_cast<const TA*>(&q);
+#pragma unroll
+              for (int v = 0; v < VEC; ++v) acc[c][v] = fma_rn(to_acc(av[v]), xk, acc[c][v]);
+            }
           }
           __syncwarp();
           if (lane == 0) mbar_arrive(empty + st);  // the slot has been read
         }
-        mbar_wait<true>(xready + (rb ^ 1), ((s - 1) >> 1) & 1);
-        const TA* x = xs + (rb ^ 1) * BT;
-        AccT acc[VEC];
 #pragma unroll
-        for (int v = 0; v < VEC; ++v) acc[v] = AccT(0);
-#pragma unroll
-        for (int sub = 0; sub < G::SPB; ++sub)
-#pragma unroll
-          for (int j = 0; j < G::RPL; ++j) {
-            const AccT xk = to_acc(x[sub * G::SR + lane + 32 * j]);
-#pragma unroll
-            for (int v = 0; v < VEC; ++v) acc[v] = fma_rn(a[sub][j][v], xk, acc[v]);
-          }
-        y = sub_rn(gv, static_cast<TV>(warp_column_sum<VEC, G::LV>(acc, lane)));
+        for (int c = 0; c < CPW; ++c)
+          y[c] = sub_rn(y[c], static_cast<TV>(warp_column_sum<VEC, G::LV>(acc[c], lane)));
       }
-      if (writer) out[static_cast<long long>(i) * BT + col] = y;
+#pragma unroll
+      for (int c = 0; c < CPW; ++c)
+        if (writer) out[static_cast<long long>(i) * BT + colw(c) + lcol] = y[c];
       if (push) {
         const int m = lane & 3;  // lane l pushes word l & 3 into CTAs l / 4 (+ 8)
-        const uint32_t w = chunk_word(to_factor<TA, TV>(y), m);
-        const unsigned dst = smem_addr(xs + rb * BT + colw) + 4 * m;
         const unsigned bar = smem_addr(xready + rb);
 #pragma unroll
-        for (int p = lane >> 2; p < G::C; p += 8)
-          st_async_word(map_rank(dst, p), w, map_rank(bar, p));
+        for (int c = 0; c < CPW; ++c) {
+          const uint32_t w = chunk_word(to_factor<TA, TV>(y[c]), m);
+          const unsigned dst = smem_addr(xs + rb * BT + colw(c)) + 4 * m;
+#pragma unroll
+          for (int p = lane >> 2; p < G::C; p += 8)
+            st_async_word(map_rank(dst, p), w, map_rank(bar, p));
+        }
       }
     }
   }
@@ -651,7 +730,7 @@ constexpr CUtensorMapDataType map_type() {
 // launches K6T on the same factors many times.  A refused encoding
 // returns cudaErrorInvalidValue.
 template <typename TA, int BT>
-int tensor_map(const void* A, int n, CUtensorMap* out) {
+int tensor_map(const void* A, int n, CUtensorMap* out) {  // n: row blocks of all slabs
   using G = TGeometry<TA, BT>;
   struct Entry {
     const void* ptr;
@@ -706,20 +785,20 @@ int tensor_map(const void* A, int n, CUtensorMap* out) {
 
 template <typename TA, typename TV, int BT>
 int launch_sweep_t_bt(const void* A, const void* g, void* out, int n, int reverse,
-                      int cluster, void* stream) {
+                      int cluster, int slabs, void* stream) {
   using G = TGeometry<TA, BT>;
-  if (cluster != G::C) return static_cast<int>(cudaErrorInvalidValue);
+  if (cluster != G::C || slabs < 1) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = btd_sweep_t_kernel<TA, TV, BT>;
   static const cudaError_t attr_err = set_attributes(kernel, G::SMEM, G::C);
   if (attr_err != cudaSuccess) return static_cast<int>(attr_err);
   CUtensorMap map{};  // n = 1 reads no block
   if (n > 1) {
-    const int err = tensor_map<TA, BT>(A, n, &map);
+    const int err = tensor_map<TA, BT>(A, slabs * n, &map);
     if (err != 0) return err;
   }
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cluster_config(G::THREADS, G::SMEM, G::C, stream, cfg, attr);
+  cluster_config(G::THREADS, G::SMEM, G::C, stream, cfg, attr, slabs);
   cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, map, static_cast<const TV*>(g),
                                        static_cast<TV*>(out), n, reverse);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -728,11 +807,11 @@ int launch_sweep_t_bt(const void* A, const void* g, void* out, int n, int revers
 
 template <typename TA, typename TV>
 int launch_sweep_t(const void* A, const void* g, void* out, int n, int bt,
-                   int reverse, int cluster, void* stream) {
+                   int reverse, int cluster, int slabs, void* stream) {
   if (n == 0) return 0;
 #define VF_SWEEP_T_CALL(BT) \
-  launch_sweep_t_bt<TA, TV, BT>(A, g, out, n, reverse, cluster, stream)
-  VF_BT_T_SWITCH(VF_SWEEP_T_CALL)
+  launch_sweep_t_bt<TA, TV, BT>(A, g, out, n, reverse, cluster, slabs, stream)
+  VF_BT_SWITCH(VF_SWEEP_T_CALL)
 #undef VF_SWEEP_T_CALL
 }
 
@@ -740,8 +819,8 @@ int launch_sweep_t(const void* A, const void* g, void* out, int n, int bt,
 
 // Each entry point returns the cudaError_t of its launch (0 on success).
 // Suffix: factor type, vector type.  `cluster` is the launch plan's
-// (ops.kernels.sweep_plan); any other is refused.  K6 takes `slabs` chains
-// of n row blocks each (1 for the btd solve).
+// (ops.kernels.sweep_plan); any other is refused.  K6 and K6T take `slabs`
+// chains of n row blocks each (1 for the btd solve).
 extern "C" {
 
 #define VF_SWEEP_ENTRY(NAME, TA, TV)                                          \
@@ -758,11 +837,12 @@ VF_SWEEP_ENTRY(vf_btd_sweep_f32_f32, float, float)
 
 #undef VF_SWEEP_ENTRY
 
-// K6T: K6's arguments but `slabs`
+// K6T: K6's arguments
 #define VF_SWEEP_T_ENTRY(NAME, TA, TV)                                          \
   int NAME(const void* A, const void* g, void* out, int n, int bt, int reverse, \
-           int cluster, void* stream) {                                         \
-    return launch_sweep_t<TA, TV>(A, g, out, n, bt, reverse, cluster, stream);  \
+           int cluster, int slabs, void* stream) {                              \
+    return launch_sweep_t<TA, TV>(A, g, out, n, bt, reverse, cluster, slabs,    \
+                                  stream);                                      \
   }
 
 VF_SWEEP_T_ENTRY(vf_btd_sweep_t_bf16_f64, __nv_bfloat16, double)
@@ -790,7 +870,7 @@ int vf_btd_sweep_plan(int es, int bt, int* out) {
 // comparison with ops.kernels.sweep_t_plan
 int vf_btd_sweep_t_plan(int es, int bt, int* out) {
   if ((es != 2 && es != 4 && es != 8) ||
-      (bt != 128 && bt != 256 && bt != 384 && bt != 512))
+      (bt != 128 && bt != 256 && bt != 384 && bt != 512 && bt != 1280))
     return static_cast<int>(cudaErrorInvalidValue);
   const TPlan p = make_t_plan(es, bt);
   const int v[9] = {p.cluster, p.cols_per_cta, p.warps, p.stage_rows, p.stages_per_block,

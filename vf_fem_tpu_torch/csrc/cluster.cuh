@@ -265,22 +265,15 @@ cudaError_t set_attributes(Kernel kernel, int smem, int cluster) {
 
 }  // namespace vf_btd
 
-// Bt = h * 128 for the block-banded plans of b = 128: h = 1 .. 4 (the 2D
-// meshes; 2Bt of the complex embedding at h = 1, 2) and h = 10 (the
-// 45.8k-dof extruded 3D mesh).  K6T (btd.cu) is built for h = 1 .. 4 only.
-#define VF_BT_T_CASES(CALL)   \
-  case 128: return CALL(128); \
-  case 256: return CALL(256); \
-  case 384: return CALL(384); \
-  case 512: return CALL(512);
-#define VF_BT_T_SWITCH(CALL)                                 \
-  switch (bt) {                                              \
-    VF_BT_T_CASES(CALL)                                      \
-    default: return static_cast<int>(cudaErrorInvalidValue); \
-  }
+// Bt = h * 128 for the block-banded plans of b = 128, the widths K6 and K6T
+// (btd.cu) are built for: h = 1 .. 4 (the 2D meshes; 2Bt of the complex
+// embedding at h = 1, 2) and h = 10 (the 45.8k-dof extruded 3D mesh).
 #define VF_BT_SWITCH(CALL)                                   \
   switch (bt) {                                              \
-    VF_BT_T_CASES(CALL)                                      \
+    case 128: return CALL(128);                              \
+    case 256: return CALL(256);                              \
+    case 384: return CALL(384);                              \
+    case 512: return CALL(512);                              \
     case 1280: return CALL(1280);                            \
     default: return static_cast<int>(cudaErrorInvalidValue); \
   }

@@ -281,6 +281,8 @@ def _integrate_diff(model, ini_state, controls_stacked, prop, times,
     from .equations import newmark
 
     dev, dtype = model.device, model.dtype
+    # a window's SPIKE factors carry the transposed parts the adjoint needs
+    params_d = {**params_d, "with_transpose": True}
     state, controls, prop = run_inputs(model, ini_state, controls_stacked, prop, batch)
     _, _, factorize, refresh, step_diff = steppers(model, batch)
     times_t = (times if isinstance(times, torch.Tensor)

@@ -12,8 +12,10 @@ Solver parameters supported on this path: ``linear_solver`` ('dense' |
 'cg' | 'bsb' | 'btd' | 'spike'), with ``krylov`` ('bicgstab' | 'pcg'),
 ``krylov_tolerance`` and ``krylov_max_iter`` for the two matrix-free ones,
 ``btd_store_dtype`` (None | 'bfloat16') for the two block-tridiagonal direct
-ones and ``spike_partitions`` (8) for the SPIKE one (``solvers.spike``:
-forward solves only, its gradient path raises); ``jacobian_update`` ('every_iteration' | 'once_per_step');
+ones and ``spike_partitions`` (8) for the SPIKE one (``solvers.spike``;
+``with_transpose``, which ``forward._integrate_diff`` sets, builds its
+transposed parts for the adjoint solves); ``jacobian_update``
+('every_iteration' | 'once_per_step');
 ``fixed_iterations``/``fixed_tail_residual``/``stagnation_ratio`` and the
 tolerances (``solvers.newton``); ``assembly`` ('auto' | 'banded' |
 'plain'); ``jacobian_refresh_steps``/``jacobian_refresh_mode``/
@@ -173,6 +175,50 @@ def _unflatten(layout, tensors):
         out.append(dict(zip(keys, tensors[i:i + len(keys)])))
         i += len(keys)
     return tuple(out)
+
+
+def refined_adjoint(JT, solve_t, norm, u1_bar, params_d):
+    """The refined adjoint of the JAX package's ``refined_adjoint_solve``:
+    the Richardson iteration ``lam += M^-T (u1_bar - J^T lam)`` with
+    ``solve_t`` applying ``M^-T``, from ``lam = M^-T u1_bar``; it keeps the
+    lowest-residual iterate and stops below ``adjoint_refine_tol`` of
+    ``norm(u1_bar)``, when an iteration fails to reduce the residual by
+    ``stagnation_ratio``, or after ``adjoint_refine_iters`` iterations.
+    ``norm`` gives one norm a row of a batch (rank 0 unbatched), each row
+    its own test and iterate, in lockstep.  One host read an iteration, of
+    whether any row goes on; the tests compare in float64, as
+    :func:`solvers.newton.newton_solve`'s do.  Returns ``(lam, the
+    iterations summed over the rows)``."""
+    tol = params_d.get("adjoint_refine_tol", 1e-8)
+    max_it = int(params_d.get("adjoint_refine_iters", 25))
+    stag = params_d.get("stagnation_ratio", 0.9)
+    bound = tol * norm(u1_bar).double()
+    lam = solve_t(u1_bar)
+    r = u1_bar - JT(lam)
+    rn = norm(r)
+    rn_prev = torch.full_like(rn, float("inf"))
+    lam_best, rn_best = lam, rn
+    k = torch.zeros(rn.shape, dtype=torch.int64, device=rn.device)
+
+    def active():
+        e = rn.double()
+        return (e >= bound) & (e < stag * rn_prev.double()) & (k < max_it)
+
+    act = active()
+    while bool(act.any()):
+        lam_new = lam + solve_t(r)
+        r_new = u1_bar - JT(lam_new)
+        rn_new = norm(r_new)
+        better = act & (rn_new < rn_best)
+        lam_best = _select(better, lam_new, lam_best)
+        rn_best = torch.where(better, rn_new, rn_best)
+        lam = _select(act, lam_new, lam)
+        r = _select(act, r_new, r)
+        rn_prev = torch.where(act, rn, rn_prev)
+        rn = torch.where(act, rn_new, rn)
+        k = k + act.to(k.dtype)
+        act = active()
+    return lam_best, int(k.sum())
 
 
 class _SolveU1(torch.autograd.Function):
@@ -762,6 +808,7 @@ class SolidModel(SolidElements, BaseTransientModel):
                 return spike.spike_factor(
                     plan, blocks, int(params_d.get("spike_partitions", 8)),
                     store_dtype=params_d.get("btd_store_dtype"),
+                    with_transpose=bool(params_d.get("with_transpose", False)),
                 )
             return KrylovFactors(blocks, op.block_diag_inverse(self.dim))
         return KrylovFactors(op, op.block_diag_inverse(self.dim))
@@ -1045,11 +1092,10 @@ class SolidModel(SolidElements, BaseTransientModel):
         from the Newmark predictor of the detached state, then
         v1, a1 by K5 under ``ops.newmark_step`` (K5T backward).  The values
         are :meth:`solve_state1_pure`'s / :meth:`solve_state1_stale`'s bit
-        for bit; nothing is carried between steps.  ``linear_solver=
-        'spike'`` raises: its transposed solve is not ported."""
+        for bit; nothing is carried between steps.  A window's SPIKE
+        ``factors`` must hold the transposed parts (``with_transpose``,
+        which ``forward._integrate_diff`` asks for)."""
         params_d = solver_params(params)
-        if params_d.get("linear_solver") == "spike":
-            raise NotImplementedError(spike.TRANSPOSE_TODO)
         u0, v0, a0 = (state0[k] for k in ("u", "v", "a"))
         guess = newmark.newmark_predict_u(u0.detach(), v0.detach(),
                                           a0.detach(), dt)
@@ -1152,15 +1198,20 @@ class SolidModel(SolidElements, BaseTransientModel):
         factors built at u1 in full precision (``btd_store_dtype``
         dropped): one uncorrected solve, the adjoint's and the tangent's
         (the JAX package's ``solve_u1`` rules): a block-Thomas solve
-        ('btd', K6 / K6T), a Krylov solve to ``krylov_tolerance`` ('cg',
-        'bsb'), or a dense LU solve."""
+        ('btd', K6 / K6T), a SPIKE solve ('spike', K6 / K6T over slabs, the
+        transposed parts built only for ``transpose``), a Krylov solve to
+        ``krylov_tolerance`` ('cg', 'bsb'), or a dense LU solve."""
         state0, control, prop = inputs
         ls = params_d.get("linear_solver", "dense")
         if ls in ELEMENT_SOLVERS:
             exact = {k: v for k, v in params_d.items() if k != "btd_store_dtype"}
+            exact["with_transpose"] = transpose
             fac = self.make_iter_factors(u1, state0, control, prop, dt, exact)
             if ls == "btd":
                 solve = btd.btd_solve_t if transpose else btd.btd_solve
+                return solve(self.bsb_plan()[0], fac, rhs)
+            if ls == "spike":
+                solve = spike.spike_solve_t if transpose else spike.spike_solve
                 return solve(self.bsb_plan()[0], fac, rhs)
             return self.iter_solve(fac, rhs, params_d, transpose)
         A = self.jac_u_dense(u1, state0, control, prop, dt)
@@ -1168,9 +1219,11 @@ class SolidModel(SolidElements, BaseTransientModel):
 
     def solve_factors_t(self, factors, r):
         """Carried factors applied as a transposed preconditioner,
-        ``M^-T r`` (block-Thomas factors or the dense inverse)."""
+        ``M^-T r`` (block-Thomas or SPIKE factors, or the dense inverse)."""
         if isinstance(factors, btd.BTDFactors):
             return btd.btd_solve_t(self.bsb_plan()[0], factors, r)
+        if isinstance(factors, spike.SPIKEFactors):
+            return spike.spike_solve_t(self.bsb_plan()[0], factors, r)
         return linalg.dense_factor_solve_t(factors, r)
 
     def _refined_adjoint(self, JT, factors, u1_bar, params_d, batched=False):
@@ -1182,12 +1235,7 @@ class SolidModel(SolidElements, BaseTransientModel):
         ``adjoint_refine_iters`` iterations.  ``batched``: a batch of
         variants (rows) in lockstep, each with its own norms, test and
         lowest-residual iterate (the JAX package's loop under ``vmap``);
-        unbatched, the same loop at rank 0.  One host read an iteration,
-        of whether any variant goes on; the tests compare in float64, as
-        :func:`solvers.newton.newton_solve`'s do."""
-        tol = params_d.get("adjoint_refine_tol", 1e-8)
-        max_it = int(params_d.get("adjoint_refine_iters", 25))
-        stag = params_d.get("stagnation_ratio", 0.9)
+        unbatched, the same loop at rank 0 (:func:`refined_adjoint`)."""
         if batched:
             solve_b = vmap(linalg.dense_factor_solve_t)
 
@@ -1202,34 +1250,9 @@ class SolidModel(SolidElements, BaseTransientModel):
 
             norm = torch.linalg.vector_norm
 
-        bound = tol * norm(u1_bar).double()
-        lam = solve_t(u1_bar)
-        r = u1_bar - JT(lam)
-        rn = norm(r)
-        rn_prev = torch.full_like(rn, float("inf"))
-        lam_best, rn_best = lam, rn
-        k = torch.zeros(rn.shape, dtype=torch.int64, device=rn.device)
-
-        def active():
-            e = rn.double()
-            return (e >= bound) & (e < stag * rn_prev.double()) & (k < max_it)
-
-        act = active()
-        while bool(act.any()):
-            lam_new = lam + solve_t(r)
-            r_new = u1_bar - JT(lam_new)
-            rn_new = norm(r_new)
-            better = act & (rn_new < rn_best)
-            lam_best = _select(better, lam_new, lam_best)
-            rn_best = torch.where(better, rn_new, rn_best)
-            lam = _select(act, lam_new, lam)
-            r = _select(act, r_new, r)
-            rn_prev = torch.where(act, rn, rn_prev)
-            rn = torch.where(act, rn_new, rn)
-            k = k + act.to(k.dtype)
-            act = active()
-        self.adjoint_counts["refine_iterations"] += int(k.sum())
-        return lam_best
+        lam, k = refined_adjoint(JT, solve_t, norm, u1_bar, params_d)
+        self.adjoint_counts["refine_iterations"] += k
+        return lam
 
     # -- the static problem (v1 = a1 = 0) ----------------------------------------
     def res_u_static(self, u1_flat, control, prop, banded=False):

@@ -3,7 +3,8 @@ The solver kernels: K3 (element-by-element matvec), K4 (block-banded
 matvec), K5 (fused Newmark update) and K6 (block-Thomas sweep), and the
 kernels of the gradient path: K5T (K5's backward, under the
 ``autograd.Function`` :func:`newmark_step`, whose tangent is two K5
-launches), K6T (the transposed sweep of ``solvers.btd.btd_solve_t``), and
+launches), K6T (the transposed sweep of ``solvers.btd.btd_solve_t``, and
+over slabs that of ``solvers.spike.spike_solve_t``), and
 K3T and K4T (the transposed operators of the 'cg' and 'bsb' adjoint
 solves: :func:`ebe_matvec_t`, :func:`bsb_matvec_t`).
 
@@ -66,6 +67,7 @@ __all__ = [
     "btd_sweep_t",
     "btd_sweep_t_reference",
     "btd_sweep_t_rows_reference",
+    "btd_sweep_t_slabs_reference",
     "sweep_plan",
     "sweep_t_plan",
     "dot_order_bound",
@@ -73,7 +75,7 @@ __all__ = [
 
 LAUNCHES = {"ebe_matvec": 0, "bsb_matvec": 0, "newmark": 0, "btd_sweep": 0,
             "newmark_t": 0, "btd_sweep_t": 0, "ebe_matvec_t": 0, "bsb_matvec_t": 0,
-            "btd_sweep_slabs": 0}
+            "btd_sweep_slabs": 0, "btd_sweep_t_slabs": 0}
 
 BSB_BLOCK = 128  # the block size K4 is compiled for
 BSB_LANES = 4  # lanes a row of K4 and a column of K4T (csrc/ops.cu: kBsbLanes)
@@ -719,12 +721,11 @@ _SWEEP_TYPES = {
     (torch.float64, torch.float64): "f64_f64",
     (torch.float32, torch.float32): "f32_f32",
 }
-# the row-block sizes K6T is compiled for, h = 1 .. 4 blocks of 128 (the 2D
-# meshes, and 2Bt of the complex embedding; csrc/cluster.cuh, VF_BT_T_CASES),
-# and K6 for these and h = 10 (the 45.8k-dof extruded 3D mesh; 3D gradients
-# wait)
-SWEEP_T_WIDTHS = (128, 256, 384, 512)
-SWEEP_WIDTHS = SWEEP_T_WIDTHS + (1280,)
+# the row-block sizes K6 and K6T are compiled for, h = 1 .. 4 blocks of 128
+# (the 2D meshes, and 2Bt of the complex embedding) and h = 10 (the 45.8k-dof
+# extruded 3D mesh): csrc/cluster.cuh, VF_BT_SWITCH
+SWEEP_WIDTHS = (128, 256, 384, 512, 1280)
+SWEEP_T_WIDTHS = SWEEP_WIDTHS
 # CTAs a cluster for each factor dtype (csrc/cluster.cuh, cluster_size): the
 # faster of 8 and 16 at 93 row blocks of 256 on an H100 (PERF.md section 6)
 SWEEP_CLUSTER = {torch.bfloat16: 8, torch.float32: 8, torch.float64: 16}
@@ -732,9 +733,9 @@ SMEM_LIMIT = 232448  # shared memory a CTA can use on Hopper (227 KB)
 _MAX_WARPS = 16  # consumer warps a CTA
 _MAX_STAGES = 16  # ring slots
 _BAR_BYTES = (2 * _MAX_STAGES + 2) * 8
-# K6 takes the number of slabs beside K6T's arguments
-_SWEEP_SIGNATURES = {f"vf_btd_sweep{t}_{s}": [_P, _P, _P] + [_I] * (4 + n) + [_P]
-                     for s in _SWEEP_TYPES.values() for t, n in (("", 1), ("_t", 0))}
+# K6 and K6T: A, g, out, n, bt, reverse, cluster, slabs, stream
+_SWEEP_SIGNATURES = {f"vf_btd_sweep{t}_{s}": [_P, _P, _P] + [_I] * 5 + [_P]
+                     for s in _SWEEP_TYPES.values() for t in ("", "_t")}
 _SWEEP_SIGNATURES["vf_btd_sweep_plan"] = [_I, _I, _P]
 _SWEEP_SIGNATURES["vf_btd_sweep_t_plan"] = [_I, _I, _P]
 
@@ -913,7 +914,7 @@ class SweepTPlan(NamedTuple):
 
     cluster: int  # CTAs in the cluster (K6's)
     cols_per_cta: int  # output entries a CTA owns: a column box of every block
-    warps: int  # consumer warps: the 16-byte chunks of a box row
+    warps: int  # consumer warps, each an equal share of a box row's 16-byte chunks
     stage_rows: int  # box rows a ring slot holds (at most 256)
     stages_per_block: int  # ring slots a row block takes
     box_bytes: int  # the inner width of a tensor-map box, its swizzle span
@@ -926,9 +927,12 @@ class SweepTPlan(NamedTuple):
 def sweep_t_plan(bt: int, factor_dtype, vector_dtype) -> SweepTPlan:
     """The launch plan of K6T for row blocks of ``bt``: K6's cluster; each
     CTA owns ``bt / cluster`` columns, whose box rows a consumer warp a
-    16-byte chunk reads; a ring slot holds up to 256 box rows, loaded as
-    tensor-map boxes of 128, 64 or 32 bytes (the widest that divides a box
-    row) swizzled over that span, and the ring as many slots as fit in
+    16-byte chunk reads (past 16 chunks, at ``bt`` = 1280, the most warps
+    up to 16 that divide the chunks, each reading as many); a ring slot
+    holds ``bt`` box rows up to 256, ``bt / 2`` up to 512, and 128 rows at
+    1280 (so that two slots fit for every dtype pair), loaded as tensor-map
+    boxes of 128, 64 or 32 bytes (the widest that divides a box row)
+    swizzled over that span, and the ring as many slots as fit in
     ``SMEM_LIMIT`` beside the carried vector's two buffers, the mbarriers
     and 1024 bytes to align the ring."""
     if bt not in SWEEP_T_WIDTHS:
@@ -938,13 +942,16 @@ def sweep_t_plan(bt: int, factor_dtype, vector_dtype) -> SweepTPlan:
     es = factor_dtype.itemsize
     cols = bt // cluster
     row_bytes = cols * es
-    stage_rows = bt if bt <= 256 else bt // 2
+    chunks = row_bytes // 16
+    warps = chunks if chunks <= _MAX_WARPS else max(
+        d for d in range(1, _MAX_WARPS + 1) if chunks % d == 0)
+    stage_rows = bt if bt <= 256 else bt // 2 if bt <= 512 else 128
     box = 128 if row_bytes % 128 == 0 else 64 if row_bytes % 64 == 0 else 32
     stage_bytes = stage_rows * row_bytes
     ring = min(_MAX_STAGES, (SMEM_LIMIT - 1024 - 2 * bt * es - _BAR_BYTES) // stage_bytes)
-    return SweepTPlan(cluster, cols, row_bytes // 16, stage_rows, bt // stage_rows, box,
+    return SweepTPlan(cluster, cols, warps, stage_rows, bt // stage_rows, box,
                       ring, 1024 + ring * stage_bytes + 2 * bt * es + _BAR_BYTES,
-                      (row_bytes // 16 + 1) * 32)
+                      (warps + 1) * 32)
 
 
 def built_sweep_t_plan(bt: int, factor_dtype) -> SweepTPlan:
@@ -995,15 +1002,27 @@ def btd_sweep_t_rows_reference(A: torch.Tensor, g: torch.Tensor,
     return ref, bound
 
 
+def btd_sweep_t_slabs_reference(A: torch.Tensor, g: torch.Tensor,
+                                reverse: bool = False) -> torch.Tensor:
+    """:func:`btd_sweep_t_reference` over each slab: A (S, n, Bt, Bt),
+    g (S, n, Bt) -> (S, n, Bt)."""
+    return torch.stack([btd_sweep_t_reference(a, x, reverse) for a, x in zip(A, g)])
+
+
 def btd_sweep_t(A: torch.Tensor, g: torch.Tensor,
                 reverse: bool = False) -> torch.Tensor:
     """One transposed sweep of the block-Thomas adjoint solve over the
     stored blocks, shifted by one block (K6T on CUDA, one thread-block
     cluster launched with :func:`sweep_t_plan`; the plain
     :func:`btd_sweep_t_reference` on the CPU).  The dtype pairs of
-    :func:`btd_sweep`."""
-    if (A.dim() != 3 or A.shape[1] != A.shape[2]
-            or tuple(g.shape) != tuple(A.shape[:2])):
+    :func:`btd_sweep`.
+
+    With A (S, n, Bt, Bt) and g (S, n, Bt) it runs the sweep over each of
+    S independent slabs (the SPIKE solver's transposed local sweeps): one
+    launch of S clusters, each bit for bit a launch of its slab alone, or
+    :func:`btd_sweep_t_slabs_reference` on the CPU."""
+    if (A.dim() not in (3, 4) or A.shape[-1] != A.shape[-2]
+            or tuple(g.shape) != tuple(A.shape[:-1])):
         raise ValueError(f"btd_sweep_t: A {tuple(A.shape)}, g {tuple(g.shape)}")
     suffix = _SWEEP_TYPES.get((A.dtype, g.dtype))
     if suffix is None:
@@ -1012,6 +1031,8 @@ def btd_sweep_t(A: torch.Tensor, g: torch.Tensor,
     if A.device != g.device:
         raise ValueError(f"btd_sweep_t: tensors on {A.device} and {g.device}")
     if g.device.type == "cpu":
+        if g.dim() == 3:
+            return btd_sweep_t_slabs_reference(A, g, reverse)
         return btd_sweep_t_reference(A, g, reverse)
     if g.device.type != "cuda":
         raise ValueError(f"btd_sweep_t: unsupported device {g.device}")
@@ -1019,13 +1040,20 @@ def btd_sweep_t(A: torch.Tensor, g: torch.Tensor,
         raise ValueError("btd_sweep_t: inputs must be contiguous")
     if A.data_ptr() % 16:  # the tensor map's base
         raise ValueError("btd_sweep_t: the factors must be 16-byte aligned")
-    n, bt = g.shape
-    plan = sweep_t_plan(bt, A.dtype, g.dtype)  # raises for a width it lacks
+    return _sweep_t_launch(A, g, reverse, sweep_t_plan(g.shape[-1], A.dtype, g.dtype))
+
+
+def _sweep_t_launch(A: torch.Tensor, g: torch.Tensor, reverse: bool,
+                    plan: SweepTPlan) -> torch.Tensor:
+    """Launch K6T with ``plan``'s cluster size on checked CUDA tensors, one
+    cluster a slab."""
+    n, bt = g.shape[-2:]
+    slabs = g.shape[0] if g.dim() == 3 else 1
     out = torch.empty_like(g)
-    fn = f"vf_btd_sweep_t_{suffix}"
+    fn = f"vf_btd_sweep_t_{_SWEEP_TYPES[(A.dtype, g.dtype)]}"
     err = getattr(_sweep_lib(), fn)(A.data_ptr(), g.data_ptr(), out.data_ptr(), n, bt,
-                                    int(reverse), plan.cluster, _stream(g))
+                                    int(reverse), plan.cluster, slabs, _stream(g))
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: cudaError_t {err} (plan {plan})")
-    LAUNCHES["btd_sweep_t"] += 1
+    LAUNCHES["btd_sweep_t_slabs" if g.dim() == 3 else "btd_sweep_t"] += 1
     return out

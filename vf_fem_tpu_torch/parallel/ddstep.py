@@ -35,12 +35,22 @@ leading axis S, the collectives are tensor operations along it
 batch.  It is the same computation, and it runs on the CPU (the plain
 versions of the kernels) as on the card.
 
+Gradients through the run (inputs that require grad): the chord Newton
+of each step is :class:`_SolveU1DD`, whose backward is the JAX package's
+IFT ``custom_vjp`` (``vf_fem_tpu/parallel/ddstep.py:940-1068``): the
+sharded residual rebuilt at u1, ``J^T v`` by autograd through it (the
+shard collectives, and K1/K2 over the stacked plans through each other),
+the adjoint refined with the window's factors as a transposed
+preconditioner (the transposed SPIKE solve: K6T over slabs), the norms
+summed over the shards, and ``-lam``'s vjp into the state, the pressure,
+the properties and the step's Newmark coefficients (so the times get
+their gradient).  The values are the no-grad run's bit for bit.
+
 Not ported (``NotImplementedError``, ROADMAP item 22): the implicit and
-FSAI models, shape parameters (``prop/umesh``), ``dp_axis`` batches and
-gradients through the run (the JAX package's IFT ``custom_vjp``, which
-needs the transposed SPIKE solve).  Nor are the TPU's own idioms: the
-data-derived carry inits, the finite stagnation sentinels, the DP
-predicate, the f64 fallback of the banded kernels.
+FSAI models, shape parameters (``prop/umesh``) and ``dp_axis`` batches.
+Nor are the TPU's own idioms: the data-derived carry inits, the finite
+stagnation sentinels, the DP predicate, the f64 fallback of the banded
+kernels.
 """
 
 from __future__ import annotations
@@ -60,6 +70,7 @@ from ..models.transient import (
     ExplicitFSIModel,
     ImplicitFSIModel,
     _contact_traction,
+    refined_adjoint,
     solver_params,
 )
 from ..solvers import btd, spike
@@ -397,6 +408,60 @@ class _Scatter:
         return self.plan(v[:, None]).reshape(self.shape)
 
 
+def _coefs(dt):
+    """A step's Newmark coefficients: ``dt``'s Python floats, or ``dt``
+    itself where it is already a tuple of them (0-d tensors)."""
+    return dt if isinstance(dt, tuple) else newmark.coefficients(dt)
+
+
+class _SolveU1DD(torch.autograd.Function):
+    """u1 of one sharded step by the chord Newton with the window's SPIKE
+    factors (no graph recorded), ``(u1, *info)``.  Backward: the JAX
+    package's IFT rule (``solve_u1_dd_bwd``): the sharded residual rebuilt
+    at u1 with the step's coefficient row, ``J^T v`` by autograd through
+    it, ``lam`` by the refined transposed SPIKE solve
+    (``DDIntegrator._refined_adjoint``), then ``-lam``'s vjp into the
+    coefficient row, the extended state (u, v, a), the pressure and the
+    properties.  The guess and the factors get no cotangent: the factors
+    were built without a graph from detached inputs, and the root does not
+    depend on them."""
+
+    @staticmethod
+    def forward(dd, fac, dt, keys, guess, row, u0e, v0e, a0e, p1, *prop_vals):
+        u1, info = dd._newton(guess, fac, (u0e, v0e, a0e), p1, dict(zip(keys, prop_vals)), dt)
+        return (u1.clone() if u1 is guess else u1, *info)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        dd, fac, dt, keys, guess, row, *leaves = inputs
+        ctx.dd, ctx.fac, ctx.keys = dd, fac, keys
+        ctx.save_for_backward(output[0], row, *leaves)
+        ctx.mark_non_differentiable(*output[1:])
+
+    @staticmethod
+    def backward(ctx, u1_bar, *_):
+        u1, *saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[5:]
+        if u1_bar is None or not any(needs):
+            return (None,) * (5 + len(needs))
+        dd = ctx.dd
+        with torch.enable_grad():
+            u = u1.detach().requires_grad_()
+            row, u0e, v0e, a0e, p1, *prop_vals = [
+                t.detach().requires_grad_(bool(w)) for t, w in zip(saved, needs)]
+            r = dd._res_loc(u, (u0e, v0e, a0e), p1, dict(zip(ctx.keys, prop_vals)),
+                            tuple(row.unbind(0)))
+
+        def JT(v):
+            return torch.autograd.grad(r, u, v, retain_graph=True)[0]
+
+        lam = dd._refined_adjoint(JT, ctx.fac, u1_bar.contiguous())
+        leaves = [row, u0e, v0e, a0e, p1, *prop_vals]
+        wanted = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad(r, wanted, -lam, allow_unused=True))
+        return (None,) * 5 + tuple(next(grads) if t.requires_grad else None for t in leaves)
+
+
 class DDIntegrator:
     """DOF-sharded transient integration of an ``ExplicitFSIModel`` over
     ``n_shards`` shards stacked on the model's device.
@@ -418,6 +483,8 @@ class DDIntegrator:
         if "prop/umesh" in model.solid.residual.coefficient_spec:
             raise NotImplementedError(f"DD stepping with shape parameters: {TODO}")
         self.model = model
+        # adjoint solves and their refinement iterations on the gradient path
+        self.adjoint_counts = {"solves": 0, "refine_iterations": 0}
         self.params = dict(params or {})
         self.params_d = solver_params(self.params)
         self.plan = plan_dd(model, int(n_shards))
@@ -474,11 +541,15 @@ class DDIntegrator:
 
     # -- element closures (SolidModel._jac_blocks') -------------------------------
     def _with_state(self, local, u1_e, s0_e, dt):
+        """The element locals with the state at u1: ``dt`` a float, or the
+        step's coefficients as 0-d tensors (the gradient path: the same
+        bits, differentiable in the times)."""
         u0_e, v0_e, a0_e = s0_e
+        k = _coefs(dt)
         loc = dict(local)
         loc["state/u1"] = u1_e
-        loc["state/v1"] = newmark.newmark_v(u1_e, u0_e, v0_e, a0_e, dt)
-        loc["state/a1"] = newmark.newmark_a(u1_e, u0_e, v0_e, a0_e, dt)
+        loc["state/v1"] = newmark.velocity_k(u1_e, u0_e, v0_e, a0_e, k)
+        loc["state/a1"] = newmark.acceleration_k(u1_e, u0_e, v0_e, a0_e, k)
         return loc
 
     def _cell_fn(self, dt):
@@ -630,12 +701,13 @@ class DDIntegrator:
         return r * (1.0 - bcm) + u1_loc * bcm
 
     # -- banded fill and SPIKE factors ------------------------------------------------
-    def _factorize_loc(self, ext0, p1, prop_s, dt):
+    def _factorize_loc(self, ext0, p1, prop_s, dt, with_transpose=False):
         """Each shard's slab of the block-banded Jacobian at the predictor,
         filled from the element blocks, with the previous shard's spilled
         block rows added, equilibrated with the neighbours' scale halos,
         and SPIKE-factored: a ``solvers.spike.SPIKEFactors`` whose
-        ``d`` is the shards' scale (S, ndof_loc)."""
+        ``d`` is the shards' scale (S, ndof_loc), with the transposed parts
+        where ``with_transpose`` (a differentiable run)."""
         from torch.func import jacfwd, vmap
 
         p, pst = self.plan, self.pst
@@ -677,12 +749,16 @@ class DDIntegrator:
         shim = SimpleNamespace(b=b, h=h, nb=nb, nblk=S * p.nblk_loc)
         D, L, U = (x.reshape(S, p.m, p.Bt, p.Bt)
                    for x in btd._btd_from_bsb(shim, band.reshape(-1, nb, b, b)))
-        fac = spike.factor_slabs(*spike.split_slabs(D, L, U), d_loc)
+        fac = spike.factor_slabs(*spike.split_slabs(D, L, U), d_loc,
+                                 with_transpose=with_transpose)
         return spike.store(fac, self.params_d.get("btd_store_dtype"))
 
-    def _spike_apply(self, fac, r):
+    def _spike_apply(self, fac, r, transpose=False):
+        """``A^-1 r`` (``A^-T r`` with ``transpose``) of a sharded vector
+        with the SPIKE factors of the shards' slabs."""
         p = self.plan
-        x = spike.solve_slabs(fac, (r / fac.d).reshape(p.S, p.m, p.Bt))
+        solve = spike.solve_slabs_t if transpose else spike.solve_slabs
+        x = solve(fac, (r / fac.d).reshape(p.S, p.m, p.Bt))
         return x.reshape(p.S, -1) / fac.d
 
     # -- the coupled step -------------------------------------------------------------
@@ -696,21 +772,15 @@ class DDIntegrator:
         return ({k: prop[k] for k in model._solid_prop_keys},
                 {k: prop[k] for k in model._fluid_prop_keys})
 
-    def _factorize_step(self, state, prop, dt):
+    def _factorize_step(self, state, prop, dt, with_transpose=False):
         prop_s, _ = self._split(prop)
         p1 = self.model._pressure_to_solid(state["p"])
-        return self._factorize_loc(self._ext(state), p1, prop_s, dt)
+        return self._factorize_loc(self._ext(state), p1, prop_s, dt, with_transpose)
 
-    def _step_loc(self, state, fac, control, prop, dt):
-        """One step of the sharded state ``u, v, a`` (S, ndof_loc) and the
-        fluid's ``q, p``."""
-        model, p, pst = self.model, self.plan, self.pst
-        prop_s, prop_f = self._split(prop)
-        p1 = model._pressure_to_solid(state["p"])
-        ext0 = self._ext(state)
-        u, v, a = state["u"], state["v"], state["a"]
-        u_guess = u + dt * v + 0.5 * dt * dt * a
-        shape = u.shape
+    def _newton(self, guess, fac, ext0, p1, prop_s, dt):
+        """The chord Newton of one step on the sharded vector, solving with
+        the window's factors: ``(u1, info)``."""
+        shape = guess.shape
 
         def assem(u1):
             return self._res_loc(u1.reshape(shape), ext0, p1, prop_s, dt).reshape(-1)
@@ -718,11 +788,44 @@ class DDIntegrator:
         def solve_jac(u1, r):
             return self._spike_apply(fac, r.reshape(shape)).reshape(-1)
 
-        u1, info = newton_solve(u_guess.reshape(-1), assem, solve_jac, self.params_d,
+        u1, info = newton_solve(guess.reshape(-1), assem, solve_jac, self.params_d,
                                 norm_fn=lambda r: shards.pnorm(r.reshape(shape)))
-        u1 = u1.reshape(shape)
-        v1 = newmark.newmark_v(u1, u, v, a, dt)
-        a1 = newmark.newmark_a(u1, u, v, a, dt)
+        return u1.reshape(shape), info
+
+    def _refined_adjoint(self, JT, fac, u1_bar):
+        """``lam`` with ``J(u1)^T lam = u1_bar`` (sharded vectors): the
+        single-device refinement (``models.transient.refined_adjoint``)
+        with the window's SPIKE factors as the transposed preconditioner
+        and the norms summed over the shards (the JAX package's loop)."""
+        lam, k = refined_adjoint(JT, lambda r: self._spike_apply(fac, r, transpose=True),
+                                 shards.pnorm, u1_bar, self.params_d)
+        self.adjoint_counts["solves"] += 1
+        self.adjoint_counts["refine_iterations"] += k
+        return lam
+
+    def _step_loc(self, state, fac, control, prop, dt, row=None):
+        """One step of the sharded state ``u, v, a`` (S, ndof_loc) and the
+        fluid's ``q, p``; with ``row``, the step's coefficient row
+        (``equations.newmark.coefficient_rows``), a differentiable step
+        (:class:`_SolveU1DD`) of the same values."""
+        model, p, pst = self.model, self.plan, self.pst
+        prop_s, prop_f = self._split(prop)
+        p1 = model._pressure_to_solid(state["p"])
+        ext0 = self._ext(state)
+        u, v, a = state["u"], state["v"], state["a"]
+        if row is None:
+            u_guess = u + dt * v + 0.5 * dt * dt * a
+            u1, info = self._newton(u_guess, fac, ext0, p1, prop_s, dt)
+            k = newmark.coefficients(dt)
+        else:
+            u_guess = u.detach() + dt * v.detach() + 0.5 * dt * dt * a.detach()
+            keys = list(prop_s)
+            out = _SolveU1DD.apply(self, fac, dt, keys, u_guess, row, *ext0, p1,
+                                   *(prop_s[k] for k in keys))
+            u1, info = out[0], SolveInfo(*out[1:])
+            k = tuple(row.unbind(0))
+        v1 = newmark.velocity_k(u1, u, v, a, k)
+        a1 = newmark.acceleration_k(u1, u, v, a, k)
 
         # fluid: each shard's surface areas, summed over the shards
         vals = 2.0 * (prop["ymid"][0] - pst["fl_y"]
@@ -739,21 +842,25 @@ class DDIntegrator:
         """The sharded counterpart of ``forward.integrate_pure``: global
         state in (numpy or tensors), ``(fin_state, trajectory, infos)``
         out, tensors on the model's device with the global layout.  The
-        factors are rebuilt every ``jacobian_refresh_steps`` steps."""
-        if fwd._wants_grad(state0, controls_stacked, prop, times):
-            raise NotImplementedError(
-                f"gradients through DD stepping (the IFT backward with the"
-                f" transposed SPIKE solve): {TODO}")
+        factors are rebuilt every ``jacobian_refresh_steps`` steps.  Inputs
+        that require grad (the times as a float64 tensor) make the run
+        differentiable (:class:`_SolveU1DD` a step), its values the no-grad
+        run's bit for bit."""
+        diff = fwd._wants_grad(state0, controls_stacked, prop, times)
         model, p = self.model, self.plan
         dev, dtype = model.device, model.dtype
-        with torch.no_grad():
+        with torch.set_grad_enabled(diff):
             state = to_tensors(state0, dev, dtype)
             controls = to_tensors(controls_stacked, dev, dtype)
             prop = to_tensors(prop, dev, dtype)
-            dts = [float(x) for x in np.diff(np.asarray(times, dtype=np.float64))]
+            times_t = torch.as_tensor(times if isinstance(times, torch.Tensor)
+                                      else np.asarray(times, dtype=np.float64))
+            times_t = times_t.to(device=dev, dtype=torch.float64)
+            dts = [float(x) for x in np.diff(np.array(times_t.detach().cpu().tolist()))]
             n_steps = len(dts)
             if not n_steps:
                 raise ValueError("integrate_pure needs at least two time points")
+            rows = newmark.coefficient_rows(times_t[1:] - times_t[:-1]).to(dtype) if diff else None
             n_controls = next(iter(controls.values())).shape[0]
             pad = p.ndof_pad - p.ndof
             for k in ("u", "v", "a"):
@@ -762,10 +869,14 @@ class DDIntegrator:
             windows = {"jacobian_refresh_steps":
                        int(self.params_d.get("jacobian_refresh_steps", 1))}
             for n0, n1, _ in refresh_windows(n_steps, windows):
-                fac = self._factorize_step(state, prop, dts[n0])
+                with torch.no_grad():
+                    fac = self._factorize_step({k: v.detach() for k, v in state.items()},
+                                               {k: v.detach() for k, v in prop.items()},
+                                               dts[n0], with_transpose=diff)
                 for n in range(n0, n1):
                     control = {k: c[min(n, n_controls - 1)] for k, c in controls.items()}
-                    state, info = self._step_loc(state, fac, control, prop, dts[n])
+                    state, info = self._step_loc(state, fac, control, prop, dts[n],
+                                                 None if rows is None else rows[n])
                     traj.append(state)
                     infos.append(info)
 
@@ -774,7 +885,7 @@ class DDIntegrator:
                     for k, v in s.items()}
 
         trajectory = {k: torch.stack([glob(s)[k] for s in traj]) for k in traj[0]}
-        info = SolveInfo(*(torch.stack(x) for x in zip(*infos)))
+        info = SolveInfo(*(torch.stack(x).detach() for x in zip(*infos)))
         return glob(state), trajectory, info
 
     def integrate_batch_pure(self, *args, **kwargs):

@@ -24,34 +24,43 @@ Thomas loop are plain batched products (the JAX package's ``lax.scan``
 einsums); the reduced solve reads nothing on the host, so a step that
 solves with carried factors can be captured.
 
-Not ported: the transposed solve ``spike_solve_t`` (it waits for K6T over
-slabs; ROADMAP item 22), fp8 ``offdiag_dtype`` and the ``factor_dtype``
-cast (``btd_factor``'s rule).
+The transposed solve ``A^T x = r`` (the adjoint solves of value+grad, and
+the DD step's backward) uses the same local factors with transposed sweeps,
+``z_i = r_i - Q_{i-1}^T z_{i-1}``, ``w_i = z_i - P_{i+1}^T w_{i+1}``, ``x =
+Sinv^T w`` (one launch each of K6T over slabs, ``ops.btd_sweep_t`` with
+(S, m, Bt, Bt) factors), and its own spikes ``Vh``, ``Wh`` and reduced
+system ``red_t``: ``A^T``'s slab couplings are ``B_{j+1}^T`` to the next
+slab and ``C_{j-1}^T`` to the previous one.  Those are built only where a
+run differentiates (``with_transpose``; the JAX package's flag, whose
+default is on there and off here): a forward-only run's factors hold
+``None`` in their place.
+
+Not ported: fp8 ``offdiag_dtype`` and the ``factor_dtype`` cast
+(``btd_factor``'s rule).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from .. import ops
+from ..parallel.shards import shift_from_next, shift_from_prev
 from .bsb import BSBPlan
 from .btd import STORE_DTYPES, btd_superblocks
 
-__all__ = ["SPIKEFactors", "factor_slabs", "solve_slabs", "spike_factor",
-           "spike_solve", "spike_solve_t", "spike_superblocks"]
-
-TRANSPOSE_TODO = ("the transposed SPIKE solve (the gradient path of"
-                  " linear_solver='spike' and of parallel.ddstep) waits for K6T"
-                  " over slabs: ROADMAP item 22")
+__all__ = ["SPIKEFactors", "factor_slabs", "solve_slabs", "solve_slabs_t",
+           "spike_factor", "spike_solve", "spike_solve_t", "spike_superblocks"]
 
 
 class SPIKEFactors(NamedTuple):
     """Per-slab product-form Thomas factors, spikes and the reduced
     interface system's Thomas factors (leading axis ``S``, ``m`` super-rows
-    a slab of ``Bt``).  Every field is a tensor, so a step graph copies
-    refreshed factors into its buffers field by field."""
+    a slab of ``Bt``), and those of the transposed system where they were
+    built (``with_transpose``; else None).  Every other field is a tensor,
+    so a step graph copies refreshed factors into its buffers field by
+    field."""
 
     Sinv: torch.Tensor  # (S, m, Bt, Bt) local Schur-complement inverses
     P: torch.Tensor  # (S, m, Bt, Bt) products Sinv L (P[:, 0] = 0)
@@ -62,10 +71,19 @@ class SPIKEFactors(NamedTuple):
     L_r: torch.Tensor  # (S, 2Bt, 2Bt) reduced sub-diagonal blocks
     U_r: torch.Tensor  # (S, 2Bt, 2Bt) reduced super-diagonal blocks
     d: torch.Tensor  # (nblk * b,) Jacobi scale; (S, ndof_loc) of a DD step
+    Vh: Optional[torch.Tensor] = None  # (S, m, Bt, Bt) spikes of A^T (Vh[S-1] = 0)
+    Wh: Optional[torch.Tensor] = None  # (S, m, Bt, Bt) (Wh[0] = 0)
+    Sinv_rt: Optional[torch.Tensor] = None  # (S, 2Bt, 2Bt) A^T's reduced factors
+    L_rt: Optional[torch.Tensor] = None
+    U_rt: Optional[torch.Tensor] = None
 
     @property
     def red(self):
         return self.Sinv_r, self.L_r, self.U_r
+
+    @property
+    def red_t(self):
+        return self.Sinv_rt, self.L_rt, self.U_rt
 
 
 def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -146,6 +164,23 @@ def _local_solve_mat(Sinv, P, Q, R):
     return x
 
 
+def _local_solve_t_mat(Sinv, P, Q, R):
+    """The transposed product-form solve of every slab for matrix
+    right-hand sides R (S, m, Bt, k): ``z_i = R_i - Q_{i-1}^T z_{i-1}``,
+    ``w_i = z_i - P_{i+1}^T w_{i+1}``, ``Sinv^T w`` (the transposed spikes,
+    in the factors' dtype)."""
+    m = R.shape[1]
+    z = torch.empty_like(R)
+    z[:, 0] = R[:, 0]
+    for i in range(1, m):
+        z[:, i] = R[:, i] - Q[:, i - 1].mT @ z[:, i - 1]
+    w = torch.empty_like(z)
+    w[:, -1] = z[:, -1]
+    for i in range(m - 2, -1, -1):
+        w[:, i] = z[:, i] - P[:, i + 1].mT @ w[:, i + 1]
+    return Sinv.mT @ w
+
+
 def local_solve(Sinv, P, Q, R):
     """The product-form Thomas solve of every slab for vector right-hand
     sides R (S, m, Bt): ``g = Sinv R`` (``ops.factor_matvec``), then the
@@ -154,6 +189,28 @@ def local_solve(Sinv, P, Q, R):
     g = ops.factor_matvec(Sinv, R)
     y = ops.btd_sweep(P, g)
     return ops.btd_sweep(Q, y, reverse=True)
+
+
+def local_solve_t(Sinv, P, Q, R):
+    """The transposed solve of every slab for vector right-hand sides R
+    (S, m, Bt): the forward sweep on Q and the backward sweep on P, each
+    transposed and shifted by one block, one launch of K6T over slabs each
+    (``ops.btd_sweep_t``), then ``Sinv^T w`` (``ops.factor_matvec``)."""
+    z = ops.btd_sweep_t(Q, R)
+    w = ops.btd_sweep_t(P, z, reverse=True)
+    return ops.factor_matvec(Sinv.mT, w)
+
+
+def spikes_t(Sinv, P, Q, B, C):
+    """The spikes of ``A^T``: ``Vh = A_j^-T (e_last B_{j+1}^T)``, ``Wh =
+    A_j^-T (e_0 C_{j-1}^T)``, the neighbours' coupling blocks by shifts
+    along the slab axis (zero past the ends)."""
+    S, m, Bt, _ = Sinv.shape
+    R_V = Sinv.new_zeros((S, m, Bt, Bt))
+    R_V[:, -1] = shift_from_next(B).mT
+    R_W = Sinv.new_zeros((S, m, Bt, Bt))
+    R_W[:, 0] = shift_from_prev(C).mT
+    return _local_solve_t_mat(Sinv, P, Q, R_V), _local_solve_t_mat(Sinv, P, Q, R_W)
 
 
 def spikes(Sinv, P, Q, B, C):
@@ -223,9 +280,9 @@ def reduced_factor(V_tips, W_tips):
 
 
 def store(factors: SPIKEFactors, store_dtype) -> SPIKEFactors:
-    """``Sinv``, ``P``, ``Q``, ``V`` and ``W`` of ``factors`` cast to the
-    storage dtype (by the JAX package's name; the reduced factors keep full
-    precision)."""
+    """``Sinv``, ``P``, ``Q``, ``V`` and ``W`` of ``factors`` (and ``Vh``,
+    ``Wh`` where built) cast to the storage dtype (by the JAX package's
+    name; the reduced factors keep full precision)."""
     if store_dtype is None:
         return factors
     if store_dtype not in STORE_DTYPES:
@@ -233,25 +290,35 @@ def store(factors: SPIKEFactors, store_dtype) -> SPIKEFactors:
                          f" supported ({tuple(STORE_DTYPES)})")
     dt = STORE_DTYPES[store_dtype]
     return factors._replace(**{k: getattr(factors, k).to(dt)
-                               for k in ("Sinv", "P", "Q", "V", "W")})
+                               for k in ("Sinv", "P", "Q", "V", "W", "Vh", "Wh")
+                               if getattr(factors, k) is not None})
 
 
 def spike_factor(plan: BSBPlan, blocks: torch.Tensor, n_parts: int = 8,
-                 store_dtype=None) -> SPIKEFactors:
+                 store_dtype=None, with_transpose: bool = False) -> SPIKEFactors:
     """Factor the banded Jacobian with ``n_parts`` SPIKE slabs, in the
     blocks' dtype; ``store_dtype='bfloat16'`` stores the large factor
-    arrays half-width (as ``btd_factor``)."""
-    return store(factor_slabs(*spike_superblocks(plan, blocks, n_parts)), store_dtype)
+    arrays half-width (as ``btd_factor``); ``with_transpose`` also builds
+    the transposed system's spikes and reduced factors, which
+    :func:`spike_solve_t` needs."""
+    return store(factor_slabs(*spike_superblocks(plan, blocks, n_parts),
+                              with_transpose=with_transpose), store_dtype)
 
 
-def factor_slabs(D, L, U, B, C, d) -> SPIKEFactors:
+def factor_slabs(D, L, U, B, C, d, with_transpose: bool = False) -> SPIKEFactors:
     """SPIKE factors of equilibrated slabs ``D, L, U`` (S, m, Bt, Bt) with
     their couplings ``B, C`` (S, Bt, Bt) split off (:func:`split_slabs`) and
     the scale ``d`` they were equilibrated with: the local Thomas factors,
-    the spikes and the reduced system of the spike tips."""
+    the spikes and the reduced system of the spike tips, and with
+    ``with_transpose`` those of ``A^T`` (:func:`spikes_t`)."""
     Sinv, P, Q = local_factor(D, L, U)
     V, W = spikes(Sinv, P, Q, B, C)
-    return SPIKEFactors(Sinv, P, Q, V, W, *reduced_factor(V, W), d)
+    fac = SPIKEFactors(Sinv, P, Q, V, W, *reduced_factor(V, W), d)
+    if not with_transpose:
+        return fac
+    Vh, Wh = spikes_t(Sinv, P, Q, B, C)
+    Sinv_rt, L_rt, U_rt = reduced_factor(Vh, Wh)
+    return fac._replace(Vh=Vh, Wh=Wh, Sinv_rt=Sinv_rt, L_rt=L_rt, U_rt=U_rt)
 
 
 def interface_values(z: torch.Tensor, Bt: int):
@@ -259,7 +326,7 @@ def interface_values(z: torch.Tensor, Bt: int):
     ``x_{j+1}^t`` and previous slab's bottom ``x_{j-1}^b`` (zero past the
     ends)."""
     xt, xb = z[:, :Bt], z[:, Bt:]
-    zero = torch.zeros_like(xt[:1])
+    zero = torch.zeros_like(xt[:1])  # one zero block for both: a node less a solve
     return torch.cat([xt[1:], zero]), torch.cat([zero, xb[:-1]])
 
 
@@ -270,31 +337,48 @@ def spike_correct(g, V, W, xt_next, xb_prev):
             ops.factor_matvec(W, xb_prev[:, None]))
 
 
-def interface_correct(g, factors: SPIKEFactors):
-    """The reduced interface solve and the spike correction of the local
-    solutions ``g`` (S, m, Bt)."""
+def interface_correct(g, red, V, W):
+    """The reduced interface solve (factors ``red``) and the spike
+    correction (spikes ``V``, ``W``) of the local solutions ``g`` (S, m,
+    Bt): ``A``'s or, with the transposed parts, ``A^T``'s."""
     rhs = torch.cat([g[:, 0], g[:, -1]], dim=-1)  # (S, 2Bt)
-    z = seq_thomas_solve(*factors.red, rhs)
-    return spike_correct(g, factors.V, factors.W, *interface_values(z, g.shape[-1]))
+    z = seq_thomas_solve(*red, rhs)
+    return spike_correct(g, V, W, *interface_values(z, g.shape[-1]))
+
+
+def _solve_vec(factors: SPIKEFactors, r: torch.Tensor, solve) -> torch.Tensor:
+    S, m, Bt, _ = factors.Sinv.shape
+    d = factors.d
+    n = r.shape[0]
+    rb = torch.nn.functional.pad(r / d[:n], (0, S * m * Bt - n)).reshape(S, m, Bt)
+    return solve(factors, rb).reshape(-1)[:n] / d[:n]
 
 
 def spike_solve(plan: BSBPlan, factors: SPIKEFactors,
                 r: torch.Tensor) -> torch.Tensor:
     """Direct solve ``A x = r`` with the SPIKE factors."""
-    S, m, Bt, _ = factors.Sinv.shape
-    d = factors.d
-    n = r.shape[0]
-    rb = torch.nn.functional.pad(r / d[:n], (0, S * m * Bt - n)).reshape(S, m, Bt)
-    return solve_slabs(factors, rb).reshape(-1)[:n] / d[:n]
+    return _solve_vec(factors, r, solve_slabs)
 
 
 def solve_slabs(factors: SPIKEFactors, rb: torch.Tensor) -> torch.Tensor:
     """Solve the equilibrated slab system for right-hand sides ``rb`` (S,
     m, Bt): the local solves, then the interface correction."""
     g = local_solve(factors.Sinv, factors.P, factors.Q, rb)
-    return interface_correct(g, factors)
+    return interface_correct(g, factors.red, factors.V, factors.W)
 
 
-def spike_solve_t(plan: BSBPlan, factors: SPIKEFactors, r: torch.Tensor):
-    """The transposed solve ``A^T x = r``: not ported yet."""
-    raise NotImplementedError(TRANSPOSE_TODO)
+def solve_slabs_t(factors: SPIKEFactors, rb: torch.Tensor) -> torch.Tensor:
+    """:func:`solve_slabs` of the transposed system: the transposed local
+    solves, then the interface correction with ``A^T``'s spikes and reduced
+    factors (which ``factors`` must hold: ``with_transpose``)."""
+    if factors.Vh is None:
+        raise ValueError("spike_solve_t: the factors were built without the"
+                         " transposed parts (spike_factor(..., with_transpose=True))")
+    g = local_solve_t(factors.Sinv, factors.P, factors.Q, rb)
+    return interface_correct(g, factors.red_t, factors.Vh, factors.Wh)
+
+
+def spike_solve_t(plan: BSBPlan, factors: SPIKEFactors,
+                  r: torch.Tensor) -> torch.Tensor:
+    """Direct transposed solve ``A^T x = r`` with the same factors."""
+    return _solve_vec(factors, r, solve_slabs_t)

@@ -220,12 +220,15 @@ class StepBuffers:
 
     def set_factors(self, factors):
         """Factors made between windows: the first ones become the
-        buffers, later ones are copied into them."""
+        buffers, later ones are copied into them (a field that is None,
+        the transposed parts a forward-only SPIKE run leaves out, stays
+        None)."""
         if self.factors is None:
             self.factors = factors
         else:
             for s, t in zip(self.factors, factors):
-                s.copy_(t)
+                if s is not None:
+                    s.copy_(t)
 
     # -- the step -------------------------------------------------------------
     def step(self):

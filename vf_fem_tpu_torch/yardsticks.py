@@ -56,6 +56,9 @@ LIBRARY_CALL = {
     "newmark_t": "none: four vector cotangents and a reduction from one pass",
     "btd_sweep_t": "none: a serial recurrence over transposed, shifted row"
                    " blocks that no library call computes on these factors",
+    "btd_sweep_t_slabs": "none: serial recurrences over each slab's transposed,"
+                         " shifted row blocks that no library call computes on"
+                         " these factors",
     "ebe_matvec_t": "none: it gathers x[dofs] before the batched transposed"
                     " product, two calls at least",
     "bsb_matvec_t": "torch.sparse.mm (CSR of the transposed pattern)",
