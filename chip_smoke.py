@@ -274,7 +274,29 @@ runs, in order:
    steps), the trajectory the forward's bit for bit, stale within 1e-6
    of exact (f64 factors: K6T f64/f64 at 1280); each with steps/s, peak
    memory, a profile's idle share and its kernels counted launched.  It
-   reuses phase 8's 23.7k model and phase 17's 45.8k fold.
+   reuses phase 8's 23.7k model and phase 17's 45.8k fold;
+21. options: the solver options of slice 13.  K6 and K6T with the new
+   factor / vector pairs (f32 / f64: ``btd_factor_dtype='float32'``;
+   e4m3 and e5m2 / f64 and f32: fp8 ``btd_store_dtype`` /
+   ``btd_offdiag_dtype``) on the 23.7k model's factors at Bt = 256 and
+   over 8 slabs of 12 x 256^2 (held and timed as in phases 3, 18 and 20),
+   and at Bt = 1280 on seeded factors (rows held once); (A) bench.py's
+   production btd settings with bf16 Sinv and e4m3 V/W (graph and eager,
+   bit-equal) and with f32 factors (refresh 8, adaptive to abs 1e-8 /
+   rel 1e-10, every step within them), each against phase 7's
+   exact-Jacobian run, the refactorization in f32 against f64, 'spike'
+   with e4m3 V/W over 20 steps, and value+grad with each over 10 steps
+   (K6T on those factors, the refined adjoint within 1e-6 of the f64
+   exact one); (B)
+   ``initial_guess='extrapolated'`` against 'predictor' on the M5
+   headline and 23.7k production settings (100 steps, the graph bit for
+   bit the eager loop; uncertified steps and Newton iterations a step;
+   at 23.7k the production trajectory gate) and on the M5 headline
+   settings with the adaptive Newton (rtol 1e-8 of the 'predictor' run);
+   (C) M5 FSAI tangents (20 steps) in duality with ``integrate_grad``
+   (rtol 1e-8), and the tangents of phase 19's 8-variant ``sweep_grad``
+   batch (20 steps), rows 0, 3 and 7 against their variants' (u, q, p at
+   rtol 1e-10; v and a reported).
 
 Phase 3 also holds the block-Thomas sweep kernel (K6) and its transpose
 (K6T, both sweeps of ``btd_solve_t``: forward on W, backward on V, each
@@ -404,9 +426,19 @@ KERNELS = {
                           "none (lax.scan, vf_fem_tpu/solvers/btd.py:340-358)",
                           "vf_fem_tpu_torch/csrc/btd.cu"),
 }
+# K6 and K6T with the pairs of phase 21 (f32 factors under f64 vectors,
+# e4m3 factors), at Bt = 256 on the 23.7k model's factors
+KERNELS.update({
+    f"{k} {pair}": (f"{k} {pair} factors/vector",
+                    f"none (lax.scan, vf_fem_tpu/solvers/btd.py:{lines})",
+                    "vf_fem_tpu_torch/csrc/btd.cu")
+    for k, lines in (("btd_sweep", "298-312"), ("btd_sweep_t", "340-358"))
+    for pair in ("e4m3/f64", "f32/f64")})
 # the launch counter of a row of KERNELS whose key is not its counter's
 KERNEL_COUNTER = {"newmark x8": "newmark", "newmark x64": "newmark", "newmark x256": "newmark",
-                  "newmark_t x8": "newmark_t", "btd_sweep_t x1280": "btd_sweep_t"}
+                  "newmark_t x8": "newmark_t", "btd_sweep_t x1280": "btd_sweep_t",
+                  **{f"{k} {pair}": k for k in ("btd_sweep", "btd_sweep_t")
+                     for pair in ("e4m3/f64", "f32/f64")}}
 
 # benchmarks/benchmark_adjoint.py:68-88: the value+grad settings at M5 (the
 # accelerator branch: adaptive chord Newton, dense factors refreshed every
@@ -1257,6 +1289,17 @@ def rest_operator(torch, model, p1):
     return solid.jac_u_ebe(state0["u"], state0, control, prop, 1e-4)
 
 
+def rest_blocks(torch, model):
+    """``(plan, blocks)``: the model's block-banded plan and its Jacobian
+    at rest under 500 Ba in that storage (the factors phases 3 and 21 hold
+    K6 and K6T on)."""
+    from vf_fem_tpu_torch.solvers import bsb
+
+    op = rest_operator(torch, model, 500.0)
+    plan, fill = model.solid.bsb_plan()
+    return plan, bsb.bsb_fill(plan, fill, [op.J_cells, op.J_facets])
+
+
 def phase_ops(torch, dev, large):
     """K3, K4 and K5 against their plain versions on the 23.7k model's
     Jacobian (K3 on its cells and its facets, K4 on its block-banded
@@ -1897,14 +1940,15 @@ def phase_ops_btd(torch, cases, line="ops"):
     return results
 
 
-def phase_ops_btd_t(torch, cases, k6, line="ops"):
+def phase_ops_btd_t(torch, cases, k6, line="ops", exchange=True):
     """K6T, the transposed sweeps of ``btd_solve_t``, against its plain
     version on ``sweep_cases``: forward on W from r / d, backward on V from
     the plain forward sweep's output, held as K6 is (``phase_ops_btd``,
     whose results ``k6`` give K6's time a row block beside K6T's) and to
     the same bits in three launches.  K6T's launch plans at every width and
-    dtype pair are held to the built kernel's, and K6's exchange is timed
-    alone by ``sweep_exchange``, whose time a row block K6T's line shows."""
+    dtype pair are held to the built kernel's, and (``exchange``) K6's
+    exchange is timed alone by ``sweep_exchange``, whose time a row block
+    K6T's line shows."""
     from vf_fem_tpu_torch import ops, yardsticks
     from vf_fem_tpu_torch.ops import kernels
 
@@ -1917,7 +1961,7 @@ def phase_ops_btd_t(torch, cases, k6, line="ops"):
             require(plan_py == plan_cu, f"btd_sweep_t plan {w} {fdt}/{vdt}:"
                                         f" ops.sweep_t_plan {plan_py} is not the"
                                         f" kernel's {plan_cu}")
-    exchange_us = sweep_exchange(torch, dev, bt)
+    exchange_us = sweep_exchange(torch, dev, bt) if exchange else {}
     results = {}
     for ftag, vdt, fac, rb in cases:
         vtag = str(vdt).replace("torch.", "")
@@ -4663,12 +4707,13 @@ def check_slab_sweep(torch, what, sweep, slabs_ref, rows_ref, A, inp, rev, rtol,
     return err, full_rel, worst
 
 
-def dd_sweeps(torch, cases, card):
+def dd_sweeps(torch, cases, card, separate=True):
     """K6 over slabs against its plain version: each slab's forward sweep
     over P and backward sweep over Q held row by row (the plain row from the
     kernel's own previous row, rtol 1e-13 / 1e-6 plus the dot-product order
     bound) and as a whole (``SWEEP_FULL_GATES``), and bit for bit against
-    one launch of K6 a slab; timed with S separate launches beside it."""
+    one launch of K6 a slab; timed with S separate launches beside it
+    (``separate``)."""
     from vf_fem_tpu_torch import ops, yardsticks
 
     results = {}
@@ -4683,10 +4728,8 @@ def dd_sweeps(torch, cases, card):
                 acc)
             res = measure(torch, lambda: ops.btd_sweep(A, inp, reverse=rev),
                           lambda: ops.btd_sweep_slabs_reference(A, inp, rev))
-            sep_ms = cuda_ms(torch, lambda: [ops.btd_sweep(A[s], inp[s], reverse=rev)
-                                             for s in range(S)])
-            sep_dev = graph_ms(torch, lambda: [ops.btd_sweep(A[s], inp[s], reverse=rev)
-                                               for s in range(S)], reps=20)
+            sep_ms, sep_dev = (separate_ms(torch, ops.btd_sweep, A, inp, rev) if separate
+                               else (None, None))
             nbytes = A.numel() * A.element_size() + 2 * inp.numel() * inp.element_size()
             res.update(max_abs_err=err, bytes=nbytes, lib_ms=None, lib_runs=None,
                        lib_call=yardsticks.LIBRARY_CALL["btd_sweep_slabs"],
@@ -4694,8 +4737,8 @@ def dd_sweeps(torch, cases, card):
             res["bound_ms"], res["bound_by"] = bound_of(nbytes, 2 * A.numel(), acc)
             _, m, bt, _ = A.shape
             log(f"[dd] btd_sweep over {S} slabs {label} {ftag}/{vtag} ({S} x {m} x {bt} x {bt}):"
-                f" {fmt_times(res)}; {S} launches of one slab: call {sep_ms:.6f} ms, device"
-                f" {sep_dev:.6f} ms; bit-equal to them; row max |diff| {worst:.3e}, whole-sweep"
+                f" {fmt_times(res)};" + fmt_separate(S, sep_ms, sep_dev)
+                + f" bit-equal to them; row max |diff| {worst:.3e}, whole-sweep"
                 f" max_abs_err {err:.3e} (rel {full_rel:.3e}); on {card}")
             results[(S, label, ftag, vtag)] = res
     return results
@@ -5236,13 +5279,27 @@ def slab_t_cases(torch, plan, blocks64):
     return out
 
 
-def slab_t_sweeps(torch, cases, card):
+def separate_ms(torch, sweep, A, inp, rev):
+    """Call and device ms of ``sweep`` launched once a slab of ``A``."""
+    def run():
+        return [sweep(A[s], inp[s], reverse=rev) for s in range(A.shape[0])]
+
+    return cuda_ms(torch, run), graph_ms(torch, run, reps=20)
+
+
+def fmt_separate(S, sep_ms, sep_dev):
+    if sep_ms is None:
+        return ""
+    return f" {S} launches of one slab: call {sep_ms:.6f} ms, device {sep_dev:.6f} ms;"
+
+
+def slab_t_sweeps(torch, cases, card, separate=True):
     """K6T over slabs against its plain version: each slab's transposed
     forward sweep over Q from r / d and backward sweep over P from the plain
     forward sweep's output (the two sweeps of ``spike.local_solve_t``), held
     row by row (rtol 1e-13 plus the dot-product order bound) and as a whole
     (``SWEEP_FULL_GATES``), and bit for bit against one launch of K6T a
-    slab; timed with S separate launches beside it."""
+    slab; timed with S separate launches beside it (``separate``)."""
     from vf_fem_tpu_torch import ops, yardsticks
 
     results = {}
@@ -5259,10 +5316,8 @@ def slab_t_sweeps(torch, cases, card):
             require(ops.LAUNCHES["btd_sweep_t_slabs"] == n0 + 1, f"{what}: not one launch")
             res = measure(torch, lambda: ops.btd_sweep_t(A, inp, reverse=rev),
                           lambda: ops.btd_sweep_t_slabs_reference(A, inp, rev))
-            sep_ms = cuda_ms(torch, lambda: [ops.btd_sweep_t(A[s], inp[s], reverse=rev)
-                                             for s in range(S)])
-            sep_dev = graph_ms(torch, lambda: [ops.btd_sweep_t(A[s], inp[s], reverse=rev)
-                                               for s in range(S)], reps=20)
+            sep_ms, sep_dev = (separate_ms(torch, ops.btd_sweep_t, A, inp, rev) if separate
+                               else (None, None))
             _, m, bt, _ = A.shape
             # the m - 1 blocks a slab's sweep reads, g in, the sweep out
             blk = S * (m - 1) * bt * bt
@@ -5272,8 +5327,8 @@ def slab_t_sweeps(torch, cases, card):
                        separate_ms=sep_ms, separate_device_ms=sep_dev)
             res["bound_ms"], res["bound_by"] = bound_of(nbytes, 2 * blk, acc)
             log(f"[grad_more] btd_sweep_t over {S} slabs {label} {ftag}/{vtag} ({S} x {m} x {bt}"
-                f" x {bt}): {fmt_times(res)}; {S} launches of one slab: call {sep_ms:.6f} ms,"
-                f" device {sep_dev:.6f} ms; bit-equal to them; row max |diff| {worst:.3e},"
+                f" x {bt}): {fmt_times(res)};" + fmt_separate(S, sep_ms, sep_dev)
+                + f" bit-equal to them; row max |diff| {worst:.3e},"
                 f" whole-sweep max_abs_err {err:.3e} (rel {full_rel:.3e}); on {card}")
             results[(S, label, ftag, vtag)] = res
     return results
@@ -5488,6 +5543,360 @@ def phase_grad_more(torch, card, large, d3):
 
 
 
+# phase 21, options: the solver options of slice 13.  K6 and K6T with the
+# new (factor, vector) pairs (OPTION_PAIRS) on the 23.7k model's own factors
+# at Bt = 256 and over slabs (DD_SHARDS x 12 x 256^2), and on random
+# factors at Bt = 1280; (A) bench.py's production btd settings with bf16
+# Sinv and e4m3 V/W (OPTION_FP8, eager and graph) and f32 factors
+# (OPTION_F32: refresh 8, adaptive to tests/test_refine.py's tolerances)
+# against phase 7's exact-Jacobian run, the refactorization in f32 against
+# the production f64 one, 'spike' with e4m3 V/W (OPTION_SPIKE_STEPS
+# steps), and value+grad over OPTION_GRAD_STEPS steps with each (K6T on
+# those factors, the refined adjoint) against the f64 exact adjoint; (B) initial_guess='extrapolated' on
+# the M5 headline and 23.7k production settings (graph bit for bit the
+# eager loop, against the 'predictor' run) and on the M5 headline settings
+# with the adaptive Newton (EXTRAP_RTOL of the 'predictor' run: a fixed
+# iteration count stops short of the tolerance, where the guess moves the
+# result); (C) M5 FSAI tangents in duality with integrate_grad
+# (DUALITY_RTOL) and the tangents of phase 19's sweep_grad batch, rows
+# BATCH_TANGENT_ROWS against their variants' (BATCH_TANGENT_RTOL on u, q,
+# p)
+OPTION_PAIRS = (("float32", "float64"), ("float8_e4m3fn", "float64"),
+                ("float8_e4m3fn", "float32"), ("float8_e5m2", "float64"),
+                ("float8_e5m2", "float32"))
+OPTION_FP8 = {**BTD_PROD, "btd_offdiag_dtype": "float8_e4m3fn"}
+OPTION_F32 = {**{k: v for k, v in BTD_PROD.items()
+                 if k not in ("btd_store_dtype", "fixed_iterations", "fixed_tail_residual")},
+              "btd_factor_dtype": "float32", "jacobian_refresh_steps": 8,
+              "absolute_tolerance": 1e-8, "relative_tolerance": 1e-10}
+OPTION_SPIKE = {**SPIKE_PROD, "btd_offdiag_dtype": "float8_e4m3fn"}
+OPTION_SPIKE_STEPS = 20
+OPTION_GRAD_STEPS = 10
+# ROADMAP.md item 12: the JAX package's fp8 V/W trajectory error at r96
+JAX_FP8_TRAJ_ERR = 8.12e-7
+EXTRAP = {"initial_guess": "extrapolated"}
+EXTRAP_RTOL = 1e-8  # tests/test_forward.py:297-300 (atol 1e-11)
+OPTION_TANGENT_STEPS = 20
+# the FSAI tangents' solver settings: ADJ_M5's chord Newton with factors
+# built each step, so that the adjoint they are held to is exact (the
+# window's stale factors leave it at the refinement's 1e-8 a step, which
+# the duality of a 20-step run reads as ~1e-6)
+OPTION_TANGENT = {"stagnation_ratio": 0.5, "jacobian_update": "once_per_step"}
+BATCH_TANGENT_RTOL = 1e-10
+BATCH_TANGENT_ROWS = (0, 3, 7)  # rows held against their variants alone
+
+
+def option_cases(torch, plan, blocks64):
+    """``sweep_cases`` for the new pairs: f32 factors (``factor_dtype``)
+    under f64 vectors, and fp8-stored factors under f64 and f32 vectors."""
+    from vf_fem_tpu_torch.solvers import btd
+
+    factors = {"float32": btd.btd_factor(plan, blocks64, factor_dtype="float32"),
+               **{s: btd.btd_factor(plan, blocks64, store_dtype=s)
+                  for s in ("float8_e4m3fn", "float8_e5m2")}}
+    n_sup, bt, _ = factors["float32"].V.shape
+    r = np.random.default_rng(1).standard_normal(plan.ndof)
+    cases = []
+    for ftag, vtag in OPTION_PAIRS:
+        vdt = getattr(torch, vtag)
+        fac = factors[ftag]
+        d = fac.d.to(vdt)[: plan.ndof]
+        rb = torch.nn.functional.pad(torch.tensor(r, dtype=vdt, device=blocks64.device) / d,
+                                     (0, n_sup * bt - plan.ndof)).reshape(n_sup, bt)
+        cases.append((ftag, vdt, fac, rb))
+    return cases
+
+
+def option_slab_cases(torch, plan, blocks64):
+    """The new pairs over slabs on the model's own SPIKE factors (fp8 P/Q
+    by ``offdiag_dtype``, f32 by ``factor_dtype``): ``dd_sweeps``' cases
+    (g = Sinv r) and ``slab_t_sweeps``' (r / d)."""
+    from vf_fem_tpu_torch import ops
+    from vf_fem_tpu_torch.solvers import spike
+
+    r = np.random.default_rng(2).standard_normal(plan.ndof)
+    fwd, tr = [], []
+    for ftag, vtag in OPTION_PAIRS:
+        vdt = getattr(torch, vtag)
+        kw = {"factor_dtype": ftag} if ftag == "float32" else {"offdiag_dtype": ftag}
+        fac = spike.spike_factor(plan, blocks64, DD_SHARDS, **kw)
+        _, m, bt, _ = fac.Sinv.shape
+        d = fac.d.to(vdt)[: plan.ndof]
+        rb = torch.nn.functional.pad(torch.tensor(r, dtype=vdt, device=blocks64.device) / d,
+                                     (0, DD_SHARDS * m * bt - plan.ndof)
+                                     ).reshape(DD_SHARDS, m, bt)
+        fwd.append((DD_SHARDS, ftag, vdt, fac, ops.factor_matvec(fac.Sinv, rb)))
+        tr.append((DD_SHARDS, ftag, vdt, fac, rb))
+    return fwd, tr
+
+
+def option_width_1280(torch, dev):
+    """K6 and K6T at Bt = 1280 with each new pair, once, on seeded factors
+    scaled to 0.5 / sqrt(Bt) (36 row blocks, both sweeps): each row within
+    rtol 1e-13 / 1e-6 plus the order bound of the plain row from the
+    kernel's own previous row."""
+    from vf_fem_tpu_torch import ops
+
+    rng = np.random.default_rng(36)
+    worst = {}
+    for ftag, vtag in OPTION_PAIRS:
+        fdt, vdt = getattr(torch, ftag), getattr(torch, vtag)
+        A = torch.tensor(rng.standard_normal((36, 1280, 1280)) * (0.5 / 1280 ** 0.5),
+                         device=dev).to(fdt)
+        g = torch.tensor(rng.standard_normal((36, 1280)), device=dev).to(vdt)
+        rtol = 1e-13 if vdt == torch.float64 else 1e-6
+        for name, sweep, rows in (("btd_sweep", ops.btd_sweep, ops.btd_sweep_rows_reference),
+                                  ("btd_sweep_t", ops.btd_sweep_t,
+                                   ops.btd_sweep_t_rows_reference)):
+            for rev in (False, True):
+                out = sweep(A, g, reverse=rev)
+                ref, bound = rows(A, g, out, rev)
+                diff = (out - ref).abs()
+                off = int((diff > rtol * ref.abs() + bound).sum())
+                require(off == 0, f"options {name} x1280 {ftag}/{vtag}: {off} entries off")
+                worst[(name, ftag, vtag)] = max(worst.get((name, ftag, vtag), 0.0),
+                                                diff.max().item())
+        del A
+    log("[options] K6 / K6T at Bt = 1280 (36 row blocks), each new pair, rows held to the"
+        " plain version: worst row |diff| " + ", ".join(
+            f"{n} {f}/{v} {w:.3e}" for (n, f, v), w in worst.items()))
+
+
+def option_runs(torch, card, large, btd_res):
+    """(A): the production btd settings with e4m3 V/W and with f32 factors
+    at 23.7k f64, their refactorization, 'spike' with e4m3 V/W, and
+    value+grad with each."""
+    from vf_fem_tpu_torch import forward
+    from vf_fem_tpu_torch.convert import to_tensors
+    from vf_fem_tpu_torch.models.transient import solver_params
+
+    gold = np.load(os.path.join(REPO, "tests", "data", "golden_large_btd_explicit.npz"))
+    times = gold["times"]
+    n_steps = len(times) - 1
+    built = large["float64"]
+    model, state0, cs, prop = built
+    exact_u, gate = btd_res["float64"]["exact_u"], btd_res["float64"]["gate"]
+    out = {}
+
+    def run(params, eager=False):
+        fn = forward._integrate_eager if eager else forward.integrate_pure
+        return run_timed(torch, model, lambda: fn(model, state0, cs, prop, times, params))
+
+    # -- e4m3 V/W: eager, then the graph (its first step captures the step)
+    turns = [run(OPTION_FP8, eager=w == "eager") + (w,) for w in ("eager", "graph")]
+    (res, ms_e, launches, _, _), (res_g, ms_g, launches_g, _, _) = turns
+    require(same_run(torch, res_g, res), "options fp8: graph not bit-equal to eager")
+    require(launches_g == launches, "options fp8: graph launches differ from eager")
+    fin, traj, infos = res
+    solves = int(infos.num_iter.sum())
+    require(launches["btd_sweep"] == 2 * solves, f"options fp8: {launches['btd_sweep']} K6"
+            f" launches for {solves} solves")
+    require(all(bool(torch.isfinite(v).all()) for v in traj.values()), "options fp8: non-finite")
+    err = rel_max(fin["u"].cpu().numpy(), exact_u)
+    unc = forward.certify_fixed_iterations(OPTION_FP8, forward._step_info(infos))
+    log(f"[options] 23.7k btd bf16 Sinv + e4m3 V/W (refresh 96, fixed-3): {n_steps / (ms_g / 1e3):.2f}"
+        f" steps/s graph, {n_steps / (ms_e / 1e3):.2f} eager (CUDA events), graph bit-equal to"
+        f" eager; trajectory error vs the exact-Jacobian run {err:.3e} (the production gate"
+        f" {gate:.1e} is a bf16 one; the JAX package's fp8 run: {JAX_FP8_TRAJ_ERR:.2e});"
+        f" {launches['btd_sweep'] / n_steps:.1f} K6 launches a step, uncertified {unc};"
+        f" on {card}")
+    out["fp8"] = dict(launches=launches, n_steps=n_steps, traj_err=err, uncertified=unc,
+                      graph_steps_s=n_steps / (ms_g / 1e3), eager_steps_s=n_steps / (ms_e / 1e3))
+    # -- f32 factors, adaptive: eager (no warm-up run: phase 7 warmed the
+    # btd path; the first refactorization in f32 is in its time)
+    (fin, traj, infos), ms, launches, _ = run(OPTION_F32, eager=True)
+    solves = int(infos.num_iter.sum())
+    require(launches["btd_sweep"] == 2 * solves, "options f32: K6 launches != 2 a solve")
+    a, r = infos.abs_err.cpu().numpy(), infos.rel_err.cpu().numpy()
+    require(bool(np.all((a < 1e-8) | (r < 1e-10))), "options f32: a step above the tolerances")
+    require(traj["u"].dtype == torch.float64, "options f32: u is not f64")
+    err = rel_max(fin["u"].cpu().numpy(), exact_u)
+    require(err <= gate, f"options f32: trajectory error {err:.3e} over {gate:.1e}")
+    # one refactorization at mid-run, f32 against the production settings'
+    mid = {k: v[n_steps // 2 - 1] for k, v in traj.items()}
+    s0, ctrl, sprop = model._solid_inputs(mid, to_tensors(prop, model.device, model.dtype))
+    fac_ms = {tag: cuda_ms(torch, lambda p=p: model.solid.factorize(s0, ctrl, sprop, DT,
+                                                                    solver_params(p)), 3, 1)
+              for tag, p in (("f64", BTD_PROD), ("f32", OPTION_F32))}
+    log(f"[options] 23.7k btd f32 factors (refresh 8, adaptive to abs 1e-8 / rel 1e-10):"
+        f" {n_steps / (ms / 1e3):.2f} steps/s eager, every step within the tolerances,"
+        f" {solves / n_steps:.2f} Newton iterations a step, trajectory error vs the"
+        f" exact-Jacobian run {err:.3e} (gate {gate:.1e}); {launches['btd_sweep'] / n_steps:.1f}"
+        f" K6 launches a step; one refactorization {fac_ms['f32']:.3f} ms in f32 against"
+        f" {fac_ms['f64']:.3f} ms f64 ({fac_ms['f32'] / fac_ms['f64']:.2f}x); on {card}")
+    out["f32"] = dict(launches=launches, n_steps=n_steps, traj_err=err, factor_ms=fac_ms,
+                      steps_s=n_steps / (ms / 1e3))
+    # -- 'spike' with e4m3 V/W
+    ts = times[: OPTION_SPIKE_STEPS + 1]
+    (fin_s, traj_s, infos_s), ms, launches, _ = run_timed(torch, model, lambda: forward.integrate_pure(
+        model, state0, cs, prop, ts, OPTION_SPIKE))
+    require(all(bool(torch.isfinite(v).all()) for v in traj_s.values()), "options spike: non-finite")
+    require(launches["btd_sweep_slabs"] > 0, "options spike: no K6 over slabs")
+    d = rel_max(traj_s["u"][-1].cpu().numpy(), traj["u"][OPTION_SPIKE_STEPS - 1].cpu().numpy())
+    log(f"[options] 23.7k 'spike' (8 partitions) e4m3 V/W, {OPTION_SPIKE_STEPS} steps:"
+        f" {OPTION_SPIKE_STEPS / (ms / 1e3):.2f} steps/s (first run: capture included);"
+        f" u at step {OPTION_SPIKE_STEPS} vs the f32-factor btd run's {d:.3e}; launches {launches}")
+    # -- value+grad with each (K6T on the carried factors, refined): e4m3 V/W
+    # on ADJ_LARGE against its exact adjoint (fresh f64 factors at u1: the
+    # same forward run); f32 factors on OPTION_F32 (adaptive, so its forward
+    # is the exact-Jacobian run's to the tolerance) against the f64 exact
+    # adjoint of BTD_EXACT_GRAD (the exact mode with f32 factors is one
+    # unrefined f32 solve, as in the JAX package: 2.6e-4 off, PERF.md)
+    tg = times[: OPTION_GRAD_STEPS + 1]
+    fp8 = {**ADJ_LARGE, "btd_offdiag_dtype": "float8_e4m3fn"}
+    for tag, params, ref in (("fp8", fp8, {**fp8, "adjoint_refine": "exact"}),
+                             ("f32", OPTION_F32, BTD_EXACT_GRAD)):
+        g = grad_run(torch, built, tg, params, loss=final_u_loss)
+        require(g["launches"]["btd_sweep_t"] > 0, f"options grad {tag}: no K6T launched")
+        x = grad_run(torch, built, tg, ref, loss=final_u_loss)
+        worst = grad_rel(g["grads"], x["grads"], x["value"])
+        dv = abs(g["value"] - x["value"]) / abs(x["value"])
+        log(f"[options] 23.7k value+grad with {tag} factors, {OPTION_GRAD_STEPS} steps:"
+            f" {OPTION_GRAD_STEPS / (g['ms'] / 1e3):.2f} steps/s, refined in"
+            f" {g['counts']['refine_iterations']} iterations; against the f64 exact adjoint"
+            f" {worst} (bound {STALE_VS_EXACT:.0e}), value {dv:.3e} off; K6T"
+            f" {g['launches']['btd_sweep_t'] / OPTION_GRAD_STEPS:.1f} launches a step")
+        require(max(worst.values()) <= STALE_VS_EXACT, f"options grad {tag}: off the exact one")
+        require(dv <= (0.0 if tag == "fp8" else STALE_VS_EXACT), f"options grad {tag}: value")
+        out[f"grad {tag}"] = dict(launches=g["launches"], n_steps=OPTION_GRAD_STEPS)
+    return out
+
+
+def option_extrapolated(torch, card, dev, large, btd_res):
+    """(B): initial_guess='extrapolated' against 'predictor'."""
+    from vf_fem_tpu_torch import forward
+
+    gold = np.load(os.path.join(REPO, "tests", "data", "golden_large_btd_explicit.npz"))
+    m5 = build(torch, dev, "M5_3layers.msh", torch.float64)
+    adaptive = {k: v for k, v in HEADLINE.items() if k != "fixed_iterations"}
+    out = {}
+    for name, built, params, times in (
+            ("M5 headline", m5, HEADLINE, DT * np.arange(N_STEPS + 1)),
+            ("23.7k btd", large["float64"], BTD_PROD, gold["times"]),
+            ("M5 headline adaptive", m5, adaptive, DT * np.arange(N_STEPS + 1))):
+        model, state0, cs, prop = built
+        n_steps = len(times) - 1
+        fixed = "fixed_iterations" in params
+        runs = {}
+        for guess in ("predictor", "extrapolated"):
+            p = {**params, "initial_guess": guess}
+            # eager, then the graph (its first step captures the step); an
+            # adaptive run is eager whichever entry point: one run
+            turns = {w: run_timed(torch, model, lambda fn=fn: fn(model, state0, cs, prop, times, p))
+                     for w, fn in (("eager", forward._integrate_eager),
+                                   ("graph", forward.integrate_pure))[: 2 if fixed else 1]}
+            if fixed:
+                require(same_run(torch, turns["graph"][0], turns["eager"][0]),
+                        f"options {name} {guess}: graph not bit-equal to eager")
+            infos = turns["eager"][0][2]
+            runs[guess] = dict(fin=turns["eager"][0][0], infos=infos,
+                               steps_s={w: n_steps / (t[1] / 1e3) for w, t in turns.items()},
+                               unc=forward.certify_fixed_iterations(params,
+                                                                    forward._step_info(infos)),
+                               iters=int(infos.num_iter.sum()) / n_steps,
+                               launches=turns["eager"][2])
+        a, b = runs["predictor"]["fin"]["u"], runs["extrapolated"]["fin"]["u"]
+        d = float((a - b).abs().max() / a.abs().max())
+        log(f"[options] {name} f64, {n_steps} steps, 'extrapolated' vs 'predictor':"
+            + "".join(f" {g}: steps/s " + ", ".join(f"{w} {v:.2f}" for w, v in r["steps_s"].items())
+                      + f", {r['iters']:.2f} Newton iterations a step, uncertified {r['unc']};"
+                      for g, r in runs.items())
+            + f" final max|du|/max|u| {d:.3e}"
+            + ("; graph bit-equal to eager" if fixed else "") + f"; on {card}")
+        if not fixed:
+            require(bool(torch.allclose(b, a, rtol=EXTRAP_RTOL, atol=1e-11)),
+                    f"options {name}: extrapolated off the predictor run ({d:.3e})")
+        if name == "23.7k btd":
+            err = rel_max(b.cpu().numpy(), btd_res["float64"]["exact_u"])
+            log(f"[options] 23.7k btd extrapolated: trajectory error vs the exact-Jacobian run"
+                f" {err:.3e} (gate {btd_res['float64']['gate']:.1e})")
+            require(err <= btd_res["float64"]["gate"], "options extrapolated 23.7k: over gate")
+        out[name] = dict(diff=d, **{g: {k: v for k, v in r.items() if k not in ("fin", "infos")}
+                                    for g, r in runs.items()})
+    return out
+
+
+def option_tangents(torch, card, dev):
+    """(C): M5 FSAI tangents in duality with integrate_grad, and a batch's
+    tangents row by row against each variant's."""
+    from vf_fem_tpu_torch import adjoint, forward
+    from vf_fem_tpu_torch.parallel import sweep
+
+    gold = np.load(os.path.join(REPO, "tests", "data", "golden_m5_fsai.npz"))
+    times = gold["times"][: OPTION_TANGENT_STEPS + 1]
+    model, s0, cs, prop = build_fsai(torch, dev, torch.float64)
+    rng = np.random.default_rng(21)
+    zero = lambda d: {k: np.zeros_like(v) for k, v in d.items()}  # noqa: E731
+    dprop = {**zero(prop), "emod": 5.0 * rng.standard_normal(prop["emod"].shape)}
+    hu = torch.as_tensor(rng.standard_normal(model.solid.ndof), device=dev)
+    hq = float(rng.standard_normal())
+    (fin, dfin), ms, launches, _ = run_timed(torch, model, lambda: forward.integrate_linear_pure(
+        model, s0, cs, prop, times, zero(s0), zero(cs), dprop, np.zeros_like(times),
+        OPTION_TANGENT))
+    require_launched(launches, ("gather", "scatter", "newmark"), "options fsai tangents")
+    require(all(bool(torch.isfinite(v).all()) for v in dfin.values()), "fsai tangents: non-finite")
+
+    def functional(traj, c, p, t):
+        return torch.dot(hu, traj["u"][-1]) + hq * traj["q"][-1].sum()
+
+    _, g = adjoint.integrate_grad(model, functional, s0, [model.control], prop, times,
+                                  OPTION_TANGENT)
+    lhs = float(torch.dot(hu, dfin["u"])) + hq * float(dfin["q"].sum())
+    rhs = float(np.dot(g["prop"]["emod"], dprop["emod"]))
+    rel = abs(lhs - rhs) / abs(rhs)
+    log(f"[options] M5 FSAI tangents, {OPTION_TANGENT_STEPS} steps: {OPTION_TANGENT_STEPS / (ms / 1e3):.2f}"
+        f" steps/s (CUDA events); duality <h, J x_dot> {lhs:.12e}, <J^T h, x_dot> {rhs:.12e},"
+        f" rel diff {rel:.3e} (rtol {DUALITY_RTOL:.0e}); on {card}")
+    require(rel <= DUALITY_RTOL, "options fsai tangents: off their duality")
+    # a batch's tangents: phase 19's sweep_grad batch
+    built = build(torch, dev, "M5_3layers.msh", torch.float64, solid="KelvinVoigtWShape")
+    model, s0, cs, _ = built
+    batch, _ = SWEEP_GRAD
+    pb = sweep_props(model, batch)
+    times = DT * np.arange(OPTION_TANGENT_STEPS + 1)
+    params = {"assembly": sweep.ASSEMBLY}
+    dpb = {k: np.zeros_like(v) for k, v in pb.items()}
+    dpb["emod"] = 5.0 * rng.standard_normal(pb["emod"].shape)
+    dcs = {**zero(cs), "psub": np.ones_like(cs["psub"])}
+    (fin, dfin), ms, launches, _ = run_timed(torch, model, lambda: forward.integrate_linear_batch_pure(
+        model, s0, cs, pb, times, zero(s0), dcs, dpb, np.zeros_like(times), params))
+    require_launched(launches, ("newmark",), "options batch tangents")
+    worst = {k: 0.0 for k in dfin}
+    for b in BATCH_TANGENT_ROWS:
+        _, d1 = forward.integrate_linear_pure(
+            model, s0, cs, {k: v[b] for k, v in pb.items()}, times, zero(s0), dcs,
+            {k: v[b] for k, v in dpb.items()}, np.zeros_like(times), params)
+        for k, ref in d1.items():
+            worst[k] = max(worst[k], float((dfin[k][b] - ref).abs().max() / ref.abs().max()))
+    log(f"[options] tangents of the {batch}-variant sweep_grad batch, {OPTION_TANGENT_STEPS} steps:"
+        f" {batch * OPTION_TANGENT_STEPS / (ms / 1e3):.1f} variant-steps/s; rows"
+        f" {BATCH_TANGENT_ROWS} vs each variant's tangent alone, worst max|diff|/max|ref| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f" (rtol {BATCH_TANGENT_RTOL:.0e} on u, q, p; v and a are the Newmark relations"
+        f" of u's, which carry its rounding up by 2 / dt and 4 / dt^2 a step, as the"
+        f" rows' primal a of phase 19); launches {launches}; on {card}")
+    require(max(worst[k] for k in ("u", "q", "p")) <= BATCH_TANGENT_RTOL,
+            "options batch tangents: a row off its variant's")
+
+
+def phase_options(torch, card, dev, large, btd_res):
+    """Phase 21 (see the constants above)."""
+    plan, blocks64 = rest_blocks(torch, large["float64"][0])
+    cases = option_cases(torch, plan, blocks64)
+    k6 = phase_ops_btd(torch, cases, line="options")
+    k6t = phase_ops_btd_t(torch, cases, k6, line="options", exchange=False)
+    fwd, tr = option_slab_cases(torch, plan, blocks64)
+    slabs = dd_sweeps(torch, fwd, card, separate=False)
+    slabs_t = slab_t_sweeps(torch, tr, card, separate=False)
+    del cases, fwd, tr, blocks64
+    option_width_1280(torch, dev)
+    out = {"k6": k6, "k6t": k6t, "slabs": slabs, "slabs_t": slabs_t}
+    out.update(option_runs(torch, card, large, btd_res))
+    out["extrapolated"] = option_extrapolated(torch, card, dev, large, btd_res)
+    option_tangents(torch, card, dev)
+    return out
+
+
 def main():
     import time
 
@@ -5548,6 +5957,7 @@ def run_phases(torch, name, card, dev, t0, mesher, mesher3d, m5qz):
     dd = timed("dd", phase_dd, torch, card, large, btd_res, integ)
     sw = timed("sweep", phase_sweep, torch, card, dev)
     gm = timed("grad_more", phase_grad_more, torch, card, large, d3)
+    opt = timed("options", phase_options, torch, card, dev, large, btd_res)
 
     # per kernel: the timing at the 23.7k shapes of the btd main path (f64)
     timing = {
@@ -5569,6 +5979,10 @@ def run_phases(torch, name, card, dev, t0, mesher, mesher3d, m5qz):
         "newmark_t x8": ops_res[("newmark_t", f"M5 x {SWEEP_GRAD[0]}", "float64")],
         "btd_sweep_t_slabs": gm["slabs"][(T_SLABS, "forward", "bfloat16", "float64")],
         "btd_sweep_t x1280": gm["t1280"][("btd_sweep_t", "forward bfloat16/float64", "float64")],
+        **{f"{k} {pair}": opt["k6" if k == "btd_sweep" else "k6t"][(k, f"forward {label}", "float64")]
+           for k in ("btd_sweep", "btd_sweep_t")
+           for pair, label in (("e4m3/f64", "float8_e4m3fn/float64"),
+                               ("f32/f64", "float32/float64"))},
     }
     # the f64 runs whose launches count: (name, launches, steps)
     runs = [("M5 headline", head["float64"]["launches"], N_STEPS),
@@ -5610,7 +6024,13 @@ def run_phases(torch, name, card, dev, t0, mesher, mesher3d, m5qz):
             ("M5 sweep_grad 8 x 20 (a batched step)", sw["grad"]["launches"], SWEEP_GRAD[1]),
             ("23.7k spike value+grad", gm["spike"]["launches"], gm["spike"]["n_steps"]),
             (f"23.7k DD x {DD_SHARDS} value+grad", gm["dd"]["launches"], gm["dd"]["n_steps"]),
-            ("45.8k 3D value+grad", gm["g3d"]["launches"], gm["g3d"]["n_steps"])]
+            ("45.8k 3D value+grad", gm["g3d"]["launches"], gm["g3d"]["n_steps"]),
+            ("23.7k btd e4m3 V/W", opt["fp8"]["launches"], opt["fp8"]["n_steps"]),
+            ("23.7k btd f32 factors", opt["f32"]["launches"], opt["f32"]["n_steps"]),
+            ("23.7k value+grad e4m3 V/W", opt["grad fp8"]["launches"],
+             opt["grad fp8"]["n_steps"]),
+            ("23.7k value+grad f32 factors", opt["grad f32"]["launches"],
+             opt["grad f32"]["n_steps"])]
     by_name = {name: launches for name, launches, _ in runs}
     dd_banded = by_name[f"23.7k DD x {DD_SHARDS} banded"]
     path = {  # the main-path run whose count is this kernel's ``launches``
@@ -5627,6 +6047,10 @@ def run_phases(torch, name, card, dev, t0, mesher, mesher3d, m5qz):
         "newmark_t x8": by_name["M5 sweep_grad 8 x 20 (a batched step)"],
         "btd_sweep_t_slabs": by_name["23.7k spike value+grad"],
         "btd_sweep_t x1280": by_name["45.8k 3D value+grad"],
+        "btd_sweep e4m3/f64": by_name["23.7k btd e4m3 V/W"],
+        "btd_sweep f32/f64": by_name["23.7k btd f32 factors"],
+        "btd_sweep_t e4m3/f64": by_name["23.7k value+grad e4m3 V/W"],
+        "btd_sweep_t f32/f64": by_name["23.7k value+grad f32 factors"],
     }
     kernels = []
     for op, (kname, replaces, source) in KERNELS.items():

@@ -356,7 +356,24 @@ SWEEP_PAIRS = {
     "bf16-f32": (torch.bfloat16, torch.float32),
     "f64-f64": (torch.float64, torch.float64),
     "f32-f32": (torch.float32, torch.float32),
+    # btd_factor_dtype='float32' under f64 residuals, and fp8 stored factors
+    "f32-f64": (torch.float32, torch.float64),
+    "e4m3-f64": (torch.float8_e4m3fn, torch.float64),
+    "e4m3-f32": (torch.float8_e4m3fn, torch.float32),
+    "e5m2-f64": (torch.float8_e5m2, torch.float64),
+    "e5m2-f32": (torch.float8_e5m2, torch.float32),
 }
+
+
+def _btd_factors(plan, blocks, fdt):
+    """btd factors of ``blocks`` whose sweeps take factors of ``fdt``: f64,
+    factored in f32 (``factor_dtype``), or stored bf16 / fp8."""
+    from vf_fem_tpu_torch.solvers import btd
+
+    if fdt == torch.float32:
+        return btd.btd_factor(plan, blocks, factor_dtype="float32")
+    store = {v: k for k, v in btd.STORE_DTYPES.items()}.get(fdt)
+    return btd.btd_factor(plan, blocks, store_dtype=store)
 
 
 @pytest.mark.parametrize("pair", list(SWEEP_PAIRS))
@@ -369,8 +386,7 @@ def test_btd_sweep_matches_plain(large_operator, pair):
 
     op, plan, blocks = large_operator
     fdt, vdt = SWEEP_PAIRS[pair]
-    fac = btd.btd_factor(plan, blocks.float() if fdt == torch.float32 else blocks,
-                         store_dtype="bfloat16" if fdt == torch.bfloat16 else None)
+    fac = _btd_factors(plan, blocks, fdt)
     assert fac.V.dtype == fdt
     rng = np.random.default_rng(0)
     g = torch.tensor(rng.standard_normal(tuple(fac.V.shape[:2])), dtype=vdt,
@@ -745,8 +761,7 @@ def test_btd_sweep_t_matches_plain(large_operator, pair):
 
     op, plan, blocks = large_operator
     fdt, vdt = SWEEP_PAIRS[pair]
-    fac = btd.btd_factor(plan, blocks.float() if fdt == torch.float32 else blocks,
-                         store_dtype="bfloat16" if fdt == torch.bfloat16 else None)
+    fac = _btd_factors(plan, blocks, fdt)
     rng = np.random.default_rng(1)
     g = torch.tensor(rng.standard_normal(tuple(fac.V.shape[:2])), dtype=vdt,
                      device=blocks.device)

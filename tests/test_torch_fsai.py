@@ -20,9 +20,10 @@ midline):
   ``integrate_extend`` against one longer run;
 - the step the card captures (``step_graph``), run uncaptured on the CPU
   in chunks of 3 steps, equals the eager loop bit for bit, ``bracketed``
-  included; the FSAI model's tangents raise.
+  included.
 
-Gradients are ``tests/test_torch_fsai_grad.py``'s, the M5 golden
+Gradients are ``tests/test_torch_fsai_grad.py``'s, tangents
+``tests/test_torch_fsai_tangents.py``'s, the M5 golden
 ``tests/test_torch_fsai_m5.py``'s.
 """
 
@@ -229,14 +230,3 @@ def test_captured_step_uncaptured_equals_eager(small, monkeypatch):
     assert all(torch.equal(gtraj[k], traj[k]) and torch.equal(gfin[k], fin[k]) for k in traj)
     assert all(torch.equal(a, b) for a, b in zip(ginfos, infos))
     assert ginfos.bracketed.dtype == torch.bool and bool(ginfos.bracketed.all())
-
-
-def test_tangents_raise(small):
-    _, tm = small
-    state0, cs, prop = port_inputs(tm)
-    zero = {k: np.zeros_like(v) for k, v in state0.items()}
-    with pytest.raises(NotImplementedError, match="FSAI"):
-        forward.integrate_linear_pure(tm, state0, cs, prop, tm.dt * np.arange(3), zero,
-                                      {k: np.zeros_like(v) for k, v in cs.items()},
-                                      {k: np.zeros_like(v) for k, v in prop.items()},
-                                      np.zeros(3))

@@ -17,14 +17,17 @@
 // No TPU kernel is replaced: the JAX package runs the sweeps as lax.scan
 // (vf_fem_tpu/solvers/btd.py:298-312), which XLA compiles into one loop.
 //
-// Rounding is the plain version's: the carried vector is cast to the
-// factor type (f64 -> bf16 through f32, as torch's .to() rounds), the
-// products accumulate in f32 for bf16 factors (in the factor type
-// otherwise), and the sum is cast back to the vector type before the
-// subtraction, which is rounded on its own (__dsub_rn / __fsub_rn, never
-// contracted into an FMA).  Each row's dot product is summed inside one
-// warp in a fixed order: lane l takes the 16-byte chunks l + 32 c of the
-// row and sums along them (c, then the entries of a chunk, by FMA), then
+// Rounding is the plain version's (ops.factor_matvec): the carried vector
+// is cast to the factor type (f64 -> bf16 through f32, as torch's .to()
+// rounds; f64 -> f32 for f32 factors under f64 vectors), or to bf16 for
+// fp8 factors (e4m3 or e5m2, whose entries convert to f32 exactly: the
+// vector is never quantized to fp8), the products accumulate in f32 for
+// bf16, fp8 and f32 factors (in f64 for f64 factors), and the sum is cast
+// back to the vector type before the subtraction, which is rounded on its
+// own (__dsub_rn / __fsub_rn, never contracted into an FMA).  Each row's
+// dot product is summed inside one warp in a fixed order: lane l takes the
+// 16-byte chunks (8-byte of fp8 factors) l + 32 c of the row and sums
+// along them (c, then the entries of a chunk, by FMA), then
 // an xor-shuffle tree from 16 to 1 adds the lanes.  That order is the one
 // of the single-CTA kernel this one replaces, so the two are bit-equal,
 // and both differ from the plain matvec only within the bound on
@@ -51,11 +54,12 @@
 //   and no factor load sits on it; where a stage of one row a warp for
 //   16 warps would leave a single slot (f64 factors at Bt = 1280), the
 //   plan takes fewer warps, so smaller stages, and keeps two.
-// - Each consumer warp takes RPW rows of each stage (RPW x sizeof(factor)
-//   is a whole 32-bit word) against x_{i-1}, which every CTA holds in its
-//   own shared memory in the factor type.  Lane p < C then pushes
+// - Each consumer warp takes RPW rows of each stage (RPW carried entries
+//   are a whole 32-bit word) against x_{i-1}, which every CTA holds in its
+//   own shared memory in the carried type (the factor type; bf16 for fp8
+//   factors).  Lane p < C then pushes
 //   the warp's entries of x_i into CTA p with st.async, whose bytes count
-//   on CTA p's mbarrier for that buffer (Bt x sizeof(factor) bytes a
+//   on CTA p's mbarrier for that buffer (Bt carried entries' bytes a
 //   phase), so no cluster-scope fence sits on the chain: a CTA starts row
 //   block i + 1 when all Bt entries of x_i have landed in it.
 // - The carried vector is double-buffered (x_i in buffer i & 1).  Why a
@@ -84,6 +88,7 @@
 // fallback.  btd_exchange_probe.cu times the exchange alone.
 
 #include <cuda.h>
+#include <cuda_fp8.h>
 
 #include <mutex>
 
@@ -101,10 +106,50 @@ template <>
 struct Acc<__nv_bfloat16> {
   using type = float;
 };
+template <>
+struct Acc<__nv_fp8_e4m3> {
+  using type = float;
+};
+template <>
+struct Acc<__nv_fp8_e5m2> {
+  using type = float;
+};
+
+// the carried vector's type: the factor type, bf16 for fp8 factors
+template <typename TA>
+struct Carry {
+  using type = TA;
+};
+template <>
+struct Carry<__nv_fp8_e4m3> {
+  using type = __nv_bfloat16;
+};
+template <>
+struct Carry<__nv_fp8_e5m2> {
+  using type = __nv_bfloat16;
+};
+
+// a chunk of a factor row read at once: 16 bytes, 8 of fp8 factors (a
+// chunk's entries then meet 16 bytes of the bf16 carried vector)
+template <typename TA>
+struct ChunkOf {
+  using type = uint4;
+};
+template <>
+struct ChunkOf<__nv_fp8_e4m3> {
+  using type = uint2;
+};
+template <>
+struct ChunkOf<__nv_fp8_e5m2> {
+  using type = uint2;
+};
 
 __device__ __forceinline__ float to_acc(__nv_bfloat16 a) {
   return __bfloat162float(a);
 }
+// every e4m3 and e5m2 value is a float exactly
+__device__ __forceinline__ float to_acc(__nv_fp8_e4m3 a) { return static_cast<float>(a); }
+__device__ __forceinline__ float to_acc(__nv_fp8_e5m2 a) { return static_cast<float>(a); }
 __device__ __forceinline__ float to_acc(float a) { return a; }
 __device__ __forceinline__ double to_acc(double a) { return a; }
 
@@ -121,26 +166,30 @@ __device__ __forceinline__ double sub_rn(double a, double b) {
   return __dsub_rn(a, b);
 }
 
-// the carried vector in the factor type
-template <typename TA, typename TV>
-__device__ __forceinline__ TA to_factor(TV v);
+// the carried vector in its type XT (Carry)
+template <typename XT, typename TV>
+__device__ __forceinline__ XT to_carry(TV v);
 template <>
-__device__ __forceinline__ __nv_bfloat16 to_factor<__nv_bfloat16, double>(
+__device__ __forceinline__ __nv_bfloat16 to_carry<__nv_bfloat16, double>(
     double v) {
   return __float2bfloat16_rn(__double2float_rn(v));
 }
 template <>
-__device__ __forceinline__ __nv_bfloat16 to_factor<__nv_bfloat16, float>(
+__device__ __forceinline__ __nv_bfloat16 to_carry<__nv_bfloat16, float>(
     float v) {
   return __float2bfloat16_rn(v);
 }
 template <>
-__device__ __forceinline__ double to_factor<double, double>(double v) {
+__device__ __forceinline__ double to_carry<double, double>(double v) {
   return v;
 }
 template <>
-__device__ __forceinline__ float to_factor<float, float>(float v) {
+__device__ __forceinline__ float to_carry<float, float>(float v) {
   return v;
+}
+template <>
+__device__ __forceinline__ float to_carry<float, double>(double v) {
+  return __double2float_rn(v);
 }
 
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
@@ -158,14 +207,19 @@ __global__ void __launch_bounds__(Geometry<TA, BT>::THREADS, 1)
                      TV* __restrict__ out, int n, int reverse) {
   using G = Geometry<TA, BT>;
   using AccT = typename Acc<TA>::type;
-  constexpr int VEC = 16 / sizeof(TA);  // entries per 16-byte chunk
-  constexpr int CPR = BT / VEC;         // chunks per row
-  constexpr int CPL = (CPR + 31) / 32;  // chunks per lane per row
+  using XT = typename Carry<TA>::type;
+  // a chunk of a row: 16 bytes, 8 of fp8 factors, so that each chunk meets
+  // one 16-byte word of the carried vector
+  using Chunk = typename ChunkOf<TA>::type;
+  constexpr int VEC = sizeof(Chunk) / sizeof(TA);  // entries per chunk of a row
+  constexpr int CPR = BT / VEC;                    // chunks per row
+  constexpr int CPL = (CPR + 31) / 32;             // chunks per lane per row
+  static_assert(VEC * sizeof(XT) == 16, "a chunk meets one 16-byte word of x");
   constexpr long long kBlock = static_cast<long long>(BT) * BT;
 
   extern __shared__ __align__(128) unsigned char smem[];
   TA* ring = reinterpret_cast<TA*>(smem);                   // NST stages
-  TA* xs = reinterpret_cast<TA*>(smem + G::XS_OFFSET);      // [2][BT]
+  XT* xs = reinterpret_cast<XT*>(smem + G::XS_OFFSET);      // [2][BT]
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::BAR_OFFSET);
   uint64_t* empty = full + G::NST;
   uint64_t* xready = empty + G::NST;  // [2]: x_i complete in xs[i & 1]
@@ -189,7 +243,7 @@ __global__ void __launch_bounds__(Geometry<TA, BT>::THREADS, 1)
     for (int b = 0; b < 2; ++b) mbar_init(xready + b, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int k = threadIdx.x; k < 2 * BT; k += G::THREADS) xs[k] = to_factor<TA, TV>(TV(0));
+  for (int k = threadIdx.x; k < 2 * BT; k += G::THREADS) xs[k] = to_carry<XT, TV>(TV(0));
   // every CTA's barriers and buffers are ready before any peer touches them
   cluster_sync_all();
 
@@ -218,7 +272,7 @@ __global__ void __launch_bounds__(Geometry<TA, BT>::THREADS, 1)
       // arm xready[rb] for x_i: its phase for x_{i-2} completed before this
       // thread's wait in the previous row block; peers' bytes may land first
       if (push && threadIdx.x == 0)
-        mbar_arrive_expect_tx(xready + rb, BT * static_cast<unsigned>(sizeof(TA)));
+        mbar_arrive_expect_tx(xready + rb, BT * static_cast<unsigned>(sizeof(XT)));
       // g of this warp's rows, loaded before the wait (off the chain)
       TV gv[G::SPB][G::RPW];
       const TV* gi = g + static_cast<long long>(i) * BT;
@@ -239,16 +293,16 @@ __global__ void __launch_bounds__(Geometry<TA, BT>::THREADS, 1)
         AccT acc[G::RPW];
 #pragma unroll
         for (int u = 0; u < G::RPW; ++u) {
-          const uint4* row = reinterpret_cast<const uint4*>(rows + u * BT);
+          const Chunk* row = reinterpret_cast<const Chunk*>(rows + u * BT);
           acc[u] = AccT(0);
 #pragma unroll
           for (int c = 0; c < CPL; ++c) {
             const int ch = lane + 32 * c;
             if (ch < CPR) {
-              const uint4 a4 = row[ch];
+              const Chunk a4 = row[ch];
               const uint4 xv4 = x4[ch];
               const TA* av = reinterpret_cast<const TA*>(&a4);
-              const TA* xv = reinterpret_cast<const TA*>(&xv4);
+              const XT* xv = reinterpret_cast<const XT*>(&xv4);
 #pragma unroll
               for (int v = 0; v < VEC; ++v)
                 acc[u] = fma_rn(to_acc(av[v]), to_acc(xv[v]), acc[u]);
@@ -265,11 +319,11 @@ __global__ void __launch_bounds__(Geometry<TA, BT>::THREADS, 1)
 
         const int k0 = rank * G::R + sub * G::RS + warp * G::RPW;
         TV y[G::RPW];
-        TA yf[G::RPW];
+        XT yf[G::RPW];
 #pragma unroll
         for (int u = 0; u < G::RPW; ++u) {
           y[u] = sub_rn(gv[sub][u], static_cast<TV>(acc[u]));
-          yf[u] = to_factor<TA, TV>(y[u]);
+          yf[u] = to_carry<XT, TV>(y[u]);
           if (lane == u) out[static_cast<long long>(i) * BT + k0 + u] = y[u];
         }
         if (push) {
@@ -338,8 +392,8 @@ int launch_sweep(const void* A, const void* g, void* out, int n, int bt,
 // Design: K6's cluster (C CTAs, 16 for f64 factors, 8 otherwise) and K6's
 // exchange, unchanged.  CTA r owns output entries [r R, (r+1) R), so it reads
 // the (Bt x R) column box [., r R : (r+1) R) of each block: R ES bytes of
-// every row (ES the factor size), cut into 16-byte chunks of VEC = 16 / ES
-// columns.
+// every row (ES the factor size), cut into chunks of CB = 16 bytes (8 of
+// fp8 factors), VEC = CB / ES columns.
 // - A producer warp streams the boxes, in stages of SR rows (<= 256),
 //   through a ring of shared-memory slots on "full" / "empty" mbarriers, as
 //   K6 does, by TMA: the factors are one 2-D tensor map (n Bt rows of Bt,
@@ -360,13 +414,18 @@ int launch_sweep(const void* A, const void* g, void* out, int n, int bt,
 //   columns a lane keeps) and an xor tree over the bits left, so column c of
 //   the chunk ends in lanes [c, c + 1) * 32 / VEC.  A column's sum never
 //   leaves its warp: no block barrier and no serial sum on the chain.
-// - The warp's four 32-bit words of x_s (its 16-byte chunk in the factor
-//   type) are gathered by shuffles so that lane l holds word l & 3 and
-//   pushes it with st.async into CTAs l / 4 (+ 8), counted on that CTA's
-//   mbarrier for the buffer (Bt ES bytes a phase).
-// - Rounding is K6's rule: the carried vector in the factor type, f32 sums
-//   for bf16 factors, the sum cast to the vector type before the
-//   subtraction, rounded on its own.  The order (rows within a lane, then
+// - The warp's four 32-bit words of x_s (its chunk's columns in the
+//   carried type) are gathered by shuffles so that lane l holds word l & 3
+//   and pushes it with st.async into CTAs l / 4 (+ 8), counted on that
+//   CTA's mbarrier for the buffer (Bt carried entries' bytes a phase).
+// - Rounding is K6's rule: the carried vector in the carried type, f32
+//   sums for bf16, fp8 and f32 factors, the sum cast to the vector type
+//   before the subtraction, rounded on its own.
+// - fp8 factors: a warp's chunk is 8 bytes of a box row (8 columns, as
+//   bf16's 16), half of a swizzled 16-byte chunk, so that its columns of the
+//   carried bf16 vector are 16 bytes as every other pair's; a CTA's box row
+//   is 16 bytes at Bt = 128 and 48 at 384, read as unswizzled 16-byte
+//   boxes.  The order (rows within a lane, then
 //   the fixed lane tree) differs from the plain matvec's only within the
 //   bound on dot-product order (ops.dot_order_bound), and is the same every
 //   launch.
@@ -416,23 +475,27 @@ int launch_sweep(const void* A, const void* g, void* out, int n, int bt,
 struct TPlan {
   int cluster;           // C CTAs (cluster_size, as K6)
   int cols_per_cta;      // R = Bt / C output entries a CTA
-  int warps;             // W consumer warps, CPW = R ES / 16 / W chunks each
+  int warps;             // W consumer warps, CPW = R ES / CB / W chunks each
   int stage_rows;        // SR box rows a ring slot (<= 256)
   int stages_per_block;  // SPB = Bt / SR
-  int box_bytes;         // the inner width of a tensor-map box (its swizzle span)
+  int box_bytes;         // the inner width of a tensor-map box (its swizzle span; 16: none)
   int ring;              // slots
   int smem;              // dynamic shared memory bytes
   int threads;           // (W + 1) * 32
 };
+
+// bytes of a warp's chunk of a box row: 16, 8 of fp8 factors (8 columns)
+__host__ __device__ constexpr int chunk_bytes(int es) { return es == 1 ? 8 : 16; }
 
 __host__ __device__ constexpr TPlan make_t_plan(int es, int bt) {
   TPlan p{};
   p.cluster = cluster_size(es);
   p.cols_per_cta = bt / p.cluster;
   const int row_bytes = p.cols_per_cta * es;
-  // a warp a 16-byte chunk; past kMaxWarps chunks (Bt = 1280: 20 in bf16,
-  // 40 in f32 and f64), the most warps up to kMaxWarps that divide them
-  const int chunks = row_bytes / 16;
+  // a warp a chunk (CB = 16 bytes, 8 of fp8 factors); past kMaxWarps
+  // chunks (Bt = 1280: 20 in bf16 and fp8, 40 in f32 and f64), the most
+  // warps up to kMaxWarps that divide them
+  const int chunks = row_bytes / chunk_bytes(es);
   int w = chunks;
   if (chunks > kMaxWarps)
     for (int d = 1; d <= kMaxWarps; ++d)
@@ -442,11 +505,15 @@ __host__ __device__ constexpr TPlan make_t_plan(int es, int bt) {
   // rows, so that every dtype pair keeps a ring of at least two slots
   p.stage_rows = bt <= 256 ? bt : bt <= 512 ? bt / 2 : 128;
   p.stages_per_block = bt / p.stage_rows;
-  p.box_bytes = row_bytes % 128 == 0 ? 128 : row_bytes % 64 == 0 ? 64 : 32;
+  p.box_bytes = row_bytes % 128 == 0  ? 128
+                : row_bytes % 64 == 0 ? 64
+                : row_bytes % 32 == 0 ? 32
+                                      : 16;
   const int stage_bytes = p.stage_rows * row_bytes;
-  const int room = (kSmemLimit - 1024 - 2 * bt * es - kBarBytes) / stage_bytes;
+  const int xes = carry_size(es);
+  const int room = (kSmemLimit - 1024 - 2 * bt * xes - kBarBytes) / stage_bytes;
   p.ring = room < kMaxStages ? room : kMaxStages;
-  p.smem = 1024 + p.ring * stage_bytes + 2 * bt * es + kBarBytes;
+  p.smem = 1024 + p.ring * stage_bytes + 2 * bt * xes + kBarBytes;
   p.threads = (p.warps + 1) * 32;
   return p;
 }
@@ -454,6 +521,7 @@ __host__ __device__ constexpr TPlan make_t_plan(int es, int bt) {
 template <typename TA, int BT>
 struct TGeometry {
   static constexpr int ES = static_cast<int>(sizeof(TA));
+  static constexpr int XES = carry_size(ES);  // bytes of a carried entry
   static constexpr TPlan P = make_t_plan(ES, BT);
   static constexpr int C = P.cluster;
   static constexpr int R = P.cols_per_cta;
@@ -465,17 +533,18 @@ struct TGeometry {
   static constexpr int SMEM = P.smem;
   static constexpr int THREADS = P.threads;
   static constexpr int RB = R * ES;            // bytes of a box row
-  static constexpr int CPW = RB / 16 / W;      // 16-byte chunks a warp owns
+  static constexpr int CB = chunk_bytes(ES);   // bytes of a warp's chunk
+  static constexpr int CPW = RB / CB / W;      // chunks a warp owns
   static constexpr int BOXES = RB / SWB;       // tensor-map boxes a stage
   static constexpr int CPB = SWB / 16;         // 16-byte chunks a box row
-  static constexpr int VEC = 16 / ES;          // columns a warp owns
+  static constexpr int VEC = CB / ES;          // columns of a chunk
   static constexpr int LV = VEC == 8 ? 3 : VEC == 4 ? 2 : 1;  // log2(VEC)
   static constexpr int RPL = SR / 32;          // rows a lane takes a stage
   static constexpr int STAGE_BYTES = SR * RB;
   static constexpr int XS_OFFSET = NST * STAGE_BYTES;
-  static constexpr int BAR_OFFSET = XS_OFFSET + 2 * BT * ES;
-  static_assert(C * R == BT && W * CPW * 16 == RB && SPB * SR == BT && SR % 32 == 0 &&
-                    SR <= 256 && W <= kMaxWarps,
+  static constexpr int BAR_OFFSET = XS_OFFSET + 2 * BT * XES;
+  static_assert(C * R == BT && W * CPW * CB == RB && SPB * SR == BT && SR % 32 == 0 &&
+                    SR <= 256 && W <= kMaxWarps && VEC * XES == 16,
                 "no partition");
   static_assert(RB % SWB == 0 && SR * SWB % 1024 == 0 && BOXES <= 32, "no box layout");
   static_assert(C == 8 || C == 16, "four words of a warp pushed into C CTAs by 32 lanes");
@@ -487,6 +556,11 @@ struct TGeometry {
   __device__ static int offset(int k, int w) {
     const int j = w % CPB;
     return (w / CPB) * SR * SWB + k * SWB + 16 * (j ^ ((k * SWB >> 7) & (CPB - 1)));
+  }
+  // byte offset of a warp's chunk c (CB bytes) of box row k: an 8-byte
+  // chunk is a half of a 16-byte one, which the swizzle moves whole
+  __device__ static int chunk_offset(int k, int c) {
+    return CB == 16 ? offset(k, c) : offset(k, c / 2) + 8 * (c % 2);
   }
 };
 
@@ -524,7 +598,7 @@ __device__ __forceinline__ T warp_column_sum(T (&v)[VEC], int lane) {
   return r;
 }
 
-// word m (0..3) of the warp's 16-byte chunk of x_s in the factor type, from
+// word m (0..3) of the warp's 16 bytes of x_s in the carried type, from
 // the lanes that hold its columns (word m of bf16 is columns 2m, 2m + 1; of
 // f32 column m; of f64 half m & 1 of column m / 2)
 __device__ __forceinline__ uint32_t chunk_word(__nv_bfloat16 y, int m) {
@@ -550,6 +624,8 @@ __global__ void __launch_bounds__(TGeometry<TA, BT>::THREADS, 1)
                        TV* __restrict__ out, int n, int reverse) {
   using G = TGeometry<TA, BT>;
   using AccT = typename Acc<TA>::type;
+  using XT = typename Carry<TA>::type;
+  using Chunk = typename ChunkOf<TA>::type;
   constexpr int VEC = G::VEC;
   constexpr int CPW = G::CPW;
 
@@ -557,7 +633,7 @@ __global__ void __launch_bounds__(TGeometry<TA, BT>::THREADS, 1)
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
   unsigned char* ring = smem;                            // NST stages
-  TA* xs = reinterpret_cast<TA*>(smem + G::XS_OFFSET);   // [2][BT]
+  XT* xs = reinterpret_cast<XT*>(smem + G::XS_OFFSET);   // [2][BT]
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::BAR_OFFSET);
   uint64_t* empty = full + G::NST;
   uint64_t* xready = empty + G::NST;  // [2]: x_s complete in xs[s & 1]
@@ -613,7 +689,7 @@ __global__ void __launch_bounds__(TGeometry<TA, BT>::THREADS, 1)
       const int rb = s & 1;  // x_s goes to xs[rb]; x_{s-1} is in xs[rb ^ 1]
       const bool push = s + 1 < n;
       if (push && threadIdx.x == 0)
-        mbar_arrive_expect_tx(xready + rb, BT * static_cast<unsigned>(sizeof(TA)));
+        mbar_arrive_expect_tx(xready + rb, BT * static_cast<unsigned>(sizeof(XT)));
       TV y[CPW];  // g before the wait, then x_s
 #pragma unroll
       for (int c = 0; c < CPW; ++c) y[c] = g[static_cast<long long>(i) * BT + colw(c) + lcol];
@@ -630,7 +706,7 @@ __global__ void __launch_bounds__(TGeometry<TA, BT>::THREADS, 1)
 #pragma unroll
             for (int j = 0; j < G::RPL; ++j) {
               const int k = lane + 32 * j;
-              const uint4 q = *reinterpret_cast<const uint4*>(slot + G::offset(k, warp));
+              const Chunk q = *reinterpret_cast<const Chunk*>(slot + G::chunk_offset(k, warp));
               const TA* av = reinterpret_cast<const TA*>(&q);
 #pragma unroll
               for (int v = 0; v < VEC; ++v) a[sub][j][v] = to_acc(av[v]);
@@ -639,7 +715,7 @@ __global__ void __launch_bounds__(TGeometry<TA, BT>::THREADS, 1)
             if (lane == 0) mbar_arrive(empty + st);  // the slot has been read
           }
           mbar_wait<true>(xready + (rb ^ 1), ((s - 1) >> 1) & 1);
-          const TA* x = xs + (rb ^ 1) * BT;
+          const XT* x = xs + (rb ^ 1) * BT;
           AccT acc[VEC];
 #pragma unroll
           for (int v = 0; v < VEC; ++v) acc[v] = AccT(0);
@@ -658,7 +734,7 @@ __global__ void __launch_bounds__(TGeometry<TA, BT>::THREADS, 1)
         // registers, so the lanes read it from each slot after the wait, in
         // the same row order
         mbar_wait<true>(xready + (rb ^ 1), ((s - 1) >> 1) & 1);
-        const TA* x = xs + (rb ^ 1) * BT;
+        const XT* x = xs + (rb ^ 1) * BT;
         AccT acc[CPW][VEC];
 #pragma unroll
         for (int c = 0; c < CPW; ++c)
@@ -676,8 +752,8 @@ __global__ void __launch_bounds__(TGeometry<TA, BT>::THREADS, 1)
             const AccT xk = to_acc(x[sub * G::SR + k]);
 #pragma unroll
             for (int c = 0; c < CPW; ++c) {
-              const uint4 q =
-                  *reinterpret_cast<const uint4*>(slot + G::offset(k, warp * CPW + c));
+              const Chunk q =
+                  *reinterpret_cast<const Chunk*>(slot + G::chunk_offset(k, warp * CPW + c));
               const TA* av = reinterpret_cast<const TA*>(&q);
 #pragma unroll
               for (int v = 0; v < VEC; ++v) acc[c][v] = fma_rn(to_acc(av[v]), xk, acc[c][v]);
@@ -698,7 +774,7 @@ __global__ void __launch_bounds__(TGeometry<TA, BT>::THREADS, 1)
         const unsigned bar = smem_addr(xready + rb);
 #pragma unroll
         for (int c = 0; c < CPW; ++c) {
-          const uint32_t w = chunk_word(to_factor<TA, TV>(y[c]), m);
+          const uint32_t w = chunk_word(to_carry<XT, TV>(y[c]), m);
           const unsigned dst = smem_addr(xs + rb * BT + colw(c)) + 4 * m;
 #pragma unroll
           for (int p = lane >> 2; p < G::C; p += 8)
@@ -719,9 +795,10 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
 
 template <typename TA>
 constexpr CUtensorMapDataType map_type() {
-  return sizeof(TA) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                         : sizeof(TA) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                                           : CU_TENSOR_MAP_DATA_TYPE_FLOAT64;
+  return sizeof(TA) == 1   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+         : sizeof(TA) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+         : sizeof(TA) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                           : CU_TENSOR_MAP_DATA_TYPE_FLOAT64;
 }
 
 // The factors (n Bt rows of Bt) as a 2-D tensor map with boxes of SWB
@@ -764,7 +841,8 @@ int tensor_map(const void* A, int n, CUtensorMap* out) {  // n: row blocks of al
   const cuuint32_t elem[2] = {1, 1};
   const CUtensorMapSwizzle swizzle = G::SWB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : G::SWB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
+                                     : G::SWB == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                                    : CU_TENSOR_MAP_SWIZZLE_NONE;
   Entry& e = cache[next];
   const CUresult res = encode(&e.map, map_type<TA>(), 2, const_cast<void*>(A), dims, strides,
                               box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
@@ -834,6 +912,11 @@ VF_SWEEP_ENTRY(vf_btd_sweep_bf16_f64, __nv_bfloat16, double)
 VF_SWEEP_ENTRY(vf_btd_sweep_bf16_f32, __nv_bfloat16, float)
 VF_SWEEP_ENTRY(vf_btd_sweep_f64_f64, double, double)
 VF_SWEEP_ENTRY(vf_btd_sweep_f32_f32, float, float)
+VF_SWEEP_ENTRY(vf_btd_sweep_f32_f64, float, double)
+VF_SWEEP_ENTRY(vf_btd_sweep_e4m3_f64, __nv_fp8_e4m3, double)
+VF_SWEEP_ENTRY(vf_btd_sweep_e4m3_f32, __nv_fp8_e4m3, float)
+VF_SWEEP_ENTRY(vf_btd_sweep_e5m2_f64, __nv_fp8_e5m2, double)
+VF_SWEEP_ENTRY(vf_btd_sweep_e5m2_f32, __nv_fp8_e5m2, float)
 
 #undef VF_SWEEP_ENTRY
 
@@ -849,6 +932,11 @@ VF_SWEEP_T_ENTRY(vf_btd_sweep_t_bf16_f64, __nv_bfloat16, double)
 VF_SWEEP_T_ENTRY(vf_btd_sweep_t_bf16_f32, __nv_bfloat16, float)
 VF_SWEEP_T_ENTRY(vf_btd_sweep_t_f64_f64, double, double)
 VF_SWEEP_T_ENTRY(vf_btd_sweep_t_f32_f32, float, float)
+VF_SWEEP_T_ENTRY(vf_btd_sweep_t_f32_f64, float, double)
+VF_SWEEP_T_ENTRY(vf_btd_sweep_t_e4m3_f64, __nv_fp8_e4m3, double)
+VF_SWEEP_T_ENTRY(vf_btd_sweep_t_e4m3_f32, __nv_fp8_e4m3, float)
+VF_SWEEP_T_ENTRY(vf_btd_sweep_t_e5m2_f64, __nv_fp8_e5m2, double)
+VF_SWEEP_T_ENTRY(vf_btd_sweep_t_e5m2_f32, __nv_fp8_e5m2, float)
 
 #undef VF_SWEEP_T_ENTRY
 
@@ -856,7 +944,7 @@ VF_SWEEP_T_ENTRY(vf_btd_sweep_t_f32_f32, float, float)
 // comparison with ops.kernels.sweep_plan; refuses a width or element size
 // the sweep is not built for
 int vf_btd_sweep_plan(int es, int bt, int* out) {
-  if ((es != 2 && es != 4 && es != 8) ||
+  if ((es != 1 && es != 2 && es != 4 && es != 8) ||
       (bt != 128 && bt != 256 && bt != 384 && bt != 512 && bt != 1280))
     return static_cast<int>(cudaErrorInvalidValue);
   const vf_btd::Plan p = vf_btd::make_plan(es, bt);
@@ -869,7 +957,7 @@ int vf_btd_sweep_plan(int es, int bt, int* out) {
 // make_t_plan(es, bt) into out[0 .. 9) in the order of its fields, for the
 // comparison with ops.kernels.sweep_t_plan
 int vf_btd_sweep_t_plan(int es, int bt, int* out) {
-  if ((es != 2 && es != 4 && es != 8) ||
+  if ((es != 1 && es != 2 && es != 4 && es != 8) ||
       (bt != 128 && bt != 256 && bt != 384 && bt != 512 && bt != 1280))
     return static_cast<int>(cudaErrorInvalidValue);
   const TPlan p = make_t_plan(es, bt);

@@ -22,6 +22,11 @@ constexpr int kBarBytes = (2 * kMaxStages + 2) * 8;
 // blocks of 256 on an H100 (PERF.md section 6 records the comparison)
 __host__ __device__ constexpr int cluster_size(int es) { return es == 8 ? 16 : 8; }
 
+// bytes of an entry of the carried vector for factors of `es` bytes: the
+// factor type, except for fp8 factors, whose products take the vector in
+// bf16 (never quantized to fp8: the vector is the solve's residual)
+__host__ __device__ constexpr int carry_size(int es) { return es == 1 ? 2 : es; }
+
 // The launch plan of one (factor element size, Bt); mirrored by
 // ops.kernels.sweep_plan (vf_btd_sweep_plan returns it for the comparison).
 struct Plan {
@@ -39,14 +44,15 @@ struct Plan {
 // ring slots of `rows` rows of Bt entries that fit beside the carried
 // vector's two buffers and the mbarriers
 __host__ __device__ constexpr int ring_room(int es, int bt, int rows) {
-  return (kSmemLimit - 2 * bt * es - kBarBytes) / (rows * bt * es);
+  return (kSmemLimit - 2 * bt * carry_size(es) - kBarBytes) / (rows * bt * es);
 }
 
 __host__ __device__ constexpr Plan make_plan(int es, int bt) {
   Plan p{};
   p.cluster = cluster_size(es);
   p.rows_per_cta = bt / p.cluster;
-  p.rows_per_warp = es < 4 ? 4 / es : 1;
+  const int xes = carry_size(es);
+  p.rows_per_warp = xes < 4 ? 4 / xes : 1;
   const int units = p.rows_per_cta / p.rows_per_warp;
   // the most warps, up to kMaxWarps, that divide the units and leave a ring
   // of at least two slots, so that the factor stream runs ahead of the chain
@@ -60,7 +66,7 @@ __host__ __device__ constexpr Plan make_plan(int es, int bt) {
   const int stage_bytes = p.stage_rows * bt * es;
   const int room = ring_room(es, bt, p.stage_rows);
   p.ring = room < kMaxStages ? room : kMaxStages;
-  p.smem = p.ring * stage_bytes + 2 * bt * es + kBarBytes;
+  p.smem = p.ring * stage_bytes + 2 * bt * xes + kBarBytes;
   p.threads = (w + 1) * 32;
   return p;
 }
@@ -68,6 +74,7 @@ __host__ __device__ constexpr Plan make_plan(int es, int bt) {
 template <typename TA, int BT>
 struct Geometry {
   static constexpr int ES = static_cast<int>(sizeof(TA));
+  static constexpr int XES = carry_size(ES);  // bytes of a carried entry
   static constexpr Plan P = make_plan(ES, BT);
   static constexpr int C = P.cluster;
   static constexpr int R = P.rows_per_cta;
@@ -80,14 +87,14 @@ struct Geometry {
   static constexpr int THREADS = P.threads;
   static constexpr int STAGE_BYTES = RS * BT * ES;
   static constexpr int XS_OFFSET = NST * STAGE_BYTES;
-  static constexpr int BAR_OFFSET = XS_OFFSET + 2 * BT * ES;
-  static constexpr int WORDS = RPW * ES / 4;  // words a lane pushes a stage
+  static constexpr int BAR_OFFSET = XS_OFFSET + 2 * BT * XES;
+  static constexpr int WORDS = RPW * XES / 4;  // words a lane pushes a stage
   static_assert(BT % C == 0 && R % RPW == 0 && R % RS == 0, "no row partition");
   static_assert(NST >= 2 && SMEM <= kSmemLimit, "ring does not fit");
-  static_assert(C <= 32 && RPW * ES % 4 == 0, "bad push");
+  static_assert(C <= 32 && RPW * XES % 4 == 0, "bad push");
 };
 
-// the factor-type values v[0 .. N) as little-endian 32-bit words
+// the carried vector's values v[0 .. N) as little-endian 32-bit words
 template <int N>
 __device__ __forceinline__ void to_words(const __nv_bfloat16* v, uint32_t* w) {
 #pragma unroll

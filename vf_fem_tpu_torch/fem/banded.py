@@ -613,8 +613,10 @@ def _through_function(x: torch.Tensor) -> bool:
     """Whether a call on ``x`` goes through its ``autograd.Function``: ``x``
     is being differentiated (:func:`_differentiated`) or is a
     ``torch.func`` transform's tensor, such as a batch under ``vmap``
-    (whose rule makes the batch more channels of one launch)."""
-    return _differentiated(x) or torch._C._functorch.is_functorch_wrapped_tensor(x)
+    (whose rule makes the batch more channels of one launch).  The
+    transform's test comes first: a batched tensor has no rule for
+    ``unpack_dual`` (a vmapped residual in a tangent rule)."""
+    return torch._C._functorch.is_functorch_wrapped_tensor(x) or _differentiated(x)
 
 
 def banded_gather(plan: DevicePlan, F: torch.Tensor) -> torch.Tensor:

@@ -20,6 +20,14 @@ the run's configuration:
   ``adjoint``): the same steps and windows, eager, never the graph, with
   autograd recording each step.
 
+``initial_guess='extrapolated'`` (the JAX package's correction-memory
+predictor) runs in all three: each step starts Newton from the Newmark
+predictor plus the previous step's correction ``u1 - predictor`` (zero at
+the start of a run), which the loop carries beside the state and hands the
+step as its 'given' guess (:class:`Extrapolation`); the factors of the
+refresh windows are built at the plain predictor, and the guess gets no
+cotangent nor tangent.
+
 :func:`integrate_batch_pure` runs a batch of variants of one model at
 once (``parallel.sweep``): the same three loops over a leading batch axis
 of the properties (and of the controls, with ``batch_controls``), each
@@ -39,8 +47,9 @@ h5py; ``f=None`` needs none), the divergence flags and the certification
 of fixed-iteration runs; :func:`integrate_extend` resumes from a file and
 :func:`integrate_step` takes one step.  :func:`integrate_linear` (on a
 statefile's run) and :func:`integrate_linear_pure` propagate tangents
-through the differentiable loop in forward mode.  Runs are dicts of numpy
-arrays or tensors where the JAX package takes BlockVectors.
+through the differentiable loop in forward mode, and
+:func:`integrate_linear_batch_pure` through its batched run.  Runs are
+dicts of numpy arrays or tensors where the JAX package takes BlockVectors.
 
 Units are CGS.
 """
@@ -211,9 +220,44 @@ def steppers(model, batch=None):
         "step_diff_batch")
 
     def method(name):
-        return lambda *args: getattr(model, name)(*args)
+        return lambda *args, **kwargs: getattr(model, name)(*args, **kwargs)
 
     return tuple(method(n) for n in names)
+
+
+class Extrapolation:
+    """The correction-memory predictor of ``initial_guess='extrapolated'``
+    (``vf_fem_tpu/forward.py:75-128``) for one run: ``step_params``, the
+    run's parameters with ``initial_guess='given'`` (what each step takes;
+    the windows' factorizations keep the run's own, so they are built at
+    the plain predictor), and the correction ``delta = u1 - predictor`` of
+    the last step, zero before the first.  Inactive (every method a no-op,
+    ``step_params`` the run's) for any other ``initial_guess``."""
+
+    def __init__(self, model, params_d: dict):
+        self.active = params_d.get("initial_guess", "predictor") == "extrapolated"
+        self.step_params = params_d
+        self.delta = None
+        if self.active:
+            if getattr(model, "solid", None) is None:
+                raise ValueError("initial_guess='extrapolated' needs a model with a solid")
+            self.step_params = {**params_d, "initial_guess": "given"}
+
+    def guess(self, state, pred) -> dict:
+        """The step's keyword arguments: ``guess``, the state with ``u``
+        the predictor ``pred`` plus the carried correction (none while
+        inactive)."""
+        if not self.active:
+            return {}
+        if self.delta is None:
+            self.delta = torch.zeros_like(pred)
+        return {"guess": {**state, "u": pred + self.delta}}
+
+    def update(self, state1, pred):
+        """Carry the step's correction ``u1 - pred`` (detached) of its state
+        ``state1``."""
+        if self.active:
+            self.delta = state1["u"].detach() - pred
 
 
 def _integrate_eager(model, ini_state, controls_stacked, prop, times,
@@ -224,6 +268,7 @@ def _integrate_eager(model, ini_state, controls_stacked, prop, times,
     params_d = solver_params(params)
     state, controls, prop = run_inputs(model, ini_state, controls_stacked, prop, batch)
     step, step_stale, factorize, refresh, _ = steppers(model, batch)
+    extrap = Extrapolation(model, params_d)
     dts = [float(x) for x in np.diff(np.asarray(times, dtype=np.float64))]
     n_steps = len(dts)
     if not n_steps:
@@ -240,12 +285,14 @@ def _integrate_eager(model, ini_state, controls_stacked, prop, times,
         for n in range(n0, n1):
             # the step after this one: the predictor K5 writes with the state
             dt_next = dts[min(n + 1, n_steps - 1)]
+            # the predictor K5 carried (read only for an extrapolated guess)
+            pred = model.solid._predictor(state, dts[n]) if extrap.active else None
+            args = (state, control_at(n), prop, dts[n], extrap.step_params, dt_next)
             if factors is None:
-                state, info = step(state, control_at(n), prop, dts[n], params_d,
-                                   dt_next)
+                state, info = step(*args, **extrap.guess(state, pred))
             else:
-                state, info = step_stale(factors, state, control_at(n), prop, dts[n],
-                                         params_d, dt_next)
+                state, info = step_stale(factors, *args, **extrap.guess(state, pred))
+            extrap.update(state, pred)
             traj.append(state)
             infos.append(info)
         return state
@@ -285,6 +332,7 @@ def _integrate_diff(model, ini_state, controls_stacked, prop, times,
     params_d = {**params_d, "with_transpose": True}
     state, controls, prop = run_inputs(model, ini_state, controls_stacked, prop, batch)
     _, _, factorize, refresh, step_diff = steppers(model, batch)
+    extrap = Extrapolation(model, params_d)
     times_t = (times if isinstance(times, torch.Tensor)
                else torch.as_tensor(np.asarray(times, dtype=np.float64)))
     times_t = times_t.to(device=dev, dtype=torch.float64)
@@ -308,8 +356,13 @@ def _integrate_diff(model, ini_state, controls_stacked, prop, times,
 
     def run(state, factors, n0, n1):
         for n in range(n0, n1):
+            # the Newmark predictor of the detached state (K5's carried one
+            # bit for bit), read only for an extrapolated guess
+            pred = (newmark.newmark_predict_u(*(state[k].detach() for k in ("u", "v", "a")),
+                                              dts[n]) if extrap.active else None)
             state, info = step_diff(state, control_at(n), prop, dts[n], rows[n],
-                                    params_d, factors)
+                                    extrap.step_params, factors, **extrap.guess(state, pred))
+            extrap.update(state, pred)
             traj.append(state)
             infos.append(info)
         return state
@@ -358,12 +411,50 @@ def integrate_linear_pure(
     gather and scatter of the tangent.  The tangent controls are
     broadcast to the controls' stacked shape; ``dtimes`` moves the steps'
     coefficient rows (``equations.newmark.coefficient_rows``).  The FSAI
-    model's tangents (the JAX package's ``step_pure_fwd``) are not ported:
-    it raises."""
-    from .models.fsai import ExplicitFSAIModel
+    model's tangents are the JAX package's ``step_pure_fwd``: the solid's
+    rule, then the flow root solve's polish at the detached root
+    (``models.fsai.solve_flow_root``) and the tract."""
+    return _linear(model, ini_state, controls_stacked, prop, times, dini_state,
+                   dcontrols_stacked, dprop, dtimes, params)
 
-    if isinstance(model, ExplicitFSAIModel):
-        raise NotImplementedError("tangents of the FSAI model are not ported")
+
+def integrate_linear_batch_pure(
+    model,
+    ini_state: dict,
+    controls_stacked: dict,
+    prop_batch: dict,
+    times,
+    dini_state: dict,
+    dcontrols_stacked: dict,
+    dprop_batch: dict,
+    dtimes,
+    params: Optional[dict] = None,
+    batch_controls: bool = False,
+):
+    """:func:`integrate_linear_pure` of a batch of variants (the JAX
+    package's ``jax.jvp`` of ``vmap(integrate_pure)``): the batched
+    differentiable loop (:func:`integrate_batch_pure`'s inputs, dense
+    solver only) under ``torch.func.jvp``, each step's tangent the
+    forward-mode IFT rule of every variant at once
+    (``models.transient._SolveU1Batch``: one vmapped residual jvp, each
+    variant's dense solve).  ``dprop_batch`` is each variant's property
+    tangent (B, ...), ``dcontrols_stacked`` broadcast to the controls (each
+    variant's with ``batch_controls``), ``dini_state`` every variant's.
+    Returns ``(fin_state, dfin_state)``, dicts of (B, ...) tensors; row b
+    is :func:`integrate_linear_pure` of variant b alone to the rounding of
+    batched products."""
+    if not hasattr(model, "step_diff_batch"):
+        raise NotImplementedError(f"a batch of {type(model).__name__} variants is not ported")
+    batch = (_batch_size(prop_batch), bool(batch_controls))
+    return _linear(model, ini_state, controls_stacked, prop_batch, times, dini_state,
+                   dcontrols_stacked, dprop_batch, dtimes, params, batch)
+
+
+def _linear(model, ini_state, controls_stacked, prop, times, dini_state,
+            dcontrols_stacked, dprop, dtimes, params, batch=None):
+    """``torch.func.jvp`` of the differentiable loop's final state (of a
+    batch with ``batch``, as :func:`run_inputs`): the primal inputs on the
+    model's device, each tangent broadcast to its primal's shape."""
     params_d = solver_params(params)
     dev, dtype = model.device, model.dtype
     if isinstance(times, torch.Tensor):
@@ -376,7 +467,7 @@ def integrate_linear_pure(
     tangents += (_tensor_like(dtimes, times_t),)
 
     def run(state0, controls, prop, times):
-        return _integrate_diff(model, state0, controls, prop, times, params_d)[0]
+        return _integrate_diff(model, state0, controls, prop, times, params_d, batch)[0]
 
     with torch.no_grad():
         return jvp(run, primals, tangents)

@@ -73,8 +73,12 @@ def solve_flow_root(fluid_at, q0, n_expand=6, n_bisect=20):
     root is polished by two differentiable chord-Newton steps with the
     exact slope ``g'`` at the bisection's midpoint (a forward-mode
     derivative, detached; ``|g'| < 0.25`` is taken as -1), which makes the
-    gradient the implicit-function theorem's.  Where no sign change was
-    bracketed the fluid is evaluated at ``q0``.
+    gradient and the tangent the implicit-function theorem's: the midpoint
+    ``q*`` and ``g'`` are detached, which under ``torch.func.jvp`` also
+    drops their tangents (``torch.no_grad`` alone would not), so ``q_dot =
+    -g_theta_dot / g'`` at the root, as the JAX package's
+    ``stop_gradient`` gives.  Where no sign change was bracketed the fluid
+    is evaluated at ``q0``.
 
     Returns ``(fluid_state_dict, bracketed)``; ``bracketed`` is a 0-d
     bool tensor."""
@@ -112,7 +116,9 @@ def solve_flow_root(fluid_at, q0, n_expand=6, n_bisect=20):
     q_star = (0.5 * (a + b)).detach()
 
     with torch.no_grad():
-        dg = jvp(f, (q_star,), (torch.ones_like(q_star),))[1] - 1.0
+        # detached: the nested jvp's outer tangent (a second derivative)
+        # must not reach the polish's tangent
+        dg = (jvp(f, (q_star,), (torch.ones_like(q_star),))[1] - 1.0).detach()
     # physically g' <= -1; guard the (measure-zero) g' ~ 0 pathology
     dg = torch.where(torch.abs(dg) < 0.25, -1.0, dg)
     q_ref = q_star - (f(q_star) - q_star) / dg
@@ -210,22 +216,27 @@ class ExplicitFSAIModel(BaseTransientModel):
         return self.fsi.refresh_factors(factors, state0, control, prop, dt, params)
 
     def step_pure_stale(self, factors, state0, control, prop, dt, params=None,
-                        dt_next=None):
-        """One coupled step with carried Jacobian factors."""
+                        dt_next=None, guess=None):
+        """One coupled step with carried Jacobian factors (``guess`` as in
+        :meth:`step_pure`)."""
         sl_state0, sl_control, sl_prop = self.fsi._solid_inputs(state0, prop)
         uva1, info = self.solid.solve_state1_stale(factors, sl_state0, sl_control,
-                                                   sl_prop, dt, params, dt_next)
+                                                   sl_prop, dt, params, dt_next, guess)
         return self._couple(uva1, info, state0, control, prop, params)
 
-    def step_diff(self, state0, control, prop, dt, row, params=None, factors=None):
+    def step_diff(self, state0, control, prop, dt, row, params=None, factors=None,
+                  guess=None):
         """One coupled step as a differentiable function of the state,
         control, properties and the step's coefficient row (the solid's IFT
         rule, ``SolidModel.solve_state1_diff``, then the root solve's
-        differentiable polish and the tract); its values are
-        :meth:`step_pure`'s / :meth:`step_pure_stale`'s bit for bit."""
+        differentiable polish and the tract; ``guess`` as in
+        :meth:`step_pure`); its values are :meth:`step_pure`'s /
+        :meth:`step_pure_stale`'s bit for bit, and its tangents
+        (``torch.func.jvp``, ``forward.integrate_linear``) those of the JAX
+        package's ``step_pure_fwd``."""
         sl_state0, sl_control, sl_prop = self.fsi._solid_inputs(state0, prop)
         uva1, info = self.solid.solve_state1_diff(sl_state0, sl_control, sl_prop, dt,
-                                                  row, params, factors)
+                                                  row, params, factors, guess)
         return self._couple(uva1, info, state0, control, prop, params)
 
     def res_pure(self, state1, state0, control, prop, dt, banded=False):

@@ -11,10 +11,16 @@ Newmark relations.
 Solver parameters supported on this path: ``linear_solver`` ('dense' |
 'cg' | 'bsb' | 'btd' | 'spike'), with ``krylov`` ('bicgstab' | 'pcg'),
 ``krylov_tolerance`` and ``krylov_max_iter`` for the two matrix-free ones,
-``btd_store_dtype`` (None | 'bfloat16') for the two block-tridiagonal direct
-ones and ``spike_partitions`` (8) for the SPIKE one (``solvers.spike``;
-``with_transpose``, which ``forward._integrate_diff`` sets, builds its
-transposed parts for the adjoint solves); ``jacobian_update``
+``btd_store_dtype`` and ``btd_offdiag_dtype`` (None | 'bfloat16' |
+'float8_e4m3fn' | 'float8_e5m2') and ``btd_factor_dtype`` (None |
+'float32') for the two block-tridiagonal direct ones
+(``solvers.btd.btd_factor``) and ``spike_partitions`` (8) for the SPIKE
+one (``solvers.spike``; ``with_transpose``, which
+``forward._integrate_diff`` sets, builds its transposed parts for the
+adjoint solves); ``initial_guess`` ('predictor' | 'given' |
+'extrapolated': the forward loops' correction-memory predictor, which
+hands each step the guess ``predictor + (u1 - predictor)`` of the step
+before as 'given'); ``jacobian_update``
 ('every_iteration' | 'once_per_step');
 ``fixed_iterations``/``fixed_tail_residual``/``stagnation_ratio`` and the
 tolerances (``solvers.newton``); ``assembly`` ('auto' | 'banded' |
@@ -22,8 +28,7 @@ tolerances (``solvers.newton``); ``assembly`` ('auto' | 'banded' |
 ``jacobian_full_refresh_windows``/``jacobian_refresh_iters``/
 ``jacobian_refresh_precision`` (``forward.integrate_pure``; every
 precision the JAX package takes computes IEEE products here: see
-``_SUPPORTED``).  ``btd_offdiag_dtype`` and
-``btd_factor_dtype`` raise unless None.
+``_SUPPORTED``).
 
 A batch of variants (``parallel.sweep``, ``forward.integrate_batch_pure``):
 the ``*_batch`` step functions take states, controls and properties with
@@ -89,10 +94,10 @@ ELEMENT_SOLVERS = ("cg", "bsb", "btd", "spike")
 _SUPPORTED = {
     "linear_solver": ("dense",) + ELEMENT_SOLVERS,
     "btd_store_dtype": (None,) + tuple(btd.STORE_DTYPES),
-    "btd_offdiag_dtype": (None,),
-    "btd_factor_dtype": (None,),
+    "btd_offdiag_dtype": (None,) + tuple(btd.STORE_DTYPES),
+    "btd_factor_dtype": (None,) + tuple(btd.FACTOR_DTYPES),
     "krylov": ("bicgstab", "pcg"),
-    "initial_guess": ("predictor", "given"),
+    "initial_guess": ("predictor", "given", "extrapolated"),
     "jacobian_refresh_mode": ("full", "ns"),
     "jacobian_update": ("every_iteration", "once_per_step"),
     "assembly": ("auto", "banded", "plain"),
@@ -261,8 +266,9 @@ class _SolveU1Batch(_SolveU1):
     """:class:`_SolveU1` of a batch of steps (``SolidModel.
     solve_state1_diff_batch``): the forward is the lockstep batched Newton
     (``SolidModel._newton_batch``), the backward the IFT rule of each
-    variant at once (``SolidModel._ift_backward(batched=True)``); tangents
-    of a batch are not ported."""
+    variant at once (``SolidModel._ift_backward(batched=True)``), the
+    tangent each variant's forward-mode IFT rule at once
+    (``SolidModel._ift_jvp(batched=True)``)."""
 
     @staticmethod
     def forward(solid, params_d, dt, layout, factors, guess, row, *flat):
@@ -279,7 +285,7 @@ class _SolveU1Batch(_SolveU1):
 
     @staticmethod
     def jvp(ctx, *tangents):
-        raise NotImplementedError("tangents of a batch of steps are not ported")
+        return (ctx.solid._ift_jvp(ctx, tangents[6:], batched=True), None, None, None)
 
 
 def _batch_params(params) -> dict:
@@ -293,15 +299,25 @@ def _batch_params(params) -> dict:
     return p
 
 
+def _btd_dtypes(params_d) -> dict:
+    """The keyword arguments of ``btd.btd_factor`` / ``spike.spike_factor``
+    that the solver parameters' ``btd_*_dtype`` keys give."""
+    return {k: params_d.get(f"btd_{k}")
+            for k in ("store_dtype", "factor_dtype", "offdiag_dtype")}
+
+
 class _ExactSolve(torch.autograd.Function):
     """``SolidModel._exact_solve`` (forward solve) as a Function: called in
     :class:`_SolveU1`'s jvp rule, which ``torch.func.jvp`` hands its own
-    tensors, it passes the solve's kernels plain ones.  Never
-    differentiated itself."""
+    tensors, it passes the solve's kernels plain ones (``batched``: each
+    variant's dense solve of a batch).  Never differentiated itself."""
 
     @staticmethod
-    def forward(solid, params_d, dt, layout, u1, rhs, *flat):
-        return solid._exact_solve(u1, _unflatten(layout, flat), dt, params_d, rhs)
+    def forward(solid, params_d, dt, layout, batched, u1, rhs, *flat):
+        inputs = _unflatten(layout, flat)
+        if batched:
+            return solid._vmapped_jac(dt, linalg.dense_solve)(u1, *inputs, rhs)
+        return solid._exact_solve(u1, inputs, dt, params_d, rhs)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -800,16 +816,14 @@ class SolidModel(SolidElements, BaseTransientModel):
         if ls in ("bsb", "btd", "spike"):
             plan, fill = self.bsb_plan()
             blocks = bsb.bsb_fill(plan, fill, [op.J_cells, op.J_facets])
+            dtypes = _btd_dtypes(params_d)
             if ls == "btd":
-                return btd.btd_factor(
-                    plan, blocks, store_dtype=params_d.get("btd_store_dtype")
-                )
+                return btd.btd_factor(plan, blocks, **dtypes)
             if ls == "spike":
                 return spike.spike_factor(
                     plan, blocks, int(params_d.get("spike_partitions", 8)),
-                    store_dtype=params_d.get("btd_store_dtype"),
                     with_transpose=bool(params_d.get("with_transpose", False)),
-                )
+                    **dtypes)
             return KrylovFactors(blocks, op.block_diag_inverse(self.dim))
         return KrylovFactors(op, op.block_diag_inverse(self.dim))
 
@@ -1003,14 +1017,15 @@ class SolidModel(SolidElements, BaseTransientModel):
 
     # -- a batch of variants ---------------------------------------------------------
     def solve_state1_batch(self, state0, control, prop, dt, params=None,
-                           dt_next=None, factors=None):
+                           dt_next=None, factors=None, guess=None):
         """One time step of a batch of variants (a leading batch axis on
         every tensor of ``state0``, ``control`` and ``prop``): Newton from
-        the Newmark predictor on the batch (:meth:`_newton_batch`), with
+        the Newmark predictor on the batch (or ``guess``, a state1 dict,
+        with ``initial_guess='given'``; :meth:`_newton_batch`), with
         carried ``factors`` where given, then K5 over the batch.  Returns
         the state and a ``SolveInfo`` of (B,) tensors."""
         params_d = _batch_params(params)
-        u_guess = self._initial_guess(None, state0, dt, params_d)
+        u_guess = self._initial_guess(guess, state0, dt, params_d)
         u1, info = self._newton_batch(u_guess, state0, control, prop, dt, params_d,
                                       factors)
         return self._finish(u1, state0, dt, dt_next), info
@@ -1067,7 +1082,7 @@ class SolidModel(SolidElements, BaseTransientModel):
         return self._vmapped_jac(dt, refresh)(u_lin, state0, control, prop, factors)
 
     def solve_state1_diff_batch(self, state0, control, prop, dt, row, params=None,
-                                factors=None):
+                                factors=None, guess=None):
         """:meth:`solve_state1_diff` of a batch (leading batch axes as in
         :meth:`solve_state1_batch`; one coefficient row for the batch):
         u1 by :class:`_SolveU1Batch`, then K5 over the batch under
@@ -1075,21 +1090,30 @@ class SolidModel(SolidElements, BaseTransientModel):
         cotangent a variant, summed over the batch for the shared row)."""
         params_d = _batch_params(params)
         u0, v0, a0 = (state0[k] for k in ("u", "v", "a"))
-        guess = newmark.newmark_predict_u(u0.detach(), v0.detach(), a0.detach(), dt)
+        guess = self._diff_guess(guess, u0, v0, a0, dt, params_d)
         layout, flat = _flatten(state0, control, prop)
         out = _SolveU1Batch.apply(self, params_d, dt, layout, factors, guess, row, *flat)
         v1, a1, _ = ops.newmark_step(out[0], u0, v0, a0, row)
         return {"u": out[0], "v": v1, "a": a1}, SolveInfo(*out[1:])
 
     # -- the gradient path ---------------------------------------------------------
+    def _diff_guess(self, guess, u0, v0, a0, dt, params_d):
+        """Newton's start on the gradient path, without a graph: the state1
+        guess ``guess['u']`` with ``initial_guess='given'`` where there is
+        one, else the Newmark predictor of the state."""
+        if guess is not None and params_d.get("initial_guess") == "given":
+            return guess["u"].detach()
+        return newmark.newmark_predict_u(u0.detach(), v0.detach(), a0.detach(), dt)
+
     def solve_state1_diff(self, state0, control, prop, dt, row, params=None,
-                          factors=None):
+                          factors=None, guess=None):
         """One time step as a differentiable function of ``state0``,
         ``control``, ``prop`` and the step's coefficient row ``row`` (a row
         of ``equations.newmark.coefficient_rows`` in the model's dtype,
         whose values are those of the float ``dt`` and the next step's):
         u1 by :class:`_SolveU1` (with a window's ``factors`` where given)
-        from the Newmark predictor of the detached state, then
+        from the Newmark predictor of the detached state (or ``guess`` with
+        ``initial_guess='given'``, detached), then
         v1, a1 by K5 under ``ops.newmark_step`` (K5T backward).  The values
         are :meth:`solve_state1_pure`'s / :meth:`solve_state1_stale`'s bit
         for bit; nothing is carried between steps.  A window's SPIKE
@@ -1097,8 +1121,7 @@ class SolidModel(SolidElements, BaseTransientModel):
         which ``forward._integrate_diff`` asks for)."""
         params_d = solver_params(params)
         u0, v0, a0 = (state0[k] for k in ("u", "v", "a"))
-        guess = newmark.newmark_predict_u(u0.detach(), v0.detach(),
-                                          a0.detach(), dt)
+        guess = self._diff_guess(guess, u0, v0, a0, dt, params_d)
         layout, flat = _flatten(state0, control, prop)
         out = _SolveU1.apply(self, params_d, dt, layout, factors, guess, row,
                              *flat)
@@ -1147,28 +1170,36 @@ class SolidModel(SolidElements, BaseTransientModel):
         grads = iter(torch.autograd.grad(r, wanted, -lam, allow_unused=True))
         return tuple(next(grads) if t.requires_grad else None for t in leaves)
 
-    def _ift_jvp(self, ctx, tangents):
+    def _ift_jvp(self, ctx, tangents, batched=False):
         """The forward-mode IFT rule of one step (the JAX package's
         ``solve_u1_fwdmode`` custom JVP): ``R_dot = dR/dtheta theta_dot`` by
         ``torch.func.jvp`` of the residual at the saved u1 (the banded path:
         K1 and K2 on the tangent), then ``u1_dot = -J(u1)^{-1} R_dot`` with
-        full-precision factors built at u1 (:meth:`_exact_solve`: the
-        tangent is one uncorrected solve, so bf16 block-Thomas factors are
-        never used for it, nor the window's carried factors)."""
+        factors built at u1 without their storage dtypes
+        (:meth:`_exact_solve`: the tangent is one uncorrected solve, so
+        bf16 or fp8 block-Thomas factors are never used for it, nor the
+        window's carried factors).  ``batched``: a batch of steps (leading
+        batch axes, one row), the residual vmapped over it and each
+        variant's dense solve its own (the JAX package's rule under
+        ``vmap``)."""
         u1, row, *flat = ctx.saved_tensors
         params_d, layout = ctx.params_d, ctx.layout
         banded = self.use_banded(params_d)
 
         def res(row_, *flat_):
-            state0, control, prop = _unflatten(layout, flat_)
-            return self.res_u(u1, state0, control, prop,
-                              StepCoefs(row_, self.dtype), banded)
+            coefs = StepCoefs(row_, self.dtype)
+
+            def one(u, *fl):
+                state0, control, prop = _unflatten(layout, fl)
+                return self.res_u(u, state0, control, prop, coefs, banded)
+
+            return vmap(one)(u1, *flat_) if batched else one(u1, *flat_)
 
         primals = (row, *flat)
         tangents = tuple(torch.zeros_like(p) if t is None else t
                          for p, t in zip(primals, tangents))
         _, r_dot = jvp(res, primals, tangents)
-        return -_ExactSolve.apply(self, params_d, ctx.dt, layout, u1, r_dot, *flat)
+        return -_ExactSolve.apply(self, params_d, ctx.dt, layout, batched, u1, r_dot, *flat)
 
     def _adjoint_solve(self, JT, u1, inputs, dt, params_d, factors, u1_bar,
                        batched=False):
@@ -1195,16 +1226,20 @@ class SolidModel(SolidElements, BaseTransientModel):
 
     def _exact_solve(self, u1, inputs, dt, params_d, rhs, transpose=False):
         """``J(u1)^{-1} rhs`` (``J(u1)^{-T} rhs`` with ``transpose``) with
-        factors built at u1 in full precision (``btd_store_dtype``
-        dropped): one uncorrected solve, the adjoint's and the tangent's
-        (the JAX package's ``solve_u1`` rules): a block-Thomas solve
-        ('btd', K6 / K6T), a SPIKE solve ('spike', K6 / K6T over slabs, the
-        transposed parts built only for ``transpose``), a Krylov solve to
-        ``krylov_tolerance`` ('cg', 'bsb'), or a dense LU solve."""
+        factors built at u1 without their storage dtypes
+        (``btd_store_dtype`` and ``btd_offdiag_dtype`` dropped; a
+        ``btd_factor_dtype`` is kept, as the JAX package keeps it, so f32
+        factors solve under the f64 vectors): one uncorrected solve, the
+        adjoint's and the tangent's (the JAX package's ``solve_u1`` rules):
+        a block-Thomas solve ('btd', K6 / K6T), a SPIKE solve ('spike', K6 /
+        K6T over slabs, the transposed parts built only for ``transpose``),
+        a Krylov solve to ``krylov_tolerance`` ('cg', 'bsb'), or a dense LU
+        solve."""
         state0, control, prop = inputs
         ls = params_d.get("linear_solver", "dense")
         if ls in ELEMENT_SOLVERS:
-            exact = {k: v for k, v in params_d.items() if k != "btd_store_dtype"}
+            exact = {k: v for k, v in params_d.items()
+                     if k not in ("btd_store_dtype", "btd_offdiag_dtype")}
             exact["with_transpose"] = transpose
             fac = self.make_iter_factors(u1, state0, control, prop, dt, exact)
             if ls == "btd":
@@ -1285,8 +1320,7 @@ class SolidModel(SolidElements, BaseTransientModel):
             plan, fill = self.bsb_plan()
             blocks = bsb.bsb_fill(plan, fill, [Jc.contiguous(),
                                                None if Jf is None else Jf.contiguous()])
-            fac = btd.btd_factor(plan, blocks,
-                                 store_dtype=params_d.get("btd_store_dtype"))
+            fac = btd.btd_factor(plan, blocks, **_btd_dtypes(params_d))
             return (btd.btd_solve_t if transpose else btd.btd_solve)(plan, fac, r)
         A = self.jac_u_static_dense(u1, control, prop)
         return (linalg.dense_solve_transpose if transpose else linalg.dense_solve)(A, r)
@@ -1311,6 +1345,12 @@ class SolidModel(SolidElements, BaseTransientModel):
             return self._static_solve_jac(u1, r, control, prop, params_d)
 
         return newton_solve(u_guess, assem, solve_jac, params_d)
+
+    # the step functions of ``forward.integrate_pure``: the solid alone runs
+    # there as the coupled models do, as in the JAX package
+    step_pure = solve_state1_pure
+    step_pure_stale = solve_state1_stale
+    step_diff = solve_state1_diff
 
 
 class FluidModel(BaseTransientModel):
@@ -1534,25 +1574,26 @@ class ExplicitFSIModel(BaseTransientModel):
         )
 
     def step_pure_stale(self, factors, state0, control, prop, dt,
-                        params=None, dt_next=None):
-        """One coupled step with carried Jacobian factors (``dt_next`` as in
-        :meth:`step_pure`)."""
+                        params=None, dt_next=None, guess=None):
+        """One coupled step with carried Jacobian factors (``dt_next`` and
+        ``guess`` as in :meth:`step_pure`)."""
         sl_state0, sl_control, sl_prop = self._solid_inputs(state0, prop)
         uva1, info = self.solid.solve_state1_stale(
-            factors, sl_state0, sl_control, sl_prop, dt, params, dt_next
+            factors, sl_state0, sl_control, sl_prop, dt, params, dt_next, guess
         )
         return self._fluid_step(uva1, state0, control, prop), info
 
     def step_diff(self, state0, control, prop, dt, row, params=None,
-                  factors=None):
+                  factors=None, guess=None):
         """One coupled step as a differentiable function of the state,
         control, properties and the step's coefficient row (the gradient
         path; ``SolidModel.solve_state1_diff``), with the window's carried
-        ``factors`` or factors built in the step; the values are
-        :meth:`step_pure`'s / :meth:`step_pure_stale`'s bit for bit."""
+        ``factors`` or factors built in the step (``guess`` as in
+        :meth:`step_pure`); the values are :meth:`step_pure`'s /
+        :meth:`step_pure_stale`'s bit for bit."""
         sl_state0, sl_control, sl_prop = self._solid_inputs(state0, prop)
         uva1, info = self.solid.solve_state1_diff(
-            sl_state0, sl_control, sl_prop, dt, row, params, factors
+            sl_state0, sl_control, sl_prop, dt, row, params, factors, guess
         )
         return self._fluid_step(uva1, state0, control, prop), info
 
@@ -1565,19 +1606,21 @@ class ExplicitFSIModel(BaseTransientModel):
         p_solid = vmap(self._pressure_to_solid)(state0["p"])
         return {k: state0[k] for k in ("u", "v", "a")}, {"p1": p_solid}, sl_prop
 
-    def step_batch(self, state0, control, prop, dt, params=None, dt_next=None):
+    def step_batch(self, state0, control, prop, dt, params=None, dt_next=None,
+                   guess=None):
         """:meth:`step_pure` of a batch of variants: a leading batch axis on
         every tensor of ``state0``, ``control`` and ``prop``
         (``SolidModel.solve_state1_batch``, then the vmapped fluid step)."""
-        return self.step_batch_stale(None, state0, control, prop, dt, params, dt_next)
+        return self.step_batch_stale(None, state0, control, prop, dt, params, dt_next,
+                                     guess)
 
     def step_batch_stale(self, factors, state0, control, prop, dt, params=None,
-                         dt_next=None):
+                         dt_next=None, guess=None):
         """:meth:`step_pure_stale` of a batch, with the batch's carried
         factors (:meth:`factorize_batch`); None: as :meth:`step_batch`."""
         sl_state0, sl_control, sl_prop = self._solid_inputs_batch(state0, prop)
         uva1, info = self.solid.solve_state1_batch(sl_state0, sl_control, sl_prop, dt,
-                                                   params, dt_next, factors)
+                                                   params, dt_next, factors, guess)
         return vmap(self._fluid_step)(uva1, state0, control, prop), info
 
     def factorize_batch(self, state0, control, prop, dt, params=None):
@@ -1589,12 +1632,12 @@ class ExplicitFSIModel(BaseTransientModel):
             factors, *self._solid_inputs_batch(state0, prop), dt, params)
 
     def step_diff_batch(self, state0, control, prop, dt, row, params=None,
-                        factors=None):
+                        factors=None, guess=None):
         """:meth:`step_diff` of a batch (``SolidModel.
         solve_state1_diff_batch``, then the vmapped fluid step)."""
         sl_state0, sl_control, sl_prop = self._solid_inputs_batch(state0, prop)
         uva1, info = self.solid.solve_state1_diff_batch(
-            sl_state0, sl_control, sl_prop, dt, row, params, factors)
+            sl_state0, sl_control, sl_prop, dt, row, params, factors, guess)
         return vmap(self._fluid_step)(uva1, state0, control, prop), info
 
 
@@ -1611,13 +1654,13 @@ class _ImplicitStep(torch.autograd.Function):
     cotangent nor tangent: the converged state does not depend on them."""
 
     @staticmethod
-    def forward(model, params_d, dt, layout, factors, row, *flat):
+    def forward(model, params_d, dt, layout, factors, guess, row, *flat):
         state0, control, prop = _unflatten(layout, flat)
         if factors is None:
-            x, info = model.step_pure(state0, control, prop, dt, params_d)
+            x, info = model.step_pure(state0, control, prop, dt, params_d, guess=guess)
         else:
             x, info = model.step_pure_stale(factors, state0, control, prop, dt,
-                                            params_d)
+                                            params_d, guess=guess)
         # a Picard loop that takes no iteration returns its guess, the inputs
         outs = tuple(x[k].clone() if any(x[k] is t for t in flat) else x[k]
                      for k in model.state0)
@@ -1625,7 +1668,7 @@ class _ImplicitStep(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        model, params_d, dt, layout, factors, row, *flat = inputs
+        model, params_d, dt, layout, factors, guess, row, *flat = inputs
         ctx.model, ctx.params_d, ctx.layout = model, params_d, layout
         n = len(model.state0)
         ctx.save_for_backward(*output[:n], row, *flat)
@@ -1635,12 +1678,12 @@ class _ImplicitStep(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *cotangents):
         n = len(ctx.model.state0)
-        return (None,) * 5 + ctx.model._ift_vjp(ctx, cotangents[:n],
-                                                ctx.needs_input_grad[5:])
+        return (None,) * 6 + ctx.model._ift_vjp(ctx, cotangents[:n],
+                                                ctx.needs_input_grad[6:])
 
     @staticmethod
     def jvp(ctx, *tangents):
-        return (*ctx.model._ift_jvp(ctx, tangents[5:]), None, None, None)
+        return (*ctx.model._ift_jvp(ctx, tangents[6:]), None, None, None)
 
 
 class ImplicitFSIModel(ExplicitFSIModel):
@@ -1723,25 +1766,27 @@ class ImplicitFSIModel(ExplicitFSIModel):
                             dt, solver_params(params), dt_next, guess)
 
     def step_pure_stale(self, factors, state0, control, prop, dt, params=None,
-                        dt_next=None):
-        """One Picard-coupled step whose solid solves reuse carried factors."""
+                        dt_next=None, guess=None):
+        """One Picard-coupled step whose solid solves reuse carried factors
+        (``guess`` as in :meth:`step_pure`)."""
 
         def solve(*args, **kwargs):
             return self.solid.solve_state1_stale(factors, *args, **kwargs)
 
         return self._picard(solve, state0, control, prop, dt,
-                            solver_params(params), dt_next)
+                            solver_params(params), dt_next, guess)
 
     # -- the gradient path ---------------------------------------------------------
     def step_diff(self, state0, control, prop, dt, row, params=None,
-                  factors=None):
+                  factors=None, guess=None):
         """One Picard step as a differentiable function of the state,
         control, properties and the step's coefficient row
-        (:class:`_ImplicitStep`); its values are :meth:`step_pure`'s /
-        :meth:`step_pure_stale`'s bit for bit."""
+        (:class:`_ImplicitStep`; ``guess`` as in :meth:`step_pure`); its
+        values are :meth:`step_pure`'s / :meth:`step_pure_stale`'s bit for
+        bit."""
         layout, flat = _flatten(state0, control, prop)
         out = _ImplicitStep.apply(self, solver_params(params), dt, layout,
-                                  factors, row, *flat)
+                                  factors, guess, row, *flat)
         n = len(self.state0)
         return dict(zip(self.state0, out[:n])), SolveInfo(*out[n:])
 

@@ -714,21 +714,32 @@ def newmark_step(u1, u0, v0, a0, coefs: torch.Tensor):
 
 # -- K6: block-Thomas sweep ----------------------------------------------------
 
-# (factor dtype, vector dtype) -> entry-point suffix in csrc/btd.cu
+# (factor dtype, vector dtype) -> entry-point suffix in csrc/btd.cu: the
+# stored factors of 'btd', 'spike' and the DD step (bf16, or e4m3 / e5m2
+# for btd_store_dtype / btd_offdiag_dtype), the full-precision ones, and
+# f32 factors under f64 vectors (btd_factor_dtype='float32')
 _SWEEP_TYPES = {
     (torch.bfloat16, torch.float64): "bf16_f64",
     (torch.bfloat16, torch.float32): "bf16_f32",
     (torch.float64, torch.float64): "f64_f64",
     (torch.float32, torch.float32): "f32_f32",
+    (torch.float32, torch.float64): "f32_f64",
+    (torch.float8_e4m3fn, torch.float64): "e4m3_f64",
+    (torch.float8_e4m3fn, torch.float32): "e4m3_f32",
+    (torch.float8_e5m2, torch.float64): "e5m2_f64",
+    (torch.float8_e5m2, torch.float32): "e5m2_f32",
 }
+FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
 # the row-block sizes K6 and K6T are compiled for, h = 1 .. 4 blocks of 128
 # (the 2D meshes, and 2Bt of the complex embedding) and h = 10 (the 45.8k-dof
 # extruded 3D mesh): csrc/cluster.cuh, VF_BT_SWITCH
 SWEEP_WIDTHS = (128, 256, 384, 512, 1280)
 SWEEP_T_WIDTHS = SWEEP_WIDTHS
 # CTAs a cluster for each factor dtype (csrc/cluster.cuh, cluster_size): the
-# faster of 8 and 16 at 93 row blocks of 256 on an H100 (PERF.md section 6)
-SWEEP_CLUSTER = {torch.bfloat16: 8, torch.float32: 8, torch.float64: 16}
+# faster of 8 and 16 at 93 row blocks of 256 on an H100 (PERF.md section 6);
+# fp8 factors take bf16's
+SWEEP_CLUSTER = {torch.bfloat16: 8, torch.float32: 8, torch.float64: 16,
+                 torch.float8_e4m3fn: 8, torch.float8_e5m2: 8}
 SMEM_LIMIT = 232448  # shared memory a CTA can use on Hopper (227 KB)
 _MAX_WARPS = 16  # consumer warps a CTA
 _MAX_STAGES = 16  # ring slots
@@ -756,15 +767,24 @@ class SweepPlan(NamedTuple):
     threads: int  # threads a CTA
 
 
+def carry_size(factor_dtype) -> int:
+    """Bytes of an entry of K6's and K6T's carried vector for factors of
+    ``factor_dtype`` (``carry_size`` of csrc/cluster.cuh): the factor's own,
+    2 (bf16) for fp8 factors."""
+    return 2 if factor_dtype.itemsize == 1 else factor_dtype.itemsize
+
+
 @functools.lru_cache(maxsize=None)
 def sweep_plan(bt: int, factor_dtype, vector_dtype) -> SweepPlan:
     """The launch plan of K6 for row blocks of ``bt``: each of the
     ``SWEEP_CLUSTER`` CTAs of the factor dtype owns ``bt / cluster``
     contiguous rows of every block; a consumer warp takes rows a whole
-    32-bit word of the carried vector at a time, as many warps (up to 16) as
-    leave a ring of at least two slots; the ring has as many slots (of as
-    many rows as the warps take together) as fit in ``SMEM_LIMIT`` beside
-    the carried vector's two buffers and the mbarriers."""
+    32-bit word of the carried vector (:func:`carry_size`) at a time, as
+    many warps (up to 16) as leave a ring of at least two slots; the ring
+    has as many slots (of as many rows as the warps take together) as fit
+    in ``SMEM_LIMIT`` beside the carried vector's two buffers and the
+    mbarriers.  Raises ``TypeError`` for a dtype pair K6 is not built for
+    and ``ValueError`` for a width."""
     if (factor_dtype, vector_dtype) not in _SWEEP_TYPES:
         raise TypeError(f"btd_sweep: factor/vector dtypes {factor_dtype},"
                         f" {vector_dtype} not supported ({list(_SWEEP_TYPES)})")
@@ -772,13 +792,13 @@ def sweep_plan(bt: int, factor_dtype, vector_dtype) -> SweepPlan:
         raise ValueError(f"btd_sweep: kernel built for row blocks {SWEEP_WIDTHS},"
                          f" got {bt}")
     cluster = SWEEP_CLUSTER[factor_dtype]
-    es = factor_dtype.itemsize
+    es, xes = factor_dtype.itemsize, carry_size(factor_dtype)
     rows = bt // cluster
-    rpw = 4 // es if es < 4 else 1
+    rpw = 4 // xes if xes < 4 else 1
     units = rows // rpw
 
     def room(stage_rows):  # slots of ``stage_rows`` rows that fit
-        return (SMEM_LIMIT - 2 * bt * es - _BAR_BYTES) // (stage_rows * bt * es)
+        return (SMEM_LIMIT - 2 * bt * xes - _BAR_BYTES) // (stage_rows * bt * es)
 
     # the most warps that divide the units and leave at least two slots
     warps = max(d for d in range(1, min(_MAX_WARPS, units) + 1)
@@ -787,7 +807,7 @@ def sweep_plan(bt: int, factor_dtype, vector_dtype) -> SweepPlan:
     stage_bytes = stage_rows * bt * es
     ring = min(_MAX_STAGES, room(stage_rows))
     return SweepPlan(cluster, rows, rpw, warps, stage_rows, rows // stage_rows,
-                     ring, ring * stage_bytes + 2 * bt * es + _BAR_BYTES,
+                     ring, ring * stage_bytes + 2 * bt * xes + _BAR_BYTES,
                      (warps + 1) * 32)
 
 
@@ -806,14 +826,25 @@ def _sweep_lib():
     return cuda_build.load("btd.cu", _SWEEP_SIGNATURES)
 
 
+def factor_abs(A: torch.Tensor) -> torch.Tensor:
+    """``|A|`` of stored factors, in their dtype (an fp8 one by its sign
+    bit, which every device can clear)."""
+    if A.dtype in FP8_DTYPES:
+        return (A.view(torch.uint8) & 0x7F).view(A.dtype)
+    return A.abs()
+
+
 def factor_matvec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``A @ x`` over the last two axes of ``A`` (``(..., Bt, Bt)`` by
     ``(..., Bt)``), in the vector's dtype, with the JAX package's rule for
     stored factors (``vf_fem_tpu.solvers.btd._dot``): when ``A``'s dtype
-    differs from ``x``'s, ``x`` is cast to ``A``'s dtype, the products
-    accumulate in f32 and the result is cast back to ``x``'s dtype."""
+    differs from ``x``'s, ``x`` is cast to ``A``'s dtype (to bf16 for fp8
+    factors, whose entries are bf16 values: the vector is never quantized
+    to fp8), the products accumulate in f32 and the result is cast back to
+    ``x``'s dtype."""
     if A.dtype != x.dtype:
-        y = A.float() @ x.to(A.dtype).float().unsqueeze(-1)
+        xc = x.to(torch.bfloat16 if A.dtype in FP8_DTYPES else A.dtype)
+        y = A.float() @ xc.float().unsqueeze(-1)
         return y.squeeze(-1).to(x.dtype)
     return (A @ x.unsqueeze(-1)).squeeze(-1)
 
@@ -846,7 +877,7 @@ def btd_sweep_rows_reference(A: torch.Tensor, g: torch.Tensor,
     else:
         prev[1:] = out[:-1]
     acc = torch.float32 if A.dtype != g.dtype else A.dtype
-    bound = dot_order_bound(factor_matvec(A.abs(), prev.abs()), A.shape[-1],
+    bound = dot_order_bound(factor_matvec(factor_abs(A), prev.abs()), A.shape[-1],
                             acc)
     return g - factor_matvec(A, prev), bound
 
@@ -863,7 +894,9 @@ def btd_sweep(A: torch.Tensor, g: torch.Tensor,
     """One serial sweep of the block-Thomas solve (K6 on CUDA, one
     thread-block cluster launched with :func:`sweep_plan`; the plain
     :func:`btd_sweep_reference` on the CPU).  Factor and vector dtypes:
-    (bf16, f64), (bf16, f32), (f64, f64) or (f32, f32).
+    (bf16, f64), (bf16, f32), (f64, f64), (f32, f32), (f32, f64), and
+    (e4m3, f64 or f32), (e5m2, f64 or f32) (``_SWEEP_TYPES``), with
+    :func:`factor_matvec`'s rounding.
 
     With A (S, n, Bt, Bt) and g (S, n, Bt) it runs the sweep over each of
     S independent slabs (the SPIKE solver's local sweeps): one launch of S
@@ -927,8 +960,9 @@ class SweepTPlan(NamedTuple):
 def sweep_t_plan(bt: int, factor_dtype, vector_dtype) -> SweepTPlan:
     """The launch plan of K6T for row blocks of ``bt``: K6's cluster; each
     CTA owns ``bt / cluster`` columns, whose box rows a consumer warp a
-    16-byte chunk reads (past 16 chunks, at ``bt`` = 1280, the most warps
-    up to 16 that divide the chunks, each reading as many); a ring slot
+    16-byte chunk reads (8 bytes of fp8 factors; past 16 chunks, at ``bt`` =
+    1280, the most warps up to 16 that divide the chunks, each reading as
+    many); a ring slot
     holds ``bt`` box rows up to 256, ``bt / 2`` up to 512, and 128 rows at
     1280 (so that two slots fit for every dtype pair), loaded as tensor-map
     boxes of 128, 64 or 32 bytes (the widest that divides a box row)
@@ -939,18 +973,18 @@ def sweep_t_plan(bt: int, factor_dtype, vector_dtype) -> SweepTPlan:
         raise ValueError(f"btd_sweep_t: kernel built for row blocks {SWEEP_T_WIDTHS},"
                          f" got {bt}")
     cluster = sweep_plan(bt, factor_dtype, vector_dtype).cluster
-    es = factor_dtype.itemsize
+    es, xes = factor_dtype.itemsize, carry_size(factor_dtype)
     cols = bt // cluster
     row_bytes = cols * es
-    chunks = row_bytes // 16
+    chunks = row_bytes // (8 if es == 1 else 16)  # a warp's chunk: 8 bytes of fp8
     warps = chunks if chunks <= _MAX_WARPS else max(
         d for d in range(1, _MAX_WARPS + 1) if chunks % d == 0)
     stage_rows = bt if bt <= 256 else bt // 2 if bt <= 512 else 128
-    box = 128 if row_bytes % 128 == 0 else 64 if row_bytes % 64 == 0 else 32
+    box = next(w for w in (128, 64, 32, 16) if row_bytes % w == 0)
     stage_bytes = stage_rows * row_bytes
-    ring = min(_MAX_STAGES, (SMEM_LIMIT - 1024 - 2 * bt * es - _BAR_BYTES) // stage_bytes)
+    ring = min(_MAX_STAGES, (SMEM_LIMIT - 1024 - 2 * bt * xes - _BAR_BYTES) // stage_bytes)
     return SweepTPlan(cluster, cols, warps, stage_rows, bt // stage_rows, box,
-                      ring, 1024 + ring * stage_bytes + 2 * bt * es + _BAR_BYTES,
+                      ring, 1024 + ring * stage_bytes + 2 * bt * xes + _BAR_BYTES,
                       (warps + 1) * 32)
 
 
@@ -997,7 +1031,7 @@ def btd_sweep_t_rows_reference(A: torch.Tensor, g: torch.Tensor,
             At, prev, rows = A[:-1].mT, out[:-1], slice(1, None)
         acc = torch.float32 if A.dtype != g.dtype else A.dtype
         ref[rows] = g[rows] - factor_matvec(At, prev)
-        bound[rows] = dot_order_bound(factor_matvec(At.abs(), prev.abs()),
+        bound[rows] = dot_order_bound(factor_matvec(factor_abs(At), prev.abs()),
                                       A.shape[-1], acc)
     return ref, bound
 

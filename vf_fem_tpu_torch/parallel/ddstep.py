@@ -471,9 +471,11 @@ class DDIntegrator:
     :meth:`integrate` mirrors ``forward.integrate`` (its statefile and
     post-run checks, through ``forward.finalize_run``).  ``params`` are
     solver parameters as ``forward.integrate_pure`` takes them; the linear
-    solver is always SPIKE, one slab a shard (``btd_store_dtype`` stores
-    its factors), and ``assembly`` is 'plain' (default), 'banded' or
-    'auto'."""
+    solver is always SPIKE, one slab a shard (``btd_store_dtype`` and,
+    with it, ``btd_offdiag_dtype`` store its factors; ``btd_factor_dtype``
+    factors them in f32), and ``assembly`` is 'plain' (default), 'banded'
+    or 'auto'.  Its steps start from the Newmark predictor whatever
+    ``initial_guess`` says, as the JAX package's DD step's do."""
 
     def __init__(self, model, n_shards: int, params: Optional[dict] = None,
                  dp_axis: Optional[str] = None):
@@ -735,6 +737,8 @@ class DDIntegrator:
         # absorb the previous shard's spilled block rows
         band = full[:, :p.nblk_loc].clone()
         band[:, :h] += shards.shift_from_prev(full[:, p.nblk_loc:])
+        # f64 residuals, f32 factors (btd_factor_dtype)
+        band = btd.factor_blocks(band, self.params_d.get("btd_factor_dtype"))
 
         # symmetric Jacobi equilibration with the neighbours' scale halos
         diag = torch.diagonal(band[:, :, h], dim1=-2, dim2=-1)  # (S, nblk_loc, b)
@@ -751,7 +755,11 @@ class DDIntegrator:
                    for x in btd._btd_from_bsb(shim, band.reshape(-1, nb, b, b)))
         fac = spike.factor_slabs(*spike.split_slabs(D, L, U), d_loc,
                                  with_transpose=with_transpose)
-        return spike.store(fac, self.params_d.get("btd_store_dtype"))
+        # as the JAX package's DD step, btd_offdiag_dtype applies only
+        # with btd_store_dtype set
+        sd = self.params_d.get("btd_store_dtype")
+        od = self.params_d.get("btd_offdiag_dtype") if sd is not None else None
+        return spike.store(fac, sd, od)
 
     def _spike_apply(self, fac, r, transpose=False):
         """``A^-1 r`` (``A^-T r`` with ``transpose``) of a sharded vector

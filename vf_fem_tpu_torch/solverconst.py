@@ -9,12 +9,15 @@ Keys read beside these (``models.transient``, ``solvers.newton``,
   ``||r|| > max(krylov_tolerance ||b||, 1e-12)`` and fewer than
   ``krylov_max_iter`` iterations ran;
 - ``krylov`` ('bicgstab'; or 'pcg' for symmetric problems);
-- ``btd_store_dtype`` (None): with ``linear_solver='btd'`` (block-Thomas
-  direct solves on the block-banded Jacobian, ``solvers.btd``), None keeps
-  the factors in the model's dtype and 'bfloat16' stores them half-width
-  (their matvecs cast the vector to bf16 and sum in f32);
-  ``btd_offdiag_dtype`` and ``btd_factor_dtype`` are not ported and raise
-  unless None;
+- ``btd_store_dtype`` (None): with ``linear_solver='btd'`` or 'spike'
+  (block-Thomas direct solves on the block-banded Jacobian,
+  ``solvers.btd``), None keeps the factors in the model's dtype;
+  'bfloat16', 'float8_e4m3fn' or 'float8_e5m2' stores them below it (their
+  matvecs cast the vector to bf16 and sum in f32); ``btd_offdiag_dtype``
+  (None: ``btd_store_dtype``) stores the sweeps' arrays apart from
+  ``Sinv``; ``btd_factor_dtype`` (None; 'float32') factors in f32 under the
+  residual's f64;
+- ``initial_guess`` ('predictor'; 'given', 'extrapolated');
 - ``jacobian_update``: 'every_iteration' for 'dense', 'once_per_step' for
   the element-block solvers ('cg', 'bsb', 'btd');
 - ``stagnation_ratio`` (0.9), ``fixed_iterations``, ``fixed_tail_residual``

@@ -20,9 +20,10 @@ the same factors through the transposed sweep kernel K6T
 (``ops.btd_sweep_t``).
 
 Requires an RCM-renumbered mesh like ``bsb``; used through
-``linear_solver='btd'``.  Not ported: the fp8 ``offdiag_dtype`` storage
-and the ``factor_dtype`` cast (the TPU's workaround for its missing f64
-LU).
+``linear_solver='btd'``.  The factors may be stored below the blocks'
+precision (``store_dtype`` bf16, e4m3 or e5m2 for ``Sinv``,
+``offdiag_dtype`` for ``V`` and ``W``), and factored in f32 under f64
+residuals (``factor_dtype='float32'``): :func:`btd_factor`.
 """
 
 from __future__ import annotations
@@ -39,7 +40,38 @@ __all__ = ["BTDFactors", "btd_factor", "btd_solve", "btd_solve_t",
            "btd_superblocks"]
 
 # storage dtypes of the factors, by the JAX package's names
-STORE_DTYPES = {"bfloat16": torch.bfloat16}
+STORE_DTYPES = {"bfloat16": torch.bfloat16, "float8_e4m3fn": torch.float8_e4m3fn,
+                "float8_e5m2": torch.float8_e5m2}
+# the dtype a Jacobian may be factored in below its own (``factor_dtype``)
+FACTOR_DTYPES = {"float32": torch.float32}
+# the largest finite value of each fp8 storage dtype: a cast clamps to it
+# first (``vf_fem_tpu.solvers.btd._FP8_MAX``)
+FP8_MAX = {torch.float8_e4m3fn: 448.0, torch.float8_e5m2: 57344.0}
+
+
+def _dtype(name, table, what):
+    """The torch dtype of a storage or factor dtype given by the JAX
+    package's name (None stays None); raises ``ValueError`` naming every
+    supported one."""
+    if name is None:
+        return None
+    if name not in table:
+        raise ValueError(f"{what} {name!r} is not supported ({tuple(table)})")
+    return table[name]
+
+
+def store_cast(X: torch.Tensor, store_dtype) -> torch.Tensor:
+    """``X`` cast to the storage dtype (a name of ``STORE_DTYPES``; None
+    leaves it), clamped first to the finite range of an fp8 one, so that an
+    outlier saturates rather than overflowing to inf or NaN (the JAX
+    package's ``_store_cast``)."""
+    dt = _dtype(store_dtype, STORE_DTYPES, "store_dtype")
+    if dt is None:
+        return X
+    fmax = FP8_MAX.get(dt)
+    if fmax is not None:
+        X = X.clamp(-fmax, fmax)
+    return X.to(dt)
 
 
 class BTDFactors(NamedTuple):
@@ -162,26 +194,47 @@ def thomas_factor(D: torch.Tensor, L: torch.Tensor, U: torch.Tensor,
     return Sinv, V, W
 
 
-def btd_factor(plan: BSBPlan, blocks: torch.Tensor,
-               store_dtype=None) -> BTDFactors:
-    """Equilibrate and block-Thomas factor the banded Jacobian, in the
-    blocks' dtype.
+def check_dtypes(store_dtype=None, factor_dtype=None, offdiag_dtype=None):
+    """Raise ``ValueError`` (naming what is supported) unless each of the
+    three dtype options is None or supported."""
+    _dtype(store_dtype, STORE_DTYPES, "btd_factor: store_dtype")
+    _dtype(offdiag_dtype, STORE_DTYPES, "btd_factor: offdiag_dtype")
+    _dtype(factor_dtype, FACTOR_DTYPES, "btd_factor: factor_dtype")
 
-    ``store_dtype='bfloat16'`` stores ``Sinv``, ``V`` and ``W`` half-width
-    (the solve streams them); their matvecs cast the vector to bf16 and
-    accumulate in f32 (``ops.factor_matvec``).  The ~1e-2 relative factor
-    error is within what the chord Newton tolerates from stale factors.
-    The serial loop is :func:`thomas_factor`.
+
+def factor_blocks(blocks: torch.Tensor, factor_dtype=None) -> torch.Tensor:
+    """The blocks in the dtype they are factored in: ``factor_dtype``
+    ('float32') casts them before the factorization, whose products and
+    solves then run in f32 under the f64 residuals (the JAX package's
+    mixed-precision path)."""
+    dt = _dtype(factor_dtype, FACTOR_DTYPES, "btd_factor: factor_dtype")
+    return blocks if dt is None else blocks.to(dt)
+
+
+def btd_factor(plan: BSBPlan, blocks: torch.Tensor, store_dtype=None,
+               factor_dtype=None, offdiag_dtype=None) -> BTDFactors:
+    """Equilibrate and block-Thomas factor the banded Jacobian, in the
+    blocks' dtype, or in ``factor_dtype`` ('float32': the blocks are cast
+    before factoring; the solve's vectors stay in the residual's dtype).
+
+    ``store_dtype`` ('bfloat16', 'float8_e4m3fn', 'float8_e5m2') stores
+    ``Sinv``, ``V`` and ``W`` below that precision (the solve streams them);
+    ``offdiag_dtype`` (default ``store_dtype``) stores ``V`` and ``W``, the
+    arrays of the serial sweeps, apart from ``Sinv`` (bf16 ``Sinv`` with
+    e4m3 ``V``/``W`` halves the sweeps' bytes again at bf16-grade solve
+    quality).  An fp8 cast clamps to the format's finite range first
+    (:func:`store_cast`).  Matvecs of stored factors cast the vector to
+    the factor's dtype (bf16 for fp8 factors), accumulate in f32 and cast
+    back (``ops.factor_matvec``).  The ~1e-2 relative factor error of bf16
+    is within what the chord Newton tolerates from stale factors.  The
+    serial loop is :func:`thomas_factor`.
     """
-    if store_dtype is not None and store_dtype not in STORE_DTYPES:
-        raise ValueError(f"btd_factor: store_dtype {store_dtype!r} is not"
-                         f" supported ({tuple(STORE_DTYPES)})")
-    D, L, U, d = btd_superblocks(plan, blocks)
+    check_dtypes(store_dtype, factor_dtype, offdiag_dtype)
+    D, L, U, d = btd_superblocks(plan, factor_blocks(blocks, factor_dtype))
     Sinv, V, W = thomas_factor(D, L, U, "btd_factor")
-    if store_dtype is not None:
-        dt = STORE_DTYPES[store_dtype]
-        Sinv, V, W = Sinv.to(dt), V.to(dt), W.to(dt)
-    return BTDFactors(Sinv=Sinv, V=V, W=W, d=d)
+    od = offdiag_dtype if offdiag_dtype is not None else store_dtype
+    return BTDFactors(Sinv=store_cast(Sinv, store_dtype), V=store_cast(V, od),
+                      W=store_cast(W, od), d=d)
 
 
 def btd_solve(plan: BSBPlan, factors: BTDFactors,

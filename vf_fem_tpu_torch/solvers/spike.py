@@ -16,10 +16,10 @@ launch each of K6 over slabs on CUDA tensors, ``ops.btd_sweep`` with
 (S, m, Bt, Bt) factors), the reduced solve for the interface values, and
 the spike correction ``x_j = g_j - V_j x_{j+1}^t - W_j x_{j-1}^b``.
 
-Precision follows ``ops.factor_matvec``: stored bf16 factors take the
-vector cast to bf16, sum in f32 and return the vector's dtype.  The spikes
-are computed before the cast, in the blocks' dtype, and the reduced factors
-stay in it.  The spikes' matrix sweeps and the reduced system's serial
+Precision follows ``ops.factor_matvec``: stored bf16 or fp8 factors take
+the vector cast to bf16, sum in f32 and return the vector's dtype.  The
+spikes are computed before the cast, in the blocks' dtype (f32 with
+``factor_dtype='float32'``), and the reduced factors stay in it.  The spikes' matrix sweeps and the reduced system's serial
 Thomas loop are plain batched products (the JAX package's ``lax.scan``
 einsums); the reduced solve reads nothing on the host, so a step that
 solves with carried factors can be captured.
@@ -35,8 +35,10 @@ run differentiates (``with_transpose``; the JAX package's flag, whose
 default is on there and off here): a forward-only run's factors hold
 ``None`` in their place.
 
-Not ported: fp8 ``offdiag_dtype`` and the ``factor_dtype`` cast
-(``btd_factor``'s rule).
+The storage and factor dtypes are ``btd_factor``'s (:func:`spike_factor`):
+``store_dtype`` for ``Sinv``, ``offdiag_dtype`` (default ``store_dtype``)
+for the arrays of the sweeps and the correction, ``P``, ``Q``, ``V``,
+``W``, ``Vh``, ``Wh``, and ``factor_dtype``.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ import torch
 from .. import ops
 from ..parallel.shards import shift_from_next, shift_from_prev
 from .bsb import BSBPlan
-from .btd import STORE_DTYPES, btd_superblocks
+from .btd import btd_superblocks, check_dtypes, factor_blocks, store_cast
 
 __all__ = ["SPIKEFactors", "factor_slabs", "solve_slabs", "solve_slabs_t",
            "spike_factor", "spike_solve", "spike_solve_t", "spike_superblocks"]
@@ -87,7 +89,10 @@ class SPIKEFactors(NamedTuple):
 
 
 def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    return (A @ x.unsqueeze(-1)).squeeze(-1)
+    """``A @ x`` in the promoted dtype of the two (f32 reduced factors under
+    f64 vectors: an f64 product, as the JAX package's matmul promotes)."""
+    dt = torch.promote_types(A.dtype, x.dtype)
+    return (A.to(dt) @ x.to(dt).unsqueeze(-1)).squeeze(-1)
 
 
 def split_slabs(D, L, U):
@@ -279,30 +284,35 @@ def reduced_factor(V_tips, W_tips):
     return seq_thomas_factor(D_r, L_r, U_r), L_r, U_r
 
 
-def store(factors: SPIKEFactors, store_dtype) -> SPIKEFactors:
-    """``Sinv``, ``P``, ``Q``, ``V`` and ``W`` of ``factors`` (and ``Vh``,
-    ``Wh`` where built) cast to the storage dtype (by the JAX package's
-    name; the reduced factors keep full precision)."""
-    if store_dtype is None:
+def store(factors: SPIKEFactors, store_dtype, offdiag_dtype=None) -> SPIKEFactors:
+    """``Sinv`` of ``factors`` cast to ``store_dtype`` and ``P``, ``Q``,
+    ``V``, ``W`` (and ``Vh``, ``Wh`` where built) to ``offdiag_dtype``
+    (default ``store_dtype``), by the JAX package's names, fp8 clamped to
+    its finite range (``solvers.btd.store_cast``); the reduced factors keep
+    full precision.  Raises ``ValueError`` naming the supported dtypes."""
+    check_dtypes(store_dtype=store_dtype, offdiag_dtype=offdiag_dtype)
+    od = offdiag_dtype if offdiag_dtype is not None else store_dtype
+    if store_dtype is None and od is None:
         return factors
-    if store_dtype not in STORE_DTYPES:
-        raise ValueError(f"spike_factor: store_dtype {store_dtype!r} is not"
-                         f" supported ({tuple(STORE_DTYPES)})")
-    dt = STORE_DTYPES[store_dtype]
-    return factors._replace(**{k: getattr(factors, k).to(dt)
-                               for k in ("Sinv", "P", "Q", "V", "W", "Vh", "Wh")
-                               if getattr(factors, k) is not None})
+    return factors._replace(
+        Sinv=store_cast(factors.Sinv, store_dtype),
+        **{k: store_cast(getattr(factors, k), od)
+           for k in ("P", "Q", "V", "W", "Vh", "Wh") if getattr(factors, k) is not None})
 
 
 def spike_factor(plan: BSBPlan, blocks: torch.Tensor, n_parts: int = 8,
-                 store_dtype=None, with_transpose: bool = False) -> SPIKEFactors:
+                 store_dtype=None, with_transpose: bool = False,
+                 factor_dtype=None, offdiag_dtype=None) -> SPIKEFactors:
     """Factor the banded Jacobian with ``n_parts`` SPIKE slabs, in the
-    blocks' dtype; ``store_dtype='bfloat16'`` stores the large factor
-    arrays half-width (as ``btd_factor``); ``with_transpose`` also builds
-    the transposed system's spikes and reduced factors, which
+    blocks' dtype or ``factor_dtype`` ('float32', cast before factoring);
+    ``store_dtype`` and ``offdiag_dtype`` store the large factor arrays
+    below it (:func:`store`, as ``btd_factor``); ``with_transpose`` also
+    builds the transposed system's spikes and reduced factors, which
     :func:`spike_solve_t` needs."""
+    check_dtypes(store_dtype, factor_dtype, offdiag_dtype)
+    blocks = factor_blocks(blocks, factor_dtype)
     return store(factor_slabs(*spike_superblocks(plan, blocks, n_parts),
-                              with_transpose=with_transpose), store_dtype)
+                              with_transpose=with_transpose), store_dtype, offdiag_dtype)
 
 
 def factor_slabs(D, L, U, B, C, d, with_transpose: bool = False) -> SPIKEFactors:

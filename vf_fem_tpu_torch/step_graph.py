@@ -13,7 +13,10 @@ number of steps:
 
 - the state (``u, v, a, q, p``, and the FSAI model's tract ``pinc, pref``)
   and the Newmark predictor of the next step
-  (the one K5 writes with the state, ``SolidModel.carry_predictor``);
+  (the one K5 writes with the state, ``SolidModel.carry_predictor``), and
+  with ``initial_guess='extrapolated'`` the correction ``u1 - predictor``
+  of the last step (zero at the start of a run), which the step adds to
+  the predictor for its guess and writes anew, on the device;
 - the rows of a chunk of ``CHUNK`` steps: held-last controls, Newmark
   coefficients (``equations.newmark.coefficients`` of each step's dt and
   the next step's in float64, rounded to the model's dtype: K5's rows,
@@ -175,8 +178,16 @@ class StepBuffers:
         self.traj = {k: torch.zeros((CHUNK,) + tuple(v.shape), dtype=dtype, device=dev)
                      for k, v in self.state.items()}
         self.infos = _infos(model, (CHUNK,) + lead)
+        from .forward import Extrapolation
+
+        # the step's parameters and, extrapolated, the carried correction
+        # (None otherwise)
+        extrap = Extrapolation(model, params_d)
+        self.step_params = extrap.step_params
+        self.correction = torch.zeros_like(self.pred) if extrap.active else None
         self.graph = None
-        self.delta = None
+        # the launch and iteration counts one captured step adds (replay)
+        self.step_counts = None
         self.stats = {"captures": 0, "replays": 0}
 
     # -- inputs and outputs ----------------------------------------------------
@@ -189,6 +200,8 @@ class StepBuffers:
             t = self.state[k]  # every variant starts from ini_state
             t.copy_(v.reshape(t.shape[self.batch is not None:]).expand(t.shape))
         prop = to_tensors(prop, dev, dtype)
+        if self.correction is not None:
+            self.correction.zero_()
         if self.prop is None:
             self.prop = {k: v.clone() for k, v in prop.items()}
         else:
@@ -241,8 +254,13 @@ class StepBuffers:
         control = {k: t.index_select(0, n)[0] for k, t in self.controls.items()}
         model.solid.carry_predictor(self.solid_state(), self.pred, coefs)
         step = model.step_pure_stale if self.batch is None else model.step_batch_stale
+        kw = {}
+        if self.correction is not None:
+            kw["guess"] = {**self.state, "u": self.pred + self.correction}
         state1, info = step(self.factors, self.state, control, self.prop, coefs,
-                            self.params_d)
+                            self.step_params, **kw)
+        if self.correction is not None:
+            self.correction.copy_(state1["u"] - self.pred)
         u_next = model.solid.carried_predictor()
         for k, t in self.traj.items():
             t.index_copy_(0, n, state1[k].unsqueeze(0))
@@ -272,7 +290,8 @@ class StepBuffers:
             self.step()
         t1 = time.perf_counter()
         # the captured calls launched nothing: the replays count them
-        self.delta = [{k: c[k] - b.get(k, 0) for k in c} for c, b in zip(counters, before)]
+        self.step_counts = [{k: c[k] - b.get(k, 0) for k in c}
+                            for c, b in zip(counters, before)]
         for c, b in zip(counters, before):
             c.update(b)
         nodes = _graph_nodes(graph)
@@ -287,7 +306,7 @@ class StepBuffers:
 
     def replay(self):
         self.graph.replay()
-        for c, d in zip(_counters(self.model), self.delta):
+        for c, d in zip(_counters(self.model), self.step_counts):
             for k, v in d.items():
                 c[k] += v
         self.stats["replays"] += 1
