@@ -296,7 +296,38 @@ runs, in order:
    (C) M5 FSAI tangents (20 steps) in duality with ``integrate_grad``
    (rtol 1e-8), and the tangents of phase 19's 8-variant ``sweep_grad``
    batch (20 steps), rows 0, 3 and 7 against their variants' (u, q, p at
-   rtol 1e-10; v and a reported).
+   rtol 1e-10; v and a reported);
+22. batched: a batch of variants on the block direct solvers and on the
+   FSAI model (``parallel.sweep``).  (A) bench.py's sweep rule
+   (``:612-697``: emod 4e4 ... 6e4, the y-bump scaled -1 ... 1) on the
+   23.7k mesh with KelvinVoigtWShape, 16 variants x 100 steps on the
+   production btd settings through ``sweep_integrate``: the graph bit for
+   bit the batched eager loop, variant-steps/s of each, the replay ms and
+   graph nodes a batched step, 'plain' assembly beside 'banded', the
+   batched refactorization's ms and device kernels against one variant's,
+   K6 launches a batched step (one a sweep for the batch: no single-chain
+   launch), the idle share and peak memory; rows 0, 7, 15 against their
+   variants alone with f64 factors (u rtol 1e-10, v and a 1e-9 of max once
+   u's gap is out) and with bf16 factors (5e-7 max|u|), row 0's traj_err
+   against its exact-Jacobian run at step 20 (reported); (B) the batch on
+   ``linear_solver='spike'`` (8 partitions, bf16, 20 steps), K6 over the
+   128 slabs a launch; with f64 factors rows 0 and 15 by (A)'s f64 rule
+   (the bf16 rows' distance to their unbatched runs and each one's
+   traj_err against its exact-Jacobian run reported); ``sweep_grad`` of
+   benchmark_adjoint.py's loss over 8 x 10 (stale adjoint), rows 0, 3, 7
+   within 1e-6 of max|g| of their variants' ``integrate_grad``, with K6T and
+   K5T launches a step, and ``integrate_linear_batch_pure`` over 4 x 5,
+   row 0 at rtol 1e-10; (C) phase 12's M5 FSAI model, 64 emod variants x
+   100 steps (graph = eager, rows 0, 31, 63 alone, pref at rtol 1e-8, no
+   lagged step) and ``sweep_grad`` of the RMS radiated pressure over 8 x 30
+   (the tract's wave reaches the mouth at step 22; rows 0 and 7 at 1e-8 of
+   max|g|); the kernel rows: K6 and K6T over the
+   batch's 16 chains of 93 x 256^2 (bf16/f64) and K6 over 16 x 8 slabs of
+   12 x 256^2, each chain bit for bit its own launch and vmap of a chain's
+   sweep the batched launch, K6 / K6T at Bt = 1280 over 4 chains (held
+   once), K5T over 8 x 23,754 (a grid of 16 CTAs a variant, timed beside
+   one CTA a variant) and K5 over 16 x 23,754, each against its plain
+   version.
 
 Phase 3 also holds the block-Thomas sweep kernel (K6) and its transpose
 (K6T, both sweeps of ``btd_solve_t``: forward on W, backward on V, each
@@ -318,7 +349,7 @@ time in a CUDA graph, as the kernel's.  Each kernel's bound
 is the larger of its bytes (each input read once, each output written
 once) over the HBM rate and its operations over the peak rate of their
 type.  The ``kernels`` line before the last carries all of it, with each
-kernel's launches per step on the main-path runs (phases 5-20; a Hopf
+kernel's launches per step on the main-path runs (phases 5-22; a Hopf
 point counts as one step).
 
 Phases 5-7 print each production run's Newmark predictors, taken from
@@ -434,11 +465,34 @@ KERNELS.update({
                     "vf_fem_tpu_torch/csrc/btd.cu")
     for k, lines in (("btd_sweep", "298-312"), ("btd_sweep_t", "340-358"))
     for pair in ("e4m3/f64", "f32/f64")})
+# K6 and K6T over a batch of variants' chains (16 x 93 x 256^2, bf16/f64),
+# K6 over a batch of SPIKE slabs (16 x 8 x 12 x 256^2), K5T over 8 and K5
+# over 16 variants at 23,754 dofs (phase 22's runs)
+KERNELS.update({
+    "btd_sweep batch": ("btd_sweep over a batch of variants (a chain each)",
+                        "none (lax.scan, vf_fem_tpu/solvers/btd.py:298-312, under vmap)",
+                        "vf_fem_tpu_torch/csrc/btd.cu"),
+    "btd_sweep_t batch": ("btd_sweep_t over a batch of variants (a chain each)",
+                          "none (lax.scan, vf_fem_tpu/solvers/btd.py:340-358, under vmap)",
+                          "vf_fem_tpu_torch/csrc/btd.cu"),
+    "btd_sweep_slabs batch": ("btd_sweep over a batch of variants' slabs",
+                              "none (lax.scan, vf_fem_tpu/solvers/spike.py:172-199, under vmap)",
+                              "vf_fem_tpu_torch/csrc/btd.cu"),
+    "newmark_t x8 23.7k": ("newmark_update_t over a batch of 8 at 23.7k dofs", "none (K5's"
+                           " backward; the JAX package differentiates"
+                           " vf_fem_tpu/equations/newmark.py:21-72 under vmap)",
+                           "vf_fem_tpu_torch/csrc/ops.cu"),
+    "newmark x16 23.7k": ("newmark_update over a batch of 16 at 23.7k dofs",
+                          "vf_fem_tpu/ops/pallas_kernels.py:153", "vf_fem_tpu_torch/csrc/ops.cu"),
+})
 # the launch counter of a row of KERNELS whose key is not its counter's
 KERNEL_COUNTER = {"newmark x8": "newmark", "newmark x64": "newmark", "newmark x256": "newmark",
                   "newmark_t x8": "newmark_t", "btd_sweep_t x1280": "btd_sweep_t",
                   **{f"{k} {pair}": k for k in ("btd_sweep", "btd_sweep_t")
-                     for pair in ("e4m3/f64", "f32/f64")}}
+                     for pair in ("e4m3/f64", "f32/f64")},
+                  "btd_sweep batch": "btd_sweep_slabs", "btd_sweep_t batch": "btd_sweep_t_slabs",
+                  "btd_sweep_slabs batch": "btd_sweep_slabs",
+                  "newmark_t x8 23.7k": "newmark_t", "newmark x16 23.7k": "newmark"}
 
 # benchmarks/benchmark_adjoint.py:68-88: the value+grad settings at M5 (the
 # accelerator branch: adaptive chord Newton, dense factors refreshed every
@@ -897,9 +951,10 @@ def graph_ms_cold(torch, fn, vecs, nbytes, reps=REPS):
 def plain_ms(torch, plain):
     """Call time of a plain version: ``REPS`` calls, or as many as take
     about 0.2 s where one call takes over a millisecond (a plain sweep
-    takes 5-16 ms), at least 10."""
+    takes 5-16 ms), at least 10, or 3 where one call takes over 50 ms (a
+    plain sweep over a batch's chains, 150-220 ms)."""
     once = cuda_ms(torch, plain, reps=1, warmup=1)
-    reps = max(10, min(REPS, int(200.0 / max(once, 1e-3))))
+    reps = max(3 if once > 50.0 else 10, min(REPS, int(200.0 / max(once, 1e-3))))
     return cuda_ms(torch, plain, reps=reps, warmup=min(WARMUP, reps // 10))
 
 
@@ -1742,26 +1797,26 @@ def cold_device(torch, r, fn, vecs):
     r["device_ms"] = graph_ms_cold(torch, fn, vecs, r["bytes"])
 
 
-def newmark_t_batch_op(torch, label, tag, vecs):
-    """K5T on a batch of variants (``ops.newmark_update_t_batch``, a CTA a
-    variant) against its batched plain version: the vector cotangents bit
-    for bit, each variant's row within rtol 1e-13 / 1e-6 plus its summation
-    order bound, the same bits in three launches and in a graph replay;
-    then its timing row."""
+def newmark_t_batch_op(torch, label, tag, vecs, ctas=None):
+    """K5T on a batch of variants (``ops.newmark_update_t_batch``, its plan
+    of CTAs a variant or ``ctas``) against its batched plain version: the
+    vector cotangents bit for bit, each variant's row within rtol 1e-13 /
+    1e-6 plus its summation order bound, the same bits in three launches
+    and in a graph replay; then its timing row."""
     from vf_fem_tpu_torch import ops, yardsticks
 
     what = f"ops newmark_t {label} {tag}"
     row = newmark_row(vecs[0], DT, 0.75 * DT)
-    outs = [ops.newmark_update_t_batch(*vecs, row) for _ in range(3)]
+    outs = [ops.newmark_update_t_batch(*vecs, row, ctas=ctas) for _ in range(3)]
     refs = ops.newmark_update_t_batch_reference(*vecs, row)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        ops.newmark_update_t_batch(*vecs, row)
+        ops.newmark_update_t_batch(*vecs, row, ctas=ctas)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        captured = ops.newmark_update_t_batch(*vecs, row)
+        captured = ops.newmark_update_t_batch(*vecs, row, ctas=ctas)
     graph.replay()
     torch.cuda.synchronize()
     for name, out, ref in zip(("ub1", "ub0", "vb0", "ab0"), outs[0], refs):
@@ -1777,14 +1832,14 @@ def newmark_t_batch_op(torch, label, tag, vecs):
     require(bool((diff <= rtol * refs[4].abs() + bound).all()),
             f"{what}: a row's cotangent off the plain version's ({diff.max().item():.3e})")
     require(not bool(outs[0][4][:, 6:].any()), f"{what}: the rows' entries 6 and 7 not zero")
-    r = measure(torch, lambda: ops.newmark_update_t_batch(*vecs, row),
+    r = measure(torch, lambda: ops.newmark_update_t_batch(*vecs, row, ctas=ctas),
                 lambda: ops.newmark_update_t_batch_reference(*vecs, row))
     n, es = vecs[0].numel(), vecs[0].element_size()
     work = ((10 * n + 8 + 8 * vecs[0].shape[0]) * es, 28 * n)
     r.update(max_abs_err=diff.max().item(), lib_err=None, bytes=work[0],
              lib_call=yardsticks.LIBRARY_CALL["newmark_t"])
     r["bound_ms"], r["bound_by"] = bound_of(*work, tag)
-    cold_device(torch, r, lambda *v: ops.newmark_update_t_batch(*v, row), vecs)
+    cold_device(torch, r, lambda *v: ops.newmark_update_t_batch(*v, row, ctas=ctas), vecs)
     log(f"[ops] newmark_t {label} {tag} ({tuple(u1.shape)}): vector cotangents bit-equal to"
         f" the plain version, each variant's row within its order bound (max |diff|"
         f" {diff.max().item():.3e}), the same bits in 3 launches and a graph replay; device"
@@ -5041,7 +5096,9 @@ def sweep_leg(torch, card, built, batch, n_steps, assembly, profile=True):
     if assembly == "banded":
         require_launched(g_launch, ("gather", "scatter", "newmark"), f"sweep {batch} banded")
     stats = model._step_graphs[step_graph.cache_key(params, batch_key)].stats
-    replay = replay_ms(torch, model, params, n_steps, batch_key)
+    # the replays alone over one chunk of the buffers' rows (the graph run
+    # above replayed every step)
+    replay = replay_ms(torch, model, params, step_graph.CHUNK, batch_key)
     out = dict(fin=fin, pb=pb, params=params, times=times, launches=g_launch,
                traj_u=graph[1]["u"].cpu().numpy(),
                eager_launches=e_launch, per_step=per_step, peak=peak,
@@ -5897,6 +5954,549 @@ def phase_options(torch, card, dev, large, btd_res):
     return out
 
 
+# phase 22, batched solvers: a batch of variants on the block direct
+# solvers and on the FSAI model.  (A) bench.py's sweep rule (:612-697: emod
+# 4e4 ... 6e4, the y-bump scaled -1 ... 1; sweep_props) on the 23.7k mesh,
+# KelvinVoigtWShape + BernoulliAreaRatioSep, BATCH_SWEEP variants x steps
+# on BTD_PROD in the graph and eager (bit-equal), 'plain' assembly once
+# beside 'banded', the batched refactorization against one variant's, rows
+# BATCH_ROWS against their variants alone with f64 factors (phase 19's
+# rule) and with bf16 factors (BATCH_BF16_GATE of max|u|), row 0's traj_err
+# against its exact-Jacobian run over BATCH_SPIKE[1] steps (a finding);
+# (B) the same batch on SPIKE_PROD over BATCH_SPIKE[1] steps, timed, and
+# with f64 factors rows BATCH_SPIKE_ROWS by (A)'s f64 rule (the bf16 rows'
+# distance to their unbatched runs and row 0's traj_err reported);
+# gradients: sweep_grad over BATCH_GRAD (BTD_PROD, stale adjoint,
+# benchmark_adjoint.py's loss), rows BATCH_GRAD_ROWS within STALE_VS_EXACT
+# of max|g| of their variants' integrate_grad, and
+# integrate_linear_batch_pure over BATCH_TANGENT, row 0 at
+# BATCH_TANGENT_RTOL; (C) phase 12's M5 FSAI model, BATCH_FSAI variants of
+# emod x steps on the headline settings (graph = eager, rows
+# BATCH_FSAI_ROWS alone, pref at FSAI_GOLDEN_RTOL, no lagged step) and
+# sweep_grad of the RMS radiated pressure over BATCH_FSAI_GRAD (ADJ_M5),
+# rows BATCH_FSAI_GRAD_ROWS against integrate_grad at FSAI_GOLDEN_RTOL of
+# max|g|; kernel rows: K6 / K6T over (A)'s batched factors, K6 over (B)'s
+# B S slabs, K6 / K6T at Bt = 1280 over BATCH_1280 chains (held once), K5T
+# over BATCH_GRAD[0] x 23,754 (with one CTA a variant beside it), K5 over
+# BATCH_SWEEP[0] x 23,754
+BATCH_SWEEP = (16, 100)
+BATCH_ROWS = (0, 7, 15)
+BATCH_BF16_GATE = 5e-7
+BATCH_SPIKE = (16, 20)
+BATCH_SPIKE_ROWS = (0, 15)
+BATCH_GRAD = (8, 10)
+BATCH_GRAD_ROWS = (0, 3, 7)
+BATCH_TANGENT = (4, 5)
+BATCH_FSAI = (64, 100)
+BATCH_FSAI_ROWS = (0, 31, 63)
+# 30 steps: the tract's wave needs 22 steps to reach the mouth (44 tubes,
+# two a step), so the radiated pressure of 20 is zero
+BATCH_FSAI_GRAD = (8, 30)
+BATCH_FSAI_GRAD_ROWS = (0, 7)
+BATCH_1280 = 4
+BTD_F64 = {k: v for k, v in BTD_PROD.items() if k != "btd_store_dtype"}
+SPIKE_F64 = {k: v for k, v in SPIKE_PROD.items() if k != "btd_store_dtype"}
+
+
+def batched_run(torch, model, state0, cs, pb, times, params, graph=True):
+    """One batched run through ``forward.integrate_batch_pure`` (the graph
+    where the settings capture, else eager; ``graph=False``: the batched
+    eager loop), timed by CUDA events, with its peak device memory over
+    what was allocated before: ``(run, ms, launches, peak)``, the run's
+    trajectory and infos with the batch axis first."""
+    from vf_fem_tpu_torch import forward
+    from vf_fem_tpu_torch.models.transient import solver_params
+
+    B = int(np.shape(pb["emod"])[0])
+    if graph:
+        def run():
+            return forward.integrate_batch_pure(model, state0, cs, pb, times, params)
+    else:
+        def run():
+            fin, traj, info = forward._integrate_eager(model, state0, cs, pb, times,
+                                                       solver_params(params), (B, False))
+            return (fin, {k: v.movedim(0, 1) for k, v in traj.items()},
+                    type(info)(*(x.movedim(0, 1) for x in info)))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, ms, launches, _ = run_timed(torch, model, run)
+    return out, ms, launches, torch.cuda.max_memory_allocated() - base
+
+
+def rows_alone(torch, model, state0, cs, pb, times, params, run, rows, what, bf16=False):
+    """Rows ``rows`` of a batched run against their variants run alone
+    (``forward.integrate_pure``): f64 factors by phase 19's rule
+    (``sweep_close``), bf16 ones within BATCH_BF16_GATE of max|u|; returns
+    each row's max|diff| / max|ref| per field."""
+    from vf_fem_tpu_torch import forward
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from port_fixtures import newmark_gap
+
+    fin, traj, _ = run
+    out = {}
+    for b in rows:
+        one, traj1, _ = forward.integrate_pure(model, state0, cs,
+                                               {k: v[b] for k, v in pb.items()}, times, params)
+        got = {k: v[b].double().cpu().numpy() for k, v in fin.items()}
+        ref = {k: v.double().cpu().numpy() for k, v in one.items()}
+        if bf16:
+            du = float(np.abs(got["u"] - ref["u"]).max() / np.abs(ref["u"]).max())
+            out[b] = du
+            require(du <= BATCH_BF16_GATE, f"{what}: row {b}'s u {du:.3e} of max|u| off its"
+                    f" variant's run alone (gate {BATCH_BF16_GATE:.0e})")
+        else:
+            du = traj["u"][b].double().cpu().numpy() - traj1["u"].double().cpu().numpy()
+            gap = newmark_gap(np.concatenate([np.zeros_like(du[:1]), du]), 0.0, 0.0,
+                              float(times[1] - times[0]))
+            out[b] = sweep_close(got, ref, gap)
+    return out
+
+
+def batched_btd(torch, card, built):
+    """(A): the 23.7k sweep on BTD_PROD, graph and eager, 'plain' beside
+    'banded', the refactorization, f64 and bf16 rows, row 0's traj_err."""
+    from vf_fem_tpu_torch import forward, step_graph
+    from vf_fem_tpu_torch.models.transient import solver_params
+    from vf_fem_tpu_torch.parallel import sweep
+
+    model, state0, cs, _ = built
+    batch, n_steps = BATCH_SWEEP
+    pb = sweep_props(model, batch)
+    times = DT * np.arange(n_steps + 1)
+    params = solver_params(BTD_PROD)
+    key = (batch, False)
+
+    def graph_run(steps=n_steps, p=BTD_PROD):
+        return sweep.sweep_integrate(model, state0, cs, pb, times[:steps + 1], p)
+
+    run_timed(torch, model, lambda: graph_run(3))  # captures the batched step
+    eager, e_ms, e_launch, e_peak = batched_run(torch, model, state0, cs, pb, times, BTD_PROD,
+                                                graph=False)
+    run, g_ms, launches, peak = batched_run(torch, model, state0, cs, pb, times, BTD_PROD)
+    fin, traj, infos = run
+    require(same_run(torch, run, eager),
+            "batched btd: the graph run differs from the batched eager loop")
+    for k, v in fin.items():
+        require(bool(torch.isfinite(v).all()), f"batched btd: non-finite {k}")
+    u = fin["u"].cpu().numpy()
+    require(len({u[b].tobytes() for b in range(batch)}) == batch, "batched btd: rows not distinct")
+    stats = model._step_graphs[step_graph.cache_key(params, key)].stats
+    replay = replay_ms(torch, model, params, step_graph.CHUNK, key)
+    per_step = {k: v / n_steps for k, v in launches.items() if v}
+    require_launched(launches, ("gather", "scatter", "newmark", "btd_sweep_slabs"), "batched btd")
+    require(launches["btd_sweep"] == 0 and launches["newmark"] == n_steps,
+            f"batched btd: {launches['btd_sweep']} single-chain K6 launches,"
+            f" {launches['newmark']} K5 launches in {n_steps} steps")
+    prof = profile_run(torch, lambda: graph_run(SWEEP_PROFILE_STEPS), SWEEP_PROFILE_STEPS,
+                       "btd_sweep_kernel")
+    # 'plain' assembly (the sweep's default) once beside 'banded'
+    plain_p = {**BTD_PROD, "assembly": "plain"}
+    run_timed(torch, model, lambda: graph_run(3, plain_p))
+    (fin_p, _), p_ms, _, _ = run_timed(torch, model, lambda: graph_run(n_steps, plain_p))
+    d_asm = rel_max(fin_p["u"].cpu().numpy(), u)
+    # the refactorization of the batch against one variant's, by CUDA events
+    state, controls, prop = forward.run_inputs(model, state0, cs, pb, key)
+    control = {k: v[0] for k, v in controls.items()}
+    one = forward.run_inputs(model, state0, cs, {k: v[0] for k, v in pb.items()})
+    ctl1 = {k: v[0] for k, v in one[1].items()}
+    fac_ms = cuda_ms(torch, lambda: model.factorize_batch(state, control, prop, DT, params),
+                     reps=2, warmup=1)
+    one_ms = cuda_ms(torch, lambda: model.factorize(one[0], ctl1, one[2], DT, params),
+                     reps=2, warmup=1)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fac = model.factorize_batch(state, control, prop, DT, params)
+    fac_peak = torch.cuda.max_memory_allocated() - base
+    fac_prof = profile_run(torch, lambda: model.factorize_batch(state, control, prop, DT, params),
+                           1, "getrf")
+    one_prof = profile_run(torch, lambda: model.factorize(one[0], ctl1, one[2], DT, params), 1,
+                           "getrf")
+    # rows: f64 factors (phase 19's rule) and bf16 factors (5e-7 of max|u|)
+    f64_run, f64_ms, _, _ = batched_run(torch, model, state0, cs, pb, times, BTD_F64)
+    alone_f64 = rows_alone(torch, model, state0, cs, pb, times, BTD_F64, f64_run, BATCH_ROWS,
+                           "batched btd f64")
+    alone_bf16 = rows_alone(torch, model, state0, cs, pb, times, BTD_PROD,
+                            (fin, None, None), BATCH_ROWS, "batched btd bf16", bf16=True)
+    # row 0 against its exact-Jacobian run over BATCH_SPIKE[1] steps (a
+    # finding, not a gate; (B) reads the same run)
+    n_exact = BATCH_SPIKE[1]
+    exact, _, _ = forward.integrate_pure(model, state0, cs, {k: v[0] for k, v in pb.items()},
+                                         times[:n_exact + 1], BTD_EXACT)
+    exact_u = exact["u"].cpu().numpy()
+    traj_err = rel_max(traj["u"][0, n_exact - 1].cpu().numpy(), exact_u)
+    vs = batch * n_steps / (g_ms / 1e3)
+    log(f"[batched] (A) 23.7k sweep, {batch} variants x {n_steps} steps, KelvinVoigtWShape f64"
+        f" on BTD_PROD (bf16 btd, refresh 96, fixed-3, banded): graph {vs:.1f} variant-steps/s"
+        f" ({g_ms:.3f} ms), eager {batch * n_steps / (e_ms / 1e3):.1f} ({e_ms:.3f} ms); graph"
+        f" bit-equal to the batched eager loop; {stats.get('nodes')} graph nodes a batched"
+        f" step, a replay {replay:.3f} ms; 'plain' assembly {batch * n_steps / (p_ms / 1e3):.1f}"
+        f" variant-steps/s ({p_ms:.3f} ms; max|du|/max|u| {d_asm:.3e} from 'banded'); the"
+        f" batched refactorization {fac_ms:.3f} ms ({fac_prof['per_step']:.0f} device kernels,"
+        f" peak {fac_peak / 2**20:.1f} MB) against one variant's {one_ms:.3f} ms"
+        f" ({one_prof['per_step']:.0f} device kernels); launches a batched step {per_step};"
+        f" peak device memory graph {peak / 2**20:.1f} MB, eager {e_peak / 2**20:.1f} MB over"
+        f" the model's; profiled graph run over {SWEEP_PROFILE_STEPS} steps: busy"
+        f" {prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms, idle share {prof['idle']:.3f},"
+        f" K6 {prof['k_ms']:.3f} ms in {prof['k_launches']} launches; on {card}")
+    log(prof["table"])
+    log(f"[batched] (A) rows {BATCH_ROWS} against their variants alone: f64 factors"
+        f" ({batch * n_steps / (f64_ms / 1e3):.1f} variant-steps/s) {alone_f64} (u rtol"
+        f" {SWEEP_ALONE_RTOL:.0e}, v and a {SWEEP_ALONE_VA:.0e} of max once u's gap is out);"
+        f" bf16 max|du|/max|u| {alone_bf16} (gate {BATCH_BF16_GATE:.0e}); row 0's traj_err"
+        f" against its exact-Jacobian run at step {n_exact} {traj_err:.3e} (a finding; gate of"
+        f" one run {TRAJ_ERR_GATE:.0e})")
+    return dict(launches=launches, n_steps=n_steps, vs=vs, eager_vs=batch * n_steps / (e_ms / 1e3),
+                plain_vs=batch * n_steps / (p_ms / 1e3), replay_ms=replay,
+                nodes=stats.get("nodes"), fac_ms=fac_ms, one_ms=one_ms, idle=prof["idle"],
+                peak=peak, fac=fac, pb=pb, traj_err=traj_err, exact_u=exact_u)
+
+
+def batched_spike(torch, card, built, pb, exact_u):
+    """(B): the same batch on SPIKE_PROD (bf16), timed, with K6's launches;
+    rows BATCH_SPIKE_ROWS with f64 factors against their variants alone by
+    (A)'s f64 rule; the bf16 rows' distance to their variants' unbatched
+    runs and each one's trajectory error against its exact-Jacobian run
+    (reported: a bf16 'spike' run lies ~1e-6 from its exact-Jacobian run,
+    and two of them that round their bf16 matvecs' f32 sums in another
+    order, the batch's and one variant's, lie as far from each other)."""
+    from vf_fem_tpu_torch import forward
+
+    model, state0, cs, _ = built
+    batch, n_steps = BATCH_SPIKE
+    times = DT * np.arange(n_steps + 1)
+    batched_run(torch, model, state0, cs, pb, times[:4], SPIKE_PROD)  # captures
+    run, ms, launches, peak = batched_run(torch, model, state0, cs, pb, times, SPIKE_PROD)
+    require(launches["btd_sweep"] == 0 and launches["btd_sweep_slabs"] > 0,
+            f"batched spike: K6 launches {launches}")
+    f64_run, _, _, _ = batched_run(torch, model, state0, cs, pb, times, SPIKE_F64)
+    alone_f64 = rows_alone(torch, model, state0, cs, pb, times, SPIKE_F64, f64_run,
+                           BATCH_SPIKE_ROWS, "batched spike f64")
+    alone, errs = {}, {}
+    for b in BATCH_SPIKE_ROWS:
+        u = run[0]["u"][b].cpu().numpy()
+        one, _, _ = forward.integrate_pure(model, state0, cs, {k: v[b] for k, v in pb.items()},
+                                           times, SPIKE_PROD)
+        alone[b] = rel_max(u, one["u"].cpu().numpy())
+        if b == 0:  # (A)'s exact-Jacobian run of variant 0 over these steps
+            errs[b] = (rel_max(u, exact_u), rel_max(one["u"].cpu().numpy(), exact_u))
+    parts = SPIKE_PROD["spike_partitions"]
+    log(f"[batched] (B) 23.7k 'spike' sweep, {batch} variants x {n_steps} steps ({parts}"
+        f" partitions, bf16): {batch * n_steps / (ms / 1e3):.1f} variant-steps/s ({ms:.3f} ms,"
+        f" capture excluded); K6 over slabs {launches['btd_sweep_slabs'] / n_steps:.1f} launches"
+        f" a step of {batch * parts} slabs each; f64 factors, rows {BATCH_SPIKE_ROWS} against"
+        f" their variants alone {alone_f64} (u rtol {SWEEP_ALONE_RTOL:.0e}, v and a"
+        f" {SWEEP_ALONE_VA:.0e} of max once u's gap is out); bf16 rows' max|du|/max|u| from"
+        f" their unbatched runs {alone}, row 0's traj_err against its exact-Jacobian run (the"
+        f" row's, its unbatched run's) {errs}; peak {peak / 2**20:.1f} MB; on {card}")
+    return dict(launches=launches, n_steps=n_steps, vs=batch * n_steps / (ms / 1e3),
+                alone=alone, errs=errs)
+
+
+def row_grad_rel(worst, got, ref, prop, value):
+    """Fold one row's gradient (``got``, ``{key: array}``) against its
+    variant's (``ref``) into ``worst``, max|diff| / max|ref| per key; a
+    key whose sensitivity max|g| max|p| is below 1e-12 |value| (a property
+    whose effect is at the rounding floor, such as the smoothing widths: its
+    gradient is rounding noise) must be as small in ``got`` and is left
+    out."""
+    floor = 1e-12 * abs(value)
+    for k, gk in ref.items():
+        p = max(float(np.abs(np.asarray(prop[k])).max()), 1e-300)
+        if np.abs(gk).max() * p <= floor:
+            require(np.abs(got[k]).max() * p <= floor, f"grad row: {k}'s gradient not ~0")
+            continue
+        worst[k] = max(worst.get(k, 0.0), float(np.abs(got[k] - gk).max() / np.abs(gk).max()))
+
+
+def batch_adjoint_loss(torch):
+    """benchmarks/benchmark_adjoint.py:89-94's loss of one variant."""
+    def loss(traj, controls, prop, times):
+        return torch.sum(traj["q"][-20:] ** 2) * 1e-6
+    return loss
+
+
+def batched_grad(torch, card, built, pb):
+    """sweep_grad over BATCH_GRAD on BTD_PROD (stale adjoint), each row
+    against its variant's integrate_grad; the tangents of BATCH_TANGENT,
+    row 0 against its variant's."""
+    from vf_fem_tpu_torch import adjoint, forward
+    from vf_fem_tpu_torch.parallel import sweep
+
+    model, state0, cs, _ = built
+    batch, n_steps = BATCH_GRAD
+    pbg = {k: v[:batch] for k, v in pb.items()}
+    times = DT * np.arange(n_steps + 1)
+    loss = batch_adjoint_loss(torch)
+    (vals, grads), ms, launches, _ = run_timed(torch, model, lambda: sweep.sweep_grad(
+        model, loss, state0, cs, pbg, times, BTD_PROD))
+    require_launched(launches, ("btd_sweep_slabs", "btd_sweep_t_slabs", "newmark_t"),
+                     "batched grad")
+    require(launches["btd_sweep_t"] == 0, "batched grad: single-chain K6T launches")
+    worst = {}
+    control = {k: v[0] for k, v in cs.items()}
+    t1, val_rel = 0.0, 0.0
+    for b in BATCH_GRAD_ROWS:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        v1, g1 = adjoint.integrate_grad(model, loss, state0, [control],
+                                        {k: v[b] for k, v in pbg.items()}, times, BTD_PROD)
+        end.record()
+        torch.cuda.synchronize()
+        t1 += start.elapsed_time(end)
+        val_rel = max(val_rel, abs(float(vals[b]) - v1) / abs(v1))
+        row_grad_rel(worst, {k: v[b].cpu().numpy() for k, v in grads.items()}, g1["prop"],
+                     {k: v[b] for k, v in pbg.items()}, v1)
+    require(max(worst.values()) <= STALE_VS_EXACT and val_rel <= STALE_VS_EXACT,
+            f"batched grad: a row off its variant's (value {val_rel:.3e}, gradient {worst})")
+    vs = batch * n_steps / (ms / 1e3)
+    log(f"[batched] 23.7k sweep_grad, {batch} variants x {n_steps} steps on BTD_PROD (stale"
+        f" adjoint): value+grad {vs:.2f} variant-steps/s ({ms:.3f} ms) against"
+        f" {len(BATCH_GRAD_ROWS) * n_steps / (t1 / 1e3):.2f} of integrate_grad one variant at a"
+        f" time; rows {BATCH_GRAD_ROWS} against their variants': value rel diff {val_rel:.3e}, gradient"
+        f" max|diff|/max|g| per key {worst} (gate {STALE_VS_EXACT:.0e}); K6T over the batch"
+        f" {launches['btd_sweep_t_slabs'] / n_steps:.1f}, K5T {launches['newmark_t'] / n_steps:.2f},"
+        f" K6 {launches['btd_sweep_slabs'] / n_steps:.1f} launches a step; on {card}")
+    # tangents of a batch, row 0 against its variant's
+    batch_t, steps_t = BATCH_TANGENT
+    pbt = {k: v[:batch_t] for k, v in pb.items()}
+    times_t = DT * np.arange(steps_t + 1)
+    rng = np.random.default_rng(22)
+    zero = lambda d: {k: np.zeros_like(v) for k, v in d.items()}  # noqa: E731
+    dpb = {**zero(pbt), "emod": 5.0 * rng.standard_normal(pbt["emod"].shape)}
+    dcs = {**zero(cs), "psub": np.ones_like(cs["psub"])}
+    (_, dfin), t_ms, t_launch, _ = run_timed(torch, model, lambda: forward.integrate_linear_batch_pure(
+        model, state0, cs, pbt, times_t, zero(state0), dcs, dpb, np.zeros_like(times_t),
+        BTD_PROD))
+    _, d1 = forward.integrate_linear_pure(model, state0, cs, {k: v[0] for k, v in pbt.items()},
+                                          times_t, zero(state0), dcs,
+                                          {k: v[0] for k, v in dpb.items()},
+                                          np.zeros_like(times_t), BTD_PROD)
+    t_worst = {k: float((dfin[k][0] - ref).abs().max() / ref.abs().max()) for k, ref in d1.items()}
+    log(f"[batched] 23.7k tangents, {batch_t} variants x {steps_t} steps on BTD_PROD:"
+        f" {batch_t * steps_t / (t_ms / 1e3):.2f} variant-steps/s; row 0 against its variant's"
+        f" tangent, max|diff|/max|ref| {t_worst} (rtol {BATCH_TANGENT_RTOL:.0e} on u, q, p);"
+        f" K6 over the batch {t_launch['btd_sweep_slabs'] / steps_t:.1f} a step; on {card}")
+    require(max(t_worst[k] for k in ("u", "q", "p")) <= BATCH_TANGENT_RTOL,
+            "batched tangents: row 0 off its variant's")
+    return dict(launches=launches, n_steps=n_steps, vs=vs, worst=worst)
+
+
+def batched_fsai(torch, card, dev):
+    """(C): the M5 FSAI batch, graph and eager, rows alone, no lagged step;
+    sweep_grad of the RMS radiated pressure rows against integrate_grad."""
+    from vf_fem_tpu_torch import adjoint, forward
+    from vf_fem_tpu_torch.functional.acoustic import RmsRadiatedPressure
+    from vf_fem_tpu_torch.parallel import sweep
+
+    gold = np.load(os.path.join(REPO, "tests", "data", "golden_m5_fsai.npz"))
+    built = build_fsai(torch, dev, torch.float64)
+    model, state0, cs, prop = built
+    batch, n_steps = BATCH_FSAI
+    times = gold["times"][: n_steps + 1]
+    pb = {k: np.broadcast_to(v, (batch,) + v.shape).copy() for k, v in prop.items()}
+    pb["emod"] = np.linspace(4e4, 6e4, batch)[:, None] * np.ones_like(prop["emod"])[None]
+    batched_run(torch, model, state0, cs, pb, times[:4], HEADLINE)  # captures
+    eager, e_ms, _, _ = batched_run(torch, model, state0, cs, pb, times, HEADLINE, graph=False)
+    run, g_ms, launches, peak = batched_run(torch, model, state0, cs, pb, times, HEADLINE)
+    require(same_run(torch, run, eager), "batched fsai: the graph run differs from eager")
+    require(bool(run[2].bracketed.all()), f"batched fsai: {int((~run[2].bracketed).sum())}"
+            " lagged steps")
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from port_fixtures import newmark_gap
+
+    fin, traj, _ = run
+    alone = {}
+    for b in BATCH_FSAI_ROWS:
+        one, traj1, info1 = forward.integrate_pure(model, state0, cs,
+                                                   {k: v[b] for k, v in pb.items()}, times,
+                                                   HEADLINE)
+        require(bool(info1.bracketed.all()), f"batched fsai: row {b} alone lagged")
+        du = traj["u"][b].cpu().numpy() - traj1["u"].cpu().numpy()
+        gap = newmark_gap(np.concatenate([np.zeros_like(du[:1]), du]), 0.0, 0.0,
+                          float(times[1] - times[0]))
+        ref = {k: one[k].cpu().numpy() for k in ("u", "v", "a", "q", "p")}
+        alone[b] = sweep_close({k: fin[k][b].cpu().numpy() for k in ref}, ref, gap)
+        pr, pg = one["pref"].cpu().numpy(), fin["pref"][b].cpu().numpy()
+        alone[b]["pref"] = rel_max(pg, pr)
+        require(np.allclose(pg, pr, rtol=FSAI_GOLDEN_RTOL, atol=1e-10),
+                f"batched fsai: row {b}'s pref off its variant's")
+    vs = batch * n_steps / (g_ms / 1e3)
+    log(f"[batched] (C) M5 FSAI, {batch} emod variants x {n_steps} steps on the headline"
+        f" settings: graph {vs:.1f} variant-steps/s ({g_ms:.3f} ms), eager"
+        f" {batch * n_steps / (e_ms / 1e3):.1f} ({e_ms:.3f} ms); graph bit-equal to eager, no"
+        f" lagged step; rows {BATCH_FSAI_ROWS} against their variants alone {alone}; peak"
+        f" {peak / 2**20:.1f} MB; launches {dict((k, v) for k, v in launches.items() if v)};"
+        f" on {card}")
+    batch_g, steps_g = BATCH_FSAI_GRAD
+    pbg = {k: v[:batch_g] for k, v in pb.items()}
+    pbg["emod"] = np.linspace(4e4, 6e4, batch_g)[:, None] * np.ones_like(prop["emod"])[None]
+    times_g = gold["times"][: steps_g + 1]
+    func = RmsRadiatedPressure(model)
+    s0 = {k: torch.as_tensor(v, device=dev, dtype=model.dtype) for k, v in state0.items()}
+
+    def loss(traj, controls, p, t):
+        full = {k: torch.cat([s0[k][None], traj[k]]) for k in traj}
+        return func.eval_traj(full, t, controls, p)
+
+    (vals, grads), ms, g_launch, _ = run_timed(torch, model, lambda: sweep.sweep_grad(
+        model, loss, state0, cs, pbg, times_g, ADJ_M5))
+    worst, val_rel = {}, 0.0
+    control = {k: v[0] for k, v in cs.items()}
+    require(bool((vals > 0).all()), f"batched fsai grad: values {vals.tolist()}")
+    for b in BATCH_FSAI_GRAD_ROWS:
+        v1, g1 = adjoint.integrate_grad(model, func, state0, [control],
+                                        {k: v[b] for k, v in pbg.items()}, times_g, ADJ_M5)
+        val_rel = max(val_rel, abs(float(vals[b]) - v1) / abs(v1))
+        row_grad_rel(worst, {k: v[b].cpu().numpy() for k, v in grads.items()}, g1["prop"],
+                     {k: v[b] for k, v in pbg.items()}, v1)
+    require(max(worst.values()) <= FSAI_GOLDEN_RTOL and val_rel <= FSAI_GOLDEN_RTOL,
+            f"batched fsai grad: a row off its variant's (value {val_rel:.3e}, {worst})")
+    log(f"[batched] (C) M5 FSAI sweep_grad of the RMS radiated pressure, {batch_g} variants x"
+        f" {steps_g} steps (ADJ_M5): {batch_g * steps_g / (ms / 1e3):.2f} variant-steps/s; rows"
+        f" {BATCH_FSAI_GRAD_ROWS} against their variants' integrate_grad: value rel diff"
+        f" {val_rel:.3e},"
+        f" max|diff|/max|g| per key {worst} (gate"
+        f" {FSAI_GOLDEN_RTOL:.0e}); K5T {g_launch['newmark_t'] / steps_g:.2f} a step; on {card}")
+    return dict(launches=launches, n_steps=n_steps, vs=vs, grad_launches=g_launch,
+                grad_steps=steps_g, grad_vs=batch_g * steps_g / (ms / 1e3))
+
+
+def batched_sweeps(torch, card, label, fac, rb, names=("btd_sweep", "btd_sweep_t")):
+    """K6 and K6T over the chains of batched factors ``fac`` (a leading
+    axis folded with any slab axis): each chain held as ``check_slab_sweep``
+    holds slabs (bit for bit a launch a chain, rows within the order bound,
+    the whole sweep within SWEEP_FULL_GATES), vmap of a chain's sweep bit
+    for bit the launch, then timed; ``rb`` the scaled right-hand sides."""
+    from torch.func import vmap
+
+    from vf_fem_tpu_torch import ops, yardsticks
+
+    bt = rb.shape[-1]
+    V = fac[0].reshape(-1, *fac[0].shape[-3:])
+    W = fac[1].reshape(-1, *fac[1].shape[-3:])
+    Sinv = fac[2].reshape(-1, *fac[2].shape[-3:])
+    g = ops.factor_matvec(Sinv, rb.reshape(-1, *rb.shape[-2:]))
+    rtol, acc = sweep_tolerances(torch, "bfloat16", rb.dtype)
+    results = {}
+    for name, sweep, slabs_ref, rows_ref, A, inp in (
+            ("btd_sweep", ops.btd_sweep, ops.btd_sweep_slabs_reference,
+             ops.btd_sweep_rows_reference, V, g),
+            ("btd_sweep_t", ops.btd_sweep_t, ops.btd_sweep_t_slabs_reference,
+             ops.btd_sweep_t_rows_reference, W, rb.reshape(-1, *rb.shape[-2:]))):
+        if name not in names:
+            continue
+        what = f"batched {name} {label}"
+        err, full_rel, worst = check_slab_sweep(torch, what, sweep, slabs_ref, rows_ref, A, inp,
+                                                False, rtol, acc)
+        before = dict(ops.LAUNCHES)
+        vm = vmap(sweep)(A, inp)
+        counter = f"{name}_slabs"
+        require(ops.LAUNCHES[counter] == before[counter] + 1 and torch.equal(vm, sweep(A, inp)),
+                f"{what}: vmap is not one launch of the slab sweep, bit for bit")
+        res = measure(torch, lambda: sweep(A, inp), lambda: slabs_ref(A, inp))
+        nbytes = A.numel() * A.element_size() + 2 * inp.numel() * inp.element_size()
+        res.update(max_abs_err=err, bytes=nbytes, lib_ms=None, lib_runs=None,
+                   lib_call=yardsticks.LIBRARY_CALL[counter])
+        res["bound_ms"], res["bound_by"] = bound_of(nbytes, 2 * A.numel(), acc)
+        log(f"[batched] {name} {label} ({tuple(A.shape)} {A.dtype}, {rb.dtype} vector):"
+            f" {fmt_times(res)}; bit-equal to a launch a chain and to vmap of a chain's sweep;"
+            f" row max |diff| {worst:.3e}, whole-sweep rel {full_rel:.3e}")
+        results[name] = res
+    return results
+
+
+def batched_ops(torch, card, dev, res_a, spike_fac):
+    """The kernel rows of phase 22 (see the constants above)."""
+    from torch.func import vmap
+
+    from vf_fem_tpu_torch import ops
+
+    out = {}
+    fac = res_a["fac"]
+    r = torch.tensor(np.random.default_rng(22).standard_normal(fac.d.shape), device=dev)
+    n_sup, bt = fac.Sinv.shape[-3], fac.Sinv.shape[-1]
+    rb = torch.nn.functional.pad(r / fac.d, (0, n_sup * bt - fac.d.shape[-1])).reshape(
+        fac.d.shape[0], n_sup, bt)
+    out["chains"] = batched_sweeps(torch, card, f"over a batch of {fac.V.shape[0]} chains",
+                                   (fac.V, fac.W, fac.Sinv), rb)
+    # K6 over (B)'s B S slabs
+    S, m = spike_fac.Sinv.shape[-4], spike_fac.Sinv.shape[-3]
+    B = spike_fac.Sinv.shape[0]
+    rs = torch.tensor(np.random.default_rng(23).standard_normal((B, S, m, bt)), device=dev)
+    out["slabs"] = batched_sweeps(torch, card, f"over {B} x {S} slabs",
+                                  (spike_fac.P, spike_fac.Q, spike_fac.Sinv), rs,
+                                  names=("btd_sweep",))
+    # K6 / K6T at Bt = 1280 over BATCH_1280 chains of 36 blocks, held once
+    rng = np.random.default_rng(1280)
+    A = torch.tensor(rng.standard_normal((BATCH_1280, 36, 1280, 1280)) * (0.5 / 1280 ** 0.5),
+                     device=dev).to(torch.bfloat16)
+    g = torch.tensor(rng.standard_normal((BATCH_1280, 36, 1280)), device=dev)
+    for name, sweep, rows in (("btd_sweep", ops.btd_sweep, ops.btd_sweep_rows_reference),
+                              ("btd_sweep_t", ops.btd_sweep_t, ops.btd_sweep_t_rows_reference)):
+        for rev in (False, True):
+            got = vmap(sweep, in_dims=(0, 0, None))(A, g, rev)
+            require(torch.equal(got, sweep(A, g, reverse=rev)),
+                    f"batched {name} x1280: vmap is not the launch over the chains")
+            for c in range(BATCH_1280):
+                require(torch.equal(got[c], sweep(A[c], g[c], reverse=rev)),
+                        f"batched {name} x1280: chain {c} is not its launch alone")
+                ref, bound = rows(A[c], g[c], got[c], rev)
+                off = int(((got[c] - ref).abs() > 1e-13 * ref.abs() + bound).sum())
+                require(off == 0, f"batched {name} x1280: chain {c}, {off} entries off")
+    del A, g
+    log(f"[batched] K6 / K6T at Bt = 1280 over {BATCH_1280} chains of 36 blocks (bf16/f64):"
+        " vmap bit-equal to one launch over the chains and to a launch a chain, each chain's"
+        " rows within the order bound")
+    # K5T over a batch at 23.7k: the grid of several CTAs a variant beside one
+    n = 23754
+    batch_t = BATCH_GRAD[0]
+    host = np.random.default_rng(n).standard_normal((6, batch_t, n))
+    host[:2] *= 1e-3
+    vecs = [torch.tensor(v, device=dev) for v in host]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ctas = ops.newmark_t_batch_ctas(batch_t, n, sms)
+    require(ctas > 1, f"K5T at {batch_t} x {n}: {ctas} CTA a variant")
+    label = f"23.7k x {batch_t}"
+    out["newmark_t"] = newmark_t_batch_op(torch, label, "float64", vecs)
+    one = newmark_t_batch_op(torch, f"{label} (one CTA a variant)", "float64", vecs, ctas=1)
+    out["newmark_t"]["one_cta_device_ms"] = one["device_ms"]
+    log(f"[batched] K5T over {batch_t} x {n}: {ctas} CTAs a variant, device"
+        f" {out['newmark_t']['device_ms']:.6f} ms (cold) against one CTA a variant"
+        f" {one['device_ms']:.6f} ms; bound {out['newmark_t']['bound_ms']:.6f} ms")
+    host = np.random.default_rng(n + 1).standard_normal((4, BATCH_SWEEP[0], n))
+    out["newmark"] = newmark_batch_op(torch, f"23.7k x {BATCH_SWEEP[0]}", "float64",
+                                      [torch.tensor(v, device=dev) for v in host])
+    for name, res in (("newmark_t", out["newmark_t"]), ("newmark", out["newmark"])):
+        log(f"[batched] {name} 23.7k: {fmt_times(res)}")
+    return out
+
+
+def phase_batched(torch, card, dev):
+    """Phase 22 (see the constants above)."""
+    from vf_fem_tpu_torch import forward
+    from vf_fem_tpu_torch.models.transient import solver_params
+
+    built = build(torch, dev, LARGE_MESH, torch.float64, solid="KelvinVoigtWShape")
+    out = {}
+    out["btd"] = batched_btd(torch, card, built)
+    pb = out["btd"]["pb"]
+    model = built[0]
+    out["spike"] = batched_spike(torch, card, built, pb, out["btd"]["exact_u"])
+    # the kernel rows' SPIKE factors: the batch's at rest
+    state, controls, prop = forward.run_inputs(model, built[1], built[2], pb,
+                                               (BATCH_SWEEP[0], False))
+    spike_fac = model.factorize_batch(state, {k: v[0] for k, v in controls.items()}, prop, DT,
+                                      solver_params(SPIKE_PROD))
+    out["grad"] = batched_grad(torch, card, built, pb)
+    out["fsai"] = batched_fsai(torch, card, dev)
+    out["ops"] = batched_ops(torch, card, dev, out["btd"], spike_fac)
+    del out["btd"]["fac"]
+    return out
+
+
 def main():
     import time
 
@@ -5958,6 +6558,7 @@ def run_phases(torch, name, card, dev, t0, mesher, mesher3d, m5qz):
     sw = timed("sweep", phase_sweep, torch, card, dev)
     gm = timed("grad_more", phase_grad_more, torch, card, large, d3)
     opt = timed("options", phase_options, torch, card, dev, large, btd_res)
+    bat = timed("batched", phase_batched, torch, card, dev)
 
     # per kernel: the timing at the 23.7k shapes of the btd main path (f64)
     timing = {
@@ -5983,6 +6584,11 @@ def run_phases(torch, name, card, dev, t0, mesher, mesher3d, m5qz):
            for k in ("btd_sweep", "btd_sweep_t")
            for pair, label in (("e4m3/f64", "float8_e4m3fn/float64"),
                                ("f32/f64", "float32/float64"))},
+        "btd_sweep batch": bat["ops"]["chains"]["btd_sweep"],
+        "btd_sweep_t batch": bat["ops"]["chains"]["btd_sweep_t"],
+        "btd_sweep_slabs batch": bat["ops"]["slabs"]["btd_sweep"],
+        "newmark_t x8 23.7k": bat["ops"]["newmark_t"],
+        "newmark x16 23.7k": bat["ops"]["newmark"],
     }
     # the f64 runs whose launches count: (name, launches, steps)
     runs = [("M5 headline", head["float64"]["launches"], N_STEPS),
@@ -6030,7 +6636,17 @@ def run_phases(torch, name, card, dev, t0, mesher, mesher3d, m5qz):
             ("23.7k value+grad e4m3 V/W", opt["grad fp8"]["launches"],
              opt["grad fp8"]["n_steps"]),
             ("23.7k value+grad f32 factors", opt["grad f32"]["launches"],
-             opt["grad f32"]["n_steps"])]
+             opt["grad f32"]["n_steps"]),
+            ("23.7k btd sweep 16 x 100 (a batched step)", bat["btd"]["launches"],
+             bat["btd"]["n_steps"]),
+            ("23.7k spike sweep 16 x 20 (a batched step)", bat["spike"]["launches"],
+             bat["spike"]["n_steps"]),
+            ("23.7k btd sweep_grad 8 x 10 (a batched step)", bat["grad"]["launches"],
+             bat["grad"]["n_steps"]),
+            ("M5 fsai sweep 64 x 100 (a batched step)", bat["fsai"]["launches"],
+             bat["fsai"]["n_steps"]),
+            ("M5 fsai sweep_grad 8 x 30 (a batched step)", bat["fsai"]["grad_launches"],
+             bat["fsai"]["grad_steps"])]
     by_name = {name: launches for name, launches, _ in runs}
     dd_banded = by_name[f"23.7k DD x {DD_SHARDS} banded"]
     path = {  # the main-path run whose count is this kernel's ``launches``
@@ -6051,6 +6667,11 @@ def run_phases(torch, name, card, dev, t0, mesher, mesher3d, m5qz):
         "btd_sweep f32/f64": by_name["23.7k btd f32 factors"],
         "btd_sweep_t e4m3/f64": by_name["23.7k value+grad e4m3 V/W"],
         "btd_sweep_t f32/f64": by_name["23.7k value+grad f32 factors"],
+        "btd_sweep batch": by_name["23.7k btd sweep 16 x 100 (a batched step)"],
+        "btd_sweep_t batch": by_name["23.7k btd sweep_grad 8 x 10 (a batched step)"],
+        "btd_sweep_slabs batch": by_name["23.7k spike sweep 16 x 20 (a batched step)"],
+        "newmark_t x8 23.7k": by_name["23.7k btd sweep_grad 8 x 10 (a batched step)"],
+        "newmark x16 23.7k": by_name["23.7k btd sweep 16 x 100 (a batched step)"],
     }
     kernels = []
     for op, (kname, replaces, source) in KERNELS.items():

@@ -1940,3 +1940,150 @@ def test_sweep_grad_on_cuda_matches_cpu(sweep_small):
     for k in ("emod", "umesh"):
         torch.testing.assert_close(g[k].cpu(), gc[k], rtol=0,
                                    atol=1e-10 * gc[k].abs().max().item())
+
+
+# -- a batch of variants on the block direct solvers and FSAI (slice 14) -----------
+
+
+@pytest.mark.parametrize("transpose", [False, True], ids=["K6", "K6T"])
+@pytest.mark.parametrize("shape", [(3, 5, 256), (2, 3, 4, 256), (2, 3, 1280), (2, 2, 2, 1280)],
+                         ids=["chains-256", "slabs-256", "chains-1280", "slabs-1280"])
+@pytest.mark.parametrize("pair", ["bf16-f64", "f64-f64", "e4m3-f64"])
+def test_btd_sweep_vmap_is_the_slab_launch(cuda, pair, shape, transpose):
+    """K6 / K6T under ``vmap`` over 4-D factors (a batch of chains) and 5-D
+    ones (a batch of slabs) at Bt 256 and 1280: one launch over the folded
+    chains, bit for bit the sweep of the leading axes and a launch a chain,
+    both directions."""
+    from torch.func import vmap
+
+    fdt, vdt = SWEEP_PAIRS[pair]
+    lead, n, bt = shape[:-2], shape[-2], shape[-1]
+    rng = np.random.default_rng(sum(shape))
+    A = torch.tensor(rng.standard_normal(lead + (n, bt, bt)) * (0.5 / bt ** 0.5)).to(fdt).to(cuda)
+    g = torch.tensor(rng.standard_normal(lead + (n, bt))).to(vdt).to(cuda)
+    sweep = ops.btd_sweep_t if transpose else ops.btd_sweep
+    counter = "btd_sweep_t_slabs" if transpose else "btd_sweep_slabs"
+    for rev in (False, True):
+        n0 = dict(ops.LAUNCHES)
+        got = vmap(sweep, in_dims=(0, 0, None))(A, g, rev)
+        assert ops.LAUNCHES[counter] == n0[counter] + 1
+        assert torch.equal(got, sweep(A, g, reverse=rev))
+        Af, gf, out = A.reshape(-1, n, bt, bt), g.reshape(-1, n, bt), got.reshape(-1, n, bt)
+        alone = torch.stack([sweep(Af[c], gf[c], reverse=rev) for c in range(Af.shape[0])])
+        torch.cuda.synchronize()
+        assert torch.equal(out, alone)
+
+
+@pytest.mark.parametrize("n", [960, 23_754])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_newmark_t_batch_grid_matches_plain(cuda, dtype, n):
+    """K5T over a batch of 8: one CTA a variant at n = 960 (the plan's, bit
+    for bit an explicit one-CTA launch), a grid of several a variant at
+    23,754 whose last CTA of each variant adds its sums by ticket: vector
+    cotangents bit for bit the plain version's, each row within its order
+    bound, the same bits in three launches and in a graph replay."""
+    rng = np.random.default_rng(n)
+    vecs = [torch.tensor(rng.standard_normal((8, n)), dtype=dtype, device=cuda)
+            for _ in range(6)]
+    row = ops.newmark_row(ops.kernels.newmark.coefficients(1e-4, 7.5e-5), dtype, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    ctas = ops.newmark_t_batch_ctas(8, n, sms)
+    assert (ctas == 1) == (n == 960)
+    outs = [ops.newmark_update_t_batch(*vecs, row) for _ in range(3)]
+    one = ops.newmark_update_t_batch(*vecs, row, ctas=1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.newmark_update_t_batch(*vecs, row)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ops.newmark_update_t_batch(*vecs, row)
+    graph.replay()
+    torch.cuda.synchronize()
+    ref = ops.newmark_update_t_batch_reference(*vecs, row)
+    for g, o, r in zip(outs[0][:4], one[:4], ref[:4]):
+        assert torch.equal(g, r) and torch.equal(o, r)
+    for o in outs[1:] + [captured]:
+        assert torch.equal(o[4], outs[0][4])
+    if n == 960:
+        assert torch.equal(outs[0][4], one[4])
+    vb1, ab1, u1, u0, v0, a0 = vecs
+    bound = ops.dot_order_bound(ops.newmark_update_t_batch_reference(
+        vb1.abs(), ab1.abs(), u1.abs(), -u0.abs(), -v0.abs(), -a0.abs(), row.abs())[4].abs(), n)
+    rtol = 1e-13 if dtype == torch.float64 else 1e-6
+    for got in (outs[0][4], one[4]):
+        assert bool(((got - ref[4]).abs() <= rtol * ref[4].abs() + bound).all())
+        assert not bool(got[:, 6:].any())
+
+
+@pytest.mark.parametrize("solver", ["btd", "spike"])
+def test_batched_block_solver_graph_on_cuda(cuda, solver):
+    """A batch of 3 variants on 'btd' / 'spike' (bf16 factors, refresh 4,
+    fixed-3) replays one graph of the batched step, bit-equal to the batched
+    eager loop; every K6 launch is over the batch's chains (none over one
+    chain), as many as one variant's run makes; each row within 5e-7 of
+    max|u| of its variant's run alone."""
+    model = port_vf_model("KelvinVoigtWEpithelium", 24, 6, device=cuda, reorder="rcm")
+    state0, cs, prop = port_inputs(model)
+    pb = {k: np.stack([v] * 3) for k, v in prop.items()}
+    pb["emod"] = pb["emod"] * np.array([0.8, 1.0, 1.2])[:, None]
+    params = {"assembly": "banded", "linear_solver": solver, "spike_partitions": 2,
+              "btd_store_dtype": "bfloat16", "jacobian_refresh_steps": 4, "fixed_iterations": 3,
+              "fixed_tail_residual": False, "stagnation_ratio": 0.5}
+    times = 1e-4 * np.arange(11)
+    from vf_fem_tpu_torch.models.transient import solver_params
+
+    eager = forward._integrate_eager(model, state0, cs, pb, times, solver_params(params),
+                                     (3, False))
+    forward.integrate_batch_pure(model, state0, cs, pb, times, params)  # captures
+    n0 = dict(ops.LAUNCHES)
+    fin, traj, _ = forward.integrate_batch_pure(model, state0, cs, pb, times, params)
+    batched = {k: ops.LAUNCHES[k] - n0[k] for k in ("btd_sweep", "btd_sweep_slabs")}
+    for k in fin:
+        assert torch.equal(fin[k], eager[0][k]) and torch.equal(traj[k], eager[1][k].movedim(0, 1))
+    n0 = dict(ops.LAUNCHES)
+    one, _, _ = forward.integrate_pure(model, state0, cs, {k: v[2] for k, v in pb.items()},
+                                       times, params)
+    single = {k: ops.LAUNCHES[k] - n0[k] for k in ("btd_sweep", "btd_sweep_slabs")}
+    assert batched["btd_sweep"] == 0 and batched["btd_sweep_slabs"] == sum(single.values())
+    scale = one["u"].abs().max().item()
+    assert (fin["u"][2] - one["u"]).abs().max().item() <= 5e-7 * scale
+
+
+def test_fsai_batch_graph_on_cuda(cuda):
+    """A batch of 3 FSAI variants (tests/test_fsai.py's 8 x 4 model) on the
+    headline settings, scaled down: the graph of the batched step bit-equal
+    to the batched eager loop, ``bracketed`` included, no lagged step."""
+    from vf_fem_tpu_torch.load import load_fsai_model
+    from vf_fem_tpu_torch.mesh import vocal_fold_mesh
+    from vf_fem_tpu_torch.models.transient import solver_params
+    from vf_fem_tpu_torch.residuals import fluid as flr, solid as slr
+
+    from port_fixtures import HEADLINE_SMALL
+
+    mesh = vocal_fold_mesh(8, 4)
+    model = load_fsai_model(mesh, slr.KelvinVoigt, flr.BernoulliSmoothMinSep, num_tube=12,
+                            device=cuda)
+    ymax = mesh.coords[:, 1].max()
+    p = model.prop
+    for k, v in dict(emod=5e4, rho=1.0, eta=3.0, nu=0.45, kcontact=1e8, rho_air=1.1225e-3,
+                     zeta_min=1e-3, zeta_sep=1e-3, proploss=1.0).items():
+        p[k][:] = v
+    p["ycontact"][:] = ymax + 0.005
+    p["ymid"][:] = ymax + 0.01
+    p["area"][:] = np.concatenate([np.full(6, 0.6), np.full(6, 2.6)])
+    model.control["psub"][:] = 8000.0
+    state0, cs, prop = port_inputs(model)
+    pb = {k: np.stack([v] * 3) for k, v in prop.items()}
+    pb["emod"] = pb["emod"] * np.array([0.8, 1.0, 1.2])[:, None]
+    params = {**HEADLINE_SMALL, "assembly": "banded"}
+    times = model.dt * np.arange(12)
+    eager = forward._integrate_eager(model, state0, cs, pb, times, solver_params(params),
+                                     (3, False))
+    forward.integrate_batch_pure(model, state0, cs, pb, times, params)  # captures
+    fin, traj, infos = forward.integrate_batch_pure(model, state0, cs, pb, times, params)
+    for k in fin:
+        assert torch.equal(fin[k], eager[0][k]) and torch.equal(traj[k], eager[1][k].movedim(0, 1))
+    assert torch.equal(infos.bracketed, eager[2].bracketed.movedim(0, 1))
+    assert bool(infos.bracketed.all())

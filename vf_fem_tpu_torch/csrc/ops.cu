@@ -95,8 +95,10 @@
 // cotangent, on which the gradient with respect to the step sizes rests,
 // has the same bits every launch and every graph replay.
 //
-// A slot (a counter and kNewmarkTMaxCtas rows of partial sums in static
-// device memory, zero at load and left at zero by every launch) holds one
+// A slot (kNewmarkTMaxCtas counters and as many rows of partial sums in
+// static device memory, zero at load and left at zero by every launch; a
+// launch uses its first counter, a batched launch of several CTAs a
+// variant one a variant) holds one
 // launch at a time.  That rests on two conditions, which ops.kernels keeps
 // by giving out the slots: launches that share a slot are ordered, and
 // each one's griddepcontrol.wait, before its first touch of the slot,
@@ -644,7 +646,10 @@ constexpr int kNewmarkTSlots = 1024;    // slots a device (ops.kernels.NEWMARK_T
 // T, f32 or f64).  Static device memory is zero when the module loads,
 // and the last CTA of a launch sets its counter back to zero, so no
 // allocation, fill or capture ever touches them.
-__device__ unsigned g_newmark_t_tickets[kNewmarkTSlots];
+// A slot's counters: the first is an unbatched launch's, counter b a
+// batched launch's variant b (which takes several CTAs only where the
+// batch's CTAs fit in one slot's partial sums).
+__device__ unsigned g_newmark_t_tickets[kNewmarkTSlots][kNewmarkTMaxCtas];
 __device__ double g_newmark_t_partials[kNewmarkTSlots][kNewmarkTMaxCtas * kRowSums];
 
 template <typename T>
@@ -785,7 +790,7 @@ __global__ void __launch_bounds__(kNewmarkTThreads)
   T* partial = reinterpret_cast<T*>(g_newmark_t_partials[slot]);
   if (threadIdx.x < kRowSums) partial[blockIdx.x * kRowSums + threadIdx.x] = sum;
   __syncthreads();
-  unsigned* counter = &g_newmark_t_tickets[slot];
+  unsigned* counter = &g_newmark_t_tickets[slot][0];
   if (threadIdx.x == 0) last = take_ticket(counter) == gridDim.x - 1;
   __syncthreads();
   if (!last) return;
@@ -827,44 +832,77 @@ int launch_newmark_t(const NewmarkTArgs<T>& a, int slot, long long n, void* stre
   return checked_launch(cudaLaunchKernelEx(&l.cfg, newmark_t_kernel<T>, a, slot, n, head));
 }
 
-// K5T over a batch of B variants, (B, n) vectors under one row: CTA b is
-// variant b (the grid's variant axis), its threads stride over the
-// variant's n entries as newmark_t_pass, and the CTA's six sums
+// K5T over a batch of B variants, (B, n) vectors under one row, `ctas`
+// CTAs a variant: CTA j is variant j / ctas, and its threads stride over
+// the variant's n entries from (j % ctas) 256 by ctas 256 as
+// newmark_t_pass does.  With one CTA a variant (ctas = 1: at M5's n = 960,
+// and wherever the batch fills the card) the CTA's six sums
 // (newmark_t_cta_sum) are the variant's row, written to row_bar[8 b ..]:
-// each is one ordered sum, whatever the order in which the CTAs run, and
-// no CTA waits for another (no ticket, no slot).  `same`: the ten vectors
-// share one 16-byte phase (so does each variant's span of them); a
-// variant's scalar head is then its own entries before its first 16-byte
-// boundary.
+// one ordered sum, no CTA waits for another, no slot.  With several (a
+// large n under a small batch, ops.kernels.newmark_t_batch_ctas: the
+// batch's CTAs at most kNewmarkTMaxCtas, so they fit in one slot) each
+// CTA writes its six sums to its row of the slot's partial sums, the
+// variant's rows side by side, and takes a ticket from the variant's
+// counter of the slot; the CTA that takes the variant's last adds its
+// rows in CTA order (each of six threads one entry, in turn), whatever
+// the order of arrival, and sets the counter back to zero: K5T's design
+// for each variant.  `same`: the ten vectors share one 16-byte phase (so
+// does each variant's span of them); a variant's scalar head is then its
+// own entries before its first 16-byte boundary.
 template <typename T>
 __global__ void __launch_bounds__(kNewmarkTThreads)
-    newmark_t_batch_kernel(NewmarkTArgs<T> a, long long n, bool same) {
-  const long long off = blockIdx.x * n;
+    newmark_t_batch_kernel(NewmarkTArgs<T> a, long long n, bool same, int ctas, int slot) {
+  const long long b = blockIdx.x / ctas;
+  const int c = static_cast<int>(blockIdx.x % ctas);
+  const long long off = b * n;
   NewmarkTArgs<T> v = a;
   v.vb1 += off; v.ab1 += off; v.u1 += off; v.u0 += off; v.v0 += off; v.a0 += off;
   v.ub1 += off; v.ub0 += off; v.vb0 += off; v.ab0 += off;
   const long long lead =
       static_cast<long long>((16 - reinterpret_cast<uintptr_t>(v.u1) % 16) % 16 / sizeof(T));
   const long long head = same && lead < n ? lead : n;
-  grid_dependency_wait();  // before the first global access, the row's included
+  grid_dependency_wait();  // before the first global access, the row's and the slot's included
   T acc[kRowSums] = {};
-  newmark_t_pass(v, n, head, threadIdx.x, blockDim.x, acc);
+  newmark_t_pass(v, n, head, c * static_cast<long long>(blockDim.x) + threadIdx.x,
+                 static_cast<long long>(ctas) * blockDim.x, acc);
   const T sum = newmark_t_cta_sum(acc);
-  T* row = a.row_bar + blockIdx.x * static_cast<long long>(kRowSums + 2);
-  if (threadIdx.x < kRowSums) row[threadIdx.x] = row_entry(static_cast<int>(threadIdx.x), sum);
-  else if (threadIdx.x < kRowSums + 2) row[threadIdx.x] = T(0);  // dtp and c
+  T* row = a.row_bar + b * (kRowSums + 2);
+  if (ctas == 1) {
+    if (threadIdx.x < kRowSums) row[threadIdx.x] = row_entry(static_cast<int>(threadIdx.x), sum);
+    else if (threadIdx.x < kRowSums + 2) row[threadIdx.x] = T(0);  // dtp and c
+    return;
+  }
+  __shared__ bool last;
+  T* partial = reinterpret_cast<T*>(g_newmark_t_partials[slot]) + b * ctas * kRowSums;
+  if (threadIdx.x < kRowSums) partial[c * kRowSums + threadIdx.x] = sum;
+  __syncthreads();
+  unsigned* counter = &g_newmark_t_tickets[slot][b];
+  if (threadIdx.x == 0) last = take_ticket(counter) == static_cast<unsigned>(ctas - 1);
+  __syncthreads();
+  if (!last) return;
+  if (threadIdx.x < kRowSums) {
+    T s = __ldcg(partial + threadIdx.x);
+    for (int q = 1; q < ctas; ++q) s = add_rn(s, __ldcg(partial + q * kRowSums + threadIdx.x));
+    row[threadIdx.x] = row_entry(static_cast<int>(threadIdx.x), s);
+  } else if (threadIdx.x < kRowSums + 2) {
+    row[threadIdx.x] = T(0);
+  }
+  if (threadIdx.x == 0) *counter = 0u;  // the slot's next launch waits for this one to end
 }
 
 template <typename T>
-int launch_newmark_t_batch(const NewmarkTArgs<T>& a, long long batch, long long n,
-                           void* stream) {
-  if (n <= 0 || batch <= 0 || batch > 0x7fffffffLL)
+int launch_newmark_t_batch(const NewmarkTArgs<T>& a, long long batch, long long n, int ctas,
+                           int slot, void* stream) {
+  if (n <= 0 || batch <= 0 || ctas < 1 || batch * ctas > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (ctas > 1 && (batch * ctas > kNewmarkTMaxCtas || slot < 0 || slot >= kNewmarkTSlots))
     return static_cast<int>(cudaErrorInvalidValue);
   // one phase for all ten vectors (a variant's span moves them all alike)
   const bool same =
       same_phase<T>(a.u1, {a.vb1, a.ab1, a.u0, a.v0, a.a0, a.ub1, a.ub0, a.vb0, a.ab0});
-  PdlLaunch l(batch, kNewmarkTThreads, stream);
-  return checked_launch(cudaLaunchKernelEx(&l.cfg, newmark_t_batch_kernel<T>, a, n, same));
+  PdlLaunch l(batch * ctas, kNewmarkTThreads, stream);
+  return checked_launch(
+      cudaLaunchKernelEx(&l.cfg, newmark_t_batch_kernel<T>, a, n, same, ctas, slot));
 }
 
 template <typename T>
@@ -964,23 +1002,24 @@ int vf_newmark_t_f64(const void* vb1, const void* ab1, const void* u1, const voi
 }
 
 // K5T over a batch: vb1 .. a0 and ub1 .. ab0 (B, n) row-major, row_bar
-// (B, 8); one launch, a CTA a variant
+// (B, 8); one launch of `ctas` CTAs a variant (ops.kernels.
+// newmark_t_batch_ctas); with more than one, `slot` as K5T's
 int vf_newmark_t_batch_f32(const void* vb1, const void* ab1, const void* u1, const void* u0,
                            const void* v0, const void* a0, const void* coefs, void* ub1,
                            void* ub0, void* vb0, void* ab0, void* row_bar, long long batch,
-                           long long n, void* stream) {
+                           long long n, int ctas, int slot, void* stream) {
   return launch_newmark_t_batch<float>(
       newmark_t_args<float>(vb1, ab1, u1, u0, v0, a0, coefs, ub1, ub0, vb0, ab0, row_bar),
-      batch, n, stream);
+      batch, n, ctas, slot, stream);
 }
 
 int vf_newmark_t_batch_f64(const void* vb1, const void* ab1, const void* u1, const void* u0,
                            const void* v0, const void* a0, const void* coefs, void* ub1,
                            void* ub0, void* vb0, void* ab0, void* row_bar, long long batch,
-                           long long n, void* stream) {
+                           long long n, int ctas, int slot, void* stream) {
   return launch_newmark_t_batch<double>(
       newmark_t_args<double>(vb1, ab1, u1, u0, v0, a0, coefs, ub1, ub0, vb0, ab0, row_bar),
-      batch, n, stream);
+      batch, n, ctas, slot, stream);
 }
 
 // *id: the id of the CUDA graph capture that stream takes part in, 0 when

@@ -31,10 +31,10 @@ cotangent nor tangent.
 :func:`integrate_batch_pure` runs a batch of variants of one model at
 once (``parallel.sweep``): the same three loops over a leading batch axis
 of the properties (and of the controls, with ``batch_controls``), each
-step one batched step of the explicit FSI model (its ``*_batch`` step
-functions), so that a step launches each kernel once for the whole batch;
-a fixed-iteration run with refresh windows replays one captured graph of
-the batched step.
+step one batched step of the explicit FSI or the FSAI model (their
+``*_batch`` step functions; the dense, 'btd' or 'spike' solver), so that
+a step launches each kernel once for the whole batch; a fixed-iteration
+run with refresh windows replays one captured graph of the batched step.
 
 Any transient model with the FSI model's step functions runs here: the
 explicit and implicit FSI models, the FSAI model (``models.fsai``, whose
@@ -144,8 +144,8 @@ def integrate_batch_pure(
     params: Optional[dict] = None,
     batch_controls: bool = False,
 ):
-    """:func:`integrate_pure` of a batch of variants of one explicit FSI
-    model at once, the JAX package's ``vmap(integrate_pure)`` over a leading
+    """:func:`integrate_pure` of a batch of variants of one explicit FSI or
+    FSAI model at once, the JAX package's ``vmap(integrate_pure)`` over a leading
     batch axis: of every tensor of ``prop_batch``, and with
     ``batch_controls`` of ``controls_stacked`` (each variant's stacked
     controls); ``ini_state`` is every variant's.  Returns ``(fin_state,
@@ -153,7 +153,10 @@ def integrate_batch_pure(
     ``(B, n_steps, ...)`` and ``(B, n_steps)`` tensors.
 
     Each step is one batched step (the model's ``step_batch`` /
-    ``step_batch_stale``, dense solver only), by the windows and refresh
+    ``step_batch_stale``; ``linear_solver`` one of
+    ``models.transient.BATCH_SOLVERS``, 'dense', 'btd' or 'spike', with
+    every option of its unbatched step; 'cg', 'bsb' and a model without a
+    batched step, the implicit one, raise), by the windows and refresh
     rule of :func:`integrate_pure`: a fixed-iteration run of refresh windows
     on a CUDA model replays one captured graph of the batched step, every
     other run is the eager loop (the adaptive Newton in lockstep, one host
@@ -433,11 +436,12 @@ def integrate_linear_batch_pure(
 ):
     """:func:`integrate_linear_pure` of a batch of variants (the JAX
     package's ``jax.jvp`` of ``vmap(integrate_pure)``): the batched
-    differentiable loop (:func:`integrate_batch_pure`'s inputs, dense
-    solver only) under ``torch.func.jvp``, each step's tangent the
+    differentiable loop (:func:`integrate_batch_pure`'s inputs and
+    solvers) under ``torch.func.jvp``, each step's tangent the
     forward-mode IFT rule of every variant at once
-    (``models.transient._SolveU1Batch``: one vmapped residual jvp, each
-    variant's dense solve).  ``dprop_batch`` is each variant's property
+    (``models.transient._SolveU1Batch``: one vmapped residual jvp, every
+    variant's exact solve at once; the FSAI model's root polish and tract
+    vmapped).  ``dprop_batch`` is each variant's property
     tangent (B, ...), ``dcontrols_stacked`` broadcast to the controls (each
     variant's with ``batch_controls``), ``dini_state`` every variant's.
     Returns ``(fin_state, dfin_state)``, dicts of (B, ...) tensors; row b

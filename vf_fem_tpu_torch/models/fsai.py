@@ -24,7 +24,11 @@ to the one-step-lagged exchange and says so in its ``bracketed`` info.
 
 The root solve is a Python loop of fixed length on the device: no ``if`` on
 a tensor and no host read, so the step captures as one CUDA graph
-(``step_graph``) like the FSI step.  Gradients are exact by the
+(``step_graph``) like the FSI step, and vmaps as written: a batch of
+variants (``parallel.sweep``, the ``*_batch`` step functions) steps the
+solid as ``ExplicitFSIModel``'s batch does, then the root solve and the
+tract of every variant under ``torch.func.vmap``, a ``bracketed`` flag a
+variant.  Gradients are exact by the
 implicit-function theorem: the bracketing runs without autograd and the
 two chord-Newton polish steps at the root are differentiable.
 """
@@ -36,7 +40,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.func import jvp
+from torch.func import jvp, vmap
 
 from .acoustic import WRAnalog, make_wra_parts
 from ..convert import to_numpy
@@ -191,13 +195,30 @@ class ExplicitFSAIModel(BaseTransientModel):
             n_bisect=int(pd.get("fsai_bisect_iterations", 20)))
         return qp, pinc_1, bracketed
 
-    def _couple(self, uva1, info, state0, control, prop, params):
-        """A step's fluid and tract after its solid solve."""
+    def _flow_and_tract(self, uva1, state0, control, prop, params):
+        """A step's fluid and tract after its solid solve: the state and
+        ``bracketed``."""
         qp1, pinc_1, bracketed = self._solve_flow(uva1["u"], state0, control, prop, params)
         pinc1, pref1 = self._full(pinc_1, state0["pinc"], state0["pref"], qp1["q"],
                                   self._ac_prop(prop))
-        return ({**uva1, **qp1, "pinc": pinc1, "pref": pref1},
-                FSAISolveInfo(*info, bracketed))
+        return {**uva1, **qp1, "pinc": pinc1, "pref": pref1}, bracketed
+
+    def _couple(self, uva1, info, state0, control, prop, params):
+        """A step's fluid and tract after its solid solve, with its info."""
+        state1, bracketed = self._flow_and_tract(uva1, state0, control, prop, params)
+        return state1, FSAISolveInfo(*info, bracketed)
+
+    def _couple_batch(self, uva1, info, state0, control, prop, params):
+        """:meth:`_couple` of a batch of variants: the root solve and the
+        tract vmapped over them (the bracketing's ``no_grad`` and
+        ``.detach()`` and the nested jvp of ``g'`` act on each variant), a
+        ``bracketed`` flag a variant."""
+
+        def one(uva1_, state0_, control_, prop_):
+            return self._flow_and_tract(uva1_, state0_, control_, prop_, params)
+
+        state1, bracketed = vmap(one)(uva1, state0, control, prop)
+        return state1, FSAISolveInfo(*info, bracketed)
 
     def step_pure(self, state0, control, prop, dt, params=None, dt_next=None,
                   guess=None):
@@ -239,6 +260,41 @@ class ExplicitFSAIModel(BaseTransientModel):
                                                   row, params, factors, guess)
         return self._couple(uva1, info, state0, control, prop, params)
 
+    # -- a batch of variants ------------------------------------------------------------
+    def step_batch(self, state0, control, prop, dt, params=None, dt_next=None,
+                   guess=None):
+        """:meth:`step_pure` of a batch of variants: a leading batch axis on
+        every tensor of ``state0``, ``control`` and ``prop``
+        (``SolidModel.solve_state1_batch``, then the vmapped root solve and
+        tract)."""
+        return self.step_batch_stale(None, state0, control, prop, dt, params, dt_next,
+                                     guess)
+
+    def step_batch_stale(self, factors, state0, control, prop, dt, params=None,
+                         dt_next=None, guess=None):
+        """:meth:`step_pure_stale` of a batch, with the batch's carried
+        factors (:meth:`factorize_batch`); None: as :meth:`step_batch`."""
+        sl_state0, sl_control, sl_prop = self.fsi._solid_inputs_batch(state0, prop)
+        uva1, info = self.solid.solve_state1_batch(sl_state0, sl_control, sl_prop, dt,
+                                                   params, dt_next, factors, guess)
+        return self._couple_batch(uva1, info, state0, control, prop, params)
+
+    def factorize_batch(self, state0, control, prop, dt, params=None):
+        return self.fsi.factorize_batch(state0, control, prop, dt, params)
+
+    def refresh_factors_batch(self, factors, state0, control, prop, dt, params=None):
+        return self.fsi.refresh_factors_batch(factors, state0, control, prop, dt, params)
+
+    def step_diff_batch(self, state0, control, prop, dt, row, params=None, factors=None,
+                        guess=None):
+        """:meth:`step_diff` of a batch (``SolidModel.
+        solve_state1_diff_batch``, then the vmapped root solve's polish and
+        tract)."""
+        sl_state0, sl_control, sl_prop = self.fsi._solid_inputs_batch(state0, prop)
+        uva1, info = self.solid.solve_state1_diff_batch(sl_state0, sl_control, sl_prop, dt,
+                                                        row, params, factors, guess)
+        return self._couple_batch(uva1, info, state0, control, prop, params)
+
     def res_pure(self, state1, state0, control, prop, dt, banded=False):
         """The coupled step's residual of every block at ``state1``: the
         solid's under the previous step's pressure, the fluid's at the
@@ -266,14 +322,19 @@ class ExplicitFSAIModel(BaseTransientModel):
         can drive the fluid into the clamped-area regime where the flow
         root solve fails to bracket and steps fall back to the lagged
         exchange.  ``forward.integrate`` calls it with the run's
-        properties.  Returns True inside the envelope."""
+        properties, ``parallel.sweep`` with a batch's (a leading batch axis
+        on every entry: each variant is checked, and the warning names the
+        variants outside).  Returns True inside the envelope."""
         if prop is None:
             prop = self.prop
-        yc = float(np.asarray(prop["ycontact"]).ravel()[0])
-        ymid = float(np.asarray(prop["ymid"]).ravel()[0])
-        if not yc < ymid:
+        yc = np.asarray(prop["ycontact"], dtype=float).reshape(-1)
+        ymid = np.asarray(prop["ymid"], dtype=float).reshape(-1)
+        bad = np.flatnonzero(~(yc < ymid))
+        if bad.size:
+            which = "" if max(yc.size, ymid.size) == 1 else f" (variants {bad.tolist()})"
+            yc, ymid = yc[bad[0] if yc.size > 1 else 0], ymid[bad[0] if ymid.size > 1 else 0]
             warnings.warn(
-                "FSAI configuration outside the supported envelope: the"
+                f"FSAI configuration outside the supported envelope{which}: the"
                 f" contact plane (ycontact={yc:g}) must lie BELOW the"
                 f" channel midline (ymid={ymid:g}) so collision stops"
                 " closure at a positive glottal area.  In the clamped-"

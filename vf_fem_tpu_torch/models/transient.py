@@ -33,15 +33,22 @@ precision the JAX package takes computes IEEE products here: see
 A batch of variants (``parallel.sweep``, ``forward.integrate_batch_pure``):
 the ``*_batch`` step functions take states, controls and properties with
 a leading batch axis and step every variant at once, with the dense
-solver only.  What is the same for every variant runs with that explicit
-axis: the Newton loop (``solvers.newton.newton_solve(batched=True)``,
-whose adaptive stop is one host read a batch iteration), the Newmark
-predictor and K5 (one launch over the batch), the refresh windows, and
-the IFT rule's adjoint solves and its refinement loop.  The per-variant
-algebra runs under ``torch.func.vmap`` of the single-variant methods: the
-residual (K1/K2 through their vmap rules: the batch is more channels of
-one launch), the element Jacobian, the dense factorization, its
-Newton-Schulz refresh and solves, the coupling maps and the fluid step.
+solver or one of the two block direct solvers, 'btd' and 'spike'
+(:data:`BATCH_SOLVERS`; the Krylov solvers 'cg' and 'bsb' raise), with
+every option their unbatched step takes.  What is the same for every
+variant runs with that explicit axis: the Newton loop
+(``solvers.newton.newton_solve(batched=True)``, whose adaptive stop is
+one host read a batch iteration), the Newmark predictor and K5 (one
+launch over the batch), the refresh windows, the IFT rule's adjoint
+solves and its refinement loop, and the block direct solvers: the
+batch's band of element blocks (``solvers.bsb.bsb_fill``), one
+block-Thomas or SPIKE factorization of every variant at once (each serial
+row one batched solve) and each solve's sweeps one launch of K6 / K6T
+over the batch's chains.  The per-variant algebra runs under
+``torch.func.vmap`` of the single-variant methods: the residual (K1/K2
+through their vmap rules: the batch is more channels of one launch), the
+element Jacobian, the dense factorization, its Newton-Schulz refresh and
+solves, the coupling maps and the fluid step.
 
 The gradient path (``adjoint``): :meth:`SolidModel.solve_state1_diff`
 solves a step's u1 inside a ``torch.autograd.Function`` whose backward is
@@ -288,14 +295,20 @@ class _SolveU1Batch(_SolveU1):
         return (ctx.solid._ift_jvp(ctx, tangents[6:], batched=True), None, None, None)
 
 
+# the linear solvers a batch of variants steps with: the dense solver and
+# the block direct solvers, whose factors take a leading batch axis
+BATCH_SOLVERS = ("dense", "btd", "spike")
+
+
 def _batch_params(params) -> dict:
-    """:func:`solver_params` of a batched step, which solves with the dense
-    solver only (the JAX package's sweep of M5-size models)."""
+    """:func:`solver_params` of a batched step, which solves with one of
+    :data:`BATCH_SOLVERS` (the matrix-free 'cg' and 'bsb' raise: a batch of
+    their Krylov loops is not ported)."""
     p = solver_params(params)
-    if p.get("linear_solver", "dense") != "dense":
+    ls = p.get("linear_solver", "dense")
+    if ls not in BATCH_SOLVERS:
         raise NotImplementedError(
-            f"a batch of variants steps with linear_solver='dense' only, not"
-            f" {p['linear_solver']!r}")
+            f"a batch of variants steps with linear_solver in {BATCH_SOLVERS}, not {ls!r}")
     return p
 
 
@@ -309,15 +322,13 @@ def _btd_dtypes(params_d) -> dict:
 class _ExactSolve(torch.autograd.Function):
     """``SolidModel._exact_solve`` (forward solve) as a Function: called in
     :class:`_SolveU1`'s jvp rule, which ``torch.func.jvp`` hands its own
-    tensors, it passes the solve's kernels plain ones (``batched``: each
-    variant's dense solve of a batch).  Never differentiated itself."""
+    tensors, it passes the solve's kernels plain ones (``batched``: every
+    variant's solve of a batch).  Never differentiated itself."""
 
     @staticmethod
     def forward(solid, params_d, dt, layout, batched, u1, rhs, *flat):
         inputs = _unflatten(layout, flat)
-        if batched:
-            return solid._vmapped_jac(dt, linalg.dense_solve)(u1, *inputs, rhs)
-        return solid._exact_solve(u1, inputs, dt, params_d, rhs)
+        return solid._exact_solve(u1, inputs, dt, params_d, rhs, batched=batched)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -814,18 +825,22 @@ class SolidModel(SolidElements, BaseTransientModel):
         op = self.jac_u_ebe(u_lin, state0, control, prop, dt)
         ls = params_d.get("linear_solver")
         if ls in ("bsb", "btd", "spike"):
-            plan, fill = self.bsb_plan()
-            blocks = bsb.bsb_fill(plan, fill, [op.J_cells, op.J_facets])
-            dtypes = _btd_dtypes(params_d)
-            if ls == "btd":
-                return btd.btd_factor(plan, blocks, **dtypes)
-            if ls == "spike":
-                return spike.spike_factor(
-                    plan, blocks, int(params_d.get("spike_partitions", 8)),
-                    with_transpose=bool(params_d.get("with_transpose", False)),
-                    **dtypes)
-            return KrylovFactors(blocks, op.block_diag_inverse(self.dim))
+            blocks = bsb.bsb_fill(*self.bsb_plan(), [op.J_cells, op.J_facets])
+            if ls == "bsb":
+                return KrylovFactors(blocks, op.block_diag_inverse(self.dim))
+            return self._direct_factors(blocks, params_d)
         return KrylovFactors(op, op.block_diag_inverse(self.dim))
+
+    def _direct_factors(self, blocks, params_d):
+        """The block-Thomas ('btd') or SPIKE ('spike') factors of the
+        block-banded Jacobian ``blocks`` (a leading batch axis or none)."""
+        plan, _ = self.bsb_plan()
+        dtypes = _btd_dtypes(params_d)
+        if params_d.get("linear_solver") == "btd":
+            return btd.btd_factor(plan, blocks, **dtypes)
+        return spike.spike_factor(
+            plan, blocks, int(params_d.get("spike_partitions", 8)),
+            with_transpose=bool(params_d.get("with_transpose", False)), **dtypes)
 
     def iter_solve(self, factors, r, params_d, transpose=False):
         """Solve with frozen Krylov factors: block-Jacobi BiCGStab (default;
@@ -1035,44 +1050,91 @@ class SolidModel(SolidElements, BaseTransientModel):
         state0, control, prop, *args)``."""
         return vmap(lambda u1, s0, c, p, *args: fn(self.jac_u_dense(u1, s0, c, p, dt), *args))
 
+    def jac_u_blocks_batch(self, u1, state0, control, prop, dt):
+        """:meth:`jac_u_blocks` of each variant of a batch, ``(Jc, Jf)``
+        with a leading batch axis (``Jf`` None without a facet pass)."""
+        has_facets = self._residual.has_facet_pass()
+
+        def blocks(u, s0, c, p):
+            Jc, Jf = self.jac_u_blocks(u, s0, c, p, dt)
+            return (Jc, Jf) if has_facets else (Jc,)
+
+        out = vmap(blocks)(u1, state0, control, prop)
+        return out if has_facets else (out[0], None)
+
+    def make_iter_factors_batch(self, u_lin, state0, control, prop, dt, params_d):
+        """:meth:`make_iter_factors` of a batch ('btd', 'spike'): the
+        batch's block-banded Jacobian (one fill of every variant's element
+        blocks) factored at once, factors with a leading batch axis."""
+        blocks = bsb.bsb_fill(*self.bsb_plan(), list(self.jac_u_blocks_batch(
+            u_lin, state0, control, prop, dt)))
+        return self._direct_factors(blocks, params_d)
+
+    def _solve_batch(self, factors, r, transpose=False):
+        """Every variant's solve (``transpose``: transposed solve) with the
+        batch's factors: block-Thomas or SPIKE factors with a leading batch
+        axis solve the batch at once (:meth:`solve_factors` /
+        :meth:`solve_factors_t`: each sweep one launch of K6 / K6T over the
+        batch's chains), dense inverses under ``vmap``."""
+        if isinstance(factors, (btd.BTDFactors, spike.SPIKEFactors)):
+            return (self.solve_factors_t(factors, r) if transpose
+                    else self.solve_factors(factors, r, {}))
+        return vmap(linalg.dense_factor_solve_t if transpose
+                    else linalg.dense_factor_solve)(factors, r)
+
     def _newton_batch(self, u_guess, state0, control, prop, dt, params_d,
                       factors=None):
         """:meth:`_newton` of a batch: the lockstep batched Newton over the
         vmapped residual, solving with the batch's carried ``factors``, or
-        factors built in the step (``jacobian_update='once_per_step'``), or
-        the dense Jacobian at each iterate."""
+        factors built in the step (``jacobian_update='once_per_step'``, the
+        default of 'btd' and 'spike'), or at each iterate (the dense
+        Jacobian, or the block direct solvers' factors)."""
         banded = self.use_banded(params_d)
         res = vmap(lambda u1, s0, c, p: self.res_u(u1, s0, c, p, dt, banded))
 
         def assem(u1):
             return res(u1, state0, control, prop)
 
-        if factors is None and params_d.get("jacobian_update") == "once_per_step":
+        element = _element_solver(params_d)
+        update = params_d.get("jacobian_update",
+                              "once_per_step" if element else "every_iteration")
+        if factors is None and update == "once_per_step":
             factors = self.factorize_batch(state0, control, prop, dt, params_d)
-        if factors is None:
+        if factors is not None:
+
+            def solve_jac(u1, r):
+                return self._solve_batch(factors, r)
+        elif element:
+
+            def solve_jac(u1, r):
+                return self._solve_batch(self.make_iter_factors_batch(
+                    u1, state0, control, prop, dt, params_d), r)
+        else:
             solve = self._vmapped_jac(dt, linalg.dense_solve)
 
             def solve_jac(u1, r):
                 return solve(u1, state0, control, prop, r)
-        else:
-            solve_f = vmap(linalg.dense_factor_solve)
-
-            def solve_jac(u1, r):
-                return solve_f(factors, r)
 
         return newton_solve(u_guess, assem, solve_jac, params_d, batched=True)
 
     def factorize_batch(self, state0, control, prop, dt, params=None):
-        """:meth:`factorize` of a batch: the equilibrated explicit inverse
-        of each variant's Jacobian at its predictor."""
-        _batch_params(params)
+        """:meth:`factorize` of a batch: the block-Thomas or SPIKE factors of
+        every variant's Jacobian at its predictor, at once
+        (:meth:`make_iter_factors_batch`), or the equilibrated explicit
+        inverse of each variant's."""
+        params_d = _batch_params(params)
         u_lin = self._predictor(state0, dt)
+        if _element_solver(params_d):
+            return self.make_iter_factors_batch(u_lin, state0, control, prop, dt, params_d)
         return self._vmapped_jac(dt, linalg.dense_factor)(u_lin, state0, control, prop)
 
     def refresh_factors_batch(self, factors, state0, control, prop, dt, params=None):
         """:meth:`refresh_factors` of a batch: each variant's Newton-Schulz
-        refresh toward its Jacobian at its predictor."""
+        refresh toward its Jacobian at its predictor; block-Thomas and SPIKE
+        factors are rebuilt (:meth:`factorize_batch`)."""
         params_d = _batch_params(params)
+        if isinstance(factors, (btd.BTDFactors, spike.SPIKEFactors)):
+            return self.factorize_batch(state0, control, prop, dt, params_d)
         u_lin = self._predictor(state0, dt)
         iters = int(params_d.get("jacobian_refresh_iters", 2))
 
@@ -1179,8 +1241,8 @@ class SolidModel(SolidElements, BaseTransientModel):
         (:meth:`_exact_solve`: the tangent is one uncorrected solve, so
         bf16 or fp8 block-Thomas factors are never used for it, nor the
         window's carried factors).  ``batched``: a batch of steps (leading
-        batch axes, one row), the residual vmapped over it and each
-        variant's dense solve its own (the JAX package's rule under
+        batch axes, one row), the residual vmapped over it and every
+        variant's exact solve at once (the JAX package's rule under
         ``vmap``)."""
         u1, row, *flat = ctx.saved_tensors
         params_d, layout = ctx.params_d, ctx.layout
@@ -1209,22 +1271,19 @@ class SolidModel(SolidElements, BaseTransientModel):
         full-precision factors built at u1 (the JAX package's 'exact' mode
         and its rule for a step that factors itself, and for the Krylov
         solvers 'cg' and 'bsb' always: a transposed BiCGStab solve).
-        ``batched``: a batch of dense steps, each variant's solve its own
-        (:meth:`_refined_adjoint`, or the vmapped transposed dense
+        ``batched``: a batch of steps, each variant's solve its own
+        (:meth:`_refined_adjoint`, or every variant's exact transposed
         solve)."""
         self.adjoint_counts["solves"] += 1
         krylov = params_d.get("linear_solver", "dense") in ("cg", "bsb")
         refine = (factors is not None and not krylov
                   and params_d.get("adjoint_refine", "stale") == "stale")
-        if batched:
-            if refine:
-                return self._refined_adjoint(JT, factors, u1_bar, params_d, batched=True)
-            return self._vmapped_jac(dt, linalg.dense_solve_transpose)(u1, *inputs, u1_bar)
         if refine:
-            return self._refined_adjoint(JT, factors, u1_bar, params_d)
-        return self._exact_solve(u1, inputs, dt, params_d, u1_bar, transpose=True)
+            return self._refined_adjoint(JT, factors, u1_bar, params_d, batched=batched)
+        return self._exact_solve(u1, inputs, dt, params_d, u1_bar, transpose=True,
+                                 batched=batched)
 
-    def _exact_solve(self, u1, inputs, dt, params_d, rhs, transpose=False):
+    def _exact_solve(self, u1, inputs, dt, params_d, rhs, transpose=False, batched=False):
         """``J(u1)^{-1} rhs`` (``J(u1)^{-T} rhs`` with ``transpose``) with
         factors built at u1 without their storage dtypes
         (``btd_store_dtype`` and ``btd_offdiag_dtype`` dropped; a
@@ -1234,13 +1293,17 @@ class SolidModel(SolidElements, BaseTransientModel):
         a block-Thomas solve ('btd', K6 / K6T), a SPIKE solve ('spike', K6 /
         K6T over slabs, the transposed parts built only for ``transpose``),
         a Krylov solve to ``krylov_tolerance`` ('cg', 'bsb'), or a dense LU
-        solve."""
+        solve.  ``batched``: every variant's of a batch at once (the block
+        solvers' batched factors, the dense solves vmapped)."""
         state0, control, prop = inputs
         ls = params_d.get("linear_solver", "dense")
         if ls in ELEMENT_SOLVERS:
             exact = {k: v for k, v in params_d.items()
                      if k not in ("btd_store_dtype", "btd_offdiag_dtype")}
             exact["with_transpose"] = transpose
+            if batched:
+                fac = self.make_iter_factors_batch(u1, state0, control, prop, dt, exact)
+                return self._solve_batch(fac, rhs, transpose)
             fac = self.make_iter_factors(u1, state0, control, prop, dt, exact)
             if ls == "btd":
                 solve = btd.btd_solve_t if transpose else btd.btd_solve
@@ -1249,8 +1312,10 @@ class SolidModel(SolidElements, BaseTransientModel):
                 solve = spike.spike_solve_t if transpose else spike.spike_solve
                 return solve(self.bsb_plan()[0], fac, rhs)
             return self.iter_solve(fac, rhs, params_d, transpose)
-        A = self.jac_u_dense(u1, state0, control, prop, dt)
-        return (linalg.dense_solve_transpose if transpose else linalg.dense_solve)(A, rhs)
+        solve = linalg.dense_solve_transpose if transpose else linalg.dense_solve
+        if batched:
+            return self._vmapped_jac(dt, solve)(u1, state0, control, prop, rhs)
+        return solve(self.jac_u_dense(u1, state0, control, prop, dt), rhs)
 
     def solve_factors_t(self, factors, r):
         """Carried factors applied as a transposed preconditioner,
@@ -1272,10 +1337,8 @@ class SolidModel(SolidElements, BaseTransientModel):
         lowest-residual iterate (the JAX package's loop under ``vmap``);
         unbatched, the same loop at rank 0 (:func:`refined_adjoint`)."""
         if batched:
-            solve_b = vmap(linalg.dense_factor_solve_t)
-
             def solve_t(r):
-                return solve_b(factors, r)
+                return self._solve_batch(factors, r, transpose=True)
 
             def norm(x):
                 return torch.linalg.vector_norm(x, dim=-1)

@@ -59,6 +59,7 @@ __all__ = [
     "newmark_update_t_reference",
     "newmark_update_t_batch",
     "newmark_update_t_batch_reference",
+    "newmark_t_batch_ctas",
     "factor_matvec",
     "btd_sweep",
     "btd_sweep_reference",
@@ -91,7 +92,7 @@ for _t in ("f32", "f64"):
         _SIGNATURES[f"vf_bsb_matvec{_op}_{_t}"] = [_P] * 5 + [_I] * 3 + [_P]
     _SIGNATURES[f"vf_newmark_{_t}"] = [_P] * 7 + [_L, _P, _P]
     _SIGNATURES[f"vf_newmark_t_{_t}"] = [_P] * 12 + [_I, _L, _P]
-    _SIGNATURES[f"vf_newmark_t_batch_{_t}"] = [_P] * 12 + [_L, _L, _P]
+    _SIGNATURES[f"vf_newmark_t_batch_{_t}"] = [_P] * 12 + [_L, _L, _I, _I, _P]
 _SIGNATURES["vf_capture_id"] = [_P, _P]
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -427,6 +428,10 @@ def _newmark_fn(dtype):
 # -- K5T: K5's backward, and the autograd.Function around K5 -------------------
 
 NEWMARK_T_SLOTS = 1024  # K5T's slots a device (csrc/ops.cu: kNewmarkTSlots)
+NEWMARK_T_MAX_CTAS = 132  # K5T's CTAs a launch at most (csrc/ops.cu: kNewmarkTMaxCtas)
+# the entries a CTA of K5T's batched launch takes at least where a variant
+# takes several CTAs (so that M5's 960 dofs keep one a variant)
+NEWMARK_T_BATCH_ENTRIES = 1024
 
 # (device index, raw stream, capture id) -> the slot of K5T's launches there
 _T_SLOTS: dict = {}
@@ -515,15 +520,34 @@ def _check_newmark_t(vb1, ab1, u1, u0, v0, a0, coefs, batch=False):
                          f" {newmark.NCOEFS} on {u1.device}")
 
 
-def newmark_update_t_batch(vb1, ab1, u1, u0, v0, a0, coefs: torch.Tensor):
+def newmark_t_batch_ctas(batch: int, n: int, sms: int) -> int:
+    """CTAs a variant of K5T's batched launch: as many as spread a
+    variant's ``n`` entries ``NEWMARK_T_BATCH_ENTRIES`` or more to a CTA,
+    while the batch's CTAs fit on the card's ``sms`` SMs and in one slot
+    (``NEWMARK_T_MAX_CTAS``); at least one.  One at M5's 960 dofs whatever
+    the batch; 16 at 23,754 dofs under 8 variants on an H100."""
+    room = min(sms, NEWMARK_T_MAX_CTAS) // batch
+    return max(1, min(room, n // NEWMARK_T_BATCH_ENTRIES))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def newmark_update_t_batch(vb1, ab1, u1, u0, v0, a0, coefs: torch.Tensor, ctas=None):
     """K5's backward over a batch of variants: (B, n) vectors under one
     coefficient row, and the row's cotangent of each variant, (B, 8).  On
-    CUDA one launch of K5T's batched kernel, a CTA a variant (its grid's
-    variant axis): the CTA adds its variant's six sums as K5T's CTAs add
-    theirs (each thread in entry order, an xor tree in each warp, the warps
-    in order), so each variant's row is one ordered sum, whatever the order
-    in which the CTAs run, with no partial sums to meet and no slot.  On
-    the CPU :func:`newmark_update_t_batch_reference`."""
+    CUDA one launch of K5T's batched kernel with ``ctas`` CTAs a variant
+    (by default :func:`newmark_t_batch_ctas`).  One CTA adds its variant's
+    six sums as K5T's CTAs add theirs (each thread in entry order, an xor
+    tree in each warp, the warps in order), so the variant's row is one
+    ordered sum with no partial sums to meet and no slot.  Several CTAs a
+    variant meet as K5T's CTAs do: each writes its sums to a slot
+    (:func:`_newmark_t_slot`) and takes a ticket from its variant's
+    counter, and the variant's last CTA adds the variant's sums in CTA
+    order, whatever the order of arrival.  On the CPU
+    :func:`newmark_update_t_batch_reference`."""
     _check_newmark_t(vb1, ab1, u1, u0, v0, a0, coefs, batch=True)
     if u1.dim() != 2:
         raise ValueError("newmark_update_t_batch: (B, n) vectors expected")
@@ -535,12 +559,19 @@ def newmark_update_t_batch(vb1, ab1, u1, u0, v0, a0, coefs: torch.Tensor):
     B, n = u1.shape
     if B == 0 or n == 0:
         raise ValueError("newmark_update_t: empty vectors")
+    if ctas is None:
+        ctas = newmark_t_batch_ctas(B, n, _sm_count(u1.get_device()))
+    if ctas < 1 or (ctas > 1 and B * ctas > NEWMARK_T_MAX_CTAS):
+        raise ValueError(f"newmark_update_t_batch: {ctas} CTAs a variant of {B}")
     ub1, ub0, vb0, ab0 = (torch.empty_like(u1) for _ in range(4))
     row_bar = torch.empty((B, newmark.NCOEFS), dtype=u1.dtype, device=u1.device)
+    stream = _stream(u1)
+    slot = (_newmark_t_slot(u1.get_device(), stream, _capture_id(stream)) if ctas > 1
+            else 0)
     err = _newmark_t_batch_fn(u1.dtype)(
         vb1.data_ptr(), ab1.data_ptr(), u1.data_ptr(), u0.data_ptr(), v0.data_ptr(),
         a0.data_ptr(), coefs.data_ptr(), ub1.data_ptr(), ub0.data_ptr(), vb0.data_ptr(),
-        ab0.data_ptr(), row_bar.data_ptr(), B, n, _stream(u1))
+        ab0.data_ptr(), row_bar.data_ptr(), B, n, ctas, slot, stream)
     if err != 0:
         raise RuntimeError(f"vf_newmark_t_batch_{_SUFFIX[u1.dtype]} launch failed:"
                            f" cudaError_t {err}")
@@ -898,44 +929,85 @@ def btd_sweep(A: torch.Tensor, g: torch.Tensor,
     (e4m3, f64 or f32), (e5m2, f64 or f32) (``_SWEEP_TYPES``), with
     :func:`factor_matvec`'s rounding.
 
-    With A (S, n, Bt, Bt) and g (S, n, Bt) it runs the sweep over each of
-    S independent slabs (the SPIKE solver's local sweeps): one launch of S
-    clusters, each bit for bit a launch of its slab alone, or
-    :func:`btd_sweep_slabs_reference` on the CPU."""
-    if (A.dim() not in (3, 4) or A.shape[-1] != A.shape[-2]
+    With leading axes, A (..., n, Bt, Bt) and g (..., n, Bt), it runs the
+    sweep over each of their independent chains (the SPIKE solver's slabs
+    (S, n, ...), a batch of variants (B, n, ...), a batch of SPIKE slabs
+    (B, S, n, ...)): one launch of a cluster a chain, each bit for bit a
+    launch of its chain alone, or :func:`btd_sweep_slabs_reference` on the
+    CPU.  Under ``torch.func.vmap`` the batch axis becomes more chains of
+    the same launch (:class:`_Sweep`)."""
+    return _Sweep.apply(A, g, reverse, False)
+
+
+def _check_sweep(what: str, A: torch.Tensor, g: torch.Tensor):
+    """Raise unless A (..., n, Bt, Bt) and g (..., n, Bt) are a pair of a
+    supported dtype pair on one CPU or CUDA device (contiguous on CUDA)."""
+    if (A.dim() < 3 or A.shape[-1] != A.shape[-2]
             or tuple(g.shape) != tuple(A.shape[:-1])):
-        raise ValueError(f"btd_sweep: A {tuple(A.shape)}, g {tuple(g.shape)}")
-    suffix = _SWEEP_TYPES.get((A.dtype, g.dtype))
-    if suffix is None:
-        raise TypeError(f"btd_sweep: factor/vector dtypes {A.dtype}, {g.dtype}"
+        raise ValueError(f"{what}: A {tuple(A.shape)}, g {tuple(g.shape)}")
+    if (A.dtype, g.dtype) not in _SWEEP_TYPES:
+        raise TypeError(f"{what}: factor/vector dtypes {A.dtype}, {g.dtype}"
                         f" not supported ({list(_SWEEP_TYPES)})")
     if A.device != g.device:
-        raise ValueError(f"btd_sweep: tensors on {A.device} and {g.device}")
+        raise ValueError(f"{what}: tensors on {A.device} and {g.device}")
+    if g.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {g.device}")
+    if g.device.type == "cuda" and not (A.is_contiguous() and g.is_contiguous()):
+        raise ValueError(f"{what}: inputs must be contiguous")
+
+
+def _chains(A: torch.Tensor, g: torch.Tensor):
+    """A and g with every leading axis folded into one chain axis: (C, n,
+    Bt, Bt) and (C, n, Bt)."""
+    n, bt = g.shape[-2:]
+    return A.reshape(-1, n, bt, bt), g.reshape(-1, n, bt)
+
+
+def _sweep(A: torch.Tensor, g: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """:func:`btd_sweep` on plain tensors."""
+    _check_sweep("btd_sweep", A, g)
     if g.device.type == "cpu":
-        if g.dim() == 3:
-            return btd_sweep_slabs_reference(A, g, reverse)
-        return btd_sweep_reference(A, g, reverse)
-    if g.device.type != "cuda":
-        raise ValueError(f"btd_sweep: unsupported device {g.device}")
-    if not (A.is_contiguous() and g.is_contiguous()):
-        raise ValueError("btd_sweep: inputs must be contiguous")
+        if g.dim() == 2:
+            return btd_sweep_reference(A, g, reverse)
+        return btd_sweep_slabs_reference(*_chains(A, g), reverse).reshape(g.shape)
     return _sweep_launch(A, g, reverse, sweep_plan(g.shape[-1], A.dtype, g.dtype))
 
 
 def _sweep_launch(A: torch.Tensor, g: torch.Tensor, reverse: bool,
                   plan: SweepPlan) -> torch.Tensor:
     """Launch K6 with ``plan``'s cluster size on checked CUDA tensors, one
-    cluster a slab."""
+    cluster a chain (every leading axis of ``g`` a chain axis)."""
     n, bt = g.shape[-2:]
-    slabs = g.shape[0] if g.dim() == 3 else 1
+    slabs = g.numel() // (n * bt)
     out = torch.empty_like(g)
     fn = f"vf_btd_sweep_{_SWEEP_TYPES[(A.dtype, g.dtype)]}"
     err = getattr(_sweep_lib(), fn)(A.data_ptr(), g.data_ptr(), out.data_ptr(), n, bt,
                                     int(reverse), plan.cluster, slabs, _stream(g))
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: cudaError_t {err} (plan {plan})")
-    LAUNCHES["btd_sweep_slabs" if g.dim() == 3 else "btd_sweep"] += 1
+    LAUNCHES["btd_sweep_slabs" if g.dim() >= 3 else "btd_sweep"] += 1
     return out
+
+
+class _Sweep(torch.autograd.Function):
+    """K6 (or with ``transpose`` K6T) as a Function, whose vmap rule folds
+    the batch axis onto the chain axis: a vmapped sweep of (n, Bt, Bt)
+    factors is one launch over B chains, of (S, n, Bt, Bt) slabs one launch
+    over B S chains (a factor or vector without the batch axis is expanded
+    to it).  Never differentiated: the solves it serves are not."""
+
+    @staticmethod
+    def forward(A, g, reverse, transpose):
+        return (_sweep_t if transpose else _sweep)(A, g, reverse)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, A, g, reverse, transpose):
+        A, g = _batch_first(info, in_dims[:2], A, g)
+        return _Sweep.apply(A, g, reverse, transpose), 0
 
 
 # -- K6T: the transposed block-Thomas sweep ------------------------------------
@@ -1051,27 +1123,23 @@ def btd_sweep_t(A: torch.Tensor, g: torch.Tensor,
     :func:`btd_sweep_t_reference` on the CPU).  The dtype pairs of
     :func:`btd_sweep`.
 
-    With A (S, n, Bt, Bt) and g (S, n, Bt) it runs the sweep over each of
-    S independent slabs (the SPIKE solver's transposed local sweeps): one
-    launch of S clusters, each bit for bit a launch of its slab alone, or
-    :func:`btd_sweep_t_slabs_reference` on the CPU."""
-    if (A.dim() not in (3, 4) or A.shape[-1] != A.shape[-2]
-            or tuple(g.shape) != tuple(A.shape[:-1])):
-        raise ValueError(f"btd_sweep_t: A {tuple(A.shape)}, g {tuple(g.shape)}")
-    suffix = _SWEEP_TYPES.get((A.dtype, g.dtype))
-    if suffix is None:
-        raise TypeError(f"btd_sweep_t: factor/vector dtypes {A.dtype}, {g.dtype}"
-                        f" not supported ({list(_SWEEP_TYPES)})")
-    if A.device != g.device:
-        raise ValueError(f"btd_sweep_t: tensors on {A.device} and {g.device}")
+    With leading axes, A (..., n, Bt, Bt) and g (..., n, Bt), it runs the
+    sweep over each of their independent chains (the SPIKE solver's
+    transposed local sweeps over slabs, a batch of variants, a batch of
+    slabs): one launch of a cluster a chain, each bit for bit a launch of
+    its chain alone, or :func:`btd_sweep_t_slabs_reference` on the CPU;
+    under ``torch.func.vmap`` the batch axis becomes more chains of the
+    same launch (:class:`_Sweep`)."""
+    return _Sweep.apply(A, g, reverse, True)
+
+
+def _sweep_t(A: torch.Tensor, g: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """:func:`btd_sweep_t` on plain tensors."""
+    _check_sweep("btd_sweep_t", A, g)
     if g.device.type == "cpu":
-        if g.dim() == 3:
-            return btd_sweep_t_slabs_reference(A, g, reverse)
-        return btd_sweep_t_reference(A, g, reverse)
-    if g.device.type != "cuda":
-        raise ValueError(f"btd_sweep_t: unsupported device {g.device}")
-    if not (A.is_contiguous() and g.is_contiguous()):
-        raise ValueError("btd_sweep_t: inputs must be contiguous")
+        if g.dim() == 2:
+            return btd_sweep_t_reference(A, g, reverse)
+        return btd_sweep_t_slabs_reference(*_chains(A, g), reverse).reshape(g.shape)
     if A.data_ptr() % 16:  # the tensor map's base
         raise ValueError("btd_sweep_t: the factors must be 16-byte aligned")
     return _sweep_t_launch(A, g, reverse, sweep_t_plan(g.shape[-1], A.dtype, g.dtype))
@@ -1080,14 +1148,14 @@ def btd_sweep_t(A: torch.Tensor, g: torch.Tensor,
 def _sweep_t_launch(A: torch.Tensor, g: torch.Tensor, reverse: bool,
                     plan: SweepTPlan) -> torch.Tensor:
     """Launch K6T with ``plan``'s cluster size on checked CUDA tensors, one
-    cluster a slab."""
+    cluster a chain (every leading axis of ``g`` a chain axis)."""
     n, bt = g.shape[-2:]
-    slabs = g.shape[0] if g.dim() == 3 else 1
+    slabs = g.numel() // (n * bt)
     out = torch.empty_like(g)
     fn = f"vf_btd_sweep_t_{_SWEEP_TYPES[(A.dtype, g.dtype)]}"
     err = getattr(_sweep_lib(), fn)(A.data_ptr(), g.data_ptr(), out.data_ptr(), n, bt,
                                     int(reverse), plan.cluster, slabs, _stream(g))
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: cudaError_t {err} (plan {plan})")
-    LAUNCHES["btd_sweep_t_slabs" if g.dim() == 3 else "btd_sweep_t"] += 1
+    LAUNCHES["btd_sweep_t_slabs" if g.dim() >= 3 else "btd_sweep_t"] += 1
     return out

@@ -21,14 +21,18 @@ __all__ = ["halo_right", "spill_add", "pnorm", "shift_from_prev",
            "shift_from_next"]
 
 
-def shift_from_prev(x: torch.Tensor) -> torch.Tensor:
-    """Each shard receives the previous shard's ``x[s]`` (shard 0 zeros)."""
-    return torch.cat([torch.zeros_like(x[:1]), x[:-1]])
+def shift_from_prev(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Each shard receives the previous shard's ``x[s]`` (shard 0 zeros);
+    the shard axis is ``dim``."""
+    n = x.shape[dim]
+    return torch.cat([torch.zeros_like(x.narrow(dim, 0, 1)), x.narrow(dim, 0, n - 1)], dim)
 
 
-def shift_from_next(x: torch.Tensor) -> torch.Tensor:
-    """Each shard receives the next shard's ``x[s]`` (the last one zeros)."""
-    return torch.cat([x[1:], torch.zeros_like(x[:1])])
+def shift_from_next(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Each shard receives the next shard's ``x[s]`` (the last one zeros);
+    the shard axis is ``dim``."""
+    n = x.shape[dim]
+    return torch.cat([x.narrow(dim, 1, n - 1), torch.zeros_like(x.narrow(dim, 0, 1))], dim)
 
 
 def halo_right(x: torch.Tensor, n: int) -> torch.Tensor:

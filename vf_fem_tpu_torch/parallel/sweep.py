@@ -9,10 +9,15 @@ The reference runs such a study serially, one variant after another
 device mesh.  Here a batch steps as one batched run on the model's device
 (``forward.integrate_batch_pure``): each step launches each kernel once
 for the whole batch (K5 over all B n entries, K1/K2 over the batch's
-channels with ``assembly='banded'``), a fixed-iteration run with refresh
-windows replays one captured CUDA graph of the batched step, and an
-adaptive run steps every variant in lockstep, each variant stopping by its
-own test.  The JAX package shards the batch axis over the devices of a
+channels with ``assembly='banded'``, K6 / K6T over the batch's chains with
+``linear_solver`` 'btd' or 'spike': one cluster a variant, or a variant's
+slab), a fixed-iteration run with refresh windows replays one captured
+CUDA graph of the batched step, and an adaptive run steps every variant in
+lockstep, each variant stopping by its own test.  The model is the
+explicit FSI or the FSAI model; its solver the dense one, 'btd' or
+'spike' (``models.transient.BATCH_SOLVERS``) with every option of its
+unbatched step.  The Krylov solvers 'cg' and 'bsb' and the implicitly
+coupled model raise.  The JAX package shards the batch axis over the devices of a
 mesh; that split is not ported: a model lives on one device, so ``mesh``
 may only name the model's device (once or more), and the batch runs as
 one chunk there.  On one card that is the JAX package's split too.
@@ -79,6 +84,16 @@ def _params(params: Optional[dict]) -> dict:
     return {"assembly": ASSEMBLY, **(params or {})}
 
 
+def _check_envelope(model, prop_batch: dict) -> None:
+    """Each variant's properties against the model's supported envelope
+    where it has one (the FSAI model's ``check_envelope`` warns), as
+    ``forward.integrate`` checks a run's."""
+    check = getattr(model, "check_envelope", None)
+    if check is not None:
+        check({k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
+               for k, v in prop_batch.items() if k in ("ycontact", "ymid")})
+
+
 def sweep_integrate(
     model,
     ini_state: dict,
@@ -99,8 +114,10 @@ def sweep_integrate(
     ``forward.integrate_pure`` of variant b alone (to the rounding of
     batched products).  ``assembly`` is :data:`ASSEMBLY` unless
     ``params`` sets it.  ``mesh`` (:func:`batch_mesh`): None or the
-    model's device (see the module docstring)."""
+    model's device (see the module docstring).  The FSAI model's
+    ``check_envelope`` checks each variant's properties first."""
     _check_mesh(model, mesh)
+    _check_envelope(model, prop_batch)
     fin, _, info = forward.integrate_batch_pure(
         model, ini_state, controls_stacked, prop_batch, times, _params(params),
         batch_controls)
@@ -132,6 +149,7 @@ def sweep_grad(
     own properties only.  ``assembly`` and ``mesh`` as
     :func:`sweep_integrate`."""
     _check_mesh(model, mesh)
+    _check_envelope(model, prop_batch)
     dev, dtype = model.device, model.dtype
     controls = to_tensors(controls_stacked, dev, dtype)
     times_t = torch.as_tensor(np.asarray(times, dtype=np.float64), device=dev)

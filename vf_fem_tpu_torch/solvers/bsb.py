@@ -201,13 +201,16 @@ def bsb_fill(plan: BSBPlan, fill: DeviceFill,
     """The block array (nblk, nb, b, b) from per-element Jacobian blocks
     (in the order of the plan's dof arrays); Dirichlet rows get identity
     (zero with ``identity=False``).  It is zero outside ``fill.pattern``:
-    the scatter starts from zeros and writes only the plan's targets."""
-    src = torch.cat([J.reshape(-1) for J in J_list
-                     if J is not None and J.numel()])
+    the scatter starts from zeros and writes only the plan's targets.
+    Blocks with a leading batch axis, (B, ne, nld, nld), fill a batch of
+    arrays (B, nblk, nb, b, b): one scatter of the B columns."""
+    Js = [J for J in J_list if J is not None and J.numel()]
+    lead = Js[0].shape[:-3]  # () or (B,)
+    src = torch.cat([J.reshape(lead + (-1,)) for J in Js], dim=-1)
     src = torch.where(fill.keep, src, 0.0)
-    flat = fill.scatter(src[:, None])
+    flat = fill.scatter(src.T[:, None]).T if lead else fill.scatter(src[:, None])
     if identity:
         # each Dirichlet dof appears once: a plain indexed add is deterministic
-        flat[fill.diag_ones] += 1.0
-    return flat.reshape(plan.nblk, plan.nb, plan.b, plan.b)
+        flat[..., fill.diag_ones] += 1.0
+    return flat.reshape(lead + (plan.nblk, plan.nb, plan.b, plan.b))
 

@@ -19,6 +19,12 @@ The transposed solve :func:`btd_solve_t` (the adjoint of a step) reads
 the same factors through the transposed sweep kernel K6T
 (``ops.btd_sweep_t``).
 
+A batch of variants (``parallel.sweep``) factors and solves with a
+leading batch axis on the blocks, the factors and the vectors: each serial
+row of the factorization is one batched ``solve_ex`` and one batched
+product over the batch, and each sweep one launch of K6 (K6T) over the
+batch's chains, one cluster a variant.
+
 Requires an RCM-renumbered mesh like ``bsb``; used through
 ``linear_solver='btd'``.  The factors may be stored below the blocks'
 precision (``store_dtype`` bf16, e4m3 or e5m2 for ``Sinv``,
@@ -86,24 +92,26 @@ class BTDFactors(NamedTuple):
     ``Sinv`` application hoisted out as one batched matmul (``g = Sinv r``).
     """
 
-    Sinv: torch.Tensor  # (n_sup, Bt, Bt) Schur-complement inverses
-    V: torch.Tensor  # (n_sup, Bt, Bt) products Sinv_i @ L_i
-    W: torch.Tensor  # (n_sup, Bt, Bt) products Sinv_i @ U_i
-    d: torch.Tensor  # (nblk * b,) Jacobi equilibration scale
+    Sinv: torch.Tensor  # (..., n_sup, Bt, Bt) Schur-complement inverses
+    V: torch.Tensor  # (..., n_sup, Bt, Bt) products Sinv_i @ L_i
+    W: torch.Tensor  # (..., n_sup, Bt, Bt) products Sinv_i @ U_i
+    d: torch.Tensor  # (..., nblk * b) Jacobi equilibration scale
 
 
 def _btd_from_bsb(plan: BSBPlan, blocks: torch.Tensor):
-    """Regroup band blocks into block-tridiagonal (D, L, U) super-blocks;
-    identity rows pad the last super-row when ``n_sup * h > nblk``."""
+    """Regroup band blocks (..., nblk, nb, b, b) into block-tridiagonal
+    (D, L, U) super-blocks (..., n_sup, Bt, Bt); identity rows pad the last
+    super-row when ``n_sup * h > nblk``."""
     b, h, nb, nblk = plan.b, plan.h, plan.nb, plan.nblk
     dev = blocks.device
+    lead = blocks.shape[:-4]
     n_sup = -(-nblk // h)
     pad = n_sup * h - nblk
     if pad:
         # identity padding rows keep the factorization nonsingular
-        eye_rows = blocks.new_zeros((pad, nb, b, b))
-        eye_rows[:, h] = torch.eye(b, dtype=blocks.dtype, device=dev)
-        blocks = torch.cat([blocks, eye_rows])
+        eye_rows = blocks.new_zeros(lead + (pad, nb, b, b))
+        eye_rows[..., h, :, :] = torch.eye(b, dtype=blocks.dtype, device=dev)
+        blocks = torch.cat([blocks, eye_rows], dim=-4)
 
     rr, cc = np.meshgrid(np.arange(h), np.arange(h), indexing="ij")
     n_idx = torch.as_tensor(h * np.arange(n_sup)[:, None, None] + rr[None],
@@ -111,11 +119,13 @@ def _btd_from_bsb(plan: BSBPlan, blocks: torch.Tensor):
 
     def gather(m_grid, mask):
         m = torch.as_tensor(np.clip(m_grid, 0, nb - 1), device=dev)
-        sub = blocks[n_idx, m[None]]  # (n_sup, h, h, b, b)
+        sub = blocks[..., n_idx, m[None], :, :]  # (..., n_sup, h, h, b, b)
         sub = sub * torch.as_tensor(mask, dtype=blocks.dtype,
-                                    device=dev)[None, :, :, None, None]
-        # (n_sup, h, h, b, b) -> (n_sup, h*b, h*b)
-        return sub.permute(0, 1, 3, 2, 4).reshape(n_sup, h * b, h * b)
+                                    device=dev)[:, :, None, None]
+        # (..., n_sup, h, h, b, b) -> (..., n_sup, h*b, h*b); contiguous: the
+        # index of a batch's inner axes lays its result out in another
+        # order, which the factors' buffers (empty_like) would inherit
+        return sub.transpose(-3, -2).reshape(lead + (n_sup, h * b, h * b)).contiguous()
 
     ones = np.ones((h, h), dtype=bool)
     D = gather(h + cc - rr, ones)
@@ -125,27 +135,27 @@ def _btd_from_bsb(plan: BSBPlan, blocks: torch.Tensor):
 
 
 def _equilibration(plan: BSBPlan, blocks: torch.Tensor) -> torch.Tensor:
-    diag = torch.diagonal(blocks[:, plan.h], dim1=1, dim2=2)  # (nblk, b)
-    return torch.sqrt(torch.abs(diag) + 1e-30).reshape(-1)
+    diag = torch.diagonal(blocks[..., plan.h, :, :], dim1=-2, dim2=-1)  # (..., nblk, b)
+    return torch.sqrt(torch.abs(diag) + 1e-30).flatten(-2)
 
 
 def _scale_blocks(plan: BSBPlan, blocks: torch.Tensor,
                   d: torch.Tensor) -> torch.Tensor:
     """blocks <- D^-1/2 A D^-1/2 in band storage."""
     b, h, nb, nblk = plan.b, plan.h, plan.nb, plan.nblk
-    dr = d.reshape(nblk, b)
+    dr = d.unflatten(-1, (nblk, b))
     # column scale for band position m: block column n + m - h (clamped;
     # the out-of-range positions hold zero blocks, so the value is moot)
     col_idx = np.clip(
         np.arange(nblk)[:, None] + np.arange(nb)[None, :] - h, 0, nblk - 1
     )
-    dc = dr[torch.as_tensor(col_idx, device=d.device)]  # (nblk, nb, b)
-    return blocks / dr[:, None, :, None] / dc[:, :, None, :]
+    dc = dr[..., torch.as_tensor(col_idx, device=d.device), :]  # (..., nblk, nb, b)
+    return blocks / dr[..., :, None, :, None] / dc[..., :, :, None, :]
 
 
 def btd_superblocks(plan: BSBPlan, blocks: torch.Tensor):
-    """Equilibrate the banded Jacobian and regroup it into
-    block-tridiagonal super-blocks: ``(D, L, U, d)``."""
+    """Equilibrate the banded Jacobian (a leading batch axis or none) and
+    regroup it into block-tridiagonal super-blocks: ``(D, L, U, d)``."""
     d = _equilibration(plan, blocks)
     blocks_s = _scale_blocks(plan, blocks, d)
     # the trailing pad rows of the last block (beyond ndof) are all-zero;
@@ -153,8 +163,8 @@ def btd_superblocks(plan: BSBPlan, blocks: torch.Tensor):
     # space)
     tail_start = plan.ndof - (plan.nblk - 1) * plan.b
     if tail_start < plan.b:
-        ii = torch.arange(tail_start, plan.b, device=blocks.device)
-        blocks_s[plan.nblk - 1, plan.h, ii, ii] += 1.0
+        last = blocks_s[..., plan.nblk - 1, plan.h, :, :]
+        last.diagonal(dim1=-2, dim2=-1)[..., tail_start:] += 1.0
     D, L, U = _btd_from_bsb(plan, blocks_s)
     return D, L, U, d
 
@@ -163,34 +173,38 @@ def thomas_factor(D: torch.Tensor, L: torch.Tensor, U: torch.Tensor,
                   what: str):
     """The serial block-Thomas loop of :func:`btd_factor` and of
     ``solvers.cbtd.cbtd_factor`` on block-tridiagonal super-blocks
-    ``(D, L, U)``: the Schur-complement inverses ``Sinv_i = (D_i - L_i
-    W_{i-1})^-1`` and the products ``V = Sinv L``, ``W = Sinv U``.
+    ``(D, L, U)`` (..., n_sup, Bt, Bt): the Schur-complement inverses
+    ``Sinv_i = (D_i - L_i W_{i-1})^-1`` and the products ``V = Sinv L``,
+    ``W = Sinv U``.
 
-    The ``n_sup`` inverses are ``torch.linalg.solve_ex`` calls, whose
-    ``info`` is read once after the loop (raises, naming ``what``, if a
-    Schur complement is singular), not once per row."""
-    n_sup, Bt, _ = D.shape
-    eye = torch.eye(Bt, dtype=D.dtype, device=D.device)
+    The ``n_sup`` inverses are ``torch.linalg.solve_ex`` calls, each over
+    the leading axes at once (a batch of variants: one batched call and
+    one batched product a row), whose ``info`` is read once after the loop
+    (raises, naming ``what``, if a Schur complement is singular), not once
+    per row."""
+    n_sup, Bt = D.shape[-3], D.shape[-1]
+    eye = torch.eye(Bt, dtype=D.dtype, device=D.device).expand(D.shape[:-3] + (Bt, Bt))
     Sinv = torch.empty_like(D)
     W = torch.empty_like(D)
     infos = []
     for i in range(n_sup):
         if i == 0:
-            S = D[0]
+            S = D[..., 0, :, :]
         else:
             # SU = Sinv_{i-1} @ U_{i-1} is W_{i-1}: the W products fall
             # out of the factorization
-            W[i - 1] = Sinv[i - 1] @ U[i - 1]
-            S = D[i] - L[i] @ W[i - 1]
-        Sinv[i], info = torch.linalg.solve_ex(S, eye)
+            W[..., i - 1, :, :] = Sinv[..., i - 1, :, :] @ U[..., i - 1, :, :]
+            S = D[..., i, :, :] - L[..., i, :, :] @ W[..., i - 1, :, :]
+        Sinv[..., i, :, :], info = torch.linalg.solve_ex(S, eye)
         infos.append(info)
-    W[-1] = Sinv[-1] @ U[-1]
-    bad = torch.nonzero(torch.stack(infos)).flatten()
+    W[..., -1, :, :] = Sinv[..., -1, :, :] @ U[..., -1, :, :]
+    bad = torch.nonzero(torch.stack(infos, dim=-1))
     if bad.numel():
-        raise RuntimeError(f"{what}: singular Schur complement at"
-                           f" super-rows {bad.tolist()}")
+        where = (f"super-rows {bad.flatten().tolist()}" if D.dim() == 3
+                 else f"(variant, super-row) {bad.tolist()}")
+        raise RuntimeError(f"{what}: singular Schur complement at {where}")
     # V = Sinv @ L as one batched matmul, outside the serial loop
-    V = torch.bmm(Sinv, L)
+    V = Sinv @ L
     return Sinv, V, W
 
 
@@ -227,7 +241,9 @@ def btd_factor(plan: BSBPlan, blocks: torch.Tensor, store_dtype=None,
     the factor's dtype (bf16 for fp8 factors), accumulate in f32 and cast
     back (``ops.factor_matvec``).  The ~1e-2 relative factor error of bf16
     is within what the chord Newton tolerates from stale factors.  The
-    serial loop is :func:`thomas_factor`.
+    serial loop is :func:`thomas_factor`.  ``blocks`` (B, nblk, nb, b, b),
+    a batch of variants' Jacobians, gives a batch of factors (each field
+    with the leading axis B).
     """
     check_dtypes(store_dtype, factor_dtype, offdiag_dtype)
     D, L, U, d = btd_superblocks(plan, factor_blocks(blocks, factor_dtype))
@@ -235,6 +251,14 @@ def btd_factor(plan: BSBPlan, blocks: torch.Tensor, store_dtype=None,
     od = offdiag_dtype if offdiag_dtype is not None else store_dtype
     return BTDFactors(Sinv=store_cast(Sinv, store_dtype), V=store_cast(V, od),
                       W=store_cast(W, od), d=d)
+
+
+def _padded(factors: BTDFactors, r: torch.Tensor):
+    """``r / d`` padded to the row blocks, (..., n_sup, Bt)."""
+    n_sup, Bt = factors.Sinv.shape[-3], factors.Sinv.shape[-1]
+    n = r.shape[-1]
+    rb = torch.nn.functional.pad(r / factors.d[..., :n], (0, n_sup * Bt - n))
+    return rb.unflatten(-1, (n_sup, Bt))
 
 
 def btd_solve(plan: BSBPlan, factors: BTDFactors,
@@ -245,15 +269,15 @@ def btd_solve(plan: BSBPlan, factors: BTDFactors,
         y_i = g_i - V_i y_{i-1}           (forward,  V = Sinv L)
         x_i = y_i - W_i x_{i+1}           (backward, W = Sinv U)
 
-    each one launch of K6 on CUDA tensors (``ops.btd_sweep``)."""
+    each one launch of K6 on CUDA tensors (``ops.btd_sweep``).  Batched
+    factors (a leading axis B) solve ``r`` (B, n): the sweeps are one
+    launch each over the B chains."""
     Sinv, V, W, d = factors
-    n_sup, Bt, _ = Sinv.shape
-    n = r.shape[0]
-    rb = torch.nn.functional.pad(r / d[:n], (0, n_sup * Bt - n))
-    g = ops.factor_matvec(Sinv, rb.reshape(n_sup, Bt))
+    n = r.shape[-1]
+    g = ops.factor_matvec(Sinv, _padded(factors, r))
     y = ops.btd_sweep(V, g)
     x = ops.btd_sweep(W, y, reverse=True)
-    return x.reshape(-1)[:n] / d[:n]
+    return x.flatten(-2)[..., :n] / d[..., :n]
 
 
 def btd_solve_t(plan: BSBPlan, factors: BTDFactors,
@@ -263,15 +287,13 @@ def btd_solve_t(plan: BSBPlan, factors: BTDFactors,
     ``A_s^T = Ut^T Lt^T``: the forward sweep ``z_i = r_i - W_{i-1}^T
     z_{i-1}``, the backward sweep ``w_i = z_i - V_{i+1}^T w_{i+1}``, each
     one launch of K6T on CUDA tensors (``ops.btd_sweep_t``, which shifts
-    and transposes the blocks itself), then ``x = Sinv^T w`` as one batched
-    product under :func:`~vf_fem_tpu_torch.ops.factor_matvec`'s rounding
-    rule.  The equilibration is symmetric, so the scaling is
-    :func:`btd_solve`'s."""
+    and transposes the blocks itself; over the chains of batched factors),
+    then ``x = Sinv^T w`` as one batched product under
+    :func:`~vf_fem_tpu_torch.ops.factor_matvec`'s rounding rule.  The
+    equilibration is symmetric, so the scaling is :func:`btd_solve`'s."""
     Sinv, V, W, d = factors
-    n_sup, Bt, _ = Sinv.shape
-    n = r.shape[0]
-    rb = torch.nn.functional.pad(r / d[:n], (0, n_sup * Bt - n))
-    z = ops.btd_sweep_t(W, rb.reshape(n_sup, Bt))
+    n = r.shape[-1]
+    z = ops.btd_sweep_t(W, _padded(factors, r))
     w = ops.btd_sweep_t(V, z, reverse=True)
     x = ops.factor_matvec(Sinv.mT, w)
-    return x.reshape(-1)[:n] / d[:n]
+    return x.flatten(-2)[..., :n] / d[..., :n]
